@@ -1,0 +1,174 @@
+"""Fused SGD / Adam parameter updates: hand-written CUDA kernels for Hopper.
+
+Replaces the Pallas TPU kernels ``_sgd_kernel`` and ``_adam_kernel`` of
+``flexflow_tpu/kernels/fused_optimizer.py``.  The CUDA source is
+``csrc/fused_optimizer.cu``; it says what bounds the kernels (device-memory
+bytes) and how they are laid out.  It is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, at first use,
+into ``flexflow_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded
+with ``ctypes``.
+
+Each wrapper updates ``w`` (and its state) in place.  On a CUDA tensor it
+launches its kernel on the current stream, raises if the launch was
+refused, and adds one to its ``launches`` count.  On a CPU tensor it runs
+the plain PyTorch version beside it (``*_ref``), which is also the
+optimizer's ``fused=False`` path.  There is no fallback from one to the
+other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "fused_optimizer.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+# -fmad=false: no multiply-add contraction, so each kernel performs the
+# same rounded IEEE operations as its plain PyTorch version and the two
+# agree to the bit (the work is bound by memory, not by arithmetic).
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib_handle: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or at /usr/local/cuda/bin/nvcc; "
+                           "the fused optimizer kernels are built from source")
+    return path
+
+
+def build(force: bool = False) -> dict:
+    """Compile ``csrc/fused_optimizer.cu`` into the build directory.
+
+    The library's name carries a hash of the source, so an edited source
+    is rebuilt.  Returns the path, the build seconds (0 when an existing
+    build was reused) and the compiler's output (``-Xptxas -v``: registers
+    and spills per kernel)."""
+    with open(_CSRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    out = os.path.join(_BUILD_DIR, f"libff_fused_optimizer_{digest}.so")
+    if os.path.exists(out) and not force:
+        return {"path": out, "seconds": 0.0, "log": ""}
+    tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _CSRC],
+                       capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc {r.returncode}):\n{r.stdout}\n{r.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    return {"path": out, "seconds": seconds, "log": r.stdout + r.stderr}
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_handle
+    if _lib_handle is None:
+        lib = ctypes.CDLL(build()["path"])
+        p, i64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
+        lib.ff_fused_sgd_update.argtypes = [p, p, p, i64, f32, f32, f32, i32, p]
+        lib.ff_fused_sgd_update.restype = i32
+        lib.ff_fused_adam_update.argtypes = [p, p, p, p, i64, f32, f32, f32, f32, f32,
+                                             f32, f32, p]
+        lib.ff_fused_adam_update.restype = i32
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _check(w: torch.Tensor, *others: torch.Tensor) -> None:
+    for t in (w, *others):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused optimizer operands must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("fused optimizer operands must be contiguous")
+        if t.device != w.device:
+            raise ValueError(f"operands on different devices: {t.device} vs {w.device}")
+        if t.numel() != w.numel():
+            raise ValueError(f"operand sizes differ: {t.numel()} vs {w.numel()}")
+    if w.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {w.device}")
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+# ---------------------------------------------------------------- SGD (K1)
+
+def fused_sgd_update_ref(w, g, m, lr, wd=0.0, momentum=0.0, nesterov=False) -> None:
+    """Plain PyTorch SGD step, in place (optimizers.py:202-216 of the JAX
+    package).  ``m`` is unused, and may be None, when momentum is 0."""
+    gt = g + wd * w
+    if momentum > 0.0:
+        m.copy_(m * momentum + gt)
+        step = gt + momentum * m if nesterov else m
+    else:
+        step = gt
+    w.copy_(w - lr * step)
+
+
+def fused_sgd_update(w, g, m, lr, wd=0.0, momentum=0.0, nesterov=False) -> None:
+    """One fused SGD step on a parameter leaf, updating ``w`` and ``m`` in
+    place.  ``m`` may be None when momentum is 0: no state is touched."""
+    use_m = momentum > 0.0
+    _check(w, g, *((m,) if use_m else ()))
+    if w.device.type == "cpu":
+        fused_sgd_update_ref(w, g, m, lr, wd, momentum, nesterov)
+        return
+    if w.numel() == 0:
+        return
+    with torch.cuda.device(w.device):
+        rc = _lib().ff_fused_sgd_update(
+            w.data_ptr(), g.data_ptr(), m.data_ptr() if use_m else None, w.numel(),
+            lr, wd, momentum, int(bool(nesterov)),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "fused_sgd_update")
+    fused_sgd_update.launches += 1
+
+
+fused_sgd_update.launches = 0
+
+
+# --------------------------------------------------------------- Adam (K2)
+
+def fused_adam_update_ref(w, g, m, v, alpha_t, wd=0.0, beta1=0.9, beta2=0.999,
+                          eps=1e-8) -> None:
+    """Plain PyTorch Adam step, in place (optimizers.py:275-284 of the JAX
+    package); ``alpha_t`` carries the bias correction."""
+    gt = g + wd * w
+    m.copy_(beta1 * m + (1.0 - beta1) * gt)
+    v.copy_(beta2 * v + (1.0 - beta2) * gt * gt)
+    w.copy_(w - alpha_t * m / (torch.sqrt(v) + eps))
+
+
+def fused_adam_update(w, g, m, v, alpha_t, wd=0.0, beta1=0.9, beta2=0.999,
+                      eps=1e-8) -> None:
+    """One fused Adam step on a parameter leaf, updating ``w``, ``m`` and
+    ``v`` in place."""
+    _check(w, g, m, v)
+    if w.device.type == "cpu":
+        fused_adam_update_ref(w, g, m, v, alpha_t, wd, beta1, beta2, eps)
+        return
+    if w.numel() == 0:
+        return
+    with torch.cuda.device(w.device):
+        rc = _lib().ff_fused_adam_update(
+            w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), w.numel(),
+            alpha_t, wd, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "fused_adam_update")
+    fused_adam_update.launches += 1
+
+
+fused_adam_update.launches = 0

@@ -1,0 +1,396 @@
+"""FFModel: graph construction and the training runtime (PyTorch port).
+
+Counterpart of ``flexflow_tpu/model.py`` for one device.  The graph is
+built with the same graph calls; ``compile`` resolves default
+data-parallel configs (no search) and the loss/metrics; ``init_layers``
+materializes float32 parameters on the model's device; each
+``train_iteration`` runs forward, loss, autograd backward and the
+optimizer update (model.py:1997-2015 of the JAX package).  The reference's
+four-call training API is kept: ``forward``/``zero_gradients``/``backward``
+stage, and the step runs at ``update()``.
+
+The device is ``FFConfig.device`` ("cuda" by default).  When CUDA is
+absent and the caller did not ask for the CPU, construction raises.
+
+Metric sums accumulate in one device vector and are fetched once per
+drain, never per step.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import zlib
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .config import FFConfig
+from .losses import Loss, LossType
+from .metrics import Metrics, MetricsType, PerfMetrics
+from .ops.base import FwdCtx, Op
+from .ops.conv2d import ActiMode, Conv2D, Pool2D, PoolType
+from .ops.linear import Linear
+from .ops.misc import Flat, Softmax
+from .parallel.mesh import Machine
+from .tensor import DataType, Tensor
+
+METRIC_KEYS = ("train_all", "train_correct", "cce_loss", "sparse_cce_loss",
+               "mse_loss", "rmse_loss", "mae_loss", "loss", "steps")
+
+# Environment knobs that switch on JAX-package features this slice does
+# not port, with the ROADMAP item that brings each.
+_UNPORTED_ENV = {
+    "FF_TELEMETRY": "telemetry (ROADMAP A12)",
+    "FF_HEALTH": "the health monitor (ROADMAP A12)",
+    "FF_MEMPLANE": "the memory/compile plane (ROADMAP A12)",
+    "FF_OPPROF": "in-training op profiling (ROADMAP A12)",
+    "FF_METRICS_PORT": "the live metrics endpoint (ROADMAP A12)",
+    "FF_CHAOS": "chaos fault injection (ROADMAP A10)",
+    "FF_SKIP_NONFINITE": "the non-finite step guard (ROADMAP A10)",
+    "FF_LOWERED": "whole-graph lowering (ROADMAP A13)",
+}
+
+# Entry points of the JAX package's FFModel outside this slice.
+_UNPORTED_METHODS = {
+    "set_pipeline": "pipeline parallelism, ROADMAP A9",
+    "generate": "decoding, ROADMAP A11",
+    "beam_search": "decoding, ROADMAP A11",
+    "decode_step": "decoding, ROADMAP A11",
+}
+
+
+def _unported(name: str, item: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(f"FFModel.{name} is not ported yet ({item})")
+    method.__name__ = name
+    return method
+
+
+def resolve_device(name: str) -> torch.device:
+    """The model's device; raises rather than falling back to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"FFConfig.device is {name!r} but CUDA is not available; "
+                "pass FFConfig(device='cpu') to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {name!r} (expected 'cuda' or 'cpu')")
+    return dev
+
+
+def _refuse_unported_knobs(cfg: FFConfig) -> None:
+    checks = [
+        (cfg.search_budget > 0, "search_budget: strategy search (ROADMAP A8)"),
+        (cfg.search_pipeline, "search_pipeline: pipeline search (ROADMAP A9)"),
+        (bool(cfg.import_strategy_file), "import_strategy_file: the strategy codec (ROADMAP A6)"),
+        (bool(cfg.export_strategy_file), "export_strategy_file: the strategy codec (ROADMAP A6)"),
+        (cfg.grad_accum_steps != 1, "grad_accum_steps: gradient accumulation (ROADMAP A4)"),
+        (cfg.remat, "remat: rematerialization (ROADMAP A4)"),
+        (cfg.zero_optimizer, "zero_optimizer: ZeRO-1 state sharding (ROADMAP A6)"),
+        (cfg.sparse_host_embeddings is not None,
+         "sparse_host_embeddings: host embedding tables (ROADMAP A9)"),
+        (bool(cfg.lowered), "lowered: whole-graph lowering (ROADMAP A13)"),
+        (cfg.telemetry or bool(cfg.telemetry_file), "telemetry (ROADMAP A12)"),
+        (cfg.profiling, "profiling: per-op profiles (ROADMAP A12)"),
+        (cfg.num_devices != 1, "more than one device: multi-GPU execution (ROADMAP A6)"),
+        (any(pc.num_parts() > 1 for pc in cfg.strategies.values()),
+         "partitioned strategies: multi-GPU execution (ROADMAP A6)"),
+    ]
+    for on, what in checks:
+        if on:
+            raise NotImplementedError(f"not ported yet: {what}")
+    for var, what in _UNPORTED_ENV.items():
+        if os.environ.get(var, "") not in ("", "0"):
+            raise NotImplementedError(f"{var} is set, but {what} is not ported yet")
+
+
+class FFModel:
+    def __init__(self, config: Optional[FFConfig] = None):
+        self.config = config or FFConfig()
+        self.device = resolve_device(self.config.device)
+        self._guid = itertools.count(100)  # reference op_global_guid starts at 100
+        self.ops: List[Op] = []
+        self.input_tensors: List[Tensor] = []
+        self.label_tensor: Optional[Tensor] = None
+        self.machine: Optional[Machine] = None
+        self.optimizer = None
+        self.loss: Optional[Loss] = None
+        self.metrics: Optional[Metrics] = None
+        self.current_metrics = PerfMetrics()
+        self.last_loss: Optional[float] = None
+        self._metric_acc: Optional[torch.Tensor] = None
+        self._params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self._opt_state = None
+        self._step_count = 0
+        self._batch: Optional[Dict[str, torch.Tensor]] = None
+        self._compiled = False
+
+    # ------------------------------------------------------------------
+    # graph construction
+    # ------------------------------------------------------------------
+    def _next_op_guid(self) -> int:
+        return next(self._guid)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.config.compute_dtype == "bfloat16" else torch.float32
+
+    def create_tensor(self, dims: Sequence[int], name: str = "",
+                      dtype: str = DataType.FLOAT, nchw: bool = True) -> Tensor:
+        """Create a graph input.  4-D dims are accepted in the reference's
+        (N, C, H, W) order by default and stored NHWC; pass ``nchw=False``
+        for native order."""
+        dims = tuple(int(d) for d in dims)
+        if len(dims) == 4 and nchw:
+            n, c, h, w = dims
+            dims = (n, h, w, c)
+        t = Tensor(dims=dims, dtype=dtype, owner_op=None, name=name)
+        self.input_tensors.append(t)
+        return t
+
+    def _append(self, op: Op) -> Tensor:
+        self.ops.append(op)
+        return op.output
+
+    def conv2d(self, input_tensor: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
+               padding_w: int, activation: str = ActiMode.NONE,
+               use_bias: bool = True, groups: int = 1,
+               kernel_initializer=None, bias_initializer=None,
+               *, share_with=None, name: Optional[str] = None) -> Tensor:
+        return self._append(Conv2D(self, input_tensor, out_channels, kernel_h,
+                                   kernel_w, stride_h, stride_w, padding_h,
+                                   padding_w, activation, use_bias, groups,
+                                   kernel_initializer, bias_initializer,
+                                   share_with, name))
+
+    def pool2d(self, input_tensor: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: str = PoolType.MAX, activation: str = ActiMode.NONE,
+               name: Optional[str] = None) -> Tensor:
+        return self._append(Pool2D(self, input_tensor, kernel_h, kernel_w,
+                                   stride_h, stride_w, padding_h, padding_w,
+                                   pool_type, activation, name))
+
+    def dense(self, input_tensor: Tensor, out_dim: int,
+              activation: str = ActiMode.NONE, use_bias: bool = True,
+              kernel_initializer=None, bias_initializer=None,
+              *, share_with=None, name: Optional[str] = None) -> Tensor:
+        return self._append(Linear(self, input_tensor, out_dim, activation,
+                                   use_bias, kernel_initializer,
+                                   bias_initializer, share_with, name))
+
+    def flat(self, input_tensor: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._append(Flat(self, input_tensor, name))
+
+    def softmax(self, input_tensor: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._append(Softmax(self, input_tensor, name))
+
+    # ------------------------------------------------------------------
+    # compile
+    # ------------------------------------------------------------------
+    def compile(self, optimizer=None, loss_type: str = LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                metrics: Sequence[str] = (MetricsType.ACCURACY,),
+                machine: Optional[Machine] = None) -> None:
+        """Resolve per-op configs (data parallel over one device, no
+        search), the loss, the metrics and the label tensor."""
+        cfg = self.config
+        _refuse_unported_knobs(cfg)
+        self.machine = machine or Machine(devices=[self.device])
+        if self.machine.device != self.device:
+            raise ValueError(f"machine device {self.machine.device} differs from "
+                             f"the model's device {self.device}")
+        self.optimizer = optimizer
+        self.loss = Loss(loss_type)
+        self.metrics = Metrics(self.loss.loss_type, list(metrics))
+        for op in self.ops:
+            op.pc = cfg.find_parallel_config(op.output.num_dims, op.name)
+        if optimizer is not None:
+            optimizer.fused = bool(cfg.fused_optimizer)
+        logits = self._loss_input_tensor()
+        if self.loss.loss_type == LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
+            ldims = logits.dims[:-1] if logits.num_dims > 2 else (logits.dims[0], 1)
+            self.label_tensor = Tensor(ldims, DataType.INT32, name="label")
+        else:
+            self.label_tensor = Tensor(tuple(self.final_tensor().dims), DataType.FLOAT,
+                                       name="label")
+        self._compiled = True
+
+    def final_tensor(self) -> Tensor:
+        return self.ops[-1].output
+
+    def _loss_input_tensor(self) -> Tensor:
+        """Pre-softmax activations when a CE loss follows a trailing
+        Softmax (the stable log-softmax path, see losses.py)."""
+        last = self.ops[-1]
+        if isinstance(last, Softmax) and self.loss is not None and self.loss.wants_logits:
+            return last.inputs[0]
+        return last.output
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+    def init_layers(self, seed: Optional[int] = None) -> None:
+        if not self._compiled:
+            raise RuntimeError("call compile() first")
+        seed = self.config.seed if seed is None else seed
+        gen = torch.Generator()
+        params: Dict[str, Dict[str, torch.Tensor]] = {}
+        for op in self.ops:
+            for w in op.weights:
+                # one stream per (op, weight): same graph -> same init
+                salt = zlib.crc32(f"{op.name}/{w.name}".encode())
+                gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | salt)
+                v = w.initializer(gen, w.dims, torch.float32)
+                params.setdefault(op.name, {})[w.name] = \
+                    v.to(self.device).requires_grad_(True)
+        self._params = params
+        self._opt_state = (self.optimizer.init_state(params)
+                           if self.optimizer is not None else None)
+        self._step_count = 0
+
+    def get_parameter(self, op_name: str, weight_name: str = "kernel") -> np.ndarray:
+        """A weight as a fresh numpy array (reference: Parameter::get_weights)."""
+        return self._params[op_name][weight_name].detach().cpu().numpy().copy()
+
+    def set_parameter(self, op_name: str, weight_name: str, value: np.ndarray) -> None:
+        cur = self._params[op_name][weight_name]
+        value = torch.tensor(np.asarray(value, dtype=np.float32))
+        with torch.no_grad():
+            cur.copy_(value.reshape(cur.shape))
+
+    # ------------------------------------------------------------------
+    # batches and the step
+    # ------------------------------------------------------------------
+    def set_batch(self, inputs: Dict[Tensor, Any], labels: Any) -> None:
+        """Stage a batch (NHWC images) on the model's device."""
+        batch = {f"in_{t.guid}": self._to_device(a) for t, a in inputs.items()}
+        batch["label"] = self._to_device(labels)
+        self._batch = batch
+
+    def _to_device(self, arr) -> torch.Tensor:
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.from_numpy(np.ascontiguousarray(arr))
+        return arr.to(self.device)
+
+    def _run_graph(self, params, batch, training: bool) -> Dict[int, torch.Tensor]:
+        env: Dict[int, torch.Tensor] = {}
+        cdtype = self.compute_dtype
+        for t in self.input_tensors:
+            x = batch[f"in_{t.guid}"]
+            if x.is_floating_point() and x.dtype != cdtype:
+                # activations run in compute_dtype; params stay f32 and
+                # ops cast them per use
+                x = x.to(cdtype)
+            env[t.guid] = x
+        ctx = FwdCtx(training=training)
+        for op in self.ops:
+            ys = op.forward(params.get(op.name, {}), [env[t.guid] for t in op.inputs], ctx)
+            for t, y in zip(op.outputs, ys):
+                env[t.guid] = y
+        return env
+
+    def _metric_vector(self, loss, probs, labels) -> torch.Tensor:
+        msum = self.metrics.compute(probs, labels)
+        msum["loss"] = loss
+        msum["steps"] = torch.ones((), device=self.device)
+        zero = torch.zeros((), device=self.device)
+        return torch.stack([msum.get(k, zero).float() for k in METRIC_KEYS])
+
+    def forward(self) -> None:
+        """Staged: the step runs at ``update()``."""
+
+    def zero_gradients(self) -> None:
+        """No-op: gradients are fresh values each step."""
+
+    def backward(self) -> None:
+        """Staged: the step runs at ``update()``."""
+
+    def update(self) -> None:
+        """One training step: forward, loss, backward, optimizer update."""
+        if self._batch is None:
+            raise RuntimeError("no batch loaded: call a DataLoader first")
+        if self._metric_acc is None:
+            self._metric_acc = torch.zeros(len(METRIC_KEYS), device=self.device)
+        labels = self._batch["label"]
+        env = self._run_graph(self._params, self._batch, training=True)
+        loss = self.loss(env[self._loss_input_tensor().guid], labels)
+        names = [(opn, wn) for opn, ws in self._params.items() for wn in ws]
+        leaves = [self._params[opn][wn] for opn, wn in names]
+        flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (opn, wn), w, g in zip(names, leaves, flat):
+            grads.setdefault(opn, {})[wn] = (torch.zeros_like(w) if g is None
+                                            else g.contiguous())
+        with torch.no_grad():
+            self._metric_acc += self._metric_vector(
+                loss.detach(), env[self.final_tensor().guid].detach(), labels)
+            self.optimizer.apply(self._params, grads, self._opt_state,
+                                 self.optimizer.hparams())
+        self._step_count += 1
+
+    def train_iteration(self) -> None:
+        """forward + backward + update in one call."""
+        self.forward()
+        self.zero_gradients()
+        self.backward()
+        self.update()
+
+    @torch.no_grad()
+    def _eval(self):
+        env = self._run_graph(self._params, self._batch, training=False)
+        return env[self._loss_input_tensor().guid], env[self.final_tensor().guid]
+
+    def eval_batch(self) -> Dict[str, float]:
+        """Loss and metric sums of the staged batch, fetched in one copy."""
+        logits, probs = self._eval()
+        labels = self._batch["label"]
+        msum = self.metrics.compute(probs, labels)
+        msum["loss"] = self.loss(logits, labels)
+        keys = list(msum)
+        return dict(zip(keys, torch.stack([msum[k].float() for k in keys]).tolist()))
+
+    def predict_batch(self) -> np.ndarray:
+        """Final-op outputs (probabilities) of the staged batch."""
+        return self._eval()[1].float().cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # metrics (reference: UPDATE_METRICS_TASK fold, model.cc:1145-1167)
+    # ------------------------------------------------------------------
+    def reset_metrics(self) -> None:
+        self.current_metrics.reset()
+        self.last_loss = None
+        self._metric_acc = None
+
+    def _drain_metrics(self) -> None:
+        if self._metric_acc is None:
+            return
+        totals = dict(zip(METRIC_KEYS, self._metric_acc.tolist()))  # one transfer
+        steps = totals.pop("steps")
+        loss_sum = totals.pop("loss")
+        if steps > 0:
+            self.last_loss = loss_sum / steps  # mean loss since the last drain
+        self.current_metrics.update(totals)
+        self._metric_acc.zero_()
+
+    def get_metrics(self) -> PerfMetrics:
+        self._drain_metrics()
+        return self.current_metrics
+
+    def print_metrics(self) -> None:
+        self.get_metrics().print()
+
+    def sync(self) -> None:
+        """Block until all queued device work is done."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+for _name, _item in _UNPORTED_METHODS.items():
+    setattr(FFModel, _name, _unported(_name, _item))
+del _name, _item

@@ -1,0 +1,50 @@
+"""Linear (dense) operator (PyTorch port of ``flexflow_tpu/ops/linear.py``).
+
+The kernel is ``(in, out)`` as in the JAX package.  Under bf16 the
+float32 kernel is cast per use and ``torch.matmul`` accumulates in f32
+inside cuBLAS, the counterpart of ``preferred_element_type=float32``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from .base import FwdCtx, Op, refuse_shared_weights
+from .conv2d import ActiMode, apply_activation
+from ..initializers import DefaultBiasInitializer, DefaultWeightInitializer
+
+
+class Linear(Op):
+    _type = "Dense"
+
+    def __init__(self, model, input_tensor, out_dim: int,
+                 activation: str = ActiMode.NONE, use_bias: bool = True,
+                 kernel_initializer=None, bias_initializer=None,
+                 share_with=None, name: Optional[str] = None):
+        refuse_shared_weights(share_with)
+        super().__init__(model, [input_tensor], name)
+        in_dim = input_tensor.dims[-1]
+        lead = input_tensor.dims[:-1]
+        self.activation = activation
+        self.use_bias = use_bias
+        self._add_output(lead + (out_dim,), input_tensor.dtype)
+        out_cfg_dim = len(lead)  # channel dim of the output
+        self._add_weight("kernel", (in_dim, out_dim),
+                         kernel_initializer or DefaultWeightInitializer(),
+                         partition_dims=(None, out_cfg_dim))
+        if use_bias:
+            self._add_weight("bias", (out_dim,),
+                             bias_initializer or DefaultBiasInitializer(),
+                             partition_dims=(out_cfg_dim,))
+
+    def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
+        x = xs[0]
+        y = torch.matmul(x, params["kernel"].to(x.dtype))
+        if self.use_bias:
+            y = y + params["bias"].to(y.dtype)
+        return [apply_activation(y, self.activation)]
+
+    def flops_per_sample(self):
+        return 2.0 * self.inputs[0].dims[-1] * self.output.dims[-1]

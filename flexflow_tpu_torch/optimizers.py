@@ -1,0 +1,113 @@
+"""Optimizers (PyTorch port of ``flexflow_tpu/optimizers.py``).
+
+Update rules match the reference kernels (optimizer_kernel.cu:23-40,
+:206-225).  State mirrors the parameter tree, ``{slot: {op: {weight:
+tensor}}}``, with the JAX package's slot names ("v" for SGD momentum,
+"m"/"v" for Adam), so state carries across as a copy.
+
+Updates are in place.  With ``fused`` (set by ``FFModel.compile`` from
+``FFConfig.fused_optimizer``) each leaf goes through the hand-written
+kernel of ``kernels/fused_optimizer.py``; otherwise the plain tensor
+update runs.  Adam's ``alpha_t`` starts at ``alpha`` with no bias
+correction and only ``next_epoch()`` advances it, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from .kernels.fused_optimizer import (fused_adam_update, fused_adam_update_ref,
+                                      fused_sgd_update, fused_sgd_update_ref)
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+OptState = Dict[str, Params]
+HParams = Dict[str, Any]
+
+
+def _zeros_like(params: Params) -> Params:
+    return {opn: {wn: torch.zeros_like(w) for wn, w in ws.items()}
+            for opn, ws in params.items()}
+
+
+class Optimizer:
+    """Base optimizer: state is a dict of params-shaped trees."""
+
+    def init_state(self, params: Params) -> OptState:
+        raise NotImplementedError
+
+    def hparams(self) -> HParams:
+        """Current time-varying scalars (lr, alpha_t)."""
+        raise NotImplementedError
+
+    def apply(self, params: Params, grads: Params, state: OptState,
+              hparams: HParams) -> Tuple[Params, OptState]:
+        """Update ``params`` and ``state`` in place; returns both."""
+        raise NotImplementedError
+
+    def next_epoch(self) -> None:
+        """Per-epoch hook: Adam advances its bias-correction schedule."""
+
+
+class SGDOptimizer(Optimizer):
+    def __init__(self, model=None, lr: float = 0.01, momentum: float = 0.0,
+                 nesterov: bool = False, weight_decay: float = 0.0):
+        self.lr = float(lr)
+        self.momentum = float(momentum)
+        self.nesterov = bool(nesterov)
+        self.weight_decay = float(weight_decay)
+        self.fused = False
+
+    def init_state(self, params):
+        return {"v": _zeros_like(params)} if self.momentum > 0.0 else {}
+
+    def hparams(self):
+        return {"lr": self.lr}
+
+    @torch.no_grad()
+    def apply(self, params, grads, state, hparams):
+        update = fused_sgd_update if self.fused else fused_sgd_update_ref
+        bufs = state.get("v")
+        for opn, ws in params.items():
+            for wn, w in ws.items():
+                m = bufs[opn][wn] if bufs is not None else None
+                update(w, grads[opn][wn], m, hparams["lr"], self.weight_decay,
+                       self.momentum, self.nesterov)
+        return params, state
+
+
+class AdamOptimizer(Optimizer):
+    def __init__(self, model=None, alpha: float = 0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, weight_decay: float = 0.0, epsilon: float = 1e-8):
+        self.alpha = float(alpha)
+        self.beta1 = float(beta1)
+        self.beta2 = float(beta2)
+        self.weight_decay = float(weight_decay)
+        self.epsilon = float(epsilon)
+        # the reference's alpha_t/beta1_t/beta2_t fields (include/optimizer.h)
+        self.beta1_t = 1.0
+        self.beta2_t = 1.0
+        self.alpha_t = self.alpha
+        self.fused = False
+
+    def next_epoch(self):
+        self.beta1_t *= self.beta1
+        self.beta2_t *= self.beta2
+        self.alpha_t = self.alpha * (1.0 - self.beta2_t) ** 0.5 / (1.0 - self.beta1_t)
+
+    def init_state(self, params):
+        return {"m": _zeros_like(params), "v": _zeros_like(params)}
+
+    def hparams(self):
+        return {"alpha_t": self.alpha_t}
+
+    @torch.no_grad()
+    def apply(self, params, grads, state, hparams):
+        update = fused_adam_update if self.fused else fused_adam_update_ref
+        for opn, ws in params.items():
+            for wn, w in ws.items():
+                update(w, grads[opn][wn], state["m"][opn][wn], state["v"][opn][wn],
+                       hparams["alpha_t"], self.weight_decay, self.beta1,
+                       self.beta2, self.epsilon)
+        return params, state

@@ -1,0 +1,77 @@
+"""Data loading (PyTorch port of ``flexflow_tpu/runtime/dataloader.py``).
+
+The dataset stays in host numpy; ``next_batch`` slices the next batch
+and ``FFModel.set_batch`` copies it to the model's device.  Reference
+(NCHW) image datasets are converted to NHWC once, on the host.  The JAX
+package's prefetch thread is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..tensor import DataType, Tensor
+
+
+class DataLoader:
+    def __init__(self, ff, inputs: Dict[Tensor, np.ndarray], labels: np.ndarray,
+                 shuffle: bool = False, seed: int = 0):
+        self.ff = ff
+        self.inputs = {t: np.ascontiguousarray(self._to_native(t, a))
+                       for t, a in inputs.items()}
+        self.labels = np.ascontiguousarray(labels)
+        sizes = {a.shape[0] for a in self.inputs.values()} | {labels.shape[0]}
+        if len(sizes) != 1:
+            raise ValueError(f"inconsistent sample counts: {sizes}")
+        self.num_samples = labels.shape[0]
+        self.batch_size = ff.config.batch_size
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+        self._order = np.arange(self.num_samples)
+        self.next_index = 0
+
+    @staticmethod
+    def _to_native(t: Tensor, a: np.ndarray) -> np.ndarray:
+        """Accept an NCHW image dataset and convert it to NHWC."""
+        if a.ndim == 4 and len(t.dims) == 4 and a.shape[1:] != t.dims[1:]:
+            n, c, h, w = a.shape
+            if (h, w, c) == tuple(t.dims[1:]):
+                return a.transpose(0, 2, 3, 1)
+        return a
+
+    @classmethod
+    def synthetic(cls, ff, input_tensor: Tensor, label_tensor: Optional[Tensor] = None,
+                  num_samples: Optional[int] = None, num_classes: int = 10,
+                  seed: int = 17) -> "DataLoader":
+        """Random dataset generated once from ``seed`` (the reference's
+        synthetic mode); the same numbers as the JAX package's loader."""
+        label_tensor = label_tensor or ff.label_tensor
+        num_samples = num_samples or ff.config.batch_size
+        rng = np.random.default_rng(seed)
+        x = rng.standard_normal((num_samples,) + tuple(input_tensor.dims[1:]),
+                                dtype=np.float32)
+        if label_tensor.dtype == DataType.INT32:
+            y = rng.integers(0, num_classes,
+                             size=(num_samples,) + tuple(label_tensor.dims[1:]),
+                             dtype=np.int32)
+        else:
+            y = rng.standard_normal((num_samples,) + tuple(label_tensor.dims[1:]),
+                                    dtype=np.float32)
+        return cls(ff, {input_tensor: x}, y)
+
+    def reset(self) -> None:
+        self.next_index = 0
+        if self.shuffle:
+            self._rng.shuffle(self._order)
+
+    def num_batches(self) -> int:
+        return self.num_samples // self.batch_size
+
+    def next_batch(self, ff=None) -> None:
+        ff = ff or self.ff
+        start = 0 if self.next_index + self.batch_size > self.num_samples else self.next_index
+        sel = self._order[start:start + self.batch_size]
+        self.next_index = start + self.batch_size
+        ff.set_batch({t: a[sel] for t, a in self.inputs.items()}, self.labels[sel])

@@ -1,0 +1,89 @@
+"""The port stands alone: no jax and nothing of flexflow_tpu, and no silent
+CPU fallback."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import flexflow_tpu_torch as ft
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "flexflow_tpu_torch")
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_source_imports_neither_jax_nor_the_jax_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flexflow_tpu"), f"{path} imports {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.models.alexnet, "
+            "flexflow_tpu_torch.convert; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ft.FFConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ft.FFModel(ft.FFConfig())
+    assert ft.FFModel(ft.FFConfig(device="cpu")).device.type == "cpu"
+
+
+def test_device_flag_parses():
+    cfg = ft.FFConfig()
+    assert cfg.parse_args(["-b", "8", "--device", "cpu", "--bf16", "--fused-optimizer",
+                           "extra"]) == ["extra"]
+    assert (cfg.batch_size, cfg.device, cfg.compute_dtype, cfg.fused_optimizer) == \
+        (8, "cpu", "bfloat16", True)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("search_budget", 10), ("search_pipeline", True), ("grad_accum_steps", 2),
+    ("remat", True), ("zero_optimizer", True), ("sparse_host_embeddings", True),
+    ("lowered", True), ("telemetry", True), ("import_strategy_file", "s.pb"),
+    ("export_strategy_file", "s.pb"), ("workers_per_node", 2),
+])
+def test_knobs_outside_the_slice_raise(field, value):
+    m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu", **{field: value}))
+    m.dense(m.create_tensor((2, 4)), 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.compile(ft.SGDOptimizer(lr=0.1))
+
+
+def test_env_knobs_and_unported_entry_points_raise(monkeypatch):
+    m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
+    m.dense(m.create_tensor((2, 4)), 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        m.generate([[1]], 4)
+    monkeypatch.setenv("FF_CHAOS", "step:1=nan_loss")
+    with pytest.raises(NotImplementedError, match="FF_CHAOS"):
+        m.compile(ft.SGDOptimizer(lr=0.1))
