@@ -5,16 +5,25 @@
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
   1. environment: versions, the card, its power limit;
-  2. build the CUDA kernels from flexflow_tpu_torch/kernels/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at
-     AlexNet's largest leaf, a ragged size and a misaligned view, then
-     timed over one step's worth of AlexNet leaves beside its bound, the
-     plain version and the library call;
-  4. the main path: full-width AlexNet (3x229x229, batch 256, bf16,
-     fused optimizer) trained with SGD then Adam through FFModel, with the
-     kernels' launch counts checked per step;
+  2. build the CUDA kernels from flexflow_tpu_torch/kernels/csrc with nvcc,
+     one nvcc per source, all started together;
+  3. each kernel against its plain PyTorch version on the card: the
+     optimizer updates at AlexNet's largest leaf, a ragged size and a
+     misaligned view, then timed over one step's worth of AlexNet leaves;
+     the flash-attention forward, dK/dV and dQ kernels causal and not, bf16
+     and f32, at the transformer's shape (16, 8, 512, 64), a ragged S and
+     head dims 32 and 128, with a non-zero lse cotangent once, then timed
+     at the transformer's shape; each beside its bound, the plain version
+     and the library call;
+  4. the main paths: full-width AlexNet (3x229x229, batch 256, bf16, fused
+     optimizer) trained with SGD then Adam, and the full-width decoder
+     transformer (batch 16, S 512, 4 layers, E 512, 8 heads, vocab 32000,
+     bf16, fused SGD) trained through FFModel, with every kernel's launch
+     count checked per step, and a device-time breakdown of each;
   5. path parity: f32 AlexNet at batch 8, two steps with the fused kernels
-     and two with the plain update, every weight compared.
+     and two with the plain update; an f32 transformer (batch 2, S 128, 2
+     layers), two steps through the flash kernels and two through their
+     plain versions; every weight compared.
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card; it
 imports nothing of jax or of the JAX package.
@@ -22,16 +31,20 @@ imports nothing of jax or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 BATCH = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12   # H100 SXM data sheet, dense tensor cores
 KERNEL_TOL = dict(rtol=1e-6, atol=1e-6)
 PARITY_TOL = dict(rtol=1e-6, atol=1e-7)
 # Adam's first step is uncorrected (alpha_t = alpha, as in the reference):
@@ -40,6 +53,24 @@ PARITY_TOL = dict(rtol=1e-6, atol=1e-7)
 # starting loss, so a finite loss on every step means something.
 ADAM_ALPHA = 1e-4
 SOURCE = "flexflow_tpu_torch/kernels/csrc/fused_optimizer.cu"
+FLASH_SOURCE = "flexflow_tpu_torch/kernels/csrc/flash_attention.cu"
+# the transformer of bench.py's transformer workload, at full width
+LM = dict(batch=16, seq_length=512, num_layers=4, embed_dim=512, num_heads=8,
+          vocab_size=32000)
+LM_STEPS, LM_TIMED_FROM = 7, 2
+# Flash kernels vs their plain versions on the same inputs.  f32: both sum
+# the same f32 products in another order (FMA chains in the kernel, cuBLAS
+# tiles with TF32 off in the plain version), about 1e-6 relative on sums
+# of up to 512 terms.  bf16: both compute in f32 from the same bf16 inputs
+# (the kernels' f32 P and dS enter the tensor cores as bf16 hi + lo pairs,
+# about 2**-16 relative) and round the result to bf16 once, so they differ
+# by at most one bf16 step (2**-8 relative) where the f32 values straddle
+# a rounding boundary; lse stays f32 and keeps the f32 tolerance.
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
+# f32 transformer, kernel path vs plain path after 2 SGD steps: the
+# gradients differ only by the attention kernels' summation order.
+LM_PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def log(*a):
@@ -188,10 +219,9 @@ def launch_diagnostics(fo, leaf_shapes):
             f"host {host_us:.1f} us per wrapper call")
 
 
-def profile_steps(ft, build_alexnet, step_ms, steps=3):
-    """Device time by kernel family over a few steady SGD steps of the main
-    path, and its share of the unprofiled step time ``step_ms``."""
-    model = main_model(ft, build_alexnet, sgd_optimizer(ft))
+def profile_steps(model, label, step_ms, steps=3):
+    """Device time by kernel family over a few steady steps of a main path's
+    model, and its share of the unprofiled step time ``step_ms``."""
     for _ in range(2):
         model.train_iteration()
     model.sync()
@@ -207,7 +237,7 @@ def profile_steps(ft, build_alexnet, step_ms, steps=3):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"[profile] {steps} SGD steps: device kernels {busy / steps / 1e3:.3f} ms/step, "
+    log(f"[profile] {label}, {steps} steps: device kernels {busy / steps / 1e3:.3f} ms/step, "
         f"{100 * busy / steps / 1e3 / step_ms:.1f}% of the unprofiled {step_ms:.3f} ms step "
         f"(wall under the profiler {wall_us / steps / 1e3:.3f} ms/step)")
     groups = {}
@@ -225,6 +255,8 @@ def kernel_group(name):
     low = name.lower()
     if "sgd_kernel" in low or "adam_kernel" in low:
         return "optimizer (this repo's CUDA kernels)"
+    if "flash_" in low:
+        return "attention (this repo's CUDA flash kernels)"
     if any(k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "padding")):
         return "convolution (cuDNN)"
     if "gemm" in low or "nvjet" in low:
@@ -239,6 +271,190 @@ def copy_bandwidth_gbps():
     dst = torch.empty_like(src)
     ms = cuda_time_ms(lambda: dst.copy_(src), 10)
     return 2 * src.numel() * 4 / ms / 1e6
+
+
+def ptxas_summary(log_text):
+    """One line per compiled kernel: its name, registers and spill bytes."""
+    out, name = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"(flash_\w+?_kernel|sgd_kernel|adam_kernel)", mangled)
+            tmpl = "bf16" if "bfloat16" in mangled else ("f32" if "flash" in mangled else "")
+            dim = re.search(r"Li(\d+)E", mangled)
+            name = " ".join(x for x in ((base.group(1) if base else mangled), tmpl,
+                                        (f"D={dim.group(1)}" if dim and tmpl else "")) if x)
+            if "sgd_kernel" in mangled:
+                name += " " + "".join(re.findall(r"Lb([01])E", mangled))
+        elif name and "spill" in line:
+            out.append([name, line.strip()])
+        elif name and "registers" in line and out and out[-1][0] == name:
+            out[-1].append(re.search(r"Used \d+ registers", line).group(0))
+    return [" | ".join(x) for x in out] or [
+        line.strip() for line in log_text.splitlines() if "registers" in line or "spill" in line]
+
+
+def build_kernels(fo, fa):
+    """Both sources, one nvcc each, started together."""
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {src: pool.submit(mod.build, force=True)
+                for src, mod in ((SOURCE, fo), (FLASH_SOURCE, fa))}
+        infos = {src: job.result() for src, job in jobs.items()}
+    for src, info in infos.items():
+        log(f"[build] nvcc {src} -> {info['path']} in {info['seconds']:.2f} s")
+        for line in ptxas_summary(info["log"]):
+            log(f"[build]   {line}")
+    fo._lib()
+    fa._lib()
+
+
+# ------------------------------------------------------------------ phase 3, attention
+
+def attn_inputs(shape, dtype, gen, sk=None):
+    """q, k, v, dO of ``shape`` (B, H, S, D) on the card; k and v with
+    ``sk`` rows when given."""
+    kv = shape if sk is None else shape[:2] + (sk,) + shape[3:]
+    return tuple(torch.randn(s, device="cuda", generator=gen).to(dtype)
+                 for s in (shape, kv, kv, shape))
+
+
+def worst_err(got, ref, tol, what):
+    torch.testing.assert_close(got.float(), ref.float(), **tol, msg=lambda m: f"{what}: {m}")
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def check_flash(fa):
+    """Each flash kernel against its plain version on the same inputs.  The
+    backward kernels get the plain version's lse and delta, so each kernel
+    is held alone."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, h, s, d = LM["batch"], LM["num_heads"], LM["seq_length"], \
+        LM["embed_dim"] // LM["num_heads"]
+    # (q shape, k/v rows (None: as q), dtype, causal, a random lse cotangent)
+    cases = [((b, h, s, d), None, torch.bfloat16, True, False),
+             ((b, h, s, d), None, torch.bfloat16, False, False),
+             ((b, h, s, d), None, torch.float32, True, False),
+             ((2, 4, 300, 64), None, torch.bfloat16, True, False),
+             ((2, 4, 300, 64), None, torch.float32, False, False),
+             ((2, 4, 300, 64), None, torch.float32, True, True),
+             ((2, 4, 300, 64), None, torch.bfloat16, True, True),
+             ((2, 4, 150, 64), 260, torch.bfloat16, False, False),
+             ((2, 4, 200, 64), 330, torch.float32, True, False),
+             ((2, 4, 256, 128), None, torch.bfloat16, True, False),
+             ((2, 4, 256, 128), None, torch.float32, False, False),
+             ((2, 4, 200, 32), None, torch.float32, True, False),
+             ((2, 4, 200, 32), None, torch.bfloat16, False, False)]
+    max_err = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
+    for shape, sk, dtype, causal, with_glse in cases:
+        q, k, v, do = attn_inputs(shape, dtype, gen, sk)
+        scale = 1.0 / math.sqrt(shape[-1])
+        tol, f32 = FLASH_TOL[dtype], FLASH_TOL[torch.float32]
+        label = (f"{str(dtype)[6:]:8s} {str(shape):18s} Sk={k.shape[2]:<4d} "
+                 f"causal={int(causal)} g_lse={'randn' if with_glse else 'None '}")
+        o, lse = fa.flash_fwd(q, k, v, scale, causal)
+        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, scale, causal)
+        torch.cuda.synchronize()
+        errs = [worst_err(o, o_ref, tol, f"O {label}"),
+                worst_err(lse, lse_ref, f32, f"lse {label}")]
+        delta = (o_ref.float() * do.float()).sum(-1)
+        g_lse = (torch.randn(shape[:3], device="cuda", generator=gen) if with_glse
+                 else None)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, g_lse, scale, causal)
+        dk_ref, dv_ref = fa.flash_bwd_dkdv_ref(q, k, v, do, lse_ref, delta, g_lse, scale,
+                                               causal)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, g_lse, scale, causal)
+        dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, g_lse, scale, causal)
+        torch.cuda.synchronize()
+        errs += [worst_err(dk, dk_ref, tol, f"dK {label}"),
+                 worst_err(dv, dv_ref, tol, f"dV {label}"),
+                 worst_err(dq, dq_ref, tol, f"dQ {label}")]
+        if with_glse:
+            # the lse term must matter: without it the kernel's dQ misses the tolerance
+            dq0 = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, None, scale, causal)
+            check(not torch.allclose(dq0.float(), dq_ref.float(), **tol),
+                  f"dQ without g_lse still within tolerance ({label})")
+        max_err["flash_fwd"] = max(max_err["flash_fwd"], *errs[:2])
+        max_err["flash_bwd_dkdv"] = max(max_err["flash_bwd_dkdv"], *errs[2:4])
+        max_err["flash_bwd_dq"] = max(max_err["flash_bwd_dq"], errs[4])
+        log(f"  check {label}  max_abs_err O {errs[0]:.3e} lse {errs[1]:.3e} "
+            f"dK {errs[2]:.3e} dV {errs[3]:.3e} dQ {errs[4]:.3e}")
+    return max_err
+
+
+def flash_bounds(shape, causal):
+    """(ms bound, 'bytes' or 'operations', flops, bytes) of each kernel at a
+    bf16 ``shape``: matrix-product flops of the (q, k) pairs this mask
+    keeps (2 per multiply-add) over the bf16 tensor-core rate, and bytes
+    with each input read once and each output written once over 3.35 TB/s."""
+    b, h, s, d = shape
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    mat, row = b * h * s * d * 2, b * h * s * 4  # one (B,H,S,D) bf16, one (B,H,S) f32
+    # products: fwd QK^T, PV; dK/dV QK^T, dO V^T, P^T dO, dS^T Q; dQ QK^T, dO V^T, dS K
+    work = {"flash_fwd": (2 * 2 * d * pairs, 4 * mat + row),
+            "flash_bwd_dkdv": (4 * 2 * d * pairs, 6 * mat + 2 * row),
+            "flash_bwd_dq": (3 * 2 * d * pairs, 5 * mat + 2 * row)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+                     flops, nbytes)
+    return out
+
+
+def time_flash(fa):
+    """Each kernel, its plain version and SDPA at the transformer's shape
+    (bf16, causal).  SDPA is a yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shape = (LM["batch"], LM["num_heads"], LM["seq_length"],
+             LM["embed_dim"] // LM["num_heads"])
+    q, k, v, do = attn_inputs(shape, torch.bfloat16, gen)
+    scale = 1.0 / math.sqrt(shape[-1])
+    o, lse = fa.flash_fwd(q, k, v, scale, True)
+    delta = (o.float() * do.float()).sum(-1)
+    bwd_args = (q, k, v, do, lse, delta, None, scale, True)
+    calls = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, True),
+                           lambda: fa.flash_fwd_ref(q, k, v, scale, True)),
+             "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(*bwd_args),
+                                lambda: fa.flash_bwd_dkdv_ref(*bwd_args)),
+             "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd_args),
+                              lambda: fa.flash_bwd_dq_ref(*bwd_args))}
+    sdpa_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale), 20)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=scale).backward(do)
+
+    sdpa_fwd_bwd = cuda_time_ms(fwd_bwd, 20)
+    # SDPA's flash backward (dQ, dK, dV in one call) called directly: one
+    # dispatch per launch, so unlike the autograd loop above the device,
+    # not the host, sets its time
+    out, lse_s, cq, ck, mq, mk, seed, offset = \
+        torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True, False,
+                                                           scale=scale)[:8]
+    sdpa_bwd = cuda_time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, out, lse_s, cq, ck, mq, mk, 0.0, True, seed, offset, scale=scale), 20)
+    bounds = flash_bounds(shape, True)
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        k_ms, p_ms = cuda_time_ms(kern, 20), cuda_time_ms(plain, 5)
+        bound_ms, bound_by, flops, nbytes = bounds[name]
+        lib_ms = sdpa_fwd if name == "flash_fwd" else None
+        rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms)
+        log(f"  time  {name:16s} {shape} bf16 causal  kernel_ms {k_ms:.4f}  "
+            f"bound_ms {bound_ms:.4f} (by {bound_by}: {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB)  ref_ms {p_ms:.4f}  kernel rate "
+            f"{flops / k_ms / 1e9:.2f} TFLOP/s ({100 * bound_ms / k_ms:.1f}% of the bound)")
+    log(f"  time  SDPA (library yardstick, never called by the port) forward "
+        f"{sdpa_fwd:.4f} ms, forward+backward through autograd {sdpa_fwd_bwd:.4f} ms, "
+        f"flash backward alone (aten, one call) {sdpa_bwd:.4f} ms; this repo's kernels forward "
+        f"{rows['flash_fwd']['ms']:.4f} ms, backward (dK/dV + dQ + delta excluded) "
+        f"{rows['flash_bwd_dkdv']['ms'] + rows['flash_bwd_dq']['ms']:.4f} ms")
+    return rows
 
 
 # ------------------------------------------------------------------ phase 4
@@ -302,6 +518,74 @@ def train_main_path(ft, build_alexnet, fo, make_opt, steps, timed_from):
                 metrics=model.get_metrics().to_string())
 
 
+def reset_launches(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def read_launches(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def lm_model(ft, build_transformer, synthetic_lm_batch, make_opt, batch, seq_length,
+             num_layers, embed_dim, num_heads, vocab_size, **cfg):
+    """The decoder transformer through the user-facing entry points, with a
+    synthetic batch (numpy seed 0) staged."""
+    cfg = {"compute_dtype": "bfloat16", "fused_optimizer": True, **cfg}
+    model = ft.FFModel(ft.FFConfig(batch_size=batch, **cfg))
+    tok, pos, _ = build_transformer(model, batch, seq_length=seq_length,
+                                    num_layers=num_layers, embed_dim=embed_dim,
+                                    num_heads=num_heads, vocab_size=vocab_size)
+    model.compile(make_opt(model), ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                  [ft.MetricsType.ACCURACY])
+    model.init_layers(seed=0)
+    toks, posa, labels = synthetic_lm_batch(batch, seq_length, vocab_size, seed=0)
+    model.set_batch({tok: toks, pos: posa}, labels)
+    return model
+
+
+def train_transformer(ft, build_transformer, synthetic_lm_batch, kernels):
+    """Full-width transformer steps: per step exactly one launch of each
+    flash kernel per layer and one fused SGD launch per leaf, a finite loss
+    on every step, and a loss that falls."""
+    from flexflow_tpu_torch.model import METRIC_KEYS
+
+    model = lm_model(ft, build_transformer, synthetic_lm_batch,
+                     lambda m: ft.SGDOptimizer(m, lr=0.001), **LM)
+    n_leaves = sum(len(op.weights) for op in model.ops)
+    n_params = sum(w.numel() for ws in model._params.values() for w in ws.values())
+    check(n_leaves == 54 and n_params == 45_664_512,
+          f"transformer has {n_params} parameters in {n_leaves} leaves")
+    per_step = {"flash_fwd": LM["num_layers"], "flash_bwd_dkdv": LM["num_layers"],
+                "flash_bwd_dq": LM["num_layers"], "fused_sgd_update": n_leaves,
+                "fused_adam_update": 0}
+    loss_sums, t0 = [], None
+    for step in range(LM_STEPS):
+        if step == LM_TIMED_FROM:
+            model.sync()
+            t0 = time.perf_counter()
+        before = read_launches(kernels)
+        model.train_iteration()
+        got = {n: c - before[n] for n, c in read_launches(kernels).items()}
+        check(got == per_step, f"step {step}: launches {got}, expected {per_step}")
+        loss_sums.append(model._metric_acc[METRIC_KEYS.index("loss")].clone())
+    model.sync()
+    seconds = time.perf_counter() - t0
+    sums = torch.stack(loss_sums).tolist()
+    losses = [b - a for a, b in zip([0.0] + sums[:-1], sums)]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss does not fall: {losses}")
+    probs = model.predict_batch()
+    shape = (LM["batch"], LM["seq_length"], LM["vocab_size"])
+    check(probs.shape == shape, f"predict_batch shape {probs.shape}")
+    check(bool((abs(probs.sum(-1) - 1) < 2e-2).all()), "softmax rows do not sum to 1")
+    timed = LM_STEPS - LM_TIMED_FROM
+    return model, dict(losses=losses, ms_per_step=seconds / timed * 1e3,
+                       samples_per_s=timed * LM["batch"] / seconds,
+                       tokens_per_s=timed * LM["batch"] * LM["seq_length"] / seconds,
+                       metrics=model.get_metrics().to_string())
+
+
 # ------------------------------------------------------------------ phase 5
 
 def parity(ft, build_alexnet, make_opt):
@@ -322,15 +606,54 @@ def parity(ft, build_alexnet, make_opt):
     return worst
 
 
+def lm_parity(ft, build_transformer, synthetic_lm_batch, fa, kernels):
+    """f32 transformer (batch 2, S 128, 2 layers, E 128, 2 heads: head dim
+    64), 2 SGD steps through the flash kernels and 2 through their plain
+    versions, from the same weights and batch; every weight compared."""
+    shape = dict(batch=2, seq_length=128, num_layers=2, embed_dim=128, num_heads=2,
+                 vocab_size=512)
+
+    def run(plain):
+        model = lm_model(ft, build_transformer, synthetic_lm_batch,
+                         lambda m: ft.SGDOptimizer(m, lr=0.01, momentum=0.9),
+                         compute_dtype="float32", **shape)
+        before = read_launches(kernels)
+        with fa.plain_versions() if plain else contextlib.nullcontext():
+            for _ in range(2):
+                model.train_iteration()
+        model.sync()
+        flash = {n: c - before[n] for n, c in read_launches(kernels).items()
+                 if n.startswith("flash")}
+        want = 0 if plain else 2 * shape["num_layers"]
+        check(all(c == want for c in flash.values()),
+              f"{'plain' if plain else 'kernel'} path flash launches {flash}")
+        return {(op.name, w.name): model._params[op.name][w.name].detach().clone()
+                for op in model.ops for w in op.weights}
+
+    kern, plain = run(False), run(True)
+    worst = 0.0
+    for key in kern:
+        torch.testing.assert_close(kern[key], plain[key], **LM_PARITY_TOL,
+                                   msg=lambda m: f"{key}: {m}")
+        worst = max(worst, (kern[key] - plain[key]).abs().max().item())
+    return worst
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
     from flexflow_tpu_torch.models.alexnet import build_alexnet
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
 
+    kernels = {"fused_sgd_update": fo.fused_sgd_update,
+               "fused_adam_update": fo.fused_adam_update,
+               "flash_fwd": fa.flash_fwd, "flash_bwd_dkdv": fa.flash_bwd_dkdv,
+               "flash_bwd_dq": fa.flash_bwd_dq}
     t_start = time.perf_counter()
     # phase 1 ------------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -341,14 +664,10 @@ def main():
         f"{torch.cuda.device_count()}")
     log(f"[env] nvidia-smi: {smi}")
     check(cap == (9, 0), f"expected a Hopper card (capability (9, 0)), got {cap}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products
 
     # phase 2 ------------------------------------------------------------
-    info = fo.build(force=True)
-    log(f"[build] nvcc {SOURCE} -> {info['path']} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
-    fo._lib()
+    build_kernels(fo, fa)
 
     # phase 3 ------------------------------------------------------------
     graph = ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu"))
@@ -361,28 +680,54 @@ def main():
     log(f"[kernels] measured device copy rate {copy_gbps:.1f} GB/s (1 GiB copy_)")
     rows = time_kernels(fo, leaf_shapes, copy_gbps)
     launch_diagnostics(fo, leaf_shapes)
+    log("[kernels] flash kernels vs plain PyTorch versions on the same inputs, "
+        "tolerance f32 rtol=atol=1e-4 (summation order), bf16 rtol=2**-7 atol=1e-3 "
+        "(one bf16 rounding of f32 results; lse f32)")
+    max_err.update(check_flash(fa))
+    flash_rows = time_flash(fa)
 
     # phase 4 ------------------------------------------------------------
-    fo.fused_sgd_update.launches = 0
-    fo.fused_adam_update.launches = 0
+    reset_launches(kernels)
     torch.cuda.reset_peak_memory_stats()
     sgd_run = train_main_path(ft, build_alexnet, fo, sgd_optimizer(ft), steps=7, timed_from=2)
     torch.cuda.empty_cache()
     adam_run = train_main_path(ft, build_alexnet, fo, adam_optimizer(ft), steps=3, timed_from=1)
-    launches = {"fused_sgd_update": fo.fused_sgd_update.launches,
-                "fused_adam_update": fo.fused_adam_update.launches}
-    check(launches == {"fused_sgd_update": 16 * 7, "fused_adam_update": 16 * 3},
-          f"launch counts {launches}")
+    alex_launches = read_launches(kernels)
+    check(alex_launches == {"fused_sgd_update": 16 * 7, "fused_adam_update": 16 * 3,
+                            "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0},
+          f"AlexNet launch counts {alex_launches}")
     peak = torch.cuda.max_memory_allocated()
     for label, r in (("SGD momentum 0.9", sgd_run), ("Adam", adam_run)):
         log(f"[main] AlexNet 3x229x229 batch {BATCH} bf16 fused, {label}: "
             f"losses {['%.4f' % x for x in r['losses']]}  "
             f"{r['samples_per_s']:.1f} samples/s  {r['ms_per_step']:.2f} ms/step  "
             f"{r['metrics']}")
-    log(f"[main] max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}; "
+    log(f"[main] max_memory_allocated {peak / 2**30:.2f} GiB; launches {alex_launches}; "
         f"card {smi}")
+    profile_steps(main_model(ft, build_alexnet, sgd_optimizer(ft)), "AlexNet SGD",
+                  sgd_run["ms_per_step"])
+    torch.cuda.empty_cache()
 
-    profile_steps(ft, build_alexnet, sgd_run["ms_per_step"])
+    reset_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    lm, lm_run = train_transformer(ft, build_transformer, synthetic_lm_batch, kernels)
+    lm_launches = read_launches(kernels)
+    per_layer = LM_STEPS * LM["num_layers"]
+    # predict_batch's forward adds one flash_fwd launch per layer
+    check(lm_launches == {"fused_sgd_update": 54 * LM_STEPS, "fused_adam_update": 0,
+                          "flash_fwd": per_layer + LM["num_layers"],
+                          "flash_bwd_dkdv": per_layer, "flash_bwd_dq": per_layer},
+          f"transformer launch counts {lm_launches}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[main] transformer batch {LM['batch']} S {LM['seq_length']} {LM['num_layers']}x"
+        f"{LM['embed_dim']} {LM['num_heads']} heads vocab {LM['vocab_size']} bf16 fused SGD "
+        f"lr 0.001: losses {['%.5f' % x for x in lm_run['losses']]}  "
+        f"{lm_run['samples_per_s']:.2f} samples/s  {lm_run['tokens_per_s']:.0f} tokens/s  "
+        f"{lm_run['ms_per_step']:.2f} ms/step  {lm_run['metrics']}")
+    log(f"[main] transformer max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+        f"{lm_launches}; card {smi}")
+    profile_steps(lm, "transformer SGD", lm_run["ms_per_step"])
+    del lm
     torch.cuda.empty_cache()
 
     # phase 5 ------------------------------------------------------------
@@ -395,23 +740,32 @@ def main():
         log(f"[parity] f32 AlexNet batch 8, 2 {label} steps, fused kernels vs plain "
             f"update: max |dw| {worst:.3e} (tolerance rtol 1e-6, atol 1e-7; cuDNN "
             "deterministic, TF32 off)")
+    worst = lm_parity(ft, build_transformer, synthetic_lm_batch, fa, kernels)
+    log(f"[parity] f32 transformer batch 2 S 128 2x128 2 heads, 2 SGD steps, flash "
+        f"kernels vs plain versions: max |dw| {worst:.3e} (tolerance rtol 1e-4, atol 1e-5; "
+        "TF32 off)")
 
     # result -------------------------------------------------------------
-    kernels = []
-    for kname, label, replaces in (
-            ("fused_sgd_update", "fused_sgd_update mu=0.9",
-             "flexflow_tpu/kernels/fused_optimizer.py:63"),
-            ("fused_adam_update", "fused_adam_update",
-             "flexflow_tpu/kernels/fused_optimizer.py:110")):
-        r = rows[label]
-        kernels.append({"name": kname, "route": "cuda", "source": SOURCE,
-                        "replaces": replaces, "launches": launches[kname],
-                        "max_abs_err": max_err[kname], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": "bytes", "library_ms": r["library_ms"]})
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    main_launches = {n: alex_launches[n] + lm_launches[n] for n in kernels}
+    table = []
+    for kname, source, replaces in (
+            ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
+            ("fused_adam_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:110"),
+            ("flash_fwd", FLASH_SOURCE, "flexflow_tpu/kernels/flash_attention.py:53"),
+            ("flash_bwd_dkdv", FLASH_SOURCE, "flexflow_tpu/kernels/flash_attention.py:145"),
+            ("flash_bwd_dq", FLASH_SOURCE, "flexflow_tpu/kernels/flash_attention.py:195")):
+        r = flash_rows.get(kname) or dict(
+            rows["fused_sgd_update mu=0.9" if kname == "fused_sgd_update" else kname],
+            bound_by="bytes")
+        table.append({"name": kname, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": main_launches[kname],
+                      "max_abs_err": max_err[kname], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
+        f"AlexNet {alex_launches}, transformer {lm_launches}")
     log(smi)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -4,9 +4,10 @@ A second package beside the JAX one, with the same module names and
 public surface: graph build -> ``compile`` -> ``init_layers`` ->
 ``train_iteration``.  It imports torch and numpy, never jax and nothing
 of ``flexflow_tpu``.  Models run on CUDA unless ``FFConfig.device`` asks
-for the CPU.  The optimizer updates on the training path are hand-written
-CUDA kernels for Hopper (``kernels/``); conv, pool and dense layers are
-library calls, as the JAX package leaves them to XLA.
+for the CPU.  The optimizer updates and attention (forward and backward) on
+the training path are hand-written CUDA kernels for Hopper
+(``kernels/``); conv, pool, dense and embedding layers are library calls,
+as the JAX package leaves them to XLA.
 """
 
 from .config import DeviceType, FFConfig, ParallelConfig
@@ -17,6 +18,7 @@ from .metrics import MetricsType, PerfMetrics
 from .model import FFModel
 from .ops.base import Op
 from .ops.conv2d import ActiMode, PoolType
+from .ops.embedding import AggrMode
 from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
 from .parallel.mesh import Machine
 from .runtime.dataloader import DataLoader
@@ -25,7 +27,7 @@ from .tensor import DataType, Parameter, Tensor
 __version__ = "0.1.0"
 
 __all__ = [
-    "ActiMode", "AdamOptimizer", "ConstantInitializer", "DataLoader",
+    "ActiMode", "AdamOptimizer", "AggrMode", "ConstantInitializer", "DataLoader",
     "DataType", "DeviceType", "FFConfig", "FFModel", "GlorotUniform", "Loss",
     "LossType", "Machine", "MetricsType", "NormInitializer", "Op",
     "Optimizer", "Parameter", "ParallelConfig", "PerfMetrics", "PoolType",

@@ -19,62 +19,31 @@ other.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import Optional
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "fused_optimizer.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+from . import _build
+
+SOURCE = "fused_optimizer.cu"
 # -fmad=false: no multiply-add contraction, so each kernel performs the
 # same rounded IEEE operations as its plain PyTorch version and the two
 # agree to the bit (the work is bound by memory, not by arithmetic).
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ["-fmad=false"]
 
 _lib_handle: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found on PATH or at /usr/local/cuda/bin/nvcc; "
-                           "the fused optimizer kernels are built from source")
-    return path
-
-
 def build(force: bool = False) -> dict:
-    """Compile ``csrc/fused_optimizer.cu`` into the build directory.
-
-    The library's name carries a hash of the source, so an edited source
-    is rebuilt.  Returns the path, the build seconds (0 when an existing
-    build was reused) and the compiler's output (``-Xptxas -v``: registers
-    and spills per kernel)."""
-    with open(_CSRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    out = os.path.join(_BUILD_DIR, f"libff_fused_optimizer_{digest}.so")
-    if os.path.exists(out) and not force:
-        return {"path": out, "seconds": 0.0, "log": ""}
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _CSRC],
-                       capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {r.returncode}):\n{r.stdout}\n{r.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return {"path": out, "seconds": seconds, "log": r.stdout + r.stderr}
+    """Compile ``csrc/fused_optimizer.cu`` into the build directory
+    (``_build.build``: path, build seconds and the ptxas report)."""
+    return _build.build(SOURCE, NVCC_FLAGS, force=force)
 
 
 def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
-        lib = ctypes.CDLL(build()["path"])
+        lib = _build.load(SOURCE, NVCC_FLAGS)
         p, i64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
         lib.ff_fused_sgd_update.argtypes = [p, p, p, i64, f32, f32, f32, i32, p]
         lib.ff_fused_sgd_update.restype = i32
@@ -97,11 +66,6 @@ def _check(w: torch.Tensor, *others: torch.Tensor) -> None:
             raise ValueError(f"operand sizes differ: {t.numel()} vs {w.numel()}")
     if w.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {w.device}")
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
 # ---------------------------------------------------------------- SGD (K1)
@@ -133,7 +97,7 @@ def fused_sgd_update(w, g, m, lr, wd=0.0, momentum=0.0, nesterov=False) -> None:
             w.data_ptr(), g.data_ptr(), m.data_ptr() if use_m else None, w.numel(),
             lr, wd, momentum, int(bool(nesterov)),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "fused_sgd_update")
+    _build.raise_on(rc, "fused_sgd_update")
     fused_sgd_update.launches += 1
 
 
@@ -167,7 +131,7 @@ def fused_adam_update(w, g, m, v, alpha_t, wd=0.0, beta1=0.9, beta2=0.999,
             w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), w.numel(),
             alpha_t, wd, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "fused_adam_update")
+    _build.raise_on(rc, "fused_adam_update")
     fused_adam_update.launches += 1
 
 

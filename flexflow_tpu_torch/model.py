@@ -29,10 +29,12 @@ import torch
 from .config import FFConfig
 from .losses import Loss, LossType
 from .metrics import Metrics, MetricsType, PerfMetrics
+from .ops.attention import LayerNorm, MultiHeadAttention
 from .ops.base import FwdCtx, Op
 from .ops.conv2d import ActiMode, Conv2D, Pool2D, PoolType
+from .ops.embedding import AggrMode, Embedding
 from .ops.linear import Linear
-from .ops.misc import Flat, Softmax
+from .ops.misc import ElementBinary, ElementUnary, Flat, Softmax
 from .parallel.mesh import Machine
 from .tensor import DataType, Tensor
 
@@ -185,11 +187,73 @@ class FFModel:
                                    use_bias, kernel_initializer,
                                    bias_initializer, share_with, name))
 
+    linear = dense
+
+    def embedding(self, input_tensor: Tensor, num_entries: int, out_dim: int,
+                  aggr: str = AggrMode.SUM, kernel_initializer=None,
+                  share_with=None, name: Optional[str] = None) -> Tensor:
+        return self._append(Embedding(self, input_tensor, num_entries, out_dim,
+                                      aggr, kernel_initializer, share_with, name))
+
+    def multihead_attention(self, query: Tensor, key: Optional[Tensor] = None,
+                            value: Optional[Tensor] = None,
+                            embed_dim: Optional[int] = None, num_heads: int = 8,
+                            causal: bool = False, dropout: float = 0.0,
+                            use_bias: bool = False, kernel_initializer=None,
+                            seq_parallel_mode: str = "ring",
+                            name: Optional[str] = None) -> Tensor:
+        """Multi-head attention (B,S,E)->(B,S,E); self-attention when key/
+        value are omitted."""
+        key = key if key is not None else query
+        value = value if value is not None else key
+        embed_dim = embed_dim if embed_dim is not None else query.dims[-1]
+        return self._append(MultiHeadAttention(
+            self, query, key, value, embed_dim, num_heads, causal, dropout,
+            use_bias, kernel_initializer, seq_parallel_mode, name))
+
+    def layer_norm(self, input_tensor: Tensor, eps: float = 1e-5,
+                   elementwise_affine: bool = True,
+                   name: Optional[str] = None) -> Tensor:
+        return self._append(LayerNorm(self, input_tensor, eps, elementwise_affine, name))
+
     def flat(self, input_tensor: Tensor, name: Optional[str] = None) -> Tensor:
         return self._append(Flat(self, input_tensor, name))
 
     def softmax(self, input_tensor: Tensor, name: Optional[str] = None) -> Tensor:
         return self._append(Softmax(self, input_tensor, name))
+
+    def _unary(self, op_name, x, name=None):
+        return self._append(ElementUnary(self, x, op_name, name))
+
+    def exp(self, x, name=None):
+        return self._unary("exp", x, name)
+
+    def relu(self, x, name=None):
+        return self._unary("relu", x, name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary("sigmoid", x, name)
+
+    def tanh(self, x, name=None):
+        return self._unary("tanh", x, name)
+
+    def elu(self, x, name=None):
+        return self._unary("elu", x, name)
+
+    def _binary(self, op_name, x, y, name=None):
+        return self._append(ElementBinary(self, x, y, op_name, name))
+
+    def add(self, x, y, name=None):
+        return self._binary("add", x, y, name)
+
+    def subtract(self, x, y, name=None):
+        return self._binary("subtract", x, y, name)
+
+    def multiply(self, x, y, name=None):
+        return self._binary("multiply", x, y, name)
+
+    def divide(self, x, y, name=None):
+        return self._binary("divide", x, y, name)
 
     # ------------------------------------------------------------------
     # compile
@@ -268,7 +332,7 @@ class FFModel:
     # batches and the step
     # ------------------------------------------------------------------
     def set_batch(self, inputs: Dict[Tensor, Any], labels: Any) -> None:
-        """Stage a batch (NHWC images) on the model's device."""
+        """Stage a batch (NHWC images, or int token ids) on the model's device."""
         batch = {f"in_{t.guid}": self._to_device(a) for t, a in inputs.items()}
         batch["label"] = self._to_device(labels)
         self._batch = batch

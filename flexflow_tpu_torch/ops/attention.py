@@ -1,0 +1,136 @@
+"""LayerNorm and multi-head attention (PyTorch port of
+``flexflow_tpu/ops/attention.py``).
+
+``LayerNorm`` is plain PyTorch in f32, as the JAX package's is plain jnp.
+``MultiHeadAttention`` projects with ``(in, E)`` weights (cast per use, f32
+accumulation inside cuBLAS under bf16), splits heads to (B, H, S, D) and
+runs ``kernels/flash_attention.py``: on CUDA tensors the hand-written
+forward and backward kernels, on CPU tensors their plain versions.
+Sequence parallelism (ring, Ulysses), attention dropout and the decode
+paths are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+
+from .base import FwdCtx, Op
+from ..initializers import ConstantInitializer, DefaultWeightInitializer, ZeroInitializer
+from ..kernels.flash_attention import flash_attention
+
+
+class LayerNorm(Op):
+    """Normalize over the last dim with learned scale/shift, in f32."""
+
+    _type = "LayerNorm"
+
+    def __init__(self, model, input_tensor, eps: float = 1e-5,
+                 elementwise_affine: bool = True, name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        self.eps = eps
+        self.affine = elementwise_affine
+        dims = input_tensor.dims
+        self._add_output(dims, input_tensor.dtype)
+        if elementwise_affine:
+            feat_cfg_dim = len(dims) - 1
+            self._add_weight("scale", (dims[-1],), ConstantInitializer(1.0),
+                             partition_dims=(feat_cfg_dim,))
+            self._add_weight("bias", (dims[-1],), ZeroInitializer(),
+                             partition_dims=(feat_cfg_dim,))
+
+    def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
+        x = xs[0]
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            y = y * params["scale"].float() + params["bias"].float()
+        return [y.to(x.dtype)]
+
+    def flops_per_sample(self):
+        return 8.0 * float(math.prod(self.output.dims[1:]))
+
+
+class MultiHeadAttention(Op):
+    """Scaled-dot-product multi-head attention with QKV/output projections.
+
+    query/key/value: (B, Sq, E) / (B, Sk, E) / (B, Sk, E); output
+    (B, Sq, E).  ``causal`` adds the autoregressive mask and needs
+    Sq == Sk (ROADMAP C2)."""
+
+    _type = "MultiHeadAttention"
+
+    def __init__(self, model, query, key, value, embed_dim: int,
+                 num_heads: int, causal: bool = False,
+                 dropout: float = 0.0, use_bias: bool = False,
+                 kernel_initializer=None, seq_parallel_mode: str = "ring",
+                 name: Optional[str] = None):
+        if dropout > 0.0:
+            raise NotImplementedError("attention dropout is not ported yet (ROADMAP A2)")
+        if embed_dim % num_heads != 0:
+            raise ValueError("embed_dim must divide by num_heads")
+        if causal and query.dims[1] != key.dims[1]:
+            raise ValueError("causal attention needs Sq == Sk (ROADMAP C2), got "
+                             f"{query.dims[1]} and {key.dims[1]}")
+        super().__init__(model, [query, key, value], name)
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.causal = causal
+        self.use_bias = use_bias
+        b, sq, _ = query.dims
+        self._add_output((b, sq, embed_dim), query.dtype)
+        init = kernel_initializer or DefaultWeightInitializer()
+        for wname, in_dim in (("wq", query.dims[-1]), ("wk", key.dims[-1]),
+                              ("wv", value.dims[-1])):
+            self._add_weight(wname, (in_dim, embed_dim), init, partition_dims=(None, 2))
+        self._add_weight("wo", (embed_dim, embed_dim), init, partition_dims=(None, 2))
+        if use_bias:
+            for bname in ("bq", "bk", "bv", "bo"):
+                self._add_weight(bname, (embed_dim,), ZeroInitializer(), partition_dims=(2,))
+
+    def _proj(self, params, x, w, b):
+        y = torch.matmul(x, params[w].to(x.dtype))
+        if self.use_bias:
+            y = y + params[b].to(y.dtype)
+        return y
+
+    def _seq_degree(self) -> int:
+        pc = getattr(self, "pc", None)
+        if pc is None or len(pc.dims) < 2:
+            return 1
+        return pc.dims[1]
+
+    def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
+        if self._seq_degree() > 1:
+            raise NotImplementedError("sequence-parallel attention (ring, Ulysses) is not "
+                                      "ported yet (ROADMAP A6/A7)")
+        q_in, k_in, v_in = xs
+        B, Sq, _ = q_in.shape
+        H, D = self.num_heads, self.head_dim
+
+        def split(t):  # (B, S, E) -> (B, H, S, D), contiguous for the kernels
+            return t.reshape(t.shape[0], t.shape[1], H, D).transpose(1, 2).contiguous()
+
+        qh = split(self._proj(params, q_in, "wq", "bq"))
+        kh = split(self._proj(params, k_in, "wk", "bk"))
+        vh = split(self._proj(params, v_in, "wv", "bv"))
+        oh = flash_attention(qh, kh, vh, causal=self.causal, scale=1.0 / math.sqrt(D))
+        out = oh.transpose(1, 2).reshape(B, Sq, self.embed_dim)
+        return [self._proj(params, out, "wo", "bo")]
+
+    def flops_per_sample(self):
+        _, sq, e = self.output.dims
+        sk = self.inputs[1].dims[1]
+        proj = 2.0 * sq * e * e * 4
+        attn = 2.0 * self.num_heads * sq * sk * self.head_dim * 2
+        return proj + attn
+
+    def _not_ported(self, *args, **kwargs):
+        raise NotImplementedError("kv-cached decoding is not ported yet (ROADMAP A11)")
+
+    init_cache = decode = init_paged_cache = decode_paged = _not_ported

@@ -42,7 +42,8 @@ def test_port_source_imports_neither_jax_nor_the_jax_package(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.models.alexnet, "
-            "flexflow_tpu_torch.convert; "
+            "flexflow_tpu_torch.models.transformer, "
+            "flexflow_tpu_torch.kernels.flash_attention, flexflow_tpu_torch.convert; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -87,3 +88,21 @@ def test_env_knobs_and_unported_entry_points_raise(monkeypatch):
     monkeypatch.setenv("FF_CHAOS", "step:1=nan_loss")
     with pytest.raises(NotImplementedError, match="FF_CHAOS"):
         m.compile(ft.SGDOptimizer(lr=0.1))
+
+
+def test_unported_attention_and_transformer_options_raise():
+    from flexflow_tpu_torch.models.transformer import build_transformer
+
+    m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
+    x = m.create_tensor((2, 8, 32))
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        m.multihead_attention(x, num_heads=4, dropout=0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        build_transformer(m, 2, seq_length=8, num_layers=1, embed_dim=32, num_heads=4,
+                          vocab_size=16, moe_every=2)
+    m.multihead_attention(x, num_heads=4, causal=True)
+    mha = m.ops[-1]
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        mha.decode({}, [], {}, 0, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        mha.init_cache(2, 8, None)
