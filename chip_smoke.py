@@ -9,17 +9,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card: the
      optimizer updates at AlexNet's largest leaf, a ragged size and a
-     misaligned view, then timed over one step's worth of AlexNet leaves;
-     the flash-attention forward, dK/dV and dQ kernels causal and not, bf16
-     and f32, at the transformer's shape (16, 8, 512, 64), a ragged S and
-     head dims 32 and 128, with a non-zero lse cotangent once, then timed
-     at the transformer's shape; each beside its bound, the plain version
-     and the library call;
+     misaligned view, and the multi-tensor SGD step over a ragged list of
+     leaves aligned differently and over 130 leaves (three launches); then
+     timed per step: SGD as one launch over AlexNet's 16 leaves and over
+     the transformer's 54, Adam one launch per AlexNet leaf; the
+     flash-attention forward, dK/dV and dQ kernels causal and not, bf16
+     and f32, at the transformer's shape (16, 8, 512, 64), ragged S (1, 65,
+     300, 1000), Sq != Sk and head dims 32 and 128, with a non-zero lse
+     cotangent once, then timed at the transformer's shape; each beside its
+     bound, the plain version and the library call;
   4. the main paths: full-width AlexNet (3x229x229, batch 256, bf16, fused
      optimizer) trained with SGD then Adam, and the full-width decoder
      transformer (batch 16, S 512, 4 layers, E 512, 8 heads, vocab 32000,
      bf16, fused SGD) trained through FFModel, with every kernel's launch
-     count checked per step, and a device-time breakdown of each;
+     count checked per step (one SGD launch per step), and a device-time
+     breakdown of each;
   5. path parity: f32 AlexNet at batch 8, two steps with the fused kernels
      and two with the plain update; an f32 transformer (batch 2, S 128, 2
      layers), two steps through the flash kernels and two through their
@@ -82,11 +86,38 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+_sleep_cycles_per_ms = None
+
+
+def hold_stream(ms):
+    """Keep the current stream busy for about ``ms`` milliseconds (a
+    spinning kernel), so that what the host queues behind it runs back to
+    back."""
+    global _sleep_cycles_per_ms
+    if _sleep_cycles_per_ms is None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10**7)
+        end.record()
+        end.synchronize()
+        _sleep_cycles_per_ms = 10**7 / start.elapsed_time(end)
+    torch.cuda._sleep(int(_sleep_cycles_per_ms * ms))
+
+
 def cuda_time_ms(fn, iters):
-    """Mean device time of ``fn`` over ``iters`` calls, after one warm-up."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, after
+    one warm-up.  A sleeping kernel holds the stream while the host queues
+    the calls, so a call whose host side is slower than its device side (a
+    wrapper over many leaves, a plain version of many small operations) is
+    timed on the device, not paced by the host."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    hold_stream(2 * host_ms * iters + 1)
     start.record()
     for _ in range(iters):
         fn()
@@ -106,21 +137,34 @@ def nvidia_smi_line():
 
 def kernel_cases(fo):
     """One dict per case: label, bytes moved per element, the SGD settings
-    (None for Adam), a caller taking (update, w, g, m, v), and the kernel
-    wrapper and plain version it is run with."""
+    (None for Adam), a caller taking (update, w, g, m, v) with the kernel
+    wrapper and plain version it is run with, and ``step(plain, leaves)``,
+    one optimizer step over a list of (w, g, m, v) as the optimizer takes
+    it: SGD one multi-tensor call, Adam one call per leaf."""
     def sgd(mu, nesterov):
         def call(update, w, g, m, v):
             update(w, g, m if mu > 0 else None, 1e-3, 1e-4, mu, nesterov)
-        return call
+
+        def step(plain, leaves):
+            update = fo.fused_sgd_update_multi_ref if plain else fo.fused_sgd_update_multi
+            ws, gs, ms, _ = (list(x) for x in zip(*leaves))
+            update(ws, gs, ms if mu > 0 else None, 1e-3, 1e-4, mu, nesterov)
+        return call, step
 
     def adam(update, w, g, m, v):
         update(w, g, m, v, 1e-3, 1e-4, 0.9, 0.999, 1e-8)
 
-    cases = [dict(label=f"fused_sgd_update mu={mu}{' nesterov' if nest else ''}",
-                  bpe=20 if mu else 12, sgd=(mu, nest), call=sgd(mu, nest),
-                  kernel=fo.fused_sgd_update, plain=fo.fused_sgd_update_ref)
-             for mu, nest in ((0.9, False), (0.9, True), (0.0, False))]
-    cases.append(dict(label="fused_adam_update", bpe=28, sgd=None, call=adam,
+    def adam_step(plain, leaves):
+        for leaf in leaves:
+            adam(fo.fused_adam_update_ref if plain else fo.fused_adam_update, *leaf)
+
+    cases = []
+    for mu, nest in ((0.9, False), (0.9, True), (0.0, False)):
+        call, step = sgd(mu, nest)
+        cases.append(dict(label=f"fused_sgd_update mu={mu}{' nesterov' if nest else ''}",
+                          bpe=20 if mu else 12, sgd=(mu, nest), call=call, step=step,
+                          kernel=fo.fused_sgd_update, plain=fo.fused_sgd_update_ref))
+    cases.append(dict(label="fused_adam_update", bpe=28, sgd=None, call=adam, step=adam_step,
                       kernel=fo.fused_adam_update, plain=fo.fused_adam_update_ref))
     return cases
 
@@ -159,64 +203,133 @@ def check_kernels(fo):
     return max_err
 
 
-def time_kernels(fo, leaf_shapes, copy_gbps):
-    """Per-step times over AlexNet's 16 leaves (one launch per leaf)."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    leaves = [operands(math.prod(s), gen) for s in leaf_shapes]
-    n_total = sum(math.prod(s) for s in leaf_shapes)
+def main_path_leaves(ft, build_alexnet, build_transformer):
+    """The parameter leaf shapes of both main paths' models, from their
+    graphs built on the CPU (no parameter is allocated)."""
+    alex = ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu"))
+    build_alexnet(alex, BATCH)
+    lm = ft.FFModel(ft.FFConfig(batch_size=LM["batch"], device="cpu"))
+    build_transformer(lm, LM["batch"], **{k: v for k, v in LM.items() if k != "batch"})
+    return {name: [w.dims for op in g.ops for w in op.weights]
+            for name, g in (("AlexNet", alex), ("transformer", lm))}
+
+
+def check_sgd_multi(fo):
+    """The multi-tensor SGD step against its plain version on the card: one
+    launch over ragged leaves whose pointers are aligned differently (views
+    at an odd offset beside aligned leaves, a zero-size leaf), and 130
+    leaves, which take three launches."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ragged = [(1, 0), (7, 0), (165, 1), (0, 0), (108, 0), (1_000_003, 1), (65_536, 0),
+              (16_385, 1), (9216 * 4096, 0)]
+    many = [(1 + 977 * i, i % 2) for i in range(130)]
+    worst = 0.0
+    for lname, sizes in (("ragged, mixed alignment", ragged), ("130 leaves", many)):
+        want = -(-sum(1 for n, _ in sizes if n) // fo.SGD_TABLE_CAPACITY)
+        for case in kernel_cases(fo)[:3]:
+            ops = [operands(n, gen) for n, _ in sizes]
+            ka = [tuple(copy_at(t, off) for t in leaf) for leaf, (_, off) in zip(ops, sizes)]
+            pa = [tuple(t.clone() for t in leaf) for leaf in ops]
+            before = fo.fused_sgd_update.launches
+            case["step"](False, ka)
+            launches = fo.fused_sgd_update.launches - before
+            case["step"](True, pa)
+            torch.cuda.synchronize()
+            check(launches == want, f"{lname}: {launches} launches, expected {want}")
+            err = 0.0
+            for kl, pl in zip(ka, pa):
+                for a, b in zip(kl, pl):
+                    torch.testing.assert_close(a, b, **KERNEL_TOL)
+                    if a.numel():
+                        err = max(err, (a - b).abs().max().item())
+            worst = max(worst, err)
+            log(f"  check {case['label']:36s} multi, {lname:24s} {len(sizes)} leaves, "
+                f"{launches} launch(es)  max_abs_err {err:.3e}")
+    return worst
+
+
+def time_kernels(fo, leaf_sets, copy_gbps):
+    """Per-step times over a main path's leaves, as the optimizer runs
+    them: SGD one multi-tensor launch over all leaves (AlexNet's 16 in
+    every setting, the transformer's 54 without momentum, as its main path
+    trains), Adam one launch per AlexNet leaf."""
     rows = {}
-    for case in kernel_cases(fo):
-        def run(update):
-            return lambda: [case["call"](update, *leaf) for leaf in leaves]
-        k_ms = cuda_time_ms(run(case["kernel"]), 20)
-        p_ms = cuda_time_ms(run(case["plain"]), 5)
-        nbytes = n_total * case["bpe"]
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        params = [torch.nn.Parameter(leaf[0]) for leaf in leaves]
-        for p, leaf in zip(params, leaves):
-            p.grad = leaf[1]
-        if case["sgd"] is not None:
-            mu, nesterov = case["sgd"]
-            opt = torch.optim.SGD(params, lr=1e-3, momentum=mu, weight_decay=1e-4,
-                                  nesterov=nesterov, fused=True)
-            lib_ms = cuda_time_ms(opt.step, 20)
-            lib_note = "torch.optim.SGD(fused=True)"
-        else:
-            # eps sits after the bias correction there: not the same function
-            opt = torch.optim.Adam(params, lr=1e-3, weight_decay=1e-4, fused=True)
-            lib_ms = None
-            lib_note = ("(torch.optim.Adam(fused=True), an approximate yardstick: "
-                        f"{cuda_time_ms(opt.step, 20):.4f} ms)")
-        rows[case["label"]] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                   library_ms=lib_ms)
-        log(f"  time  {case['label']:36s} kernel_ms {k_ms:.4f}  bound_ms {bound_ms:.4f} "
-            f"({case['bpe']} B/elem x {n_total} elem at 3.35 TB/s; "
-            f"{nbytes / copy_gbps / 1e6:.4f} ms at the measured copy rate)  "
-            f"ref_ms {p_ms:.4f}  library_ms "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} {lib_note}  "
-            f"kernel rate {nbytes / k_ms / 1e6:.1f} GB/s")
+    for set_name, leaf_shapes in leaf_sets.items():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        leaves = [operands(math.prod(s), gen) for s in leaf_shapes]
+        for case in kernel_cases(fo):
+            if set_name == "AlexNet" or case["sgd"] == (0.0, False):
+                label = case["label"] + ("" if set_name == "AlexNet" else f" {set_name}")
+                rows[label] = time_case(case, label, leaves, copy_gbps)
+        del leaves
+        torch.cuda.empty_cache()
     return rows
 
 
-def launch_diagnostics(fo, leaf_shapes):
+def time_case(case, label, leaves, copy_gbps):
+    """One optimizer step of ``case`` over ``leaves``: kernel, plain version
+    and library times beside the byte bound."""
+    n_total = sum(leaf[0].numel() for leaf in leaves)
+    k_ms = cuda_time_ms(lambda: case["step"](False, leaves), 20)
+    p_ms = cuda_time_ms(lambda: case["step"](True, leaves), 5)
+    nbytes = n_total * case["bpe"]
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    params = [torch.nn.Parameter(leaf[0]) for leaf in leaves]
+    for p, leaf in zip(params, leaves):
+        p.grad = leaf[1]
+    if case["sgd"] is not None:
+        mu, nesterov = case["sgd"]
+        opt = torch.optim.SGD(params, lr=1e-3, momentum=mu, weight_decay=1e-4,
+                              nesterov=nesterov, fused=True)
+        lib_ms = cuda_time_ms(opt.step, 20)
+        lib_note = "torch.optim.SGD(fused=True)"
+    else:
+        # eps sits after the bias correction there: not the same function
+        opt = torch.optim.Adam(params, lr=1e-3, weight_decay=1e-4, fused=True)
+        lib_ms = None
+        lib_note = ("(torch.optim.Adam(fused=True), an approximate yardstick: "
+                    f"{cuda_time_ms(opt.step, 20):.4f} ms)")
+    log(f"  time  {label:48s} {len(leaves)} leaves  kernel_ms {k_ms:.4f}  "
+        f"bound_ms {bound_ms:.4f} ({case['bpe']} B/elem x {n_total} elem at 3.35 TB/s; "
+        f"{nbytes / copy_gbps / 1e6:.4f} ms at the measured copy rate)  "
+        f"ref_ms {p_ms:.4f}  library_ms "
+        f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} {lib_note}  "
+        f"kernel rate {nbytes / k_ms / 1e6:.1f} GB/s")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, library_ms=lib_ms)
+
+
+def host_us(fn, iters=200):
+    """Host microseconds per call of ``fn`` (work the device is never the
+    limit of)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def launch_diagnostics(fo, leaf_counts, biggest):
     """Separate kernel efficiency from per-launch cost: each kernel on the
-    largest leaf alone, and the host time of one wrapper call on a leaf
-    small enough that the device is never the limit."""
+    largest leaf alone; the host time of one wrapper call on a leaf small
+    enough that the device is never the limit; and for SGD the host time
+    of a whole optimizer step (one multi-tensor call) over as many such
+    leaves as each main path has."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    big = operands(max(math.prod(s) for s in leaf_shapes), gen)
-    tiny = operands(64, gen)
+    big = operands(biggest, gen)
+    tiny = [operands(64, gen) for _ in range(max(leaf_counts.values()))]
     for case in kernel_cases(fo):
         ms = cuda_time_ms(lambda: case["call"](case["kernel"], *big), 20)
         nbytes = big[0].numel() * case["bpe"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            case["call"](case["kernel"], *tiny)
-        host_us = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
+        per_call = host_us(lambda: case["call"](case["kernel"], *tiny[0]))
+        steps = "; ".join(
+            f"host {host_us(lambda: case['step'](False, tiny[:n])):.1f} us per {name} step "
+            f"({n} leaves, {'one launch' if case['sgd'] else f'{n} launches'})"
+            for name, n in leaf_counts.items() if case["sgd"] or name == "AlexNet")
         log(f"  leaf  {case['label']:36s} fc1 kernel alone {ms:.4f} ms "
             f"(bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s); "
-            f"host {host_us:.1f} us per wrapper call")
+            f"host {per_call:.1f} us per wrapper call on one leaf; {steps}")
 
 
 def profile_steps(model, label, step_ms, steps=3):
@@ -345,6 +458,10 @@ def check_flash(fa):
              ((2, 4, 256, 128), None, torch.float32, False, False),
              ((2, 4, 200, 32), None, torch.float32, True, False),
              ((2, 4, 200, 32), None, torch.bfloat16, False, False)]
+    # the bf16 forward's edges: one row, one key tile and a row, more key
+    # tiles than its double buffer
+    cases += [((2, 4, s_, 64), None, torch.bfloat16, causal, False)
+              for s_ in (1, 65, 1000) for causal in (True, False)]
     max_err = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
     for shape, sk, dtype, causal, with_glse in cases:
         q, k, v, do = attn_inputs(shape, dtype, gen, sk)
@@ -449,6 +566,9 @@ def time_flash(fa):
             f"bound_ms {bound_ms:.4f} (by {bound_by}: {flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.2f} MB)  ref_ms {p_ms:.4f}  kernel rate "
             f"{flops / k_ms / 1e9:.2f} TFLOP/s ({100 * bound_ms / k_ms:.1f}% of the bound)")
+    log("  host  " + ", ".join(f"{name} {host_us(kern, 100):.1f} us"
+                               for name, (kern, _) in calls.items())
+        + " of host time per wrapper call")
     log(f"  time  SDPA (library yardstick, never called by the port) forward "
         f"{sdpa_fwd:.4f} ms, forward+backward through autograd {sdpa_fwd_bwd:.4f} ms, "
         f"flash backward alone (aten, one call) {sdpa_bwd:.4f} ms; this repo's kernels forward "
@@ -482,8 +602,9 @@ def main_model(ft, build_alexnet, make_opt, batch=BATCH, **cfg):
 
 
 def train_main_path(ft, build_alexnet, fo, make_opt, steps, timed_from):
-    """Take ``steps`` steps of full-width AlexNet, checking 16 launches of
-    the optimizer's kernel per step and a finite loss on every step."""
+    """Take ``steps`` steps of full-width AlexNet, checking the optimizer's
+    launches per step (SGD one, Adam one per leaf, 16) and a finite loss on
+    every step."""
     from flexflow_tpu_torch.model import METRIC_KEYS
 
     model = main_model(ft, build_alexnet, make_opt)
@@ -492,7 +613,9 @@ def train_main_path(ft, build_alexnet, fo, make_opt, steps, timed_from):
     check(n_leaves == 16, f"AlexNet has {n_leaves} leaves, expected 16")
     n_params = sum(w.numel() for ws in model._params.values() for w in ws.values())
     check(n_params == 57_044_810, f"AlexNet has {n_params} parameters")
-    kern = fo.fused_sgd_update if isinstance(opt, ft.SGDOptimizer) else fo.fused_adam_update
+    sgd = isinstance(opt, ft.SGDOptimizer)
+    kern = fo.fused_sgd_update if sgd else fo.fused_adam_update
+    per_step = 1 if sgd else n_leaves
     loss_sums, t0 = [], None
     for step in range(steps):
         if step == timed_from:
@@ -500,7 +623,7 @@ def train_main_path(ft, build_alexnet, fo, make_opt, steps, timed_from):
             t0 = time.perf_counter()
         before = kern.launches
         model.train_iteration()
-        check(kern.launches - before == n_leaves,
+        check(kern.launches - before == per_step,
               f"step {step}: {kern.launches - before} launches of {kern.__name__}")
         # cumulative loss sum on the device: no host transfer inside the loop
         loss_sums.append(model._metric_acc[METRIC_KEYS.index("loss")].clone())
@@ -546,8 +669,8 @@ def lm_model(ft, build_transformer, synthetic_lm_batch, make_opt, batch, seq_len
 
 def train_transformer(ft, build_transformer, synthetic_lm_batch, kernels):
     """Full-width transformer steps: per step exactly one launch of each
-    flash kernel per layer and one fused SGD launch per leaf, a finite loss
-    on every step, and a loss that falls."""
+    flash kernel per layer and one fused SGD launch over all 54 leaves, a
+    finite loss on every step, and a loss that falls."""
     from flexflow_tpu_torch.model import METRIC_KEYS
 
     model = lm_model(ft, build_transformer, synthetic_lm_batch,
@@ -557,7 +680,7 @@ def train_transformer(ft, build_transformer, synthetic_lm_batch, kernels):
     check(n_leaves == 54 and n_params == 45_664_512,
           f"transformer has {n_params} parameters in {n_leaves} leaves")
     per_step = {"flash_fwd": LM["num_layers"], "flash_bwd_dkdv": LM["num_layers"],
-                "flash_bwd_dq": LM["num_layers"], "fused_sgd_update": n_leaves,
+                "flash_bwd_dq": LM["num_layers"], "fused_sgd_update": 1,
                 "fused_adam_update": 0}
     loss_sums, t0 = [], None
     for step in range(LM_STEPS):
@@ -670,16 +793,16 @@ def main():
     build_kernels(fo, fa)
 
     # phase 3 ------------------------------------------------------------
-    graph = ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu"))
-    build_alexnet(graph, BATCH)
-    leaf_shapes = [w.dims for op in graph.ops for w in op.weights]
+    leaf_sets = main_path_leaves(ft, build_alexnet, build_transformer)
     log("[kernels] kernel vs plain PyTorch version, tolerance rtol=atol=1e-6 "
         "(both run the same rounded f32 operations; built with -fmad=false)")
     max_err = check_kernels(fo)
+    max_err["fused_sgd_update"] = max(max_err["fused_sgd_update"], check_sgd_multi(fo))
     copy_gbps = copy_bandwidth_gbps()
     log(f"[kernels] measured device copy rate {copy_gbps:.1f} GB/s (1 GiB copy_)")
-    rows = time_kernels(fo, leaf_shapes, copy_gbps)
-    launch_diagnostics(fo, leaf_shapes)
+    rows = time_kernels(fo, leaf_sets, copy_gbps)
+    launch_diagnostics(fo, {name: len(shapes) for name, shapes in leaf_sets.items()},
+                       max(math.prod(s) for s in leaf_sets["AlexNet"]))
     log("[kernels] flash kernels vs plain PyTorch versions on the same inputs, "
         "tolerance f32 rtol=atol=1e-4 (summation order), bf16 rtol=2**-7 atol=1e-3 "
         "(one bf16 rounding of f32 results; lse f32)")
@@ -693,7 +816,7 @@ def main():
     torch.cuda.empty_cache()
     adam_run = train_main_path(ft, build_alexnet, fo, adam_optimizer(ft), steps=3, timed_from=1)
     alex_launches = read_launches(kernels)
-    check(alex_launches == {"fused_sgd_update": 16 * 7, "fused_adam_update": 16 * 3,
+    check(alex_launches == {"fused_sgd_update": 7, "fused_adam_update": 16 * 3,
                             "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0},
           f"AlexNet launch counts {alex_launches}")
     peak = torch.cuda.max_memory_allocated()
@@ -714,7 +837,7 @@ def main():
     lm_launches = read_launches(kernels)
     per_layer = LM_STEPS * LM["num_layers"]
     # predict_batch's forward adds one flash_fwd launch per layer
-    check(lm_launches == {"fused_sgd_update": 54 * LM_STEPS, "fused_adam_update": 0,
+    check(lm_launches == {"fused_sgd_update": LM_STEPS, "fused_adam_update": 0,
                           "flash_fwd": per_layer + LM["num_layers"],
                           "flash_bwd_dkdv": per_layer, "flash_bwd_dq": per_layer},
           f"transformer launch counts {lm_launches}")

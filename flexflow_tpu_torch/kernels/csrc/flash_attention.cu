@@ -20,9 +20,23 @@
 // Bound on this card: at the main path's shape (B*H = 128, S = 512, D = 64,
 // bf16, causal) each kernel needs 4.3-8.6 GFLOP on 34-51 MB, so at the
 // data-sheet rates (989 TFLOP/s bf16 on tensor cores, 3.35 TB/s) the least
-// time is set by bytes, 10-15 us.  Both designs below are far from it:
-// they are first designs that are right, with the score tile staged in
-// shared memory between the products.  wgmma/TMA pipelines are later work.
+// time is set by bytes, 10-15 us.
+//
+// The bf16 forward keeps S, P and O in mma.sync registers and pipelines
+// the K/V loads with cp.async (section "bf16 forward: registers").  Why
+// mma.sync and not wgmma/TMA: the forward is bound by bytes (10 us), and
+// its products at the tensor-core peak take 4.3 us (6.5 us with P's hi +
+// lo pair); at the two thirds of peak that mma.sync reaches they stay
+// near the byte bound, so the gain is in keeping tiles out of shared
+// memory and overlapping the loads, which mma.sync does with far less
+// machinery.  Measured at that shape (chip_smoke.py, H100 80GB HBM3 at
+// 700 W): 0.0370-0.0375 ms, against 0.149 ms for the wmma design it
+// replaced and 0.024 ms for PyTorch's SDPA forward.  It issues its
+// products at about the rate SDPA does, but has 1.5 times as many: a copy
+// with P rounded to bf16 alone (SDPA's choice; not kept, see below) takes
+// 0.030 ms (tools/flash_fwd_p_split.py).
+// The backward kernels are first designs that are right, with the score
+// tile staged in shared memory between the products (wmma).
 //
 // Common design: each block owns one (b*h, 64-row tile) and loops over the
 // 64-row tiles it sweeps: the sequential grid axis that Pallas carried in
@@ -403,17 +417,20 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------------ bf16: tensor cores
 //
-// bf16 inputs run their products on the tensor cores through nvcuda::wmma
-// (16x16x16 bf16 tiles, f32 accumulators).  Q, K, V and dO are bf16
-// already, so their products are exact in f32 up to summation order.  The
-// second operand of the P*V, P^T*dO, dS^T*Q and dS*K products is computed
-// in f32; it enters the tensor cores as two bf16 terms, hi = bf16(x) and
-// lo = bf16(x - hi), which keep about 16 of its 24 mantissa bits (two
-// products each), so the kernels stay within the f32 plain version's
-// tolerance.  One block of four warps per (b*h, 64-row tile); a warp owns
-// 16 of the tile's rows, keeps its scores, probabilities and (forward) its
-// output rows in its own slice of shared memory, and works on them with
-// __syncwarp only; the swept tiles are shared and fenced by __syncthreads.
+// bf16 inputs run their products on the tensor cores (f32 accumulators).
+// Q, K, V and dO are bf16 already, so their products are exact in f32 up
+// to summation order.  The second operand of the P*V, P^T*dO, dS^T*Q and
+// dS*K products is computed in f32; it enters the tensor cores as two bf16
+// terms, hi = bf16(x) and lo = bf16(x - hi), which keep about 16 of its 24
+// mantissa bits (two products each), so the kernels stay within the f32
+// plain version's tolerance.  One block of four warps per (b*h, 64-row
+// tile); a warp owns 16 of the tile's rows.
+//
+// The backward kernels (dK/dV, dQ) use nvcuda::wmma (16x16x16 tiles):
+// each warp keeps its scores and probabilities in its own slice of shared
+// memory and works on them with __syncwarp only; the swept tiles are
+// shared and fenced by __syncthreads.  The forward keeps everything in
+// registers instead (see "bf16 forward: registers" below).
 
 namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
@@ -437,9 +454,6 @@ template <int D> __host__ __device__ constexpr size_t tile_bytes() {
 }
 constexpr size_t kScoreBytes = kWarps * 16 * kSLd * sizeof(float);
 constexpr size_t kProbBytes = kWarps * 16 * kBLd * sizeof(bf16);
-template <int D> __host__ __device__ constexpr size_t out_bytes() {
-  return kWarps * 16 * (D + 4) * sizeof(float);
-}
 
 // Rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared memory with
 // 16-byte copies; rows at or past `rows` are zero.
@@ -521,88 +535,303 @@ __device__ __forceinline__ void write_rows(bf16* __restrict__ dst, FragC (&acc)[
   __syncwarp();
 }
 
+// ------------------------------------------------------------------ bf16 forward: registers
+//
+// K3's bf16 path, in the manner of FlashAttention-2 on mma.sync
+// (m16n8k16, bf16 operands, f32 accumulators).  One block of four warps
+// per (b*h, 64-row q-tile); a warp owns 16 q rows and keeps all of their
+// state in registers:
+//   - Q as A fragments, loaded once with ldmatrix;
+//   - the 16 x 64 score tile S = Q K^T, 32 floats a thread.  The
+//     accumulator layout puts each row on the 4 lanes of a quad, so the
+//     online softmax's row max and row sum are two xor-shuffles;
+//   - P: two adjacent n8 accumulator tiles are one k16 A fragment, so P
+//     goes from the score accumulators to bf16 hi and lo A fragments in
+//     registers (as split_store's pair) and never touches shared memory;
+//   - the 16 x D output accumulator, rescaled in place.
+// Scores are kept in log2 units (scaled by scale * log2(e)), so each
+// probability is one ex2; lse converts back once per row.
+// K and V are double-buffered in shared memory: tile j+1 is copied with
+// cp.async (16 bytes, zero-filled past Sk, so nothing past the tensor is
+// read) while tile j is computed, with one __syncthreads per tile.  Rows
+// are padded to D + 8 elements, so ldmatrix (plain for K, .trans for V)
+// is free of bank conflicts.  Shared memory is the Q tile and two K and
+// two V tiles: 45 KB at D = 64, room for four blocks on an SM (the
+// registers, below, allow three).  The causal
+// mask is applied only on the tiles that cross a warp's diagonal or Sk;
+// tiles wholly above the diagonal are never loaded.  Blocks take the
+// q-tiles with the most k-tiles first, so the short ones fill the last
+// wave.  The epilogue stages O as bf16 in the warp's own rows of the Q
+// tile and writes 16-byte words; lse is written once per row.
+// Registers: 32 score, D/2 output and D/4 Q-fragment words a thread; ptxas
+// gives 96, 133 and 235 registers at D = 32, 64 and 128, with no spills
+// (chip_smoke.py prints the report), so D = 128 keeps this layout.  At
+// D = 64, 133 registers allow three blocks an SM; capping them at 128 for
+// a fourth block, two row tiles a warp (128-row blocks), and skipping the
+// 16-key steps wholly above a warp's diagonal were each tried on the card
+// and were no faster on the causal main path.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global-to-shared copy; when `valid` is false nothing is read and
+// the destination is zero-filled.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// Wait for every cp.async this thread has issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+// c += a (16 x 16, row major) * b (16 x 8, column major): bf16 in, f32 out.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return reinterpret_cast<const uint32_t&>(v);
+}
+
+// hi = bf16(x), lo = bf16(x - hi) of a pair (x0 in the low half), as
+// split_store does for one value.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// Rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared memory
+// (row stride D + 8) with cp.async; rows at or past `rows` are zero-filled.
 template <int D>
-constexpr size_t fwd_tc_smem() {
-  return 3 * tile_bytes<D>() + kScoreBytes + 2 * kProbBytes + out_bytes<D>();
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src,
+                                                int row0, int rows) {
+  constexpr int kChunks = D / 8;
+  static_assert(kTile * kChunks % kTcThreads == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kTcThreads; ++i) {
+    const int idx = threadIdx.x + i * kTcThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int g = row0 + r;
+    const bool valid = g < rows;
+    cp_async_16(dst + r * ld_tile<D>() + c * 8, src + (size_t)(valid ? g : 0) * D + c * 8,
+                valid);
+  }
+}
+
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  return 5 * tile_bytes<D>();  // Q, two K and two V tiles
 }
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int n_qtiles, int sq, int sk, float scale,
-                    bool causal) {
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int n_bh, int n_qtiles, int sq, int sk,
+                     float scale, bool causal) {
+  constexpr int LD = ld_tile<D>();
+  constexpr int KT = D / 16;     // k16 steps of Q K^T
+  constexpr int NT = kTile / 8;  // n8 tiles of a score row block
+  constexpr int DT = D / 8;      // n8 tiles of an output row block
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr float kLn2 = 0.6931471805599453f;
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + kTile * LD;      // two buffers
+  bf16* Vs = Ks + 2 * kTile * LD;  // two buffers
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* p = smem_raw;
-  bf16* Qs = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  bf16* Ks = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  bf16* Vs = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  float* Sw = reinterpret_cast<float*>(p) + warp * 16 * kSLd;  p += kScoreBytes;
-  bf16* Phi = reinterpret_cast<bf16*>(p) + warp * 16 * kBLd;  p += kProbBytes;
-  bf16* Plo = reinterpret_cast<bf16*>(p) + warp * 16 * kBLd;  p += kProbBytes;
-  float* Ow = reinterpret_cast<float*>(p) + warp * 16 * (D + 4);
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kTile;
+  const int qr = lane >> 2, qc = lane & 3;  // the lane's row and column pair in a quad
+  // the q-tiles with the most k-tiles first
+  const int bh = blockIdx.x % n_bh;
+  const int q0 = (n_qtiles - 1 - blockIdx.x / n_bh) * kTile;
   q += (size_t)bh * sq * D;
   k += (size_t)bh * sk * D;
   v += (size_t)bh * sk * D;
   o += (size_t)bh * sq * D;
   lse += (size_t)bh * sq;
-
-  load_tile_bf16<D>(Qs, q, q0, sq);
-  for (int i = lane; i < 16 * (D + 4); i += 32) Ow[i] = 0.f;
-  __syncwarp();
-  // this lane's row of the warp's 16, and its half (even or odd columns)
-  const int r = lane >> 1, h = lane & 1;
-  const int qi = q0 + warp * 16 + r;
-  float m = -INFINITY, l = 0.f;
+  const int w0 = q0 + warp * 16;  // the warp's first row; the lane's are w0 + qr and + 8
   const int k_end = causal ? min(sk, q0 + kTile) : sk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile_bf16<D>(Ks, k, k0, sk);
-    load_tile_bf16<D>(Vs, v, k0, sk);
-    __syncthreads();
-    rows_dot_tile<D>(Sw, Qs + warp * 16 * ld_tile<D>(), Ks);
-    __syncwarp();
-    float sv[kTile / 2], mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTile / 2; ++j) {
-      const int c = 2 * j + h;
-      sv[j] = visible(qi, k0 + c, sq, sk, causal) ? Sw[r * kSLd + c] * scale : -INFINITY;
-      mx = fmaxf(mx, sv[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = m_new == -INFINITY ? 1.f : expf(m - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTile / 2; ++j) {
-      const float pj = sv[j] == -INFINITY ? 0.f : expf(sv[j] - m_new);
-      split_store(Phi + r * kBLd + 2 * j + h, Plo + r * kBLd + 2 * j + h, pj);
-      sum += pj;
-    }
-    l = alpha * l + sum + __shfl_xor_sync(0xffffffffu, sum, 1);
-    m = m_new;
-#pragma unroll 4
-    for (int j = 0; j < D / 2; ++j) Ow[r * (D + 4) + 2 * j + h] *= alpha;
-    __syncwarp();
-    FragC acc[D / 16];
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wm::load_matrix_sync(acc[n], Ow + n * 16, D + 4, wm::mem_row_major);
-    acc_split_dot_tile<D>(acc, Phi, Plo, Vs);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wm::store_matrix_sync(Ow + n * 16, acc[n], D + 4, wm::mem_row_major);
-    __syncwarp();
+  const int nk = (k_end + kTile - 1) / kTile;
+  const float scale2 = scale * kLog2e;
+
+  load_tile_async<D>(Qs, q, q0, sq);
+  if (nk > 0) {
+    load_tile_async<D>(Ks, k, 0, sk);
+    load_tile_async<D>(Vs, v, 0, sk);
   }
-  if (qi < sq) {
-    const float inv = l == 0.f ? 0.f : 1.f / l;
-#pragma unroll 4
-    for (int j = 0; j < D / 2; ++j)
-      o[(size_t)qi * D + 2 * j + h] = __float2bfloat16_rn(Ow[r * (D + 4) + 2 * j + h] * inv);
-    if (h == 0) lse[qi] = l == 0.f ? kNegInf : m + logf(l);
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+    ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows qr and qr + 8, log2 units
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kTile;
+    if (j > 0) {
+      cp_async_wait_all();  // this thread's copies of tile j have landed
+      __syncthreads();      // everyone's have, and tile j - 1 is no longer read
+    }
+    if (j + 1 < nk) {
+      const int nb = (j + 1) & 1;
+      load_tile_async<D>(Ks + nb * kTile * LD, k, k0 + kTile, sk);
+      load_tile_async<D>(Vs + nb * kTile * LD, v, k0 + kTile, sk);
+    }
+    const bf16* Kb = Ks + (j & 1) * kTile * LD;
+    const bf16* Vb = Vs + (j & 1) * kTile * LD;
+
+    // S = Q K^T; one ldmatrix.x4 gives the B fragments of two n8 tiles
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, Kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                       ((lane >> 3) & 1) * 8);
+        mma_16816(s[2 * np], qf[kk], b[0], b[1]);
+        mma_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] *= scale2;
+    // element e of tile nt: row w0 + qr + 8*(e >> 1), key k0 + 8*nt + 2*qc + (e & 1)
+    if (k0 + kTile > sk || (causal && k0 + kTile - 1 > w0)) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + nt * 8 + 2 * qc + (e & 1);
+          const int qi = w0 + qr + (e >> 1) * 8;
+          if (kj >= sk || (causal && kj > qi)) s[nt][e] = -INFINITY;
+        }
+    }
+
+    // online softmax, per row on the quad's 4 lanes
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+    float base[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // m_new is -inf only while the row has seen no key: exponentiate
+      // against 0 then, so every p and alpha is 0 and never NaN
+      base[i] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = exp2f(m[i] - base[i]);
+      m[i] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - base[e >> 1]);
+        rs[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l[i] = alpha[i] * l[i] + rs[i];
+    }
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+
+    // O += P V: P as bf16 hi + lo A fragments straight from the score
+    // accumulators, V's B fragments through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_pair(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_pair(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, Vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                             (lane >> 4) * 8);
+        mma_16816(acc[2 * dp], ph, b[0], b[1]);
+        mma_16816(acc[2 * dp], pl, b[0], b[1]);
+        mma_16816(acc[2 * dp + 1], ph, b[2], b[3]);
+        mma_16816(acc[2 * dp + 1], pl, b[2], b[3]);
+      }
+    }
+  }
+
+  // epilogue: O / l as bf16 through the warp's rows of the Q tile (only this
+  // warp read them), then 16-byte stores of whole rows
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) inv[i] = l[i] == 0.f ? 0.f : 1.f / l[i];
+  bf16* stage = Qs + warp * 16 * LD;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int c = dt * 8 + 2 * qc;
+    *reinterpret_cast<__nv_bfloat162*>(stage + qr * LD + c) =
+        __floats2bfloat162_rn(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (qr + 8) * LD + c) =
+        __floats2bfloat162_rn(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * DT / 32; ++i) {
+    const int idx = lane + 32 * i;
+    const int r = idx / DT, c = idx % DT;
+    if (w0 + r < sq)
+      *reinterpret_cast<uint4*>(o + (size_t)(w0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
+  }
+  if (qc == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = w0 + qr + 8 * i;
+      if (qi < sq) lse[qi] = l[i] == 0.f ? kNegInf : m[i] * kLn2 + logf(l[i]);
+    }
   }
 }
 
@@ -784,10 +1013,16 @@ cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v, v
                        float* lse, int bh, int sq, int sk, float scale, bool causal,
                        cudaStream_t s) {
   const int nq = tiles(sq);
-  if (dtype == 1)
-    return launch(flash_fwd_tc_kernel<D>, bh * nq, kTcThreads, fwd_tc_smem<D>(), s,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, nq, sq,
+  if (dtype == 1) {
+    // a hint: the most shared memory the SM can give, so more blocks fit
+    const cudaError_t carve = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (carve != cudaSuccess) return carve;
+    return launch(flash_fwd_mma_kernel<D>, bh * nq, kTcThreads, fwd_mma_smem<D>(), s,
+                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, bh, nq, sq,
                   sk, scale, causal);
+  }
   return launch(flash_fwd_kernel<D>, bh * nq, kThreads, fwd_smem<D>(), s,
                 (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, nq, sq,
                 sk, scale, causal);

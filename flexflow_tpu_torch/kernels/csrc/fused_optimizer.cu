@@ -1,8 +1,8 @@
 // Fused SGD and Adam parameter updates for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of the JAX package:
-//   ff_fused_sgd_update  <- flexflow_tpu/kernels/fused_optimizer.py:63 _sgd_kernel
-//   ff_fused_adam_update <- flexflow_tpu/kernels/fused_optimizer.py:110 _adam_kernel
+//   ff_fused_sgd_update_multi <- flexflow_tpu/kernels/fused_optimizer.py:63 _sgd_kernel
+//   ff_fused_adam_update      <- flexflow_tpu/kernels/fused_optimizer.py:110 _adam_kernel
 // with the reference's update rules (optimizer_kernel.cu:23-40, :206-225):
 //   SGD:  g' = g + wd*w;  m = mu*m + g';
 //         w -= lr*(g' + mu*m) (nesterov) | lr*m (momentum) | lr*g' (mu == 0)
@@ -17,11 +17,22 @@
 // At AlexNet's 57,044,810 parameters that is 1.14 GB, 0.68 GB and 1.60 GB per
 // step, or 0.34 ms, 0.20 ms and 0.48 ms at the 3.35 TB/s data-sheet rate.
 //
-// Design: one launch per parameter leaf over its flat, contiguous f32
-// buffer.  A grid-stride loop moves float4 (16-byte) words when every
-// pointer is 16-byte aligned, with a scalar tail; otherwise (a view at an
-// odd offset) the whole leaf goes through the scalar loop.  The TPU
-// kernel's (rows, 128) padding is its tiling and is not carried over.
+// SGD design: one launch per optimizer step over a table of leaves (up to
+// kMaxLeaves; the wrapper splits a longer list into further launches).
+// Per-leaf launches cost 16-47 us of host time each (ctypes, checks, the
+// stream lookup), which put 16 of them behind torch's one multi-tensor
+// launch and made 54 of them a host cost on the transformer's step.  The
+// table is a kernel parameter, passed by value (3 KB, under the 4 KB
+// limit) and read in place (__grid_constant__), so a launch copies nothing
+// to the device first.  Each leaf is cut into chunks of `chunk` elements
+// (a multiple of 4), one block a chunk; a block finds its leaf by binary
+// search over the leaves' first chunks.  The hardware hands out blocks as
+// SMs free up, so small leaves and ragged last chunks balance themselves.
+// Adam keeps one launch per leaf (a grid-stride loop).  Both move float4
+// (16-byte) words when every pointer of the leaf is 16-byte aligned, with
+// a scalar tail; otherwise (a view at an odd offset) the leaf goes through
+// the scalar loop.  The TPU kernel's (rows, 128) padding is its tiling and
+// is not carried over.
 // w, m and v are updated in place: the counterpart of the Pallas call's
 // input_output_aliases, so no parameter-sized temporary exists.  lr/alpha_t,
 // wd, momentum/betas and eps are arguments; nothing is allocated here.
@@ -60,19 +71,48 @@ __device__ __forceinline__ void adam_elem(float& w, float g, float& m, float& v,
   w = w - alpha_t * m / (sqrtf(v) + eps);
 }
 
+// One leaf of the SGD table.  m is NULL when momentum is 0.
+struct SgdLeaf {
+  float* w;
+  const float* g;
+  float* m;
+  int64_t n;       // elements
+  int64_t chunk0;  // the leaf's first chunk: the block that starts it
+  int vec;         // every pointer 16-byte aligned: float4 words
+};
+
+constexpr int kMaxLeaves = 64;
+
+struct SgdTable {
+  SgdLeaf leaf[kMaxLeaves];
+  int count;
+};
+static_assert(sizeof(SgdTable) + 64 <= 4096, "kernel parameters above 4 KB");
+
 template <bool MOMENTUM, bool NESTEROV>
 __global__ void __launch_bounds__(kThreads)
-sgd_kernel(float* __restrict__ w, const float* __restrict__ g,
-           float* __restrict__ m, int64_t n, bool vec, float lr, float wd, float mu) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+sgd_kernel(const __grid_constant__ SgdTable t, int64_t chunk, float lr, float wd, float mu) {
+  // this block's leaf: the last one whose first chunk is at or before it
+  int lo = 0, hi = t.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.leaf[mid].chunk0 <= (int64_t)blockIdx.x) lo = mid; else hi = mid - 1;
+  }
+  const SgdLeaf& leaf = t.leaf[lo];
+  const int64_t begin = ((int64_t)blockIdx.x - leaf.chunk0) * chunk;
+  const int64_t rest = leaf.n - begin;
+  const int64_t n = rest < chunk ? rest : chunk;
+  float* __restrict__ w = leaf.w + begin;
+  const float* __restrict__ g = leaf.g + begin;
+  float* __restrict__ m = MOMENTUM ? leaf.m + begin : nullptr;
   int64_t head = 0;
-  if (vec) {
+  if (leaf.vec) {  // begin is a multiple of 4, so w, g, m stay 16-byte aligned
     const int64_t n4 = n >> 2;
     float4* w4 = reinterpret_cast<float4*>(w);
     const float4* g4 = reinterpret_cast<const float4*>(g);
     float4* m4 = reinterpret_cast<float4*>(m);
-    for (int64_t i = tid; i < n4; i += stride) {
+#pragma unroll 4
+    for (int64_t i = threadIdx.x; i < n4; i += kThreads) {
       float4 wv = w4[i];
       const float4 gv = g4[i];
       float4 mv = MOMENTUM ? m4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -85,7 +125,7 @@ sgd_kernel(float* __restrict__ w, const float* __restrict__ g,
     }
     head = n4 << 2;
   }
-  for (int64_t i = head + tid; i < n; i += stride) {
+  for (int64_t i = head + threadIdx.x; i < n; i += kThreads) {
     float wv = w[i];
     float mv = MOMENTUM ? m[i] : 0.f;
     sgd_elem<MOMENTUM, NESTEROV>(wv, g[i], mv, lr, wd, mu);
@@ -151,20 +191,39 @@ inline int64_t work_items(int64_t n, bool vec) {
 
 }  // namespace
 
-extern "C" int ff_fused_sgd_update(float* w, const float* g, float* m, int64_t n,
-                                   float lr, float wd, float momentum,
-                                   int nesterov, void* stream) {
-  if (n <= 0) return 0;
+// One SGD step over `count` leaves (1..kMaxLeaves) in one launch.  `table`
+// holds a row of five int64 per leaf, in the order the wrapper's
+// sgd_launch_plan gives: w, g, m (0 when momentum is 0), element count
+// (> 0) and first chunk (0 for the first leaf, then the running sum of
+// ceil(n / chunk)).
+extern "C" int ff_fused_sgd_update_multi(const int64_t* table, int count, int64_t chunk,
+                                         float lr, float wd, float momentum, int nesterov,
+                                         void* stream) {
+  if (count <= 0 || count > kMaxLeaves || chunk <= 0 || chunk % 4 != 0)
+    return (int)cudaErrorInvalidValue;
   const bool use_m = momentum > 0.f;
-  const bool vec = aligned16(w) && aligned16(g) && (!use_m || aligned16(m));
-  const int blocks = blocks_for(work_items(n, vec));
+  SgdTable t{};
+  t.count = count;
+  for (int i = 0; i < count; ++i) {
+    const int64_t* row = table + 5 * i;
+    SgdLeaf& leaf = t.leaf[i];
+    leaf.w = reinterpret_cast<float*>(row[0]);
+    leaf.g = reinterpret_cast<const float*>(row[1]);
+    leaf.m = use_m ? reinterpret_cast<float*>(row[2]) : nullptr;
+    leaf.n = row[3];
+    leaf.chunk0 = row[4];
+    leaf.vec = aligned16(leaf.w) && aligned16(leaf.g) && (!use_m || aligned16(leaf.m));
+  }
+  const SgdLeaf& last = t.leaf[count - 1];
+  const int64_t blocks = last.chunk0 + (last.n + chunk - 1) / chunk;
+  if (blocks <= 0 || blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (use_m && nesterov) {
-    sgd_kernel<true, true><<<blocks, kThreads, 0, s>>>(w, g, m, n, vec, lr, wd, momentum);
+    sgd_kernel<true, true><<<(unsigned)blocks, kThreads, 0, s>>>(t, chunk, lr, wd, momentum);
   } else if (use_m) {
-    sgd_kernel<true, false><<<blocks, kThreads, 0, s>>>(w, g, m, n, vec, lr, wd, momentum);
+    sgd_kernel<true, false><<<(unsigned)blocks, kThreads, 0, s>>>(t, chunk, lr, wd, momentum);
   } else {
-    sgd_kernel<false, false><<<blocks, kThreads, 0, s>>>(w, g, nullptr, n, vec, lr, wd, 0.f);
+    sgd_kernel<false, false><<<(unsigned)blocks, kThreads, 0, s>>>(t, chunk, lr, wd, 0.f);
   }
   return (int)cudaGetLastError();
 }

@@ -14,10 +14,16 @@ refused, and adds one to its ``launches`` count.  On a CPU tensor it runs
 the plain PyTorch version beside it (``*_ref``), which is also the
 optimizer's ``fused=False`` path.  There is no fallback from one to the
 other.
+
+SGD takes a whole optimizer step in one launch (``fused_sgd_update_multi``,
+counted on ``fused_sgd_update.launches``); ``fused_sgd_update``, the JAX
+package's name, is the same launch over one leaf.  Adam launches once per
+leaf.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 from typing import Optional
 
@@ -45,8 +51,9 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load(SOURCE, NVCC_FLAGS)
         p, i64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
-        lib.ff_fused_sgd_update.argtypes = [p, p, p, i64, f32, f32, f32, i32, p]
-        lib.ff_fused_sgd_update.restype = i32
+        lib.ff_fused_sgd_update_multi.argtypes = [ctypes.POINTER(i64), i32, i64, f32, f32,
+                                                  f32, i32, p]
+        lib.ff_fused_sgd_update_multi.restype = i32
         lib.ff_fused_adam_update.argtypes = [p, p, p, p, i64, f32, f32, f32, f32, f32,
                                              f32, f32, p]
         lib.ff_fused_adam_update.restype = i32
@@ -68,6 +75,27 @@ def _check(w: torch.Tensor, *others: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {w.device}")
 
 
+def _leaf_rows(ws, gs, ms):
+    """``_check`` on every (w, g[, m]) leaf, all on ``ws[0]``'s device, at a
+    few tensor calls per operand (this runs on every optimizer step); a
+    failing leaf goes through ``_check`` for its message.  Returns (w, g,
+    m, n) per leaf: addresses (m's 0 when it is None) and element count."""
+    if ws[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {ws[0].device}")
+    dev, f32 = ws[0].get_device(), torch.float32
+    rows = []
+    for w, g, m in zip(ws, gs, ms):
+        n = w.numel()
+        if not (w.dtype is f32 and g.dtype is f32 and w.is_contiguous() and g.is_contiguous()
+                and g.numel() == n and w.get_device() == dev and g.get_device() == dev
+                and (m is None or (m.dtype is f32 and m.is_contiguous() and m.numel() == n
+                                   and m.get_device() == dev))):
+            _check(w, g, *(() if m is None else (m,)))
+            raise ValueError(f"leaves on different devices: {w.device} vs {ws[0].device}")
+        rows.append((w.data_ptr(), g.data_ptr(), 0 if m is None else m.data_ptr(), n))
+    return rows
+
+
 # ---------------------------------------------------------------- SGD (K1)
 
 def fused_sgd_update_ref(w, g, m, lr, wd=0.0, momentum=0.0, nesterov=False) -> None:
@@ -82,23 +110,80 @@ def fused_sgd_update_ref(w, g, m, lr, wd=0.0, momentum=0.0, nesterov=False) -> N
     w.copy_(w - lr * step)
 
 
+def fused_sgd_update_multi_ref(ws, gs, ms, lr, wd=0.0, momentum=0.0,
+                               nesterov=False) -> None:
+    """Plain PyTorch SGD step over a list of leaves: ``fused_sgd_update_ref``
+    on each.  ``ms`` may be None when momentum is 0."""
+    for w, g, m in zip(ws, gs, ms if ms is not None else [None] * len(ws)):
+        fused_sgd_update_ref(w, g, m, lr, wd, momentum, nesterov)
+
+
+# The multi-tensor launch's table (csrc/fused_optimizer.cu, SgdTable): at
+# most SGD_TABLE_CAPACITY leaves a launch (kMaxLeaves there), each cut into
+# chunks of SGD_CHUNK elements (a multiple of 4), one block a chunk.
+SGD_TABLE_CAPACITY = 64
+SGD_CHUNK = 16384
+
+
+def sgd_launch_plan(numels):
+    """The launches of one SGD step over leaves of ``numels`` elements: per
+    launch a list of (leaf index, first chunk), leaves in order, zero-size
+    leaves skipped, at most ``SGD_TABLE_CAPACITY`` leaves a launch, chunks
+    counted from 0 in each launch.  The kernel runs one block per chunk
+    and gives block b to the last leaf whose first chunk is at or before b."""
+    launches, leaves, first = [], [], 0
+    for i, n in enumerate(numels):
+        if n == 0:
+            continue
+        if len(leaves) == SGD_TABLE_CAPACITY:
+            launches.append(leaves)
+            leaves, first = [], 0
+        leaves.append((i, first))
+        first += -(-n // SGD_CHUNK)
+    if leaves:
+        launches.append(leaves)
+    return launches
+
+
+def fused_sgd_update_multi(ws, gs, ms, lr, wd=0.0, momentum=0.0, nesterov=False) -> None:
+    """One fused SGD step over a list of parameter leaves, updating each
+    ``w`` (and ``m``) in place: one kernel launch per
+    ``SGD_TABLE_CAPACITY`` leaves.  ``ms`` may be None when momentum is 0:
+    no state is touched.  The table is built anew on every call, from the
+    tensors' current addresses (gradients are fresh tensors each step)."""
+    use_m = momentum > 0.0
+    if ms is None:
+        if use_m:
+            raise ValueError("momentum > 0 needs a momentum buffer per leaf")
+        ms = [None] * len(ws)
+    if not len(ws) == len(gs) == len(ms):
+        raise ValueError(f"leaf lists differ in length: {len(ws)}, {len(gs)}, {len(ms)}")
+    if not ws:
+        return
+    rows = _leaf_rows(ws, gs, ms if use_m else [None] * len(ws))
+    if ws[0].device.type == "cpu":
+        fused_sgd_update_multi_ref(ws, gs, ms, lr, wd, momentum, nesterov)
+        return
+    lib = _lib()
+    with torch.cuda.device(ws[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for launch in sgd_launch_plan([row[3] for row in rows]):
+            table = array.array("q")  # (w, g, m, n, first chunk) per leaf, as the C entry reads
+            for i, first in launch:
+                table.extend(rows[i])
+                table.append(first)
+            rc = lib.ff_fused_sgd_update_multi(
+                ctypes.cast(table.buffer_info()[0], ctypes.POINTER(ctypes.c_int64)),
+                len(launch), SGD_CHUNK, lr, wd, momentum, int(bool(nesterov)), stream)
+            _build.raise_on(rc, "fused_sgd_update")
+            fused_sgd_update.launches += 1
+
+
 def fused_sgd_update(w, g, m, lr, wd=0.0, momentum=0.0, nesterov=False) -> None:
     """One fused SGD step on a parameter leaf, updating ``w`` and ``m`` in
-    place.  ``m`` may be None when momentum is 0: no state is touched."""
-    use_m = momentum > 0.0
-    _check(w, g, *((m,) if use_m else ()))
-    if w.device.type == "cpu":
-        fused_sgd_update_ref(w, g, m, lr, wd, momentum, nesterov)
-        return
-    if w.numel() == 0:
-        return
-    with torch.cuda.device(w.device):
-        rc = _lib().ff_fused_sgd_update(
-            w.data_ptr(), g.data_ptr(), m.data_ptr() if use_m else None, w.numel(),
-            lr, wd, momentum, int(bool(nesterov)),
-            torch.cuda.current_stream().cuda_stream)
-    _build.raise_on(rc, "fused_sgd_update")
-    fused_sgd_update.launches += 1
+    place: the multi-tensor launch over one leaf.  ``m`` may be None when
+    momentum is 0: no state is touched."""
+    fused_sgd_update_multi([w], [g], [m], lr, wd, momentum, nesterov)
 
 
 fused_sgd_update.launches = 0

@@ -6,9 +6,10 @@ tensor}}}``, with the JAX package's slot names ("v" for SGD momentum,
 "m"/"v" for Adam), so state carries across as a copy.
 
 Updates are in place.  With ``fused`` (set by ``FFModel.compile`` from
-``FFConfig.fused_optimizer``) each leaf goes through the hand-written
-kernel of ``kernels/fused_optimizer.py``; otherwise the plain tensor
-update runs.  Adam's ``alpha_t`` starts at ``alpha`` with no bias
+``FFConfig.fused_optimizer``) the update goes through the hand-written
+kernels of ``kernels/fused_optimizer.py``: SGD in one launch per step over
+all leaves, Adam one launch per leaf; otherwise the plain tensor update
+runs.  Adam's ``alpha_t`` starts at ``alpha`` with no bias
 correction and only ``next_epoch()`` advances it, as in the reference.
 """
 
@@ -19,7 +20,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from .kernels.fused_optimizer import (fused_adam_update, fused_adam_update_ref,
-                                      fused_sgd_update, fused_sgd_update_ref)
+                                      fused_sgd_update_multi, fused_sgd_update_multi_ref)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 OptState = Dict[str, Params]
@@ -67,13 +68,12 @@ class SGDOptimizer(Optimizer):
 
     @torch.no_grad()
     def apply(self, params, grads, state, hparams):
-        update = fused_sgd_update if self.fused else fused_sgd_update_ref
+        update = fused_sgd_update_multi if self.fused else fused_sgd_update_multi_ref
+        names = [(opn, wn) for opn, ws in params.items() for wn in ws]
         bufs = state.get("v")
-        for opn, ws in params.items():
-            for wn, w in ws.items():
-                m = bufs[opn][wn] if bufs is not None else None
-                update(w, grads[opn][wn], m, hparams["lr"], self.weight_decay,
-                       self.momentum, self.nesterov)
+        update([params[o][n] for o, n in names], [grads[o][n] for o, n in names],
+               None if bufs is None else [bufs[o][n] for o, n in names],
+               hparams["lr"], self.weight_decay, self.momentum, self.nesterov)
         return params, state
 
 
