@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      flash-attention forward, dK/dV and dQ kernels causal and not, bf16
      and f32, at the transformer's shape (16, 8, 512, 64), ragged S (1, 65,
      300, 1000), Sq != Sk and head dims 32 and 128, with a non-zero lse
-     cotangent once, then timed at the transformer's shape; each beside its
-     bound, the plain version and the library call;
+     cotangent (f32 once; bf16 causal at S 300, at Sq != Sk both ways and
+     at head dims 32 and 128), then timed at the transformer's shape; each
+     beside its bound, the plain version and the library call;
   4. the main paths: full-width AlexNet (3x229x229, batch 256, bf16, fused
      optimizer) trained with SGD then Adam, and the full-width decoder
      transformer (batch 16, S 512, 4 layers, E 512, 8 heads, vocab 32000,
@@ -393,7 +394,7 @@ def ptxas_summary(log_text):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(flash_\w+?_kernel|sgd_kernel|adam_kernel)", mangled)
+            base = re.search(r"(flash_(?:fwd|bwd)\w*?_kernel|sgd_kernel|adam_kernel)", mangled)
             tmpl = "bf16" if "bfloat16" in mangled else ("f32" if "flash" in mangled else "")
             dim = re.search(r"Li(\d+)E", mangled)
             name = " ".join(x for x in ((base.group(1) if base else mangled), tmpl,
@@ -457,7 +458,13 @@ def check_flash(fa):
              ((2, 4, 256, 128), None, torch.bfloat16, True, False),
              ((2, 4, 256, 128), None, torch.float32, False, False),
              ((2, 4, 200, 32), None, torch.float32, True, False),
-             ((2, 4, 200, 32), None, torch.bfloat16, False, False)]
+             ((2, 4, 200, 32), None, torch.bfloat16, False, False),
+             # the bf16 backward's transposed masks (K4) with Sq != Sk both
+             # ways, and its D = 128 and D = 32 layouts, with the lse term
+             ((2, 4, 200, 64), 330, torch.bfloat16, True, True),
+             ((2, 4, 330, 64), 200, torch.bfloat16, True, True),
+             ((2, 4, 256, 128), None, torch.bfloat16, True, True),
+             ((2, 4, 200, 32), None, torch.bfloat16, True, True)]
     # the bf16 forward's edges: one row, one key tile and a row, more key
     # tiles than its double buffer
     cases += [((2, 4, s_, 64), None, torch.bfloat16, causal, False)

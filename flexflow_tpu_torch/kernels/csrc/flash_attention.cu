@@ -22,21 +22,21 @@
 // data-sheet rates (989 TFLOP/s bf16 on tensor cores, 3.35 TB/s) the least
 // time is set by bytes, 10-15 us.
 //
-// The bf16 forward keeps S, P and O in mma.sync registers and pipelines
-// the K/V loads with cp.async (section "bf16 forward: registers").  Why
-// mma.sync and not wgmma/TMA: the forward is bound by bytes (10 us), and
-// its products at the tensor-core peak take 4.3 us (6.5 us with P's hi +
-// lo pair); at the two thirds of peak that mma.sync reaches they stay
-// near the byte bound, so the gain is in keeping tiles out of shared
-// memory and overlapping the loads, which mma.sync does with far less
-// machinery.  Measured at that shape (chip_smoke.py, H100 80GB HBM3 at
-// 700 W): 0.0370-0.0375 ms, against 0.149 ms for the wmma design it
-// replaced and 0.024 ms for PyTorch's SDPA forward.  It issues its
-// products at about the rate SDPA does, but has 1.5 times as many: a copy
-// with P rounded to bf16 alone (SDPA's choice; not kept, see below) takes
-// 0.030 ms (tools/flash_fwd_p_split.py).
-// The backward kernels are first designs that are right, with the score
-// tile staged in shared memory between the products (wmma).
+// All three bf16 kernels keep their score tiles, probabilities and
+// accumulators in mma.sync registers and pipeline the swept tiles with
+// cp.async (sections "bf16 forward: registers" and "bf16 backward:
+// registers").  Why mma.sync and not wgmma/TMA: each kernel is bound by
+// bytes (10-15 us), and its products at the tensor-core peak take 4-9 us
+// (more with the hi + lo pairs); at the two thirds of peak that mma.sync
+// reaches they stay near the byte bound, so the gain is in keeping tiles
+// out of shared memory and overlapping the loads, which mma.sync does
+// with far less machinery.  What bounds them now is the rate at which
+// one warp issues its products (K3: about 172 TFLOP/s of issued products
+// against 0.0375 ms at that shape, chip_smoke.py on an H100 80GB HBM3 at
+// 700 W; 0.024 ms for PyTorch's SDPA forward, which issues a third fewer:
+// P rounded to bf16 once, 0.030 ms in tools/flash_fwd_p_split.py).
+// Warp-specialised wgmma with TMA loads, which issues at the card's full
+// rate, is the next step once these numbers stand.
 //
 // Common design: each block owns one (b*h, 64-row tile) and loops over the
 // 64-row tiles it sweeps: the sequential grid axis that Pallas carried in
@@ -61,7 +61,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -417,159 +416,59 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------------ bf16: tensor cores
 //
-// bf16 inputs run their products on the tensor cores (f32 accumulators).
-// Q, K, V and dO are bf16 already, so their products are exact in f32 up
-// to summation order.  The second operand of the P*V, P^T*dO, dS^T*Q and
-// dS*K products is computed in f32; it enters the tensor cores as two bf16
-// terms, hi = bf16(x) and lo = bf16(x - hi), which keep about 16 of its 24
-// mantissa bits (two products each), so the kernels stay within the f32
-// plain version's tolerance.  One block of four warps per (b*h, 64-row
-// tile); a warp owns 16 of the tile's rows.
-//
-// The backward kernels (dK/dV, dQ) use nvcuda::wmma (16x16x16 tiles):
-// each warp keeps its scores and probabilities in its own slice of shared
-// memory and works on them with __syncwarp only; the swept tiles are
-// shared and fenced by __syncthreads.  The forward keeps everything in
-// registers instead (see "bf16 forward: registers" below).
+// bf16 inputs run their products on the tensor cores with mma.sync
+// m16n8k16 (bf16 operands, f32 accumulators).  Q, K, V and dO are bf16
+// already, so their products are exact in f32 up to summation order.  The
+// second operand of the P V, P^T dO, dS^T Q and dS K products is computed
+// in f32; it enters the tensor cores as two bf16 terms, hi = bf16(x) and
+// lo = bf16(x - hi), which keep about 16 of its 24 mantissa bits (two
+// products each), so the kernels stay within the f32 plain version's
+// tolerance.  One block of four warps per (b*h, 64-row tile); a warp owns
+// 16 of the tile's rows and keeps their state in registers.  Swept tiles
+// are double-buffered in shared memory with cp.async, rows padded to
+// D + 8 elements so that ldmatrix is free of bank conflicts.
 
-namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragBcol = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragBrow = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
 
 constexpr int kWarps = 4;
 constexpr int kTcThreads = 32 * kWarps;
-constexpr int kSLd = kTile + 4;  // f32 score rows (a multiple of 4, as wmma needs)
-constexpr int kBLd = kTile + 8;  // bf16 probability rows (a multiple of 8)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// bf16 tile rows: a multiple of 8 elements, as wmma needs
+// bf16 tile rows: D + 8 elements (16-byte rows for cp.async, and a padding
+// that spreads the 8 rows of an ldmatrix over all 32 banks)
 template <int D> __host__ __device__ constexpr int ld_tile() { return D + 8; }
 
-// Bytes of each shared-memory region, all multiples of 32 so every wmma
-// pointer stays 256-bit aligned.
+// Bytes of one staged 64-row bf16 tile, a multiple of 128.
 template <int D> __host__ __device__ constexpr size_t tile_bytes() {
   return kTile * ld_tile<D>() * sizeof(bf16);
-}
-constexpr size_t kScoreBytes = kWarps * 16 * kSLd * sizeof(float);
-constexpr size_t kProbBytes = kWarps * 16 * kBLd * sizeof(bf16);
-
-// Rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared memory with
-// 16-byte copies; rows at or past `rows` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* __restrict__ src,
-                                               int row0, int rows) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kTcThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int g = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (g < rows) val = reinterpret_cast<const uint4*>(src + (size_t)g * D)[c];
-    *reinterpret_cast<uint4*>(dst + r * ld_tile<D>() + c * 8) = val;
-  }
-}
-
-// out[r][n] = sum_d A[r][d] * B[n][d] for the warp's 16 rows of A and the
-// 64 rows of B (both staged bf16 tiles): a 16 x 64 f32 block, row stride kSLd.
-template <int D>
-__device__ __forceinline__ void rows_dot_tile(float* out, const bf16* A, const bf16* B) {
-  FragA a[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wm::load_matrix_sync(a[kk], A + kk * 16, ld_tile<D>());
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n) {
-    FragC c;
-    wm::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBcol b;
-      wm::load_matrix_sync(b, B + n * 16 * ld_tile<D>() + kk * 16, ld_tile<D>());
-      wm::mma_sync(c, a[kk], b, c);
-    }
-    wm::store_matrix_sync(out + n * 16, c, kSLd, wm::mem_row_major);
-  }
-}
-
-// acc[n] += (hi + lo)(16 x 64) * B(64 x D): the split f32 operand times a
-// staged bf16 tile.
-template <int D>
-__device__ __forceinline__ void acc_split_dot_tile(FragC (&acc)[D / 16], const bf16* hi,
-                                                   const bf16* lo, const bf16* B) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    FragA ah, al;
-    wm::load_matrix_sync(ah, hi + kk * 16, kBLd);
-    wm::load_matrix_sync(al, lo + kk * 16, kBLd);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBrow b;
-      wm::load_matrix_sync(b, B + kk * 16 * ld_tile<D>() + n * 16, ld_tile<D>());
-      wm::mma_sync(acc[n], ah, b, acc[n]);
-      wm::mma_sync(acc[n], al, b, acc[n]);
-    }
-  }
-}
-
-__device__ __forceinline__ void split_store(bf16* hi, bf16* lo, float x) {
-  const bf16 h = __float2bfloat16_rn(x);
-  *hi = h;
-  *lo = __float2bfloat16_rn(x - __bfloat162float(h));
-}
-
-// Write the warp's 16 x D f32 accumulators to global rows row0.. as bf16,
-// through its staging slice `stage` (row stride D + 4).
-template <int D>
-__device__ __forceinline__ void write_rows(bf16* __restrict__ dst, FragC (&acc)[D / 16],
-                                           float* stage, int row0, int rows) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wm::store_matrix_sync(stage + n * 16, acc[n], D + 4, wm::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31, r = lane >> 1, h = lane & 1;
-  if (row0 + r < rows) {
-#pragma unroll 4
-    for (int j = 0; j < D / 2; ++j)
-      dst[(size_t)(row0 + r) * D + 2 * j + h] = __float2bfloat16_rn(stage[r * (D + 4) + 2 * j + h]);
-  }
-  __syncwarp();
 }
 
 // ------------------------------------------------------------------ bf16 forward: registers
 //
-// K3's bf16 path, in the manner of FlashAttention-2 on mma.sync
-// (m16n8k16, bf16 operands, f32 accumulators).  One block of four warps
-// per (b*h, 64-row q-tile); a warp owns 16 q rows and keeps all of their
-// state in registers:
-//   - Q as A fragments, loaded once with ldmatrix;
-//   - the 16 x 64 score tile S = Q K^T, 32 floats a thread.  The
-//     accumulator layout puts each row on the 4 lanes of a quad, so the
-//     online softmax's row max and row sum are two xor-shuffles;
-//   - P: two adjacent n8 accumulator tiles are one k16 A fragment, so P
-//     goes from the score accumulators to bf16 hi and lo A fragments in
-//     registers (as split_store's pair) and never touches shared memory;
-//   - the 16 x D output accumulator, rescaled in place.
-// Scores are kept in log2 units (scaled by scale * log2(e)), so each
-// probability is one ex2; lse converts back once per row.
-// K and V are double-buffered in shared memory: tile j+1 is copied with
+// K3's bf16 path, in the manner of FlashAttention-2.  A warp owns 16 q rows
+// and keeps in registers: Q as A fragments (ldmatrix, once); the 16 x 64
+// score tile S = Q K^T, 32 floats a thread, whose accumulator layout puts
+// each row on the 4 lanes of a quad, so the online softmax's row max and
+// row sum are two xor-shuffles; P, turned from the score accumulators into
+// bf16 hi and lo A fragments (split_frag); and the 16 x D output
+// accumulator, rescaled in place.  Scores are kept in log2 units (scaled
+// by scale * log2(e)), so each probability is one ex2; lse converts back
+// once per row.  K and V are double-buffered: tile j+1 is copied with
 // cp.async (16 bytes, zero-filled past Sk, so nothing past the tensor is
-// read) while tile j is computed, with one __syncthreads per tile.  Rows
-// are padded to D + 8 elements, so ldmatrix (plain for K, .trans for V)
-// is free of bank conflicts.  Shared memory is the Q tile and two K and
-// two V tiles: 45 KB at D = 64, room for four blocks on an SM (the
-// registers, below, allow three).  The causal
-// mask is applied only on the tiles that cross a warp's diagonal or Sk;
-// tiles wholly above the diagonal are never loaded.  Blocks take the
-// q-tiles with the most k-tiles first, so the short ones fill the last
-// wave.  The epilogue stages O as bf16 in the warp's own rows of the Q
-// tile and writes 16-byte words; lse is written once per row.
-// Registers: 32 score, D/2 output and D/4 Q-fragment words a thread; ptxas
-// gives 96, 133 and 235 registers at D = 32, 64 and 128, with no spills
-// (chip_smoke.py prints the report), so D = 128 keeps this layout.  At
-// D = 64, 133 registers allow three blocks an SM; capping them at 128 for
-// a fourth block, two row tiles a warp (128-row blocks), and skipping the
-// 16-key steps wholly above a warp's diagonal were each tried on the card
-// and were no faster on the causal main path.
+// read) while tile j is computed, with one __syncthreads per tile;
+// ldmatrix is plain for K, .trans for V.  Shared memory is the Q tile and
+// two K and two V tiles: 45 KB at D = 64.  The causal mask is applied only
+// on the tiles that cross a warp's diagonal or Sk; tiles wholly above the
+// diagonal are never loaded.  Blocks take the q-tiles with the most
+// k-tiles first, so the short ones fill the last wave.  O is written by
+// store_rows, lse once per row.
+// Registers: ptxas gives 96, 133 and 239 at D = 32, 64 and 128, with no
+// spills, so D = 128 keeps this layout.  At D = 64, 133 registers allow
+// three blocks an SM; capping them at 128 for a fourth block, two row
+// tiles a warp (128-row blocks), and skipping the 16-key steps wholly above
+// a warp's diagonal were each tried on the card and were no faster on the
+// causal main path.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -613,13 +512,81 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return reinterpret_cast<const uint32_t&>(v);
 }
 
-// hi = bf16(x), lo = bf16(x - hi) of a pair (x0 in the low half), as
-// split_store does for one value.
+// hi = bf16(x), lo = bf16(x - hi) of a pair (x0 in the low half): the two
+// bf16 terms of an f32 operand (see "bf16: tensor cores").
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   const float2 hf = __bfloat1622float2(h);
   hi = bf16x2_bits(h);
   lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// Two adjacent n8 accumulator tiles (c0, c1) are, element for element, the
+// A fragment of one k16 step: its bf16 hi and lo terms.
+__device__ __forceinline__ void split_frag(const float (&c0)[4], const float (&c1)[4],
+                                           uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_pair(c0[0], c0[1], hi[0], lo[0]);
+  split_pair(c0[2], c0[3], hi[1], lo[1]);
+  split_pair(c1[0], c1[1], hi[2], lo[2]);
+  split_pair(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// The A fragment of k16 step kk of 16 rows of a staged tile (`rows` is the
+// first row).
+template <int D>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16* rows, int kk) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, rows + (lane & 15) * ld_tile<D>() + kk * 16 + (lane >> 4) * 8);
+}
+
+// B fragments for k16 step kk of two n8 tiles whose columns are rows
+// 16*n16 .. 16*n16 + 15 of a staged tile (as K in Q K^T): b[0], b[1] for
+// the first tile, b[2], b[3] for the second.
+template <int D>
+__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const bf16* tile, int n16, int kk) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(b, tile + (n16 * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld_tile<D>() + kk * 16 +
+                 ((lane >> 3) & 1) * 8);
+}
+
+// B fragments for k16 step kk (rows 16*kk ..) of two n8 tiles that are
+// columns 16*n16 .. 16*n16 + 15 of a staged row-major tile (as V in P V),
+// through ldmatrix.trans; same order as ldsm_b.
+template <int D>
+__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4], const bf16* tile, int kk, int n16) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(b, tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld_tile<D>() +
+                       n16 * 16 + (lane >> 4) * 8);
+}
+
+// Write a warp's 16 x D accumulator tile as bf16 to rows row0 .. row0 + 15
+// of a (rows, D) matrix, those below `rows`; the lane's rows qr and qr + 8
+// are scaled by f0 and f1.  Staged in `stage`, 16 rows of a tile that only
+// this warp reads, then stored in 16-byte words.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 8][4],
+                                           float f0, float f1, bf16* stage, int row0, int rows) {
+  constexpr int LD = ld_tile<D>();
+  constexpr int DT = D / 8;
+  const int lane = threadIdx.x & 31, qr = lane >> 2, qc = lane & 3;
+  __syncwarp();  // the warp's last reads of `stage` are done
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int c = dt * 8 + 2 * qc;
+    *reinterpret_cast<__nv_bfloat162*>(stage + qr * LD + c) =
+        __floats2bfloat162_rn(acc[dt][0] * f0, acc[dt][1] * f0);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (qr + 8) * LD + c) =
+        __floats2bfloat162_rn(acc[dt][2] * f1, acc[dt][3] * f1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * DT / 32; ++i) {
+    const int idx = lane + 32 * i;
+    const int r = idx / DT, c = idx % DT;
+    if (row0 + r < rows)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
+  }
 }
 
 // Rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared memory
@@ -655,8 +622,6 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KT = D / 16;     // k16 steps of Q K^T
   constexpr int NT = kTile / 8;  // n8 tiles of a score row block
   constexpr int DT = D / 8;      // n8 tiles of an output row block
-  constexpr float kLog2e = 1.4426950408889634f;
-  constexpr float kLn2 = 0.6931471805599453f;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + kTile * LD;      // two buffers
@@ -686,13 +651,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t qf[KT][4];
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk)
-    ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    ldsm_a<D>(qf[kk], Qs + warp * 16 * LD, kk);
 
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  float acc[DT][4] = {};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows qr and qr + 8, log2 units
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kTile;
@@ -709,18 +670,13 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* Vb = Vs + (j & 1) * kTile * LD;
 
     // S = Q K^T; one ldmatrix.x4 gives the B fragments of two n8 tiles
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    float s[NT][4] = {};
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk)
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
-        ldsm_x4(b, Kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                       ((lane >> 3) & 1) * 8);
+        ldsm_b<D>(b, Kb, np, kk);
         mma_16816(s[2 * np], qf[kk], b[0], b[1]);
         mma_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
       }
@@ -786,15 +742,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       uint32_t ph[4], pl[4];
-      split_pair(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_pair(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      split_frag(s[2 * kk], s[2 * kk + 1], ph, pl);
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t b[4];
-        ldsm_x4_trans(b, Vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
-                             (lane >> 4) * 8);
+        ldsm_bt<D>(b, Vb, kk, dp);
         mma_16816(acc[2 * dp], ph, b[0], b[1]);
         mma_16816(acc[2 * dp], pl, b[0], b[1]);
         mma_16816(acc[2 * dp + 1], ph, b[2], b[3]);
@@ -803,29 +755,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // epilogue: O / l as bf16 through the warp's rows of the Q tile (only this
-  // warp read them), then 16-byte stores of whole rows
+  // epilogue: O / l through the warp's rows of the Q tile (only it read them)
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) inv[i] = l[i] == 0.f ? 0.f : 1.f / l[i];
-  bf16* stage = Qs + warp * 16 * LD;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int c = dt * 8 + 2 * qc;
-    *reinterpret_cast<__nv_bfloat162*>(stage + qr * LD + c) =
-        __floats2bfloat162_rn(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(stage + (qr + 8) * LD + c) =
-        __floats2bfloat162_rn(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 16 * DT / 32; ++i) {
-    const int idx = lane + 32 * i;
-    const int r = idx / DT, c = idx % DT;
-    if (w0 + r < sq)
-      *reinterpret_cast<uint4*>(o + (size_t)(w0 + r) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
-  }
+  store_rows<D>(o, acc, inv[0], inv[1], Qs + warp * 16 * LD, w0, sq);
   if (qc == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -835,36 +769,225 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------ bf16 backward: registers
+//
+// K4 (dK, dV) and K5 (dQ) on the forward's building blocks.  A block owns
+// one 64-row output tile and sweeps the other side's tiles, which are
+// double-buffered with cp.async (one __syncthreads per tile); a warp owns
+// 16 output rows and keeps their accumulators, score tiles and
+// probabilities in registers.  p = exp2(s * scale * log2(e) - lse *
+// log2(e)) for the lse of the forward, and dS = p * (dP - (delta - g_lse))
+// * scale, are formed in the score accumulators, and become bf16 hi + lo
+// A fragments there (split_frag), so no score tile touches shared memory.
+// A masked entry gets p = 0 by a select, never by a product, so an exp2
+// that overflows on it cannot give NaN; the mask is applied only on tiles
+// that cross a warp's diagonal or the ragged end.  The outputs are staged
+// as bf16 in the warp's own rows of a tile that only it read, and written
+// in 16-byte words (store_rows).
+//
+// K5, flash_bwd_dq_mma_kernel: a block per (b*h, q-tile), the q-tiles with
+// the most k-tiles first.  S = Q K^T and dP = dO V^T take K's and V's B
+// fragments through plain ldmatrix, dQ += dS K takes K's through
+// ldmatrix.trans.  The lse and delta - g_lse of the lane's two rows stay in
+// registers.
+//
+// K4, flash_bwd_dkdv_mma_kernel: a block per (b*h, k-tile).  A causal
+// sweep starts at the q-tile of the block's first key, so the blocks are
+// ordered by k0, the most q-tiles first.  It works on transposed tiles,
+// keys in rows, so that every product's A operand comes from registers:
+// S^T = K Q^T and dP^T = V dO^T (Q's and dO's B fragments through plain
+// ldmatrix), then dV += P^T dO and dK += dS^T Q (their B fragments through
+// ldmatrix.trans of the row-major tiles).  An accumulator element holds
+// one q column, whose lse and delta - g_lse are staged per q-tile in
+// shared memory beside Q and dO.
+//
+// Registers.  K5 reads the A fragments of its rows (Q, dO) from the staged
+// tiles, which stay in shared memory, at each k16 step: holding them in
+// registers was no faster.  K4's layout is two template parameters: kHold,
+// whether a warp loads the A fragments of its keys (K, V) once and holds
+// them or reads them at each k16 step, and QC, the q columns of a pass over
+// a q-tile.  At D <= 64 it holds them and makes one pass; at D = 128 that
+// would not fit in 255 registers beside the D-wide accumulators, so it
+// reads them and makes two 32-column passes, which halves its S^T and dP^T
+// tiles.  The ptxas report (chip_smoke.py prints it) shows no spills;
+// tools/flash_bwd_layouts.py times K4's four layouts at D = 64.
+
+// s += a B1 and d += ao B2 for k16 step kk of NT n8 tiles whose columns
+// are rows of the staged tiles t1 and t2 (B fragments through ldmatrix).
+template <int D, int NT>
+__device__ __forceinline__ void mma_rows_pair(float (&s)[NT][4], float (&d)[NT][4],
+                                              const uint32_t (&a)[4], const uint32_t (&ao)[4],
+                                              const bf16* t1, const bf16* t2, int kk) {
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t b[4];
+    ldsm_b<D>(b, t1, np, kk);
+    mma_16816(s[2 * np], a, b[0], b[1]);
+    mma_16816(s[2 * np + 1], a, b[2], b[3]);
+    ldsm_b<D>(b, t2, np, kk);
+    mma_16816(d[2 * np], ao, b[0], b[1]);
+    mma_16816(d[2 * np + 1], ao, b[2], b[3]);
+  }
+}
+
+// What thread t stages for the q-tile at q0: the lse of row q0 + t in log2
+// units (t < 64), or delta - g_lse of row q0 + t - 64; zero past Sq.
+__device__ __forceinline__ float row_value(const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           const float* __restrict__ g_lse, int q0, int sq) {
+  static_assert(kTcThreads == 2 * kTile, "one value a thread");
+  const int r = q0 + (threadIdx.x & (kTile - 1));
+  if (r >= sq) return 0.f;
+  return threadIdx.x < kTile ? lse[r] * kLog2e : delta[r] - (g_lse ? g_lse[r] : 0.f);
+}
+
 template <int D>
-constexpr size_t dkdv_tc_smem() {
-  return 4 * tile_bytes<D>() + 2 * kScoreBytes + 4 * kProbBytes + 2 * kTile * sizeof(float);
+constexpr size_t dq_mma_smem() {
+  return 6 * tile_bytes<D>();  // Q, dO, two K and two V tiles
 }
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const float* __restrict__ g_lse, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int n_ktiles, int sq, int sk, float scale,
-                         bool causal) {
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const float* __restrict__ g_lse, bf16* __restrict__ dq, int n_bh,
+                        int n_qtiles, int sq, int sk, float scale, bool causal) {
+  constexpr int LD = ld_tile<D>();
+  constexpr int KT = D / 16;     // k16 steps of Q K^T and dO V^T
+  constexpr int NT = kTile / 8;  // n8 tiles of a score row block
+  constexpr int DT = D / 8;      // n8 tiles of an output row block
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + kTile * LD;
+  bf16* Ks = dOs + kTile * LD;     // two buffers
+  bf16* Vs = Ks + 2 * kTile * LD;  // two buffers
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* p = smem_raw;
-  bf16* Ks = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  bf16* Vs = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  bf16* Qs = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  bf16* dOs = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  float* St = reinterpret_cast<float*>(p) + warp * 16 * kSLd;  p += kScoreBytes;
-  float* dPt = reinterpret_cast<float*>(p) + warp * 16 * kSLd;  p += kScoreBytes;
-  bf16* Phi = reinterpret_cast<bf16*>(p) + warp * 16 * kBLd;  p += kProbBytes;
-  bf16* Plo = reinterpret_cast<bf16*>(p) + warp * 16 * kBLd;  p += kProbBytes;
-  bf16* dShi = reinterpret_cast<bf16*>(p) + warp * 16 * kBLd;  p += kProbBytes;
-  bf16* dSlo = reinterpret_cast<bf16*>(p) + warp * 16 * kBLd;  p += kProbBytes;
-  float* lse_s = reinterpret_cast<float*>(p);
-  float* dd_s = lse_s + kTile;
-  const int bh = blockIdx.x / n_ktiles;
-  const int k0 = (blockIdx.x % n_ktiles) * kTile;
+  const int qr = lane >> 2, qc = lane & 3;  // the lane's row and column pair in a quad
+  // the q-tiles with the most k-tiles first
+  const int bh = blockIdx.x % n_bh;
+  const int q0 = (n_qtiles - 1 - blockIdx.x / n_bh) * kTile;
+  q += (size_t)bh * sq * D;
+  dout += (size_t)bh * sq * D;
+  dq += (size_t)bh * sq * D;
+  k += (size_t)bh * sk * D;
+  v += (size_t)bh * sk * D;
+  lse += (size_t)bh * sq;
+  delta += (size_t)bh * sq;
+  if (g_lse) g_lse += (size_t)bh * sq;
+  const int w0 = q0 + warp * 16;  // the warp's first row; the lane's are w0 + qr and + 8
+  const int k_end = causal ? min(sk, q0 + kTile) : sk;
+  const int nk = (k_end + kTile - 1) / kTile;
+  const float scale2 = scale * kLog2e;
+
+  load_tile_async<D>(Qs, q, q0, sq);
+  load_tile_async<D>(dOs, dout, q0, sq);
+  if (nk > 0) {
+    load_tile_async<D>(Ks, k, 0, sk);
+    load_tile_async<D>(Vs, v, 0, sk);
+  }
+  float lse2[2], dd[2];  // rows w0 + qr and + 8: lse in log2 units, delta - g_lse
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w0 + qr + 8 * i;
+    lse2[i] = r < sq ? lse[r] * kLog2e : 0.f;
+    dd[i] = r < sq ? delta[r] - (g_lse ? g_lse[r] : 0.f) : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  bf16* Qw = Qs + warp * 16 * LD;  // the warp's rows
+  const bf16* dOw = dOs + warp * 16 * LD;
+
+  float acc[DT][4] = {};
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kTile;
+    if (j > 0) {
+      cp_async_wait_all();  // this thread's copies of tile j have landed
+      __syncthreads();      // everyone's have, and tile j - 1 is no longer read
+    }
+    if (j + 1 < nk) {
+      const int nb = (j + 1) & 1;
+      load_tile_async<D>(Ks + nb * kTile * LD, k, k0 + kTile, sk);
+      load_tile_async<D>(Vs + nb * kTile * LD, v, k0 + kTile, sk);
+    }
+    const bf16* Kb = Ks + (j & 1) * kTile * LD;
+    const bf16* Vb = Vs + (j & 1) * kTile * LD;
+
+    // S = Q K^T and dP = dO V^T
+    float s[NT][4] = {}, dp[NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t a[4], ao[4];
+      ldsm_a<D>(a, Qw, kk);
+      ldsm_a<D>(ao, dOw, kk);
+      mma_rows_pair<D>(s, dp, a, ao, Kb, Vb, kk);
+    }
+    // p and dS; element e of tile nt: row w0 + qr + 8*(e >> 1), key
+    // k0 + 8*nt + 2*qc + (e & 1)
+    const bool edge = k0 + kTile > sk || (causal && k0 + kTile - 1 > w0);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[nt][e], scale2, -lse2[e >> 1]));
+        if (edge) {
+          const int kj = k0 + nt * 8 + 2 * qc + (e & 1);
+          const int qi = w0 + qr + (e >> 1) * 8;
+          if (kj >= sk || (causal && kj > qi)) p = 0.f;
+        }
+        s[nt][e] = p * (dp[nt][e] - dd[e >> 1]) * scale;
+      }
+
+    // dQ += dS K: dS as hi + lo A fragments, K's B fragments through
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t dh[4], dl[4];
+      split_frag(s[2 * kk], s[2 * kk + 1], dh, dl);
+#pragma unroll
+      for (int n16 = 0; n16 < DT / 2; ++n16) {
+        uint32_t b[4];
+        ldsm_bt<D>(b, Kb, kk, n16);
+        mma_16816(acc[2 * n16], dh, b[0], b[1]);
+        mma_16816(acc[2 * n16], dl, b[0], b[1]);
+        mma_16816(acc[2 * n16 + 1], dh, b[2], b[3]);
+        mma_16816(acc[2 * n16 + 1], dl, b[2], b[3]);
+      }
+    }
+  }
+  store_rows<D>(dq, acc, 1.f, 1.f, Qw, w0, sq);
+}
+
+template <int D>
+constexpr size_t dkdv_mma_smem() {
+  // K, V, two Q and two dO tiles; lse and delta - g_lse rows of two q-tiles
+  return 6 * tile_bytes<D>() + 2 * 2 * kTile * sizeof(float);
+}
+
+template <int D, bool kHold = (D <= 64), int QC = kHold ? kTile : kTile / 2>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const float* __restrict__ g_lse, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int n_bh, int sq, int sk, float scale,
+                          bool causal) {
+  constexpr int LD = ld_tile<D>();
+  constexpr int KT = D / 16;  // k16 steps of K Q^T and V dO^T
+  constexpr int NT = QC / 8;  // n8 tiles of a pass's score row block (QC q columns)
+  constexpr int DT = D / 8;   // n8 tiles of an output row block
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kTile * LD;
+  bf16* Qs = Vs + kTile * LD;       // two buffers
+  bf16* dOs = Qs + 2 * kTile * LD;  // two buffers
+  // buffer b: lse in log2 units at rows_s[128 b ..], delta - g_lse at [128 b + 64 ..]
+  float* rows_s = reinterpret_cast<float*>(dOs + 2 * kTile * LD);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qr = lane >> 2, qc = lane & 3;
+  // k-tiles in order of k0: for causal, the most q-tiles first
+  const int bh = blockIdx.x % n_bh;
+  const int k0 = blockIdx.x / n_bh * kTile;
   q += (size_t)bh * sq * D;
   dout += (size_t)bh * sq * D;
   k += (size_t)bh * sk * D;
@@ -874,114 +997,114 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   lse += (size_t)bh * sq;
   delta += (size_t)bh * sq;
   if (g_lse) g_lse += (size_t)bh * sq;
+  const int kw0 = k0 + warp * 16;  // the warp's first key; the lane's are kw0 + qr and + 8
+  const int q_begin = causal ? k0 : 0;  // q rows before k0 see none of the tile's keys
+  const int nq = q_begin < sq ? (sq - q_begin + kTile - 1) / kTile : 0;
+  const float scale2 = scale * kLog2e;
 
-  load_tile_bf16<D>(Ks, k, k0, sk);
-  load_tile_bf16<D>(Vs, v, k0, sk);
-  FragC acc_dk[D / 16], acc_dv[D / 16];
+  load_tile_async<D>(Ks, k, k0, sk);
+  load_tile_async<D>(Vs, v, k0, sk);
+  if (nq > 0) {
+    load_tile_async<D>(Qs, q, q_begin, sq);
+    load_tile_async<D>(dOs, dout, q_begin, sq);
+    rows_s[threadIdx.x] = row_value(lse, delta, g_lse, q_begin, sq);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  bf16* Kw = Ks + warp * 16 * LD;  // the warp's keys
+  bf16* Vw = Vs + warp * 16 * LD;
+  uint32_t kf[kHold ? KT : 1][4], vf[kHold ? KT : 1][4];
+  if constexpr (kHold) {
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wm::fill_fragment(acc_dk[n], 0.f);
-    wm::fill_fragment(acc_dv[n], 0.f);
-  }
-  // this lane's key row of the warp's 16, and its half of the query columns
-  const int r = lane >> 1, h = lane & 1;
-  const int kj = k0 + warp * 16 + r;
-  for (int q0 = causal ? k0 : 0; q0 < sq; q0 += kTile) {
-    __syncthreads();
-    load_tile_bf16<D>(Qs, q, q0, sq);
-    load_tile_bf16<D>(dOs, dout, q0, sq);
-    load_rows(lse_s, dd_s, lse, delta, g_lse, q0, sq);
-    __syncthreads();
-    // transposed tiles: S^T = K Q^T and dP^T = V dO^T, keys in rows
-    rows_dot_tile<D>(St, Ks + warp * 16 * ld_tile<D>(), Qs);
-    rows_dot_tile<D>(dPt, Vs + warp * 16 * ld_tile<D>(), dOs);
-    __syncwarp();
-#pragma unroll 4
-    for (int j = 0; j < kTile / 2; ++j) {
-      const int c = 2 * j + h;
-      const float pj = visible(q0 + c, kj, sq, sk, causal)
-                           ? expf(St[r * kSLd + c] * scale - lse_s[c]) : 0.f;
-      const float ds = pj * (dPt[r * kSLd + c] - dd_s[c]) * scale;
-      split_store(Phi + r * kBLd + c, Plo + r * kBLd + c, pj);
-      split_store(dShi + r * kBLd + c, dSlo + r * kBLd + c, ds);
+    for (int kk = 0; kk < KT; ++kk) {
+      ldsm_a<D>(kf[kk], Kw, kk);
+      ldsm_a<D>(vf[kk], Vw, kk);
     }
-    __syncwarp();
-    acc_split_dot_tile<D>(acc_dv, Phi, Plo, dOs);   // dV += P^T dO
-    acc_split_dot_tile<D>(acc_dk, dShi, dSlo, Qs);  // dK += dS^T Q
   }
-  __syncthreads();  // Q and dO tiles are free: stage the outputs there
-  float* stage = reinterpret_cast<float*>(Qs) + warp * 16 * (D + 4);
-  write_rows<D>(dk, acc_dk, stage, k0 + warp * 16, sk);
-  write_rows<D>(dv, acc_dv, stage, k0 + warp * 16, sk);
-}
 
-template <int D>
-constexpr size_t dq_tc_smem() {
-  return 4 * tile_bytes<D>() + 2 * kScoreBytes + 2 * kProbBytes + 2 * kTile * sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       const float* __restrict__ g_lse, bf16* __restrict__ dq, int n_qtiles,
-                       int sq, int sk, float scale, bool causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* p = smem_raw;
-  bf16* Qs = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  bf16* dOs = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  bf16* Ks = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  bf16* Vs = reinterpret_cast<bf16*>(p);  p += tile_bytes<D>();
-  float* Sw = reinterpret_cast<float*>(p) + warp * 16 * kSLd;  p += kScoreBytes;
-  float* dPw = reinterpret_cast<float*>(p) + warp * 16 * kSLd;  p += kScoreBytes;
-  bf16* dShi = reinterpret_cast<bf16*>(p) + warp * 16 * kBLd;  p += kProbBytes;
-  bf16* dSlo = reinterpret_cast<bf16*>(p) + warp * 16 * kBLd;  p += kProbBytes;
-  float* lse_s = reinterpret_cast<float*>(p);
-  float* dd_s = lse_s + kTile;
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kTile;
-  q += (size_t)bh * sq * D;
-  dout += (size_t)bh * sq * D;
-  dq += (size_t)bh * sq * D;
-  k += (size_t)bh * sk * D;
-  v += (size_t)bh * sk * D;
-  lse += (size_t)bh * sq;
-  delta += (size_t)bh * sq;
-  if (g_lse) g_lse += (size_t)bh * sq;
-
-  load_tile_bf16<D>(Qs, q, q0, sq);
-  load_tile_bf16<D>(dOs, dout, q0, sq);
-  load_rows(lse_s, dd_s, lse, delta, g_lse, q0, sq);
-  FragC acc[D / 16];
+  float acc_dk[DT][4] = {}, acc_dv[DT][4] = {};
+  for (int i = 0; i < nq; ++i) {
+    const int q0 = q_begin + i * kTile;
+    if (i > 0) {
+      cp_async_wait_all();  // this thread's copies of q-tile i have landed
+      __syncthreads();      // everyone's have, and q-tile i - 1 is no longer read
+    }
+    float next_row = 0.f;
+    if (i + 1 < nq) {
+      const int nb = (i + 1) & 1;
+      load_tile_async<D>(Qs + nb * kTile * LD, q, q0 + kTile, sq);
+      load_tile_async<D>(dOs + nb * kTile * LD, dout, q0 + kTile, sq);
+      next_row = row_value(lse, delta, g_lse, q0 + kTile, sq);
+    }
+    const bf16* Qb = Qs + (i & 1) * kTile * LD;
+    const bf16* dOb = dOs + (i & 1) * kTile * LD;
+    const float* lse_b = rows_s + (i & 1) * 2 * kTile;
+    const float* dd_b = lse_b + kTile;
+    const bool edge = q0 + kTile > sq || (causal && kw0 + 15 > q0);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += QC) {
+      // S^T = K Q^T and dP^T = V dO^T over q columns c0 .. c0 + QC - 1
+      float st[NT][4] = {}, dpt[NT][4] = {};
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wm::fill_fragment(acc[n], 0.f);
-  const int r = lane >> 1, h = lane & 1;
-  const int rr = warp * 16 + r;  // this lane's row of the block's tile
-  const int k_end = causal ? min(sk, q0 + kTile) : sk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile_bf16<D>(Ks, k, k0, sk);
-    load_tile_bf16<D>(Vs, v, k0, sk);
-    __syncthreads();
-    rows_dot_tile<D>(Sw, Qs + warp * 16 * ld_tile<D>(), Ks);
-    rows_dot_tile<D>(dPw, dOs + warp * 16 * ld_tile<D>(), Vs);
-    __syncwarp();
-#pragma unroll 4
-    for (int j = 0; j < kTile / 2; ++j) {
-      const int c = 2 * j + h;
-      const float pj = visible(q0 + rr, k0 + c, sq, sk, causal)
-                           ? expf(Sw[r * kSLd + c] * scale - lse_s[rr]) : 0.f;
-      split_store(dShi + r * kBLd + c, dSlo + r * kBLd + c,
-                  pj * (dPw[r * kSLd + c] - dd_s[rr]) * scale);
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t a[4], av[4];
+        if constexpr (kHold) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a[j] = kf[kk][j], av[j] = vf[kk][j];
+        } else {
+          ldsm_a<D>(a, Kw, kk);
+          ldsm_a<D>(av, Vw, kk);
+        }
+        mma_rows_pair<D>(st, dpt, a, av, Qb + c0 * LD, dOb + c0 * LD, kk);
+      }
+      // P^T and dS^T; element e of tile nt: key kw0 + qr + 8*(e >> 1),
+      // q column q0 + c + (e & 1) with c = c0 + 8*nt + 2*qc
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = c0 + nt * 8 + 2 * qc;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_b + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dd_b + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(st[nt][e], scale2, -((e & 1) ? l2.y : l2.x)));
+          if (edge) {
+            const int qi = q0 + c + (e & 1);
+            const int kj = kw0 + qr + (e >> 1) * 8;
+            if (qi >= sq || (causal && kj > qi)) p = 0.f;
+          }
+          dpt[nt][e] = p * (dpt[nt][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+          st[nt][e] = p;
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T as hi + lo A
+      // fragments, dO's and Q's B fragments through ldmatrix.trans.  The
+      // two products share a loop: in two loops ptxas spills at D = 128.
+#pragma unroll
+      for (int kk = 0; kk < QC / 16; ++kk) {
+        uint32_t ph[4], pl[4], sh[4], sl[4];
+        split_frag(st[2 * kk], st[2 * kk + 1], ph, pl);
+        split_frag(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
+#pragma unroll
+        for (int n16 = 0; n16 < DT / 2; ++n16) {
+          uint32_t b[4];
+          ldsm_bt<D>(b, dOb + c0 * LD, kk, n16);
+          mma_16816(acc_dv[2 * n16], ph, b[0], b[1]);
+          mma_16816(acc_dv[2 * n16], pl, b[0], b[1]);
+          mma_16816(acc_dv[2 * n16 + 1], ph, b[2], b[3]);
+          mma_16816(acc_dv[2 * n16 + 1], pl, b[2], b[3]);
+          ldsm_bt<D>(b, Qb + c0 * LD, kk, n16);
+          mma_16816(acc_dk[2 * n16], sh, b[0], b[1]);
+          mma_16816(acc_dk[2 * n16], sl, b[0], b[1]);
+          mma_16816(acc_dk[2 * n16 + 1], sh, b[2], b[3]);
+          mma_16816(acc_dk[2 * n16 + 1], sl, b[2], b[3]);
+        }
+      }
     }
-    __syncwarp();
-    acc_split_dot_tile<D>(acc, dShi, dSlo, Ks);  // dQ += dS K
+    // q-tile i - 1's rows buffer is free since the __syncthreads above
+    if (i + 1 < nq) rows_s[((i + 1) & 1) * 2 * kTile + threadIdx.x] = next_row;
   }
-  __syncthreads();  // K and V tiles are free: stage the output there
-  write_rows<D>(dq, acc, reinterpret_cast<float*>(Ks) + warp * 16 * (D + 4), q0 + warp * 16,
-                sq);
+  store_rows<D>(dk, acc_dk, 1.f, 1.f, Kw, kw0, sk);
+  store_rows<D>(dv, acc_dv, 1.f, 1.f, Vw, kw0, sk);
 }
 
 // ------------------------------------------------------------------ launches
@@ -1005,6 +1128,16 @@ cudaError_t launch(K kernel, int blocks, int threads, size_t smem, cudaStream_t 
   return cudaGetLastError();
 }
 
+// Launch a bf16 tensor-core kernel, with a hint to give the SM the most
+// shared memory it can, so more blocks fit.
+template <typename K, typename... Args>
+cudaError_t launch_tc(K kernel, int blocks, size_t smem, cudaStream_t s, Args... args) {
+  const cudaError_t carve = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared);
+  if (carve != cudaSuccess) return carve;
+  return launch(kernel, blocks, kTcThreads, smem, s, args...);
+}
+
 inline int tiles(int n) { return (n + kTile - 1) / kTile; }
 
 // dtype 0: float32 on the CUDA cores; dtype 1: bfloat16 on the tensor cores.
@@ -1013,16 +1146,10 @@ cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v, v
                        float* lse, int bh, int sq, int sk, float scale, bool causal,
                        cudaStream_t s) {
   const int nq = tiles(sq);
-  if (dtype == 1) {
-    // a hint: the most shared memory the SM can give, so more blocks fit
-    const cudaError_t carve = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
-        (int)cudaSharedmemCarveoutMaxShared);
-    if (carve != cudaSuccess) return carve;
-    return launch(flash_fwd_mma_kernel<D>, bh * nq, kTcThreads, fwd_mma_smem<D>(), s,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, bh, nq, sq,
-                  sk, scale, causal);
-  }
+  if (dtype == 1)
+    return launch_tc(flash_fwd_mma_kernel<D>, bh * nq, fwd_mma_smem<D>(), s, (const bf16*)q,
+                     (const bf16*)k, (const bf16*)v, (bf16*)o, lse, bh, nq, sq, sk, scale,
+                     causal);
   return launch(flash_fwd_kernel<D>, bh * nq, kThreads, fwd_smem<D>(), s,
                 (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, nq, sq,
                 sk, scale, causal);
@@ -1035,9 +1162,9 @@ cudaError_t launch_dkdv(int dtype, const void* q, const void* k, const void* v,
                         float scale, bool causal, cudaStream_t s) {
   const int nk = tiles(sk);
   if (dtype == 1)
-    return launch(flash_bwd_dkdv_tc_kernel<D>, bh * nk, kTcThreads, dkdv_tc_smem<D>(), s,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-                  delta, g_lse, (bf16*)dk, (bf16*)dv, nk, sq, sk, scale, causal);
+    return launch_tc(flash_bwd_dkdv_mma_kernel<D>, bh * nk, dkdv_mma_smem<D>(), s,
+                     (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+                     delta, g_lse, (bf16*)dk, (bf16*)dv, bh, sq, sk, scale, causal);
   return launch(flash_bwd_dkdv_kernel<D>, bh * nk, kThreads, dkdv_smem<D>(), s,
                 (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse,
                 delta, g_lse, (float*)dk, (float*)dv, nk, sq, sk, scale, causal);
@@ -1050,9 +1177,9 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
                       bool causal, cudaStream_t s) {
   const int nq = tiles(sq);
   if (dtype == 1)
-    return launch(flash_bwd_dq_tc_kernel<D>, bh * nq, kTcThreads, dq_tc_smem<D>(), s,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-                  delta, g_lse, (bf16*)dq, nq, sq, sk, scale, causal);
+    return launch_tc(flash_bwd_dq_mma_kernel<D>, bh * nq, dq_mma_smem<D>(), s,
+                     (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+                     delta, g_lse, (bf16*)dq, bh, nq, sq, sk, scale, causal);
   return launch(flash_bwd_dq_kernel<D>, bh * nq, kThreads, dq_smem<D>(), s,
                 (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse,
                 delta, g_lse, (float*)dq, nq, sq, sk, scale, causal);

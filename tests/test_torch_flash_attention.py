@@ -6,8 +6,9 @@ kernels run in interpret mode off a TPU (flash_attention.py:33-34 there).
 Both see the same numpy inputs, (2, 2, S, 64) float32, with the JAX kernel
 at 64-row blocks: S = 128 is a multiple of the block, S = 96 is not (the
 JAX wrapper then falls back to gcd blocks of 32, the port's kernels mask a
-ragged tile).  Tolerance rtol 1e-4, atol 1e-5: the same f32 formulas,
-summed in different orders.
+ragged tile); with Sq != Sk (128/192 and 192/128) both mask top-left.
+Tolerance rtol 1e-4, atol 1e-5: the same f32 formulas, summed in
+different orders.
 
 The lse cotangent is held against ``jax.grad`` through
 ``flexflow_tpu.parallel.sequence.blockwise_attention``, never against the
@@ -52,10 +53,7 @@ def _port(q, k, v, causal, ct, ct_lse=None):
             *(t.grad.numpy() for t in (tq, tk, tv)))
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("seq", [128, 96])
-def test_flash_matches_the_jax_kernel(seq, causal):
-    q, k, v, ct, _ = _inputs(seq, seed=seq + causal)
+def _assert_matches_the_jax_kernel(q, k, v, ct, causal):
     jq, jk, jv, jct = map(jnp.asarray, (q, k, v, ct))
     jo, jlse = jax_flash(jq, jk, jv, causal=causal, block_q=BLOCK, block_k=BLOCK,
                          return_lse=True)
@@ -70,6 +68,20 @@ def test_flash_matches_the_jax_kernel(seq, causal):
     np.testing.assert_allclose(lse, np.asarray(jlse), **TOL)
     for got, ref, name in zip((dq, dk, dv), jgrads, "qkv"):
         np.testing.assert_allclose(got, np.asarray(ref), **TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [128, 96])
+def test_flash_matches_the_jax_kernel(seq, causal):
+    _assert_matches_the_jax_kernel(*_inputs(seq, seed=seq + causal)[:4], causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(128, 192), (192, 128)])
+def test_flash_matches_the_jax_kernel_when_sq_differs_from_sk(sq, sk, causal):
+    """Both mask top-left (q_idx >= k_idx) when Sq != Sk, so ROADMAP C2
+    (the references' bottom-right mask) does not apply."""
+    _assert_matches_the_jax_kernel(*_inputs(sq, seed=sq + sk + causal, sk=sk)[:4], causal)
 
 
 @pytest.mark.parametrize("causal", [False, True])
