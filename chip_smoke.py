@@ -28,18 +28,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
   5. path parity: f32 AlexNet at batch 8, two steps with the fused kernels
      and two with the plain update; an f32 transformer (batch 2, S 128, 2
      layers), two steps through the flash kernels and two through their
-     plain versions; every weight compared.
+     plain versions; every weight compared;
+  6. SOAP: an NCCL process group of one rank per visible card (this
+     script started again as each helper rank; world size 1 on a machine
+     of one card), and on its mesh (DTensor parameters, ops on local
+     shards) full-width AlexNet under strategies/alexnet_16.pb legalized
+     onto the mesh (SGD momentum 0.9, then Adam) and the full-width
+     transformer under data parallelism, each
+     2 warm-up and 5 timed steps beside the single-device path in the same
+     run, with the kernels' launches checked per step (1 K1; 16 K2 with
+     Adam; 4 each of K3-K5), the device busy share of both paths, and the
+     weights after 2 f32 steps held against the single-device path's
+     (the single-device runs on the lead rank's card).
 The last lines are the card's name and power limit, one JSON object with
-a row per kernel, and {"ok": true, "device": {...}}.  Needs one card; it
-imports nothing of jax or of the JAX package.
+a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
+(phase 6 uses every visible card); it imports nothing of jax or of the
+JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
 import math
+import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -76,6 +91,26 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 # f32 transformer, kernel path vs plain path after 2 SGD steps: the
 # gradients differ only by the attention kernels' summation order.
 LM_PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
+# SOAP path vs single-device path after 2 f32 steps, one rank: the same
+# kernels on the same tensors (DTensor adds only wrapping), so the same
+# rounded operations, held at the fused-update parity tolerance.
+SOAP_TOL = PARITY_TOL
+# Over several cards the gradients' sums over ranks are taken in another
+# order than one card's: the transformer parity tolerance of phase 5.
+SOAP_MULTI_TOL = LM_PARITY_TOL
+# Adam moves each weight by about alpha * 0.1 / sqrt(0.001) = 3.16 alpha
+# a step whatever its gradient's size, so a gradient element near zero
+# whose sign the other summation order flips can move the other way.  Four
+# H100s read max |dw| 3.04e-5 = 0.3 alpha after 2 steps; atol 2 alpha sits
+# under the 3.16 alpha by which one skipped update moves a weight.
+SOAP_MULTI_ADAM_TOL = dict(rtol=1e-4, atol=2 * ADAM_ALPHA)
+SOAP_HELPER = "FF_CHIP_SMOKE_SOAP_HELPER"  # set in the helper ranks' environment
+# A rank that waits this long in the rendezvous or a collective fails the
+# run instead of holding it (the lead rank's single-device runs, which the
+# helpers wait through, take seconds).
+SOAP_TIMEOUT = datetime.timedelta(seconds=300)
+ALEXNET_STRATEGY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "strategies",
+                                "alexnet_16.pb")
 
 
 def log(*a):
@@ -335,7 +370,8 @@ def launch_diagnostics(fo, leaf_counts, biggest):
 
 def profile_steps(model, label, step_ms, steps=3):
     """Device time by kernel family over a few steady steps of a main path's
-    model, and its share of the unprofiled step time ``step_ms``."""
+    model, and its share of the unprofiled step time ``step_ms``; returns
+    (device ms per step, busy share in %)."""
     for _ in range(2):
         model.train_iteration()
     model.sync()
@@ -361,6 +397,7 @@ def profile_steps(model, label, step_ms, steps=3):
         log(f"[profile]   {us / steps / 1e3:8.4f} ms/step  {group}")
     for key, us, count in rows[:12]:
         log(f"[profile]   {us / steps / 1e3:8.4f} ms/step {count // steps:4d}x/step  {key[:100]}")
+    return busy / steps / 1e3, 100 * busy / steps / 1e3 / step_ms
 
 
 def kernel_group(name):
@@ -594,15 +631,15 @@ def adam_optimizer(ft):
     return lambda m: ft.AdamOptimizer(m, alpha=ADAM_ALPHA)
 
 
-def main_model(ft, build_alexnet, make_opt, batch=BATCH, **cfg):
+def main_model(ft, build_alexnet, make_opt, batch=BATCH, machine=None, **cfg):
     """AlexNet 3x229x229 through the user-facing entry points, with its
     synthetic batch staged (bf16 and the fused optimizer unless ``cfg``
-    says otherwise)."""
+    says otherwise; the default machine unless ``machine`` is given)."""
     cfg = {"compute_dtype": "bfloat16", "fused_optimizer": True, **cfg}
     model = ft.FFModel(ft.FFConfig(batch_size=batch, **cfg))
     inp, _ = build_alexnet(model, batch)
     model.compile(make_opt(model), ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
-                  [ft.MetricsType.ACCURACY])
+                  [ft.MetricsType.ACCURACY], machine=machine)
     model.init_layers(seed=0)
     ft.DataLoader.synthetic(model, inp, num_samples=batch).next_batch(model)
     return model
@@ -648,6 +685,14 @@ def train_main_path(ft, build_alexnet, fo, make_opt, steps, timed_from):
                 metrics=model.get_metrics().to_string())
 
 
+def kernel_wrappers(fo, fa):
+    """Each kernel's wrapper, which counts its launches."""
+    return {"fused_sgd_update": fo.fused_sgd_update,
+            "fused_adam_update": fo.fused_adam_update,
+            "flash_fwd": fa.flash_fwd, "flash_bwd_dkdv": fa.flash_bwd_dkdv,
+            "flash_bwd_dq": fa.flash_bwd_dq}
+
+
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -658,7 +703,7 @@ def read_launches(kernels):
 
 
 def lm_model(ft, build_transformer, synthetic_lm_batch, make_opt, batch, seq_length,
-             num_layers, embed_dim, num_heads, vocab_size, **cfg):
+             num_layers, embed_dim, num_heads, vocab_size, machine=None, **cfg):
     """The decoder transformer through the user-facing entry points, with a
     synthetic batch (numpy seed 0) staged."""
     cfg = {"compute_dtype": "bfloat16", "fused_optimizer": True, **cfg}
@@ -667,7 +712,7 @@ def lm_model(ft, build_transformer, synthetic_lm_batch, make_opt, batch, seq_len
                                     num_layers=num_layers, embed_dim=embed_dim,
                                     num_heads=num_heads, vocab_size=vocab_size)
     model.compile(make_opt(model), ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
-                  [ft.MetricsType.ACCURACY])
+                  [ft.MetricsType.ACCURACY], machine=machine)
     model.init_layers(seed=0)
     toks, posa, labels = synthetic_lm_batch(batch, seq_length, vocab_size, seed=0)
     model.set_batch({tok: toks, pos: posa}, labels)
@@ -769,21 +814,243 @@ def lm_parity(ft, build_transformer, synthetic_lm_batch, fa, kernels):
     return worst
 
 
+# ------------------------------------------------------------------ phase 6
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def timed_steps(model, kernels, per_step, steps=7, timed_from=2):
+    """``steps`` training steps, the first ``timed_from`` a warm-up, each
+    checked to launch ``per_step`` of every kernel and to give a finite
+    loss; returns the losses and the timed steps' ms/step."""
+    from flexflow_tpu_torch.model import METRIC_KEYS
+
+    loss_sums, t0 = [], None
+    for step in range(steps):
+        if step == timed_from:
+            model.sync()
+            t0 = time.perf_counter()
+        before = read_launches(kernels)
+        model.train_iteration()
+        got = {n: c - before[n] for n, c in read_launches(kernels).items()}
+        check(got == per_step, f"step {step}: launches {got}, expected {per_step}")
+        loss_sums.append(model._metric_acc[METRIC_KEYS.index("loss")].clone())
+    model.sync()
+    seconds = time.perf_counter() - t0
+    # each rank holds its batch part's share of the loss: one sum over the
+    # parts (a collective on a mesh of several devices) gives the loss
+    sums = model._sum_over_parts(torch.stack(loss_sums)).tolist()
+    losses = [b - a for a, b in zip([0.0] + sums[:-1], sums)]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    return dict(losses=losses, ms_per_step=seconds / (steps - timed_from) * 1e3)
+
+
+def soap_vs_single(label, make_model, single_machine, kernels, per_step, samples, tokens=0,
+                   lead=True):
+    """One model trained on the SOAP path and on the single-device path in
+    turns (single, SOAP, SOAP, single), 2 warm-up and 5 timed steps each,
+    then one more model of each path profiled (after the timed runs, so
+    that no timed run follows a profiled one).  Every rank runs the SOAP
+    models; only the lead rank runs the single-device ones, profiles and
+    prints.  Returns the SOAP runs' launches (counts set to 0 just before
+    each SOAP run, read just after)."""
+    soap_launches = dict.fromkeys(kernels, 0)
+    runs = {"single": [], "soap": []}
+    for i, path in enumerate(("single", "soap", "soap", "single", "single", "soap")):
+        if path == "single" and not lead:
+            continue
+        model = make_model(single_machine if path == "single" else None)
+        check((model.machine.mesh is None) == (path == "single"),
+              f"{label}: the {path} path's machine is {model.machine}")
+        if path == "soap":
+            check(all(type(w).__name__ == "DTensor" for ws in model._params.values()
+                      for w in ws.values()), f"{label}: SOAP parameters are not DTensors")
+            reset_launches(kernels)
+        if i < 4:
+            runs[path].append(timed_steps(model, kernels, per_step))
+        elif lead:
+            runs[path].append(profile_steps(model, f"{label}, {path} path",
+                                            runs[path][0]["ms_per_step"]))
+        else:  # the profiled run's steps, in step with the lead rank
+            for _ in range(5):
+                model.train_iteration()
+            model.sync()
+        if path == "soap":
+            soap_launches = {n: soap_launches[n] + c for n, c in read_launches(kernels).items()}
+        if i == 1 and lead:
+            log(f"[soap] {label}: configs on the mesh "
+                f"{ {op.name: op.pc.dims for op in model.ops} }")
+        del model
+        torch.cuda.empty_cache()
+    if not lead:
+        return soap_launches
+    for path, (r1, r2, (device_ms, busy)) in runs.items():
+        ms = [r1["ms_per_step"], r2["ms_per_step"]]
+        rate = (f"{' / '.join(f'{tokens * 1e3 / m:.0f}' for m in ms)} tokens/s" if tokens else
+                f"{' / '.join(f'{samples * 1e3 / m:.1f}' for m in ms)} samples/s")
+        log(f"[soap] {label}, {path:6s} path: {' / '.join(f'{m:.3f}' for m in ms)} ms/step, "
+            f"{rate}, device {device_ms:.3f} ms/step, busy {busy:.1f}% of the first run's "
+            f"step, losses {['%.4f' % x for x in r1['losses']]}")
+    log(f"[soap] {label}: launches per step on the SOAP path {per_step}")
+    return soap_launches
+
+
+def soap_parity(ft, build_alexnet, build_transformer, synthetic_lm_batch, single_machine,
+                lead, tol):
+    """f32 weights after 2 steps, SOAP path vs single-device path: AlexNet
+    at batch 8 (SGD, then Adam) under alexnet_16.pb, and the transformer
+    of ``lm_parity`` under data parallelism.  Every rank trains the SOAP
+    models and gathers their weights; the lead rank compares."""
+    def weights(model):
+        for _ in range(2):
+            model.train_iteration()
+        model.sync()
+        return {(op.name, w.name): torch.from_numpy(model.get_parameter(op.name, w.name))
+                for op in model.ops for w in op.weights}
+
+    shape = dict(batch=2, seq_length=128, num_layers=2, embed_dim=128, num_heads=2,
+                 vocab_size=512)
+    cases = [("AlexNet batch 8 SGD", lambda m: main_model(
+                 ft, build_alexnet, sgd_optimizer(ft), batch=8, machine=m,
+                 compute_dtype="float32", import_strategy_file=ALEXNET_STRATEGY)),
+             ("AlexNet batch 8 Adam", lambda m: main_model(
+                 ft, build_alexnet, adam_optimizer(ft), batch=8, machine=m,
+                 compute_dtype="float32", import_strategy_file=ALEXNET_STRATEGY)),
+             ("transformer batch 2 S 128 2x128 SGD", lambda m: lm_model(
+                 ft, build_transformer, synthetic_lm_batch,
+                 lambda mm: ft.SGDOptimizer(mm, lr=0.01, momentum=0.9), machine=m,
+                 compute_dtype="float32", **shape))]
+    for label, make in cases:
+        soap = weights(make(None))
+        if not lead:
+            continue
+        single = weights(make(single_machine))
+        case_tol = SOAP_MULTI_ADAM_TOL if "Adam" in label and tol is not SOAP_TOL else tol
+        worst = 0.0
+        for key in single:
+            torch.testing.assert_close(soap[key], single[key], **case_tol,
+                                       msg=lambda m: f"{label} {key}: {m}")
+            worst = max(worst, (soap[key] - single[key]).abs().max().item())
+        log(f"[soap] parity f32 {label}, 2 steps, SOAP path vs single-device path: "
+            f"max |dw| {worst:.3e} (tolerance rtol {case_tol['rtol']:g}, atol "
+            f"{case_tol['atol']:g}; cuDNN deterministic, TF32 off)")
+
+
+def soap_runs(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels, dev, lead):
+    """Phase 6's training on this rank: AlexNet (SGD, then Adam) under
+    alexnet_16.pb and the transformer under data parallelism, SOAP beside
+    single-device, then the f32 parity runs.  Returns the SOAP launches."""
+    world = torch.distributed.get_world_size()
+    single_machine = ft.Machine(devices=[dev])
+    # phase 4's settings for the timed runs
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    soap_launches = dict.fromkeys(kernels, 0)
+    none = dict.fromkeys(kernels, 0)
+    for label, make_opt, per_step in (
+            ("AlexNet SGD momentum 0.9", sgd_optimizer(ft), {**none, "fused_sgd_update": 1}),
+            ("AlexNet Adam", adam_optimizer(ft), {**none, "fused_adam_update": 16})):
+        got = soap_vs_single(
+            f"{label} batch {BATCH} bf16 alexnet_16.pb, world {world}",
+            lambda m, make_opt=make_opt: main_model(ft, build_alexnet, make_opt, machine=m,
+                                                    import_strategy_file=ALEXNET_STRATEGY),
+            single_machine, kernels, per_step, BATCH, lead=lead)
+        soap_launches = {n: soap_launches[n] + c for n, c in got.items()}
+    lm_per_step = {**none, "fused_sgd_update": 1, "flash_fwd": LM["num_layers"],
+                   "flash_bwd_dkdv": LM["num_layers"], "flash_bwd_dq": LM["num_layers"]}
+    got = soap_vs_single(
+        f"transformer batch {LM['batch']} S {LM['seq_length']} bf16 data parallel, "
+        f"world {world}",
+        lambda m: lm_model(ft, build_transformer, synthetic_lm_batch,
+                           lambda mm: ft.SGDOptimizer(mm, lr=0.001), machine=m, **LM),
+        single_machine, kernels, lm_per_step, LM["batch"], LM["batch"] * LM["seq_length"],
+        lead=lead)
+    soap_launches = {n: soap_launches[n] + c for n, c in got.items()}
+    check(all(c > 0 for c in soap_launches.values()),
+          f"a kernel never launched on the SOAP path: {soap_launches}")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    soap_parity(ft, build_alexnet, build_transformer, synthetic_lm_batch, single_machine,
+                lead, SOAP_TOL if world == 1 else SOAP_MULTI_TOL)
+    return soap_launches
+
+
+def soap_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels, smi):
+    """Phase 6 on the lead rank: an NCCL group of one rank per visible card
+    (the others are this script started again as helper ranks), the SOAP
+    runs, and the helpers' exit codes.  Returns the lead rank's SOAP
+    launches."""
+    from flexflow_tpu_torch.parallel import distributed as dist
+    from flexflow_tpu_torch.parallel.mesh import mesh_shape
+    from flexflow_tpu_torch.parallel.strategy import load_strategies_from_file
+
+    world, port = torch.cuda.device_count(), free_port()
+    helpers = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__)], stdout=subprocess.DEVNULL,
+        env=dict(os.environ, **{SOAP_HELPER: "1", "RANK": str(r), "LOCAL_RANK": str(r),
+                                "WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
+                                "MASTER_PORT": str(port)}))
+        for r in range(1, world)]
+    try:
+        dev = dist.initialize("cuda", init_method=f"tcp://localhost:{port}",
+                              world_size=world, rank=0, local_rank=0, timeout=SOAP_TIMEOUT)
+        # (no Machine here: a mesh of several dims is made by a collective)
+        log(f"[soap] process group: backend {torch.distributed.get_backend()}, world size "
+            f"{dist.process_count()} (one rank per card; {torch.cuda.device_count()} card(s) "
+            f"visible), mesh dims {mesh_shape(world)}; alexnet_16.pb holds "
+            f"{len(load_strategies_from_file(ALEXNET_STRATEGY))} configs of up to 8 parts, "
+            "legalized onto the mesh")
+        launches = soap_runs(ft, build_alexnet, build_transformer, synthetic_lm_batch,
+                             kernels, dev, lead=True)
+        dist.shutdown()
+        for r, p in enumerate(helpers, 1):
+            check(p.wait(timeout=300) == 0, f"SOAP helper rank {r} exited {p.returncode}")
+    finally:
+        for p in helpers:  # a failed or hung rank must not outlive the script
+            if p.poll() is None:
+                p.kill()
+    log(f"[soap] launches on the lead rank's SOAP path (2 runs each of AlexNet SGD, AlexNet "
+        f"Adam and the transformer, 7 steps a run, and a profiled run of 5 each): "
+        f"{launches}; card {smi}")
+    return launches
+
+
+def soap_helper():
+    """A helper rank of phase 6 (rank, world size and rendezvous from the
+    environment the lead rank set): the same SOAP runs, printing nothing."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import fused_optimizer as fo
+    from flexflow_tpu_torch.models.alexnet import build_alexnet
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dist.initialize("cuda", timeout=SOAP_TIMEOUT)
+    kernels = kernel_wrappers(fo, fa)
+    soap_runs(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels, dev,
+              lead=False)
+    dist.shutdown()
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if os.environ.get(SOAP_HELPER):
+        return soap_helper()
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
     from flexflow_tpu_torch.models.alexnet import build_alexnet
     from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
 
-    kernels = {"fused_sgd_update": fo.fused_sgd_update,
-               "fused_adam_update": fo.fused_adam_update,
-               "flash_fwd": fa.flash_fwd, "flash_bwd_dkdv": fa.flash_bwd_dkdv,
-               "flash_bwd_dq": fa.flash_bwd_dq}
+    kernels = kernel_wrappers(fo, fa)
     t_start = time.perf_counter()
     # phase 1 ------------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -875,8 +1142,12 @@ def main():
         f"kernels vs plain versions: max |dw| {worst:.3e} (tolerance rtol 1e-4, atol 1e-5; "
         "TF32 off)")
 
+    # phase 6 ------------------------------------------------------------
+    soap_launches = soap_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch,
+                               kernels, smi)
+
     # result -------------------------------------------------------------
-    main_launches = {n: alex_launches[n] + lm_launches[n] for n in kernels}
+    main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n] for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -893,7 +1164,7 @@ def main():
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
-        f"AlexNet {alex_launches}, transformer {lm_launches}")
+        f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,7 +4,8 @@ A second package beside the JAX one, with the same module names and
 public surface: graph build -> ``compile`` -> ``init_layers`` ->
 ``train_iteration``.  It imports torch and numpy, never jax and nothing
 of ``flexflow_tpu``.  Models run on CUDA unless ``FFConfig.device`` asks
-for the CPU.  The optimizer updates and attention (forward and backward) on
+for the CPU; over several processes (``parallel.distributed``, one per
+device) they train under per-op SOAP configs on a ``DeviceMesh``.  The optimizer updates and attention (forward and backward) on
 the training path are hand-written CUDA kernels for Hopper
 (``kernels/``); conv, pool, dense and embedding layers are library calls,
 as the JAX package leaves them to XLA.
@@ -21,6 +22,7 @@ from .ops.conv2d import ActiMode, PoolType
 from .ops.embedding import AggrMode
 from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
 from .parallel.mesh import Machine
+from .parallel.strategy import load_strategies_from_file, save_strategies_to_file
 from .runtime.dataloader import DataLoader
 from .tensor import DataType, Parameter, Tensor
 
@@ -32,4 +34,5 @@ __all__ = [
     "LossType", "Machine", "MetricsType", "NormInitializer", "Op",
     "Optimizer", "Parameter", "ParallelConfig", "PerfMetrics", "PoolType",
     "SGDOptimizer", "Tensor", "UniformInitializer", "ZeroInitializer",
+    "load_strategies_from_file", "save_strategies_to_file",
 ]

@@ -6,9 +6,10 @@ model runs on.  ``device`` defaults to ``"cuda"``; the CPU is used only
 when the caller asks for it (``FFConfig(device="cpu")`` or
 ``--device cpu``), never as a silent fallback.
 
-The strategy-file codec is not part of this package yet: it arrives with
-multi-GPU execution (ROADMAP A6), and ``FFModel.compile`` refuses the
-import/export fields until then.
+``workers_per_node`` left at 0 means every device of the machine that
+``FFModel.compile`` runs on (every rank of the process group, or one
+device when there is none); a count set by the caller must match that
+machine.  Strategy files are read and written by ``parallel/strategy.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import sys
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 MAX_DIM = 4
 
@@ -51,8 +52,17 @@ class ParallelConfig:
             raise ValueError(f"partition degrees must be >= 1, got {self.dims}")
 
     @property
+    def host_placed(self) -> bool:
+        """A CPU device type or a "host" memory type: weights that live on
+        the host (not ported, ROADMAP A9)."""
+        return self.device_type == DeviceType.CPU or "host" in self.memory_types
+
+    @property
     def ndims(self) -> int:
         return len(self.dims)
+
+    def with_device_ids(self, ids: Sequence[int]) -> "ParallelConfig":
+        return dataclasses.replace(self, device_ids=tuple(ids))
 
     def num_parts(self) -> int:
         n = 1
@@ -80,9 +90,7 @@ class FFConfig:
     iterations: int = -1
     print_freq: int = 10
     num_nodes: int = 1
-    # 0 means one device: the port drives a single GPU until multi-GPU
-    # execution lands (ROADMAP A6).
-    workers_per_node: int = 0
+    workers_per_node: int = 0  # 0: every device of the compiled machine
     learning_rate: float = 0.01
     weight_decay: float = 0.0001
     synthetic_input: bool = False
@@ -112,12 +120,10 @@ class FFConfig:
     strategies: Dict[str, ParallelConfig] = dataclasses.field(default_factory=dict)
     device: str = "cuda"
 
-    def __post_init__(self):
-        if self.workers_per_node == 0:
-            self.workers_per_node = 1
-
     @property
     def num_devices(self) -> int:
+        """The device count the caller asked for; 0 when
+        ``workers_per_node`` is left at 0 (every device of the machine)."""
         return self.num_nodes * self.workers_per_node
 
     def parse_args(self, argv: Optional[List[str]] = None) -> List[str]:
@@ -203,9 +209,12 @@ class FFConfig:
             i += 1
         return rest
 
-    def find_parallel_config(self, ndims: int, pcname: str) -> ParallelConfig:
-        """Look up an op's config, falling back to data parallelism."""
+    def find_parallel_config(self, ndims: int, pcname: str,
+                             num_devices: int) -> ParallelConfig:
+        """Look up an op's config, falling back to data parallelism over
+        the machine's ``num_devices``.  A rank-mismatched entry degrades to
+        data parallelism too (the reference asserts; strategy.cc:28-85)."""
         pc = self.strategies.get(pcname)
         if pc is not None and pc.ndims == ndims:
             return pc
-        return ParallelConfig.data_parallel(ndims, self.num_devices)
+        return ParallelConfig.data_parallel(ndims, num_devices)

@@ -10,7 +10,6 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional
 
 import numpy as np
-import torch
 
 Tree = Mapping[str, Mapping[str, np.ndarray]]
 
@@ -31,9 +30,7 @@ def load_jax_params(model, params: Tree,
             raise KeyError(f"the model's optimizer has no state slot {slot!r}")
         for opn, ws in tree.items():
             for wn, value in ws.items():
-                cur = model._opt_state[slot][opn][wn]
-                src = torch.tensor(np.asarray(value, dtype=np.float32))
-                cur.copy_(src.reshape(cur.shape))
+                model._assign(model._opt_state[slot][opn][wn], value)
 
 
 def jax_params_to_numpy(jax_model) -> Dict[str, Dict[str, np.ndarray]]:

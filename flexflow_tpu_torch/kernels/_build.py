@@ -17,6 +17,8 @@ import subprocess
 import time
 from typing import Sequence
 
+from torch.distributed.tensor import DTensor
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,6 +61,16 @@ def build(source: str, flags: Sequence[str] = (), force: bool = False) -> dict:
 def load(source: str, flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build ``source`` if needed and load it; callers keep the handle."""
     return ctypes.CDLL(build(source, flags)["path"])
+
+
+def refuse_dtensor(*tensors) -> None:
+    """Kernel wrappers take plain tensors: on a mesh the caller passes each
+    shard's ``.to_local()``, so no kernel reads a shard's storage as if it
+    were the whole tensor."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError("a kernel wrapper takes plain tensors, not a DTensor: "
+                            "pass the local shard (.to_local())")
 
 
 def raise_on(rc: int, name: str) -> None:

@@ -15,7 +15,9 @@ the TPU kernel.  The backward kernels take ``g_lse``:
 ``dS = p * (dP - delta + g_lse) * scale``, which the JAX package's VJP drops
 (ROADMAP C1); ``None`` means zero.
 
-Each wrapper allocates its outputs with ``torch.empty``.  On a CUDA tensor
+Each wrapper refuses a ``DTensor`` (a caller on a mesh passes the local
+shard, ``.to_local()``) and allocates its outputs with ``torch.empty``.
+On a CUDA tensor
 it launches its kernel on the current stream, raises if the launch was
 refused, and adds one to its ``launches`` count.  On a CPU tensor it runs the
 plain PyTorch version beside it (``*_ref``).  There is no fallback from one
@@ -32,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._build import refuse_dtensor
 
 SOURCE = "flash_attention.cu"
 NEG_INF = -1e30
@@ -71,6 +74,7 @@ def _check(q, k, v, do=None, rows=()) -> None:
     one supported dtype, on one CPU or CUDA device, contiguous; per-row
     (B, H, Sq) float32 tensors in ``rows`` (None allowed)."""
     mats = [q, k, v] + ([do] if do is not None else [])
+    refuse_dtensor(*mats, *rows)
     for t in mats:
         if t.dim() != 4:
             raise ValueError(f"attention operands are (B, H, S, D), got shape {tuple(t.shape)}")

@@ -8,7 +8,10 @@ bytes) and how they are laid out.  It is compiled with ``nvcc`` for
 into ``flexflow_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded
 with ``ctypes``.
 
-Each wrapper updates ``w`` (and its state) in place.  On a CUDA tensor it
+Each wrapper updates ``w`` (and its state) in place.  It refuses a
+``DTensor``: a caller on a mesh passes each shard's ``.to_local()``, so
+no kernel reads a shard's storage as if it were the whole tensor.  On a
+CUDA tensor it
 launches its kernel on the current stream, raises if the launch was
 refused, and adds one to its ``launches`` count.  On a CPU tensor it runs
 the plain PyTorch version beside it (``*_ref``), which is also the
@@ -28,8 +31,10 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import _build
+from ._build import refuse_dtensor
 
 SOURCE = "fused_optimizer.cu"
 # -fmad=false: no multiply-add contraction, so each kernel performs the
@@ -62,6 +67,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(w: torch.Tensor, *others: torch.Tensor) -> None:
+    refuse_dtensor(w, *others)
     for t in (w, *others):
         if t.dtype != torch.float32:
             raise TypeError(f"fused optimizer operands must be float32, got {t.dtype}")
@@ -86,7 +92,8 @@ def _leaf_rows(ws, gs, ms):
     rows = []
     for w, g, m in zip(ws, gs, ms):
         n = w.numel()
-        if not (w.dtype is f32 and g.dtype is f32 and w.is_contiguous() and g.is_contiguous()
+        if not (type(w) is not DTensor and type(g) is not DTensor and type(m) is not DTensor
+                and w.dtype is f32 and g.dtype is f32 and w.is_contiguous() and g.is_contiguous()
                 and g.numel() == n and w.get_device() == dev and g.get_device() == dev
                 and (m is None or (m.dtype is f32 and m.is_contiguous() and m.numel() == n
                                    and m.get_device() == dev))):

@@ -41,22 +41,26 @@ class Loss:
         return self.loss_type in (LossType.CATEGORICAL_CROSSENTROPY,
                                   LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
 
-    def __call__(self, preds: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    def __call__(self, preds: torch.Tensor, labels: torch.Tensor,
+                 parts: int = 1) -> torch.Tensor:
         """preds: (B, C) logits for CE losses, final outputs for MSE, or
-        (B, T, C) sequence logits reduced per token."""
+        (B, T, C) sequence logits reduced per token.  With ``parts`` > 1
+        the rows are one of that many equal parts of the batch, and the
+        result is their share of the whole batch's loss."""
         preds = preds.float()
         if preds.ndim > 2:
             preds = preds.reshape(-1, preds.shape[-1])
             if labels.ndim > 1 and labels.numel() != preds.shape[0]:
                 labels = labels.reshape(preds.shape[0], -1)
         batch = preds.shape[0]
+        total = batch * parts
         if self.loss_type == LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
             labels = labels.reshape(batch).long()
             logp = F.log_softmax(preds, dim=-1)
             nll = -logp.gather(1, labels[:, None])
-            return nll.sum() / batch
+            return nll.sum() / total
         if self.loss_type == LossType.CATEGORICAL_CROSSENTROPY:
             logp = F.log_softmax(preds, dim=-1)
-            return (-labels.float() * logp).sum() / batch
+            return (-labels.float() * logp).sum() / total
         diff = preds - labels.float()
-        return 0.5 * (diff * diff).sum() / batch
+        return 0.5 * (diff * diff).sum() / total

@@ -1,19 +1,30 @@
 """FFModel: graph construction and the training runtime (PyTorch port).
 
-Counterpart of ``flexflow_tpu/model.py`` for one device.  The graph is
-built with the same graph calls; ``compile`` resolves default
-data-parallel configs (no search) and the loss/metrics; ``init_layers``
-materializes float32 parameters on the model's device; each
-``train_iteration`` runs forward, loss, autograd backward and the
-optimizer update (model.py:1997-2015 of the JAX package).  The reference's
-four-call training API is kept: ``forward``/``zero_gradients``/``backward``
-stage, and the step runs at ``update()``.
+Counterpart of ``flexflow_tpu/model.py``.  The graph is built with the
+same graph calls; ``compile`` resolves a ``ParallelConfig`` per op (from
+``FFConfig.strategies`` or a strategy file, else data parallel over all
+devices; no search) and the loss/metrics; ``init_layers`` materializes
+float32 parameters; each ``train_iteration`` runs forward, loss, autograd
+backward and the optimizer update (model.py:1997-2015 of the JAX
+package).  The reference's four-call training API is kept:
+``forward``/``zero_gradients``/``backward`` stage, and the step runs at
+``update()``.
 
 The device is ``FFConfig.device`` ("cuda" by default).  When CUDA is
 absent and the caller did not ask for the CPU, construction raises.
 
-Metric sums accumulate in one device vector and are fetched once per
-drain, never per step.
+Without a process group the model runs on plain tensors on one device.
+After ``parallel.distributed.initialize()`` (one process per device) it
+runs SOAP: parameters are DTensors on the machine's ``DeviceMesh``, split
+by their ``partition_dims``; each op computes on local shards and its
+output is placed by its config; each gradient is redistributed to its
+weight's placements (which sums any ``Partial``) before the optimizer
+updates the local shards.  Every rank then calls the same methods in the
+same order: those that gather (``get_parameter``, ``get_metrics``,
+``eval_batch``, ``predict_batch``) are collectives.
+
+Metric sums accumulate in one device vector and are fetched (and, on a
+mesh, summed over the batch's parts) once per drain, never per step.
 """
 
 from __future__ import annotations
@@ -25,8 +36,10 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from .config import FFConfig
+from .config import FFConfig, ParallelConfig
 from .losses import Loss, LossType
 from .metrics import Metrics, MetricsType, PerfMetrics
 from .ops.attention import LayerNorm, MultiHeadAttention
@@ -35,7 +48,9 @@ from .ops.conv2d import ActiMode, Conv2D, Pool2D, PoolType
 from .ops.embedding import AggrMode, Embedding
 from .ops.linear import Linear
 from .ops.misc import ElementBinary, ElementUnary, Flat, Softmax
+from .parallel.distributed import host_local_batch, local_batch
 from .parallel.mesh import Machine
+from .parallel.strategy import load_strategies_from_file, save_strategies_to_file
 from .tensor import DataType, Tensor
 
 METRIC_KEYS = ("train_all", "train_correct", "cce_loss", "sparse_cce_loss",
@@ -89,8 +104,6 @@ def _refuse_unported_knobs(cfg: FFConfig) -> None:
     checks = [
         (cfg.search_budget > 0, "search_budget: strategy search (ROADMAP A8)"),
         (cfg.search_pipeline, "search_pipeline: pipeline search (ROADMAP A9)"),
-        (bool(cfg.import_strategy_file), "import_strategy_file: the strategy codec (ROADMAP A6)"),
-        (bool(cfg.export_strategy_file), "export_strategy_file: the strategy codec (ROADMAP A6)"),
         (cfg.grad_accum_steps != 1, "grad_accum_steps: gradient accumulation (ROADMAP A4)"),
         (cfg.remat, "remat: rematerialization (ROADMAP A4)"),
         (cfg.zero_optimizer, "zero_optimizer: ZeRO-1 state sharding (ROADMAP A6)"),
@@ -99,9 +112,6 @@ def _refuse_unported_knobs(cfg: FFConfig) -> None:
         (bool(cfg.lowered), "lowered: whole-graph lowering (ROADMAP A13)"),
         (cfg.telemetry or bool(cfg.telemetry_file), "telemetry (ROADMAP A12)"),
         (cfg.profiling, "profiling: per-op profiles (ROADMAP A12)"),
-        (cfg.num_devices != 1, "more than one device: multi-GPU execution (ROADMAP A6)"),
-        (any(pc.num_parts() > 1 for pc in cfg.strategies.values()),
-         "partitioned strategies: multi-GPU execution (ROADMAP A6)"),
     ]
     for on, what in checks:
         if on:
@@ -261,21 +271,60 @@ class FFModel:
     def compile(self, optimizer=None, loss_type: str = LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
                 metrics: Sequence[str] = (MetricsType.ACCURACY,),
                 machine: Optional[Machine] = None) -> None:
-        """Resolve per-op configs (data parallel over one device, no
-        search), the loss, the metrics and the label tensor."""
+        """Resolve per-op configs (no search), the loss, the metrics and
+        the label tensor.
+
+        The machine defaults to the mesh over every rank of the process
+        group, or to the model's device when there is none.  Each op's
+        config is its entry in ``FFConfig.strategies`` (after importing
+        ``import_strategy_file``), else data parallel over the machine's
+        devices (a ``workers_per_node`` set in the ``FFConfig`` must match
+        their count); a config of more parts than devices falls back to
+        data parallel,
+        and ``legalize_pc`` clamps each degree to one the op's dims
+        allow (model.py:967-974 of the JAX package).  The resolved map is
+        written to ``export_strategy_file`` (rank 0 writes, all wait)."""
         cfg = self.config
         _refuse_unported_knobs(cfg)
-        self.machine = machine or Machine(devices=[self.device])
+        if machine is None:
+            machine = (Machine.from_process_group(self.device) if dist.is_initialized()
+                       else Machine(devices=[self.device]))
+        self.machine = machine
         if self.machine.device != self.device:
             raise ValueError(f"machine device {self.machine.device} differs from "
                              f"the model's device {self.device}")
         self.optimizer = optimizer
         self.loss = Loss(loss_type)
         self.metrics = Metrics(self.loss.loss_type, list(metrics))
+        if cfg.import_strategy_file:
+            cfg.strategies.update(load_strategies_from_file(
+                cfg.import_strategy_file,
+                reference_order=cfg.import_strategy_reference_order))
+        nd = self.machine.num_devices
+        if (cfg.workers_per_node and cfg.num_devices != nd) or nd % cfg.num_nodes:
+            raise ValueError(
+                f"FFConfig asks for {cfg.num_nodes} node(s) x "
+                f"{cfg.workers_per_node or 'all'} worker(s), but the machine has {nd} "
+                "device(s): start one process per device (parallel/distributed.py) "
+                "or leave workers_per_node at 0")
         for op in self.ops:
-            op.pc = cfg.find_parallel_config(op.output.num_dims, op.name)
+            pc = cfg.find_parallel_config(op.output.num_dims, op.name, nd)
+            if pc.num_parts() > nd:
+                pc = ParallelConfig.data_parallel(op.output.num_dims, nd)
+            op.pc = op.legalize_pc(pc)
+            if op.pc.host_placed:
+                raise NotImplementedError(
+                    f"not ported yet: host placement of {op.name} (its config's device "
+                    "or memory type is the host; ROADMAP A9)")
+            self.machine.spec_for_config(op.pc)  # raises if the mesh cannot split it
         if optimizer is not None:
             optimizer.fused = bool(cfg.fused_optimizer)
+        if cfg.export_strategy_file:
+            if not dist.is_initialized() or dist.get_rank() == 0:
+                save_strategies_to_file(cfg.export_strategy_file,
+                                        {op.name: op.pc for op in self.ops})
+            if dist.is_initialized():
+                dist.barrier()
         logits = self._loss_input_tensor()
         if self.loss.loss_type == LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
             ldims = logits.dims[:-1] if logits.num_dims > 2 else (logits.dims[0], 1)
@@ -287,6 +336,21 @@ class FFModel:
 
     def final_tensor(self) -> Tensor:
         return self.ops[-1].output
+
+    @property
+    def _sharded(self) -> bool:
+        """Whether the model runs on a mesh (DTensors)."""
+        return self.machine is not None and self.machine.mesh is not None
+
+    def _input_batch_degree(self, t: Tensor) -> int:
+        """The batch split of a graph input: its first consumer's."""
+        for op in self.ops:
+            if t in op.inputs:
+                return op.pc.dims[0]
+        return 1
+
+    def _label_degree(self) -> int:
+        return self.ops[-1].pc.dims[0]
 
     def _loss_input_tensor(self) -> Tensor:
         """Pre-softmax activations when a CE loss follows a trailing
@@ -311,31 +375,67 @@ class FFModel:
                 salt = zlib.crc32(f"{op.name}/{w.name}".encode())
                 gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | salt)
                 v = w.initializer(gen, w.dims, torch.float32)
-                params.setdefault(op.name, {})[w.name] = \
-                    v.to(self.device).requires_grad_(True)
+                if self._sharded:  # every rank made the same v: each keeps its part
+                    v = self.machine.distribute(v, op.weight_placements(
+                        w, self.machine.spec_for_config(op.pc, op.output.num_dims)))
+                else:
+                    v = v.to(self.device)
+                params.setdefault(op.name, {})[w.name] = v.requires_grad_(True)
         self._params = params
         self._opt_state = (self.optimizer.init_state(params)
                            if self.optimizer is not None else None)
         self._step_count = 0
 
     def get_parameter(self, op_name: str, weight_name: str = "kernel") -> np.ndarray:
-        """A weight as a fresh numpy array (reference: Parameter::get_weights)."""
-        return self._params[op_name][weight_name].detach().cpu().numpy().copy()
+        """A weight as a fresh numpy array (reference: Parameter::get_weights).
+        On a mesh the parts are gathered: a collective, every rank calls it."""
+        w = self._params[op_name][weight_name].detach()
+        if isinstance(w, DTensor):
+            w = w.full_tensor()
+        return w.cpu().numpy().copy()
 
     def set_parameter(self, op_name: str, weight_name: str, value: np.ndarray) -> None:
-        cur = self._params[op_name][weight_name]
-        value = torch.tensor(np.asarray(value, dtype=np.float32))
+        """Overwrite a weight with the whole ``value``; on a mesh every rank
+        passes the same value and keeps its part."""
+        self._assign(self._params[op_name][weight_name], value)
+
+    def _assign(self, cur: torch.Tensor, value) -> None:
+        """Copy a whole float32 value into a parameter or optimizer-state
+        leaf (on a mesh, this rank's part of it)."""
+        value = torch.tensor(np.asarray(value, dtype=np.float32)).reshape(cur.shape)
         with torch.no_grad():
-            cur.copy_(value.reshape(cur.shape))
+            if isinstance(cur, DTensor):
+                cur.to_local().copy_(self.machine.local_part(value, cur.placements))
+            else:
+                cur.copy_(value)
 
     # ------------------------------------------------------------------
     # batches and the step
     # ------------------------------------------------------------------
     def set_batch(self, inputs: Dict[Tensor, Any], labels: Any) -> None:
-        """Stage a batch (NHWC images, or int token ids) on the model's device."""
-        batch = {f"in_{t.guid}": self._to_device(a) for t, a in inputs.items()}
-        batch["label"] = self._to_device(labels)
+        """Stage a batch (NHWC images, or int token ids) on the model's device.
+
+        On a mesh each array is either the global batch, of which this rank
+        copies only its rows, or already this rank's rows of it
+        (``parallel.distributed.local_batch``), split as its consumer's
+        batch degree."""
+        if not self._sharded:
+            batch = {f"in_{t.guid}": self._to_device(a) for t, a in inputs.items()}
+            batch["label"] = self._to_device(labels)
+        else:
+            batch = {f"in_{t.guid}": self._place(a, t.dims[0], self._input_batch_degree(t))
+                     for t, a in inputs.items()}
+            batch["label"] = self._place(labels, self.label_tensor.dims[0],
+                                         self._label_degree())
         self._batch = batch
+
+    def _place(self, arr, global_rows: int, degree: int) -> DTensor:
+        if arr.shape[0] == global_rows:
+            arr = local_batch(self.machine, arr, degree)
+        elif arr.shape[0] * degree != global_rows:
+            raise ValueError(f"a batch of {arr.shape[0]} rows is neither the global batch "
+                             f"({global_rows}) nor one part of it split {degree} ways")
+        return host_local_batch(self.machine, arr, degree)
 
     def _to_device(self, arr) -> torch.Tensor:
         if not isinstance(arr, torch.Tensor):
@@ -350,19 +450,51 @@ class FFModel:
             if x.is_floating_point() and x.dtype != cdtype:
                 # activations run in compute_dtype; params stay f32 and
                 # ops cast them per use
-                x = x.to(cdtype)
+                x = (self.machine.from_local(x.to_local().to(cdtype), x.placements)
+                     if self._sharded else x.to(cdtype))
             env[t.guid] = x
         ctx = FwdCtx(training=training)
         for op in self.ops:
-            ys = op.forward(params.get(op.name, {}), [env[t.guid] for t in op.inputs], ctx)
+            xs = [env[t.guid] for t in op.inputs]
+            if self._sharded:
+                ys = op.forward_sharded(self.machine, params.get(op.name, {}), xs, ctx)
+                ys = [self.machine.constraint(y, op.constraint_pc()) for y in ys]
+            else:
+                ys = op.forward(params.get(op.name, {}), xs, ctx)
             for t, y in zip(op.outputs, ys):
                 env[t.guid] = y
         return env
 
+    def _loss_inputs(self, env):
+        """(logits, probabilities, labels) as tensors this device holds: on
+        a mesh, its rows of the label's batch split (the loss and the
+        metrics have no DTensor rule, so they run on local rows)."""
+        logits, probs = env[self._loss_input_tensor().guid], env[self.final_tensor().guid]
+        labels = self._batch["label"]
+        if not self._sharded:
+            return logits, probs, labels
+        pl = self.machine.batch_sharding(self._label_degree())
+        return (self.machine.redistribute(logits, pl).to_local(),
+                self.machine.redistribute(probs, pl).to_local(), labels.to_local())
+
+    def _batch_parts(self) -> int:
+        return self._label_degree() if self._sharded else 1
+
+    def _sum_over_parts(self, vec: torch.Tensor) -> torch.Tensor:
+        """Sum a vector of per-part sums over the label's batch parts (a
+        collective on a mesh)."""
+        if not self._sharded:
+            return vec
+        pl = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                   for p in self.machine.batch_sharding(self._label_degree()))
+        return self.machine.from_local(vec, pl).full_tensor()
+
     def _metric_vector(self, loss, probs, labels) -> torch.Tensor:
         msum = self.metrics.compute(probs, labels)
         msum["loss"] = loss
-        msum["steps"] = torch.ones((), device=self.device)
+        # one step per step: on a mesh only the batch's first part counts it
+        first = not self._sharded or self.machine.batch_index(self._label_degree()) == 0
+        msum["steps"] = (torch.ones if first else torch.zeros)((), device=self.device)
         zero = torch.zeros((), device=self.device)
         return torch.stack([msum.get(k, zero).float() for k in METRIC_KEYS])
 
@@ -381,19 +513,23 @@ class FFModel:
             raise RuntimeError("no batch loaded: call a DataLoader first")
         if self._metric_acc is None:
             self._metric_acc = torch.zeros(len(METRIC_KEYS), device=self.device)
-        labels = self._batch["label"]
         env = self._run_graph(self._params, self._batch, training=True)
-        loss = self.loss(env[self._loss_input_tensor().guid], labels)
+        logits, probs, labels = self._loss_inputs(env)
+        # this part's share of the loss over the global batch
+        loss = self.loss(logits, labels, parts=self._batch_parts())
         names = [(opn, wn) for opn, ws in self._params.items() for wn in ws]
         leaves = [self._params[opn][wn] for opn, wn in names]
         flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
         for (opn, wn), w, g in zip(names, leaves, flat):
-            grads.setdefault(opn, {})[wn] = (torch.zeros_like(w) if g is None
-                                            else g.contiguous())
+            if g is None:
+                g = torch.zeros_like(w)
+            elif self._sharded:
+                # sums the parts of a Partial gradient
+                g = self.machine.redistribute(g, w.placements).to_local()
+            grads.setdefault(opn, {})[wn] = g.contiguous()
         with torch.no_grad():
-            self._metric_acc += self._metric_vector(
-                loss.detach(), env[self.final_tensor().guid].detach(), labels)
+            self._metric_acc += self._metric_vector(loss.detach(), probs.detach(), labels)
             self.optimizer.apply(self._params, grads, self._opt_state,
                                  self.optimizer.hparams())
         self._step_count += 1
@@ -407,21 +543,25 @@ class FFModel:
 
     @torch.no_grad()
     def _eval(self):
-        env = self._run_graph(self._params, self._batch, training=False)
-        return env[self._loss_input_tensor().guid], env[self.final_tensor().guid]
+        return self._run_graph(self._params, self._batch, training=False)
 
     def eval_batch(self) -> Dict[str, float]:
-        """Loss and metric sums of the staged batch, fetched in one copy."""
-        logits, probs = self._eval()
-        labels = self._batch["label"]
+        """Loss and metric sums of the staged batch, fetched in one copy
+        (on a mesh, summed over the batch's parts: a collective)."""
+        logits, probs, labels = self._loss_inputs(self._eval())
         msum = self.metrics.compute(probs, labels)
-        msum["loss"] = self.loss(logits, labels)
+        msum["loss"] = self.loss(logits, labels, parts=self._batch_parts())
         keys = list(msum)
-        return dict(zip(keys, torch.stack([msum[k].float() for k in keys]).tolist()))
+        vec = self._sum_over_parts(torch.stack([msum[k].float() for k in keys]))
+        return dict(zip(keys, vec.tolist()))
 
     def predict_batch(self) -> np.ndarray:
-        """Final-op outputs (probabilities) of the staged batch."""
-        return self._eval()[1].float().cpu().numpy()
+        """Final-op outputs (probabilities) of the staged batch (on a mesh,
+        gathered whole on every rank: a collective)."""
+        probs = self._eval()[self.final_tensor().guid]
+        if isinstance(probs, DTensor):
+            probs = probs.full_tensor()
+        return probs.float().cpu().numpy()
 
     # ------------------------------------------------------------------
     # metrics (reference: UPDATE_METRICS_TASK fold, model.cc:1145-1167)
@@ -434,7 +574,8 @@ class FFModel:
     def _drain_metrics(self) -> None:
         if self._metric_acc is None:
             return
-        totals = dict(zip(METRIC_KEYS, self._metric_acc.tolist()))  # one transfer
+        # one transfer (on a mesh, after one sum over the batch's parts)
+        totals = dict(zip(METRIC_KEYS, self._sum_over_parts(self._metric_acc).tolist()))
         steps = totals.pop("steps")
         loss_sum = totals.pop("loss")
         if steps > 0:
@@ -443,6 +584,7 @@ class FFModel:
         self._metric_acc.zero_()
 
     def get_metrics(self) -> PerfMetrics:
+        """The metrics so far (on a mesh a collective: every rank calls it)."""
         self._drain_metrics()
         return self.current_metrics
 

@@ -6,8 +6,13 @@
 accumulation inside cuBLAS under bf16), splits heads to (B, H, S, D) and
 runs ``kernels/flash_attention.py``: on CUDA tensors the hand-written
 forward and backward kernels, on CPU tensors their plain versions.
-Sequence parallelism (ring, Ulysses), attention dropout and the decode
-paths are not ported yet and raise.
+
+On a mesh, attention under ``(dp, 1, tp)`` computes on this device's batch
+rows and heads: q/k/v come from the column shards of ``wq``/``wk``/``wv``,
+the flash kernels run on the local (b, h, S, D) tensors, and ``wo`` takes
+the gathered heads column-parallel.  Sequence parallelism (ring,
+Ulysses; ROADMAP A7), attention dropout and the decode paths are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -26,6 +31,10 @@ class LayerNorm(Op):
     """Normalize over the last dim with learned scale/shift, in f32."""
 
     _type = "LayerNorm"
+
+    @property
+    def unsplit_dims(self):
+        return (self.output.num_dims - 1,)
 
     def __init__(self, model, input_tensor, eps: float = 1e-5,
                  elementwise_affine: bool = True, name: Optional[str] = None):
@@ -63,6 +72,7 @@ class MultiHeadAttention(Op):
     Sq == Sk (ROADMAP C2)."""
 
     _type = "MultiHeadAttention"
+    mixes_features = True
 
     def __init__(self, model, query, key, value, embed_dim: int,
                  num_heads: int, causal: bool = False,
@@ -99,29 +109,55 @@ class MultiHeadAttention(Op):
             y = y + params[b].to(y.dtype)
         return y
 
-    def _seq_degree(self) -> int:
+    def _config_dim_bound(self, i: int):
+        """The feature split (dim 2) splits the heads: its degree must
+        divide num_heads, so that each part holds whole heads."""
+        if i == 2:
+            return self.num_heads
+        return super()._config_dim_bound(i)
+
+    def _refuse_sequence_split(self) -> None:
         pc = getattr(self, "pc", None)
-        if pc is None or len(pc.dims) < 2:
-            return 1
-        return pc.dims[1]
-
-    def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
-        if self._seq_degree() > 1:
+        if pc is not None and len(pc.dims) > 1 and pc.dims[1] > 1:
             raise NotImplementedError("sequence-parallel attention (ring, Ulysses) is not "
-                                      "ported yet (ROADMAP A6/A7)")
-        q_in, k_in, v_in = xs
-        B, Sq, _ = q_in.shape
-        H, D = self.num_heads, self.head_dim
+                                      "ported yet (ROADMAP A7)")
 
-        def split(t):  # (B, S, E) -> (B, H, S, D), contiguous for the kernels
-            return t.reshape(t.shape[0], t.shape[1], H, D).transpose(1, 2).contiguous()
+    def _attend(self, params, q_in, k_in, v_in):
+        """The q/k/v projections and flash attention: (B, S, h*D) for the
+        h heads whose columns ``params`` holds."""
+        D = self.head_dim
+
+        def split(t):  # (B, S, h*D) -> (B, h, S, D), contiguous for the kernels
+            return t.reshape(t.shape[0], t.shape[1], -1, D).transpose(1, 2).contiguous()
 
         qh = split(self._proj(params, q_in, "wq", "bq"))
         kh = split(self._proj(params, k_in, "wk", "bk"))
         vh = split(self._proj(params, v_in, "wv", "bv"))
         oh = flash_attention(qh, kh, vh, causal=self.causal, scale=1.0 / math.sqrt(D))
-        out = oh.transpose(1, 2).reshape(B, Sq, self.embed_dim)
-        return [self._proj(params, out, "wo", "bo")]
+        return oh.transpose(1, 2).reshape(oh.shape[0], oh.shape[2], -1)
+
+    def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
+        self._refuse_sequence_split()
+        return [self._proj(params, self._attend(params, *xs), "wo", "bo")]
+
+    def forward_sharded(self, machine, params, xs, ctx: FwdCtx):
+        self._refuse_sequence_split()
+        out_pl = self.compute_placements(machine)
+        in_pl = self.input_placements(out_pl, 0)
+
+        def local_weights(names):
+            ws = [w for w in self.weights if w.name in names]
+            return [w.name for w in ws], [(params[w.name], self.weight_placements(w, out_pl))
+                                          for w in ws]
+
+        names, wargs = local_weights(("wq", "wk", "wv", "bq", "bk", "bv"))
+        heads = machine.local_call(
+            lambda q, k, v, *ws: self._attend(dict(zip(names, ws)), q, k, v),
+            [(x, in_pl) for x in xs] + wargs, out_pl)
+        names_o, wargs_o = local_weights(("wo", "bo"))
+        return [machine.local_call(
+            lambda o, *ws: self._proj(dict(zip(names_o, ws)), o, "wo", "bo"),
+            [(heads, in_pl)] + wargs_o, out_pl)]
 
     def flops_per_sample(self):
         _, sq, e = self.output.dims

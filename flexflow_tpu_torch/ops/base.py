@@ -3,15 +3,25 @@
 An op is shape inference and weight declaration at construction, plus a
 ``forward(params, xs, ctx)`` over tensors.  The backward pass comes from
 autograd; no op writes one by hand.
+
+On a mesh (``parallel/mesh.py``) ``forward_sharded`` runs the same
+``forward`` on local shards, under the op's config with the output dims
+it cannot compute split (``unsplit_dims``) computed whole; each weight is
+split as the output dim its ``partition_dims`` names.  ``legalize_pc``
+clamps a config to one the op can execute.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
+from ..config import ParallelConfig
+from ..parallel.mesh import fold
 from ..tensor import Parameter, Tensor
 
 
@@ -26,6 +36,12 @@ class Op:
     """Graph node: inputs -> outputs with optional weights."""
 
     _type: str = "Op"
+    # output dims computed whole on a mesh (a window or a normalization
+    # crosses them); the output is then split by the config afterwards
+    unsplit_dims: Tuple[int, ...] = ()
+    # the weights map the input's last dim to the output's (dense, conv,
+    # embedding, attention): the input's last dim is never split
+    mixes_features: bool = False
 
     def __init__(self, model, inputs: Sequence[Tensor], name: Optional[str] = None):
         self.model = model
@@ -60,6 +76,66 @@ class Op:
     def flops_per_sample(self) -> float:
         """Analytic forward FLOPs per sample."""
         return 0.0
+
+    # -- partitioning ------------------------------------------------------
+    def constraint_pc(self) -> ParallelConfig:
+        """The config that places this op's output."""
+        return self.pc
+
+    def _config_dim_bound(self, i: int) -> Optional[int]:
+        """The size config dim ``i``'s degree must divide (None: no bound)."""
+        return self.output.dims[i] if i < self.output.num_dims else None
+
+    def legalize_pc(self, pc: ParallelConfig) -> ParallelConfig:
+        """Clamp a config to one this op can execute: each degree must
+        divide its bound, else it drops to the largest degree that does
+        (the reference asserts)."""
+        dims = list(pc.dims)
+        changed = False
+        for i, d in enumerate(dims):
+            bound = self._config_dim_bound(i)
+            if bound is not None and bound % d != 0:
+                dims[i] = math.gcd(d, bound)
+                changed = True
+        if not changed:
+            return pc
+        npc = ParallelConfig(pc.device_type, tuple(dims), memory_types=pc.memory_types)
+        return npc.with_device_ids(tuple(range(npc.num_parts())))
+
+    def compute_placements(self, machine) -> tuple:
+        """The output placements ``forward_sharded`` computes under."""
+        return fold(machine.spec_for_config(self.pc, self.output.num_dims),
+                    self.unsplit_dims)
+
+    def input_placements(self, out_pl, i: int) -> tuple:
+        """Input ``i`` split as the output is, but for dims it lacks and,
+        for ops that mix features, its last dim."""
+        rank = self.inputs[i].num_dims
+        whole = self.output.num_dims - 1 if self.mixes_features else None
+        return tuple(Replicate() if isinstance(p, Shard) and (p.dim >= rank or p.dim == whole)
+                     else p for p in out_pl)
+
+    def weight_placements(self, w: Parameter, out_pl) -> tuple:
+        """Weight dim j split where output dim ``partition_dims[j]`` is
+        (under the op's config: how the weight is stored, as
+        ``_param_spec_tree`` of the JAX package's model.py places it)."""
+        return tuple(Shard(w.partition_dims.index(p.dim))
+                     if isinstance(p, Shard) and p.dim in w.partition_dims else Replicate()
+                     for p in out_pl)
+
+    def forward_sharded(self, machine, params, xs, ctx: FwdCtx) -> List:
+        """``forward`` on the local shards of DTensor inputs and weights; the
+        output is a DTensor placed by ``compute_placements``."""
+        out_pl = self.compute_placements(machine)
+        names = [w.name for w in self.weights]
+        args = [(x, self.input_placements(out_pl, i)) for i, x in enumerate(xs)]
+        args += [(params[w.name], self.weight_placements(w, out_pl)) for w in self.weights]
+        n = len(xs)
+
+        def local(*ls):
+            return self.forward(dict(zip(names, ls[n:])), list(ls[:n]), ctx)[0]
+
+        return [machine.local_call(local, args, out_pl)]
 
     def __repr__(self):
         ins = ",".join(str(t.dims) for t in self.inputs)

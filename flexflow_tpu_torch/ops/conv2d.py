@@ -6,6 +6,10 @@ the JAX package.  The convolution itself is ``F.conv2d`` on
 ``channels_last`` strides, the layout cuDNN runs on Hopper's tensor cores,
 so the permute is free.  Shape formula as in conv_2d.cu:100-101:
 ``out = 1 + (in + 2*pad - kernel) / stride``.
+
+On a mesh a convolution or a pool computes split over the batch and the
+channels; a height or width split in its config is computed whole (the
+window crosses shard edges) and then split, as GSPMD computes it.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class Conv2D(Op):
     _type = "Conv2D"
+    mixes_features = True
 
     def __init__(self, model, input_tensor, out_channels: int,
                  kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
@@ -79,6 +84,11 @@ class Conv2D(Op):
                              bias_initializer or DefaultBiasInitializer(),
                              partition_dims=(3,))
 
+    @property
+    def unsplit_dims(self):
+        # a grouped conv's output channels need their own input group
+        return (1, 2) if self.groups == 1 else (1, 2, 3)
+
     def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
         x = xs[0]
         kernel = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
@@ -101,6 +111,7 @@ class PoolType:
 
 class Pool2D(Op):
     _type = "Pool2D"
+    unsplit_dims = (1, 2)
 
     def __init__(self, model, input_tensor, kernel_h: int, kernel_w: int,
                  stride_h: int, stride_w: int, padding_h: int, padding_w: int,

@@ -5,7 +5,8 @@ from autograd; the JAX package leaves the same gather to XLA, so it is a
 library call here too.  Input is (B, num_indices) int; aggregation SUM or
 AVG over the ``num_indices`` dim, or NONE to keep it (a token sequence).
 The output is cast to the model's compute dtype.  Host-resident tables and
-``share_with`` are not ported yet (ROADMAP A9).
+``share_with`` are not ported yet (ROADMAP A9).  On a mesh the gather runs
+on local ids and the local columns of the table.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ class AggrMode:
 
 class Embedding(Op):
     _type = "Embedding"
+    mixes_features = True  # the table's columns are the output's last dim
 
     def __init__(self, model, input_tensor, num_entries: int, out_dim: int,
                  aggr: str = AggrMode.SUM, kernel_initializer=None,

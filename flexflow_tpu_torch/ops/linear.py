@@ -3,6 +3,8 @@
 The kernel is ``(in, out)`` as in the JAX package.  Under bf16 the
 float32 kernel is cast per use and ``torch.matmul`` accumulates in f32
 inside cuBLAS, the counterpart of ``preferred_element_type=float32``.
+On a mesh, an output-dim split is column parallelism: the kernel is split
+on its columns and each device computes its columns of the output.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from ..initializers import DefaultBiasInitializer, DefaultWeightInitializer
 
 class Linear(Op):
     _type = "Dense"
+    mixes_features = True
 
     def __init__(self, model, input_tensor, out_dim: int,
                  activation: str = ActiMode.NONE, use_bias: bool = True,

@@ -19,6 +19,7 @@ class Flat(Op):
     package (not the reference's CHW order)."""
 
     _type = "Flat"
+    unsplit_dims = (1,)
 
     def __init__(self, model, input_tensor, name: Optional[str] = None):
         super().__init__(model, [input_tensor], name)
@@ -37,6 +38,10 @@ class Softmax(Op):
     A cross-entropy loss reads this op's *input* (see losses.py)."""
 
     _type = "Softmax"
+
+    @property
+    def unsplit_dims(self):
+        return (self.output.num_dims - 1,)
 
     def __init__(self, model, input_tensor, name: Optional[str] = None):
         super().__init__(model, [input_tensor], name)

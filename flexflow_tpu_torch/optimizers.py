@@ -11,6 +11,12 @@ kernels of ``kernels/fused_optimizer.py``: SGD in one launch per step over
 all leaves, Adam one launch per leaf; otherwise the plain tensor update
 runs.  Adam's ``alpha_t`` starts at ``alpha`` with no bias
 correction and only ``next_epoch()`` advances it, as in the reference.
+
+On a mesh the parameters and the state are DTensors (the state with its
+weight's placements) and every update runs on the local shards, the
+counterpart of the JAX package's ``_shardwise``: the SGD launch's table
+holds the local shards' addresses and sizes, and Adam launches once per
+local shard.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .kernels.fused_optimizer import (fused_adam_update, fused_adam_update_ref,
                                       fused_sgd_update_multi, fused_sgd_update_multi_ref)
@@ -30,6 +37,12 @@ HParams = Dict[str, Any]
 def _zeros_like(params: Params) -> Params:
     return {opn: {wn: torch.zeros_like(w) for wn, w in ws.items()}
             for opn, ws in params.items()}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The shard of a DTensor that this device holds (its storage: updates
+    in place reach the DTensor); a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 class Optimizer:
@@ -71,8 +84,8 @@ class SGDOptimizer(Optimizer):
         update = fused_sgd_update_multi if self.fused else fused_sgd_update_multi_ref
         names = [(opn, wn) for opn, ws in params.items() for wn in ws]
         bufs = state.get("v")
-        update([params[o][n] for o, n in names], [grads[o][n] for o, n in names],
-               None if bufs is None else [bufs[o][n] for o, n in names],
+        update([_local(params[o][n]) for o, n in names], [_local(grads[o][n]) for o, n in names],
+               None if bufs is None else [_local(bufs[o][n]) for o, n in names],
                hparams["lr"], self.weight_decay, self.momentum, self.nesterov)
         return params, state
 
@@ -107,7 +120,7 @@ class AdamOptimizer(Optimizer):
         update = fused_adam_update if self.fused else fused_adam_update_ref
         for opn, ws in params.items():
             for wn, w in ws.items():
-                update(w, grads[opn][wn], state["m"][opn][wn], state["v"][opn][wn],
-                       hparams["alpha_t"], self.weight_decay, self.beta1,
+                update(_local(w), _local(grads[opn][wn]), _local(state["m"][opn][wn]),
+                       _local(state["v"][opn][wn]), hparams["alpha_t"], self.weight_decay, self.beta1,
                        self.beta2, self.epsilon)
         return params, state

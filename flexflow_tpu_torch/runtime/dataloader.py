@@ -1,9 +1,11 @@
 """Data loading (PyTorch port of ``flexflow_tpu/runtime/dataloader.py``).
 
 The dataset stays in host numpy; ``next_batch`` slices the next batch
-and ``FFModel.set_batch`` copies it to the model's device.  Reference
-(NCHW) image datasets are converted to NHWC once, on the host.  The JAX
-package's prefetch thread is not ported.
+and ``FFModel.set_batch`` copies it to the model's device.  On a mesh
+every rank holds the dataset and gathers only its rows of the global
+batch (``parallel.distributed.local_batch``): no rank copies the whole
+batch to its device.  Reference (NCHW) image datasets are converted to
+NHWC once, on the host.  The JAX package's prefetch thread is not ported.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..parallel.distributed import local_batch
 from ..tensor import DataType, Tensor
 
 
@@ -74,4 +77,9 @@ class DataLoader:
         start = 0 if self.next_index + self.batch_size > self.num_samples else self.next_index
         sel = self._order[start:start + self.batch_size]
         self.next_index = start + self.batch_size
-        ff.set_batch({t: a[sel] for t, a in self.inputs.items()}, self.labels[sel])
+        if not ff._sharded:
+            ff.set_batch({t: a[sel] for t, a in self.inputs.items()}, self.labels[sel])
+            return
+        ff.set_batch({t: a[local_batch(ff.machine, sel, ff._input_batch_degree(t))]
+                      for t, a in self.inputs.items()},
+                     self.labels[local_batch(ff.machine, sel, ff._label_degree())])

@@ -43,7 +43,8 @@ def test_port_source_imports_neither_jax_nor_the_jax_package(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.models.alexnet, "
             "flexflow_tpu_torch.models.transformer, "
-            "flexflow_tpu_torch.kernels.flash_attention, flexflow_tpu_torch.convert; "
+            "flexflow_tpu_torch.kernels.flash_attention, flexflow_tpu_torch.convert, "
+            "flexflow_tpu_torch.parallel.strategy, flexflow_tpu_torch.parallel.distributed; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -67,17 +68,42 @@ def test_device_flag_parses():
         (8, "cpu", "bfloat16", True)
 
 
+# knobs the SOAP slice ported: the strategy files compile now (without a
+# process group the machine is one device, so a 2-part config falls back
+# to data parallelism over it); two workers on a one-device machine raise
+SOAP_KNOBS = [("import_strategy_file", "s.pb"), ("export_strategy_file", "s.pb"),
+              ("workers_per_node", 2)]
+
+
 @pytest.mark.parametrize("field,value", [
     ("search_budget", 10), ("search_pipeline", True), ("grad_accum_steps", 2),
     ("remat", True), ("zero_optimizer", True), ("sparse_host_embeddings", True),
-    ("lowered", True), ("telemetry", True), ("import_strategy_file", "s.pb"),
-    ("export_strategy_file", "s.pb"), ("workers_per_node", 2),
+    ("lowered", True), ("telemetry", True), *SOAP_KNOBS,
 ])
-def test_knobs_outside_the_slice_raise(field, value):
+def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
+    """Knobs of features outside the port so far raise at compile; the
+    strategy files the SOAP slice brought in compile, and a worker count
+    the machine does not have raises."""
+    from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file,
+                                                      save_strategies_to_file)
+
+    monkeypatch.chdir(tmp_path)
+    if field == "import_strategy_file":
+        save_strategies_to_file(value, {"fc": ft.ParallelConfig(dims=(2, 1))})
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu", **{field: value}))
-    m.dense(m.create_tensor((2, 4)), 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.compile(ft.SGDOptimizer(lr=0.1))
+    m.dense(m.create_tensor((2, 4)), 3, name="fc")
+    if (field, value) not in SOAP_KNOBS:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            m.compile(ft.SGDOptimizer(lr=0.1))
+        return
+    if field == "workers_per_node":
+        with pytest.raises(ValueError, match="machine has 1 device"):
+            m.compile(ft.SGDOptimizer(lr=0.1))
+        return
+    m.compile(ft.SGDOptimizer(lr=0.1))
+    assert m.machine.num_devices == 1 and m.ops[0].pc.dims == (1, 1)
+    if field == "export_strategy_file":
+        assert load_strategies_from_file(value) == {"fc": m.ops[0].pc}
 
 
 def test_env_knobs_and_unported_entry_points_raise(monkeypatch):
