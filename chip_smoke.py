@@ -15,16 +15,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      the transformer's 54, Adam one launch per AlexNet leaf; the
      flash-attention forward, dK/dV and dQ kernels causal and not, bf16
      and f32, at the transformer's shape (16, 8, 512, 64), ragged S (1, 65,
-     300, 1000), Sq != Sk and head dims 32 and 128, with a non-zero lse
+     300, 1000), Sq != Sk and head dims 16, 32 and 128, with a non-zero lse
      cotangent (f32 once; bf16 causal at S 300, at Sq != Sk both ways and
-     at head dims 32 and 128), then timed at the transformer's shape; each
-     beside its bound, the plain version and the library call;
+     at head dims 16, 32 and 128), then timed at the transformer's shape
+     (and at head dim 16); each beside its bound, the plain version and the
+     library call; the optimizer kernels read lr/alpha_t from a scalar
+     vector on the card, and a set skip flag leaves their operands bitwise;
   4. the main paths: full-width AlexNet (3x229x229, batch 256, bf16, fused
      optimizer) trained with SGD then Adam, and the full-width decoder
      transformer (batch 16, S 512, 4 layers, E 512, 8 heads, vocab 32000,
-     bf16, fused SGD) trained through FFModel, with every kernel's launch
-     count checked per step (one SGD launch per step), and a device-time
-     breakdown of each;
+     bf16, fused SGD) trained through FFModel's compiled step (one CUDA
+     graph: the first step eager, the second captured, then replays), the
+     wrappers' launches checked at the eager step and the capture, and a
+     device-time breakdown of each with the launches per step that the
+     profiler's kernel events show (one SGD launch per step);
   5. path parity: f32 AlexNet at batch 8, two steps with the fused kernels
      and two with the plain update; an f32 transformer (batch 2, S 128, 2
      layers), two steps through the flash kernels and two through their
@@ -39,7 +43,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      run, with the kernels' launches checked per step (1 K1; 16 K2 with
      Adam; 4 each of K3-K5), the device busy share of both paths, and the
      weights after 2 f32 steps held against the single-device path's
-     (the single-device runs on the lead rank's card).
+     (the single-device runs on the lead rank's card), both paths eager;
+  7. the compiled step: for full-width AlexNet (SGD, Adam) and the
+     transformer, the compiled and the eager step in turns (ms/step,
+     device ms/step, busy share, launches per step from the profiler);
+     remat against plain (weights, max_memory_allocated); f32 state after
+     3 steps compiled vs eager (Adam with next_epoch() between replays);
+     grad_accum_steps 4 vs 1; a batch with an inf through the guard on a
+     replay (w, m, v bitwise unchanged); save after 2 steps, load into a
+     fresh model and 2 more steps against 4 uninterrupted.
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
 (phase 6 uses every visible card); it imports nothing of jax or of the
@@ -50,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import gc
 import json
 import math
 import os
@@ -78,6 +91,13 @@ FLASH_SOURCE = "flexflow_tpu_torch/kernels/csrc/flash_attention.cu"
 LM = dict(batch=16, seq_length=512, num_layers=4, embed_dim=512, num_heads=8,
           vocab_size=32000)
 LM_STEPS, LM_TIMED_FROM = 7, 2
+# launches of each of this repo's kernels in one step of each main path
+NO_LAUNCH = dict.fromkeys(("fused_sgd_update", "fused_adam_update", "flash_fwd",
+                           "flash_bwd_dkdv", "flash_bwd_dq"), 0)
+ALEX_SGD_STEP = {**NO_LAUNCH, "fused_sgd_update": 1}
+ALEX_ADAM_STEP = {**NO_LAUNCH, "fused_adam_update": 16}
+LM_SGD_STEP = {**NO_LAUNCH, "fused_sgd_update": 1, "flash_fwd": LM["num_layers"],
+               "flash_bwd_dkdv": LM["num_layers"], "flash_bwd_dq": LM["num_layers"]}
 # Flash kernels vs their plain versions on the same inputs.  f32: both sum
 # the same f32 products in another order (FMA chains in the kernel, cuBLAS
 # tiles with TF32 off in the plain version), about 1e-6 relative on sums
@@ -171,24 +191,28 @@ def nvidia_smi_line():
 
 # ------------------------------------------------------------------ phase 3
 
-def kernel_cases(fo):
+def kernel_cases(fo, skip=False):
     """One dict per case: label, bytes moved per element, the SGD settings
     (None for Adam), a caller taking (update, w, g, m, v) with the kernel
     wrapper and plain version it is run with, and ``step(plain, leaves)``,
     one optimizer step over a list of (w, g, m, v) as the optimizer takes
-    it: SGD one multi-tensor call, Adam one call per leaf."""
+    it: SGD one multi-tensor call, Adam one call per leaf.  lr and alpha_t
+    come from a scalar vector on the card, as the optimizers pass them;
+    with ``skip`` its skip flag is set."""
+    scalars = fo.scalar_vector(1e-3, "cuda", skip=skip)
+
     def sgd(mu, nesterov):
         def call(update, w, g, m, v):
-            update(w, g, m if mu > 0 else None, 1e-3, 1e-4, mu, nesterov)
+            update(w, g, m if mu > 0 else None, scalars, 1e-4, mu, nesterov)
 
         def step(plain, leaves):
             update = fo.fused_sgd_update_multi_ref if plain else fo.fused_sgd_update_multi
             ws, gs, ms, _ = (list(x) for x in zip(*leaves))
-            update(ws, gs, ms if mu > 0 else None, 1e-3, 1e-4, mu, nesterov)
+            update(ws, gs, ms if mu > 0 else None, scalars, 1e-4, mu, nesterov)
         return call, step
 
     def adam(update, w, g, m, v):
-        update(w, g, m, v, 1e-3, 1e-4, 0.9, 0.999, 1e-8)
+        update(w, g, m, v, scalars, 1e-4, 0.9, 0.999, 1e-8)
 
     def adam_step(plain, leaves):
         for leaf in leaves:
@@ -236,6 +260,19 @@ def check_kernels(fo):
             name = case["kernel"].__name__
             max_err[name] = max(max_err.get(name, 0.0), err)
             log(f"  check {case['label']:36s} {sname:22s} max_abs_err {err:.3e}")
+    # a skipped step (the guard's flag in the scalar vector): the kernel and
+    # the plain version leave every operand bitwise as it was
+    n = 9216 * 4096
+    for case in kernel_cases(fo, skip=True):
+        ops = operands(n, gen)
+        for update in (case["kernel"], case["plain"]):
+            got = [t.clone() for t in ops]
+            case["call"](update, *got)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, ops)),
+                  f"{case['label']}: a skipped step changed its operands")
+        log(f"  check {case['label']:36s} skip flag set: w, m, v bitwise unchanged "
+            f"(kernel and plain version)")
     return max_err
 
 
@@ -368,10 +405,25 @@ def launch_diagnostics(fo, leaf_counts, biggest):
             f"host {per_call:.1f} us per wrapper call on one leaf; {steps}")
 
 
-def profile_steps(model, label, step_ms, steps=3):
+# This repo's kernels by a piece of their compiled names (the profiler's
+# kernel events), and the wrapper that launches each.
+KERNEL_NAMES = (("sgd_kernel", "fused_sgd_update"), ("adam_kernel", "fused_adam_update"),
+                ("flash_fwd", "flash_fwd"), ("flash_bwd_dkdv", "flash_bwd_dkdv"),
+                ("flash_bwd_dq", "flash_bwd_dq"))
+
+
+def kernel_of(event_name):
+    return next((k for sub, k in KERNEL_NAMES if sub in event_name), None)
+
+
+def profile_steps(model, label, step_ms, steps=3, per_step=None):
     """Device time by kernel family over a few steady steps of a main path's
     model, and its share of the unprofiled step time ``step_ms``; returns
-    (device ms per step, busy share in %)."""
+    (device ms per step, busy share in %).  With ``per_step`` (launches of
+    each of this repo's kernels a step), the launches the profiler saw
+    must equal it: on the graph path the wrappers' counters tick only at
+    the eager first step and at the capture, so the kernels' own events
+    are what count a replay's launches."""
     for _ in range(2):
         model.train_iteration()
     model.sync()
@@ -387,6 +439,16 @@ def profile_steps(model, label, step_ms, steps=3):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    if per_step is not None:
+        seen = dict.fromkeys(per_step, 0)
+        for key, _, count in rows:
+            if kernel_of(key) is not None:
+                seen[kernel_of(key)] += count
+        got = {k: c / steps for k, c in seen.items()}
+        check(got == per_step, f"{label}: launches per step from the profiler {got}, "
+                               f"expected {per_step}")
+        log(f"[profile] {label}: launches per step from the profiler's kernel events "
+            f"{ {k: int(c) for k, c in got.items()} }")
     log(f"[profile] {label}, {steps} steps: device kernels {busy / steps / 1e3:.3f} ms/step, "
         f"{100 * busy / steps / 1e3 / step_ms:.1f}% of the unprofiled {step_ms:.3f} ms step "
         f"(wall under the profiler {wall_us / steps / 1e3:.3f} ms/step)")
@@ -501,7 +563,18 @@ def check_flash(fa):
              ((2, 4, 200, 64), 330, torch.bfloat16, True, True),
              ((2, 4, 330, 64), 200, torch.bfloat16, True, True),
              ((2, 4, 256, 128), None, torch.bfloat16, True, True),
-             ((2, 4, 200, 32), None, torch.bfloat16, True, True)]
+             ((2, 4, 200, 32), None, torch.bfloat16, True, True),
+             # head dim 16 (the JAX package's transformer_4d and
+             # transformer_generate examples): bf16 and f32, causal and
+             # not, ragged S, Sq != Sk, with and without the lse term
+             ((2, 4, 300, 16), None, torch.bfloat16, True, True),
+             ((2, 4, 300, 16), None, torch.bfloat16, False, False),
+             ((2, 4, 300, 16), None, torch.float32, True, True),
+             ((2, 4, 300, 16), None, torch.float32, False, False),
+             ((2, 4, 200, 16), 330, torch.bfloat16, True, True),
+             ((2, 4, 330, 16), 200, torch.float32, False, True),
+             ((2, 4, 65, 16), None, torch.bfloat16, True, False),
+             ((16, 8, 512, 16), None, torch.bfloat16, True, True)]
     # the bf16 forward's edges: one row, one key tile and a row, more key
     # tiles than its double buffer
     cases += [((2, 4, s_, 64), None, torch.bfloat16, causal, False)
@@ -563,14 +636,15 @@ def flash_bounds(shape, causal):
     return out
 
 
-def time_flash(fa):
+def time_flash(fa, head_dim=None):
     """Each kernel, its plain version and SDPA at the transformer's shape
-    (bf16, causal).  SDPA is a yardstick only: the port never calls it."""
+    (bf16, causal; at ``head_dim`` instead of its 64 when given).  SDPA is
+    a yardstick only: the port never calls it."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     shape = (LM["batch"], LM["num_heads"], LM["seq_length"],
-             LM["embed_dim"] // LM["num_heads"])
+             head_dim or LM["embed_dim"] // LM["num_heads"])
     q, k, v, do = attn_inputs(shape, torch.bfloat16, gen)
     scale = 1.0 / math.sqrt(shape[-1])
     o, lse = fa.flash_fwd(q, k, v, scale, True)
@@ -645,10 +719,20 @@ def main_model(ft, build_alexnet, make_opt, batch=BATCH, machine=None, **cfg):
     return model
 
 
+def check_graph_run(model, steps, label):
+    """The run went through the compiled step: the first step eager, the
+    second captured and replayed, every later one a replay."""
+    g = model._step_graph
+    check(g is not None and g.captures == 1 and g.replays == steps - 1,
+          f"{label}: {steps} steps gave "
+          f"{None if g is None else (g.captures, g.replays)} (captures, replays)")
+
+
 def train_main_path(ft, build_alexnet, fo, make_opt, steps, timed_from):
-    """Take ``steps`` steps of full-width AlexNet, checking the optimizer's
-    launches per step (SGD one, Adam one per leaf, 16) and a finite loss on
-    every step."""
+    """Take ``steps`` steps of full-width AlexNet through the compiled step,
+    checking a finite loss on every step and the optimizer's launches (SGD
+    one a step, Adam one per leaf, 16): the wrapper runs at the eager first
+    step and at the capture, the replays run the captured launches."""
     from flexflow_tpu_torch.model import METRIC_KEYS
 
     model = main_model(ft, build_alexnet, make_opt)
@@ -661,18 +745,20 @@ def train_main_path(ft, build_alexnet, fo, make_opt, steps, timed_from):
     kern = fo.fused_sgd_update if sgd else fo.fused_adam_update
     per_step = 1 if sgd else n_leaves
     loss_sums, t0 = [], None
+    before = kern.launches
     for step in range(steps):
         if step == timed_from:
             model.sync()
             t0 = time.perf_counter()
-        before = kern.launches
         model.train_iteration()
-        check(kern.launches - before == per_step,
-              f"step {step}: {kern.launches - before} launches of {kern.__name__}")
         # cumulative loss sum on the device: no host transfer inside the loop
         loss_sums.append(model._metric_acc[METRIC_KEYS.index("loss")].clone())
     model.sync()
     seconds = time.perf_counter() - t0
+    check_graph_run(model, steps, "AlexNet")
+    check(kern.launches - before == 2 * per_step,
+          f"{kern.launches - before} wrapper launches of {kern.__name__} (eager step and "
+          f"capture), expected {2 * per_step}")
     sums = torch.stack(loss_sums).tolist()
     losses = [b - a for a, b in zip([0.0] + sums[:-1], sums)]
     check(all(math.isfinite(x) for x in sums), f"non-finite loss: {losses}")
@@ -720,9 +806,10 @@ def lm_model(ft, build_transformer, synthetic_lm_batch, make_opt, batch, seq_len
 
 
 def train_transformer(ft, build_transformer, synthetic_lm_batch, kernels):
-    """Full-width transformer steps: per step exactly one launch of each
-    flash kernel per layer and one fused SGD launch over all 54 leaves, a
-    finite loss on every step, and a loss that falls."""
+    """Full-width transformer steps through the compiled step: exactly one
+    launch of each flash kernel per layer and one fused SGD launch over all
+    54 leaves at the eager step and at the capture, a finite loss on every
+    step, and a loss that falls."""
     from flexflow_tpu_torch.model import METRIC_KEYS
 
     model = lm_model(ft, build_transformer, synthetic_lm_batch,
@@ -735,17 +822,19 @@ def train_transformer(ft, build_transformer, synthetic_lm_batch, kernels):
                 "flash_bwd_dq": LM["num_layers"], "fused_sgd_update": 1,
                 "fused_adam_update": 0}
     loss_sums, t0 = [], None
+    before = read_launches(kernels)
     for step in range(LM_STEPS):
         if step == LM_TIMED_FROM:
             model.sync()
             t0 = time.perf_counter()
-        before = read_launches(kernels)
         model.train_iteration()
-        got = {n: c - before[n] for n, c in read_launches(kernels).items()}
-        check(got == per_step, f"step {step}: launches {got}, expected {per_step}")
         loss_sums.append(model._metric_acc[METRIC_KEYS.index("loss")].clone())
     model.sync()
     seconds = time.perf_counter() - t0
+    check_graph_run(model, LM_STEPS, "transformer")
+    got = {n: c - before[n] for n, c in read_launches(kernels).items()}
+    check(got == {n: 2 * c for n, c in per_step.items()},
+          f"wrapper launches {got} (eager step and capture), expected twice {per_step}")
     sums = torch.stack(loss_sums).tolist()
     losses = [b - a for a, b in zip([0.0] + sums[:-1], sums)]
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
@@ -942,7 +1031,16 @@ def soap_parity(ft, build_alexnet, build_transformer, synthetic_lm_batch, single
 def soap_runs(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels, dev, lead):
     """Phase 6's training on this rank: AlexNet (SGD, then Adam) under
     alexnet_16.pb and the transformer under data parallelism, SOAP beside
-    single-device, then the f32 parity runs.  Returns the SOAP launches."""
+    single-device, then the f32 parity runs.  The SOAP path has no
+    compiled step yet, so the single-device path it is set beside runs its
+    eager step too (``disable_graphs``): the comparison is of what DTensor
+    adds.  Returns the SOAP launches."""
+    with ft.disable_graphs():
+        return _soap_runs(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels,
+                          dev, lead)
+
+
+def _soap_runs(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels, dev, lead):
     world = torch.distributed.get_world_size()
     single_machine = ft.Machine(devices=[dev])
     # phase 4's settings for the timed runs
@@ -1037,6 +1135,296 @@ def soap_helper():
     return 0
 
 
+# ------------------------------------------------------------------ phase 7
+
+# f32 weights, compiled step vs eager step, on the same inputs: the same
+# kernels in the same order on the same data, so the two should agree to
+# the bit; 1e-6 is the limit stated for them (the fused update's).
+GRAPH_TOL = dict(rtol=1e-6, atol=1e-6)
+# grad_accum_steps 4 vs 1 after 2 f32 steps: the JAX package's own
+# accumulation test's tolerance (tests/test_grad_accum.py)
+ACCUM_TOL = dict(rtol=2e-5, atol=2e-6)
+# remat vs plain: the same forward recomputed, the JAX package's remat
+# test's tolerance
+REMAT_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+def free_models():
+    """Free the models no name holds any more (an op refers to its model, so
+    a dropped model waits for the cycle collector) and their cached blocks,
+    so that a peak-memory reading counts one model."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def state_of(model):
+    """Every weight and optimizer slot of a single-device model, cloned."""
+    out = {("w", o, n): t.detach().clone() for o, ws in model._params.items()
+           for n, t in ws.items()}
+    for slot, tree in (model._opt_state or {}).items():
+        out.update({(slot, o, n): t.clone() for o, ws in tree.items() for n, t in ws.items()})
+    return out
+
+
+def compare_states(a, b, tol, what):
+    """Max |difference| over every leaf, after holding each at ``tol``;
+    returns (max abs difference, whether every leaf is bitwise equal)."""
+    worst, bitwise = 0.0, True
+    for key in a:
+        torch.testing.assert_close(a[key], b[key], **tol, msg=lambda m: f"{what} {key}: {m}")
+        bitwise = bitwise and torch.equal(a[key], b[key])
+        worst = max(worst, (a[key] - b[key]).abs().max().item())
+    return worst, bitwise
+
+
+def steps_ms(model, steps=7, timed_from=2):
+    """Host ms per step over the steps after ``timed_from``, ending in a
+    synchronize, and the cumulative loss sums (no host read in the loop)."""
+    from flexflow_tpu_torch.model import METRIC_KEYS
+
+    sums, t0 = [], None
+    for step in range(steps):
+        if step == timed_from:
+            model.sync()
+            t0 = time.perf_counter()
+        model.train_iteration()
+        sums.append(model._metric_acc[METRIC_KEYS.index("loss")].clone())
+    model.sync()
+    ms = (time.perf_counter() - t0) / (steps - timed_from) * 1e3
+    sums = torch.stack(sums).tolist()
+    losses = [b - a for a, b in zip([0.0] + sums[:-1], sums)]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    return ms, losses
+
+
+def graph_vs_eager(ft, label, make_model, per_step, samples, tokens=0):
+    """One model's compiled step and eager step in turns (graph, eager,
+    eager, graph), 2 warm-up and 5 timed steps each, then one more model of
+    each profiled: device ms per step, busy share and launches per step
+    from the profiler's kernel events."""
+    times = {"graph": [], "eager": []}
+    for path in ("graph", "eager", "eager", "graph"):
+        model = make_model()
+        with contextlib.nullcontext() if path == "graph" else ft.disable_graphs():
+            ms, losses = steps_ms(model)
+        if path == "graph":
+            check_graph_run(model, 7, label)
+        else:
+            check(model._step_graph is None, f"{label}: the eager run captured a graph")
+        times[path].append(ms)
+        del model
+        torch.cuda.empty_cache()
+    prof = {}
+    for path in ("graph", "eager"):
+        model = make_model()
+        with contextlib.nullcontext() if path == "graph" else ft.disable_graphs():
+            prof[path] = profile_steps(model, f"{label}, {path} step", times[path][0],
+                                       per_step=per_step)
+        del model
+        torch.cuda.empty_cache()
+    for path, ms in times.items():
+        device_ms, busy = prof[path]
+        rate = (f"{' / '.join(f'{tokens * 1e3 / m:.0f}' for m in ms)} tokens/s (device "
+                f"ceiling {tokens * 1e3 / device_ms:.0f})" if tokens else
+                f"{' / '.join(f'{samples * 1e3 / m:.1f}' for m in ms)} samples/s (device "
+                f"ceiling {samples * 1e3 / device_ms:.1f})")
+        log(f"[graph] {label}, {path:5s} step: {' / '.join(f'{m:.3f}' for m in ms)} ms/step, "
+            f"{rate}, device {device_ms:.3f} ms/step, busy {busy:.1f}% of the first run's step")
+    return times, prof
+
+
+def graph_eager_parity(ft, label, make_model, steps=3, between=None):
+    """f32 state after ``steps`` steps, compiled vs eager, from the same
+    weights and batch: the eager first step, the captured second and a
+    replay.  ``between(model, i)`` runs before step i on both paths."""
+    def run(graph):
+        model = make_model()
+        with contextlib.nullcontext() if graph else ft.disable_graphs():
+            for i in range(steps):
+                if between is not None:
+                    between(model, i)
+                model.train_iteration()
+        model.sync()
+        if graph:
+            check_graph_run(model, steps, label)
+        return state_of(model)
+
+    worst, bitwise = compare_states(run(True), run(False), GRAPH_TOL, label)
+    log(f"[graph] parity f32 {label}, {steps} steps, compiled vs eager: max |d| {worst:.3e} "
+        f"over weights and optimizer state ({'bitwise equal' if bitwise else 'not bitwise'}; "
+        f"limit rtol 1e-6, atol 1e-6)")
+    return worst
+
+
+def guard_check(ft, build_alexnet, make_opt, label):
+    """FF_SKIP_NONFINITE on the compiled step: two good steps (the eager
+    one and the captured one), then the same batch with an inf staged into
+    the static buffers and replayed: w, m and v bitwise unchanged and
+    skipped_steps 1; a good step after it trains again."""
+    import numpy as np
+
+    os.environ["FF_SKIP_NONFINITE"] = "3"
+    try:
+        model = main_model(ft, build_alexnet, make_opt)
+    finally:
+        os.environ.pop("FF_SKIP_NONFINITE")
+    inp = model.input_tensors[0]
+    x = np.random.default_rng(1).standard_normal((BATCH,) + inp.dims[1:], dtype=np.float32)
+    y = model._batch["label"].cpu().numpy()
+    for _ in range(2):
+        model.train_iteration()
+    before = state_of(model)
+    bad = x.copy()
+    bad[3, 7, 11, 0] = np.inf
+    model.set_batch({inp: bad}, y)
+    model.train_iteration()
+    model.sync()
+    check_graph_run(model, 3, label)
+    _, bitwise = compare_states(before, state_of(model), dict(rtol=0, atol=0), label)
+    keys = model._metric_keys()
+    acc = dict(zip(keys, model._metric_acc.tolist()))
+    check(acc["skipped_steps"] == 1 and acc["consec_skipped"] == 1 and acc["steps"] == 2,
+          f"{label}: guard entries {acc}")
+    model.set_batch({inp: x}, y)
+    model.train_iteration()
+    model.sync()
+    after = state_of(model)
+    check(not torch.equal(after[("w", "fc1", "kernel")], before[("w", "fc1", "kernel")]),
+          f"{label}: the good step after the skipped one did not train")
+    acc = dict(zip(keys, model._metric_acc.tolist()))
+    check(acc["consec_skipped"] == 0 and acc["skipped_steps"] == 1,
+          f"{label}: guard entries after a good step {acc}")
+    log(f"[graph] guard {label}: a batch with an inf replayed through the captured step left "
+        f"every weight and slot ({len(before)} leaves) bitwise unchanged; skipped_steps "
+        f"{acc['skipped_steps']:.0f}, nonfinite_loss {acc['nonfinite_loss']:.0f}; the next good "
+        "step trained and reset consec_skipped")
+
+
+def save_load_check(ft, build_alexnet, label):
+    """save after 2 compiled steps, load into a fresh model, 2 more steps:
+    equal to 4 uninterrupted steps."""
+    import tempfile
+
+    straight = main_model(ft, build_alexnet, sgd_optimizer(ft))
+    for _ in range(4):
+        straight.train_iteration()
+    want = state_of(straight)
+    del straight
+    first = main_model(ft, build_alexnet, sgd_optimizer(ft))
+    for _ in range(2):
+        first.train_iteration()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "alexnet")
+        t0 = time.perf_counter()
+        first.save(path)
+        save_s = time.perf_counter() - t0
+        del first
+        fresh = main_model(ft, build_alexnet, sgd_optimizer(ft))
+        t0 = time.perf_counter()
+        fresh.load(path)
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path + ".npz")
+    check(fresh._step_count == 2, f"{label}: loaded step {fresh._step_count}")
+    for _ in range(2):
+        fresh.train_iteration()
+    fresh.sync()
+    check_graph_run(fresh, 2, label)
+    worst, bitwise = compare_states(want, state_of(fresh), GRAPH_TOL, label)
+    log(f"[graph] checkpoint {label}: save after 2 steps ({size / 2**20:.1f} MiB .npz, save "
+        f"{save_s:.2f} s, load {load_s:.2f} s), load into a fresh model, 2 more steps vs 4 "
+        f"uninterrupted: max |d| {worst:.3e} ({'bitwise equal' if bitwise else 'not bitwise'})")
+
+
+def compiled_step_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, smi):
+    """Phase 7: the compiled step against the eager step on both main paths,
+    and the step's options on the card."""
+    lm_make = lambda **cfg: lm_model(  # noqa: E731
+        ft, build_transformer, synthetic_lm_batch, lambda m: ft.SGDOptimizer(m, lr=0.001),
+        **{**LM, **cfg})
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    results = {}
+    for label, make, per_step, samples, tokens in (
+            (f"AlexNet batch {BATCH} bf16 SGD momentum 0.9",
+             lambda: main_model(ft, build_alexnet, sgd_optimizer(ft)), ALEX_SGD_STEP,
+             BATCH, 0),
+            (f"AlexNet batch {BATCH} bf16 Adam",
+             lambda: main_model(ft, build_alexnet, adam_optimizer(ft)), ALEX_ADAM_STEP,
+             BATCH, 0),
+            (f"transformer batch {LM['batch']} S {LM['seq_length']} bf16 SGD", lm_make,
+             LM_SGD_STEP, LM["batch"], LM["batch"] * LM["seq_length"])):
+        results[label] = graph_vs_eager(ft, label, make, per_step, samples, tokens)
+
+    # remat against plain on the bf16 main path: weights (compiled step) and
+    # peak memory on both paths
+    peaks, states = {}, {}
+    for remat in (False, True):
+        for path in ("graph", "eager"):
+            free_models()
+            torch.cuda.reset_peak_memory_stats()
+            model = lm_make(remat=remat)
+            with contextlib.nullcontext() if path == "graph" else ft.disable_graphs():
+                steps_ms(model, steps=2, timed_from=1)
+            peaks[remat, path] = torch.cuda.max_memory_allocated() / 2**30
+            if path == "graph":
+                check_graph_run(model, 2, f"transformer remat={remat}")
+                states[remat] = state_of(model)
+            del model
+    worst, bitwise = compare_states(states[True], states[False], REMAT_TOL, "remat")
+    log(f"[graph] remat transformer bf16, 2 steps: max_memory_allocated plain "
+        f"{peaks[False, 'graph']:.2f} GiB compiled / {peaks[False, 'eager']:.2f} GiB eager, "
+        f"remat {peaks[True, 'graph']:.2f} / {peaks[True, 'eager']:.2f} GiB; weights after 2 "
+        f"compiled steps max |d| {worst:.3e} ({'bitwise equal' if bitwise else 'not bitwise'}; "
+        f"limit rtol 1e-6, atol 1e-7); card {smi}")
+    del states
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dict(compute_dtype="float32")
+    graph_eager_parity(ft, f"AlexNet batch {BATCH} SGD momentum 0.9",
+                       lambda: main_model(ft, build_alexnet, sgd_optimizer(ft), **f32))
+
+    def epochs(model, i):  # alpha_t changes between replays
+        if i >= 2:
+            model.optimizer.next_epoch()
+    graph_eager_parity(ft, f"AlexNet batch {BATCH} Adam, next_epoch() before steps 3 and 4",
+                       lambda: main_model(ft, build_alexnet, adam_optimizer(ft), **f32),
+                       steps=4, between=epochs)
+    lm_sgd = lambda **cfg: lm_model(  # noqa: E731
+        ft, build_transformer, synthetic_lm_batch,
+        lambda m: ft.SGDOptimizer(m, lr=0.01, momentum=0.9), **{**LM, **f32, **cfg})
+    graph_eager_parity(ft, f"transformer batch {LM['batch']} S {LM['seq_length']} SGD "
+                       "momentum 0.9", lm_sgd)
+
+    # gradient accumulation: K = 4 against K = 1, 2 compiled f32 steps
+    states = {}
+    for k in (1, 4):
+        model = lm_sgd(grad_accum_steps=k)
+        for _ in range(2):
+            model.train_iteration()
+        model.sync()
+        check_graph_run(model, 2, f"transformer grad_accum_steps={k}")
+        states[k] = state_of(model)
+        del model
+        torch.cuda.empty_cache()
+    worst, _ = compare_states(states[4], states[1], ACCUM_TOL, "grad_accum_steps")
+    log(f"[graph] grad_accum_steps f32 transformer, 4 micro-batches of "
+        f"{LM['batch'] // 4} vs the whole batch, 2 compiled steps: max |d| {worst:.3e} over "
+        "weights and momentum (limit rtol 2e-5, atol 2e-6)")
+    del states
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    guard_check(ft, build_alexnet, sgd_optimizer(ft), f"AlexNet batch {BATCH} bf16 SGD")
+    guard_check(ft, build_alexnet, adam_optimizer(ft), f"AlexNet batch {BATCH} bf16 Adam")
+    torch.cuda.empty_cache()
+    save_load_check(ft, build_alexnet, f"AlexNet batch {BATCH} bf16 SGD")
+    torch.cuda.empty_cache()
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -1082,15 +1470,18 @@ def main():
         "(one bf16 rounding of f32 results; lse f32)")
     max_err.update(check_flash(fa))
     flash_rows = time_flash(fa)
+    time_flash(fa, head_dim=16)
 
     # phase 4 ------------------------------------------------------------
     reset_launches(kernels)
+    free_models()
     torch.cuda.reset_peak_memory_stats()
     sgd_run = train_main_path(ft, build_alexnet, fo, sgd_optimizer(ft), steps=7, timed_from=2)
     torch.cuda.empty_cache()
-    adam_run = train_main_path(ft, build_alexnet, fo, adam_optimizer(ft), steps=3, timed_from=1)
+    adam_run = train_main_path(ft, build_alexnet, fo, adam_optimizer(ft), steps=5, timed_from=2)
     alex_launches = read_launches(kernels)
-    check(alex_launches == {"fused_sgd_update": 7, "fused_adam_update": 16 * 3,
+    # the eager first step and the capture call the wrappers; replays do not
+    check(alex_launches == {"fused_sgd_update": 2, "fused_adam_update": 16 * 2,
                             "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0},
           f"AlexNet launch counts {alex_launches}")
     peak = torch.cuda.max_memory_allocated()
@@ -1102,16 +1493,17 @@ def main():
     log(f"[main] max_memory_allocated {peak / 2**30:.2f} GiB; launches {alex_launches}; "
         f"card {smi}")
     profile_steps(main_model(ft, build_alexnet, sgd_optimizer(ft)), "AlexNet SGD",
-                  sgd_run["ms_per_step"])
+                  sgd_run["ms_per_step"], per_step=ALEX_SGD_STEP)
     torch.cuda.empty_cache()
 
     reset_launches(kernels)
+    free_models()
     torch.cuda.reset_peak_memory_stats()
     lm, lm_run = train_transformer(ft, build_transformer, synthetic_lm_batch, kernels)
     lm_launches = read_launches(kernels)
-    per_layer = LM_STEPS * LM["num_layers"]
+    per_layer = 2 * LM["num_layers"]  # the eager first step and the capture
     # predict_batch's forward adds one flash_fwd launch per layer
-    check(lm_launches == {"fused_sgd_update": LM_STEPS, "fused_adam_update": 0,
+    check(lm_launches == {"fused_sgd_update": 2, "fused_adam_update": 0,
                           "flash_fwd": per_layer + LM["num_layers"],
                           "flash_bwd_dkdv": per_layer, "flash_bwd_dq": per_layer},
           f"transformer launch counts {lm_launches}")
@@ -1123,7 +1515,7 @@ def main():
         f"{lm_run['ms_per_step']:.2f} ms/step  {lm_run['metrics']}")
     log(f"[main] transformer max_memory_allocated {peak / 2**30:.2f} GiB; launches "
         f"{lm_launches}; card {smi}")
-    profile_steps(lm, "transformer SGD", lm_run["ms_per_step"])
+    profile_steps(lm, "transformer SGD", lm_run["ms_per_step"], per_step=LM_SGD_STEP)
     del lm
     torch.cuda.empty_cache()
 
@@ -1145,6 +1537,9 @@ def main():
     # phase 6 ------------------------------------------------------------
     soap_launches = soap_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch,
                                kernels, smi)
+
+    # phase 7 ------------------------------------------------------------
+    compiled_step_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, smi)
 
     # result -------------------------------------------------------------
     main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n] for n in kernels}

@@ -8,7 +8,9 @@ for the CPU; over several processes (``parallel.distributed``, one per
 device) they train under per-op SOAP configs on a ``DeviceMesh``.  The optimizer updates and attention (forward and backward) on
 the training path are hand-written CUDA kernels for Hopper
 (``kernels/``); conv, pool, dense and embedding layers are library calls,
-as the JAX package leaves them to XLA.
+as the JAX package leaves them to XLA.  On one CUDA device each training
+step is a replay of one captured CUDA graph (``runtime/step_graph.py``);
+``disable_graphs()`` runs it eagerly.
 """
 
 from .config import DeviceType, FFConfig, ParallelConfig
@@ -24,6 +26,7 @@ from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
 from .parallel.mesh import Machine
 from .parallel.strategy import load_strategies_from_file, save_strategies_to_file
 from .runtime.dataloader import DataLoader
+from .runtime.step_graph import disable_graphs
 from .tensor import DataType, Parameter, Tensor
 
 __version__ = "0.1.0"
@@ -34,5 +37,5 @@ __all__ = [
     "LossType", "Machine", "MetricsType", "NormInitializer", "Op",
     "Optimizer", "Parameter", "ParallelConfig", "PerfMetrics", "PoolType",
     "SGDOptimizer", "Tensor", "UniformInitializer", "ZeroInitializer",
-    "load_strategies_from_file", "save_strategies_to_file",
+    "disable_graphs", "load_strategies_from_file", "save_strategies_to_file",
 ]

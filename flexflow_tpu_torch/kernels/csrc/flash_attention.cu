@@ -1185,10 +1185,18 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
                 delta, g_lse, (float*)dq, nq, sq, sk, scale, causal);
 }
 
-// Dispatch on the head dim (32, 64 and 128 are compiled) and dtype (0 or 1).
+// Dispatch on the head dim (16, 32, 64 and 128 are compiled) and dtype (0
+// or 1).  At D = 16 every loop above runs whole: one k16 step (KT = 1),
+// two n8 output tiles (DT = 2), two 16-byte chunks a row, so one cp.async a
+// thread per 64-row tile and one 16-byte store a lane in store_rows; a
+// staged row is 24 elements (48 bytes), still a multiple of 16 bytes for
+// cp.async and ldmatrix, and its 12-bank stride keeps the 8 rows of an
+// ldmatrix on distinct banks.  K4 holds K and V in registers and makes one
+// 64-column pass, as at D <= 64.
 #define FF_DISPATCH(FN, ...)                                                   \
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;             \
   switch (d) {                                                                 \
+    case 16: return (int)FN<16>(dtype, __VA_ARGS__);                           \
     case 32: return (int)FN<32>(dtype, __VA_ARGS__);                           \
     case 64: return (int)FN<64>(dtype, __VA_ARGS__);                           \
     case 128: return (int)FN<128>(dtype, __VA_ARGS__);                         \

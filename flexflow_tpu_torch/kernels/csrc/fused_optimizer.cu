@@ -34,8 +34,17 @@
 // the scalar loop.  The TPU kernel's (rows, 128) padding is its tiling and
 // is not carried over.
 // w, m and v are updated in place: the counterpart of the Pallas call's
-// input_output_aliases, so no parameter-sized temporary exists.  lr/alpha_t,
-// wd, momentum/betas and eps are arguments; nothing is allocated here.
+// input_output_aliases, so no parameter-sized temporary exists.  The
+// time-varying scalars are read from device memory, the counterpart of the
+// TPU kernels' SMEM operand: `scalars` is a float32 vector, [0] the step
+// size (lr for SGD, alpha_t for Adam) and [1] a skip flag.  A block that
+// finds skip != 0 returns before it reads or writes anything, so a step
+// that the non-finite guard skips leaves w, m and v bitwise as they were.
+// Because nothing that changes from step to step is a launch argument, a
+// launch captured in a CUDA graph stays right when lr, alpha_t or the flag
+// change between replays (they are written in place, outside the graph).
+// wd, momentum/betas and eps are fixed per optimizer and stay arguments;
+// nothing is allocated here.
 // Built with -fmad=false (see kernels/fused_optimizer.py), each line below
 // rounds as the plain PyTorch version's separate tensor operations do.
 // Each entry point launches on the caller's stream and returns
@@ -91,7 +100,10 @@ static_assert(sizeof(SgdTable) + 64 <= 4096, "kernel parameters above 4 KB");
 
 template <bool MOMENTUM, bool NESTEROV>
 __global__ void __launch_bounds__(kThreads)
-sgd_kernel(const __grid_constant__ SgdTable t, int64_t chunk, float lr, float wd, float mu) {
+sgd_kernel(const __grid_constant__ SgdTable t, int64_t chunk, const float* __restrict__ scalars,
+           float wd, float mu) {
+  if (scalars[1] != 0.f) return;  // a skipped step
+  const float lr = scalars[0];
   // this block's leaf: the last one whose first chunk is at or before it
   int lo = 0, hi = t.count - 1;
   while (lo < hi) {
@@ -137,8 +149,10 @@ sgd_kernel(const __grid_constant__ SgdTable t, int64_t chunk, float lr, float wd
 __global__ void __launch_bounds__(kThreads)
 adam_kernel(float* __restrict__ w, const float* __restrict__ g,
             float* __restrict__ m, float* __restrict__ v, int64_t n, bool vec,
-            float alpha_t, float wd, float b1, float one_m_b1, float b2,
-            float one_m_b2, float eps) {
+            const float* __restrict__ scalars, float wd, float b1, float one_m_b1,
+            float b2, float one_m_b2, float eps) {
+  if (scalars[1] != 0.f) return;  // a skipped step
+  const float alpha_t = scalars[0];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int64_t head = 0;
@@ -195,11 +209,11 @@ inline int64_t work_items(int64_t n, bool vec) {
 // holds a row of five int64 per leaf, in the order the wrapper's
 // sgd_launch_plan gives: w, g, m (0 when momentum is 0), element count
 // (> 0) and first chunk (0 for the first leaf, then the running sum of
-// ceil(n / chunk)).
+// ceil(n / chunk)).  `scalars` is the device vector (lr, skip).
 extern "C" int ff_fused_sgd_update_multi(const int64_t* table, int count, int64_t chunk,
-                                         float lr, float wd, float momentum, int nesterov,
-                                         void* stream) {
-  if (count <= 0 || count > kMaxLeaves || chunk <= 0 || chunk % 4 != 0)
+                                         const float* scalars, float wd, float momentum,
+                                         int nesterov, void* stream) {
+  if (count <= 0 || count > kMaxLeaves || chunk <= 0 || chunk % 4 != 0 || !scalars)
     return (int)cudaErrorInvalidValue;
   const bool use_m = momentum > 0.f;
   SgdTable t{};
@@ -218,25 +232,28 @@ extern "C" int ff_fused_sgd_update_multi(const int64_t* table, int count, int64_
   const int64_t blocks = last.chunk0 + (last.n + chunk - 1) / chunk;
   if (blocks <= 0 || blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const unsigned grid = (unsigned)blocks;
   if (use_m && nesterov) {
-    sgd_kernel<true, true><<<(unsigned)blocks, kThreads, 0, s>>>(t, chunk, lr, wd, momentum);
+    sgd_kernel<true, true><<<grid, kThreads, 0, s>>>(t, chunk, scalars, wd, momentum);
   } else if (use_m) {
-    sgd_kernel<true, false><<<(unsigned)blocks, kThreads, 0, s>>>(t, chunk, lr, wd, momentum);
+    sgd_kernel<true, false><<<grid, kThreads, 0, s>>>(t, chunk, scalars, wd, momentum);
   } else {
-    sgd_kernel<false, false><<<(unsigned)blocks, kThreads, 0, s>>>(t, chunk, lr, wd, 0.f);
+    sgd_kernel<false, false><<<grid, kThreads, 0, s>>>(t, chunk, scalars, wd, 0.f);
   }
   return (int)cudaGetLastError();
 }
 
+// `scalars` is the device vector (alpha_t, skip).
 extern "C" int ff_fused_adam_update(float* w, const float* g, float* m, float* v,
-                                    int64_t n, float alpha_t, float wd, float beta1,
+                                    int64_t n, const float* scalars, float wd, float beta1,
                                     float one_minus_beta1, float beta2,
                                     float one_minus_beta2, float eps, void* stream) {
   if (n <= 0) return 0;
+  if (!scalars) return (int)cudaErrorInvalidValue;
   const bool vec = aligned16(w) && aligned16(g) && aligned16(m) && aligned16(v);
   const int blocks = blocks_for(work_items(n, vec));
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  adam_kernel<<<blocks, kThreads, 0, s>>>(w, g, m, v, n, vec, alpha_t, wd, beta1,
+  adam_kernel<<<blocks, kThreads, 0, s>>>(w, g, m, v, n, vec, scalars, wd, beta1,
                                           one_minus_beta1, beta2, one_minus_beta2, eps);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,7 @@ from ._build import refuse_dtensor
 SOURCE = "flash_attention.cu"
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (32, 64, 128)  # compiled into csrc/flash_attention.cu
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # compiled into csrc/flash_attention.cu
 
 _lib_handle: Optional[ctypes.CDLL] = None
 _plain = False

@@ -22,6 +22,16 @@ SGD takes a whole optimizer step in one launch (``fused_sgd_update_multi``,
 counted on ``fused_sgd_update.launches``); ``fused_sgd_update``, the JAX
 package's name, is the same launch over one leaf.  Adam launches once per
 leaf.
+
+The time-varying scalar (``lr`` for SGD, ``alpha_t`` for Adam) is either a
+float or the optimizer's scalar vector: a float32 tensor ``(value, skip)``
+on the leaves' device (``scalar_vector``), the counterpart of the TPU
+kernels' SMEM operand.  The kernels read it from device memory, so a launch
+captured in a CUDA graph follows a value written into the vector between
+replays; when ``skip`` is not 0 they return without writing, and the plain
+versions select the old values (``torch.where``), so a skipped step leaves
+every leaf bitwise as it was.  A float is put into a fresh vector (two
+fills on the stream, no host synchronization).
 """
 
 from __future__ import annotations
@@ -56,10 +66,10 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load(SOURCE, NVCC_FLAGS)
         p, i64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
-        lib.ff_fused_sgd_update_multi.argtypes = [ctypes.POINTER(i64), i32, i64, f32, f32,
+        lib.ff_fused_sgd_update_multi.argtypes = [ctypes.POINTER(i64), i32, i64, p, f32,
                                                   f32, i32, p]
         lib.ff_fused_sgd_update_multi.restype = i32
-        lib.ff_fused_adam_update.argtypes = [p, p, p, p, i64, f32, f32, f32, f32, f32,
+        lib.ff_fused_adam_update.argtypes = [p, p, p, p, i64, p, f32, f32, f32, f32,
                                              f32, f32, p]
         lib.ff_fused_adam_update.restype = i32
         _lib_handle = lib
@@ -103,18 +113,60 @@ def _leaf_rows(ws, gs, ms):
     return rows
 
 
+# ---------------------------------------------------------------- scalars
+
+def scalar_vector(value: float, device, skip: bool = False) -> torch.Tensor:
+    """The float32 vector ``(value, skip)`` the kernels read their step
+    size and skip flag from, made on ``device`` with fills only (no copy
+    from the host, so the stream is never waited on)."""
+    vec = torch.zeros(2, dtype=torch.float32, device=device)
+    vec[:1].fill_(float(value))
+    if skip:
+        vec[1:].fill_(1.0)
+    return vec
+
+
+def _scalars(s, device) -> torch.Tensor:
+    """``s`` as a scalar vector on ``device``: a float gets a fresh one."""
+    if not isinstance(s, torch.Tensor):
+        return scalar_vector(s, device)
+    refuse_dtensor(s)
+    if s.dtype != torch.float32 or s.shape != (2,) or s.device != torch.device(device):
+        raise ValueError("the scalar vector must be float32 (value, skip) on the leaves' "
+                         f"device {device}, got {s.dtype} {tuple(s.shape)} on {s.device}")
+    return s
+
+
+def _keep_if_skipped(skip, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``old`` where the step is skipped, else ``new``: a select, so a
+    skipped step is bitwise."""
+    return new if skip is None else torch.where(skip, old, new)
+
+
+def _step_and_skip(s, device):
+    """(step size, skip predicate or None) of a float or a scalar vector:
+    the plain versions compute with the vector's 0-d entries, as f32."""
+    if not isinstance(s, torch.Tensor):
+        return s, None
+    s = _scalars(s, device)
+    return s[0], s[1] != 0
+
+
 # ---------------------------------------------------------------- SGD (K1)
 
 def fused_sgd_update_ref(w, g, m, lr, wd=0.0, momentum=0.0, nesterov=False) -> None:
     """Plain PyTorch SGD step, in place (optimizers.py:202-216 of the JAX
-    package).  ``m`` is unused, and may be None, when momentum is 0."""
+    package).  ``m`` is unused, and may be None, when momentum is 0.
+    ``lr`` is a float or a scalar vector (its skip flag keeps w and m)."""
+    lr, skip = _step_and_skip(lr, w.device)
     gt = g + wd * w
     if momentum > 0.0:
-        m.copy_(m * momentum + gt)
-        step = gt + momentum * m if nesterov else m
+        m_new = m * momentum + gt
+        step = gt + momentum * m_new if nesterov else m_new
+        m.copy_(_keep_if_skipped(skip, m, m_new))
     else:
         step = gt
-    w.copy_(w - lr * step)
+    w.copy_(_keep_if_skipped(skip, w, w - lr * step))
 
 
 def fused_sgd_update_multi_ref(ws, gs, ms, lr, wd=0.0, momentum=0.0,
@@ -156,8 +208,12 @@ def fused_sgd_update_multi(ws, gs, ms, lr, wd=0.0, momentum=0.0, nesterov=False)
     """One fused SGD step over a list of parameter leaves, updating each
     ``w`` (and ``m``) in place: one kernel launch per
     ``SGD_TABLE_CAPACITY`` leaves.  ``ms`` may be None when momentum is 0:
-    no state is touched.  The table is built anew on every call, from the
-    tensors' current addresses (gradients are fresh tensors each step)."""
+    no state is touched.  ``lr`` is a float or a scalar vector.  The table
+    is built anew on every call, from the tensors' current addresses
+    (gradients are fresh tensors each eager step); it is a kernel argument,
+    so a CUDA graph that captured the launch keeps the addresses it saw,
+    which stay right only because a replay writes its gradients to the same
+    addresses of the graph's memory pool (runtime/step_graph.py)."""
     use_m = momentum > 0.0
     if ms is None:
         if use_m:
@@ -172,6 +228,7 @@ def fused_sgd_update_multi(ws, gs, ms, lr, wd=0.0, momentum=0.0, nesterov=False)
         fused_sgd_update_multi_ref(ws, gs, ms, lr, wd, momentum, nesterov)
         return
     lib = _lib()
+    scalars = _scalars(lr, ws[0].device)
     with torch.cuda.device(ws[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         for launch in sgd_launch_plan([row[3] for row in rows]):
@@ -181,7 +238,8 @@ def fused_sgd_update_multi(ws, gs, ms, lr, wd=0.0, momentum=0.0, nesterov=False)
                 table.append(first)
             rc = lib.ff_fused_sgd_update_multi(
                 ctypes.cast(table.buffer_info()[0], ctypes.POINTER(ctypes.c_int64)),
-                len(launch), SGD_CHUNK, lr, wd, momentum, int(bool(nesterov)), stream)
+                len(launch), SGD_CHUNK, scalars.data_ptr(), wd, momentum,
+                int(bool(nesterov)), stream)
             _build.raise_on(rc, "fused_sgd_update")
             fused_sgd_update.launches += 1
 
@@ -201,27 +259,33 @@ fused_sgd_update.launches = 0
 def fused_adam_update_ref(w, g, m, v, alpha_t, wd=0.0, beta1=0.9, beta2=0.999,
                           eps=1e-8) -> None:
     """Plain PyTorch Adam step, in place (optimizers.py:275-284 of the JAX
-    package); ``alpha_t`` carries the bias correction."""
+    package); ``alpha_t`` carries the bias correction, and is a float or a
+    scalar vector (its skip flag keeps w, m and v)."""
+    alpha_t, skip = _step_and_skip(alpha_t, w.device)
     gt = g + wd * w
-    m.copy_(beta1 * m + (1.0 - beta1) * gt)
-    v.copy_(beta2 * v + (1.0 - beta2) * gt * gt)
-    w.copy_(w - alpha_t * m / (torch.sqrt(v) + eps))
+    m_new = beta1 * m + (1.0 - beta1) * gt
+    v_new = beta2 * v + (1.0 - beta2) * gt * gt
+    w_new = w - alpha_t * m_new / (torch.sqrt(v_new) + eps)
+    m.copy_(_keep_if_skipped(skip, m, m_new))
+    v.copy_(_keep_if_skipped(skip, v, v_new))
+    w.copy_(_keep_if_skipped(skip, w, w_new))
 
 
 def fused_adam_update(w, g, m, v, alpha_t, wd=0.0, beta1=0.9, beta2=0.999,
                       eps=1e-8) -> None:
     """One fused Adam step on a parameter leaf, updating ``w``, ``m`` and
-    ``v`` in place."""
+    ``v`` in place; ``alpha_t`` is a float or a scalar vector."""
     _check(w, g, m, v)
     if w.device.type == "cpu":
         fused_adam_update_ref(w, g, m, v, alpha_t, wd, beta1, beta2, eps)
         return
     if w.numel() == 0:
         return
+    scalars = _scalars(alpha_t, w.device)
     with torch.cuda.device(w.device):
         rc = _lib().ff_fused_adam_update(
             w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), w.numel(),
-            alpha_t, wd, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+            scalars.data_ptr(), wd, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
             torch.cuda.current_stream().cuda_stream)
     _build.raise_on(rc, "fused_adam_update")
     fused_adam_update.launches += 1

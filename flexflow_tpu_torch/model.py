@@ -10,6 +10,15 @@ package).  The reference's four-call training API is kept:
 ``forward``/``zero_gradients``/``backward`` stage, and the step runs at
 ``update()``.
 
+The step also carries the reference step function's options:
+``grad_accum_steps`` (K contiguous micro-batches, gradients averaged, one
+optimizer update), ``remat`` (each weighted op's training forward
+recomputed in the backward) and the non-finite step guard
+(``FF_SKIP_NONFINITE``, runtime/resilience.py).  On a CUDA device without
+a process group ``update()`` replays the step as one captured CUDA graph
+(runtime/step_graph.py), the counterpart of the JAX package's jitted step;
+``disable_graphs()`` runs it eagerly, as the CPU and a mesh do.
+
 The device is ``FFConfig.device`` ("cuda" by default).  When CUDA is
 absent and the caller did not ask for the CPU, construction raises.
 
@@ -30,16 +39,19 @@ mesh, summed over the batch's parts) once per drain, never per step.
 from __future__ import annotations
 
 import itertools
+import math
 import os
 import zlib
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils.checkpoint import checkpoint
 
 from .config import FFConfig, ParallelConfig
+from .kernels import flash_attention
 from .losses import Loss, LossType
 from .metrics import Metrics, MetricsType, PerfMetrics
 from .ops.attention import LayerNorm, MultiHeadAttention
@@ -51,8 +63,12 @@ from .ops.misc import ElementBinary, ElementUnary, Flat, Softmax
 from .parallel.distributed import host_local_batch, local_batch
 from .parallel.mesh import Machine
 from .parallel.strategy import load_strategies_from_file, save_strategies_to_file
+from .runtime import resilience
+from .runtime.step_graph import StepGraph, graphs_enabled
 from .tensor import DataType, Tensor
 
+# The metric vector's entries; with the non-finite guard on, the health
+# and guard entries follow (FFModel._metric_keys, as the JAX package's).
 METRIC_KEYS = ("train_all", "train_correct", "cce_loss", "sparse_cce_loss",
                "mse_loss", "rmse_loss", "mae_loss", "loss", "steps")
 
@@ -65,16 +81,34 @@ _UNPORTED_ENV = {
     "FF_OPPROF": "in-training op profiling (ROADMAP A12)",
     "FF_METRICS_PORT": "the live metrics endpoint (ROADMAP A12)",
     "FF_CHAOS": "chaos fault injection (ROADMAP A10)",
-    "FF_SKIP_NONFINITE": "the non-finite step guard (ROADMAP A10)",
     "FF_LOWERED": "whole-graph lowering (ROADMAP A13)",
 }
 
-# Entry points of the JAX package's FFModel outside this slice.
+# Entry points of the JAX package's FFModel that the port does not have
+# yet, with the ROADMAP item that brings each.
 _UNPORTED_METHODS = {
+    "create_constant": "constant graph inputs, ROADMAP A2",
+    "concat": "the Concat op, ROADMAP A2",
+    "batch_norm": "BatchNorm and running statistics, ROADMAP A2",
+    "dropout": "the Dropout op, ROADMAP A2",
+    "mse_loss": "the MSELoss op, ROADMAP A2",
+    "lstm": "the LSTM op, ROADMAP A9",
+    "pipeline_mlp": "pipeline parallelism, ROADMAP A9",
+    "expert_mlp": "mixture of experts, ROADMAP A9",
     "set_pipeline": "pipeline parallelism, ROADMAP A9",
+    "conv2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
+    "pool2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
+    "dense_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
+    "flat_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
+    "recompile": "online re-parallelization, ROADMAP A10 (after the search, A8)",
+    "print_op_profile": "per-op profiles, ROADMAP A12",
     "generate": "decoding, ROADMAP A11",
     "beam_search": "decoding, ROADMAP A11",
     "decode_step": "decoding, ROADMAP A11",
+    "init_decode_caches": "decoding, ROADMAP A11",
+    "init_paged_decode_caches": "decoding, ROADMAP A11",
+    "pageable_decode": "decoding, ROADMAP A11",
+    "resolve_decode_inputs": "decoding, ROADMAP A11",
 }
 
 
@@ -104,8 +138,6 @@ def _refuse_unported_knobs(cfg: FFConfig) -> None:
     checks = [
         (cfg.search_budget > 0, "search_budget: strategy search (ROADMAP A8)"),
         (cfg.search_pipeline, "search_pipeline: pipeline search (ROADMAP A9)"),
-        (cfg.grad_accum_steps != 1, "grad_accum_steps: gradient accumulation (ROADMAP A4)"),
-        (cfg.remat, "remat: rematerialization (ROADMAP A4)"),
         (cfg.zero_optimizer, "zero_optimizer: ZeRO-1 state sharding (ROADMAP A6)"),
         (cfg.sparse_host_embeddings is not None,
          "sparse_host_embeddings: host embedding tables (ROADMAP A9)"),
@@ -141,6 +173,8 @@ class FFModel:
         self._step_count = 0
         self._batch: Optional[Dict[str, torch.Tensor]] = None
         self._compiled = False
+        self._guard: Optional[resilience.NonFiniteGuard] = None
+        self._step_graph: Optional[StepGraph] = None
 
     # ------------------------------------------------------------------
     # graph construction
@@ -319,6 +353,12 @@ class FFModel:
             self.machine.spec_for_config(op.pc)  # raises if the mesh cannot split it
         if optimizer is not None:
             optimizer.fused = bool(cfg.fused_optimizer)
+        if int(cfg.grad_accum_steps) < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got {cfg.grad_accum_steps}")
+        limit = resilience.nonfinite_limit()
+        self._guard = resilience.NonFiniteGuard(self, limit) if limit else None
+        self._metric_acc = None  # its length follows the guard
+        self._drop_step_graph()
         if cfg.export_strategy_file:
             if not dist.is_initialized() or dist.get_rank() == 0:
                 save_strategies_to_file(cfg.export_strategy_file,
@@ -385,6 +425,7 @@ class FFModel:
         self._opt_state = (self.optimizer.init_state(params)
                            if self.optimizer is not None else None)
         self._step_count = 0
+        self._drop_step_graph()
 
     def get_parameter(self, op_name: str, weight_name: str = "kernel") -> np.ndarray:
         """A weight as a fresh numpy array (reference: Parameter::get_weights).
@@ -415,18 +456,30 @@ class FFModel:
     def set_batch(self, inputs: Dict[Tensor, Any], labels: Any) -> None:
         """Stage a batch (NHWC images, or int token ids) on the model's device.
 
-        On a mesh each array is either the global batch, of which this rank
-        copies only its rows, or already this rank's rows of it
+        On one device the batch goes into static buffers: a batch of the
+        shapes and dtypes staged before is copied into the same tensors (a
+        captured step reads them there); another makes new ones.  On a mesh
+        each array is either the global batch, of which this rank copies
+        only its rows, or already this rank's rows of it
         (``parallel.distributed.local_batch``), split as its consumer's
         batch degree."""
         if not self._sharded:
-            batch = {f"in_{t.guid}": self._to_device(a) for t, a in inputs.items()}
-            batch["label"] = self._to_device(labels)
-        else:
-            batch = {f"in_{t.guid}": self._place(a, t.dims[0], self._input_batch_degree(t))
-                     for t, a in inputs.items()}
-            batch["label"] = self._place(labels, self.label_tensor.dims[0],
-                                         self._label_degree())
+            new = {f"in_{t.guid}": a for t, a in inputs.items()}
+            new["label"] = labels
+            cur = self._batch
+            if cur is not None and cur.keys() == new.keys():
+                staged = {k: self._as_tensor(a) for k, a in new.items()}
+                if all(staged[k].shape == cur[k].shape and staged[k].dtype == cur[k].dtype
+                       for k in cur):
+                    for k, buf in cur.items():
+                        buf.copy_(staged[k])
+                    return
+            self._batch = {k: self._as_tensor(a).to(self.device, copy=True)
+                           for k, a in new.items()}
+            return
+        batch = {f"in_{t.guid}": self._place(a, t.dims[0], self._input_batch_degree(t))
+                 for t, a in inputs.items()}
+        batch["label"] = self._place(labels, self.label_tensor.dims[0], self._label_degree())
         self._batch = batch
 
     def _place(self, arr, global_rows: int, degree: int) -> DTensor:
@@ -437,10 +490,11 @@ class FFModel:
                              f"({global_rows}) nor one part of it split {degree} ways")
         return host_local_batch(self.machine, arr, degree)
 
-    def _to_device(self, arr) -> torch.Tensor:
-        if not isinstance(arr, torch.Tensor):
-            arr = torch.from_numpy(np.ascontiguousarray(arr))
-        return arr.to(self.device)
+    @staticmethod
+    def _as_tensor(arr) -> torch.Tensor:
+        if isinstance(arr, torch.Tensor):
+            return arr
+        return torch.from_numpy(np.ascontiguousarray(arr))
 
     def _run_graph(self, params, batch, training: bool) -> Dict[int, torch.Tensor]:
         env: Dict[int, torch.Tensor] = {}
@@ -456,21 +510,33 @@ class FFModel:
         ctx = FwdCtx(training=training)
         for op in self.ops:
             xs = [env[t.guid] for t in op.inputs]
+            pvals = params.get(op.name, {})
             if self._sharded:
-                ys = op.forward_sharded(self.machine, params.get(op.name, {}), xs, ctx)
-                ys = [self.machine.constraint(y, op.constraint_pc()) for y in ys]
+                def fwd(*xs_, op=op, pvals=pvals):
+                    return op.forward_sharded(self.machine, pvals, list(xs_), ctx)
             else:
-                ys = op.forward(params.get(op.name, {}), xs, ctx)
+                def fwd(*xs_, op=op, pvals=pvals):
+                    return op.forward(pvals, list(xs_), ctx)
+            if training and self.config.remat and op.weights and not op.has_running_stats:
+                # rematerialization (model.py:1866-1875 of the JAX package):
+                # the op's inner activations are dropped and recomputed in
+                # the backward.  No op of the port draws random numbers in
+                # training, so there is no RNG state to replay.
+                ys = checkpoint(fwd, *xs, use_reentrant=False, preserve_rng_state=False)
+            else:
+                ys = fwd(*xs)
+            if self._sharded:
+                ys = [self.machine.constraint(y, op.constraint_pc()) for y in ys]
             for t, y in zip(op.outputs, ys):
                 env[t.guid] = y
         return env
 
-    def _loss_inputs(self, env):
+    def _loss_inputs(self, env, batch):
         """(logits, probabilities, labels) as tensors this device holds: on
         a mesh, its rows of the label's batch split (the loss and the
         metrics have no DTensor rule, so they run on local rows)."""
         logits, probs = env[self._loss_input_tensor().guid], env[self.final_tensor().guid]
-        labels = self._batch["label"]
+        labels = batch["label"]
         if not self._sharded:
             return logits, probs, labels
         pl = self.machine.batch_sharding(self._label_degree())
@@ -489,14 +555,34 @@ class FFModel:
                    for p in self.machine.batch_sharding(self._label_degree()))
         return self.machine.from_local(vec, pl).full_tensor()
 
+    def _sum_over_ranks(self, vec: torch.Tensor) -> torch.Tensor:
+        """Sum a vector over every rank of the mesh (a collective)."""
+        if not self._sharded:
+            return vec
+        return self.machine.from_local(vec, (Partial(),) * len(self.machine.axis_sizes)
+                                       ).full_tensor()
+
+    def _metric_keys(self) -> Tuple[str, ...]:
+        """The metric vector's entries: the health and guard entries ride
+        it only while the non-finite guard is on (model.py:2146-2159 of the
+        JAX package)."""
+        if self._guard is None:
+            return METRIC_KEYS
+        return METRIC_KEYS + resilience.HEALTH_METRIC_KEYS + resilience.GUARD_METRIC_KEYS
+
+    def _records_step_entries(self) -> bool:
+        """Whether this device's metric vector counts the per-step entries
+        (steps, health, guard): on a mesh only the batch's first part does,
+        so the sum over parts counts each once."""
+        return not self._sharded or self.machine.batch_index(self._label_degree()) == 0
+
     def _metric_vector(self, loss, probs, labels) -> torch.Tensor:
         msum = self.metrics.compute(probs, labels)
         msum["loss"] = loss
-        # one step per step: on a mesh only the batch's first part counts it
-        first = not self._sharded or self.machine.batch_index(self._label_degree()) == 0
-        msum["steps"] = (torch.ones if first else torch.zeros)((), device=self.device)
+        msum["steps"] = (torch.ones if self._records_step_entries() else torch.zeros)(
+            (), device=self.device)
         zero = torch.zeros((), device=self.device)
-        return torch.stack([msum.get(k, zero).float() for k in METRIC_KEYS])
+        return torch.stack([msum.get(k, zero).float() for k in self._metric_keys()])
 
     def forward(self) -> None:
         """Staged: the step runs at ``update()``."""
@@ -507,31 +593,186 @@ class FFModel:
     def backward(self) -> None:
         """Staged: the step runs at ``update()``."""
 
-    def update(self) -> None:
-        """One training step: forward, loss, backward, optimizer update."""
-        if self._batch is None:
-            raise RuntimeError("no batch loaded: call a DataLoader first")
-        if self._metric_acc is None:
-            self._metric_acc = torch.zeros(len(METRIC_KEYS), device=self.device)
-        env = self._run_graph(self._params, self._batch, training=True)
-        logits, probs, labels = self._loss_inputs(env)
-        # this part's share of the loss over the global batch
-        loss = self.loss(logits, labels, parts=self._batch_parts())
+    def _accum_steps(self) -> int:
+        k = int(self.config.grad_accum_steps)
+        rows = self._batch["label"].shape[0]
+        if k < 1 or rows % k:
+            raise ValueError(f"grad_accum_steps {k} does not divide the batch of {rows} rows")
+        return k
+
+    def _micro_batches(self, k: int) -> List[Dict[str, torch.Tensor]]:
+        """The batch as ``k`` contiguous micro-batches, micro-batch i being
+        rows [i*B/k, (i+1)*B/k) of the global batch, as the JAX package's
+        ``v.reshape((k, B // k) + ...)`` (model.py:2025-2026).  On one
+        device they are views of the staged batch; on a mesh each is
+        gathered whole (a collective) and split again as the batch was."""
+        if k == 1:
+            return [self._batch]
+        out = []
+        for i in range(k):
+            mb = {}
+            for name, v in self._batch.items():
+                n = v.shape[0] // k
+                if isinstance(v, DTensor):
+                    mb[name] = self.machine.distribute(v.full_tensor()[i * n:(i + 1) * n],
+                                                       v.placements)
+                else:
+                    mb[name] = v[i * n:(i + 1) * n]
+            out.append(mb)
+        return out
+
+    def _grads(self, loss, leaves) -> List[torch.Tensor]:
+        """d loss / d leaf for every leaf, as plain tensors this device
+        holds: on a mesh each gradient is first placed as its weight (which
+        sums the parts of a Partial gradient)."""
+        flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out = []
+        for w, g in zip(leaves, flat):
+            if g is None:
+                g = torch.zeros_like(w.to_local() if isinstance(w, DTensor) else w)
+            elif self._sharded:
+                g = self.machine.redistribute(g, w.placements).to_local()
+            out.append(g.contiguous())
+        return out
+
+    def _train_step(self) -> None:
+        """One training step's device work: forward, loss, backward (over
+        ``grad_accum_steps`` micro-batches), metrics and the guard, then
+        the optimizer update, every state written in place.  Nothing here
+        reads the device from the host or allocates outside torch's
+        allocator: this is what the CUDA graph captures
+        (runtime/step_graph.py) and what the eager path runs."""
         names = [(opn, wn) for opn, ws in self._params.items() for wn in ws]
         leaves = [self._params[opn][wn] for opn, wn in names]
-        flat = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads: Dict[str, Dict[str, torch.Tensor]] = {}
-        for (opn, wn), w, g in zip(names, leaves, flat):
-            if g is None:
-                g = torch.zeros_like(w)
-            elif self._sharded:
-                # sums the parts of a Partial gradient
-                g = self.machine.redistribute(g, w.placements).to_local()
-            grads.setdefault(opn, {})[wn] = g.contiguous()
+        k = self._accum_steps()
+        grads = mvec = None
+        for mb in self._micro_batches(k):
+            env = self._run_graph(self._params, mb, training=True)
+            logits, probs, labels = self._loss_inputs(env, mb)
+            # this part's share of the (micro-)batch's mean loss
+            loss = self.loss(logits, labels, parts=self._batch_parts())
+            g = self._grads(loss, leaves)
+            with torch.no_grad():
+                micro = self._metric_vector(loss.detach(), probs.detach(), labels)
+                if k == 1:
+                    grads, mvec = g, micro
+                    continue
+                if grads is None:
+                    grads, mvec = [torch.zeros_like(x) for x in g], torch.zeros_like(micro)
+                # g_acc += g / K and the metric sums, as the JAX package's scan body
+                grads = [a + x / k for a, x in zip(grads, g)]
+                mvec = mvec + micro
+        keys = self._metric_keys()
         with torch.no_grad():
-            self._metric_acc += self._metric_vector(loss.detach(), probs.detach(), labels)
-            self.optimizer.apply(self._params, grads, self._opt_state,
-                                 self.optimizer.hparams())
+            if k > 1:
+                # per-step semantics (model.py:2049-2054): counts sum over the
+                # micro-batches, the loss entry is the mean micro loss, and
+                # steps is one
+                for key in ("loss", "steps"):
+                    mvec[keys.index(key)] *= 1.0 / k
+            scalars = self.optimizer.scalars(self.device)
+            if self._guard is not None:
+                mvec = self._guard_finalize(mvec, grads, leaves, scalars)
+                self._metric_acc.copy_(mvec)
+            else:
+                self._metric_acc += mvec
+            tree: Dict[str, Dict[str, torch.Tensor]] = {}
+            for (opn, wn), g in zip(names, grads):
+                tree.setdefault(opn, {})[wn] = g
+            self.optimizer.apply(self._params, tree, self._opt_state, {"scalars": scalars})
+
+    def _guard_finalize(self, mvec, grads, leaves, scalars) -> torch.Tensor:
+        """The non-finite guard's device half (``health_metrics`` and
+        ``guard_finalize``, model.py:1941-1995 of the JAX package), with no
+        host read: the loss's and the global gradient norm's finiteness
+        go into the metric vector, and a non-finite step sets the
+        optimizer's skip flag, so the update that follows leaves every
+        weight and slot bitwise as it was.  A skipped step adds only its
+        health entries and ``skipped_steps`` = 1; ``consec_skipped`` is a
+        run length that a good step resets.  Returns the new accumulator.
+        On a mesh the decision is taken over every rank (one sum), each
+        gradient element counted once."""
+        keys = self._metric_keys()
+        loss = mvec[keys.index("loss")]
+        gsq = torch.zeros((), device=self.device)
+        for w, g in zip(leaves, grads):
+            part = g.float().square().sum()
+            if isinstance(w, DTensor):  # a shard held by this many ranks alike
+                part = part / math.prod(n for p, n in zip(w.placements, self.machine.axis_sizes)
+                                        if not isinstance(p, Shard))
+            gsq = gsq + part
+        bad_loss, gsq = self._sum_over_ranks(
+            torch.stack([(~torch.isfinite(loss)).float(), gsq]))
+        gnorm = gsq.sqrt()
+        bad = (bad_loss > 0) | ~torch.isfinite(gnorm)
+        scalars[1:].copy_(bad.float().reshape(1))
+        health = torch.zeros(len(keys), device=self.device)
+        health[keys.index("nonfinite_loss")] = (bad_loss > 0).float()
+        health[keys.index("nonfinite_grad")] = (~torch.isfinite(gnorm)).float()
+        health[keys.index("grad_norm")] = torch.where(torch.isfinite(gnorm), gnorm,
+                                                      torch.zeros_like(gnorm))
+        if not self._records_step_entries():
+            health.zero_()
+        mvec = mvec + health
+        skip_vec = torch.zeros(len(keys), device=self.device)
+        for key in resilience.HEALTH_METRIC_KEYS:
+            skip_vec[keys.index(key)] = mvec[keys.index(key)]
+        # fill_, not item assignment: assigning a Python float copies from
+        # the host, which a capture refuses
+        skip_vec[keys.index("skipped_steps")].fill_(float(self._records_step_entries()))
+        acc = self._metric_acc
+        out = acc + torch.where(bad, skip_vec, mvec)
+        ci = keys.index("consec_skipped")
+        out[ci] = torch.where(bad, acc[ci] + float(self._records_step_entries()),
+                              torch.zeros_like(acc[ci]))
+        return out
+
+    def _prepare_step(self) -> None:
+        """What the step needs made before it runs (never inside a captured
+        step): the metric accumulator and the optimizer's scalar vector."""
+        if self._batch is None:
+            raise RuntimeError("no batch loaded: call a DataLoader first")
+        keys = self._metric_keys()
+        if self._metric_acc is None or self._metric_acc.shape[0] != len(keys):
+            self._metric_acc = torch.zeros(len(keys), device=self.device)
+            self._seed_consec()
+        self.optimizer.scalars(self.device)
+
+    def _seed_consec(self) -> None:
+        """Re-seed the guard's run length into a zeroed accumulator, so a
+        streak that spans a drain or a reset still escalates."""
+        guard = self._guard
+        if guard is not None and guard.consec and self._records_step_entries():
+            self._metric_acc[self._metric_keys().index("consec_skipped")].fill_(guard.consec)
+
+    def _drop_step_graph(self) -> None:
+        if self._step_graph is not None:
+            self._step_graph.drop()
+
+    def _graph_key(self) -> tuple:
+        """What a captured step depends on beyond the addresses that stay
+        fixed: the staged batch's shapes, dtypes and addresses, the
+        accumulation count, and whether attention runs the plain versions."""
+        batch = tuple((k, tuple(v.shape), v.dtype, v.data_ptr())
+                      for k, v in sorted(self._batch.items()))
+        return batch, self._accum_steps(), flash_attention._plain
+
+    def _use_graph(self) -> bool:
+        """Whether the step runs as a CUDA graph: on one CUDA device, unless
+        ``disable_graphs()`` is active (a mesh runs eagerly, ROADMAP A6)."""
+        return self.device.type == "cuda" and not self._sharded and graphs_enabled()
+
+    def update(self) -> None:
+        """One training step: forward, loss, backward, optimizer update.  On
+        a CUDA device without a mesh it is a replay of the captured step
+        (runtime/step_graph.py) unless ``disable_graphs()`` is active."""
+        self._prepare_step()
+        if self._use_graph():
+            if self._step_graph is None:
+                self._step_graph = StepGraph(self.device)
+            self._step_graph.run(self._graph_key(), self._train_step)
+        else:
+            self._train_step()
         self._step_count += 1
 
     def train_iteration(self) -> None:
@@ -548,7 +789,7 @@ class FFModel:
     def eval_batch(self) -> Dict[str, float]:
         """Loss and metric sums of the staged batch, fetched in one copy
         (on a mesh, summed over the batch's parts: a collective)."""
-        logits, probs, labels = self._loss_inputs(self._eval())
+        logits, probs, labels = self._loss_inputs(self._eval(), self._batch)
         msum = self.metrics.compute(probs, labels)
         msum["loss"] = self.loss(logits, labels, parts=self._batch_parts())
         keys = list(msum)
@@ -567,21 +808,40 @@ class FFModel:
     # metrics (reference: UPDATE_METRICS_TASK fold, model.cc:1145-1167)
     # ------------------------------------------------------------------
     def reset_metrics(self) -> None:
+        """Zero the metrics, the accumulator in place (a captured step adds
+        into it).  With the guard on, the window is drained first, so no
+        skip count or escalation is lost."""
+        if self._guard is not None and self._metric_acc is not None:
+            self._drain_metrics()
         self.current_metrics.reset()
         self.last_loss = None
-        self._metric_acc = None
+        if self._metric_acc is not None:
+            self._metric_acc.zero_()
+            self._seed_consec()
 
     def _drain_metrics(self) -> None:
         if self._metric_acc is None:
             return
         # one transfer (on a mesh, after one sum over the batch's parts)
-        totals = dict(zip(METRIC_KEYS, self._sum_over_parts(self._metric_acc).tolist()))
+        totals = dict(zip(self._metric_keys(),
+                          self._sum_over_parts(self._metric_acc).tolist()))
         steps = totals.pop("steps")
         loss_sum = totals.pop("loss")
         if steps > 0:
             self.last_loss = loss_sum / steps  # mean loss since the last drain
+        guard_vals = None
+        if self._guard is not None:
+            guard_vals = {k: totals.pop(k) for k in resilience.GUARD_METRIC_KEYS}
+            for k in resilience.HEALTH_METRIC_KEYS:
+                totals.pop(k)
         self.current_metrics.update(totals)
         self._metric_acc.zero_()
+        if guard_vals is not None:
+            self._guard.consec = int(guard_vals["consec_skipped"])
+            self._seed_consec()
+            # last: it may raise, with the window already folded in
+            self._guard.on_drain(guard_vals["skipped_steps"], guard_vals["consec_skipped"],
+                                 steps, self._step_count)
 
     def get_metrics(self) -> PerfMetrics:
         """The metrics so far (on a mesh a collective: every rank calls it)."""
@@ -595,6 +855,39 @@ class FFModel:
         """Block until all queued device work is done."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # checkpoints and inspection
+    # ------------------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Save the training state (parameters, optimizer state, step) in
+        the JAX package's ``.npz`` format (runtime/checkpoint.py)."""
+        from .runtime.checkpoint import save_checkpoint
+        save_checkpoint(self, path)
+
+    def load(self, path: str) -> None:
+        """Restore a state saved by ``save`` (or by the JAX package's
+        ``.npz`` save), written in place into this model's tensors."""
+        from .runtime.checkpoint import load_checkpoint
+        load_checkpoint(self, path)
+
+    def get_strategies(self) -> Dict[str, ParallelConfig]:
+        """Each op's resolved config (data parallel over the machine before
+        ``compile``)."""
+        nd = self.machine.num_devices if self.machine is not None else 1
+        return {op.name: getattr(op, "pc", None) or ParallelConfig.data_parallel(
+            op.output.num_dims, nd) for op in self.ops}
+
+    def print_layers(self) -> None:
+        """Per-op metadata: type, output dims, config, weights (reference:
+        FFModel::print_layers; model.py:2842-2852 of the JAX package)."""
+        strategies = self.get_strategies() if self._compiled else {}
+        for i, op in enumerate(self.ops):
+            pc = strategies.get(op.name)
+            pcs = f" pc={list(pc.dims)}" if pc is not None else ""
+            print(f"layer[{i}] {op.name} ({op._type}) out={op.output.dims}{pcs}")
+            for w in op.weights:
+                print(f"   weight {w.name}: {w.dims}")
 
 
 for _name, _item in _UNPORTED_METHODS.items():

@@ -42,6 +42,9 @@ class Op:
     # the weights map the input's last dim to the output's (dense, conv,
     # embedding, attention): the input's last dim is never split
     mixes_features: bool = False
+    # running statistics updated in training (the JAX package's init_stats;
+    # no op of the port has them yet): such an op is never rematerialized
+    has_running_stats: bool = False
 
     def __init__(self, model, inputs: Sequence[Tensor], name: Optional[str] = None):
         self.model = model

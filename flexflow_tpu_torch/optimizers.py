@@ -12,6 +12,16 @@ all leaves, Adam one launch per leaf; otherwise the plain tensor update
 runs.  Adam's ``alpha_t`` starts at ``alpha`` with no bias
 correction and only ``next_epoch()`` advances it, as in the reference.
 
+The step's time-varying scalar (``lr``, ``alpha_t``) also lives in one
+small float32 vector per device, ``(value, skip)`` (``scalars(device)``),
+which the fused kernels and the plain update read on the device: the
+counterpart of the TPU kernels' SMEM operand.  Setting ``lr`` or advancing
+``next_epoch()`` writes the new value into every such vector in place
+(a fill on the device's current stream), outside any captured step, so a
+CUDA graph of the step (runtime/step_graph.py) reads it at its next
+replay.  The non-finite guard writes ``skip`` inside the step.
+``hparams()`` still returns the host floats, and ``apply`` takes either.
+
 On a mesh the parameters and the state are DTensors (the state with its
 weight's placements) and every update runs on the local shards, the
 counterpart of the JAX package's ``_shardwise``: the SGD launch's table
@@ -27,7 +37,8 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from .kernels.fused_optimizer import (fused_adam_update, fused_adam_update_ref,
-                                      fused_sgd_update_multi, fused_sgd_update_multi_ref)
+                                      fused_sgd_update_multi, fused_sgd_update_multi_ref,
+                                      scalar_vector)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 OptState = Dict[str, Params]
@@ -52,12 +63,31 @@ class Optimizer:
         raise NotImplementedError
 
     def hparams(self) -> HParams:
-        """Current time-varying scalars (lr, alpha_t)."""
+        """Current time-varying scalars (lr, alpha_t) as host floats."""
         raise NotImplementedError
+
+    def _step_size(self) -> float:
+        """The value ``scalars`` holds: lr (SGD) or alpha_t (Adam)."""
+        raise NotImplementedError
+
+    def scalars(self, device) -> torch.Tensor:
+        """This optimizer's scalar vector ``(step size, skip)`` on
+        ``device``, made at its first request (call it outside a captured
+        step) and then kept: a graph captures its address."""
+        key = str(torch.device(device))
+        if key not in self._vecs:
+            self._vecs[key] = scalar_vector(self._step_size(), device)
+        return self._vecs[key]
+
+    def _publish(self) -> None:
+        """Write the current step size into every scalar vector, in place."""
+        for vec in self._vecs.values():
+            vec[:1].fill_(self._step_size())
 
     def apply(self, params: Params, grads: Params, state: OptState,
               hparams: HParams) -> Tuple[Params, OptState]:
-        """Update ``params`` and ``state`` in place; returns both."""
+        """Update ``params`` and ``state`` in place; returns both.
+        ``hparams`` is ``hparams()`` or ``{"scalars": scalars(device)}``."""
         raise NotImplementedError
 
     def next_epoch(self) -> None:
@@ -67,11 +97,24 @@ class Optimizer:
 class SGDOptimizer(Optimizer):
     def __init__(self, model=None, lr: float = 0.01, momentum: float = 0.0,
                  nesterov: bool = False, weight_decay: float = 0.0):
-        self.lr = float(lr)
+        self._vecs: Dict[str, torch.Tensor] = {}
+        self.lr = lr
         self.momentum = float(momentum)
         self.nesterov = bool(nesterov)
         self.weight_decay = float(weight_decay)
         self.fused = False
+
+    @property
+    def lr(self) -> float:
+        return self._lr
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        self._lr = float(value)
+        self._publish()
+
+    def _step_size(self):
+        return self._lr
 
     def init_state(self, params):
         return {"v": _zeros_like(params)} if self.momentum > 0.0 else {}
@@ -86,13 +129,15 @@ class SGDOptimizer(Optimizer):
         bufs = state.get("v")
         update([_local(params[o][n]) for o, n in names], [_local(grads[o][n]) for o, n in names],
                None if bufs is None else [_local(bufs[o][n]) for o, n in names],
-               hparams["lr"], self.weight_decay, self.momentum, self.nesterov)
+               hparams.get("scalars", hparams.get("lr")), self.weight_decay, self.momentum,
+               self.nesterov)
         return params, state
 
 
 class AdamOptimizer(Optimizer):
     def __init__(self, model=None, alpha: float = 0.001, beta1: float = 0.9,
                  beta2: float = 0.999, weight_decay: float = 0.0, epsilon: float = 1e-8):
+        self._vecs: Dict[str, torch.Tensor] = {}
         self.alpha = float(alpha)
         self.beta1 = float(beta1)
         self.beta2 = float(beta2)
@@ -103,6 +148,18 @@ class AdamOptimizer(Optimizer):
         self.beta2_t = 1.0
         self.alpha_t = self.alpha
         self.fused = False
+
+    @property
+    def alpha_t(self) -> float:
+        return self._alpha_t
+
+    @alpha_t.setter
+    def alpha_t(self, value: float) -> None:
+        self._alpha_t = float(value)
+        self._publish()
+
+    def _step_size(self):
+        return self._alpha_t
 
     def next_epoch(self):
         self.beta1_t *= self.beta1
@@ -121,6 +178,6 @@ class AdamOptimizer(Optimizer):
         for opn, ws in params.items():
             for wn, w in ws.items():
                 update(_local(w), _local(grads[opn][wn]), _local(state["m"][opn][wn]),
-                       _local(state["v"][opn][wn]), hparams["alpha_t"], self.weight_decay, self.beta1,
-                       self.beta2, self.epsilon)
+                       _local(state["v"][opn][wn]), hparams.get("scalars", hparams.get("alpha_t")),
+                       self.weight_decay, self.beta1, self.beta2, self.epsilon)
         return params, state

@@ -4,8 +4,11 @@ The dataset stays in host numpy; ``next_batch`` slices the next batch
 and ``FFModel.set_batch`` copies it to the model's device.  On a mesh
 every rank holds the dataset and gathers only its rows of the global
 batch (``parallel.distributed.local_batch``): no rank copies the whole
-batch to its device.  Reference (NCHW) image datasets are converted to
-NHWC once, on the host.  The JAX package's prefetch thread is not ported.
+batch to its device.  On one device ``set_batch`` copies into the model's
+static batch buffers, which a captured step reads.  Reference (NCHW) image
+datasets are converted to NHWC once, on the host.  The JAX package's
+prefetch thread is not ported: ``prefetch=True`` raises (ROADMAP A10), and
+the argument defaults to False here (True there).
 """
 
 from __future__ import annotations
@@ -20,7 +23,11 @@ from ..tensor import DataType, Tensor
 
 class DataLoader:
     def __init__(self, ff, inputs: Dict[Tensor, np.ndarray], labels: np.ndarray,
-                 shuffle: bool = False, seed: int = 0):
+                 shuffle: bool = False, seed: int = 0, prefetch: bool = False):
+        if prefetch:
+            raise NotImplementedError(
+                "DataLoader(prefetch=True): overlapping the next batch's copy to the "
+                "device is not ported yet (ROADMAP A10)")
         self.ff = ff
         self.inputs = {t: np.ascontiguousarray(self._to_native(t, a))
                        for t, a in inputs.items()}
@@ -72,9 +79,21 @@ class DataLoader:
     def num_batches(self) -> int:
         return self.num_samples // self.batch_size
 
+    def _start_of(self, index: int) -> int:
+        return 0 if index + self.batch_size > self.num_samples else index
+
+    def skip_batches(self, n: int) -> None:
+        """Advance the epoch's cursor by ``n`` batches without gathering or
+        staging them (dataloader.py:101-110 of the JAX package): after
+        ``reset()`` has replayed the completed epochs' shuffles, skipping
+        the consumed batches lands the next ``next_batch`` on the rows an
+        interrupted run would have seen next."""
+        for _ in range(max(0, int(n))):
+            self.next_index = self._start_of(self.next_index) + self.batch_size
+
     def next_batch(self, ff=None) -> None:
         ff = ff or self.ff
-        start = 0 if self.next_index + self.batch_size > self.num_samples else self.next_index
+        start = self._start_of(self.next_index)
         sel = self._order[start:start + self.batch_size]
         self.next_index = start + self.batch_size
         if not ff._sharded:

@@ -85,10 +85,27 @@ def test_flash_matches_the_jax_kernel_when_sq_differs_from_sk(sq, sk, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [128, 96])
+def test_head_dim_16_matches_the_jax_kernel(seq, causal):
+    """D = 16, the head dim of the JAX package's transformer_4d and
+    transformer_generate examples (ROADMAP C4): forward and gradients."""
+    _assert_matches_the_jax_kernel(*_inputs(seq, seed=seq + causal + 16, d=16)[:4], causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
 def test_lse_cotangent_matches_blockwise_attention(causal):
     """d(sum(O*ct) + sum(lse*ct_lse)) through the port's backward against
     jax.grad of the plain blockwise path (top-left causal, as the port)."""
-    q, k, v, ct, ct_lse = _inputs(96, seed=7 + causal)
+    _assert_lse_cotangent_matches_blockwise_attention(*_inputs(96, seed=7 + causal), causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_lse_cotangent_matches_blockwise_attention_at_head_dim_16(causal):
+    _assert_lse_cotangent_matches_blockwise_attention(*_inputs(96, seed=23 + causal, d=16),
+                                                      causal)
+
+
+def _assert_lse_cotangent_matches_blockwise_attention(q, k, v, ct, ct_lse, causal):
     jq, jk, jv, jct, jcl = map(jnp.asarray, (q, k, v, ct, ct_lse))
 
     def loss(q_, k_, v_):
@@ -178,8 +195,8 @@ def test_wrappers_reject_operands_the_kernels_do_not_take(bad, err):
         fa.flash_bwd_dq(q, q, q, q, lse, lse[..., :8], None, 0.125, False)
 
 
-@pytest.mark.parametrize("d,ok", [(32, True), (64, True), (128, True), (48, False),
-                                  (8, False), (256, False)])
+@pytest.mark.parametrize("d,ok", [(16, True), (32, True), (64, True), (128, True),
+                                  (48, False), (8, False), (256, False)])
 def test_kernel_head_dims(d, ok):
     """The head dims compiled into the kernels; any other raises before a
     launch (the plain versions on the CPU take any)."""

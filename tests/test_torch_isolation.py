@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,7 +45,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.models.alexnet, "
             "flexflow_tpu_torch.models.transformer, "
             "flexflow_tpu_torch.kernels.flash_attention, flexflow_tpu_torch.convert, "
-            "flexflow_tpu_torch.parallel.strategy, flexflow_tpu_torch.parallel.distributed; "
+            "flexflow_tpu_torch.parallel.strategy, flexflow_tpu_torch.parallel.distributed, "
+            "flexflow_tpu_torch.runtime.checkpoint, flexflow_tpu_torch.runtime.resilience, "
+            "flexflow_tpu_torch.runtime.step_graph; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -73,6 +76,8 @@ def test_device_flag_parses():
 # to data parallelism over it); two workers on a one-device machine raise
 SOAP_KNOBS = [("import_strategy_file", "s.pb"), ("export_strategy_file", "s.pb"),
               ("workers_per_node", 2)]
+# knobs the compiled-step slice ported: they compile and train a step
+STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True)]
 
 
 @pytest.mark.parametrize("field,value", [
@@ -83,7 +88,8 @@ SOAP_KNOBS = [("import_strategy_file", "s.pb"), ("export_strategy_file", "s.pb")
 def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
     """Knobs of features outside the port so far raise at compile; the
     strategy files the SOAP slice brought in compile, and a worker count
-    the machine does not have raises."""
+    the machine does not have raises; gradient accumulation and remat
+    compile and take a step."""
     from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file,
                                                       save_strategies_to_file)
 
@@ -91,7 +97,15 @@ def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
     if field == "import_strategy_file":
         save_strategies_to_file(value, {"fc": ft.ParallelConfig(dims=(2, 1))})
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu", **{field: value}))
-    m.dense(m.create_tensor((2, 4)), 3, name="fc")
+    x = m.create_tensor((2, 4))
+    m.dense(x, 3, name="fc")
+    if (field, value) in STEP_KNOBS:
+        m.compile(ft.SGDOptimizer(lr=0.1))
+        m.init_layers(seed=0)
+        m.set_batch({x: np.ones((2, 4), np.float32)}, np.zeros((2, 1), np.int32))
+        m.train_iteration()
+        assert m.get_metrics().train_all == 2
+        return
     if (field, value) not in SOAP_KNOBS:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             m.compile(ft.SGDOptimizer(lr=0.1))
@@ -132,3 +146,67 @@ def test_unported_attention_and_transformer_options_raise():
         mha.decode({}, [], {}, 0, None)
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         mha.init_cache(2, 8, None)
+
+
+def _reference_public_methods():
+    import inspect
+
+    import flexflow_tpu as ff
+
+    return sorted(n for n, v in inspect.getmembers(ff.FFModel)
+                  if not n.startswith("_") and callable(v))
+
+
+def test_every_reference_entry_point_exists_or_names_its_roadmap_item():
+    """Each public FFModel method of the JAX package is in the port, or
+    raises NotImplementedError naming the ROADMAP item that brings it
+    (never an AttributeError or a TypeError)."""
+    from flexflow_tpu_torch.model import _UNPORTED_METHODS
+
+    m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
+    for name in _reference_public_methods():
+        assert callable(getattr(ft.FFModel, name, None)), f"FFModel.{name} is missing"
+        if name in _UNPORTED_METHODS:
+            with pytest.raises(NotImplementedError, match=r"ROADMAP A\d+"):
+                getattr(m, name)(1, 2, 3, x=4)
+    assert not {"save", "load", "print_layers", "get_strategies"} & set(_UNPORTED_METHODS)
+
+
+def test_print_layers_and_get_strategies_match_the_reference_on_alexnet(capsys):
+    import jax
+
+    import flexflow_tpu as ff
+    from flexflow_tpu.models.alexnet import build_alexnet as jax_build_alexnet
+    from flexflow_tpu_torch.models.alexnet import build_alexnet
+
+    outputs, strategies = [], []
+    for pkg, build in ((ff, jax_build_alexnet), (ft, build_alexnet)):
+        extra = dict(device="cpu") if pkg is ft else dict(workers_per_node=1)
+        m = pkg.FFModel(pkg.FFConfig(batch_size=2, **extra))
+        build(m, 2, height=63, width=63)
+        machine = pkg.Machine(devices=jax.devices()[:1]) if pkg is ff else None
+        m.print_layers()  # before compile: no configs
+        m.compile(pkg.SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy", ["accuracy"],
+                  machine=machine)
+        m.print_layers()
+        outputs.append(capsys.readouterr().out)
+        strategies.append({k: tuple(pc.dims) for k, pc in m.get_strategies().items()})
+    assert outputs[1] == outputs[0]
+    assert "layer[0] conv1 (Conv2D) out=(2, 15, 15, 64) pc=[1, 1, 1, 1]" in outputs[0]
+    assert strategies[1] == strategies[0]
+
+
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_dataloader_takes_the_prefetch_argument(prefetch):
+    """The reference's ``prefetch`` argument never raises TypeError: False
+    loads as usual, True raises NotImplementedError naming its item."""
+    m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
+    x = m.create_tensor((2, 4))
+    m.dense(x, 3)
+    m.compile(ft.SGDOptimizer(lr=0.1))
+    data = (np.zeros((4, 4), np.float32), np.zeros((4, 1), np.int32))
+    if not prefetch:
+        ft.DataLoader(m, {x: data[0]}, data[1], prefetch=prefetch).next_batch(m)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        ft.DataLoader(m, {x: data[0]}, data[1], prefetch=prefetch)

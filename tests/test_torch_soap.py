@@ -11,7 +11,9 @@ into every port run through a ``.npy`` file.
 * CNN, 4 ranks on a (2, 2) mesh (the small CNN of
   tests/test_sharding.py:37-61): 6 SGD steps under SINGLE (every op
   unsplit), DP4, and a hybrid (conv1/pool1 (2, 2, 1, 1), fc1 (2, 2)
-  column-parallel, the rest (2, 1)) imported from a ``.pb`` file.
+  column-parallel, the rest (2, 1)) imported from a ``.pb`` file; the
+  hybrid again with 2 accumulated micro-batches, remat and the
+  non-finite guard, then one batch with an inf.
   conv1 and fc2 must equal the JAX single-device run at rtol 5e-4,
   atol 5e-5 (tests/test_sharding.py:101-107).
 * AlexNet on the same 4 ranks under strategies/alexnet_16.pb legalized
@@ -80,13 +82,16 @@ out = {}
 """
 
 _CNN = _PRELUDE + r"""
+import os
 data = np.load(job["data"])
 for name, run in job["runs"].items():
+    os.environ["FF_SKIP_NONFINITE"] = str(run.get("guard", 0))
     cfg = ft.FFConfig(batch_size=16, device="cpu", fused_optimizer=True,
                       strategies={k: ft.ParallelConfig(dims=tuple(v))
                                   for k, v in run.get("strategies", {}).items()},
                       import_strategy_file=run.get("import", ""),
-                      export_strategy_file=run.get("export", ""))
+                      export_strategy_file=run.get("export", ""),
+                      grad_accum_steps=run.get("accum", 1), remat=run.get("remat", False))
     m = ft.FFModel(cfg)
     inp = m.create_tensor((16, 3, 12, 12))
     t = m.conv2d(inp, 8, 3, 3, 1, 1, 1, 1, activation="relu", name="conv1")
@@ -110,6 +115,19 @@ for name, run in job["runs"].items():
         fc1_local=tuple(m._params["fc1"]["kernel"].to_local().shape),
         pcs={op.name: op.pc.dims for op in m.ops},
         metrics=(met.train_all, met.train_correct, met.sparse_cce_loss))
+    if run.get("guard"):
+        # a batch with an inf: every rank skips the step, and each keeps
+        # its shards bitwise; the skip is counted once over the parts
+        before = [w.to_local().clone() for ws in m._params.values() for w in ws.values()]
+        bad = data["x"][:16].transpose(0, 2, 3, 1).copy()  # NHWC, as the loader stages
+        bad[5, 0, 0, 0] = np.inf
+        m.set_batch({inp: bad}, data["y"][:16])
+        m.train_iteration()
+        after = [w.to_local() for ws in m._params.values() for w in ws.values()]
+        m.get_metrics()
+        out[name]["guard"] = (all(torch.equal(a, b) for a, b in zip(before, after)),
+                              m._guard.total_skipped, m._guard.consec)
+os.environ.pop("FF_SKIP_NONFINITE")
 from flexflow_tpu_torch.models.alexnet import build_alexnet
 alex = job["alexnet"]
 m = ft.FFModel(ft.FFConfig(batch_size=alex["batch"], device="cpu", fused_optimizer=True,
@@ -259,7 +277,8 @@ def cnn(tmp_path_factory):
     jax_strategy.save_strategies_to_file(
         pb, {k: ff.ParallelConfig(dims=v) for k, v in HYBRID.items()})
     runs = {"single": {"strategies": SINGLE}, "dp4": {"strategies": DP4},
-            "hybrid": {"import": pb, "export": exported}}
+            "hybrid": {"import": pb, "export": exported},
+            "hybrid_step_options": {"import": pb, "accum": 2, "remat": True, "guard": 3}}
     alex_params0, alex_jax = _jax_alexnet()
     np.save(tmp / "alex_params.npy", alex_params0, allow_pickle=True)
     alex = dict(ALEX, params=str(tmp / "alex_params.npy"),
@@ -270,7 +289,7 @@ def cnn(tmp_path_factory):
                 alexnet=alex_jax, jax_eval=jm.eval_batch(), jax_probs=jm.predict_batch())
 
 
-@pytest.mark.parametrize("name", ["single", "dp4", "hybrid"])
+@pytest.mark.parametrize("name", ["single", "dp4", "hybrid", "hybrid_step_options"])
 def test_cnn_on_four_ranks_matches_jax_single_device(cnn, name):
     jm = cnn["jax"]
     for r, out in enumerate(cnn["ranks"]):
@@ -288,6 +307,15 @@ def test_cnn_on_four_ranks_matches_jax_single_device(cnn, name):
             if key in got["eval"]:
                 np.testing.assert_allclose(got["eval"][key], value, **CNN_TOL, err_msg=key)
         assert {"train_all", "loss"} <= set(got["eval"])
+
+
+def test_step_options_on_four_ranks(cnn):
+    """Gradient accumulation (K = 2), remat and the non-finite guard on the
+    SOAP path: the hybrid run above matches the JAX package's full-batch
+    steps, and a batch with an inf is skipped on every rank alike."""
+    for out in cnn["ranks"]:
+        assert out["hybrid_step_options"]["pcs"] == HYBRID
+        assert out["hybrid_step_options"]["guard"] == (True, 1, 1)
 
 
 def test_cnn_strategies_resolve_and_shard_the_weights(cnn):
