@@ -51,7 +51,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      3 steps compiled vs eager (Adam with next_epoch() between replays);
      grad_accum_steps 4 vs 1; a batch with an inf through the guard on a
      replay (w, m, v bitwise unchanged); save after 2 steps, load into a
-     fresh model and 2 more steps against 4 uninterrupted.
+     fresh model and 2 more steps against 4 uninterrupted;
+  8. the strategy search: (a) the calibration tool times every op of both
+     cells, forward and backward, at their data-parallel sub-shapes of 1,
+     2, 4 and 8 parts on the card (the attention measurements launch K3-K5,
+     checked by count) and fits the roofline; (b) each cell's
+     data-parallel step on one card simulated from that table and from the
+     fit alone, beside phase 7's compiled step and phase 6's eager SOAP
+     step, and the predicted memory beside phase 4's peak; (c) full-width
+     AlexNet through compile(search_budget=...) with the mcmc and the
+     population engine on the default machine (one card, no process group,
+     so that its steps are the compiled ones), 3 compiled steps, the
+     exported strategy loaded back; (d) the offline search of both cells for an
+     8-GPU node, every config composable over the port's 8-device mesh and
+     no attention sequence split.  ``--calibration-out DIR`` keeps the
+     measured cache and the fit (measured_h100.json, machine_h100.json).
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
 (phase 6 uses every visible card); it imports nothing of jax or of the
@@ -70,6 +84,7 @@ import re
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -938,7 +953,7 @@ def timed_steps(model, kernels, per_step, steps=7, timed_from=2):
 
 
 def soap_vs_single(label, make_model, single_machine, kernels, per_step, samples, tokens=0,
-                   lead=True):
+                   lead=True, cell=None):
     """One model trained on the SOAP path and on the single-device path in
     turns (single, SOAP, SOAP, single), 2 warm-up and 5 timed steps each,
     then one more model of each path profiled (after the timed runs, so
@@ -984,6 +999,8 @@ def soap_vs_single(label, make_model, single_machine, kernels, per_step, samples
             f"{rate}, device {device_ms:.3f} ms/step, busy {busy:.1f}% of the first run's "
             f"step, losses {['%.4f' % x for x in r1['losses']]}")
     log(f"[soap] {label}: launches per step on the SOAP path {per_step}")
+    if cell is not None:
+        MEASURED[cell]["soap_ms"] = sum(r["ms_per_step"] for r in runs["soap"][:2]) / 2
     return soap_launches
 
 
@@ -1048,14 +1065,15 @@ def _soap_runs(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels
     torch.backends.cudnn.allow_tf32 = True
     soap_launches = dict.fromkeys(kernels, 0)
     none = dict.fromkeys(kernels, 0)
-    for label, make_opt, per_step in (
-            ("AlexNet SGD momentum 0.9", sgd_optimizer(ft), {**none, "fused_sgd_update": 1}),
-            ("AlexNet Adam", adam_optimizer(ft), {**none, "fused_adam_update": 16})):
+    for label, make_opt, per_step, cell in (
+            ("AlexNet SGD momentum 0.9", sgd_optimizer(ft), {**none, "fused_sgd_update": 1},
+             "alexnet"),
+            ("AlexNet Adam", adam_optimizer(ft), {**none, "fused_adam_update": 16}, None)):
         got = soap_vs_single(
             f"{label} batch {BATCH} bf16 alexnet_16.pb, world {world}",
             lambda m, make_opt=make_opt: main_model(ft, build_alexnet, make_opt, machine=m,
                                                     import_strategy_file=ALEXNET_STRATEGY),
-            single_machine, kernels, per_step, BATCH, lead=lead)
+            single_machine, kernels, per_step, BATCH, lead=lead, cell=cell)
         soap_launches = {n: soap_launches[n] + c for n, c in got.items()}
     lm_per_step = {**none, "fused_sgd_update": 1, "flash_fwd": LM["num_layers"],
                    "flash_bwd_dkdv": LM["num_layers"], "flash_bwd_dq": LM["num_layers"]}
@@ -1065,7 +1083,7 @@ def _soap_runs(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels
         lambda m: lm_model(ft, build_transformer, synthetic_lm_batch,
                            lambda mm: ft.SGDOptimizer(mm, lr=0.001), machine=m, **LM),
         single_machine, kernels, lm_per_step, LM["batch"], LM["batch"] * LM["seq_length"],
-        lead=lead)
+        lead=lead, cell="transformer")
     soap_launches = {n: soap_launches[n] + c for n, c in got.items()}
     check(all(c > 0 for c in soap_launches.values()),
           f"a kernel never launched on the SOAP path: {soap_launches}")
@@ -1343,17 +1361,19 @@ def compiled_step_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch
         **{**LM, **cfg})
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.allow_tf32 = True
-    results = {}
-    for label, make, per_step, samples, tokens in (
+    for label, make, per_step, samples, tokens, cell in (
             (f"AlexNet batch {BATCH} bf16 SGD momentum 0.9",
              lambda: main_model(ft, build_alexnet, sgd_optimizer(ft)), ALEX_SGD_STEP,
-             BATCH, 0),
+             BATCH, 0, "alexnet"),
             (f"AlexNet batch {BATCH} bf16 Adam",
              lambda: main_model(ft, build_alexnet, adam_optimizer(ft)), ALEX_ADAM_STEP,
-             BATCH, 0),
+             BATCH, 0, None),
             (f"transformer batch {LM['batch']} S {LM['seq_length']} bf16 SGD", lm_make,
-             LM_SGD_STEP, LM["batch"], LM["batch"] * LM["seq_length"])):
-        results[label] = graph_vs_eager(ft, label, make, per_step, samples, tokens)
+             LM_SGD_STEP, LM["batch"], LM["batch"] * LM["seq_length"], "transformer")):
+        times, prof = graph_vs_eager(ft, label, make, per_step, samples, tokens)
+        if cell is not None:
+            MEASURED[cell].update(graph_ms=sum(times["graph"]) / len(times["graph"]),
+                                  graph_device_ms=prof["graph"][0])
 
     # remat against plain on the bf16 main path: weights (compiled step) and
     # peak memory on both paths
@@ -1422,10 +1442,230 @@ def compiled_step_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch
     torch.cuda.empty_cache()
     save_load_check(ft, build_alexnet, f"AlexNet batch {BATCH} bf16 SGD")
     torch.cuda.empty_cache()
-    return results
 
 
-def main():
+# ------------------------------------------------------------------ phase 8
+
+# Part counts of the data-parallel configs the calibration measures, and the
+# node the offline search plans for.
+CAL_PARTS = (1, 2, 4, 8)
+NODE_GPUS = 8
+SEARCH_BUDGET = 300    # compile(search_budget=...) on this machine
+OFFLINE_BUDGET = 1000  # the offline search for an 8-GPU node
+# What phases 4, 6 and 7 measured on each cell, for phase 8's agreement lines.
+MEASURED = {"alexnet": {}, "transformer": {}}
+
+
+def calibration_files(directory):
+    """Paths of this run's measured cache and fit in ``directory``, emptied,
+    so that the run measures afresh."""
+    os.makedirs(directory, exist_ok=True)
+    paths = (os.path.join(directory, "measured_h100.json"),
+             os.path.join(directory, "machine_h100.json"))
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)
+    return paths
+
+
+def calibration_cost(mm, measured_path):
+    """A cost model over this run's measured cache and nothing else."""
+    from flexflow_tpu_torch.simulator.cost_model import CostModel
+
+    return CostModel(mm, compute_dtype="bfloat16", cache_path=None,
+                     measured_cache_path=measured_path)
+
+
+def calibrate_on_card(kernels, smi, measured_path, fit_path):
+    """8a: every op of both cells, forward and backward, at their
+    data-parallel sub-shapes of 1, 2, 4 and 8 parts, timed on the card; the
+    roofline fitted to them.  The attention measurements must have launched
+    K3-K5 (7 times per measurement: 2 warm-up and 5 timed iterations)."""
+    from flexflow_tpu_torch.simulator import cost_model
+    from flexflow_tpu_torch.tools import calibrate
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    reset_launches(kernels)
+    r = calibrate.calibrate([("alexnet", BATCH), ("transformer", LM["batch"])],
+                            devices=NODE_GPUS, dp_parts=CAL_PARTS, compute_dtype="bfloat16",
+                            out=measured_path, fit_out=fit_path, device="cuda",
+                            verbose=False)
+    launches = read_launches(kernels)
+    with open(measured_path) as f:
+        entries = json.load(f)
+    mha = sum(1 for k in entries if k.startswith("MultiHeadAttention:") and k.endswith(":forward"))
+    per = cost_model.MEASURE_WARMUP + cost_model.MEASURE_ITERS
+    check(mha == len(CAL_PARTS), f"{mha} attention configs measured, expected {len(CAL_PARTS)}")
+    check(r["jobs"] == len(entries) and all(v["platform"] == "cuda" for v in entries.values()),
+          f"{r['jobs']} jobs gave {len(entries)} measured entries")
+    check(launches == {**dict.fromkeys(kernels, 0), "flash_fwd": mha * per,
+                       "flash_bwd_dkdv": mha * per, "flash_bwd_dq": mha * per},
+          f"calibration launches {launches}, expected {mha * per} of each flash kernel")
+    fit = r["fit"]
+    log(f"[search] calibration: {len(entries)} measured points ({r['jobs']} jobs: every op of "
+        f"AlexNet batch {BATCH} and the transformer B{LM['batch']} S{LM['seq_length']} bf16, "
+        f"forward and backward, data-parallel parts {CAL_PARTS}) in {r['seconds']:.1f} s; "
+        f"cudnn.benchmark False, TF32 on; flash launches {launches}")
+    log(f"[search] fit over {fit['fit_points']} points: log-rmse {fit['fit_log_rmse']:.4f}, "
+        f"matmul_efficiency {fit['matmul_efficiency']:.2f}, hbm_bandwidth "
+        f"{fit['hbm_bandwidth'] / 1e9:.0f} GB/s, kernel_launch_overhead "
+        f"{fit['kernel_launch_overhead'] * 1e6:.0f} us, backward_multiplier "
+        f"{fit['backward_multiplier']:.3f}, op_efficiency {fit['op_efficiency']}, "
+        f"op_backward_multiplier "
+        f"{ {k: round(v, 3) for k, v in fit['op_backward_multiplier'].items()} }; "
+        f"card {fit['device']}, {fit['power_limit']} ({smi})")
+    return launches
+
+
+def cell_model(name, ft, nd=1):
+    """A cell's graph (``tools/offline_search.py`` builds the tools' models:
+    the same full widths as phases 4-7), its machine sized ``nd``."""
+    from flexflow_tpu_torch.tools import offline_search
+
+    check(offline_search.TRANSFORMER == {k: v for k, v in LM.items() if k != "batch"},
+          f"the tools' transformer {offline_search.TRANSFORMER} is not the cell's {LM}")
+    return offline_search.build_model(name, BATCH if name == "alexnet" else LM["batch"], nd,
+                                      "cuda", "bfloat16")
+
+
+def simulated_agreement(ft, smi, measured_path, fit_path):
+    """8b: each cell's data-parallel step on one card, simulated from the
+    measured table and from the fitted roofline alone, beside what phases
+    4, 6 and 7 measured; the predicted memory beside the measured peak."""
+    from flexflow_tpu_torch.simulator.machine import H100MachineModel
+    from flexflow_tpu_torch.simulator.memory import memory_per_device
+    from flexflow_tpu_torch.simulator.simulator import Simulator
+
+    mm = H100MachineModel.calibrated(path=fit_path, num_devices=1)
+    check(mm.fitted, f"the machine model is not this run's fit: {mm.source}")
+    for name in ("alexnet", "transformer"):
+        model = cell_model(name, ft)
+        dp = {op.name: ft.ParallelConfig.data_parallel(op.output.num_dims, 1)
+              for op in model.ops}
+        table = Simulator(mm, calibration_cost(mm, measured_path))
+        roof = Simulator(mm, calibration_cost(mm, os.devnull))
+        sim_ms = table.simulate_runtime(model, dp) * 1e3
+        roof_ms = roof.simulate_runtime(model, dp) * 1e3
+        check(table.cost.stats["analytic"] == 0, f"{name}: a DP-1 op was not measured")
+        per_op = sorted(((table.cost.op_time(op, dp[op.name], "forward")
+                          + table.cost.op_time(op, dp[op.name], "backward")) * 1e3, op.name)
+                        for op in model.ops)[::-1]
+        log(f"[search] {name} DP-1 table, largest ops (forward + backward ms): "
+            f"{', '.join(f'{n} {t:.3f}' for t, n in per_op[:6])}")
+        got = MEASURED[name]
+        log(f"[search] {name} DP-1 simulated {sim_ms:.3f} ms/step from the measured table "
+            f"({roof_ms:.3f} from the fitted roofline alone); measured: compiled step "
+            f"{got['graph_ms']:.3f} ms/step (device {got['graph_device_ms']:.3f}), eager SOAP "
+            f"step {got['soap_ms']:.3f} ms/step; simulated/measured {sim_ms / got['graph_ms']:.3f} "
+            f"compiled, {sim_ms / got['graph_device_ms']:.3f} device, "
+            f"{sim_ms / got['soap_ms']:.3f} SOAP-eager; roofline/compiled "
+            f"{roof_ms / got['graph_ms']:.3f}; card {smi}")
+        opts = ([("SGD momentum 0.9", ft.SGDOptimizer(lr=0.001, momentum=0.9)),
+                 ("Adam", ft.AdamOptimizer(alpha=ADAM_ALPHA))] if name == "alexnet" else
+                [("SGD", ft.SGDOptimizer(lr=0.001))])
+        preds = {label: memory_per_device(model, dp, machine_model=mm, optimizer=opt)
+                 for label, opt in opts}
+        peak = max(p["peak_bytes"] for p in preds.values()) / 2**30
+        log(f"[search] {name} memory: predicted "
+            f"{', '.join(k + ' %.2f GiB' % (p['peak_bytes'] / 2**30) for k, p in preds.items())} "
+            f"(dominant {[p['dominant_term'] for p in preds.values()]}) against phase 4's "
+            f"max_memory_allocated {got['peak_gib']:.2f} GiB: predicted/measured "
+            f"{peak / got['peak_gib']:.3f}")
+
+
+def search_entry_point(ft, build_alexnet, kernels, out_dir):
+    """8c: full-width AlexNet through compile(search_budget=...) with each
+    engine on the default machine (one card without a process group, whose
+    steps are compiled) and the committed calibration (what a user's
+    compile reads), init_layers and 3 compiled steps; the exported strategy
+    loads back equal."""
+    from flexflow_tpu_torch.parallel.strategy import load_strategies_from_file, read_provenance
+
+    launches = dict.fromkeys(kernels, 0)
+    for engine in ("mcmc", "population"):
+        free_models()
+        pb = os.path.join(out_dir, f"alexnet_searched_{engine}.pb")
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        model = main_model(ft, build_alexnet, sgd_optimizer(ft), search_budget=SEARCH_BUDGET,
+                           search_engine=engine, export_strategy_file=pb)
+        seconds = time.perf_counter() - t0
+        ms, losses = steps_ms(model, steps=3, timed_from=1)
+        got = read_launches(kernels)
+        check_graph_run(model, 3, f"AlexNet searched by {engine}")
+        # the eager first step and the capture call the wrapper; the replay does not
+        check(got == {**dict.fromkeys(kernels, 0), "fused_sgd_update": 2},
+              f"{engine}: launches {got}")
+        launches = {n: launches[n] + got[n] for n in kernels}
+        check(load_strategies_from_file(pb) == {op.name: op.pc for op in model.ops},
+              f"{engine}: the exported strategy does not load back equal")
+        meta = read_provenance(pb)
+        log(f"[search] compile(search_budget={SEARCH_BUDGET}, search_engine={engine!r}) on "
+            f"{model.machine.num_devices} GPU(s): DP {meta['dp_s'] * 1e3:.3f} ms, best "
+            f"{meta['best_s'] * 1e3:.3f} ms simulated; compile {seconds:.2f} s; 3 compiled "
+            f"steps, losses {['%.4f' % x for x in losses]}, {ms:.3f} ms/step over the capture "
+            f"and a replay; "
+            f"configs {sorted({op.pc.dims for op in model.ops})}; launches {got}; "
+            f"{meta['machine_model']}")
+        del model
+    return launches
+
+
+def offline_node_search(ft, measured_path, fit_path):
+    """8d: the offline search for an 8-GPU node on this run's calibration;
+    every config of the best strategy composes over the port's 8-device mesh,
+    no attention splits its sequence and no conv or pool its height or
+    width."""
+    from flexflow_tpu_torch.parallel.mesh import axes_for_degrees, mesh_shape
+    from flexflow_tpu_torch.simulator.machine import H100MachineModel
+    from flexflow_tpu_torch.tools import offline_search
+
+    sizes, names = mesh_shape(NODE_GPUS)
+    for name in ("alexnet", "transformer"):
+        for engine in ("mcmc", "population"):
+            model = cell_model(name, ft, NODE_GPUS)
+            mm = H100MachineModel.calibrated(path=fit_path, num_devices=NODE_GPUS)
+            best = offline_search.run(model, NODE_GPUS, OFFLINE_BUDGET, seed=0, engine=engine,
+                                      machine_model=mm,
+                                      cost_model=calibration_cost(mm, measured_path))
+            for op in model.ops:
+                dims = best[op.name].dims
+                axes_for_degrees(names, sizes, dims)  # raises if it cannot
+                if op._type == "MultiHeadAttention":
+                    check(dims[1] == 1, f"{op.name} splits its sequence: {dims}")
+                if op._type in ("Conv2D", "Pool2D"):
+                    check(dims[1:3] == (1, 1), f"{op.name} splits its height or width: {dims}")
+            split = {op.name: best[op.name].dims for op in model.ops
+                     if best[op.name].dims != (NODE_GPUS,) + (1,) * (op.output.num_dims - 1)}
+            log(f"[search] offline {engine} search, {name}, {NODE_GPUS} H100s, budget "
+                f"{OFFLINE_BUDGET}: DP {best.dp_s * 1e3:.3f} ms, best {best.best_s * 1e3:.3f} "
+                f"ms simulated ({best.dp_s / best.best_s:.2f}x), "
+                f"{best.proposals_per_s:.0f} proposals/s; configs off data parallel {split}")
+
+
+def search_phase(ft, build_alexnet, kernels, smi, out_dir):
+    """Phase 8: calibration, agreement, the search through compile, the
+    offline search for a node.  Returns the kernels' launches on its two
+    paths, the calibration's measurements and the searched model's steps."""
+    t0 = time.perf_counter()
+    measured_path, fit_path = calibration_files(out_dir)
+    cal = calibrate_on_card(kernels, smi, measured_path, fit_path)
+    simulated_agreement(ft, smi, measured_path, fit_path)
+    entry = search_entry_point(ft, build_alexnet, kernels, out_dir)
+    offline_node_search(ft, measured_path, fit_path)
+    log(f"[search] phase 8 took {time.perf_counter() - t0:.1f} s; calibration written to "
+        f"{measured_path} and {fit_path}")
+    return {n: cal[n] + entry[n] for n in kernels}
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    # --calibration-out DIR keeps phase 8's measured cache and fit (else a
+    # temporary directory holds them)
+    calibration_out = argv[argv.index("--calibration-out") + 1] \
+        if "--calibration-out" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1490,6 +1730,7 @@ def main():
             f"losses {['%.4f' % x for x in r['losses']]}  "
             f"{r['samples_per_s']:.1f} samples/s  {r['ms_per_step']:.2f} ms/step  "
             f"{r['metrics']}")
+    MEASURED["alexnet"]["peak_gib"] = peak / 2**30
     log(f"[main] max_memory_allocated {peak / 2**30:.2f} GiB; launches {alex_launches}; "
         f"card {smi}")
     profile_steps(main_model(ft, build_alexnet, sgd_optimizer(ft)), "AlexNet SGD",
@@ -1513,6 +1754,7 @@ def main():
         f"lr 0.001: losses {['%.5f' % x for x in lm_run['losses']]}  "
         f"{lm_run['samples_per_s']:.2f} samples/s  {lm_run['tokens_per_s']:.0f} tokens/s  "
         f"{lm_run['ms_per_step']:.2f} ms/step  {lm_run['metrics']}")
+    MEASURED["transformer"]["peak_gib"] = peak / 2**30
     log(f"[main] transformer max_memory_allocated {peak / 2**30:.2f} GiB; launches "
         f"{lm_launches}; card {smi}")
     profile_steps(lm, "transformer SGD", lm_run["ms_per_step"], per_step=LM_SGD_STEP)
@@ -1541,8 +1783,14 @@ def main():
     # phase 7 ------------------------------------------------------------
     compiled_step_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, smi)
 
+    # phase 8 ------------------------------------------------------------
+    with contextlib.ExitStack() as stack:
+        out_dir = calibration_out or stack.enter_context(tempfile.TemporaryDirectory())
+        search_launches = search_phase(ft, build_alexnet, kernels, smi, out_dir)
+
     # result -------------------------------------------------------------
-    main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n] for n in kernels}
+    main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
+                     + search_launches[n] for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -1559,7 +1807,8 @@ def main():
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
-        f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}")
+        f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
+        f"search {search_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

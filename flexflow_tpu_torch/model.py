@@ -2,8 +2,8 @@
 
 Counterpart of ``flexflow_tpu/model.py``.  The graph is built with the
 same graph calls; ``compile`` resolves a ``ParallelConfig`` per op (from
-``FFConfig.strategies`` or a strategy file, else data parallel over all
-devices; no search) and the loss/metrics; ``init_layers`` materializes
+``FFConfig.strategies``, a strategy file or the strategy search, else data
+parallel over all devices) and the loss/metrics; ``init_layers`` materializes
 float32 parameters; each ``train_iteration`` runs forward, loss, autograd
 backward and the optimizer update (model.py:1997-2015 of the JAX
 package).  The reference's four-call training API is kept:
@@ -100,7 +100,7 @@ _UNPORTED_METHODS = {
     "pool2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "dense_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "flat_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
-    "recompile": "online re-parallelization, ROADMAP A10 (after the search, A8)",
+    "recompile": "online re-parallelization, ROADMAP A10",
     "print_op_profile": "per-op profiles, ROADMAP A12",
     "generate": "decoding, ROADMAP A11",
     "beam_search": "decoding, ROADMAP A11",
@@ -136,7 +136,6 @@ def resolve_device(name: str) -> torch.device:
 
 def _refuse_unported_knobs(cfg: FFConfig) -> None:
     checks = [
-        (cfg.search_budget > 0, "search_budget: strategy search (ROADMAP A8)"),
         (cfg.search_pipeline, "search_pipeline: pipeline search (ROADMAP A9)"),
         (cfg.zero_optimizer, "zero_optimizer: ZeRO-1 state sharding (ROADMAP A6)"),
         (cfg.sparse_host_embeddings is not None,
@@ -305,16 +304,17 @@ class FFModel:
     def compile(self, optimizer=None, loss_type: str = LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
                 metrics: Sequence[str] = (MetricsType.ACCURACY,),
                 machine: Optional[Machine] = None) -> None:
-        """Resolve per-op configs (no search), the loss, the metrics and
-        the label tensor.
+        """Resolve per-op configs, the loss, the metrics and the label
+        tensor.
 
         The machine defaults to the mesh over every rank of the process
         group, or to the model's device when there is none.  Each op's
         config is its entry in ``FFConfig.strategies`` (after importing
         ``import_strategy_file``), else data parallel over the machine's
         devices (a ``workers_per_node`` set in the ``FFConfig`` must match
-        their count); a config of more parts than devices falls back to
-        data parallel,
+        their count).  With ``search_budget > 0`` the strategy search
+        (``_search``) fills ``FFConfig.strategies`` first.  A config of more
+        parts than devices falls back to data parallel,
         and ``legalize_pc`` clamps each degree to one the op's dims
         allow (model.py:967-974 of the JAX package).  The resolved map is
         written to ``export_strategy_file`` (rank 0 writes, all wait)."""
@@ -341,6 +341,7 @@ class FFModel:
                 f"{cfg.workers_per_node or 'all'} worker(s), but the machine has {nd} "
                 "device(s): start one process per device (parallel/distributed.py) "
                 "or leave workers_per_node at 0")
+        self._search_meta = self._search() if cfg.search_budget > 0 else None
         for op in self.ops:
             pc = cfg.find_parallel_config(op.output.num_dims, op.name, nd)
             if pc.num_parts() > nd:
@@ -362,7 +363,8 @@ class FFModel:
         if cfg.export_strategy_file:
             if not dist.is_initialized() or dist.get_rank() == 0:
                 save_strategies_to_file(cfg.export_strategy_file,
-                                        {op.name: op.pc for op in self.ops})
+                                        {op.name: op.pc for op in self.ops},
+                                        provenance=self._search_meta)
             if dist.is_initialized():
                 dist.barrier()
         logits = self._loss_input_tensor()
@@ -373,6 +375,44 @@ class FFModel:
             self.label_tensor = Tensor(tuple(self.final_tensor().dims), DataType.FLOAT,
                                        name="label")
         self._compiled = True
+
+    def _search(self):
+        """The strategy search over this machine's devices on the calibrated
+        H100 model (the JAX package's engine choice, model.py:881-918):
+        ``search_engine`` "" or "mcmc" anneals one chain, "population" runs
+        the tempered population.  Its map goes into ``FFConfig.strategies``,
+        which compile then resolves, legalizes and places as any other.
+        Every rank runs the same seeded search and gets the same map.
+        Returns the search's provenance."""
+        from .simulator.machine import H100MachineModel
+
+        cfg = self.config
+        mm = H100MachineModel.calibrated(num_devices=self.machine.num_devices)
+        kw = dict(budget=cfg.search_budget, alpha=cfg.search_alpha, machine_model=mm,
+                  seed=cfg.seed, verbose=False)
+        if cfg.search_engine == "native":
+            raise NotImplementedError(
+                "search_engine 'native' (the C++ annealer over an NVSwitch topology) is "
+                "not ported yet (ROADMAP A8b); use '' / 'mcmc' or 'population'")
+        if cfg.search_engine == "population":
+            from .simulator.population import population_search
+
+            best = population_search(self, **kw)
+        elif cfg.search_engine in ("", "mcmc"):
+            from .simulator.search import mcmc_search
+
+            best = mcmc_search(self, **kw)
+        else:
+            raise ValueError(f"unknown search_engine {cfg.search_engine!r} "
+                             "(expected '', 'mcmc' or 'population')")
+        print(f"flexflow_tpu_torch: {best.engine} search over {best.num_devices} GPU(s), "
+              f"budget {best.budget}: {best.best_s * 1e3:.3f} ms/step simulated against "
+              f"{best.dp_s * 1e3:.3f} ms data parallel ({mm.source})")
+        cfg.strategies.update(best)
+        # the exported strategy's sidecar
+        return {"tool": "flexflow_tpu_torch compile", "engine": best.engine,
+                "budget": best.budget, "seed": best.seed, "num_devices": best.num_devices,
+                "best_s": best.best_s, "dp_s": best.dp_s, "machine_model": mm.source}
 
     def final_tensor(self) -> Tensor:
         return self.ops[-1].output

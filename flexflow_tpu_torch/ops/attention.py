@@ -166,6 +166,31 @@ class MultiHeadAttention(Op):
         attn = 2.0 * self.num_heads * sq * sk * self.head_dim * 2
         return proj + attn
 
+    def input_ranges(self, j, pc, part_idx):
+        # K/V are read along the whole sequence by every part
+        rng = super().input_ranges(j, pc, part_idx)
+        if j in (1, 2):
+            rng[1] = (0, self.inputs[j].dims[1] - 1)
+        return rng
+
+    def part_input_shapes(self, pc):
+        # the projections read every feature of their inputs
+        return [shape[:-1] + (t.dims[-1],)
+                for shape, t in zip(super().part_input_shapes(pc), self.inputs)]
+
+    def part_forward(self, pc):
+        """One part of a head split: the q/k/v projections and attention of
+        its heads, then the output projection of its columns over the
+        gathered heads of every part (a copy stands in for the gather)."""
+        k = pc.dims[2] if len(pc.dims) > 2 else 1
+        if k == 1:
+            return super().part_forward(pc)
+
+        def fwd(params, xs, ctx):
+            heads = self._attend(params, *xs)
+            return self._proj(params, heads.repeat(1, 1, k), "wo", "bo")
+        return fwd
+
     def _not_ported(self, *args, **kwargs):
         raise NotImplementedError("kv-cached decoding is not ported yet (ROADMAP A11)")
 

@@ -9,6 +9,12 @@ On a mesh (``parallel/mesh.py``) ``forward_sharded`` runs the same
 it cannot compute split (``unsplit_dims``) computed whole; each weight is
 split as the output dim its ``partition_dims`` names.  ``legalize_pc``
 clamps a config to one the op can execute.
+
+The simulator (``simulator/``) reads an op through its tiling hooks, as
+the JAX package's does: ``output_tile``, ``input_ranges`` and
+``weight_tile`` give the rectangles one part of a config writes, reads and
+holds, and ``part_forward`` what one part computes (the cost model times
+it on the card).
 """
 
 from __future__ import annotations
@@ -139,6 +145,82 @@ class Op:
             return self.forward(dict(zip(names, ls[n:])), list(ls[:n]), ctx)[0]
 
         return [machine.local_call(local, args, out_pl)]
+
+    # -- tiling hooks (the simulator's comm model; the reference's
+    # get_output_tensor_shape / get_input_tensor_shape, model.cc:333-380) --
+    @staticmethod
+    def _grid_coord(pc: ParallelConfig, part_idx: int) -> Tuple[int, ...]:
+        coord = []
+        rem = part_idx
+        for d in reversed(pc.dims):
+            coord.append(rem % d)
+            rem //= d
+        return tuple(reversed(coord))
+
+    def output_tile(self, pc: ParallelConfig, part_idx: int, output_idx: int = 0):
+        """Per-dim (lo, hi) inclusive ranges of this part's output tile."""
+        dims = self.outputs[output_idx].dims
+        coord = self._grid_coord(pc, part_idx)
+        out = []
+        for i, size in enumerate(dims):
+            deg = pc.dims[i] if i < len(pc.dims) else 1
+            c = coord[i] if i < len(coord) else 0
+            tile = size // deg
+            out.append((c * tile, (c + 1) * tile - 1))
+        return out
+
+    def input_ranges(self, j: int, pc: ParallelConfig, part_idx: int):
+        """Per-dim (lo, hi) ranges of input ``j`` this part reads: each dim
+        scaled from the output tile when the ranks match, else the batch dim
+        tiled and the rest read whole."""
+        in_dims = self.inputs[j].dims
+        out_dims = self.outputs[0].dims
+        tile = self.output_tile(pc, part_idx)
+        rng = []
+        if len(in_dims) == len(out_dims):
+            for i, isz in enumerate(in_dims):
+                osz = out_dims[i]
+                lo, hi = tile[i]
+                if isz == osz:
+                    rng.append((lo, hi))
+                else:
+                    rng.append((lo * isz // osz,
+                                min(isz - 1, -((-(hi + 1) * isz) // osz) - 1)))
+        else:
+            b_lo, b_hi = tile[0]
+            rng.append((b_lo * in_dims[0] // out_dims[0],
+                        (b_hi + 1) * in_dims[0] // out_dims[0] - 1))
+            for isz in in_dims[1:]:
+                rng.append((0, isz - 1))
+        return rng
+
+    def weight_tile(self, pc: ParallelConfig, w_idx: int, part_idx: int):
+        """Per-dim ranges of weight ``w_idx`` this part holds: the whole
+        range on replicated dims, the part's slice on split ones."""
+        w = self.weights[w_idx]
+        coord = self._grid_coord(pc, part_idx)
+        out = []
+        for i, size in enumerate(w.dims):
+            pd = w.partition_dims[i]
+            if pd is None or pd >= len(pc.dims) or pc.dims[pd] == 1:
+                out.append((0, size - 1))
+            else:
+                deg = pc.dims[pd]
+                c = coord[pd]
+                tile = size // deg
+                out.append((c * tile, (c + 1) * tile - 1))
+        return out
+
+    def part_input_shapes(self, pc: ParallelConfig) -> List[Tuple[int, ...]]:
+        """The shapes of the inputs one part of ``pc`` computes from."""
+        return [tuple(hi - lo + 1 for lo, hi in self.input_ranges(j, pc, 0))
+                for j in range(len(self.inputs))]
+
+    def part_forward(self, pc: ParallelConfig):
+        """``fn(params, xs, ctx) -> tensor``: what one part of ``pc``
+        computes from inputs of ``part_input_shapes`` and its
+        ``weight_tile`` weights."""
+        return lambda params, xs, ctx: self.forward(params, xs, ctx)[0]
 
     def __repr__(self):
         ins = ",".join(str(t.dims) for t in self.inputs)

@@ -103,6 +103,20 @@ class Conv2D(Op):
         cin = self.inputs[0].dims[3]
         return 2.0 * oh * ow * oc * kh * kw * (cin // self.groups)
 
+    def input_ranges(self, j, pc, part_idx):
+        """The input rectangle of an output tile, halo included (the
+        reference's implicit Legion halo, conv_2d.cu:173-211)."""
+        n, ih, iw, cin = self.inputs[0].dims
+        (n_lo, n_hi), (oh_lo, oh_hi), (ow_lo, ow_hi), _ = self.output_tile(pc, part_idx)
+        sh, sw = self.stride
+        ph, pw = self.padding
+        kh, kw = self.kernel
+        h_lo = max(0, oh_lo * sh - ph)
+        h_hi = min(ih - 1, oh_hi * sh - ph + kh - 1)
+        w_lo = max(0, ow_lo * sw - pw)
+        w_hi = min(iw - 1, ow_hi * sw - pw + kw - 1)
+        return [(n_lo, n_hi), (h_lo, h_hi), (w_lo, w_hi), (0, cin - 1)]
+
 
 class PoolType:
     MAX = "max"

@@ -51,3 +51,10 @@ class Linear(Op):
 
     def flops_per_sample(self):
         return 2.0 * self.inputs[0].dims[-1] * self.output.dims[-1]
+
+    def input_ranges(self, j, pc, part_idx):
+        """Every out-channel part reads the whole input feature dim (the
+        reference replicates the input per channel shard, linear.cu:174-185)."""
+        rng = super().input_ranges(j, pc, part_idx)
+        rng[-1] = (0, self.inputs[0].dims[-1] - 1)
+        return rng

@@ -12,8 +12,8 @@ reference carries Legion adim order (innermost first), which
 ``reference_order=True`` reverses on import.
 
 The optional ``<file>.meta.json`` sidecar (provenance of a searched
-strategy) is written when ``provenance`` is given; reading it back for
-warm starts belongs to the strategy search (ROADMAP A8).
+strategy) is written when ``provenance`` is given; the population search
+reads sidecars back to pick its warm starts (``load_warm_starts``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import io
 import json
 import os
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..config import DeviceType, ParallelConfig
@@ -209,3 +210,71 @@ def write_provenance(filename: str, meta: Dict[str, Any]) -> str:
         json.dump(out, f, indent=1, sort_keys=True)
         f.write("\n")
     return path
+
+
+def read_provenance(filename: str) -> Optional[Dict[str, Any]]:
+    """The sidecar's metadata, or None when it is absent or unreadable (a
+    corrupt sidecar warns; sidecars never break a strategy load)."""
+    path = sidecar_path(filename)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            meta = json.load(f)
+        if not isinstance(meta, dict):
+            raise ValueError(f"expected a JSON object, got {type(meta).__name__}")
+        return meta
+    except (OSError, ValueError) as e:
+        warnings.warn(f"ignoring corrupt strategy sidecar {path}: {e}", stacklevel=2)
+        return None
+
+
+# The shipped strategy files (the repo's strategies/), where the population
+# search looks for warm starts.
+DEFAULT_STRATEGY_DIR = os.path.normpath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "strategies"))
+
+
+def load_warm_starts(model, num_devices: int, strategies_dir: Optional[str] = None,
+                     limit: Optional[int] = None
+                     ) -> List[Tuple[str, Dict[str, ParallelConfig]]]:
+    """Seed strategy maps for the population search: the ``.pb`` files of
+    ``strategies_dir`` (default: the shipped ``strategies/``) whose
+    ``.pb.meta.json`` sidecars claim this model (every op name in the map)
+    and ``num_devices``, as ``[(filename, {op: ParallelConfig})]`` in sorted
+    filename order.  A ``.pb`` without a sidecar is skipped; one whose
+    sidecar's content hash no longer matches is skipped with a warning."""
+    out: List[Tuple[str, Dict[str, ParallelConfig]]] = []
+    d = DEFAULT_STRATEGY_DIR if strategies_dir is None else strategies_dir
+    if not os.path.isdir(d):
+        return out
+    op_names = {op.name for op in model.ops}
+    for fn in sorted(os.listdir(d)):
+        if not fn.endswith(".pb"):
+            continue
+        path = os.path.join(d, fn)
+        meta = read_provenance(path)
+        if meta is None:
+            continue
+        with open(path, "rb") as f:
+            data = f.read()
+        if meta.get("content_hash") != strategy_content_hash(data):
+            warnings.warn(f"skipping stale strategy sidecar {sidecar_path(path)}: "
+                          f"content hash no longer matches {fn}", stacklevel=2)
+            continue
+        try:
+            if int(meta.get("num_devices", -1)) != int(num_devices):
+                continue
+        except (TypeError, ValueError):
+            continue
+        try:
+            strategies = load_strategies_from_file(path)
+        except (ValueError, IndexError) as e:
+            warnings.warn(f"skipping unreadable strategy file {path}: {e}", stacklevel=2)
+            continue
+        if not op_names.issubset(strategies):
+            continue
+        out.append((fn, {k: v for k, v in strategies.items() if k in op_names}))
+        if limit is not None and len(out) >= limit:
+            break
+    return out

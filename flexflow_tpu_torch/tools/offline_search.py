@@ -1,0 +1,129 @@
+"""Offline strategy search for an H100 node: no card needed.
+
+Counterpart of the JAX package's ``tools/offline_search.py`` (reference:
+scripts/simulator.cc, a cost model that needs no GPU).  Builds a model of
+the port's zoo, searches it over an H100 node of ``--devices`` GPUs with
+the simulator (the card's measurements from ``measured_h100.json`` where it
+has them, the fitted or spec roofline elsewhere), prints the data-parallel
+and the best simulated ms/step and the proposals per second, and exports
+the best strategy as a ``.pb`` (with its ``.meta.json`` sidecar) that
+``--import-strategy`` / ``FFConfig.import_strategy_file`` load.
+
+    python -m flexflow_tpu_torch.tools.offline_search alexnet --devices 8 \\
+        --budget 2000 --export /tmp/alexnet_8.pb --device cpu
+    python -m flexflow_tpu_torch.tools.offline_search transformer --devices 8 \\
+        --engine population --device cpu
+
+``--device`` only names where the graph is built (no tensor is made);
+it defaults to "cuda" like every entry point of the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+# Models of the JAX package's zoo that the port cannot build yet.
+UNPORTED_MODELS = {
+    "resnet": "ResNet (ROADMAP A5)",
+    "inception": "Inception (ROADMAP A5)",
+    "dlrm": "DLRM and its host embedding tables (ROADMAP A9)",
+    "nmt": "NMT and the LSTM op (ROADMAP A9)",
+    "candle_uno": "CANDLE Uno (ROADMAP A9)",
+}
+
+# The full-width configurations of the port's cells (PERF.md section 4).
+TRANSFORMER = dict(seq_length=512, num_layers=4, embed_dim=512, num_heads=8,
+                   vocab_size=32000)
+
+
+def build_model(name: str, batch_size: int, num_devices: int = 1, device: str = "cuda",
+                compute_dtype: str = "float32"):
+    """The named model of the port's zoo, its machine sized
+    ``num_devices`` (``workers_per_node``) for a search that runs before
+    any machine exists."""
+    import flexflow_tpu_torch as ft
+
+    if name in UNPORTED_MODELS:
+        raise NotImplementedError(f"{UNPORTED_MODELS[name]} is not ported yet")
+    model = ft.FFModel(ft.FFConfig(batch_size=batch_size, workers_per_node=num_devices,
+                                   device=device, compute_dtype=compute_dtype))
+    if name == "alexnet":
+        from ..models.alexnet import build_alexnet
+        build_alexnet(model, batch_size)
+    elif name == "transformer":
+        from ..models.transformer import build_transformer
+        build_transformer(model, batch_size, **TRANSFORMER)
+    else:
+        raise ValueError(f"unknown model {name!r} (expected alexnet or transformer)")
+    return model
+
+
+def run(model, devices: int, budget: int, seed: int = 0, engine: str = "mcmc",
+        alpha: float = 0.05, machine_model=None, verbose: bool = False, cost_model=None):
+    """Search ``model`` over ``devices`` GPUs; returns the ``SearchResult``.
+    ``cost_model`` (over ``machine_model``) replaces the default one, which
+    reads the committed measurements."""
+    from ..simulator.machine import H100MachineModel
+
+    mm = machine_model or H100MachineModel.calibrated(num_devices=devices)
+    kw = dict(budget=budget, alpha=alpha, machine_model=mm, seed=seed, verbose=verbose,
+              num_devices=devices, cost_model=cost_model)
+    if engine == "population":
+        from ..simulator.population import population_search
+        return population_search(model, **kw)
+    if engine == "native":
+        raise NotImplementedError("the native annealer over an NVSwitch topology is not "
+                                  "ported yet (ROADMAP A8b)")
+    from ..simulator.search import mcmc_search
+    return mcmc_search(model, **kw)
+
+
+def main(argv: Optional[List[str]] = None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("model", help="alexnet | transformer")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="global batch (default: 256 for alexnet, 16 for the transformer)")
+    p.add_argument("--devices", type=int, default=8, choices=range(1, 9), metavar="1-8",
+                   help="GPUs of the H100 node")
+    p.add_argument("--nvlink-bw", type=float, default=None,
+                   help="NVLink bytes/s per direction (default: the spec's 450e9)")
+    p.add_argument("--peak-flops", type=float, default=None)
+    p.add_argument("--hbm-bw", type=float, default=None)
+    p.add_argument("--compute-dtype", default="bfloat16")
+    p.add_argument("--budget", type=int, default=2000)
+    p.add_argument("--alpha", type=float, default=0.05)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--engine", choices=["mcmc", "population", "native"], default="mcmc")
+    p.add_argument("--export", default=None, help="strategy .pb output path")
+    p.add_argument("--device", default="cuda", help="where the graph is built (cuda or cpu)")
+    p.add_argument("--quiet", action="store_true")
+    args = p.parse_args(argv)
+
+    from ..parallel.strategy import save_strategies_to_file, sidecar_path
+    from ..simulator.machine import H100MachineModel
+
+    batch = args.batch_size or (256 if args.model == "alexnet" else 16)
+    model = build_model(args.model, batch, args.devices, args.device, args.compute_dtype)
+    overrides = {k: v for k, v in (("peak_flops", args.peak_flops),
+                                   ("hbm_bandwidth", args.hbm_bw),
+                                   ("nvlink_bandwidth", args.nvlink_bw)) if v is not None}
+    mm = H100MachineModel.calibrated(num_devices=args.devices, **overrides)
+    best = run(model, args.devices, args.budget, args.seed, args.engine, args.alpha, mm,
+               verbose=not args.quiet)
+    print(f"data-parallel: {best.dp_s * 1e3:.3f} ms/iter; searched: {best.best_s * 1e3:.3f} "
+          f"ms/iter; speedup {best.dp_s / best.best_s:.2f}x on {args.devices} H100(s); "
+          f"{best.proposals_per_s:.0f} proposals/s ({best.engine}; machine {mm.source})")
+    if args.export:
+        save_strategies_to_file(args.export, dict(best), provenance={
+            "tool": "flexflow_tpu_torch offline_search", "model": args.model,
+            "engine": best.engine, "budget": args.budget, "seed": args.seed,
+            "num_devices": args.devices, "best_s": best.best_s, "dp_s": best.dp_s,
+            "machine_model": mm.source})
+        print(f"exported strategy -> {args.export} (+ {sidecar_path(args.export)})")
+    return best
+
+
+if __name__ == "__main__":
+    main()

@@ -47,7 +47,9 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.kernels.flash_attention, flexflow_tpu_torch.convert, "
             "flexflow_tpu_torch.parallel.strategy, flexflow_tpu_torch.parallel.distributed, "
             "flexflow_tpu_torch.runtime.checkpoint, flexflow_tpu_torch.runtime.resilience, "
-            "flexflow_tpu_torch.runtime.step_graph; "
+            "flexflow_tpu_torch.runtime.step_graph, flexflow_tpu_torch.simulator.population, "
+            "flexflow_tpu_torch.simulator.memory, flexflow_tpu_torch.tools.calibrate, "
+            "flexflow_tpu_torch.tools.offline_search; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -76,8 +78,9 @@ def test_device_flag_parses():
 # to data parallelism over it); two workers on a one-device machine raise
 SOAP_KNOBS = [("import_strategy_file", "s.pb"), ("export_strategy_file", "s.pb"),
               ("workers_per_node", 2)]
-# knobs the compiled-step slice ported: they compile and train a step
-STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True)]
+# knobs the compiled-step and search slices ported: they compile and train
+# a step
+STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True), ("search_budget", 10)]
 
 
 @pytest.mark.parametrize("field,value", [
@@ -88,8 +91,8 @@ STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True)]
 def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
     """Knobs of features outside the port so far raise at compile; the
     strategy files the SOAP slice brought in compile, and a worker count
-    the machine does not have raises; gradient accumulation and remat
-    compile and take a step."""
+    the machine does not have raises; gradient accumulation, remat and the
+    strategy search compile and take a step."""
     from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file,
                                                       save_strategies_to_file)
 
@@ -118,6 +121,29 @@ def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
     assert m.machine.num_devices == 1 and m.ops[0].pc.dims == (1, 1)
     if field == "export_strategy_file":
         assert load_strategies_from_file(value) == {"fc": m.ops[0].pc}
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("search_engine", "native", "ROADMAP A8b"),
+    ("search_pipeline", True, "ROADMAP A9"),
+])
+def test_unported_search_options_raise(field, value, match):
+    """The native annealer and the pipeline search raise at compile, naming
+    the ROADMAP item that brings each, even beside a search budget."""
+    m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu", search_budget=10, **{field: value}))
+    m.dense(m.create_tensor((2, 4)), 3, name="fc")
+    with pytest.raises(NotImplementedError, match=match):
+        m.compile(ft.SGDOptimizer(lr=0.1))
+
+
+@pytest.mark.parametrize("name", ["machine_v5e.json", "measured_v5e.json", "PERF_LEDGER.jsonl"])
+def test_no_port_source_names_the_tpu_files_or_the_ledger(name):
+    """The port reads only its own H100 machine and measurement files: no
+    module of it (nor chip_smoke.py) names the JAX package's v5e fit or
+    measurements, or the perf ledger."""
+    for path in _port_sources():
+        with open(path) as f:
+            assert name not in f.read(), f"{os.path.relpath(path, ROOT)} names {name}"
 
 
 def test_env_knobs_and_unported_entry_points_raise(monkeypatch):
