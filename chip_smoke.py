@@ -65,7 +65,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      exported strategy loaded back; (d) the offline search of both cells for an
      8-GPU node, every config composable over the port's 8-device mesh and
      no attention sequence split.  ``--calibration-out DIR`` keeps the
-     measured cache and the fit (measured_h100.json, machine_h100.json).
+     measured cache and the fit (measured_h100.json, machine_h100.json);
+  9. the rest of the zoo at full width through the compiled step
+     ([models] lines): ResNet-50 (batch 64, 229x229), Inception-v3 (batch
+     128, 299x299), DLRM (batch 256, 8 tables of 1,000,000 x 64 on the
+     card), CANDLE-Uno (batch 256), NMT (batch 64, seq 20, hidden 2048,
+     vocab 20480, Adam) and the MoE transformer (phase 4's transformer
+     with 8 experts every 2nd layer), bf16: the wrappers' launches at the
+     eager step and the capture, compiled and eager ms/step in turns,
+     profiled device ms, busy share and launches per step, the optimizer
+     kernel's time against its byte bound, max_memory_allocated, the rate;
+     f32 weights after 2 steps compiled vs eager and kernels vs plain
+     versions (the MoE transformer at 2 layers); then [search] lines:
+     each model's DP-1 step simulated from its own ops measured on the
+     card against the compiled step, and an 8-GPU offline search whose
+     configs the training path must accept.
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
 (phase 6 uses every visible card); it imports nothing of jax or of the
@@ -431,14 +445,15 @@ def kernel_of(event_name):
     return next((k for sub, k in KERNEL_NAMES if sub in event_name), None)
 
 
-def profile_steps(model, label, step_ms, steps=3, per_step=None):
+def profile_steps(model, label, step_ms, steps=3, per_step=None, kernel_ms=None):
     """Device time by kernel family over a few steady steps of a main path's
     model, and its share of the unprofiled step time ``step_ms``; returns
     (device ms per step, busy share in %).  With ``per_step`` (launches of
     each of this repo's kernels a step), the launches the profiler saw
     must equal it: on the graph path the wrappers' counters tick only at
     the eager first step and at the capture, so the kernels' own events
-    are what count a replay's launches."""
+    are what count a replay's launches.  ``kernel_ms``, a dict, receives
+    each of this repo's kernels' device ms per step."""
     for _ in range(2):
         model.train_iteration()
     model.sync()
@@ -454,6 +469,10 @@ def profile_steps(model, label, step_ms, steps=3, per_step=None):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    if kernel_ms is not None:
+        for key, us, _ in rows:
+            if kernel_of(key) is not None:
+                kernel_ms[kernel_of(key)] = kernel_ms.get(kernel_of(key), 0.0) + us / steps / 1e3
     if per_step is not None:
         seen = dict.fromkeys(per_step, 0)
         for key, _, count in rows:
@@ -1660,6 +1679,288 @@ def search_phase(ft, build_alexnet, kernels, smi, out_dir):
     return {n: cal[n] + entry[n] for n in kernels}
 
 
+# ------------------------------------------------------------------ phase 9
+
+# The rest of the zoo at full width (PERF.md section 4): per
+# model the builder's module and function, its arguments, the global batch,
+# the loss, the optimizer (kind, lr or alpha, momentum), the input the
+# rate counts (samples, or tokens per sample), and its weight leaves.
+ZOO = {
+    "resnet50": dict(module="resnet", build="build_resnet50", kw={}, batch=64,
+                     loss="sparse_categorical_crossentropy", opt=("sgd", 0.001, 0.9),
+                     tokens=0, leaves=108,
+                     label="ResNet-50 3x229x229 batch 64 bf16, SGD momentum 0.9"),
+    "inception_v3": dict(module="inception", build="build_inception_v3", kw={}, batch=128,
+                         loss="sparse_categorical_crossentropy", opt=("sgd", 0.001, 0.9),
+                         tokens=0, leaves=190,
+                         label="Inception-v3 3x299x299 batch 128 bf16, SGD momentum 0.9"),
+    "dlrm": dict(module="dlrm", build="build_dlrm", kw={}, batch=256,
+                 loss="mean_squared_error", opt=("sgd", 0.01, 0.0), tokens=0, leaves=22,
+                 label="DLRM batch 256, 8 tables x 1,000,000 x 64 on the card, bot "
+                       "64-512-512-64, top 576-1024-1024-1024-1, bf16, SGD"),
+    "candle_uno": dict(module="candle_uno", build="build_candle_uno", kw={}, batch=256,
+                       loss="mean_squared_error", opt=("sgd", 0.001, 0.0), tokens=0,
+                       leaves=26, label="CANDLE-Uno batch 256, 3x1000 towers and trunk, "
+                                        "bf16, SGD"),
+    "nmt": dict(module="nmt", build="build_nmt", kw={}, batch=64,
+                loss="sparse_categorical_crossentropy", opt=("adam", ADAM_ALPHA, 0.0),
+                tokens=20, leaves=15,
+                label="NMT batch 64, seq 20, 2+2 LSTM layers, hidden = embed 2048, vocab "
+                      "20480, bf16, Adam"),
+    "transformer_moe": dict(module="transformer", build="build_transformer",
+                            kw=dict(moe_every=2, num_experts=8,
+                                    **{k: v for k, v in LM.items() if k != "batch"}),
+                            batch=LM["batch"], loss="sparse_categorical_crossentropy",
+                            opt=("sgd", 0.001, 0.0), tokens=LM["seq_length"], leaves=56,
+                            label=f"MoE transformer batch {LM['batch']} S {LM['seq_length']} "
+                                  f"{LM['num_layers']}x{LM['embed_dim']}, 8 experts every 2nd "
+                                  "layer, bf16, SGD"),
+}
+# Smaller depth for the f32 parity runs of phase 9 (the MoE transformer:
+# 2 layers, one of them MoE); the other models run whole.
+ZOO_PARITY_KW = {"transformer_moe": dict(num_layers=2)}
+# The offline search of each new model for an 8-GPU node (simulation only).
+ZOO_SEARCH_BUDGET = 300
+
+
+def zoo_model(ft, name, kw=None, **cfg):
+    """A model of the zoo through the user-facing entry points (bf16 and
+    the fused optimizer unless ``cfg`` says otherwise), its synthetic batch
+    (made from a seed, the JAX package's recipes) staged."""
+    import importlib
+
+    import numpy as np
+
+    z = ZOO[name]
+    batch = z["batch"]
+    mod = importlib.import_module(f"flexflow_tpu_torch.models.{z['module']}")
+    cfg = {"compute_dtype": "bfloat16", "fused_optimizer": True, **cfg}
+    model = ft.FFModel(ft.FFConfig(batch_size=batch, **cfg))
+    built = getattr(mod, z["build"])(model, batch, **{**z["kw"], **(kw or {})})
+    kind, lr, momentum = z["opt"]
+    opt = (ft.SGDOptimizer(model, lr=lr, momentum=momentum) if kind == "sgd"
+           else ft.AdamOptimizer(model, alpha=lr))
+    metrics = (["accuracy"] if z["loss"] == "sparse_categorical_crossentropy"
+               else ["mean_squared_error"])
+    model.compile(opt, z["loss"], metrics)
+    model.init_layers(seed=0)
+    if name in ("resnet50", "inception_v3"):
+        ft.DataLoader.synthetic(model, built[0], num_samples=batch).next_batch(model)
+    elif name == "dlrm":
+        rows = [op.num_entries for op in model.ops if op._type == "Embedding"]
+        sparse, dense, labels = mod.synthetic_batch(batch, rows, 1, built[1].dims[1], seed=11)
+        model.set_batch({**dict(zip(built[0], sparse)), built[1]: dense}, labels)
+    elif name == "candle_uno":
+        rng = np.random.default_rng(0)
+        model.set_batch({t: rng.standard_normal(t.dims, dtype=np.float32)
+                         for t in built[0].values()},
+                        rng.standard_normal((batch, 1), dtype=np.float32))
+    elif name == "nmt":
+        vocab = model.ops[0].num_entries  # embed_src's rows
+        src, dst, labels = mod.synthetic_batch(batch, built[0].dims[1], vocab, seed=5)
+        model.set_batch({built[0]: src, built[1]: dst}, labels)
+    else:
+        toks, posa, labels = mod.synthetic_lm_batch(batch, built[0].dims[1],
+                                                    z["kw"]["vocab_size"], seed=0)
+        model.set_batch({built[0]: toks, built[1]: posa}, labels)
+    return model
+
+
+def zoo_per_step(fo, model, name):
+    """Launches of each of this repo's kernels in one step of a zoo model:
+    SGD one per 64 leaves (``sgd_launch_plan``), Adam one per leaf, the
+    flash kernels one per attention layer."""
+    numels = [w.numel() for ws in model._params.values() for w in ws.values()]
+    attn = sum(op._type == "MultiHeadAttention" for op in model.ops)
+    kind = ZOO[name]["opt"][0]
+    return {**NO_LAUNCH, "fused_sgd_update": len(fo.sgd_launch_plan(numels)) if kind == "sgd"
+            else 0, "fused_adam_update": len(numels) if kind == "adam" else 0,
+            "flash_fwd": attn, "flash_bwd_dkdv": attn, "flash_bwd_dq": attn}
+
+
+def zoo_train(ft, fo, kernels, name, smi):
+    """One zoo model at full width: the wrappers' launches at the eager step
+    and the capture, the compiled and eager steps in turns, the profiled
+    compiled step (device ms, busy share, launches per step from the
+    profiler, top families), max_memory_allocated, the rate, the predict
+    output's shape; the measured numbers for the search lines."""
+    z = ZOO[name]
+    free_models()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    model = zoo_model(ft, name)
+    n_leaves = sum(len(ws) for ws in model._params.values())
+    n_params = sum(w.numel() for ws in model._params.values() for w in ws.values())
+    check(n_leaves == z["leaves"], f"{name} has {n_leaves} leaves, expected {z['leaves']}")
+    per_step = zoo_per_step(fo, model, name)
+    ms, losses = steps_ms(model)
+    check_graph_run(model, 7, name)
+    got = read_launches(kernels)
+    check(got == {n: 2 * c for n, c in per_step.items()},
+          f"{name}: wrapper launches {got} (eager step and capture), expected twice {per_step}")
+    probs = model.predict_batch()  # the MoE transformer's forward launches K3 per layer
+    launches = read_launches(kernels)
+    out_dims = model.final_tensor().dims
+    check(tuple(probs.shape) == tuple(out_dims) and bool(torch.isfinite(
+        torch.from_numpy(probs)).all()), f"{name}: predict_batch {probs.shape} vs {out_dims}")
+    # the optimizer kernel's byte bound: w read and written, g read, and
+    # each slot read and written (SGD momentum one, Adam two), f32
+    kind, _, momentum = z["opt"]
+    slots = 2 if kind == "adam" else int(momentum > 0)
+    opt_bound_ms = n_params * 4 * (3 + 2 * slots) / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    metrics = model.get_metrics().to_string()
+    del model
+    times = {"graph": [ms], "eager": []}
+    for path in ("eager", "eager", "graph"):
+        free_models()
+        model = zoo_model(ft, name)
+        with contextlib.nullcontext() if path == "graph" else ft.disable_graphs():
+            times[path].append(steps_ms(model)[0])
+        del model
+    free_models()
+    model = zoo_model(ft, name)
+    kernel_ms = {}
+    device_ms, busy = profile_steps(model, f"{name}, compiled step", times["graph"][0],
+                                    per_step=per_step, kernel_ms=kernel_ms)
+    del model
+    free_models()
+    samples = z["batch"]
+    unit = (lambda m: f"{samples * z['tokens'] * 1e3 / m:.0f} tokens/s") if z["tokens"] else \
+        (lambda m: f"{samples * 1e3 / m:.1f} samples/s")
+    log(f"[models] {z['label']}: {n_params:,} parameters in {n_leaves} leaves; losses "
+        f"{['%.5f' % x for x in losses]}; {metrics}")
+    for path in ("graph", "eager"):
+        log(f"[models] {name} {'compiled' if path == 'graph' else 'eager'} step: "
+            f"{' / '.join(f'{m:.3f}' for m in times[path])} ms/step, "
+            f"{' / '.join(unit(m) for m in times[path])}")
+    log(f"[models] {name}: device {device_ms:.3f} ms/step, busy {busy:.1f}% of the first "
+        f"compiled run's step (device ceiling {unit(device_ms)}); max_memory_allocated "
+        f"{peak:.2f} GiB; launches per step {per_step}; card {smi}")
+    opt_kernel = "fused_adam_update" if kind == "adam" else "fused_sgd_update"
+    log(f"[models] {name}: {opt_kernel} {kernel_ms.get(opt_kernel, 0.0):.4f} ms/step over "
+        f"{per_step[opt_kernel]} launch(es) and {n_params * 4 / 2**30:.2f} GiB of f32 "
+        f"weights, against its byte bound {opt_bound_ms:.4f} ms; flash kernels "
+        f"{ {k: round(v, 4) for k, v in kernel_ms.items() if k.startswith('flash')} } ms/step")
+    return launches, dict(graph_ms=sum(times["graph"]) / len(times["graph"]),
+                          graph_device_ms=device_ms)
+
+
+def zoo_parity(ft, fa, kernels, name):
+    """f32 weights and optimizer state after 2 steps of three runs from the
+    same weights and batch: compiled with the kernels, eager with the
+    kernels, eager with the plain versions (the plain update and, for the
+    MoE transformer, the flash kernels' plain versions).  Compiled vs eager
+    is held at GRAPH_TOL; kernel vs plain at the fused update's tolerance,
+    and at the transformer's where attention's summation order differs."""
+    kw = ZOO_PARITY_KW.get(name)
+
+    def run(graph, fused):
+        free_models()
+        model = zoo_model(ft, name, kw=kw, compute_dtype="float32", fused_optimizer=fused)
+        before = read_launches(kernels)
+        plain = contextlib.nullcontext() if fused else fa.plain_versions()
+        with contextlib.nullcontext() if graph else ft.disable_graphs(), plain:
+            for _ in range(2):
+                model.train_iteration()
+        model.sync()
+        used = {n: c - before[n] for n, c in read_launches(kernels).items()}
+        check(fused or not any(used.values()), f"{name}: the plain path launched {used}")
+        check(not fused or any(used.values()), f"{name}: the kernel path launched nothing")
+        if graph:
+            check_graph_run(model, 2, f"{name} f32")
+        return state_of(model)
+
+    compiled, eager, plain = run(True, True), run(False, True), run(False, False)
+    g_worst, g_bitwise = compare_states(compiled, eager, GRAPH_TOL, f"{name} compiled/eager")
+    tol = LM_PARITY_TOL if name == "transformer_moe" else PARITY_TOL
+    p_worst, _ = compare_states(eager, plain, tol, f"{name} kernel/plain")
+    log(f"[models] parity f32 {name}{' ' + str(kw) if kw else ''}, 2 steps: compiled vs eager "
+        f"max |d| {g_worst:.3e} ({'bitwise equal' if g_bitwise else 'not bitwise'}; limit "
+        f"rtol 1e-6, atol 1e-6); kernels vs plain versions max |d| {p_worst:.3e} (limit rtol "
+        f"{tol['rtol']:g}, atol {tol['atol']:g})")
+
+
+def zoo_search(ft, measured, smi, out_dir):
+    """Each new model's data-parallel step on one card simulated from a
+    table of its own ops measured on the card here (calibrate, one part),
+    beside the compiled step measured above; then the offline search for an
+    8-GPU node, whose configs must all be ones the port's training path
+    runs (check_config) and compose over its 8-device mesh."""
+    from flexflow_tpu_torch.parallel.mesh import axes_for_degrees, mesh_shape
+    from flexflow_tpu_torch.simulator.machine import H100MachineModel
+    from flexflow_tpu_torch.simulator.simulator import Simulator
+    from flexflow_tpu_torch.tools import calibrate, offline_search
+
+    measured_path = os.path.join(out_dir, "zoo_measured_h100.json")
+    fit_path = os.path.join(out_dir, "zoo_machine_h100.json")
+    for path in (measured_path, fit_path):
+        if os.path.exists(path):
+            os.remove(path)
+    names = {"resnet50": "resnet", "inception_v3": "inception"}
+    for name, z in ZOO.items():
+        _, _, batch, kw = offline_search.MODELS[names.get(name, name)]
+        check((batch, kw) == (z["batch"], z["kw"]),
+              f"the tools' {name} {batch, kw} is not phase 9's {z['batch'], z['kw']}")
+    t0 = time.perf_counter()
+    r = calibrate.calibrate([(names.get(n, n), ZOO[n]["batch"]) for n in ZOO], devices=1,
+                            dp_parts=(1,), compute_dtype="bfloat16", out=measured_path,
+                            fit_out=fit_path, device="cuda", verbose=False)
+    log(f"[search] zoo calibration: {r['measured']} measured points, every op of the six "
+        f"models at one part, forward and backward, in {time.perf_counter() - t0:.1f} s")
+    mm = H100MachineModel.calibrated(path=fit_path, num_devices=1)
+    for name in ZOO:
+        model = offline_search.build_model(names.get(name, name), ZOO[name]["batch"], 1,
+                                           "cuda", "bfloat16")
+        dp = {op.name: ft.ParallelConfig.data_parallel(op.output.num_dims, 1)
+              for op in model.ops}
+        table = Simulator(mm, calibration_cost(mm, measured_path))
+        sim_ms = table.simulate_runtime(model, dp) * 1e3
+        check(table.cost.stats["analytic"] == 0, f"{name}: a DP-1 op was not measured")
+        got = measured[name]
+        log(f"[search] {name} DP-1 simulated {sim_ms:.3f} ms/step from its measured table; "
+            f"measured compiled step {got['graph_ms']:.3f} ms/step (device "
+            f"{got['graph_device_ms']:.3f}): simulated/measured {sim_ms / got['graph_ms']:.3f} "
+            f"compiled, {sim_ms / got['graph_device_ms']:.3f} device; card {smi}")
+    sizes, axes = mesh_shape(NODE_GPUS)
+    node = H100MachineModel.calibrated(num_devices=NODE_GPUS)
+    for name in ZOO:
+        model = offline_search.build_model(names.get(name, name), ZOO[name]["batch"],
+                                           NODE_GPUS, "cuda", "bfloat16")
+        best = offline_search.run(model, NODE_GPUS, ZOO_SEARCH_BUDGET, seed=0, machine_model=node)
+        for op in model.ops:
+            op.check_config(best[op.name])  # raises on a split training rejects
+            axes_for_degrees(axes, sizes, best[op.name].dims)
+        log(f"[search] offline mcmc search, {name}, {NODE_GPUS} H100s, budget "
+            f"{ZOO_SEARCH_BUDGET}: DP {best.dp_s * 1e3:.3f} ms, best {best.best_s * 1e3:.3f} ms "
+            f"simulated ({best.dp_s / best.best_s:.2f}x; {node.source})")
+
+
+def models_phase(ft, fo, fa, kernels, smi, out_dir):
+    """Phase 9: the rest of the zoo at full width through the compiled
+    step, f32 parity on the card, and the search lines.  Returns the
+    kernels' wrapper launches of the main-path runs (the eager first steps
+    and the captures)."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    launches = dict.fromkeys(kernels, 0)
+    measured = {}
+    for name in ZOO:
+        got, measured[name] = zoo_train(ft, fo, kernels, name, smi)
+        launches = {n: launches[n] + got[n] for n in kernels}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    for name in ZOO:
+        zoo_parity(ft, fa, kernels, name)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    free_models()
+    zoo_search(ft, measured, smi, out_dir)
+    log(f"[models] phase 9 took {time.perf_counter() - t0:.1f} s; wrapper launches {launches}")
+    return launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     # --calibration-out DIR keeps phase 8's measured cache and fit (else a
@@ -1788,9 +2089,12 @@ def main(argv=None):
         out_dir = calibration_out or stack.enter_context(tempfile.TemporaryDirectory())
         search_launches = search_phase(ft, build_alexnet, kernels, smi, out_dir)
 
+        # phase 9 ----------------------------------------------------------
+        zoo_launches = models_phase(ft, fo, fa, kernels, smi, out_dir)
+
     # result -------------------------------------------------------------
     main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
-                     + search_launches[n] for n in kernels}
+                     + search_launches[n] + zoo_launches[n] for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -1808,7 +2112,7 @@ def main(argv=None):
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
         f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
-        f"search {search_launches}")
+        f"search {search_launches}, models {zoo_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -59,7 +59,9 @@ from .ops.base import FwdCtx, Op
 from .ops.conv2d import ActiMode, Conv2D, Pool2D, PoolType
 from .ops.embedding import AggrMode, Embedding
 from .ops.linear import Linear
-from .ops.misc import ElementBinary, ElementUnary, Flat, Softmax
+from .ops.lstm import LSTM
+from .ops.misc import Concat, ElementBinary, ElementUnary, Flat, Softmax
+from .ops.moe import ExpertMLP
 from .parallel.distributed import host_local_batch, local_batch
 from .parallel.mesh import Machine
 from .parallel.strategy import load_strategies_from_file, save_strategies_to_file
@@ -88,13 +90,10 @@ _UNPORTED_ENV = {
 # yet, with the ROADMAP item that brings each.
 _UNPORTED_METHODS = {
     "create_constant": "constant graph inputs, ROADMAP A2",
-    "concat": "the Concat op, ROADMAP A2",
     "batch_norm": "BatchNorm and running statistics, ROADMAP A2",
     "dropout": "the Dropout op, ROADMAP A2",
     "mse_loss": "the MSELoss op, ROADMAP A2",
-    "lstm": "the LSTM op, ROADMAP A9",
     "pipeline_mlp": "pipeline parallelism, ROADMAP A9",
-    "expert_mlp": "mixture of experts, ROADMAP A9",
     "set_pipeline": "pipeline parallelism, ROADMAP A9",
     "conv2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "pool2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
@@ -238,6 +237,13 @@ class FFModel:
         return self._append(Embedding(self, input_tensor, num_entries, out_dim,
                                       aggr, kernel_initializer, share_with, name))
 
+    def lstm(self, input_tensor: Tensor, hidden_size: int, hx: Optional[Tensor] = None,
+             cx: Optional[Tensor] = None, share_with=None, name: Optional[str] = None):
+        """Sequence LSTM (B,T,E)->(B,T,H); returns the (y, h_T, c_T) tensors."""
+        op = LSTM(self, input_tensor, hidden_size, hx, cx, share_with, name)
+        self.ops.append(op)
+        return op.outputs[0], op.outputs[1], op.outputs[2]
+
     def multihead_attention(self, query: Tensor, key: Optional[Tensor] = None,
                             value: Optional[Tensor] = None,
                             embed_dim: Optional[int] = None, num_heads: int = 8,
@@ -259,11 +265,27 @@ class FFModel:
                    name: Optional[str] = None) -> Tensor:
         return self._append(LayerNorm(self, input_tensor, eps, elementwise_affine, name))
 
+    def concat(self, tensors: Sequence[Tensor], axis: int,
+               name: Optional[str] = None) -> Tensor:
+        """Concatenate along ``axis``; on 4-D tensors the axis is in the
+        reference's NCHW order and maps to the NHWC position."""
+        if tensors[0].num_dims == 4:
+            axis = {0: 0, 1: 3, 2: 1, 3: 2}[axis]
+        return self._append(Concat(self, tensors, axis, name))
+
     def flat(self, input_tensor: Tensor, name: Optional[str] = None) -> Tensor:
         return self._append(Flat(self, input_tensor, name))
 
     def softmax(self, input_tensor: Tensor, name: Optional[str] = None) -> Tensor:
         return self._append(Softmax(self, input_tensor, name))
+
+    def expert_mlp(self, input_tensor: Tensor, num_experts: int, hidden_size: int,
+                   capacity_factor: float = 1.25, activation: str = "relu",
+                   name: Optional[str] = None) -> Tensor:
+        """Switch-style mixture-of-experts layer (top-1 routing with a
+        capacity); its config dim 1 is the expert degree."""
+        return self._append(ExpertMLP(self, input_tensor, num_experts, hidden_size,
+                                      capacity_factor, activation, name))
 
     def _unary(self, op_name, x, name=None):
         return self._append(ElementUnary(self, x, op_name, name))
@@ -347,6 +369,7 @@ class FFModel:
             if pc.num_parts() > nd:
                 pc = ParallelConfig.data_parallel(op.output.num_dims, nd)
             op.pc = op.legalize_pc(pc)
+            op.check_config(op.pc)
             if op.pc.host_placed:
                 raise NotImplementedError(
                     f"not ported yet: host placement of {op.name} (its config's device "
@@ -550,7 +573,7 @@ class FFModel:
         ctx = FwdCtx(training=training)
         for op in self.ops:
             xs = [env[t.guid] for t in op.inputs]
-            pvals = params.get(op.name, {})
+            pvals = params.get(op.param_key, {})
             if self._sharded:
                 def fwd(*xs_, op=op, pvals=pvals):
                     return op.forward_sharded(self.machine, pvals, list(xs_), ctx)

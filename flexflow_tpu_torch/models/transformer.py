@@ -3,8 +3,9 @@
 
 The same graph calls and op names as the JAX package, so weights carry
 across with ``convert.load_jax_params``.  Attention runs on the port's
-flash kernels (``kernels/flash_attention.py``).  The MoE block is not
-ported yet (ROADMAP A9).
+flash kernels (``kernels/flash_attention.py``).  With ``moe_every`` = k,
+every k-th block's MLP is a Switch mixture of ``num_experts`` experts
+(``ops/moe.py``).
 """
 
 from __future__ import annotations
@@ -24,8 +25,6 @@ def build_transformer(ff: FFModel, batch_size: int, seq_length: int = 256,
 
     tokens/positions: (B, S) int32, positions 0..S-1 per row.  Labels are
     next-token ids, shape (B, S) int32."""
-    if moe_every:
-        raise NotImplementedError("the MoE block (ops/moe.py) is not ported yet (ROADMAP A9)")
     tok = ff.create_tensor((batch_size, seq_length), name="tokens",
                            dtype="int32", nchw=False)
     pos = ff.create_tensor((batch_size, seq_length), name="positions",
@@ -41,8 +40,13 @@ def build_transformer(ff: FFModel, batch_size: int, seq_length: int = 256,
                                    dropout=dropout, name=f"attn_{i}")
         x = ff.add(x, h, name=f"res_attn_{i}")
         h = ff.layer_norm(x, name=f"ln2_{i}")
-        h = ff.dense(h, embed_dim * mlp_ratio, activation="gelu", name=f"mlp_up_{i}")
-        h = ff.dense(h, embed_dim, name=f"mlp_down_{i}")
+        if moe_every and (i + 1) % moe_every == 0:
+            # dropped tokens ride the residual
+            h = ff.expert_mlp(h, num_experts=num_experts, hidden_size=embed_dim * mlp_ratio,
+                              activation="gelu", name=f"moe_{i}")
+        else:
+            h = ff.dense(h, embed_dim * mlp_ratio, activation="gelu", name=f"mlp_up_{i}")
+            h = ff.dense(h, embed_dim, name=f"mlp_down_{i}")
         x = ff.add(x, h, name=f"res_mlp_{i}")
 
     x = ff.layer_norm(x, name="ln_f")

@@ -15,6 +15,12 @@ the JAX package's does: ``output_tile``, ``input_ranges`` and
 ``weight_tile`` give the rectangles one part of a config writes, reads and
 holds, and ``part_forward`` what one part computes (the cost model times
 it on the card).
+
+Weight sharing (``share_with``, the reference's SharedVariable): a sharing
+op declares no weights of its own and reads its owner's, under the
+owner's name (``param_key``), so the parameter tree, the optimizer and a
+checkpoint hold the weight once and autograd sums the gradients of its
+uses.
 """
 
 from __future__ import annotations
@@ -60,6 +66,30 @@ class Op:
         self.inputs: List[Tensor] = list(inputs)
         self.weights: List[Parameter] = []
         self.outputs: List[Tensor] = []
+        # the op whose weights this one reads (share_with), else None
+        self.share_from: Optional["Op"] = None
+
+    @property
+    def param_key(self) -> str:
+        """Key into the parameter tree: the owning op's name."""
+        return self.share_from.name if self.share_from is not None else self.name
+
+    @property
+    def param_weights(self) -> List[Parameter]:
+        """The weights this op's forward reads: its own, or its owner's."""
+        return self.share_from.weights if self.share_from is not None else self.weights
+
+    def _share(self, share_with: Optional["Op"], same) -> bool:
+        """Adopt ``share_with`` (or its owner, when it shares itself) as
+        this op's weight owner if given; ``same(owner)`` says whether the
+        owner's weights fit this op.  Returns whether it shares."""
+        if share_with is None:
+            return False
+        owner = share_with.share_from or share_with
+        if not same(owner):
+            raise ValueError(f"share_with must be a {self._type} of identical shape")
+        self.share_from = owner
+        return True
 
     def _add_output(self, dims, dtype="float32") -> Tensor:
         t = Tensor(dims=tuple(dims), dtype=dtype, owner_op=self, owner_idx=len(self.outputs))
@@ -111,9 +141,14 @@ class Op:
         npc = ParallelConfig(pc.device_type, tuple(dims), memory_types=pc.memory_types)
         return npc.with_device_ids(tuple(range(npc.num_parts())))
 
-    def compute_placements(self, machine) -> tuple:
-        """The output placements ``forward_sharded`` computes under."""
-        return fold(machine.spec_for_config(self.pc, self.output.num_dims),
+    def check_config(self, pc: ParallelConfig) -> None:
+        """Raise when the port cannot run this op under ``pc`` (a split
+        the JAX package computes that the port does not yet)."""
+
+    def compute_placements(self, machine, output_idx: int = 0) -> tuple:
+        """The placements ``forward_sharded`` computes output
+        ``output_idx`` under."""
+        return fold(machine.spec_for_config(self.pc, self.outputs[output_idx].num_dims),
                     self.unsplit_dims)
 
     def input_placements(self, out_pl, i: int) -> tuple:
@@ -127,24 +162,27 @@ class Op:
     def weight_placements(self, w: Parameter, out_pl) -> tuple:
         """Weight dim j split where output dim ``partition_dims[j]`` is
         (under the op's config: how the weight is stored, as
-        ``_param_spec_tree`` of the JAX package's model.py places it)."""
+        ``_param_spec_tree`` of the JAX package's model.py places it).  A
+        sharing op reads the owner's weight, stored under the owner's
+        config, at these placements (a redistribution where they differ)."""
         return tuple(Shard(w.partition_dims.index(p.dim))
                      if isinstance(p, Shard) and p.dim in w.partition_dims else Replicate()
                      for p in out_pl)
 
     def forward_sharded(self, machine, params, xs, ctx: FwdCtx) -> List:
-        """``forward`` on the local shards of DTensor inputs and weights; the
-        output is a DTensor placed by ``compute_placements``."""
-        out_pl = self.compute_placements(machine)
-        names = [w.name for w in self.weights]
-        args = [(x, self.input_placements(out_pl, i)) for i, x in enumerate(xs)]
-        args += [(params[w.name], self.weight_placements(w, out_pl)) for w in self.weights]
+        """``forward`` on the local shards of DTensor inputs and weights;
+        each output is a DTensor placed by ``compute_placements``."""
+        out_pls = [self.compute_placements(machine, i) for i in range(len(self.outputs))]
+        weights = self.param_weights
+        names = [w.name for w in weights]
+        args = [(x, self.input_placements(out_pls[0], i)) for i, x in enumerate(xs)]
+        args += [(params[w.name], self.weight_placements(w, out_pls[0])) for w in weights]
         n = len(xs)
 
         def local(*ls):
-            return self.forward(dict(zip(names, ls[n:])), list(ls[:n]), ctx)[0]
+            return self.forward(dict(zip(names, ls[n:])), list(ls[:n]), ctx)
 
-        return [machine.local_call(local, args, out_pl)]
+        return machine.local_call(local, args, out_pls)
 
     # -- tiling hooks (the simulator's comm model; the reference's
     # get_output_tensor_shape / get_input_tensor_shape, model.cc:333-380) --
@@ -197,7 +235,7 @@ class Op:
     def weight_tile(self, pc: ParallelConfig, w_idx: int, part_idx: int):
         """Per-dim ranges of weight ``w_idx`` this part holds: the whole
         range on replicated dims, the part's slice on split ones."""
-        w = self.weights[w_idx]
+        w = self.param_weights[w_idx]
         coord = self._grid_coord(pc, part_idx)
         out = []
         for i, size in enumerate(w.dims):
@@ -227,9 +265,3 @@ class Op:
         outs = ",".join(str(t.dims) for t in self.outputs)
         return f"{self._type}({self.name}: {ins} -> {outs})"
 
-
-def refuse_shared_weights(share_with) -> None:
-    if share_with is not None:
-        raise NotImplementedError(
-            "weight sharing (share_with) is not ported yet: it arrives with "
-            "the LSTM/NMT ops (ROADMAP A9)")

@@ -19,7 +19,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
-from .base import FwdCtx, Op, refuse_shared_weights
+from .base import FwdCtx, Op
 from ..initializers import DefaultBiasInitializer, DefaultWeightInitializer
 
 
@@ -63,7 +63,6 @@ class Conv2D(Op):
                  use_bias: bool = True, groups: int = 1,
                  kernel_initializer=None, bias_initializer=None,
                  share_with=None, name: Optional[str] = None):
-        refuse_shared_weights(share_with)
         super().__init__(model, [input_tensor], name)
         n, h, w, cin = input_tensor.dims
         self.kernel = (kernel_h, kernel_w)
@@ -75,8 +74,12 @@ class Conv2D(Op):
         out_h = 1 + (h + 2 * padding_h - kernel_h) // stride_h
         out_w = 1 + (w + 2 * padding_w - kernel_w) // stride_w
         self._add_output((n, out_h, out_w, out_channels), input_tensor.dtype)
+        kshape = (kernel_h, kernel_w, cin // groups, out_channels)
+        if self._share(share_with, lambda sw: isinstance(sw, Conv2D) and sw.use_bias == use_bias
+                       and sw.weights[0].dims == kshape):
+            return
         self._add_weight(
-            "kernel", (kernel_h, kernel_w, cin // groups, out_channels),
+            "kernel", kshape,
             kernel_initializer or DefaultWeightInitializer(),
             partition_dims=(None, None, None, 3))
         if use_bias:

@@ -4,9 +4,10 @@ A gather of table rows (``F.embedding``), whose backward scatter-add comes
 from autograd; the JAX package leaves the same gather to XLA, so it is a
 library call here too.  Input is (B, num_indices) int; aggregation SUM or
 AVG over the ``num_indices`` dim, or NONE to keep it (a token sequence).
-The output is cast to the model's compute dtype.  Host-resident tables and
-``share_with`` are not ported yet (ROADMAP A9).  On a mesh the gather runs
-on local ids and the local columns of the table.
+The output is cast to the model's compute dtype.  With ``share_with`` the
+op reads another embedding's table (NMT's decoder reads the encoder's).
+Host-resident tables are not ported yet (ROADMAP A9).  On a mesh the
+gather runs on local ids and the local columns of the table.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
-from .base import FwdCtx, Op, refuse_shared_weights
+from .base import FwdCtx, Op
 from ..initializers import GlorotUniform
 
 
@@ -33,7 +34,6 @@ class Embedding(Op):
     def __init__(self, model, input_tensor, num_entries: int, out_dim: int,
                  aggr: str = AggrMode.SUM, kernel_initializer=None,
                  share_with=None, name: Optional[str] = None):
-        refuse_shared_weights(share_with)
         super().__init__(model, [input_tensor], name)
         self.num_entries = num_entries
         self.out_dim = out_dim
@@ -43,6 +43,9 @@ class Embedding(Op):
             self._add_output(input_tensor.dims + (out_dim,), "float32")  # keep the sequence dim
         else:
             self._add_output((batch, out_dim), "float32")
+        if self._share(share_with, lambda sw: isinstance(sw, Embedding) and
+                       (sw.num_entries, sw.out_dim) == (num_entries, out_dim)):
+            return
         self._add_weight("weight", (num_entries, out_dim),
                          kernel_initializer or GlorotUniform(),
                          partition_dims=(None, len(self.output.dims) - 1))

@@ -13,7 +13,7 @@ from typing import List, Optional
 
 import torch
 
-from .base import FwdCtx, Op, refuse_shared_weights
+from .base import FwdCtx, Op
 from .conv2d import ActiMode, apply_activation
 from ..initializers import DefaultBiasInitializer, DefaultWeightInitializer
 
@@ -26,7 +26,6 @@ class Linear(Op):
                  activation: str = ActiMode.NONE, use_bias: bool = True,
                  kernel_initializer=None, bias_initializer=None,
                  share_with=None, name: Optional[str] = None):
-        refuse_shared_weights(share_with)
         super().__init__(model, [input_tensor], name)
         in_dim = input_tensor.dims[-1]
         lead = input_tensor.dims[:-1]
@@ -34,6 +33,9 @@ class Linear(Op):
         self.use_bias = use_bias
         self._add_output(lead + (out_dim,), input_tensor.dtype)
         out_cfg_dim = len(lead)  # channel dim of the output
+        if self._share(share_with, lambda sw: isinstance(sw, Linear) and sw.use_bias == use_bias
+                       and sw.weights[0].dims == (in_dim, out_dim)):
+            return
         self._add_weight("kernel", (in_dim, out_dim),
                          kernel_initializer or DefaultWeightInitializer(),
                          partition_dims=(None, out_cfg_dim))

@@ -1,7 +1,7 @@
-"""Flat, Softmax, ElementUnary and ElementBinary (PyTorch port of part of
-``flexflow_tpu/ops/misc.py``).
+"""Flat, Softmax, Concat, ElementUnary and ElementBinary (PyTorch port of
+part of ``flexflow_tpu/ops/misc.py``).
 
-Concat, Dropout, BatchNorm and MSELoss are not ported yet (ROADMAP A2).
+Dropout, BatchNorm and MSELoss are not ported yet (ROADMAP A2).
 """
 
 from __future__ import annotations
@@ -49,6 +49,46 @@ class Softmax(Op):
 
     def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
         return [torch.softmax(xs[0].float(), dim=-1).to(xs[0].dtype)]
+
+
+class Concat(Op):
+    """Concatenation along ``axis``, in native (NHWC) order: the model
+    builder maps a reference NCHW channel axis to it.  On a mesh a split of
+    the concatenated axis is computed whole (its parts straddle the
+    inputs) and then split."""
+
+    _type = "Concat"
+
+    def __init__(self, model, input_tensors, axis: int, name: Optional[str] = None):
+        super().__init__(model, list(input_tensors), name)
+        self.axis = axis
+        base = list(input_tensors[0].dims)
+        base[axis] = sum(t.dims[axis] for t in input_tensors)
+        for t in input_tensors[1:]:
+            for d in range(len(base)):
+                if d != axis and t.dims[d] != base[d]:
+                    raise ValueError(f"concat shape mismatch at dim {d}: {t.dims} vs {base}")
+        self._add_output(tuple(base), input_tensors[0].dtype)
+
+    @property
+    def unsplit_dims(self):
+        return (self.axis,)
+
+    def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
+        return [torch.cat(xs, dim=self.axis)]
+
+    def input_ranges(self, j, pc, part_idx):
+        """Output tile ranges shifted by the input's offset along the
+        concat axis, clipped to that input's extent."""
+        tile = self.output_tile(pc, part_idx)
+        off = sum(t.dims[self.axis] for t in self.inputs[:j])
+        in_dims = self.inputs[j].dims
+        rng = []
+        for i, (lo, hi) in enumerate(tile):
+            if i == self.axis:
+                lo, hi = max(0, lo - off), min(in_dims[i] - 1, hi - off)
+            rng.append((lo, hi))
+        return rng
 
 
 _UNARY = {

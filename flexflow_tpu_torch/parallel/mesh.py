@@ -227,25 +227,31 @@ class Machine:
     def from_local(self, local: torch.Tensor, placements: Sequence) -> DTensor:
         return DTensor.from_local(local, self.mesh, tuple(placements), run_check=False)
 
-    def local_call(self, fn, args: Sequence[Tuple[DTensor, Sequence]],
-                   out_placements: Sequence) -> DTensor:
+    def local_call(self, fn, args: Sequence[Tuple[DTensor, Sequence]], out_placements):
         """``fn`` on the local shards of ``args`` (each a DTensor and the
         placements to compute it under), its result placed
-        ``out_placements``.  Every mesh dim is either replicated for all
-        (the same work on each device) or split in the output; an argument
-        replicated on a dim where the output is split contributes to every
+        ``out_placements``; a list of placements, one per output, when
+        ``fn`` returns a list.  Every mesh dim is either replicated for all
+        (the same work on each device) or split in an output; an argument
+        replicated on a dim where an output is split contributes to every
         part, so its gradient there is ``Partial`` (summed when it reaches
         its own placements).  Gradients flow through ``to_local`` and
         ``from_local``."""
-        out_placements = tuple(out_placements)
+        multi = isinstance(out_placements, list)
+        out_pls = [tuple(p) for p in out_placements] if multi else [tuple(out_placements)]
+        split = [any(isinstance(pl[d], Shard) for pl in out_pls)
+                 for d in range(len(self.axis_sizes))]
         locals_ = []
         for x, pl in args:
             pl = tuple(pl)
             x = self.redistribute(x, pl)
-            grad_pl = tuple(Partial() if isinstance(p, Replicate) and isinstance(o, Shard)
-                            else p for p, o in zip(pl, out_placements))
+            grad_pl = tuple(Partial() if isinstance(p, Replicate) and s else p
+                            for p, s in zip(pl, split))
             locals_.append(x.to_local(grad_placements=grad_pl))
-        return self.from_local(fn(*locals_), out_placements)
+        ys = fn(*locals_)
+        if not multi:
+            return self.from_local(ys, out_pls[0])
+        return [self.from_local(y, pl) for y, pl in zip(ys, out_pls)]
 
     def __repr__(self):
         if self.mesh is None:

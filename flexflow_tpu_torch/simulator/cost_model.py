@@ -404,8 +404,9 @@ class CostModel:
         # bytes: inputs read + weights read + outputs written for this part
         in_vol = sum(int(np.prod([hi - lo + 1 for lo, hi in op.input_ranges(j, pc, 0)]))
                      for j in range(len(op.inputs)))
+        # a sharing op (share_with) reads its owner's weights
         w_vol = sum(int(np.prod([hi - lo + 1 for lo, hi in op.weight_tile(pc, wi, 0)]))
-                    for wi in range(len(op.weights)))
+                    for wi in range(len(op.param_weights)))
         out_vol = int(np.prod(sub))
         bytes_moved = self._dtype_bytes * (in_vol + w_vol + out_vol)
         fam = type(op).__name__
@@ -440,7 +441,7 @@ class CostModel:
         cdt = torch.bfloat16 if "16" in self.compute_dtype else torch.float32
         gen = torch.Generator(device=dev).manual_seed(0)
         # rows of the op's tables that every part holds
-        rows = min((hi - lo + 1 for wi in range(len(op.weights))
+        rows = min((hi - lo + 1 for wi in range(len(op.param_weights))
                     for lo, hi in op.weight_tile(pc, wi, 0)[:1]), default=1)
         xs = []
         for t, shape in zip(op.inputs, op.part_input_shapes(pc)):
@@ -451,7 +452,7 @@ class CostModel:
                 x = torch.randn(shape, generator=gen, device=dev, dtype=cdt)
                 xs.append(x.requires_grad_(t.owner_op is not None))
         params = {}
-        for wi, w in enumerate(op.weights):
+        for wi, w in enumerate(op.param_weights):  # a sharing op's owner's
             shape = tuple(hi - lo + 1 for lo, hi in op.weight_tile(pc, wi, 0))
             params[w.name] = (0.02 * torch.randn(shape, generator=gen, device=dev)) \
                 .requires_grad_(True)

@@ -14,7 +14,8 @@ package's, so that a seeded search over the same machine model and cost
 table returns the same strategy and the same floats.  What is proposed
 differs where the port cannot yet compute a split at the cost the
 simulator gives it (below): convolutions and pools split only the batch,
-attention never splits its sequence.
+attention never splits its sequence, and the LSTM and the experts split
+only the batch.
 """
 
 from __future__ import annotations
@@ -63,10 +64,14 @@ _SPLITTABLE = {
     "Dropout": (0,),
     "ElementUnary": (0,),
     "ElementBinary": (0,),
-    "LSTM": (0, 2),            # batch + hidden (T stays sequential)
+    # batch only.  The JAX package also splits the LSTM's hidden dim (2;
+    # an all-gather of h each step) and ExpertMLP's experts (1; the tokens'
+    # all_to_all); the port raises on both until it computes them
+    # (ROADMAP A9), so the search never proposes them.
+    "LSTM": (0,),
     "MSELoss": (0,),
     "PipelineMLP": (0, 1),     # dim 1 = pipeline (operator-dim) degree
-    "ExpertMLP": (0, 1),       # dim 1 = expert-parallel degree
+    "ExpertMLP": (0,),
     # batch and heads.  The sequence (dim 1) is left out until ring and
     # Ulysses attention are ported (ROADMAP A7): the port's attention
     # raises on a sequence split, and the search must never propose a plan

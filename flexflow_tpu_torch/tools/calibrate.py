@@ -106,7 +106,7 @@ def collect_fit_records(models, nds, cost) -> List[Dict]:
                 in_vol = sum(int(np.prod([hi - lo + 1 for lo, hi in op.input_ranges(j, pc, 0)]))
                              for j in range(len(op.inputs)))
                 w_vol = sum(int(np.prod([hi - lo + 1 for lo, hi in op.weight_tile(pc, wi, 0)]))
-                            for wi in range(len(op.weights)))
+                            for wi in range(len(op.param_weights)))
                 out_vol = int(np.prod(sub))
                 recs.append({
                     "key": kf,

@@ -7,7 +7,8 @@ the simulator (the card's measurements from ``measured_h100.json`` where it
 has them, the fitted or spec roofline elsewhere), prints the data-parallel
 and the best simulated ms/step and the proposals per second, and exports
 the best strategy as a ``.pb`` (with its ``.meta.json`` sidecar) that
-``--import-strategy`` / ``FFConfig.import_strategy_file`` load.
+``--import-strategy`` / ``FFConfig.import_strategy_file`` load.  Every
+model of the zoo builds (``MODELS``), at the full width of its cell.
 
     python -m flexflow_tpu_torch.tools.offline_search alexnet --devices 8 \\
         --budget 2000 --export /tmp/alexnet_8.pb --device cpu
@@ -23,39 +24,39 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-# Models of the JAX package's zoo that the port cannot build yet.
-UNPORTED_MODELS = {
-    "resnet": "ResNet (ROADMAP A5)",
-    "inception": "Inception (ROADMAP A5)",
-    "dlrm": "DLRM and its host embedding tables (ROADMAP A9)",
-    "nmt": "NMT and the LSTM op (ROADMAP A9)",
-    "candle_uno": "CANDLE Uno (ROADMAP A9)",
-}
-
 # The full-width configurations of the port's cells (PERF.md section 4).
 TRANSFORMER = dict(seq_length=512, num_layers=4, embed_dim=512, num_heads=8,
                    vocab_size=32000)
+# name -> (builder module, builder, default global batch, builder arguments)
+MODELS = {
+    "alexnet": ("alexnet", "build_alexnet", 256, {}),
+    "resnet": ("resnet", "build_resnet50", 64, {}),
+    "inception": ("inception", "build_inception_v3", 128, {}),
+    "dlrm": ("dlrm", "build_dlrm", 256, {}),
+    "candle_uno": ("candle_uno", "build_candle_uno", 256, {}),
+    "nmt": ("nmt", "build_nmt", 64, {}),
+    "transformer": ("transformer", "build_transformer", 16, TRANSFORMER),
+    "transformer_moe": ("transformer", "build_transformer", 16,
+                        dict(TRANSFORMER, moe_every=2, num_experts=8)),
+}
 
 
 def build_model(name: str, batch_size: int, num_devices: int = 1, device: str = "cuda",
                 compute_dtype: str = "float32"):
-    """The named model of the port's zoo, its machine sized
-    ``num_devices`` (``workers_per_node``) for a search that runs before
-    any machine exists."""
+    """The named model of the port's zoo (``MODELS``) at full width, its
+    machine sized ``num_devices`` (``workers_per_node``) for a search that
+    runs before any machine exists."""
+    import importlib
+
     import flexflow_tpu_torch as ft
 
-    if name in UNPORTED_MODELS:
-        raise NotImplementedError(f"{UNPORTED_MODELS[name]} is not ported yet")
+    if name not in MODELS:
+        raise ValueError(f"unknown model {name!r} (expected one of {', '.join(MODELS)})")
+    module, builder, _, kwargs = MODELS[name]
     model = ft.FFModel(ft.FFConfig(batch_size=batch_size, workers_per_node=num_devices,
                                    device=device, compute_dtype=compute_dtype))
-    if name == "alexnet":
-        from ..models.alexnet import build_alexnet
-        build_alexnet(model, batch_size)
-    elif name == "transformer":
-        from ..models.transformer import build_transformer
-        build_transformer(model, batch_size, **TRANSFORMER)
-    else:
-        raise ValueError(f"unknown model {name!r} (expected alexnet or transformer)")
+    build = getattr(importlib.import_module(f"..models.{module}", __package__), builder)
+    build(model, batch_size, **kwargs)
     return model
 
 
@@ -82,9 +83,9 @@ def run(model, devices: int, budget: int, seed: int = 0, engine: str = "mcmc",
 def main(argv: Optional[List[str]] = None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("model", help="alexnet | transformer")
+    p.add_argument("model", choices=sorted(MODELS))
     p.add_argument("--batch-size", type=int, default=None,
-                   help="global batch (default: 256 for alexnet, 16 for the transformer)")
+                   help="global batch (default: the model's cell, MODELS)")
     p.add_argument("--devices", type=int, default=8, choices=range(1, 9), metavar="1-8",
                    help="GPUs of the H100 node")
     p.add_argument("--nvlink-bw", type=float, default=None,
@@ -104,7 +105,7 @@ def main(argv: Optional[List[str]] = None):
     from ..parallel.strategy import save_strategies_to_file, sidecar_path
     from ..simulator.machine import H100MachineModel
 
-    batch = args.batch_size or (256 if args.model == "alexnet" else 16)
+    batch = args.batch_size or MODELS[args.model][2]
     model = build_model(args.model, batch, args.devices, args.device, args.compute_dtype)
     overrides = {k: v for k, v in (("peak_flops", args.peak_flops),
                                    ("hbm_bandwidth", args.hbm_bw),

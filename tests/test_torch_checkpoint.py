@@ -272,3 +272,78 @@ def test_skip_batches_lands_where_the_jax_loader_does(skip):
         staged.append((np.asarray(m._batch[f"in_{inp.guid}"]), np.asarray(m._batch["label"])))
     for a, b in zip(*staged):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------ the zoo's models
+
+NMT = dict(seq_length=6, num_layers=2, hidden_size=16, embed_size=16, vocab_size=64)
+MOE = dict(seq_length=16, num_layers=2, embed_dim=64, num_heads=4, vocab_size=64,
+           moe_every=1, num_experts=4)
+
+
+def _zoo_model(pkg, name):
+    """NMT (Adam; embed_dst shares embed_src's table) or the MoE transformer
+    (SGD momentum) at the sizes of tests/test_torch_models.py, with its
+    inputs and a batch maker."""
+    extra = dict(device="cpu") if pkg is ft else dict(workers_per_node=1)
+    m = pkg.FFModel(pkg.FFConfig(batch_size=2, compute_dtype="float32", **extra))
+    if name == "nmt":
+        mod = __import__(f"{pkg.__name__}.models.nmt", fromlist=["x"])
+        ins = list(mod.build_nmt(m, 2, **NMT)[:2])
+        opt = pkg.AdamOptimizer(alpha=0.01)
+
+        def batch(seed):
+            src, dst, labels = mod.synthetic_batch(2, 6, 64, seed=seed)
+            return [src, dst], labels
+    else:
+        mod = __import__(f"{pkg.__name__}.models.transformer", fromlist=["x"])
+        ins = list(mod.build_transformer(m, 2, **MOE)[:2])
+        opt = pkg.SGDOptimizer(lr=0.05, momentum=0.9)
+
+        def batch(seed):
+            toks, pos, labels = mod.synthetic_lm_batch(2, 16, 64, seed=seed)
+            return [toks, pos], labels
+    machine = pkg.Machine(devices=jax.devices()[:1]) if pkg is ff else None
+    m.compile(opt, pkg.LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [pkg.MetricsType.ACCURACY],
+              machine=machine)
+    m.init_layers(seed=3)
+    return m, ins, batch
+
+
+def _zoo_train(m, ins, batch, steps, seed):
+    for s in range(steps):
+        xs, labels = batch(seed + s)
+        m.set_batch(dict(zip(ins, xs)), labels)
+        m.train_iteration()
+
+
+@pytest.mark.parametrize("name", ["nmt", "transformer_moe"])
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_zoo_checkpoints_carry_across_both_ways(name, direction, tmp_path):
+    """The .npz of NMT (a shared embedding, LSTMs, Adam) and of the MoE
+    transformer (ExpertMLP, SGD momentum) written by one package loads
+    into the other exactly; both then train 2 more steps alike.  NMT's
+    file holds embed_src's table once and nothing of embed_dst."""
+    src_pkg, dst_pkg = (ff, ft) if direction == "jax_to_port" else (ft, ff)
+    a, a_ins, batch = _zoo_model(src_pkg, name)
+    _zoo_train(a, a_ins, batch, 2, seed=0)
+    path = str(tmp_path / f"{name}.npz")
+    a.save(path)
+    saved = _npz(path)
+    if name == "nmt":
+        assert "params/embed_src/weight" in saved
+        assert not any("embed_dst" in k for k in saved)
+    b, b_ins, _ = _zoo_model(dst_pkg, name)
+    _zoo_train(b, b_ins, batch, 1, seed=7)  # state that the load must overwrite
+    b.load(path)
+    assert b._step_count == 2
+    leaves = [(op.name, w.name) for op in b.ops for w in op.weights]
+    assert {f"params/{o}/{w}" for o, w in leaves} == {k for k in saved if k.startswith("params/")}
+    for o, w in leaves:
+        np.testing.assert_array_equal(np.asarray(b.get_parameter(o, w)), saved[f"params/{o}/{w}"])
+    _zoo_train(a, a_ins, batch, 2, seed=20)
+    _zoo_train(b, b_ins, batch, 2, seed=20)
+    for o, w in leaves:
+        np.testing.assert_allclose(np.asarray(b.get_parameter(o, w)),
+                                   np.asarray(a.get_parameter(o, w)), **TOL,
+                                   err_msg=f"{o}/{w}")

@@ -49,7 +49,10 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.runtime.checkpoint, flexflow_tpu_torch.runtime.resilience, "
             "flexflow_tpu_torch.runtime.step_graph, flexflow_tpu_torch.simulator.population, "
             "flexflow_tpu_torch.simulator.memory, flexflow_tpu_torch.tools.calibrate, "
-            "flexflow_tpu_torch.tools.offline_search; "
+            "flexflow_tpu_torch.tools.offline_search, flexflow_tpu_torch.ops.lstm, "
+            "flexflow_tpu_torch.ops.moe, flexflow_tpu_torch.models.resnet, "
+            "flexflow_tpu_torch.models.inception, flexflow_tpu_torch.models.dlrm, "
+            "flexflow_tpu_torch.models.candle_uno, flexflow_tpu_torch.models.nmt; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -163,9 +166,12 @@ def test_unported_attention_and_transformer_options_raise():
     x = m.create_tensor((2, 8, 32))
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         m.multihead_attention(x, num_heads=4, dropout=0.1)
+    # the MoE blocks build now; a strategy that splits the experts raises
+    moe = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
+    build_transformer(moe, 2, seq_length=8, num_layers=2, embed_dim=32, num_heads=4,
+                      vocab_size=16, moe_every=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        build_transformer(m, 2, seq_length=8, num_layers=1, embed_dim=32, num_heads=4,
-                          vocab_size=16, moe_every=2)
+        next(op for op in moe.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(1, 2, 1)))
     m.multihead_attention(x, num_heads=4, causal=True)
     mha = m.ops[-1]
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):

@@ -52,7 +52,7 @@ from flexflow_tpu_torch.simulator.search import (enumerate_candidates, in_search
                                                  mcmc_search, splittable_dims)
 from flexflow_tpu_torch.tools import calibrate, offline_search
 
-from test_torch_simulator import build_pair, cost_pair, spatial_splits  # noqa: F401
+from test_torch_simulator import ZOO, build_pair, cost_pair, spatial_splits  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -70,10 +70,14 @@ GOLDENS = [
 @pytest.fixture
 def restricted_reference(monkeypatch):
     """The reference's search in the port's search space: convs and pools
-    split only the batch, attention never its sequence, and a shipped
+    split only the batch, attention never its sequence, the LSTM and the
+    experts only the batch, no table goes to the host, and a shipped
     strategy that splits otherwise seeds no chain."""
-    for op_type, dims in (("Conv2D", (0,)), ("Pool2D", (0,)), ("MultiHeadAttention", (0, 2))):
+    for op_type, dims in (("Conv2D", (0,)), ("Pool2D", (0,)), ("MultiHeadAttention", (0, 2)),
+                          ("LSTM", (0,)), ("ExpertMLP", (0,))):
         monkeypatch.setitem(jax_search._SPLITTABLE, op_type, dims)
+    # the port places no embedding table on the host (ROADMAP A9)
+    monkeypatch.setattr(ff.FFModel, "_sparse_embed_candidate_ok", lambda self, op: False)
     jax_search._splittable_dims_cached.cache_clear()
     load = jax_strategy.load_warm_starts
 
@@ -128,7 +132,10 @@ def test_mcmc_reproduces_the_reference_golden(name, nd, budget, seed, best_s, dp
 @pytest.mark.parametrize("name,nd,budget,seed", [("alexnet", 4, 300, 1), ("alexnet", 8, 200, 7),
                                                  ("alexnet", 16, 300, 3),
                                                  ("transformer", 16, 150, 2),
-                                                 ("transformer", 8, 200, 5)])
+                                                 ("transformer", 8, 200, 5),
+                                                 ("nmt", 8, 150, 1), ("dlrm", 8, 150, 2),
+                                                 ("transformer_moe", 8, 150, 3),
+                                                 ("candle_uno", 4, 150, 4)])
 def test_mcmc_equals_the_restricted_reference(name, nd, budget, seed, tmp_path,
                                               restricted_reference):
     want, got = _search_pair("mcmc", name, nd, budget, seed, tmp_path)
@@ -243,6 +250,59 @@ def test_compile_searches_trains_and_exports(engine, tmp_path, capsys):
                 rng.integers(0, 10, (16, 1)).astype(np.int32))
     m.train_iteration()
     assert m.get_metrics().train_all == 16 and np.isfinite(m.last_loss)
+
+
+def _zoo_batch(model, rng):
+    """A batch for each graph input of a small zoo model: ids below the
+    smallest table or vocabulary that reads them, else normal floats."""
+    rows = {id(op.inputs[0]): op.num_entries for op in model.ops if op._type == "Embedding"}
+    xs = {}
+    for t in model.input_tensors:
+        if "int" in t.dtype:
+            xs[t] = rng.integers(0, min(rows.get(id(t), 16), 16), size=t.dims).astype(np.int32)
+        else:
+            xs[t] = rng.standard_normal(t.dims).astype(np.float32)
+    lt = model.label_tensor
+    labels = (rng.integers(0, 4, size=lt.dims).astype(np.int32) if "int" in lt.dtype
+              else rng.standard_normal(lt.dims).astype(np.float32))
+    return xs, labels
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_compile_searches_each_zoo_model_and_trains(name, capsys):
+    """compile(search_budget=...) on every new model of the zoo (its small
+    test size, one device): the search runs, every resolved config is one
+    the port trains (check_config), and a step trains."""
+    port_build, _, kw = ZOO[name]
+    batch = 4
+    cfg = ft.FFConfig(batch_size=batch, device="cpu", search_budget=30, seed=1)
+    m = ft.FFModel(cfg)
+    port_build(m, batch, **kw)
+    loss = ("mean_squared_error" if name in ("dlrm", "candle_uno")
+            else "sparse_categorical_crossentropy")
+    m.compile(ft.SGDOptimizer(m, lr=0.01), loss, ["accuracy"])
+    assert "mcmc search over 1 GPU(s), budget 30" in capsys.readouterr().out
+    assert set(cfg.strategies) == {op.name for op in m.ops}
+    for op in m.ops:
+        op.check_config(op.pc)
+    m.init_layers(seed=0)
+    xs, labels = _zoo_batch(m, np.random.default_rng(0))
+    m.set_batch(xs, labels)
+    m.train_iteration()
+    assert m.get_metrics().train_all > 0 and np.isfinite(m.last_loss)
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_offline_search_of_each_zoo_model_stays_in_the_ports_space(name, tmp_path):
+    """An 8-GPU search of each new model proposes only configs the port
+    trains: no LSTM hidden split, no expert split, no conv or pool split
+    on height or width."""
+    _, pm = build_pair(name, 64, 8)
+    _, _, pmm, pc = cost_pair(8, tmp_path)
+    best = mcmc_search(pm, budget=150, seed=2, machine_model=pmm, cost_model=pc, verbose=False)
+    for op in pm.ops:
+        assert in_search_space(op, best[op.name])
+        op.check_config(best[op.name])
 
 
 @pytest.mark.parametrize("engine,exc,match", [("native", NotImplementedError, "ROADMAP A8b"),
@@ -369,10 +429,12 @@ def test_offline_search_for_an_h100_node(tmp_path, capsys):
     assert load_strategies_from_file(pb) == dict(best)
     meta = read_provenance(pb)
     assert (meta["model"], meta["num_devices"], meta["engine"]) == ("alexnet", 8, "mcmc")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        offline_search.build_model("resnet", 64, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        offline_search.build_model("dlrm", 64, 8, device="cpu")
+    # every model of the zoo builds, at the full width of its cell
+    for name, (_, _, batch, _) in offline_search.MODELS.items():
+        m = offline_search.build_model(name, batch, 8, device="cpu")
+        assert m.ops and m.config.batch_size == batch
+    with pytest.raises(ValueError, match="unknown model"):
+        offline_search.build_model("vgg", 64, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
         offline_search.run(offline_search.build_model("alexnet", 64, 8, device="cpu"), 8, 10,
                            engine="native")

@@ -10,7 +10,10 @@ port's code carries no TPU model; this harness does.
 
 * ``Simulator.simulate_runtime`` equals the reference's exactly (``==``),
   for data parallelism and 20 random legal strategies, at 4, 16 and 64
-  devices.  The random strategies split convs and pools on height and width
+  devices; for the rest of the zoo at its small test sizes (ResNet-50,
+  Inception-v3, DLRM, CANDLE-Uno, NMT with its shared embedding, the MoE
+  transformer), data parallelism and 5 random strategies of the port's
+  search at 8 devices, and the memory model alike.  The random strategies split convs and pools on height and width
   too, as the reference's search does (``spatial_splits``): the port's
   search leaves those splits out until it computes them split, but the
   simulator prices any plan, an imported one included;
@@ -24,6 +27,7 @@ port's code carries no TPU model; this harness does.
 """
 
 import json
+import math
 import os
 import random
 
@@ -32,12 +36,18 @@ import torch
 
 import flexflow_tpu as ff
 import flexflow_tpu_torch as ft
+from flexflow_tpu.models import candle_uno as jax_candle
+from flexflow_tpu.models import dlrm as jax_dlrm
+from flexflow_tpu.models import inception as jax_inception
+from flexflow_tpu.models import nmt as jax_nmt
+from flexflow_tpu.models import resnet as jax_resnet
 from flexflow_tpu.models.alexnet import build_alexnet as jax_build_alexnet
 from flexflow_tpu.models.transformer import build_transformer as jax_build_transformer
 from flexflow_tpu.simulator import memory as jax_memory
 from flexflow_tpu.simulator.cost_model import CostModel as JaxCostModel
 from flexflow_tpu.simulator.machine import TPUMachineModel
 from flexflow_tpu.simulator.simulator import Simulator as JaxSimulator
+from flexflow_tpu_torch.models import candle_uno, dlrm, inception, nmt, resnet
 from flexflow_tpu_torch.models.alexnet import build_alexnet
 from flexflow_tpu_torch.models.transformer import build_transformer
 from flexflow_tpu_torch.simulator import memory
@@ -45,6 +55,7 @@ from flexflow_tpu_torch.simulator.cost_model import CostModel
 from flexflow_tpu_torch.simulator.delta import DeltaSimulator
 from flexflow_tpu_torch.simulator.machine import H100MachineModel
 from flexflow_tpu_torch.simulator import search
+from flexflow_tpu_torch.simulator import simulator as simulator_module
 from flexflow_tpu_torch.simulator.search import random_parallel_config
 from flexflow_tpu_torch.simulator.simulator import Simulator
 
@@ -52,6 +63,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V5E_MEASURED = os.path.join(ROOT, "flexflow_tpu", "simulator", "measured_v5e.json")
 # small shapes that every degree up to 64 can still split
 SMALL_LM = dict(seq_length=64, num_layers=2, embed_dim=128, num_heads=8, vocab_size=512)
+# the rest of the zoo at the sizes of tests/test_torch_models.py: (port
+# builder, JAX builder, builder arguments)
+ZOO = {
+    "resnet": (resnet.build_resnet50, jax_resnet.build_resnet50, dict(height=64, width=64)),
+    "inception": (inception.build_inception_v3, jax_inception.build_inception_v3, {}),
+    "dlrm": (dlrm.build_dlrm, jax_dlrm.build_dlrm,
+             dict(embedding_sizes=[100, 100, 50], embedding_bag_size=2, sparse_feature_size=8,
+                  mlp_bot=[4, 16, 8], mlp_top=[32, 16, 1])),
+    "candle_uno": (candle_uno.build_candle_uno, jax_candle.build_candle_uno,
+                   dict(dense_layers=[32] * 3, dense_feature_layers=[32] * 3)),
+    "nmt": (nmt.build_nmt, jax_nmt.build_nmt,
+            dict(seq_length=6, num_layers=2, hidden_size=16, embed_size=16, vocab_size=64)),
+    "transformer_moe": (build_transformer, jax_build_transformer,
+                        dict(seq_length=16, num_layers=2, embed_dim=64, num_heads=4,
+                             vocab_size=64, moe_every=1, num_experts=4)),
+}
 
 
 @pytest.fixture
@@ -91,6 +118,10 @@ def build_pair(name, batch, nd, **lm):
     if name == "alexnet":
         jax_build_alexnet(jm, batch)
         build_alexnet(pm, batch)
+    elif name in ZOO:
+        port_build, jax_build, kw = ZOO[name]
+        jax_build(jm, batch, **kw)
+        port_build(pm, batch, **kw)
     else:
         jax_build_transformer(jm, batch, **lm)
         build_transformer(pm, batch, **lm)
@@ -136,6 +167,60 @@ def test_simulate_runtime_equals_the_reference_exactly(name, nd, tmp_path, spati
     assert any(pc_.dims[0] < nd for s in plans[1:] for pc_ in s.values())
     for s in plans:
         assert psim.simulate_runtime(pm, s) == jsim.simulate_runtime(jm, as_jax(s))
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_simulated_step_of_the_zoo_equals_the_reference(name, tmp_path):
+    """Each new model at its small size, 8 devices: the data-parallel step
+    and 5 random strategies of the port's search, simulated alike, both
+    weight-sync modes; the memory model alike (SGD momentum)."""
+    nd = 8
+    jm, pm = build_pair(name, 64, nd)
+    mm, jc, pmm, pc = cost_pair(nd, tmp_path)
+    rng = random.Random(nd)
+    plans = [dp(pm, nd)] + [random_strategies(pm, nd, rng) for _ in range(5)]
+    for overlap in (False, True):
+        jsim = JaxSimulator(mm, jc, overlap_backward_update=overlap)
+        psim = Simulator(pmm, pc, overlap_backward_update=overlap)
+        for s in plans:
+            assert psim.simulate_runtime(pm, s) == jsim.simulate_runtime(jm, as_jax(s))
+    for s in plans[:2]:
+        got = memory.memory_per_device(pm, s, machine_model=pmm,
+                                       optimizer=ft.SGDOptimizer(lr=0.1, momentum=0.9))
+        want = jax_memory.memory_per_device(jm, as_jax(s), machine_model=pmm.ref,
+                                            optimizer=ff.SGDOptimizer(lr=0.1, momentum=0.9))
+        assert got == want
+
+
+def test_a_shared_weight_is_synchronized_once(tmp_path, monkeypatch):
+    """NMT's decoder embedding reads the encoder's table: it adds the
+    table's reads to its own cost, as the JAX package prices it, but no
+    second all-reduce and no second copy in memory."""
+    nd = 4
+    _, pm = build_pair("nmt", 64, nd)
+    _, _, pmm, pc = cost_pair(nd, tmp_path)
+    owner, sharer = pm.ops[0], pm.ops[1]
+    assert sharer.share_from is owner and not sharer.weights
+    plan = dp(pm, nd)
+    synced = []
+    groups = simulator_module.weight_groups
+
+    def spy(op, pc_, wi):
+        synced.append((op.name, op.weights[wi].name))
+        return groups(op, pc_, wi)
+
+    monkeypatch.setattr(simulator_module, "weight_groups", spy)
+    base = Simulator(pmm, pc).simulate_runtime(pm, plan)
+    assert synced.count(("embed_src", "weight")) == 1
+    assert not any(name == sharer.name for name, _ in synced)
+    assert pc._analytic(sharer, plan[sharer.name], "forward") == \
+        pc._analytic(owner, plan[owner.name], "forward")
+    # each device holds one f32 master copy of every weight, the table once
+    mem = memory.memory_per_device(pm, plan, machine_model=pmm)
+    weights = sum(math.prod(w.dims) for op in pm.ops for w in op.weights)
+    assert mem["per_device"][0]["params"] == 4 * weights
+    assert mem["by_op"][sharer.name]["bytes"] < mem["by_op"][owner.name]["bytes"]
+    assert base > 0
 
 
 @pytest.mark.parametrize("name,nd,overlap", [("alexnet", 16, False), ("alexnet", 16, True),

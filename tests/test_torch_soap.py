@@ -28,6 +28,14 @@ into every port run through a ``.npy`` file.
   1e-4, atol 1e-5.  Adam takes alpha 1e-4, as tests/test_torch_alexnet.py
   does: its uncorrected first step moves each weight by about alpha
   whatever its gradient's size.
+* NMT, 2 ranks (vocab 64, seq 6, hidden 16, Adam): ``embed_dst`` reads
+  ``embed_src``'s table, placed once under the owner's config.  3 steps
+  under data parallelism, and with the owner column-split (1, 1, 2) while
+  its sharer stays batch-split (2, 1, 1), every weight within rtol 1e-4,
+  atol 1e-5 of the JAX single-device run; the MoE transformer (2 layers,
+  E 64, 4 experts every layer, S 16, batch 4) under data parallelism
+  alike, its capacity and queue places the global batch's.  An LSTM
+  hidden split and an expert split raise at compile, naming ROADMAP A9.
 
 On the CPU the flash and optimizer kernels are their plain versions.
 """
@@ -196,6 +204,56 @@ for name, run in job["runs"].items():
         wq_local=tuple(m._params["attn_0"]["wq"].to_local().shape),
         pcs={op.name: op.pc.dims for op in m.ops}, losses=losses,
         metrics=(met.train_all, met.train_correct, met.sparse_cce_loss))
+np.save(job["out"] % rank, out, allow_pickle=True)
+dist.shutdown()
+"""
+
+
+_ZOO = _PRELUDE + r"""
+from flexflow_tpu_torch.models.nmt import build_nmt, synthetic_batch
+from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
+nmt, moe = job["nmt"], job["moe"]
+for name, run in job["runs"].items():
+    m = ft.FFModel(ft.FFConfig(batch_size=4, device="cpu", fused_optimizer=True,
+                               strategies={k: ft.ParallelConfig(dims=tuple(v))
+                                           for k, v in run["strategies"].items()}))
+    if run["model"] == "nmt":
+        ins = list(build_nmt(m, 4, **nmt)[:2])
+        opt = ft.AdamOptimizer(m, alpha=1e-2)
+
+        def batch(step):
+            src, dst, labels = synthetic_batch(4, nmt["seq_length"], nmt["vocab_size"],
+                                               seed=step)
+            return [src, dst], labels
+    else:
+        ins = list(build_transformer(m, 4, **moe)[:2])
+        opt = ft.SGDOptimizer(m, lr=0.05, momentum=0.9)
+
+        def batch(step):
+            toks, posa, labels = synthetic_lm_batch(4, moe["seq_length"], moe["vocab_size"],
+                                                    seed=10 + step)
+            return [toks, posa], labels
+    try:
+        m.compile(opt, "sparse_categorical_crossentropy", ["accuracy"])
+    except NotImplementedError as e:
+        out[name] = dict(error=str(e))
+        continue
+    m.init_layers(seed=9)
+    load_jax_params(m, params0[run["model"]])
+    losses = []
+    for step in range(job["steps"]):
+        xs, labels = batch(step)
+        m.set_batch(dict(zip(ins, xs)), labels)
+        m.train_iteration()
+        m.get_metrics()
+        losses.append(m.last_loss)
+    out[name] = dict(
+        weights={(op.name, w.name): m.get_parameter(op.name, w.name)
+                 for op in m.ops for w in op.weights},
+        pcs={op.name: op.pc.dims for op in m.ops}, losses=losses,
+        leaves=sorted((o, w) for o, ws in m._params.items() for w in ws),
+        placements={o: str(m._params[o][next(iter(ws))].placements)
+                    for o, ws in m._params.items()})
 np.save(job["out"] % rank, out, allow_pickle=True)
 dist.shutdown()
 """
@@ -423,3 +481,92 @@ def test_transformer_head_parallel_configs_split_the_heads(lm):
         assert tp["pcs"]["attn_0"] == tp["pcs"]["mlp_up_0"] == (1, 1, 2)
         assert tp["pcs"]["ln1_0"] == (2, 1, 1)
         assert tp["wq_local"] == (e, e // 2)
+
+
+# ---------------------------------------------------------------- NMT and MoE, 2 ranks
+
+ZOO_NMT = dict(seq_length=6, num_layers=2, hidden_size=16, embed_size=16, vocab_size=64)
+ZOO_MOE = dict(seq_length=16, num_layers=2, embed_dim=64, num_heads=4, vocab_size=64,
+               moe_every=1, num_experts=4)
+ZOO_STEPS = 3
+
+
+def _jax_zoo(name):
+    from flexflow_tpu.models import nmt as jax_nmt
+
+    m = ff.FFModel(ff.FFConfig(batch_size=4, workers_per_node=1, compute_dtype="float32"))
+    if name == "nmt":
+        ins = list(jax_nmt.build_nmt(m, 4, **ZOO_NMT)[:2])
+        opt = ff.AdamOptimizer(m, alpha=1e-2)
+    else:
+        ins = list(jax_build_transformer(m, 4, **ZOO_MOE)[:2])
+        opt = ff.SGDOptimizer(m, lr=0.05, momentum=0.9)
+    m.compile(opt, "sparse_categorical_crossentropy", ["accuracy"],
+              machine=ff.Machine(devices=jax.devices()[:1]))
+    m.init_layers(seed=0)
+    params0 = jax_params_to_numpy(m)
+    losses = []
+    for step in range(ZOO_STEPS):
+        if name == "nmt":
+            src, dst, labels = jax_nmt.synthetic_batch(4, 6, 64, seed=step)
+            xs = [src, dst]
+        else:
+            toks, posa, labels = synthetic_lm_batch(4, 16, 64, seed=10 + step)
+            xs = [toks, posa]
+        m.set_batch(dict(zip(ins, xs)), labels)
+        m.train_iteration()
+        m.get_metrics()
+        losses.append(m.last_loss)
+    return params0, m, losses
+
+
+ZOO_RUNS = {
+    "nmt_dp": {"model": "nmt", "strategies": {}},
+    # the owner's table split on its columns, the sharer's use batch-split
+    "nmt_shared_split": {"model": "nmt", "strategies": {"embed_src": (1, 1, 2),
+                                                        "embed_dst": (2, 1, 1)}},
+    "moe_dp": {"model": "moe", "strategies": {}},
+    "lstm_hidden_split": {"model": "nmt", "strategies": {"enc_lstm0": (1, 1, 2)}},
+    "expert_split": {"model": "moe", "strategies": {"moe_0": (1, 2, 1)}},
+}
+
+
+@pytest.fixture(scope="module")
+def zoo(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("zoo2")
+    jax_runs = {name: _jax_zoo(name) for name in ("nmt", "moe")}
+    params0 = {name: r[0] for name, r in jax_runs.items()}
+    ranks = _launch(tmp, _ZOO, 2, params0, nmt=ZOO_NMT, moe=ZOO_MOE, runs=ZOO_RUNS,
+                    steps=ZOO_STEPS)
+    return dict(ranks=ranks, jax=jax_runs)
+
+
+@pytest.mark.parametrize("name", ["nmt_dp", "nmt_shared_split", "moe_dp"])
+def test_zoo_on_two_ranks_matches_jax_single_device(zoo, name):
+    _, jm, j_losses = zoo["jax"][ZOO_RUNS[name]["model"]]
+    for r, out in enumerate(zoo["ranks"]):
+        got = out[name]
+        np.testing.assert_allclose(got["losses"], j_losses, **LM_TOL)
+        for (opn, wn), w in got["weights"].items():
+            np.testing.assert_allclose(w, jm.get_parameter(opn, wn), **LM_TOL,
+                                       err_msg=f"rank {r} {name} {opn}/{wn}")
+
+
+def test_a_shared_table_is_placed_once_by_its_owner(zoo):
+    for out in zoo["ranks"]:
+        for name in ("nmt_dp", "nmt_shared_split"):
+            got = out[name]
+            assert not any(o == "embed_dst" for o, _ in got["leaves"])
+            assert ("embed_src", "weight") in got["leaves"]
+        split = out["nmt_shared_split"]
+        assert split["pcs"]["embed_src"] == (1, 1, 2)
+        assert split["pcs"]["embed_dst"] == (2, 1, 1)
+        assert split["placements"]["embed_src"] == "(Shard(dim=1),)"
+        assert out["nmt_dp"]["placements"]["embed_src"] == "(Replicate(),)"
+
+
+@pytest.mark.parametrize("name,what", [("lstm_hidden_split", "hidden split"),
+                                       ("expert_split", "expert parallelism")])
+def test_unported_zoo_splits_raise_at_compile(zoo, name, what):
+    for out in zoo["ranks"]:
+        assert what in out[name]["error"] and "ROADMAP A9" in out[name]["error"]

@@ -139,6 +139,18 @@ def test_transformer_parameter_count_at_full_width():
 
 
 def test_unported_transformer_options_raise():
+    """The MoE blocks build (ops/moe.py); their expert split, attention
+    dropout and the MoE decode path still raise, naming their items."""
     m = ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu"))
+    build_transformer(m, BATCH, moe_every=2, **SHAPE)
+    assert [op.name for op in m.ops if op._type == "ExpertMLP"] == ["moe_1"]
+    # compile runs this check on every op's resolved config (a mesh of two
+    # or more devices; tests/test_torch_soap.py drives it on gloo ranks)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        build_transformer(m, BATCH, moe_every=2, **SHAPE)
+        next(op for op in m.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(1, 2, 1)))
+    next(op for op in m.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(2, 1, 1)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        next(op for op in m.ops if op.name == "moe_1").decode({}, [], {}, 0, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        build_transformer(ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu")), BATCH,
+                          dropout=0.1, **SHAPE)
