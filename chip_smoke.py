@@ -79,7 +79,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      versions (the MoE transformer at 2 layers); then [search] lines:
      each model's DP-1 step simulated from its own ops measured on the
      card against the compiled step, and an 8-GPU offline search whose
-     configs the training path must accept.
+     configs the training path must accept;
+ 10. decoding and serving ([decode] and [serve] lines), bf16 unless
+     said: (a) the transformer's greedy generate (B16, P 256, N 256)
+     through its captured decode graph against the eager steps (equal),
+     ms a step, tokens/s, capture ms, profiled device ms and launches a
+     step; (b) beam_search (K4, B4, P 64, N 64) and sampled generate
+     (B16, P 64, N 64, T 0.8, top-k 50, top-p 0.9, a fixed seed) graphed
+     against eager, every
+     sampled token within its step's top-k; (c) the MoE transformer (B16, P
+     128, N 128) and NMT greedy_translate (B64, 20 tokens) graphed against
+     eager; (d) the InferenceEngine dense then paged (max_batch 16, max_seq
+     512, block 16), warmed up, serving 64 random requests and 8 sharing a
+     128-token prefix, all submitted at once: generated tokens/s, TTFT and
+     TPOT p50/p99, prefix hits, graphs captured (none after the warm-up),
+     the KV pool's bytes, peak memory; dense == paged for every request;
+     (e) the ServingAPI on an ephemeral port before an engine that captures
+     in its worker thread (8 POST /generate equal the engine's tokens,
+     /healthz and /readyz 200); no kernel launches on these
+     paths; then the f32 oracle: one full-sequence forward (K3) over (a)'s
+     prompt and f32-generated tokens, whose argmax must be each decoded
+     token or within F32_GAP_TOL of it; every token of (a)'s bf16 generate
+     and of each engine request against the f32 model's full forward over
+     the same tokens, within BF16_GAP_TOL at every generated position; and
+     each engine request against generate, a differing one within
+     BF16_GAP_TOL at its first difference.
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
 (phase 6 uses every visible card); it imports nothing of jax or of the
@@ -102,6 +126,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 BATCH = 256
@@ -1961,6 +1986,412 @@ def models_phase(ft, fo, fa, kernels, smi, out_dir):
     return launches
 
 
+# ------------------------------------------------------------------ phase 10
+
+GEN = dict(P=256, N=256)       # (a): LM["batch"] rows, P + N = LM["seq_length"]
+BEAM = dict(B=4, K=4, P=64, N=64)
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, seed=1234)
+SAMPLED = dict(P=64, N=64)     # sampled generate: LM["batch"] rows
+MOE_GEN = dict(P=128, N=128)
+NMT_GEN = dict(batch=64, seq_length=20, max_len=20)
+ENGINE = dict(max_batch=16, max_seq=512, kv_block=16, max_new_tokens=128)
+TRAFFIC = dict(requests=64, prompt=(16, 256), new=(16, 128), shared=8, prefix=128, tail=64)
+# The f32 oracle: where a full-sequence forward's argmax differs from a
+# decoded token, the two tokens' probabilities under that forward must lie
+# within this share of the top one (f32 sums in another order, TF32 off).
+F32_GAP_TOL = 1e-4
+# bf16 decoding has no exact reference: every token that bf16 generate or
+# the engine chose must have an f32 probability (the f32 model with the
+# same weights, full forward over the same tokens) within this share of
+# the top one, a few bf16 roundings of a logit.  The same bound holds the
+# engine (decode steps of max_batch rows, B = 1 prefill) against generate
+# (B rows) at their first differing token: the card's GEMMs round
+# differently at different batch shapes, so a near-tie may break the
+# other way.
+BF16_GAP_TOL = 2.0 ** -5
+
+
+def decode_lm(ft, build_transformer, dtype, **kw):
+    """The bench transformer (LM) for decoding: random weights from seed
+    0, so the bf16 and the f32 model hold the same weights."""
+    shape = {k: v for k, v in LM.items() if k != "batch"}
+    shape.update(kw)
+    model = ft.FFModel(ft.FFConfig(batch_size=LM["batch"], compute_dtype=dtype))
+    tok, pos, _ = build_transformer(model, LM["batch"], **shape)
+    model.compile(ft.SGDOptimizer(lr=0.001), "sparse_categorical_crossentropy", ["accuracy"])
+    model.init_layers(seed=0)
+    return model, tok, pos
+
+
+def timed_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def graphed_vs_eager(ft, label, call, steps, tokens):
+    """``call`` through the decode graphs (a first call of the signature:
+    eager first step and capture; then a replayed call) and eagerly;
+    returns (outputs, replayed call ms), having checked them equal."""
+    def parts(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    first, first_ms = timed_ms(call)
+    out, ms = timed_ms(call)
+    with ft.disable_graphs():
+        eager, eager_ms = timed_ms(call)
+    for got in (first, out):
+        check(all(np.array_equal(a, b) for a, b in zip(parts(got), parts(eager))),
+              f"{label}: graphed and eager outputs differ")
+    log(f"[decode] {label}: graphed {ms:.1f} ms a call ({ms / steps:.4f} ms a step, "
+        f"{tokens / ms * 1e3:,.0f} tokens/s), first call {first_ms:.1f} ms (eager first step "
+        f"and capture), eager {eager_ms:.1f} ms ({eager_ms / steps:.4f} ms a step); graphed == "
+        "eager: True")
+    return out, ms
+
+
+def profile_decode(model, label, call, steps):
+    """Device ms and kernel launches per decode step of one replayed call."""
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows if not r[0].startswith("Memcpy"))
+    log(f"[decode] {label}, profiled: device {busy_us / steps / 1e3:.4f} ms a step, "
+        f"{launches / steps:.1f} kernel launches a step ({len(rows)} kernel names)")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        log(f"[decode]   {us / steps / 1e3:8.4f} ms/step {count / steps:5.1f}x/step  {key[:90]}")
+    return busy_us / steps / 1e3, launches / steps
+
+
+def f32_probs(model, tok, pos, seqs):
+    """Full-sequence forward probabilities (float32, on the card) of up to
+    LM["batch"] token rows, zero-padded to the model's sequence length."""
+    B, S = LM["batch"], LM["seq_length"]
+    toks = np.zeros((B, S), np.int32)
+    for i, s in enumerate(seqs):
+        toks[i, :len(s)] = s
+    posa = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    model.set_batch({tok: toks, pos: posa}, np.zeros((B, S), np.int32))
+    return model._eval()[model.final_tensor().guid]
+
+
+def gap(probs_row, a, b):
+    """The probabilities of tokens a and b, as a share of the top one."""
+    top = float(probs_row.max())
+    return abs(float(probs_row[a]) - float(probs_row[b])) / top
+
+
+def oracle_check(ft, build_transformer, kernels, prompt, smi):
+    """(a), f32: generate, then one full-sequence forward (K3) over prompt +
+    generated tokens; its argmax at every decoded position must be the
+    generated token, or within F32_GAP_TOL of it.  Returns the kernels'
+    launches in that forward."""
+    P, N = GEN["P"], GEN["N"]
+    model, tok, pos = decode_lm(ft, build_transformer, "float32")
+    out = model.generate(prompt, N)
+    model._gen_cache.clear()
+    reset_launches(kernels)
+    probs = f32_probs(model, tok, pos, np.concatenate([prompt, out], axis=1))
+    launches = read_launches(kernels)
+    check(launches == {**NO_LAUNCH, "flash_fwd": LM["num_layers"]},
+          f"oracle forward launches {launches}")
+    dec = probs[:, P - 1:P + N - 1]                     # predicts tokens P..P+N-1
+    arg = dec.argmax(-1).cpu().numpy()
+    diff = np.argwhere(arg != out)
+    worst = 0.0
+    for b, t in diff:
+        g = gap(dec[b, t], arg[b, t], out[b, t])
+        worst = max(worst, g)
+        log(f"[decode]   oracle: row {b} position {P + t}: forward argmax {arg[b, t]}, "
+            f"decoded {out[b, t]}, gap {g:.3e} of the top probability")
+    check(worst <= F32_GAP_TOL, f"f32 oracle gap {worst:.3e} > {F32_GAP_TOL}")
+    log(f"[decode] (a) f32 oracle: {LM['batch']}x{P + N} full forward through K3 "
+        f"({launches['flash_fwd']} launches) against f32 generate: {arg.size - len(diff)} of "
+        f"{arg.size} argmaxes equal the decoded tokens, the rest within gap {worst:.3e} "
+        f"(tolerance {F32_GAP_TOL:g} of the top probability; TF32 off); card {smi}")
+    return launches, model, tok, pos
+
+
+def bf16_oracle(f32, label, seqs, starts, smi):
+    """Every token a bf16 path generated (``seqs[i][starts[i]:]``) against
+    the f32 model's full forward over the same token rows, 16 rows a
+    forward: the token's f32 probability lies within BF16_GAP_TOL of the
+    forward's top one at every generated position."""
+    model, tok, pos = f32
+    worst, count, differ = 0.0, 0, 0
+    for j in range(0, len(seqs), LM["batch"]):
+        chunk = seqs[j:j + LM["batch"]]
+        probs = f32_probs(model, tok, pos, chunk)
+        for row, s in enumerate(chunk):
+            st = starts[j + row]
+            p = probs[row, st - 1:len(s) - 1]                # predicts s[st:]
+            want = torch.as_tensor(s[st:], dtype=torch.long, device=p.device)
+            top = p.max(-1).values
+            g = (top - p.gather(1, want[:, None])[:, 0]) / top
+            worst = max(worst, float(g.max()))
+            differ += int((g > 0).sum())
+            count += want.numel()
+    check(worst <= BF16_GAP_TOL, f"{label}: bf16 tokens against the f32 forward: gap "
+                                 f"{worst:.3e} > {BF16_GAP_TOL}")
+    log(f"[serve] {label} against the f32 full forward at every generated position: "
+        f"{count - differ} of {count} tokens are its argmax, the rest within gap {worst:.3e} "
+        f"(tolerance {BF16_GAP_TOL:g} of the top probability; TF32 off); card {smi}")
+
+
+def traffic():
+    """TRAFFIC from numpy seed 0: random prompts and lengths, then requests
+    that share one prefix."""
+    rng = np.random.default_rng(0)
+    T = TRAFFIC
+    reqs = [(rng.integers(0, LM["vocab_size"], size=int(rng.integers(T["prompt"][0],
+                                                                     T["prompt"][1] + 1)),
+                          dtype=np.int32), int(rng.integers(T["new"][0], T["new"][1] + 1)))
+            for _ in range(T["requests"])]
+    prefix = rng.integers(0, LM["vocab_size"], size=T["prefix"], dtype=np.int32)
+    for _ in range(T["shared"]):
+        tail = rng.integers(0, LM["vocab_size"], size=int(rng.integers(1, T["tail"] + 1)),
+                            dtype=np.int32)
+        reqs.append((np.concatenate([prefix, tail]),
+                     int(rng.integers(T["new"][0], T["new"][1] + 1))))
+    return reqs
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) * 1e3
+
+
+def serve(ft, lm, paged, reqs, smi):
+    """(d): one engine, warmed up, serving every request submitted at once;
+    returns (tokens per request, the engine)."""
+    from flexflow_tpu_torch.runtime.decode_graph import cache_leaves
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    free_models()
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine(lm, paged=paged, **ENGINE)
+    check(eng._paged == (paged == "on"), f"engine paged={paged}: {eng._paged}")
+    t0 = time.perf_counter()
+    warm = eng.warmup()
+    warm_s = time.perf_counter() - t0
+    hs = [eng.submit(p, n, timeout_s=0) for p, n in reqs]
+    t0 = time.perf_counter()
+    with eng:
+        outs = [h.result(600) for h in hs]
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    check(st["completed"] == len(reqs), f"engine paged={paged}: {st}")
+    check(st["graphs_captured"] == warm, f"engine paged={paged}: {st['graphs_captured']} "
+                                         f"graphs captured, {warm} in the warm-up")
+    kv_bytes = sum(c.numel() * c.element_size() for c in cache_leaves(eng._caches))
+    ttft = [h.ttft_s for h in hs]
+    tpot = [h.tpot_s for h in hs if h.tpot_s is not None]
+    kv = st.get("kv", {})
+    log(f"[serve] (d) engine {'paged' if eng._paged else 'dense'}: {len(reqs)} requests, "
+        f"{st['tokens_out']} tokens in {wall:.3f} s = {st['tokens_out'] / wall:,.1f} generated "
+        f"tokens/s; TTFT p50 {pct(ttft, 50):.1f} ms p99 {pct(ttft, 99):.1f} ms; TPOT p50 "
+        f"{pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} ms; mean occupancy "
+        f"{st['mean_occupancy']:.2f} of {ENGINE['max_batch']}, {st['step_iterations']} token "
+        f"boundaries; card {smi}")
+    log(f"[serve]   graphs captured {warm} in the warm-up ({warm_s:.2f} s), "
+        f"{st['graphs_captured'] - warm} after it; prefill signatures "
+        f"{st['prefill_compiles']}; prefix hits {kv.get('prefix_hits', 0)} "
+        f"({kv.get('prefill_tokens_saved', 0)} prefill tokens saved, "
+        f"{kv.get('cow_copies', 0)} copy-on-write tails); KV pool {kv_bytes / 2**20:.1f} MiB; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return outs, eng
+
+
+def engine_vs_generate(lm, f32, reqs, outs, smi):
+    """(d): each request against generate(prompt[None], n) of the bf16
+    model; a request that differs is reported with the f32 gap at its first
+    differing token, which must be within BF16_GAP_TOL."""
+    model, tok, pos = f32
+    diffs = []
+    t0 = time.perf_counter()
+    for i, ((p, n), got) in enumerate(zip(reqs, outs)):
+        want = lm.generate(p[None], n)[0]
+        if not np.array_equal(got, want):
+            k = int(np.argmax(got != want))  # no eos: both are n long
+            diffs.append((i, k, int(got[k]), int(want[k])))
+    gen_s = time.perf_counter() - t0
+    lm._gen_cache.clear()
+    worst = 0.0
+    for j in range(0, len(diffs), LM["batch"]):
+        chunk = diffs[j:j + LM["batch"]]
+        seqs = [np.concatenate([reqs[i][0], outs[i][:k]]) for i, k, _, _ in chunk]
+        probs = f32_probs(model, tok, pos, seqs)
+        for row, (i, k, a, b) in enumerate(chunk):
+            g = gap(probs[row, len(seqs[row]) - 1], a, b)
+            worst = max(worst, g)
+            log(f"[serve]   request {i}: first differs at token {k} (engine {a}, generate "
+                f"{b}); f32 gap {g:.3e} of the top probability")
+    check(worst <= BF16_GAP_TOL, f"engine vs generate: gap {worst:.3e} > {BF16_GAP_TOL}")
+    log(f"[serve] (d) engine vs generate (bf16, B = 1 signatures, {gen_s:.1f} s): "
+        f"{len(reqs) - len(diffs)} of {len(reqs)} requests equal; {len(diffs)} differ at a "
+        f"near-tie, worst f32 gap {worst:.3e} (tolerance {BF16_GAP_TOL:g}); card {smi}")
+
+
+def http_check(ft, lm, reqs):
+    """(e): the ServingAPI on an ephemeral port in front of a paged engine
+    that was not warmed up, so that it captures its graphs in its worker
+    thread."""
+    import urllib.request
+
+    from flexflow_tpu_torch.serving.api import ServingAPI
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    picks = sorted(reqs, key=lambda r: r[0].size + r[1])[:8]
+    eng = InferenceEngine(lm, paged="on", **ENGINE)
+    with eng, ServingAPI(eng, port=0) as api:
+        port = api.port
+        for path in ("/healthz", "/readyz"):
+            with urllib.request.urlopen(f"{api.url}{path}", timeout=60) as r:
+                check(r.status == 200, f"{path}: {r.status}")
+        t0 = time.perf_counter()
+        for p, n in picks:
+            body = json.dumps({"prompt": [int(t) for t in p], "max_new_tokens": n}).encode()
+            req = urllib.request.Request(f"{api.url}/generate", data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                got = np.asarray(json.loads(r.read())["tokens"], np.int32)
+            # the same request straight to the engine, alone as it was
+            check(np.array_equal(got, eng.submit(p, n).result(300)),
+                  "HTTP and engine tokens differ")
+        ms = (time.perf_counter() - t0) * 1e3
+    log(f"[serve] (e) ServingAPI on port {port}: 8 POST /generate equal the engine's tokens "
+        f"for the same requests ({ms:.0f} ms for both, one at a time); /healthz and /readyz "
+        f"200; {eng.graphs_captured()} graphs captured in the engine's worker thread")
+
+
+def serving_phase(ft, kernels, smi):
+    """Phase 10: decoding and serving at full width.  Returns the kernels'
+    wrapper launches: none on the decode paths (checked), K3 in the f32
+    oracle's forward."""
+    from flexflow_tpu_torch.models import nmt
+    from flexflow_tpu_torch.models.transformer import build_transformer
+
+    t_phase = t_lap = time.perf_counter()
+
+    def lap(what):
+        nonlocal t_lap
+        now = time.perf_counter()
+        log(f"[serve] {what} took {now - t_lap:.1f} s")
+        t_lap = now
+
+    free_models()
+    rng = np.random.default_rng(0)
+    B, V = LM["batch"], LM["vocab_size"]
+    P, N = GEN["P"], GEN["N"]
+    prompt = rng.integers(0, V, size=(B, P), dtype=np.int32)
+    reset_launches(kernels)
+    # (a) -----------------------------------------------------------------
+    lm, _, _ = decode_lm(ft, build_transformer, "bfloat16")
+    out, ms = graphed_vs_eager(ft, f"(a) transformer B{B} P{P} N{N} bf16 greedy generate",
+                               lambda: lm.generate(prompt, N), P + N - 1, B * N)
+    run = next(iter(lm._gen_cache.values()))
+    log(f"[decode] (a) {ms / N:.4f} ms per generated token position ({B} rows), capture "
+        f"{run.capture_s * 1e3:.1f} ms, {run.captures} graph; card {smi}")
+    profile_decode(lm, "(a) generate", lambda: lm.generate(prompt, N), P + N - 1)
+    lap("(a)")
+    # (b) -----------------------------------------------------------------
+    bp = prompt[:BEAM["B"], :BEAM["P"]]
+    (seqs, scores), _ = graphed_vs_eager(
+        ft, f"(b) beam_search K{BEAM['K']} B{BEAM['B']} P{BEAM['P']} N{BEAM['N']}",
+        lambda: lm.beam_search(bp, BEAM["N"], beam_size=BEAM["K"]),
+        BEAM["P"] + BEAM["N"] - 1, BEAM["B"] * BEAM["N"])
+    check(bool(np.isfinite(scores).all()) and bool((np.diff(scores, axis=1) <= 0).all()),
+          f"beam scores not finite and best first: {scores}")
+    kw = dict(SAMPLING)
+    sp, sn = SAMPLED["P"], SAMPLED["N"]
+    sampled, _ = graphed_vs_eager(ft, f"(b) sampled generate B{B} P{sp} N{sn} {kw}",
+                                  lambda: lm.generate(prompt[:, :sp], sn, **kw), sp + sn - 1,
+                                  B * sn)
+    # every token within its step's top-k: the probabilities the step saw,
+    # recomputed by eager decode steps at the same shapes
+    tok_t, pos_t = lm.resolve_decode_inputs()
+    caches = lm.init_decode_caches(B, sp + sn)
+    seq = torch.tensor(np.concatenate([prompt[:, :sp], sampled], axis=1), device=lm.device)
+    outside = 0
+    for t in range(sp + sn - 1):
+        probs, _ = lm.decode_step(lm._params, caches, seq[:, t], t, tok_t, pos_t)
+        if t >= sp - 1:  # step t drew token t + 1
+            kth = torch.sort(probs, dim=-1, descending=True).values[:, kw["top_k"] - 1]
+            outside += int((probs.gather(1, seq[:, t + 1:t + 2])[:, 0] < kth).sum())
+    check(outside == 0, f"{outside} sampled tokens outside their step's top-{kw['top_k']}")
+    log(f"[decode] (b) sampled: every one of the {B * sn} tokens within its step's top-"
+        f"{kw['top_k']} (eager decode steps recompute the probabilities)")
+    del caches
+    lm._gen_cache.clear()
+    lap("(b)")
+    # (c) -----------------------------------------------------------------
+    moe, _, _ = decode_lm(ft, build_transformer, "bfloat16", moe_every=2, num_experts=8)
+    mp = prompt[:, :MOE_GEN["P"]]
+    _, ms = graphed_vs_eager(ft, f"(c) MoE transformer B{B} P{MOE_GEN['P']} N{MOE_GEN['N']}",
+                             lambda: moe.generate(mp, MOE_GEN["N"]),
+                             MOE_GEN["P"] + MOE_GEN["N"] - 1, B * MOE_GEN["N"])
+    log(f"[decode] (c) MoE {ms / MOE_GEN['N']:.4f} ms per generated token position; card {smi}")
+    del moe
+    free_models()
+    nm = ft.FFModel(ft.FFConfig(batch_size=NMT_GEN["batch"], compute_dtype="bfloat16"))
+    src, dst, _ = nmt.build_nmt(nm, NMT_GEN["batch"], seq_length=NMT_GEN["seq_length"])
+    nm.compile(ft.AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy", ["accuracy"])
+    nm.init_layers(seed=0)
+    src_toks = rng.integers(0, 20 * 1024, size=(NMT_GEN["batch"], NMT_GEN["seq_length"]),
+                            dtype=np.int32)
+
+    def translate():
+        return nmt.greedy_translate(nm, src, dst, src_toks, NMT_GEN["max_len"])
+
+    _, ms = graphed_vs_eager(ft, f"(c) NMT greedy_translate B{NMT_GEN['batch']} seq "
+                                 f"{NMT_GEN['seq_length']} hidden 2048 vocab 20480",
+                             translate, NMT_GEN["max_len"], NMT_GEN["batch"] * NMT_GEN["max_len"])
+    log(f"[decode] (c) NMT {ms / NMT_GEN['max_len']:.4f} ms per generated token position; "
+        f"card {smi}")
+    profile_decode(nm, "(c) NMT", translate, NMT_GEN["max_len"])
+    del nm
+    lap("(c)")
+    # (d) -----------------------------------------------------------------
+    reqs = traffic()
+    outs = {}
+    for paged in ("off", "on"):
+        outs[paged], eng = serve(ft, lm, paged, reqs, smi)
+    same = sum(np.array_equal(a, b) for a, b in zip(outs["off"], outs["on"]))
+    check(same == len(reqs), f"dense and paged engines differ on {len(reqs) - same} requests")
+    log(f"[serve] (d) dense == paged: all {len(reqs)} requests equal")
+    lap("(d)")
+    del eng
+    # (e) -----------------------------------------------------------------
+    http_check(ft, lm, reqs)
+    lap("(e)")
+    decode_launches = read_launches(kernels)
+    check(decode_launches == NO_LAUNCH, f"decode paths launched {decode_launches}")
+    # the f32 oracle and the engine's gaps ---------------------------------
+    oracle_launches, model, tok, pos = oracle_check(ft, build_transformer, kernels, prompt,
+                                                    smi)
+    lap("the f32 oracle")
+    bf16_oracle((model, tok, pos), "(a) bf16 generate",
+                list(np.concatenate([prompt, out], axis=1)), [P] * B, smi)
+    bf16_oracle((model, tok, pos), "(d) engine",
+                [np.concatenate([p, o]) for (p, _), o in zip(reqs, outs["on"])],
+                [p.size for p, _ in reqs], smi)
+    lap("the bf16 oracle")
+    engine_vs_generate(lm, (model, tok, pos), reqs, outs["on"], smi)
+    lap("engine vs generate")
+    del lm, model
+    free_models()
+    log(f"[serve] phase 10 took {time.perf_counter() - t_phase:.1f} s; wrapper launches on "
+        f"the decode paths {decode_launches}, in the oracle's forward {oracle_launches}")
+    return oracle_launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     # --calibration-out DIR keeps phase 8's measured cache and fit (else a
@@ -2092,9 +2523,13 @@ def main(argv=None):
         # phase 9 ----------------------------------------------------------
         zoo_launches = models_phase(ft, fo, fa, kernels, smi, out_dir)
 
+    # phase 10 -----------------------------------------------------------
+    serve_launches = serving_phase(ft, kernels, smi)
+
     # result -------------------------------------------------------------
     main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
-                     + search_launches[n] + zoo_launches[n] for n in kernels}
+                     + search_launches[n] + zoo_launches[n] + serve_launches[n]
+                     for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -2112,7 +2547,7 @@ def main(argv=None):
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
         f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
-        f"search {search_launches}, models {zoo_launches}")
+        f"search {search_launches}, models {zoo_launches}, serving {serve_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,7 +10,10 @@ the training path are hand-written CUDA kernels for Hopper
 (``kernels/``); conv, pool, dense and embedding layers are library calls,
 as the JAX package leaves them to XLA.  On one CUDA device each training
 step is a replay of one captured CUDA graph (``runtime/step_graph.py``);
-``disable_graphs()`` runs it eagerly.
+``disable_graphs()`` runs it eagerly.  ``FFModel.generate``/``beam_search``
+decode with kv caches, each signature one captured graph
+(``runtime/decode_graph.py``), and ``serving/`` holds the continuous-
+batching ``InferenceEngine`` and its HTTP front.
 """
 
 from .config import DeviceType, FFConfig, ParallelConfig

@@ -34,6 +34,13 @@ same order: those that gather (``get_parameter``, ``get_metrics``,
 
 Metric sums accumulate in one device vector and are fetched (and, on a
 mesh, summed over the batch's parts) once per drain, never per step.
+
+Decoding (``generate``, ``beam_search``, ``decode_step``; model.py:2271-2745
+of the JAX package) walks the ops' ``decode`` one token at a time over
+static caches; on a CUDA device each decode signature is one captured
+CUDA graph replayed per token (runtime/decode_graph.py).  The serving
+engine (serving/engine.py) composes the same entry points.  Decoding on a
+mesh is not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -101,13 +108,6 @@ _UNPORTED_METHODS = {
     "flat_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "recompile": "online re-parallelization, ROADMAP A10",
     "print_op_profile": "per-op profiles, ROADMAP A12",
-    "generate": "decoding, ROADMAP A11",
-    "beam_search": "decoding, ROADMAP A11",
-    "decode_step": "decoding, ROADMAP A11",
-    "init_decode_caches": "decoding, ROADMAP A11",
-    "init_paged_decode_caches": "decoding, ROADMAP A11",
-    "pageable_decode": "decoding, ROADMAP A11",
-    "resolve_decode_inputs": "decoding, ROADMAP A11",
 }
 
 
@@ -173,6 +173,7 @@ class FFModel:
         self._compiled = False
         self._guard: Optional[resilience.NonFiniteGuard] = None
         self._step_graph: Optional[StepGraph] = None
+        self._gen_cache: Dict[tuple, Any] = {}  # decode signature -> its run
 
     # ------------------------------------------------------------------
     # graph construction
@@ -809,8 +810,11 @@ class FFModel:
             self._metric_acc[self._metric_keys().index("consec_skipped")].fill_(guard.consec)
 
     def _drop_step_graph(self) -> None:
+        """Forget the captured step and every decode signature (compile and
+        init_layers make new parameter tensors, which no graph reads)."""
         if self._step_graph is not None:
             self._step_graph.drop()
+        self._gen_cache = {}
 
     def _graph_key(self) -> tuple:
         """What a captured step depends on beyond the addresses that stay
@@ -866,6 +870,256 @@ class FFModel:
         if isinstance(probs, DTensor):
             probs = probs.full_tensor()
         return probs.float().cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # autoregressive decoding (model.py:2271-2745 of the JAX package): the
+    # entry points generate()/beam_search() and the ones the serving engine
+    # composes (serving/engine.py).  Each decode signature runs as one
+    # captured CUDA graph replayed per token (runtime/decode_graph.py).
+    # ------------------------------------------------------------------
+    def _run_graph_decode(self, params, caches, batch, pos, ctx, pre_env=None, skip=(),
+                          block_tables=None):
+        env: Dict[int, torch.Tensor] = dict(pre_env) if pre_env else {}
+        cdtype = self.compute_dtype
+        for t in self.input_tensors:
+            if t.guid in env:
+                continue
+            key = f"in_{t.guid}"
+            if key not in batch:
+                raise ValueError(f"generate: graph input {t.name or t.guid!r} was not fed "
+                                 "— pass it via extra_inputs")
+            x = batch[key]
+            env[t.guid] = x.to(cdtype) if x.is_floating_point() else x
+        new_caches = {}
+        for op in self.ops:
+            if op.name in skip:
+                continue
+            xs = [env[t.guid] for t in op.inputs]
+            pvals = params.get(op.param_key, {})
+            if block_tables is not None and hasattr(op, "decode_paged"):
+                # the paged serving path: the op's cache rows are pool blocks,
+                # addressed through the slots' block tables
+                ys, c = op.decode_paged(pvals, xs, caches.get(op.name), pos, block_tables, ctx)
+            else:
+                ys, c = op.decode(pvals, xs, caches.get(op.name), pos, ctx)
+            new_caches[op.name] = c
+            for t, y in zip(op.outputs, ys):
+                env[t.guid] = y
+        return env, new_caches
+
+    def _decode_params(self):
+        """The parameter tree decoding reads: the model's own tensors (the
+        port has no pipelined stages or host-resident tables to unpack), so
+        a captured decode step sees in-place updates.  Decoding on a mesh is
+        not ported yet."""
+        if not self._compiled or self._params is None:
+            raise RuntimeError("decoding needs compile() and init_layers() first")
+        if self._sharded:
+            raise NotImplementedError("decoding on a mesh (a process group) is not ported "
+                                      "yet (ROADMAP A11)")
+        return self._params
+
+    def resolve_decode_inputs(self, tokens_input: Optional[Tensor] = None,
+                              positions_input: Optional[Tensor] = None):
+        """The (tokens, positions) graph inputs fed one token at a time.  The
+        positions input is guessed (the second graph input, the
+        ``build_transformer`` layout) only when the tokens input was
+        defaulted too."""
+        tok_t = tokens_input if tokens_input is not None else self.input_tensors[0]
+        pos_t = positions_input
+        if pos_t is None and tokens_input is None and len(self.input_tensors) > 1:
+            pos_t = self.input_tensors[1]
+        return tok_t, pos_t
+
+    def init_decode_caches(self, batch_size: int, max_len: int, skip=()):
+        """Fresh decode caches: one entry per op (None when stateless),
+        ``batch_size`` rows of ``max_len`` positions, on the model's device."""
+        return {op.name: op.init_cache(batch_size, max_len, self.compute_dtype)
+                for op in self.ops if op.name not in skip}
+
+    def pageable_decode(self, skip=()) -> bool:
+        """Whether every cache-carrying op has a paged decode path (the
+        serving engine's gate for block-paged KV: decoder-only transformers
+        qualify, LSTM stacks serve dense)."""
+        return all(type(op).init_cache is Op.init_cache or hasattr(op, "init_paged_cache")
+                   for op in self.ops if op.name not in skip)
+
+    def init_paged_decode_caches(self, num_blocks: int, block_size: int, skip=()):
+        """Fresh block-pool caches: cache-carrying ops get ``(num_blocks, H,
+        block_size, D)`` pools (block 0 is the garbage sink,
+        serving/kvpool.py); stateless ops get None."""
+        out = {}
+        for op in self.ops:
+            if op.name in skip:
+                continue
+            if type(op).init_cache is Op.init_cache:
+                out[op.name] = None
+            elif hasattr(op, "init_paged_cache"):
+                out[op.name] = op.init_paged_cache(num_blocks, block_size, self.compute_dtype)
+            else:
+                raise ValueError(f"paged decode: op {op.name!r} ({type(op).__name__}) carries "
+                                 "a decode cache but has no paged path — serve it with "
+                                 "FF_SERVE_PAGED=off")
+        return out
+
+    def decode_step(self, params, caches, cur, pos, tok_t, pos_t, pre_env=None,
+                    skip=(), block_tables=None):
+        """One single-token decode step: token ids ``cur`` (B,) at position
+        ``pos`` (an int, a 0-dim tensor, or a (B,) tensor of per-row
+        positions, the serving engine's continuous batch).  Returns (probs
+        (B, V) float32, caches); the caches are written in place.  The JAX
+        package's ``stats`` argument (non-trainable state) has no
+        counterpart: the port keeps none."""
+        dev = self.device
+        pos = torch.as_tensor(pos, dtype=torch.long, device=dev)
+        B = cur.shape[0]
+        batch = {f"in_{tok_t.guid}": cur.reshape(B, 1)}
+        if pos_t is not None:
+            batch[f"in_{pos_t.guid}"] = (pos.expand(B) if pos.dim() == 0 else pos)[:, None]
+        with torch.no_grad():
+            env, caches = self._run_graph_decode(params, caches, batch, pos, FwdCtx(),
+                                                 pre_env=pre_env, skip=skip,
+                                                 block_tables=block_tables)
+        return env[self.final_tensor().guid][:, -1, :].float(), caches
+
+    def _check_position_table(self, pos_t, s_max: int) -> None:
+        """Reject a request longer than the position table before any lookup
+        (``torch.embedding`` raises on the card, ``jnp.take`` clamps)."""
+        if pos_t is None:
+            return
+        # P + N - 1 steps run over positions 0..s_max-2: s_max - 1 entries
+        for op in self.ops:
+            if isinstance(op, Embedding) and op.inputs[0] is pos_t \
+                    and s_max - 1 > op.num_entries:
+                raise ValueError(f"decode: prompt + max_new_tokens = {s_max} needs "
+                                 f"{s_max - 1} positions but the position table has only "
+                                 f"{op.num_entries} entries")
+
+    def _static_decode_ops(self, extra_guids):
+        """Ops reachable from the fixed extra inputs alone (a seq2seq
+        encoder): run once a call before the decode steps, not per token."""
+        avail = set(extra_guids)
+        static_ops = []
+        if extra_guids:
+            for op in self.ops:
+                if op.inputs and all(t.guid in avail for t in op.inputs):
+                    static_ops.append(op)
+                    avail.update(t.guid for t in op.outputs)
+        return static_ops, frozenset(op.name for op in static_ops)
+
+    def _prefill_static(self, params, extra, extra_guids, static_ops, repeat: int = 1):
+        """The static ops' outputs (and the extra inputs, repeated once per
+        beam), computed once a call."""
+        env = {}
+        for g in extra_guids:
+            x = extra[f"in_{g}"]
+            env[g] = x.repeat_interleave(repeat, dim=0) if repeat > 1 else x
+        with torch.no_grad():
+            for op in static_ops:
+                ys = op.forward(params.get(op.param_key, {}),
+                                [env[t.guid] for t in op.inputs], FwdCtx())
+                for t, y in zip(op.outputs, ys):
+                    env[t.guid] = y
+        return env
+
+    def _decode_setup(self, prompt_tokens, max_new_tokens, tokens_input, positions_input,
+                      extra_inputs):
+        """What generate and beam_search share: the prompt, the fed inputs,
+        the position check, the extra inputs on the device and the static
+        ops they feed."""
+        self._decode_params()
+        toks = np.asarray(prompt_tokens, np.int32)
+        if toks.ndim != 2 or toks.shape[1] < 1:
+            raise ValueError(f"the prompt must be (B, P) with P >= 1, got {toks.shape}")
+        tok_t, pos_t = self.resolve_decode_inputs(tokens_input, positions_input)
+        self._check_position_table(pos_t, toks.shape[1] + int(max_new_tokens))
+        extra = {f"in_{t.guid}": torch.as_tensor(np.asarray(v), device=self.device)
+                 for t, v in (extra_inputs or {}).items()}
+        extra_guids = {t.guid for t in (extra_inputs or {})}
+        static_ops, static_names = self._static_decode_ops(extra_guids)
+        shapes = tuple(sorted((k, tuple(v.shape), str(v.dtype)) for k, v in extra.items()))
+        inputs = (tok_t.guid, pos_t.guid if pos_t is not None else None, shapes)
+        return toks, tok_t, pos_t, extra, extra_guids, static_ops, static_names, inputs
+
+    def generate(self, prompt_tokens, max_new_tokens: int, *,
+                 tokens_input: Optional[Tensor] = None,
+                 positions_input: Optional[Tensor] = None,
+                 extra_inputs: Optional[Dict[Tensor, Any]] = None,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, seed: int = 0) -> np.ndarray:
+        """``max_new_tokens`` continuations of a (B, P) int prompt, greedy
+        (temperature 0) or sampled; returns (B, N) int32.  P + N - 1
+        single-token steps over a (B, H, P + N, D) cache per attention op,
+        each a replay of one captured step on a CUDA device (the first call
+        of a signature runs its first step eagerly, then captures).
+
+        Sampling (temperature > 0): ``top_k`` keeps the k most likely
+        tokens, ``top_p`` the smallest nucleus of mass >= p (the top token
+        always survives); both may combine.  ``tokens_input`` and
+        ``positions_input`` default to the first two graph inputs (the
+        ``build_transformer`` layout); ``extra_inputs`` maps further graph
+        inputs to fixed arrays (a seq2seq model's source sentence, whose
+        encoder runs once a call)."""
+        from .runtime.decode_graph import GenerateRun
+
+        N = int(max_new_tokens)
+        if N <= 0:
+            return np.zeros((np.asarray(prompt_tokens).shape[0], 0), np.int32)
+        toks, tok_t, pos_t, extra, extra_guids, static_ops, static_names, inputs = \
+            self._decode_setup(prompt_tokens, N, tokens_input, positions_input, extra_inputs)
+        B, P = toks.shape
+        sampled = float(temperature) > 0.0
+        # bad knob values fail loudly even when greedy ignores them ...
+        if top_k is not None and int(top_k) < 1:
+            raise ValueError(f"top_k must be >= 1, got {top_k}")
+        if top_p is not None and not 0.0 < float(top_p) <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        # ... and inactive knobs do not fork the signature
+        t_k = int(top_k) if sampled and top_k is not None else None
+        t_p = float(top_p) if sampled and top_p is not None else None
+        key = ("generate", B, P, N, sampled, t_k, t_p) + inputs
+        run = self._gen_cache.get(key)
+        if run is None:
+            run = self._gen_cache[key] = GenerateRun(
+                self, B, P, N, sampled, t_k, t_p, tok_t, pos_t, extra_guids, static_ops,
+                static_names)
+        return run(toks, extra, temperature, seed)
+
+    def beam_search(self, prompt_tokens, max_new_tokens: int, *, beam_size: int = 4,
+                    tokens_input: Optional[Tensor] = None,
+                    positions_input: Optional[Tensor] = None,
+                    extra_inputs: Optional[Dict[Tensor, Any]] = None,
+                    eos_id: Optional[int] = None, length_penalty: float = 0.0):
+        """Beam search: (sequences (B, K, N) int32, scores (B, K) float32, the
+        summed token log-probs, best first).  Beams ride the batch (B * K
+        rows through the decode step); a beam that emitted ``eos_id`` is
+        frozen (eos again at log-prob 0).  ``length_penalty`` alpha > 0
+        re-ranks the final beams by score / ((5 + len) / 6) ** alpha (GNMT;
+        len counts up to and including eos); the returned scores stay raw."""
+        from .runtime.decode_graph import BeamRun
+
+        N, K = int(max_new_tokens), int(beam_size)
+        if N <= 0:
+            b = np.asarray(prompt_tokens).shape[0]
+            return np.zeros((b, K, 0), np.int32), np.zeros((b, K), np.float32)
+        toks, tok_t, pos_t, extra, extra_guids, static_ops, static_names, inputs = \
+            self._decode_setup(prompt_tokens, N, tokens_input, positions_input, extra_inputs)
+        B, P = toks.shape
+        key = ("beam", B, P, N, K, eos_id) + inputs
+        run = self._gen_cache.get(key)
+        if run is None:
+            run = self._gen_cache[key] = BeamRun(
+                self, B, P, N, K, eos_id, tok_t, pos_t, extra_guids, static_ops, static_names)
+        seqs, scores = run(toks, extra)
+        if length_penalty > 0.0 and eos_id is not None:
+            # without an eos every length is N and the re-rank changes nothing
+            hits = seqs == eos_id
+            lens = np.where(hits.any(-1), hits.argmax(-1) + 1, N).astype(np.float64)
+            norm = scores / (((5.0 + lens) / 6.0) ** length_penalty)
+            order = np.argsort(-norm, axis=1, kind="stable")
+            seqs = np.take_along_axis(seqs, order[:, :, None], axis=1)
+            scores = np.take_along_axis(scores, order, axis=1)
+        return seqs, scores
 
     # ------------------------------------------------------------------
     # metrics (reference: UPDATE_METRICS_TASK fold, model.cc:1145-1167)

@@ -11,8 +11,6 @@ final (h, c) seeds its decoder layer; the vocabulary projection is one
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 
 from ..model import FFModel
@@ -65,7 +63,11 @@ def synthetic_batch(batch_size: int, seq_length: int, vocab_size: int, seed: int
 
 def greedy_translate(model, src_tensor, dst_tensor, src_tokens, max_len: int,
                      bos_id: int = 1):
-    """Greedy seq2seq decoding rides ``FFModel.generate`` and the LSTMs'
-    state-cached ``decode``, which are not ported yet (ROADMAP A11)."""
-    raise NotImplementedError("greedy_translate needs FFModel.generate and the LSTM's "
-                              "state-cached decode, not ported yet (ROADMAP A11)")
+    """Greedy seq2seq decoding: encode ``src_tokens`` and emit ``max_len``
+    target tokens from ``bos_id``, through ``FFModel.generate``: the source
+    is a fixed extra input (the encoder runs once a call) and the decoder
+    LSTMs advance their cached (h, c) one token at a time."""
+    src_tokens = np.asarray(src_tokens, np.int32)
+    prompt = np.full((src_tokens.shape[0], 1), bos_id, np.int32)
+    return model.generate(prompt, max_len, tokens_input=dst_tensor, positions_input=None,
+                          extra_inputs={src_tensor: src_tokens})

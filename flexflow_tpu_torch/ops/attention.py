@@ -11,8 +11,13 @@ On a mesh, attention under ``(dp, 1, tp)`` computes on this device's batch
 rows and heads: q/k/v come from the column shards of ``wq``/``wk``/``wv``,
 the flash kernels run on the local (b, h, S, D) tensors, and ``wo`` takes
 the gathered heads column-parallel.  Sequence parallelism (ring,
-Ulysses; ROADMAP A7), attention dropout and the decode paths are not
-ported yet and raise.
+Ulysses; ROADMAP A7) and attention dropout are not ported yet and raise.
+
+Decoding (``decode``, ``decode_paged``) is the JAX package's: plain f32
+products over a static kv cache (dense ``(B, H, S, D)`` or a block pool
+``(N, H, block, D)``), later positions masked.  Every write lands in place
+at device-resident positions, so a decode step can be captured as a CUDA
+graph (runtime/decode_graph.py).
 """
 
 from __future__ import annotations
@@ -191,7 +196,94 @@ class MultiHeadAttention(Op):
             return self._proj(params, heads.repeat(1, 1, k), "wo", "bo")
         return fwd
 
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError("kv-cached decoding is not ported yet (ROADMAP A11)")
+    # -- kv-cached decoding (the JAX package's ops/attention.py:161-275) -----
+    def init_cache(self, batch_size: int, max_len: int, dtype):
+        shp = (batch_size, self.num_heads, max_len, self.head_dim)
+        dev = self.model.device
+        return {"k": torch.zeros(shp, dtype=dtype, device=dev),
+                "v": torch.zeros(shp, dtype=dtype, device=dev)}
 
-    init_cache = decode = init_paged_cache = decode_paged = _not_ported
+    def init_paged_cache(self, num_blocks: int, block_size: int, dtype):
+        """Block-pool k/v shared by every slot: the block id indexes dim 0.
+        Block 0 is the garbage sink (serving/kvpool.py): idle lanes write
+        and read it, masked."""
+        return self.init_cache(num_blocks, block_size, dtype)
+
+    def _decode_heads(self, params, xs, what: str):
+        """This step's q, k, v as (B, H, 1, D); refuses what has no cache
+        semantics (a non-causal single-token self-attention)."""
+        q_in, k_in, v_in = xs
+        if not self.causal:
+            raise ValueError(f"{what}: op {self.name!r} is non-causal single-token "
+                             "self-attention, which is not decodable")
+        b = q_in.shape[0]
+
+        def split(t):
+            return t.reshape(b, 1, self.num_heads, self.head_dim).transpose(1, 2)
+
+        return (split(self._proj(params, q_in, "wq", "bq")),
+                split(self._proj(params, k_in, "wk", "bk")),
+                split(self._proj(params, v_in, "wv", "bv")))
+
+    def _attend_cached(self, params, qh, keys, values, pos_v, dtype):
+        """q over a (B, H, L, D) cache in f32, positions past each row's
+        ``pos`` masked with -1e30 (their softmax weights are exactly 0), then
+        the output projection.  ``keys``/``values`` are made contiguous, so
+        a window of the dense cache and a gathered paged window of the same
+        length run the same products."""
+        b, _, L, _ = keys.shape
+        scale = 1.0 / math.sqrt(self.head_dim)
+        scores = torch.matmul(qh.float(), keys.contiguous().float().transpose(-1, -2)) * scale
+        valid = torch.arange(L, device=keys.device)[None, None, None, :] \
+            <= pos_v[:, None, None, None]
+        probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
+        out = torch.matmul(probs, values.contiguous().float()).to(dtype)
+        out = out.transpose(1, 2).reshape(b, 1, self.embed_dim)
+        return [self._proj(params, out, "wo", "bo")]
+
+    def decode(self, params, xs, cache, pos, ctx: FwdCtx):
+        """kv-cached single-token attention: write this step's k/v at
+        ``pos`` (a 0-dim tensor, or one position per row), then attend over
+        the whole static cache with later positions masked.  A full-sequence
+        input (an encoder re-run, or cross-attention over full k/v) is
+        stateless and runs ``forward``."""
+        q_in, k_in, _ = xs
+        if q_in.shape[1] != 1 or k_in.shape[1] != 1:
+            return self.forward(params, xs, ctx), cache
+        qh, kh, vh = self._decode_heads(params, xs, "generate")
+        b = q_in.shape[0]
+        pos_v = pos.expand(b) if pos.dim() == 0 else pos
+        rows = torch.arange(b, device=q_in.device)
+        # index_put_ at device positions: nothing is read back to the host
+        cache["k"][rows, :, pos_v, :] = kh[:, :, 0, :].to(cache["k"].dtype)
+        cache["v"][rows, :, pos_v, :] = vh[:, :, 0, :].to(cache["v"].dtype)
+        return self._attend_cached(params, qh, cache["k"], cache["v"], pos_v,
+                                   q_in.dtype), cache
+
+    def decode_paged(self, params, xs, cache, pos, tables, ctx: FwdCtx):
+        """Single-token attention over a paged cache: write this step's k/v
+        into block ``tables[row, pos // block_size]``, gather the W blocks
+        of each row's table in table (= position) order and attend over
+        W * block_size positions, masked as the dense path.
+
+        ``tables``: (B, W) int64 block ids; ``pos``: (B,) or 0-dim."""
+        q_in, k_in, _ = xs
+        if q_in.shape[1] != 1 or k_in.shape[1] != 1:
+            raise ValueError(f"decode_paged: op {self.name!r} got a full-sequence input; "
+                             "paged decode is single-token only")
+        qh, kh, vh = self._decode_heads(params, xs, "decode_paged")
+        b = q_in.shape[0]
+        bs = cache["k"].shape[2]
+        w = tables.shape[1]
+        pos_v = pos.expand(b) if pos.dim() == 0 else pos
+        rows = torch.arange(b, device=q_in.device)
+        bidx, roff = tables[rows, pos_v // bs], pos_v % bs
+        cache["k"][bidx, :, roff, :] = kh[:, :, 0, :].to(cache["k"].dtype)
+        cache["v"][bidx, :, roff, :] = vh[:, :, 0, :].to(cache["v"].dtype)
+        h, d = self.num_heads, self.head_dim
+
+        def window(pool):  # (B, W, H, bs, D) -> (B, H, W * bs, D)
+            return pool[tables].transpose(1, 2).reshape(b, h, w * bs, d)
+
+        return self._attend_cached(params, qh, window(cache["k"]), window(cache["v"]),
+                                   pos_v, q_in.dtype), cache

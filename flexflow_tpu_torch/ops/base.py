@@ -112,6 +112,19 @@ class Op:
                 ctx: FwdCtx) -> List[torch.Tensor]:
         raise NotImplementedError
 
+    # -- autoregressive decoding (FFModel.generate, serving/engine.py) ------
+    def init_cache(self, batch_size: int, max_len: int, dtype):
+        """The op's decode cache (a dict of tensors on the model's device);
+        None for a stateless op."""
+        return None
+
+    def decode(self, params, xs: List[torch.Tensor], cache, pos, ctx: FwdCtx):
+        """One decode step at sequence position ``pos`` (a 0-dim or a (B,)
+        int64 tensor on the device): ``xs`` carry one time step (B, 1, ...).
+        Returns (ys, cache); a cache is written in place, so a captured step
+        finds it where it was.  Default: the stateless forward."""
+        return self.forward(params, xs, ctx), cache
+
     def flops_per_sample(self) -> float:
         """Analytic forward FLOPs per sample."""
         return 0.0

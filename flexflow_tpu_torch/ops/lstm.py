@@ -14,8 +14,9 @@ Outputs: y (B, T, H), h_T (B, H), c_T (B, H)
 
 ``share_with`` reads another LSTM's weights.  On a mesh the op computes a
 batch split on local shards; the JAX package's hidden split (config dim
-2, an all-gather of ``h`` each step) is not ported (ROADMAP A9), and
-kv/state-cached decoding waits for ROADMAP A11.
+2, an all-gather of ``h`` each step) is not ported (ROADMAP A9).
+``decode`` advances a cached f32 (h, c) one token at a time, as the JAX
+package's (ops/lstm.py:126-160 there).
 """
 
 from __future__ import annotations
@@ -100,10 +101,35 @@ class LSTM(Op):
                 f"{self.name}: the LSTM's hidden split (config dim 2, an all-gather of h "
                 "each step) is not ported yet (ROADMAP A9)")
 
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError("state-cached LSTM decoding is not ported yet (ROADMAP A11)")
+    def init_cache(self, batch_size: int, max_len: int, dtype):
+        h = self.hidden_size
+        dev = self.model.device
+        return {"h": torch.zeros(batch_size, h, device=dev),
+                "c": torch.zeros(batch_size, h, device=dev)}
 
-    init_cache = decode = _not_ported
+    def decode(self, params, xs, cache, pos, ctx: FwdCtx):
+        """One recurrence step on a (B, 1, E) input, advancing the cached f32
+        (h, c) in place.  At position 0 the carry is seeded from the hx/cx
+        graph inputs (the encoder's final state), per row when ``pos`` is a
+        vector.  A full-sequence input (an encoder pass) runs ``forward``."""
+        x = xs[0]
+        if x.shape[1] != 1:
+            return self.forward(params, xs, ctx), cache
+        dt = x.dtype
+        w_ih = params["w_ih"].to(dt)
+        w_hh = params["w_hh"].to(dt)
+        h = w_ih.shape[1] // 4
+        h0, c0 = cache["h"], cache["c"]
+        if self.has_state_inputs:
+            at0 = (pos == 0)[:, None] if pos.dim() else pos == 0
+            h0 = torch.where(at0, xs[1].float(), h0)
+            c0 = torch.where(at0, xs[2].float(), c0)
+        z = torch.matmul(x[:, 0, :], w_ih).float() + params["bias"].float()
+        z = z + torch.matmul(h0.to(dt), w_hh).float()
+        h_new, c_new = self._gates(z, c0, h)
+        cache["h"].copy_(h_new)
+        cache["c"].copy_(c_new)
+        return [h_new[:, None, :].to(dt), h_new.to(dt), c_new.to(dt)], cache
 
     def flops_per_sample(self):
         _, t, e = self.inputs[0].dims

@@ -15,7 +15,7 @@ each token's place in its expert's queue are the global batch's: every
 part adds the token counts of the parts before it (one all-gather of E
 counts), so a strategy changes placement, not results.  The JAX package's
 expert split (config dim 1, an ``all_to_all`` of the tokens) is not ported
-(ROADMAP A9); nor is the dropless ``decode`` (ROADMAP A11).
+(ROADMAP A9).  ``decode`` routes dropless, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -143,10 +143,27 @@ class ExpertMLP(Op):
 
         return [machine.local_call(local, args, out_pl)]
 
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError("dropless MoE decoding is not ported yet (ROADMAP A11)")
-
-    init_cache = decode = _not_ported
+    def decode(self, params, xs, cache, pos, ctx: FwdCtx):
+        """Dropless routing for decoding (the JAX package's ops/moe.py:140-165):
+        each token goes to its chosen expert, with no capacity cut (a step
+        routes only B tokens, and a cut would silently zero some).  Every
+        expert is computed for every token and the one-hot gate picks one;
+        equal to ``forward`` wherever its capacity drops nothing."""
+        x = xs[0]
+        shape = x.shape
+        dt = x.dtype
+        xf = x.reshape(-1, shape[-1])
+        e = params["w_in"].shape[0]
+        gates = torch.softmax(torch.matmul(xf.float(), params["router"].float()), dim=-1)
+        gate = gates.amax(dim=-1)
+        onehot = (torch.argmax(gates, dim=-1)[:, None]
+                  == torch.arange(e, device=x.device)).float()  # (S, E); ties: first
+        h = torch.einsum("sd,edh->seh", xf, params["w_in"].to(dt))
+        h = apply_activation(h + params["b_in"].to(h.dtype)[None, :, :], self.activation)
+        y_e = torch.einsum("seh,ehd->sed", h, params["w_out"].to(dt))
+        y_e = y_e + params["b_out"].to(y_e.dtype)[None, :, :]
+        y = torch.einsum("se,sed->sd", onehot * gate[:, None], y_e.float()).to(dt)
+        return [y.reshape(shape)], cache
 
     def flops_per_sample(self):
         dims = self.output.dims

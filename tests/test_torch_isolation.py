@@ -52,7 +52,11 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.tools.offline_search, flexflow_tpu_torch.ops.lstm, "
             "flexflow_tpu_torch.ops.moe, flexflow_tpu_torch.models.resnet, "
             "flexflow_tpu_torch.models.inception, flexflow_tpu_torch.models.dlrm, "
-            "flexflow_tpu_torch.models.candle_uno, flexflow_tpu_torch.models.nmt; "
+            "flexflow_tpu_torch.models.candle_uno, flexflow_tpu_torch.models.nmt, "
+            "flexflow_tpu_torch.runtime.decode_graph, flexflow_tpu_torch.serving, "
+            "flexflow_tpu_torch.serving.config, flexflow_tpu_torch.serving.queue, "
+            "flexflow_tpu_torch.serving.kvpool, flexflow_tpu_torch.serving.engine, "
+            "flexflow_tpu_torch.serving.api; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -150,10 +154,34 @@ def test_no_port_source_names_the_tpu_files_or_the_ledger(name):
 
 
 def test_env_knobs_and_unported_entry_points_raise(monkeypatch):
+    """Decoding and the engine run on one device; decoding on a mesh, the
+    replica pool (ROADMAP A11), the serving telemetry hooks (A12) and the
+    chaos knob (A10) raise, naming their items."""
+    from flexflow_tpu_torch.models.transformer import build_transformer
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    lm = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
+    build_transformer(lm, 2, seq_length=8, num_layers=1, embed_dim=16, num_heads=2,
+                      vocab_size=16)
+    lm.compile(ft.SGDOptimizer(lr=0.1))
+    lm.init_layers(seed=0)
+    assert lm.generate([[1], [2]], 4).shape == (2, 4)
+    InferenceEngine(lm, max_batch=1, max_seq=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        InferenceEngine(lm, max_batch=1, max_seq=8, telemetry=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        from flexflow_tpu_torch.serving import ReplicaPool  # noqa: F401
+    for var, value in (("FF_SERVE_MAX_QUEUE", "64"), ("FF_SERVE_REPLICAS", "4")):
+        monkeypatch.setenv(var, value)  # a pool knob is refused, not ignored
+        with pytest.raises(NotImplementedError, match=f"{var}.*ROADMAP A11"):
+            InferenceEngine(lm, max_batch=1, max_seq=8)
+        monkeypatch.delenv(var)
+    monkeypatch.setattr(ft.FFModel, "_sharded", property(lambda self: True))
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        lm.generate([[1], [2]], 4)
+    monkeypatch.undo()
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     m.dense(m.create_tensor((2, 4)), 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        m.generate([[1]], 4)
     monkeypatch.setenv("FF_CHAOS", "step:1=nan_loss")
     with pytest.raises(NotImplementedError, match="FF_CHAOS"):
         m.compile(ft.SGDOptimizer(lr=0.1))
@@ -161,6 +189,7 @@ def test_env_knobs_and_unported_entry_points_raise(monkeypatch):
 
 def test_unported_attention_and_transformer_options_raise():
     from flexflow_tpu_torch.models.transformer import build_transformer
+    from flexflow_tpu_torch.ops.base import FwdCtx
 
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     x = m.create_tensor((2, 8, 32))
@@ -172,12 +201,19 @@ def test_unported_attention_and_transformer_options_raise():
                       vocab_size=16, moe_every=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         next(op for op in moe.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(1, 2, 1)))
+    # kv-cached decoding is ported: one token at position 0 attends only to
+    # itself, as the causal forward's first position does
     m.multihead_attention(x, num_heads=4, causal=True)
     mha = m.ops[-1]
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        mha.decode({}, [], {}, 0, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        mha.init_cache(2, 8, None)
+    m.compile(ft.SGDOptimizer(lr=0.1))
+    m.init_layers(seed=0)
+    params = {k: v.detach() for k, v in m._params[mha.name].items()}
+    xs = torch.randn(2, 8, 32, generator=torch.Generator().manual_seed(0))
+    cache = mha.init_cache(2, 8, torch.float32)
+    assert cache["k"].shape == (2, 4, 8, 8) and not cache["k"].any()
+    ys, _ = mha.decode(params, [xs[:, :1]] * 3, cache, torch.tensor(0), FwdCtx())
+    torch.testing.assert_close(ys[0], mha.forward(params, [xs] * 3, FwdCtx())[0][:, :1],
+                               rtol=1e-5, atol=1e-6)
 
 
 def _reference_public_methods():

@@ -17,6 +17,7 @@ mask causally with the same convention, since Sq == Sk.
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -139,8 +140,9 @@ def test_transformer_parameter_count_at_full_width():
 
 
 def test_unported_transformer_options_raise():
-    """The MoE blocks build (ops/moe.py); their expert split, attention
-    dropout and the MoE decode path still raise, naming their items."""
+    """The MoE blocks build (ops/moe.py) and decode (dropless routing);
+    their expert split and attention dropout still raise, naming their
+    items."""
     m = ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu"))
     build_transformer(m, BATCH, moe_every=2, **SHAPE)
     assert [op.name for op in m.ops if op._type == "ExpertMLP"] == ["moe_1"]
@@ -149,8 +151,15 @@ def test_unported_transformer_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         next(op for op in m.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(1, 2, 1)))
     next(op for op in m.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(2, 1, 1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        next(op for op in m.ops if op.name == "moe_1").decode({}, [], {}, 0, None)
+    # one token decoded is the token's forward (a capacity of 1 keeps it)
+    m.compile(_optimizer(ft, m), "sparse_categorical_crossentropy", METRICS)
+    m.init_layers(seed=0)
+    moe = next(op for op in m.ops if op.name == "moe_1")
+    params = {k: v.detach() for k, v in m._params["moe_1"].items()}
+    x = torch.randn(1, 1, EMBED, generator=torch.Generator().manual_seed(0))
+    ys, cache = moe.decode(params, [x], None, torch.tensor(3), None)
+    assert cache is None
+    torch.testing.assert_close(ys[0], moe.forward(params, [x], None)[0], rtol=1e-5, atol=1e-6)
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         build_transformer(ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu")), BATCH,
                           dropout=0.1, **SHAPE)
