@@ -103,7 +103,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      and of each engine request against the f32 model's full forward over
      the same tokens, within BF16_GAP_TOL at every generated position; and
      each engine request against generate, a differing one within
-     BF16_GAP_TOL at its first difference.
+     BF16_GAP_TOL at its first difference;
+ 11. observability ([obs] lines): phase 4's transformer, 20 compiled steps
+     untraced, then with FF_TELEMETRY=1 FF_HEALTH=1 FF_MEMPLANE=1
+     FF_OPPROF=10 and FF_METRICS_PORT (a temporary trace and opprof corpus):
+     (a) losses and every weight bitwise equal, ms/step by CUDA events on
+     and off (not gated); (b) the median step span and samples/s within
+     10% of that ms/step, MFU in (0, 1), hbm_bytes in (0, 80e9]; (c) one
+     capture at train_step in the ledger, no retrace; (d) opprof measured
+     every attention op, K3-K5 each launched 7 times more per op than
+     untraced; (e) GET /metrics 200 with ff_ lines; (f) trace_report folds
+     one step span per step; (g) full-width AlexNet under
+     FF_SKIP_NONFINITE, a NaN batch replayed: one health nonfinite_loss and
+     one step_skipped event, every weight bitwise unchanged; (h) phase
+     10's engine, 16 requests untraced then traced (FF_TRACE_SAMPLE=1,
+     FF_MEMPLANE=1): equal tokens, a trace id and one serve_request_done
+     per request, no capture after warmup(), the API's /metrics 200.
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
 (phase 6 uses every visible card); it imports nothing of jax or of the
@@ -1647,8 +1662,8 @@ def search_entry_point(ft, build_alexnet, kernels, out_dir):
               f"{engine}: the exported strategy does not load back equal")
         meta = read_provenance(pb)
         log(f"[search] compile(search_budget={SEARCH_BUDGET}, search_engine={engine!r}) on "
-            f"{model.machine.num_devices} GPU(s): DP {meta['dp_s'] * 1e3:.3f} ms, best "
-            f"{meta['best_s'] * 1e3:.3f} ms simulated; compile {seconds:.2f} s; 3 compiled "
+            f"{model.machine.num_devices} GPU(s): DP {meta['dp_ms']:.3f} ms, best "
+            f"{meta['best_ms']:.3f} ms simulated; compile {seconds:.2f} s; 3 compiled "
             f"steps, losses {['%.4f' % x for x in losses]}, {ms:.3f} ms/step over the capture "
             f"and a replay; "
             f"configs {sorted({op.pc.dims for op in model.ops})}; launches {got}; "
@@ -2392,6 +2407,281 @@ def serving_phase(ft, kernels, smi):
     return oracle_launches
 
 
+# ------------------------------------------------------------------ phase 11
+
+OBS_STEPS = 20
+OBS_WINDOW = (2, 10)    # steps timed by CUDA events: after the capture, before a drain
+OBS_DRAINS = (9, 19)    # get_metrics after these steps: the losses compared bitwise
+OBS_ENV = {"FF_TELEMETRY": "1", "FF_HEALTH": "1", "FF_HEALTH_SAMPLE_EVERY": "10",
+           "FF_MEMPLANE": "1", "FF_OPPROF": "10", "FF_OPPROF_BUDGET_S": "30",
+           "FF_METRICS_HOST": "127.0.0.1"}
+OBS_REQUESTS = 16
+# the step spans' median (device time of each replay) against the phase's
+# own CUDA-event ms/step over the window (replays back to back)
+OBS_SPAN_TOL = 0.10
+
+
+@contextlib.contextmanager
+def environ(env):
+    """``env`` set for the block; the telemetry singletons closed after it."""
+    from flexflow_tpu_torch.observability import events, metrics
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+        events.reset_active()
+        metrics.stop()
+
+
+def obs_lm_run(ft, build_transformer, synthetic_lm_batch, label):
+    """OBS_STEPS compiled steps of the full-width transformer: (mean losses
+    at OBS_DRAINS, CUDA-event ms/step over OBS_WINDOW, every weight, model)."""
+    model = lm_model(ft, build_transformer, synthetic_lm_batch,
+                     lambda m: ft.SGDOptimizer(m, lr=0.001), **LM)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses = []
+    for step in range(OBS_STEPS):
+        if step == OBS_WINDOW[0]:
+            model.sync()
+            start.record()
+        model.train_iteration()
+        if step == OBS_WINDOW[1] - 1:
+            end.record()
+        if step in OBS_DRAINS:
+            model.get_metrics()
+            losses.append(model.last_loss)
+    model.sync()
+    check_graph_run(model, OBS_STEPS, label)
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite losses {losses}")
+    ms = start.elapsed_time(end) / (OBS_WINDOW[1] - OBS_WINDOW[0])
+    return losses, ms, state_of(model), model
+
+
+def obs_trace_gates(model, trace, ms, launches_off, launches_on, smi):
+    """Gates (b)-(f) on the traced run's records."""
+    import urllib.request
+
+    from flexflow_tpu_torch.observability import metrics
+    from flexflow_tpu_torch.simulator.cost_model import MEASURE_ITERS, MEASURE_WARMUP
+    from flexflow_tpu_torch.tools import trace_report
+
+    recs = trace_report.parse_trace(trace)
+    steps = [r for r in recs if r.get("t") == "span" and r["name"] == "step"]
+    # (f) one step span per step, folded by the port's reader
+    report = trace_report.render_report(recs)
+    check(len(steps) == OBS_STEPS, f"(f) {len(steps)} step spans for {OBS_STEPS} steps")
+    firsts = [s["attrs"]["step"] for s in steps if s["attrs"]["first"]]
+    check(firsts == [0, 1] and steps[1]["attrs"].get("capture") is True,
+          f"(f) first/capture steps {firsts}")
+    check(f"steady-state over {OBS_STEPS - 2} steps" in report, "(f) trace_report: "
+          + report[:600])
+    # (b) the step spans against the phase's own events
+    steady = [s for s in steps if not s["attrs"]["first"]]
+    span_ms = float(np.median([s["dur"] for s in steady])) * 1e3
+    sps = float(np.median([s["attrs"]["samples_per_sec"] for s in steady]))
+    want_sps = LM["batch"] / ms * 1e3
+    mfu = [s["attrs"]["mfu"] for s in steady]
+    check(abs(span_ms - ms) <= OBS_SPAN_TOL * ms,
+          f"(b) median step span {span_ms:.4f} ms vs {ms:.4f} ms/step by CUDA events")
+    check(abs(sps - want_sps) <= OBS_SPAN_TOL * want_sps,
+          f"(b) samples_per_sec {sps:.2f} vs {want_sps:.2f}")
+    check(all(0.0 < x < 1.0 for x in mfu), f"(b) MFU {min(mfu)}..{max(mfu)}")
+    hbm = [r for r in recs if r.get("name") == "hbm_bytes"
+           and r["attrs"]["kind"] in ("in_use", "peak")]
+    check(hbm and all(0 < r["v"] <= 80e9 for r in hbm),
+          f"(b) hbm_bytes {[r['v'] for r in hbm]}")
+    log(f"[obs] (b) median step span {span_ms:.4f} ms (device time of one replay) vs "
+        f"{ms:.4f} ms/step by the phase's CUDA events over steps {OBS_WINDOW[0]}-"
+        f"{OBS_WINDOW[1] - 1}: {abs(span_ms - ms) / ms:.2%} apart (tolerance "
+        f"{OBS_SPAN_TOL:.0%}); samples_per_sec {sps:.2f} vs {want_sps:.2f}; MFU "
+        f"{float(np.median(mfu)):.4f} of 989e12 bf16 dense; hbm_bytes in use "
+        f"{max(r['v'] for r in hbm if r['attrs']['kind'] == 'in_use') / 2**30:.2f} GiB, "
+        f"peak {max(r['v'] for r in hbm if r['attrs']['kind'] == 'peak') / 2**30:.2f} GiB; "
+        f"card {smi}")
+    # (c) one capture at train_step, no retrace
+    done = [r["attrs"] for r in recs if r.get("name") == "compile_done"]
+    check([a["site"] for a in done] == ["train_step"] and not done[0]["retrace"]
+          and (model._memplane.compiles, model._memplane.retraces) == (1, 0),
+          f"(c) captures {done}")
+    log(f"[obs] (c) capture ledger: 1 capture at train_step ({done[0]['wall_s'] * 1e3:.1f} "
+        f"ms host, graph pool {done[0]['graph_pool_bytes'] / 2**20:.1f} MiB), 0 "
+        f"compile_retraces over {OBS_STEPS} steps")
+    # (d) opprof measured every attention op, through K3-K5
+    rt = [r["attrs"] for r in recs if r.get("name") == "op_runtime"]
+    attn = sorted({a["op"] for a in rt if a["op"].startswith("attn")})
+    check(len(attn) == LM["num_layers"] and all(
+        a["measured_ms"] > 0 for a in rt if a["op"] in attn), f"(d) op_runtime {rt}")
+    per_op = MEASURE_WARMUP + MEASURE_ITERS
+    for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        check(launches_on[k] - launches_off[k] == per_op * len(attn),
+              f"(d) {k}: {launches_on[k]} launches traced, {launches_off[k]} untraced; "
+              f"expected {per_op} more per measured attention op")
+    (passes,) = [r["attrs"] for r in recs if r.get("name") == "op_runtime_pass"]
+    log(f"[obs] (d) opprof pass at step {passes['step']}: {passes['ops_measured']} of "
+        f"{passes['ops_total']} ops in {passes['elapsed_s']:.2f} s; "
+        + "; ".join(f"{a['op']} {a['which']} {a['measured_ms']:.4f} ms (predicted "
+                    f"{a['predicted_ms']:.4f} ms, {a['src']})"
+                    for a in rt if a["op"] == attn[0])
+        + f"; K3-K5 each {per_op * len(attn)} more launches than untraced; card {smi}")
+    top = sorted(rt, key=lambda a: -a["measured_ms"])[:6]
+    for a in top:
+        log(f"[obs]   {a['op']:>12s} {a['which']:8s} measured {a['measured_ms']:.4f} ms, "
+            f"predicted {a['predicted_ms']:.4f} ms ({a['src']})")
+    # (e) the live /metrics plane
+    port = metrics.server_port()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+        status, text = r.status, r.read().decode()
+    ff_lines = [ln for ln in text.splitlines() if ln.startswith("ff_")]
+    check(status == 200 and ff_lines, f"(e) /metrics {status}: {text[:300]}")
+    log(f"[obs] (e) GET /metrics on :{port}: 200, {len(ff_lines)} ff_ series lines "
+        f"(e.g. {[ln for ln in ff_lines if ln.startswith('ff_samples_total')]})")
+
+
+def obs_guard(ft, build_alexnet, trace):
+    """(g): full-width AlexNet under the guard, traced: a batch with a NaN
+    replayed through the captured step gives one health nonfinite_loss and
+    one step_skipped event, and leaves every weight bitwise as it was."""
+    from flexflow_tpu_torch.tools import trace_report
+
+    model = main_model(ft, build_alexnet, sgd_optimizer(ft), batch=BATCH)
+    inp = model.input_tensors[0]
+    x = np.random.default_rng(1).standard_normal((BATCH,) + inp.dims[1:], dtype=np.float32)
+    y = model._batch["label"].cpu().numpy()
+    model.set_batch({inp: x}, y)
+    for _ in range(2):
+        model.train_iteration()
+    before = state_of(model)
+    x[1, 3, 2, 1] = np.nan
+    model.set_batch({inp: x}, y)
+    model.train_iteration()
+    model.get_metrics()
+    model.sync()
+    check_graph_run(model, 3, "(g) AlexNet")
+    _, bitwise = compare_states(before, state_of(model), dict(rtol=0, atol=0), "(g)")
+    recs = trace_report.parse_trace(trace)
+    health = [r["attrs"] for r in recs if r.get("name") == "health"
+              and r["attrs"]["kind"] == "nonfinite_loss"]
+    skipped = [r["attrs"] for r in recs if r.get("name") == "step_skipped"]
+    check(bitwise and len(health) == 1 and health[0]["count"] == 1
+          and len(skipped) == 1 and skipped[0]["count"] == 1,
+          f"(g) bitwise {bitwise}, health {health}, step_skipped {skipped}")
+    log(f"[obs] (g) AlexNet batch {BATCH}, a NaN batch replayed under FF_SKIP_NONFINITE: one "
+        f"health nonfinite_loss event ({health[0]}), one step_skipped event ({skipped[0]}); "
+        f"every weight and slot ({len(before)} leaves) bitwise unchanged")
+
+
+def obs_serving(ft, build_transformer, tmp, smi):
+    """(h): phase 10's engine configuration, OBS_REQUESTS of its requests,
+    without telemetry and then traced with FF_TRACE_SAMPLE=1 and the
+    capture ledger: the same tokens, a trace id on every request, one
+    serve_request_done each, no capture after warmup(), and /metrics on
+    the API server."""
+    import urllib.request
+
+    from flexflow_tpu_torch.observability.events import EventLog
+    from flexflow_tpu_torch.serving.api import ServingAPI
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.tools import trace_report
+
+    lm, _, _ = decode_lm(ft, build_transformer, "bfloat16")
+    reqs = traffic()[:OBS_REQUESTS]
+    out = {}
+    for traced in (False, True):
+        path = os.path.join(tmp, "serve.jsonl")
+        log_ = EventLog(path) if traced else None
+        env = {"FF_TRACE_SAMPLE": "1", "FF_MEMPLANE": "1"} if traced else {}
+        with environ(env):
+            eng = InferenceEngine(lm, telemetry=log_, **ENGINE)
+            warm = eng.warmup()
+            hs = [eng.submit(p, n, timeout_s=0) for p, n in reqs]
+            t0 = time.perf_counter()
+            with eng, ServingAPI(eng, port=0) as api:
+                toks = [h.result(600) for h in hs]
+                wall = time.perf_counter() - t0
+                with urllib.request.urlopen(f"{api.url}/metrics", timeout=60) as r:
+                    status, text = r.status, r.read().decode()
+        st = eng.stats()
+        check(status == 200 and any(ln.startswith("ff_") for ln in text.splitlines()),
+              f"(h) API /metrics {status}: {text[:300]}")
+        check(st["graphs_captured"] == warm, f"(h) {st['graphs_captured']} captures, {warm} "
+                                             "in the warm-up")
+        out[traced] = toks
+        log(f"[obs] (h) engine {'traced' if traced else 'untraced'}: {len(reqs)} requests, "
+            f"{st['tokens_out']} tokens in {wall:.3f} s ({st['tokens_out'] / wall:,.1f} "
+            f"tokens/s); API /metrics 200; card {smi}")
+        if not traced:
+            continue
+        log_.close()
+        recs = trace_report.parse_trace(path)
+        done = [r["attrs"] for r in recs if r.get("name") == "serve_request_done"]
+        ids = {h.trace.trace_id for h in hs if h.trace is not None}
+        check(len(ids) == len(reqs) and len(done) == len(reqs)
+              and {a["trace_id"] for a in done} == ids,
+              f"(h) {len(ids)} trace ids, {len(done)} serve_request_done records")
+        check(eng._memplane.retraces == 0 and eng._memplane.compiles == warm,
+              f"(h) ledger {eng._memplane.compiles} captures, {eng._memplane.retraces} "
+              f"retraces; {warm} in the warm-up")
+        chunks = sum(r.get("name") == "serve_decode_chunk" for r in recs)
+        log(f"[obs] (h) every request traced and sampled: {len(done)} serve_request_done, "
+            f"{chunks} serve_decode_chunk spans; ledger {warm} captures in warmup(), 0 "
+            "retraces")
+    same = all(np.array_equal(a, b) for a, b in zip(out[False], out[True]))
+    check(same, "(h) the traced engine's tokens differ from the untraced one's")
+    log(f"[obs] (h) the traced engine's tokens equal the untraced engine's on all "
+        f"{len(reqs)} requests")
+    del lm, eng
+    free_models()
+
+
+def observability_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels,
+                        smi):
+    """Phase 11: telemetry on the card.  Returns the kernels' launches."""
+    t0 = time.perf_counter()
+    reset_launches(kernels)
+    free_models()
+    off_losses, off_ms, off_state, _ = obs_lm_run(ft, build_transformer, synthetic_lm_batch,
+                                                  "(a) untraced")
+    launches_off = read_launches(kernels)
+    free_models()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "ff_trace.jsonl")
+        env = dict(OBS_ENV, FF_TELEMETRY_FILE=trace, FF_METRICS_PORT=str(free_port()),
+                   # opprof's measurements go to a temporary corpus, never the
+                   # committed measured_h100.json
+                   FF_OPPROF_CORPUS=os.path.join(tmp, "corpus.json"))
+        with environ(env):
+            on_losses, on_ms, on_state, model = obs_lm_run(
+                ft, build_transformer, synthetic_lm_batch, "(a) traced")
+            launches_on = {k: v - launches_off[k] for k, v in read_launches(kernels).items()}
+            _, bitwise = compare_states(off_state, on_state, dict(rtol=0, atol=0), "(a)")
+            check(on_losses == off_losses and bitwise,
+                  f"(a) losses {on_losses} traced vs {off_losses} untraced; weights bitwise "
+                  f"{bitwise}")
+            log(f"[obs] (a) transformer (phase 4's, B{LM['batch']} S{LM['seq_length']}), "
+                f"{OBS_STEPS} compiled steps, telemetry off then FF_TELEMETRY=1 FF_HEALTH=1 "
+                f"FF_MEMPLANE=1 FF_OPPROF=10 FF_METRICS_PORT: losses {on_losses} bitwise equal, "
+                f"every weight ({len(on_state)} leaves) bitwise equal; ms/step by CUDA events "
+                f"off {off_ms:.4f}, on {on_ms:.4f} ({on_ms / off_ms - 1:+.2%}, not gated); "
+                f"card {smi}")
+            obs_trace_gates(model, trace, on_ms, launches_off, launches_on, smi)
+            del model
+            free_models()
+            with environ({"FF_SKIP_NONFINITE": "3"}):
+                obs_guard(ft, build_alexnet, trace)
+        free_models()
+        obs_serving(ft, build_transformer, tmp, smi)
+    launches = read_launches(kernels)
+    log(f"[obs] phase 11 took {time.perf_counter() - t0:.1f} s; wrapper launches {launches}")
+    return launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     # --calibration-out DIR keeps phase 8's measured cache and fit (else a
@@ -2526,10 +2816,14 @@ def main(argv=None):
     # phase 10 -----------------------------------------------------------
     serve_launches = serving_phase(ft, kernels, smi)
 
+    # phase 11 -----------------------------------------------------------
+    obs_launches = observability_phase(ft, build_alexnet, build_transformer,
+                                       synthetic_lm_batch, kernels, smi)
+
     # result -------------------------------------------------------------
     main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
                      + search_launches[n] + zoo_launches[n] + serve_launches[n]
-                     for n in kernels}
+                     + obs_launches[n] for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -2547,7 +2841,8 @@ def main(argv=None):
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
         f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
-        f"search {search_launches}, models {zoo_launches}, serving {serve_launches}")
+        f"search {search_launches}, models {zoo_launches}, serving {serve_launches}, "
+        f"observability {obs_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

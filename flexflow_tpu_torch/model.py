@@ -35,6 +35,12 @@ same order: those that gather (``get_parameter``, ``get_metrics``,
 Metric sums accumulate in one device vector and are fetched (and, on a
 mesh, summed over the batch's parts) once per drain, never per step.
 
+Telemetry (observability/, ``FF_TELEMETRY`` or ``FFConfig.telemetry``) is
+resolved at ``compile`` into handles that are None when it is off, so an
+untraced step makes no event-log call and captures the same graph; on,
+``StepStats`` times each update (device time from CUDA events on the
+card) and the health monitor, capture ledger and op profiler hang off it.
+
 Decoding (``generate``, ``beam_search``, ``decode_step``; model.py:2271-2745
 of the JAX package) walks the ops' ``decode`` one token at a time over
 static caches; on a CUDA device each decode signature is one captured
@@ -45,6 +51,7 @@ mesh is not ported yet (ROADMAP A11).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -61,6 +68,7 @@ from .config import FFConfig, ParallelConfig
 from .kernels import flash_attention
 from .losses import Loss, LossType
 from .metrics import Metrics, MetricsType, PerfMetrics
+from .observability.health import HEALTH_METRIC_KEYS
 from .ops.attention import LayerNorm, MultiHeadAttention
 from .ops.base import FwdCtx, Op
 from .ops.conv2d import ActiMode, Conv2D, Pool2D, PoolType
@@ -84,11 +92,6 @@ METRIC_KEYS = ("train_all", "train_correct", "cce_loss", "sparse_cce_loss",
 # Environment knobs that switch on JAX-package features this slice does
 # not port, with the ROADMAP item that brings each.
 _UNPORTED_ENV = {
-    "FF_TELEMETRY": "telemetry (ROADMAP A12)",
-    "FF_HEALTH": "the health monitor (ROADMAP A12)",
-    "FF_MEMPLANE": "the memory/compile plane (ROADMAP A12)",
-    "FF_OPPROF": "in-training op profiling (ROADMAP A12)",
-    "FF_METRICS_PORT": "the live metrics endpoint (ROADMAP A12)",
     "FF_CHAOS": "chaos fault injection (ROADMAP A10)",
     "FF_LOWERED": "whole-graph lowering (ROADMAP A13)",
 }
@@ -107,7 +110,6 @@ _UNPORTED_METHODS = {
     "dense_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "flat_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "recompile": "online re-parallelization, ROADMAP A10",
-    "print_op_profile": "per-op profiles, ROADMAP A12",
 }
 
 
@@ -140,8 +142,6 @@ def _refuse_unported_knobs(cfg: FFConfig) -> None:
         (cfg.sparse_host_embeddings is not None,
          "sparse_host_embeddings: host embedding tables (ROADMAP A9)"),
         (bool(cfg.lowered), "lowered: whole-graph lowering (ROADMAP A13)"),
-        (cfg.telemetry or bool(cfg.telemetry_file), "telemetry (ROADMAP A12)"),
-        (cfg.profiling, "profiling: per-op profiles (ROADMAP A12)"),
     ]
     for on, what in checks:
         if on:
@@ -174,6 +174,15 @@ class FFModel:
         self._guard: Optional[resilience.NonFiniteGuard] = None
         self._step_graph: Optional[StepGraph] = None
         self._gen_cache: Dict[tuple, Any] = {}  # decode signature -> its run
+        # telemetry handles (observability/), resolved once at compile():
+        # None unless FF_TELEMETRY / FFConfig.telemetry is on, and every
+        # site tests only its handle
+        self._telemetry = None
+        self._stepstats = None
+        self._health = None     # FF_HEALTH
+        self._opprof = None     # FF_OPPROF
+        self._memplane = None   # FF_MEMPLANE
+        self._predicted_step_s: Optional[float] = None
 
     # ------------------------------------------------------------------
     # graph construction
@@ -340,9 +349,44 @@ class FFModel:
         parts than devices falls back to data parallel,
         and ``legalize_pc`` clamps each degree to one the op's dims
         allow (model.py:967-974 of the JAX package).  The resolved map is
-        written to ``export_strategy_file`` (rank 0 writes, all wait)."""
+        written to ``export_strategy_file`` (rank 0 writes, all wait).
+
+        Telemetry (observability/) is resolved here, the one place a model
+        learns whether ``FFConfig.telemetry`` / ``FF_TELEMETRY`` is set, so
+        every later step tests a plain ``None`` handle (model.py:797-854 of
+        the JAX package)."""
+        from .observability import events as ff_events
+        from .observability import health as ff_health
+
+        _refuse_unported_knobs(self.config)
+        # the heartbeat works untraced (a no-op unless FF_HEARTBEAT_PATH)
+        ff_health.write_heartbeat("compile")
+        tel = self._telemetry = ff_events.for_config(self.config)
+        self._stepstats = self._health = self._opprof = self._memplane = None
+        if tel is None:
+            self._compile_impl(optimizer, loss_type, metrics, machine)
+            return
+        from .observability import agreement, memplane, metrics as ff_metrics, opprof
+        from .observability.reqtrace import run_trace_id
+        from .observability.stepstats import StepStats
+
+        with tel.span("compile", num_ops=len(self.ops), trace_id=run_trace_id(tel.run_id)) as at:
+            self._compile_impl(optimizer, loss_type, metrics, machine)
+            at["num_devices"] = self.machine.num_devices
+            at["batch_size"] = self.config.batch_size
+        self._stepstats = StepStats(self, tel)
+        if ff_health.enabled():
+            self._health = ff_health.HealthMonitor(self, tel)
+            tel.add_observer(self._health.observe)
+        ff_metrics.maybe_start(tel)  # FF_METRICS_PORT
+        self._opprof = opprof.maybe_profiler(self, tel)
+        agreement.emit_compile_prediction(self, tel)
+        self._memplane = memplane.maybe_plane(tel)
+        memplane.emit_memory_prediction(self, tel)
+        tel.flush()
+
+    def _compile_impl(self, optimizer, loss_type, metrics, machine) -> None:
         cfg = self.config
-        _refuse_unported_knobs(cfg)
         if machine is None:
             machine = (Machine.from_process_group(self.device) if dist.is_initialized()
                        else Machine(devices=[self.device]))
@@ -364,7 +408,7 @@ class FFModel:
                 f"{cfg.workers_per_node or 'all'} worker(s), but the machine has {nd} "
                 "device(s): start one process per device (parallel/distributed.py) "
                 "or leave workers_per_node at 0")
-        self._search_meta = self._search() if cfg.search_budget > 0 else None
+        search = self._search() if cfg.search_budget > 0 else None
         for op in self.ops:
             pc = cfg.find_parallel_config(op.output.num_dims, op.name, nd)
             if pc.num_parts() > nd:
@@ -381,14 +425,14 @@ class FFModel:
         if int(cfg.grad_accum_steps) < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {cfg.grad_accum_steps}")
         limit = resilience.nonfinite_limit()
-        self._guard = resilience.NonFiniteGuard(self, limit) if limit else None
+        self._guard = resilience.NonFiniteGuard(self, limit, self._telemetry) if limit else None
         self._metric_acc = None  # its length follows the guard
         self._drop_step_graph()
         if cfg.export_strategy_file:
             if not dist.is_initialized() or dist.get_rank() == 0:
                 save_strategies_to_file(cfg.export_strategy_file,
                                         {op.name: op.pc for op in self.ops},
-                                        provenance=self._search_meta)
+                                        provenance=self._provenance(search))
             if dist.is_initialized():
                 dist.barrier()
         logits = self._loss_input_tensor()
@@ -407,7 +451,7 @@ class FFModel:
         the tempered population.  Its map goes into ``FFConfig.strategies``,
         which compile then resolves, legalizes and places as any other.
         Every rank runs the same seeded search and gets the same map.
-        Returns the search's provenance."""
+        Returns the ``SearchResult`` and the machine model it searched."""
         from .simulator.machine import H100MachineModel
 
         cfg = self.config
@@ -433,10 +477,27 @@ class FFModel:
               f"budget {best.budget}: {best.best_s * 1e3:.3f} ms/step simulated against "
               f"{best.dp_s * 1e3:.3f} ms data parallel ({mm.source})")
         cfg.strategies.update(best)
-        # the exported strategy's sidecar
-        return {"tool": "flexflow_tpu_torch compile", "engine": best.engine,
-                "budget": best.budget, "seed": best.seed, "num_devices": best.num_devices,
-                "best_s": best.best_s, "dp_s": best.dp_s, "machine_model": mm.source}
+        return best, mm
+
+    def _provenance(self, search: Optional[tuple]) -> Dict[str, Any]:
+        """The exported strategy's ``.meta.json`` sidecar
+        (``searchtrace.build_provenance``): the search that found it (or
+        "import" / "manual"), with per-op cost attribution and the
+        predicted memory."""
+        from .observability.searchtrace import build_provenance, search_stats_extra
+
+        cfg = self.config
+        strategies = {op.name: op.pc for op in self.ops}
+        extra = {"imported_from": cfg.import_strategy_file} if cfg.import_strategy_file else {}
+        if search is None:
+            engine = "import" if cfg.import_strategy_file else "manual"
+            return build_provenance(self, strategies, engine=engine, budget=0, seed=cfg.seed,
+                                    extra=extra)
+        best, mm = search
+        extra.update(search_stats_extra(best.stats))
+        return build_provenance(self, strategies, engine=best.engine, budget=best.budget,
+                                seed=best.seed, best_s=best.best_s, dp_s=best.dp_s,
+                                machine_model=mm, extra=extra)
 
     def final_tensor(self) -> Tensor:
         return self.ops[-1].output
@@ -627,12 +688,14 @@ class FFModel:
                                        ).full_tensor()
 
     def _metric_keys(self) -> Tuple[str, ...]:
-        """The metric vector's entries: the health and guard entries ride
-        it only while the non-finite guard is on (model.py:2146-2159 of the
-        JAX package)."""
-        if self._guard is None:
+        """The metric vector's entries: the health entries ride it while the
+        health monitor (FF_HEALTH) or the non-finite guard is on, the
+        guard's entries while the guard is (model.py:2146-2159 of the JAX
+        package)."""
+        if self._guard is None and self._health is None:
             return METRIC_KEYS
-        return METRIC_KEYS + resilience.HEALTH_METRIC_KEYS + resilience.GUARD_METRIC_KEYS
+        keys = METRIC_KEYS + HEALTH_METRIC_KEYS
+        return keys + resilience.GUARD_METRIC_KEYS if self._guard is not None else keys
 
     def _records_step_entries(self) -> bool:
         """Whether this device's metric vector counts the per-step entries
@@ -735,9 +798,11 @@ class FFModel:
                 for key in ("loss", "steps"):
                     mvec[keys.index(key)] *= 1.0 / k
             scalars = self.optimizer.scalars(self.device)
+            if self._health is not None or self._guard is not None:
+                health, bad = self._health_entries(mvec, grads, leaves)
+                mvec = mvec + health
             if self._guard is not None:
-                mvec = self._guard_finalize(mvec, grads, leaves, scalars)
-                self._metric_acc.copy_(mvec)
+                self._metric_acc.copy_(self._guard_finalize(mvec, bad, scalars))
             else:
                 self._metric_acc += mvec
             tree: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -745,31 +810,29 @@ class FFModel:
                 tree.setdefault(opn, {})[wn] = g
             self.optimizer.apply(self._params, tree, self._opt_state, {"scalars": scalars})
 
-    def _guard_finalize(self, mvec, grads, leaves, scalars) -> torch.Tensor:
-        """The non-finite guard's device half (``health_metrics`` and
-        ``guard_finalize``, model.py:1941-1995 of the JAX package), with no
-        host read: the loss's and the global gradient norm's finiteness
-        go into the metric vector, and a non-finite step sets the
-        optimizer's skip flag, so the update that follows leaves every
-        weight and slot bitwise as it was.  A skipped step adds only its
-        health entries and ``skipped_steps`` = 1; ``consec_skipped`` is a
-        run length that a good step resets.  Returns the new accumulator.
-        On a mesh the decision is taken over every rank (one sum), each
-        gradient element counted once."""
+    def _health_entries(self, mvec, grads, leaves) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The health entries of a step (``health_metrics``,
+        model.py:1941-1955 of the JAX package), with no host read: whether
+        the loss and the global gradient norm are finite, and the norm.
+        Returns (the entries as a metric vector, whether the step is
+        non-finite).  On a mesh the decision is taken over every rank (one
+        sum), each gradient element counted once, and only the batch's
+        first part records the entries."""
         keys = self._metric_keys()
         loss = mvec[keys.index("loss")]
-        gsq = torch.zeros((), device=self.device)
-        for w, g in zip(leaves, grads):
-            part = g.float().square().sum()
-            if isinstance(w, DTensor):  # a shard held by this many ranks alike
-                part = part / math.prod(n for p, n in zip(w.placements, self.machine.axis_sizes)
-                                        if not isinstance(p, Shard))
-            gsq = gsq + part
+        # one multi-tensor launch for every leaf's norm, not a reduction per
+        # leaf: in the captured step each launch costs device time
+        sq = torch.stack(torch._foreach_norm([g.float() for g in grads])).square()
+        if self._sharded:  # a shard held by this many ranks alike counts once
+            sq = torch.stack([
+                s / math.prod(n for p, n in zip(w.placements, self.machine.axis_sizes)
+                              if not isinstance(p, Shard)) if isinstance(w, DTensor) else s
+                for w, s in zip(leaves, sq)])
+        gsq = sq.sum()
         bad_loss, gsq = self._sum_over_ranks(
             torch.stack([(~torch.isfinite(loss)).float(), gsq]))
         gnorm = gsq.sqrt()
         bad = (bad_loss > 0) | ~torch.isfinite(gnorm)
-        scalars[1:].copy_(bad.float().reshape(1))
         health = torch.zeros(len(keys), device=self.device)
         health[keys.index("nonfinite_loss")] = (bad_loss > 0).float()
         health[keys.index("nonfinite_grad")] = (~torch.isfinite(gnorm)).float()
@@ -777,9 +840,20 @@ class FFModel:
                                                       torch.zeros_like(gnorm))
         if not self._records_step_entries():
             health.zero_()
-        mvec = mvec + health
+        return health, bad
+
+    def _guard_finalize(self, mvec, bad, scalars) -> torch.Tensor:
+        """The non-finite guard's device half (``guard_finalize``,
+        model.py:1966-1995 of the JAX package), with no host read: a
+        non-finite step sets the optimizer's skip flag, so the update that
+        follows leaves every weight and slot bitwise as it was, and adds
+        only its health entries and ``skipped_steps`` = 1;
+        ``consec_skipped`` is a run length that a good step resets.
+        Returns the new accumulator."""
+        keys = self._metric_keys()
+        scalars[1:].copy_(bad.float().reshape(1))
         skip_vec = torch.zeros(len(keys), device=self.device)
-        for key in resilience.HEALTH_METRIC_KEYS:
+        for key in HEALTH_METRIC_KEYS:
             skip_vec[keys.index(key)] = mvec[keys.index(key)]
         # fill_, not item assignment: assigning a Python float copies from
         # the host, which a capture refuses
@@ -832,15 +906,28 @@ class FFModel:
     def update(self) -> None:
         """One training step: forward, loss, backward, optimizer update.  On
         a CUDA device without a mesh it is a replay of the captured step
-        (runtime/step_graph.py) unless ``disable_graphs()`` is active."""
+        (runtime/step_graph.py) unless ``disable_graphs()`` is active.
+        With telemetry on, ``StepStats`` times it."""
+        if self._stepstats is not None:
+            self._stepstats.timed_update(self._update_impl)
+        else:
+            self._update_impl()
+
+    def _update_impl(self) -> Optional[str]:
+        """The step; returns what it was on the compiled path
+        (``StepGraph.run``), None off it."""
         self._prepare_step()
+        kind = None
         if self._use_graph():
             if self._step_graph is None:
                 self._step_graph = StepGraph(self.device)
-            self._step_graph.run(self._graph_key(), self._train_step)
+                if self._memplane is not None:
+                    self._memplane.watch("train_step", self._step_graph)
+            kind = self._step_graph.run(self._graph_key(), self._train_step)
         else:
             self._train_step()
         self._step_count += 1
+        return kind
 
     def train_iteration(self) -> None:
         """forward + backward + update in one call."""
@@ -1083,6 +1170,8 @@ class FFModel:
             run = self._gen_cache[key] = GenerateRun(
                 self, B, P, N, sampled, t_k, t_p, tok_t, pos_t, extra_guids, static_ops,
                 static_names)
+            if self._memplane is not None:
+                self._memplane.watch(f"generate:{B}x{P}x{N}", run.graphs[0])
         return run(toks, extra, temperature, seed)
 
     def beam_search(self, prompt_tokens, max_new_tokens: int, *, beam_size: int = 4,
@@ -1110,6 +1199,10 @@ class FFModel:
         if run is None:
             run = self._gen_cache[key] = BeamRun(
                 self, B, P, N, K, eos_id, tok_t, pos_t, extra_guids, static_ops, static_names)
+            if self._memplane is not None:
+                # two graphs, two sites: the prompt steps and the expanding steps
+                self._memplane.watch(f"beam_search:{B}x{P}x{N}x{K}:prompt", run.prompt_graph)
+                self._memplane.watch(f"beam_search:{B}x{P}x{N}x{K}:expand", run.expand_graph)
         seqs, scores = run(toks, extra)
         if length_penalty > 0.0 and eos_id is not None:
             # without an eos every length is N and the re-rank changes nothing
@@ -1140,8 +1233,10 @@ class FFModel:
         if self._metric_acc is None:
             return
         # one transfer (on a mesh, after one sum over the batch's parts)
-        totals = dict(zip(self._metric_keys(),
-                          self._sum_over_parts(self._metric_acc).tolist()))
+        tel = self._telemetry
+        with tel.span("metric_drain") if tel is not None else contextlib.nullcontext():
+            vec = self._sum_over_parts(self._metric_acc).tolist()
+        totals = dict(zip(self._metric_keys(), vec))
         steps = totals.pop("steps")
         loss_sum = totals.pop("loss")
         if steps > 0:
@@ -1149,8 +1244,10 @@ class FFModel:
         guard_vals = None
         if self._guard is not None:
             guard_vals = {k: totals.pop(k) for k in resilience.GUARD_METRIC_KEYS}
-            for k in resilience.HEALTH_METRIC_KEYS:
-                totals.pop(k)
+        if self._health is not None or self._guard is not None:
+            health_vals = {k: totals.pop(k) for k in HEALTH_METRIC_KEYS}
+            if self._health is not None:
+                self._health.on_drain(health_vals, steps, self._step_count)
         self.current_metrics.update(totals)
         self._metric_acc.zero_()
         if guard_vals is not None:
@@ -1169,9 +1266,12 @@ class FFModel:
         self.get_metrics().print()
 
     def sync(self) -> None:
-        """Block until all queued device work is done."""
+        """Block until all queued device work is done (and, with telemetry
+        on, fold the steps still unread into the log)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self._stepstats is not None:
+            self._stepstats.flush()
 
     # ------------------------------------------------------------------
     # checkpoints and inspection
@@ -1187,6 +1287,12 @@ class FFModel:
         ``.npz`` save), written in place into this model's tensors."""
         from .runtime.checkpoint import load_checkpoint
         load_checkpoint(self, path)
+
+    def print_op_profile(self) -> None:
+        """Per-op forward and backward device ms, measured standalone
+        (runtime/profiling.py; the reference's --profiling printouts)."""
+        from .runtime.profiling import print_op_profile
+        print_op_profile(self)
 
     def get_strategies(self) -> Dict[str, ParallelConfig]:
         """Each op's resolved config (data parallel over the machine before

@@ -1,0 +1,271 @@
+"""Structured event log: spans, counters, gauges over a JSONL sink.
+
+A copy of the JAX package's ``observability/events.py``, with the record
+schema unchanged, so that either package's readers fold either package's
+traces.  STDLIB-ONLY on purpose: ``tools/trace_report.py`` reads the
+records back on hosts with no accelerator and must not drag in torch.
+
+Record schema (one JSON object per line; ``ts``/``dur`` are seconds on a
+monotonic clock relative to the log's creation):
+
+  {"t": "meta",    "run_id": .., "pid": .., "unix_time": .., "argv": ..}
+  {"t": "span",    "name": .., "id": n, "parent": m|null,
+                   "ts": .., "dur": .., "attrs": {..}}
+  {"t": "counter", "name": .., "v": float, "total": float, "ts": ..,
+                   "attrs": {..}}
+  {"t": "gauge",   "name": .., "v": float, "ts": .., "attrs": {..}}
+  {"t": "event",   "name": .., "ts": .., "attrs": {..}}
+
+(``attrs`` is present only when non-empty — gauges carry them too,
+e.g. ``replica=`` on ``serve_batch_occupancy``.)
+
+Spans nest per thread (a thread-local stack links ``parent``); counters
+carry their running ``total`` so a tail-truncated trace still reports
+correct aggregates.  The sink is line-buffered: every record reaches the
+OS before the write returns, so a watchdog ``os._exit`` cannot eat the
+events that explain what it killed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import itertools
+import json
+import os
+import sys
+import threading
+import time
+from typing import Any, Callable, Dict, Optional
+
+SCHEMA_VERSION = 1
+
+DEFAULT_TRACE_FILE = "ff_trace.jsonl"
+
+
+def _env_enabled() -> bool:
+    return os.environ.get("FF_TELEMETRY", "") not in ("", "0")
+
+
+def default_path() -> str:
+    return os.environ.get("FF_TELEMETRY_FILE") or DEFAULT_TRACE_FILE
+
+
+class EventLog:
+    """Thread-safe structured event log writing JSONL to ``path``.
+
+    The file opens lazily at the first record (constructing a log never
+    touches the filesystem) and truncates: one log == one run's trace.
+    ``clock`` is injectable for deterministic tests.
+    """
+
+    def __init__(self, path: str, run_id: Optional[str] = None,
+                 clock: Callable[[], float] = time.perf_counter):
+        self.path = path
+        self.run_id = run_id or f"{os.getpid()}-{int(time.time())}"
+        self._clock = clock
+        self._t0 = clock()
+        self._lock = threading.Lock()
+        self._file: Optional[io.TextIOBase] = None
+        self._ids = itertools.count(1)
+        self._tls = threading.local()
+        self._closed = False
+        # Running per-counter totals (survive into truncated traces via
+        # the per-record "total" field; tests assert aggregation here).
+        self.totals: Dict[str, float] = {}
+        # Observers see every written record (observability/health.py
+        # taps spans for straggler attribution).  Called OUTSIDE the
+        # lock: an observer may emit records of its own.  One that
+        # raises is detached with a one-time warning — it must not
+        # poison the emitting thread (see _drop_observer).
+        self._observers: list = []
+
+    # -- clock ----------------------------------------------------------
+    def now(self) -> float:
+        """Seconds since log creation (monotonic)."""
+        return self._clock() - self._t0
+
+    def to_rel(self, t: float) -> float:
+        """Convert a raw clock reading (``time.perf_counter()`` with the
+        default clock) into the log's relative time domain."""
+        return t - self._t0
+
+    # -- observers ------------------------------------------------------
+    def add_observer(self, fn: Callable[[Dict[str, Any]], None]) -> None:
+        with self._lock:
+            if fn not in self._observers:
+                self._observers.append(fn)
+
+    def _drop_observer(self, fn, exc: BaseException) -> None:
+        """Detach an observer that raised.  The fan-out runs on whatever
+        thread wrote the record (an engine loop, the pool monitor, an
+        HTTP handler) — one broken observer must not poison them all on
+        every subsequent record.  Removal is CAS-like under the lock, so
+        when several emitting threads hit the same broken observer
+        concurrently exactly one wins and prints the one-time warning."""
+        with self._lock:
+            try:
+                self._observers.remove(fn)
+            except ValueError:
+                return  # another thread already detached + warned
+        print(f"flexflow_tpu_torch: telemetry observer {fn!r} raised "
+              f"{type(exc).__name__}: {exc} — detached (records keep "
+              f"flowing to the sink and remaining observers)",
+              file=sys.stderr)
+
+    # -- sink -----------------------------------------------------------
+    def _write(self, rec: Dict[str, Any]) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            if self._file is None:
+                d = os.path.dirname(self.path)
+                if d:
+                    os.makedirs(d, exist_ok=True)
+                # buffering=1: line-buffered — each record reaches the
+                # OS immediately (watchdog-kill durability)
+                self._file = open(self.path, "w", buffering=1)
+                self._file.write(json.dumps(
+                    {"t": "meta", "version": SCHEMA_VERSION,
+                     "run_id": self.run_id, "pid": os.getpid(),
+                     "unix_time": time.time()}) + "\n")
+            self._file.write(json.dumps(rec) + "\n")
+            observers = tuple(self._observers)
+        for fn in observers:
+            try:
+                fn(rec)
+            except Exception as e:  # noqa: BLE001 — observer quarantine
+                self._drop_observer(fn, e)
+
+    def flush(self) -> None:
+        with self._lock:
+            if self._file is not None and not self._closed:
+                self._file.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._file is not None and not self._closed:
+                self._file.flush()
+                self._file.close()
+            self._closed = True
+
+    # -- span stack -----------------------------------------------------
+    def _stack(self):
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs):
+        """Context manager recording a completed span on exit.  Yields
+        the attrs dict so callers can add attributes computed inside."""
+        sid = next(self._ids)
+        stack = self._stack()
+        parent = stack[-1] if stack else None
+        stack.append(sid)
+        t0 = self._clock()
+        try:
+            yield attrs
+        finally:
+            dur = self._clock() - t0
+            stack.pop()
+            self._write({"t": "span", "name": name, "id": sid,
+                         "parent": parent, "ts": round(t0 - self._t0, 6),
+                         "dur": round(dur, 6), "attrs": attrs})
+
+    def span_at(self, name: str, start: float, dur: float, **attrs) -> None:
+        """Record an already-measured span (``start`` in the log's clock
+        domain, i.e. a ``time.perf_counter()`` reading with the default
+        clock)."""
+        sid = next(self._ids)
+        stack = self._stack()
+        parent = stack[-1] if stack else None
+        self._write({"t": "span", "name": name, "id": sid,
+                     "parent": parent, "ts": round(start - self._t0, 6),
+                     "dur": round(dur, 6), "attrs": attrs})
+
+    # -- scalars --------------------------------------------------------
+    def counter(self, name: str, value: float, **attrs) -> None:
+        """Monotonic accumulation: the record carries both this delta
+        and the running total."""
+        with self._lock:
+            total = self.totals.get(name, 0.0) + float(value)
+            self.totals[name] = total
+        rec = {"t": "counter", "name": name, "v": float(value),
+               "total": total, "ts": round(self.now(), 6)}
+        if attrs:
+            rec["attrs"] = attrs
+        self._write(rec)
+
+    def gauge(self, name: str, value: float, **attrs) -> None:
+        rec = {"t": "gauge", "name": name, "v": float(value),
+               "ts": round(self.now(), 6)}
+        if attrs:
+            rec["attrs"] = attrs
+        self._write(rec)
+
+    def event(self, name: str, **attrs) -> None:
+        self._write({"t": "event", "name": name,
+                     "ts": round(self.now(), 6), "attrs": attrs})
+
+
+# ----------------------------------------------------------------------
+# process-wide active log (env-gated singleton)
+# ----------------------------------------------------------------------
+_active: Optional[EventLog] = None
+_active_lock = threading.Lock()
+
+
+def active_log() -> Optional[EventLog]:
+    """The process's shared EventLog when ``FF_TELEMETRY`` is enabled,
+    else None.  The env is re-checked per call (cheap: one dict lookup)
+    so late ``os.environ`` changes and tests behave predictably; the
+    log itself is created once."""
+    global _active
+    if _active is not None:
+        return _active
+    if not _env_enabled():
+        return None
+    with _active_lock:
+        if _active is None:
+            _active = EventLog(default_path())
+            print(f"flexflow_tpu_torch: telemetry enabled -> {_active.path}")
+    return _active
+
+
+def for_config(config) -> Optional[EventLog]:
+    """Resolve the log for an ``FFConfig``: enabled when the config's
+    ``telemetry`` flag OR the ``FF_TELEMETRY`` env is set.  Returns the
+    process singleton (creating it with the config's ``telemetry_file``
+    if it names one and no log exists yet)."""
+    global _active
+    if _active is not None:
+        return _active
+    if not (getattr(config, "telemetry", False) or _env_enabled()):
+        return None
+    with _active_lock:
+        if _active is None:
+            path = getattr(config, "telemetry_file", "") or default_path()
+            _active = EventLog(path)
+            print(f"flexflow_tpu_torch: telemetry enabled -> {_active.path}")
+    return _active
+
+
+def reset_active() -> None:
+    """Close and forget the singleton (test isolation hook)."""
+    global _active
+    with _active_lock:
+        if _active is not None:
+            _active.close()
+        _active = None
+
+
+def _atexit_flush() -> None:
+    if _active is not None:
+        _active.close()
+
+
+import atexit  # noqa: E402  (stdlib; registered once at import)
+
+atexit.register(_atexit_flush)

@@ -1,0 +1,279 @@
+"""Training health monitor: interprets the event stream as it happens.
+
+The reference FlexFlow has no runtime health layer — a NaN'd run or a
+wedged data pipeline is discovered from the loss curve hours later.  At
+pod scale, debugging lives or dies on attributing a stall to a phase
+(Kumar et al., MLPerf-0.6 on TPU-v3 pods), so this module turns the
+PR-1 event log from a flight recorder into a live monitor:
+
+  * **non-finite detection** — the train step folds an
+    ``isfinite`` reduction over the loss and the global grad-norm into
+    the on-device metric vector (model.py ``_health_entries``); every
+    ``FF_HEALTH_SAMPLE_EVERY`` steps the monitor forces the existing
+    metric drain and flags any non-finite step in the window.  The
+    reduction rides the metric accumulator, so detection adds zero
+    extra device dispatches — just one drain per window,
+  * **straggler detection** — rolling median over steady-state step
+    walls; a step exceeding ``FF_HEALTH_STRAGGLER_K`` x p50 emits a
+    ``health`` event attributed to whichever compile / data_wait /
+    checkpoint spans overlapped the gap since the previous step,
+  * **data starvation** — cumulative ``data_wait`` vs step time per
+    window; a ratio above ``FF_HEALTH_DATA_WAIT_RATIO`` warns,
+  * **heartbeat file** — ``FF_HEARTBEAT_PATH`` names a JSON file
+    atomically rewritten at every phase entry and step, so an external
+    watchdog can report *which phase* wedged
+    instead of a bare "killed".
+
+A copy of the JAX package's ``observability/health.py``.  STDLIB-ONLY
+on purpose, like ``events.py``: the monitor itself touches no tensors;
+the device-side work lives in the step (``FFModel._health_entries``), in
+the CUDA graph the card replays.
+
+Enable with ``FF_HEALTH=1`` on top of ``FF_TELEMETRY=1``.  With
+telemetry off the monitor is never constructed and the hot path makes
+zero health calls (asserted by tests/test_health.py).
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import statistics
+import time
+from typing import Any, Dict, List, Optional
+
+from .events import EventLog
+
+# Metric-vector entries the train step appends when health is on; the
+# drain pops them before they reach PerfMetrics (model._drain_metrics).
+HEALTH_METRIC_KEYS = ("nonfinite_loss", "nonfinite_grad", "grad_norm")
+
+# Span names a straggler step can be attributed to.
+ATTRIBUTABLE_SPANS = ("compile", "data_wait", "checkpoint_save",
+                      "checkpoint_restore")
+
+# Emission cap per finding kind — a run that goes NaN and stays NaN
+# should not turn the trace into a firehose.
+MAX_EVENTS_PER_KIND = 100
+
+
+def enabled() -> bool:
+    return os.environ.get("FF_HEALTH", "") not in ("", "0")
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+# ----------------------------------------------------------------------
+# heartbeat file (FF_HEARTBEAT_PATH)
+# ----------------------------------------------------------------------
+
+def heartbeat_path() -> str:
+    """Heartbeat file path from the environment ('' = disabled).  The
+    env is re-checked per call (one dict lookup) so tests and late
+    exports behave predictably."""
+    return os.environ.get("FF_HEARTBEAT_PATH", "")
+
+
+def write_heartbeat(phase: str, step: Optional[int] = None,
+                    **extra: Any) -> None:
+    """Atomically rewrite the heartbeat file with the phase being
+    ENTERED (so a wedge leaves the wedged phase's record on disk).
+    No-op when ``FF_HEARTBEAT_PATH`` is unset; never raises."""
+    path = heartbeat_path()
+    if not path:
+        return
+    rec: Dict[str, Any] = {"phase": phase, "unix_time": time.time(),
+                           "pid": os.getpid()}
+    if step is not None:
+        rec["step"] = int(step)
+    rec.update(extra)
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(rec, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def read_heartbeat(path: Optional[str] = None) -> Optional[Dict[str, Any]]:
+    """Last heartbeat record, or None (missing file / disabled /
+    corrupt — a kill can race the atomic replace's window)."""
+    path = path or heartbeat_path()
+    if not path:
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def describe_heartbeat(hb: Optional[Dict[str, Any]],
+                       now: Optional[float] = None) -> Optional[str]:
+    """One-line human summary: ``phase 'step' (step 42, 12s stale)``."""
+    if not hb or "phase" not in hb:
+        return None
+    parts = []
+    if "step" in hb:
+        parts.append(f"step {hb['step']}")
+    t = hb.get("unix_time")
+    if isinstance(t, (int, float)):
+        age = (now if now is not None else time.time()) - t
+        if age >= 0:
+            parts.append(f"{age:.0f}s stale")
+    detail = f" ({', '.join(parts)})" if parts else ""
+    return f"phase '{hb['phase']}'{detail}"
+
+
+# ----------------------------------------------------------------------
+# the monitor
+# ----------------------------------------------------------------------
+
+class HealthMonitor:
+    """Per-model health interpreter, created at ``compile()`` when both
+    telemetry and ``FF_HEALTH`` are on.  Registered as an EventLog
+    observer for span bookkeeping; ``stepstats.timed_update`` drives
+    ``on_step`` and ``model._drain_metrics`` drives ``on_drain``.
+
+    ``model`` may be None for unit tests that feed steps directly (the
+    sampled drain is skipped, everything else runs).
+    """
+
+    METRIC_KEYS = HEALTH_METRIC_KEYS
+
+    def __init__(self, model, log: EventLog,
+                 sample_every: Optional[int] = None,
+                 straggler_k: Optional[float] = None,
+                 wait_ratio: Optional[float] = None,
+                 window: Optional[int] = None,
+                 min_window: int = 5):
+        self.model = model
+        self.log = log
+        self.sample_every = int(sample_every if sample_every is not None
+                                else _env_float("FF_HEALTH_SAMPLE_EVERY", 16))
+        self.straggler_k = float(straggler_k if straggler_k is not None
+                                 else _env_float("FF_HEALTH_STRAGGLER_K", 3.0))
+        self.wait_ratio = float(wait_ratio if wait_ratio is not None
+                                else _env_float("FF_HEALTH_DATA_WAIT_RATIO",
+                                                0.3))
+        window = int(window if window is not None
+                     else _env_float("FF_HEALTH_WINDOW", 64))
+        self.min_window = min_window
+        self._durs: collections.deque = collections.deque(maxlen=window)
+        self._recent_spans: collections.deque = collections.deque(maxlen=64)
+        self._last_step_end: Optional[float] = None
+        self._steps_seen = 0
+        # per-sampling-window accumulators
+        self._window_step_s = 0.0
+        self._window_wait_s = 0.0
+        self._window_batches = 0
+        self.counts: Dict[str, int] = {}
+
+    # -- EventLog observer (span bookkeeping only, never emits) ---------
+    def observe(self, rec: Dict[str, Any]) -> None:
+        if rec.get("t") != "span":
+            return
+        name = rec.get("name")
+        if name in ATTRIBUTABLE_SPANS:
+            self._recent_spans.append(
+                (name, float(rec.get("ts", 0.0)), float(rec.get("dur", 0.0))))
+            if name == "data_wait":
+                self._window_wait_s += float(rec.get("dur", 0.0))
+                self._window_batches += 1
+
+    # -- per-step hook (stepstats.timed_update) -------------------------
+    def on_step(self, step_idx: int, start: float, dur: float,
+                first: bool) -> None:
+        """``start`` is in the log's relative clock domain
+        (``EventLog.to_rel`` of the step's perf_counter t0)."""
+        write_heartbeat("step", step=step_idx)
+        prev_end = self._last_step_end
+        self._last_step_end = start + dur
+        if not first:
+            self._window_step_s += dur
+            if len(self._durs) >= self.min_window:
+                p50 = statistics.median(self._durs)
+                if p50 > 0 and dur > self.straggler_k * p50:
+                    t0 = prev_end if prev_end is not None else start
+                    self._emit("straggler", step=step_idx,
+                               dur_ms=round(dur * 1e3, 3),
+                               p50_ms=round(p50 * 1e3, 3),
+                               ratio=round(dur / p50, 2),
+                               attribution="+".join(
+                                   self._attribute(t0, start + dur)))
+            self._durs.append(dur)
+        self._steps_seen += 1
+        if self.sample_every > 0 and self._steps_seen % self.sample_every == 0:
+            if self.model is not None:
+                # forces the existing metric drain: the isfinite counts
+                # riding the metric vector reach on_drain() below
+                self.model._drain_metrics()
+            self._check_starvation(step_idx)
+            self._emit_agreement()
+
+    def _attribute(self, t0: float, t1: float) -> List[str]:
+        """Attributable spans overlapping (t0, t1) — the gap since the
+        previous step's end through this step's end."""
+        names = sorted({n for (n, ts, d) in self._recent_spans
+                        if ts < t1 and ts + d > t0})
+        return names or ["unknown"]
+
+    # -- drain hook (model._drain_metrics) ------------------------------
+    def on_drain(self, health_totals: Dict[str, float], steps: float,
+                 step_idx: int) -> None:
+        """Receives the health entries popped off the drained metric
+        vector: counts of non-finite loss / grad-norm steps and the
+        summed grad norm since the previous drain."""
+        nf_loss = health_totals.get("nonfinite_loss", 0.0)
+        nf_grad = health_totals.get("nonfinite_grad", 0.0)
+        if nf_loss > 0:
+            self._emit("nonfinite_loss", step=step_idx,
+                       count=int(nf_loss), window_steps=int(steps))
+        if nf_grad > 0:
+            self._emit("nonfinite_grad", step=step_idx,
+                       count=int(nf_grad), window_steps=int(steps))
+        gsum = health_totals.get("grad_norm")
+        if gsum is not None and steps > 0:
+            self.log.gauge("grad_global_norm", round(gsum / steps, 6))
+
+    def _check_starvation(self, step_idx: int) -> None:
+        if self._window_step_s > 0 and self._window_batches > 0:
+            ratio = self._window_wait_s / self._window_step_s
+            if ratio > self.wait_ratio:
+                self._emit("data_starvation", step=step_idx,
+                           wait_s=round(self._window_wait_s, 4),
+                           step_s=round(self._window_step_s, 4),
+                           ratio=round(ratio, 3),
+                           threshold=self.wait_ratio)
+        self._window_step_s = 0.0
+        self._window_wait_s = 0.0
+        self._window_batches = 0
+
+    def _emit_agreement(self) -> None:
+        """Step-level predicted-vs-measured divergence, refreshed once
+        per sampling window (agreement.py stored the prediction on the
+        model at compile)."""
+        if self.model is None or len(self._durs) < self.min_window:
+            return
+        from . import agreement
+
+        agreement.emit_step_divergence(
+            self.model, self.log, statistics.median(self._durs),
+            len(self._durs))
+
+    def _emit(self, kind: str, **attrs: Any) -> None:
+        n = self.counts.get(kind, 0) + 1
+        self.counts[kind] = n
+        if n > MAX_EVENTS_PER_KIND:
+            return
+        if n == MAX_EVENTS_PER_KIND:
+            attrs["suppressing_further"] = True
+        self.log.event("health", kind=kind, **attrs)
+        self.log.flush()

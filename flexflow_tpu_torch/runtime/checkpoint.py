@@ -82,7 +82,22 @@ def _write_npz(flat: Dict[str, np.ndarray], final: str) -> None:
 
 def save_checkpoint(model, path: str) -> str:
     """Write the model's training state to ``path`` (``.npz`` appended when
-    missing); returns the file's path.  On a mesh every rank calls it."""
+    missing); returns the file's path.  On a mesh every rank calls it.
+    With telemetry on, the save is a ``checkpoint_save`` span."""
+    from ..observability.health import write_heartbeat
+
+    # a no-op unless FF_HEARTBEAT_PATH is set: a wedged save gets named
+    write_heartbeat("checkpoint_save", step=model._step_count)
+    tel = model._telemetry
+    if tel is None:
+        return _save_checkpoint(model, path)
+    with tel.span("checkpoint_save", path=path, step=model._step_count):
+        final = _save_checkpoint(model, path)
+    tel.flush()
+    return final
+
+
+def _save_checkpoint(model, path: str) -> str:
     final = _npz_path(path)
     flat = state_arrays(model)
     if not dist.is_initialized() or dist.get_rank() == 0:
@@ -126,7 +141,20 @@ def load_arrays(model, flat: Dict[str, np.ndarray]) -> None:
 
 def load_checkpoint(model, path: str) -> None:
     """Restore a state written by ``save_checkpoint`` or by the JAX
-    package's ``.npz`` save."""
+    package's ``.npz`` save; with telemetry on, a ``checkpoint_restore``
+    span."""
+    from ..observability.health import write_heartbeat
+
+    write_heartbeat("checkpoint_restore")
+    tel = model._telemetry
+    if tel is None:
+        return _load_checkpoint(model, path)
+    with tel.span("checkpoint_restore", path=path):
+        _load_checkpoint(model, path)
+    tel.flush()
+
+
+def _load_checkpoint(model, path: str) -> None:
     final = _npz_path(path)
     flat = with_ckpt_retries(lambda: _read_npz(final), model=model, site="ckpt_restore",
                              path=final)

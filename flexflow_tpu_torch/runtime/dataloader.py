@@ -92,7 +92,21 @@ class DataLoader:
             self.next_index = self._start_of(self.next_index) + self.batch_size
 
     def next_batch(self, ff=None) -> None:
+        """Stage the next batch; with telemetry on, a ``data_wait`` span (the
+        host gather and the copy into the model's buffers)."""
         ff = ff or self.ff
+        from ..observability.health import write_heartbeat
+
+        # a no-op unless FF_HEARTBEAT_PATH is set: a wedged input gets named
+        write_heartbeat("data_wait", step=ff._step_count)
+        tel = ff._telemetry
+        if tel is None:
+            return self._next_batch(ff)
+        # no prefetch thread in the port yet (ROADMAP A10)
+        with tel.span("data_wait", batch_size=self.batch_size, prefetched=False):
+            self._next_batch(ff)
+
+    def _next_batch(self, ff) -> None:
         start = self._start_of(self.next_index)
         sel = self._order[start:start + self.batch_size]
         self.next_index = start + self.batch_size

@@ -36,7 +36,6 @@ while other threads use the card.  On the CPU and under
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -56,7 +55,6 @@ class DecodeGraph(StepGraph):
     def __init__(self, device: torch.device, step: Callable[[], None]):
         super().__init__(device)
         self.step = step
-        self.capture_s = 0.0  # host seconds spent capturing
 
     def _use_graph(self) -> bool:
         return self.device.type == "cuda" and graphs_enabled()
@@ -73,14 +71,12 @@ class DecodeGraph(StepGraph):
                 self.step()
 
     def _capture(self, step) -> None:
-        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.device), \
                 torch.cuda.graph(graph, capture_error_mode="thread_local"):
             step()
         self.graph = graph
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
 
 
 class _Run:

@@ -3,10 +3,11 @@ checkpoint I/O (PyTorch port of ``flexflow_tpu/runtime/resilience.py``).
 
 The host logic is the JAX package's, copied: the same environment knobs
 (``FF_SKIP_NONFINITE``, ``FF_CKPT_RETRIES``, ``FF_CKPT_BACKOFF_S``), the
-same exceptions and the same resume marker.  What the port leaves out is
-narration: the JAX package's guard and retries emit events to a log, and
-its retries pass a chaos choke point; neither the event log (ROADMAP A12)
-nor chaos injection (A10) is ported, so nothing here logs.
+same exceptions, the same resume marker and the same narration: with
+telemetry on, the guard emits a ``step_skipped`` event at each drain that
+counts skipped steps, and each retried checkpoint attempt a ``ckpt_retry``
+event.  The JAX package's retries also pass a chaos choke point; chaos
+injection is not ported (ROADMAP A10).
 
 The guard's device half lives in the step (``FFModel._guard_finalize``):
 the loss's and the global gradient norm's finiteness go into the metric
@@ -25,13 +26,14 @@ import time
 import warnings
 from typing import Any, Callable, Dict, Optional
 
+from ..observability.health import HEALTH_METRIC_KEYS  # noqa: F401 (re-exported)
+
 MAX_BACKOFF_S = 30.0
 
 RESUME_META_FILE = "resume_meta.json"
 
 # Metric-vector entries the step adds when the guard is on (the health
 # entries first, then the guard's own), as the JAX package names them.
-HEALTH_METRIC_KEYS = ("nonfinite_loss", "nonfinite_grad", "grad_norm")
 GUARD_METRIC_KEYS = ("skipped_steps", "consec_skipped")
 
 
@@ -100,9 +102,10 @@ class NonFiniteGuard:
 
     METRIC_KEYS = GUARD_METRIC_KEYS
 
-    def __init__(self, model, limit: int):
+    def __init__(self, model, limit: int, log=None):
         self.model = model
         self.limit = int(limit)
+        self.log = log  # EventLog or None (the guard works untraced)
         self.total_skipped = 0
         # the run length at the last drain: re-seeds an accumulator that
         # reset_metrics zeroed, so a streak across resets still escalates
@@ -112,7 +115,13 @@ class NonFiniteGuard:
         """The guard entries of a drained metric vector: skipped steps in
         the window and the run length at its end."""
         self.consec = int(consec)
-        self.total_skipped += int(skipped)
+        if skipped > 0:
+            self.total_skipped += int(skipped)
+            if self.log is not None:
+                self.log.event("step_skipped", step=step_idx, count=int(skipped),
+                               consecutive=int(consec), window_steps=int(steps),
+                               total=self.total_skipped)
+                self.log.flush()
         if self.limit and consec >= self.limit:
             raise NonFiniteEscalationError(
                 f"{int(consec)} consecutive non-finite steps skipped "
@@ -160,9 +169,10 @@ def with_ckpt_retries(fn: Callable[[], Any], *, model=None, site: str = "ckpt_sa
                       sleep: Callable[[float], None] = time.sleep) -> Any:
     """Run checkpoint I/O with bounded exponential backoff on ``OSError``
     (a full disk, a flaky network mount).  Any other error propagates at
-    once: retrying a logic error only hides it.  ``model``, ``site`` and
-    ``path`` name the call for the JAX package's narration, which the port
-    does not emit."""
+    once: retrying a logic error only hides it.  Every retried attempt
+    emits a ``ckpt_retry`` event to ``model``'s telemetry log, if it has
+    one, naming ``site`` and ``path``."""
+    log = getattr(model, "_telemetry", None) if model is not None else None
     n = ckpt_retries() if retries is None else max(0, int(retries))
     base = ckpt_backoff_s() if base_delay is None else float(base_delay)
     attempt = 0
@@ -170,10 +180,16 @@ def with_ckpt_retries(fn: Callable[[], Any], *, model=None, site: str = "ckpt_sa
         attempt += 1
         try:
             return fn()
-        except OSError:
+        except OSError as e:
             if attempt > n:
                 raise
-            sleep(backoff_delay(attempt, base))
+            delay = backoff_delay(attempt, base)
+            if log is not None:
+                log.event("ckpt_retry", site=site, attempt=attempt,
+                          error=f"{type(e).__name__}: {e}",
+                          retry_in_s=round(delay, 3), path=path)
+                log.flush()
+            sleep(delay)
 
 
 def write_resume_meta(directory: str, **fields: Any) -> None:

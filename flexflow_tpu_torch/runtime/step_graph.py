@@ -33,6 +33,11 @@ addresses, ``grad_accum_steps``, whether the flash kernels run their plain
 versions) and when the model is compiled or its layers initialized again.
 A failed capture raises; nothing falls back to the eager step.
 
+A graph's ``on_capture(key, wall_s, pool_bytes)`` hook, when set, hears
+of each capture: its signature, host wall and the growth of the caching
+allocator's reserved bytes over it (the graph's private pool).  The
+capture ledger (observability/memplane.py, ``FF_MEMPLANE``) sets it.
+
 ``disable_graphs()`` runs steps eagerly, the counterpart of
 ``jax.disable_jit()``.  The eager step is also the path on the CPU and,
 in this version, on a mesh (SOAP, ROADMAP A6).
@@ -41,6 +46,7 @@ in this version, on a mesh (SOAP, ROADMAP A6).
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Hashable, Optional
 
 import torch
@@ -76,22 +82,40 @@ class StepGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captures = 0
         self.replays = 0
+        self.capture_s = 0.0  # host seconds spent capturing
+        self.on_capture: Optional[Callable[[Hashable, float, Optional[int]], None]] = None
 
     def drop(self) -> None:
         """Forget the captured graph (and its memory pool)."""
         self.key = None
         self.graph = None
 
-    def run(self, key: Hashable, step: Callable[[], None]) -> None:
+    def run(self, key: Hashable, step: Callable[[], None]) -> str:
+        """One step; returns what it was: "eager" (a new signature's first
+        step), "capture" (captured, then replayed) or "replay"."""
         if key != self.key:
             self.drop()
             self.key = key
             self._eager_on_side_stream(step)
-            return
+            return "eager"
+        kind = "replay"
         if self.graph is None:
-            self._capture(step)
+            self._watched_capture(step)
+            kind = "capture"
         self.graph.replay()
         self.replays += 1
+        return kind
+
+    def _watched_capture(self, step) -> None:
+        cuda = self.device.type == "cuda"
+        r0 = torch.cuda.memory_reserved(self.device) if cuda and self.on_capture else 0
+        t0 = time.perf_counter()
+        self._capture(step)
+        wall = time.perf_counter() - t0
+        self.capture_s += wall
+        if self.on_capture is not None:
+            pool = torch.cuda.memory_reserved(self.device) - r0 if cuda else None
+            self.on_capture(self.key, wall, pool)
 
     def _eager_on_side_stream(self, step) -> None:
         """The signature's first step: eager, a real step, on a side stream

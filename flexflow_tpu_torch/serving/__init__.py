@@ -8,7 +8,8 @@
 * ``engine``  — ``InferenceEngine``: the continuous-batching decode loop
                 over a dense or paged KV pool, its steps captured CUDA
                 graphs (imports torch)
-* ``api``     — ``ServingAPI``: stdlib ThreadingHTTPServer front end
+* ``api``     — ``ServingAPI``: stdlib ThreadingHTTPServer front end,
+                with ``/metrics`` and ``/debug/vars`` from the metrics plane
 
 The replica pool (``ReplicaPool``) and the autoscaler (``Autoscaler``,
 ``ScaleConfig``) are not ported yet (ROADMAP A11) and raise when asked

@@ -16,7 +16,9 @@ Endpoints::
   POST /generate   {"prompt": [int, ...], "max_new_tokens": 16,
                     "priority": 0, "timeout_s": 30, "eos_id": null}
               ->   200 {"request_id": .., "tokens": [..],
-                        "queue_wait_s": .., "ttft_s": .., "tpot_s": ..}
+                        "queue_wait_s": .., "ttft_s": .., "tpot_s": ..,
+                        "trace_id": ..}   (trace_id when telemetry is on
+                        — the join key into the event log)
               ->   400 malformed body / validation error
               ->   503 queue-wait timeout      (Retry-After: 1)
               ->   503 KV blocks exhausted     (Retry-After: estimate)
@@ -25,8 +27,12 @@ Endpoints::
   GET  /healthz -> liveness: 200 with the engine's stats
   GET  /readyz  -> readiness: 200 iff new submits would be accepted —
                    the load-balancer signal; 503 while draining or down
-  GET  /metrics, GET /debug/vars -> 501: they read the metrics plane,
-                   which is not ported yet (ROADMAP A12)
+  GET  /metrics -> Prometheus text: the live registry's series (when
+                   FF_METRICS_PORT lights up the metrics plane) plus
+                   scrape-time backend state (queue depth, active slots,
+                   KV blocks; observability/metrics.py)
+  GET  /debug/vars -> the same aggregates as expvar-style JSON, with the
+                   backend's stats
 
 Sampling knobs are rejected (400): the engine is greedy-only, which is
 what keeps its outputs bitwise-equal to ``FFModel.generate()``.
@@ -40,6 +46,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..observability import metrics as _metrics
 from .queue import ServeError, ServeOverload, ServeTimeout
 
 # request knobs forwarded verbatim to InferenceEngine.submit
@@ -68,6 +75,13 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _reply_text(self, code: int, body: bytes, ctype: str) -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
     def do_GET(self) -> None:  # noqa: N802 — http.server API
         path = self.path.split("?")[0]
         backend = self.api.engine
@@ -81,9 +95,16 @@ class _Handler(BaseHTTPRequestHandler):
             ready = bool(getattr(backend, "_accepting", False))
             self._reply(200 if ready else 503,
                         {"ready": ready, "uptime_s": uptime})
-        elif path in ("/metrics", "/debug/vars"):
-            self._reply(501, {"error": f"{path} reads the metrics plane, which is not "
-                                       "ported yet (ROADMAP A12)"})
+        elif path == "/metrics":
+            # the backend's live state arrives through the provider that
+            # start() registered, shared with the standalone exporter
+            self._reply_text(200, _metrics.scrape_text().encode(),
+                             "text/plain; version=0.0.4; charset=utf-8")
+        elif path == "/debug/vars":
+            reg = _metrics.global_registry()
+            body = reg.render_vars() if reg is not None else {"disabled": True}
+            body["backend"] = backend.stats()
+            self._reply(200, body)
         else:
             self._reply(404, {"error": f"no such endpoint {self.path!r}"})
 
@@ -116,18 +137,20 @@ class _Handler(BaseHTTPRequestHandler):
         except (KeyError, TypeError, ValueError, json.JSONDecodeError) as e:
             self._reply(400, {"error": f"{type(e).__name__}: {e}"})
             return
+        # trace_id in every reply that has a request: the client's join key
+        trace = {"trace_id": req.trace.trace_id} if req.trace is not None else {}
         try:
             tokens = req.result(self.api.result_timeout_s)
         except ServeTimeout as e:
-            self._reply(503, {"error": str(e), "request_id": req.request_id},
+            self._reply(503, {"error": str(e), "request_id": req.request_id, **trace},
                         Retry_After=1)
             return
         except ServeError as e:
-            self._reply(500, {"error": str(e), "request_id": req.request_id})
+            self._reply(500, {"error": str(e), "request_id": req.request_id, **trace})
             return
         out = {"request_id": req.request_id,
                "tokens": [int(t) for t in tokens],
-               "prompt_len": int(req.prompt.size)}
+               "prompt_len": int(req.prompt.size), **trace}
         for k in ("queue_wait_s", "ttft_s", "tpot_s"):
             v = getattr(req, k)
             if v is not None:
@@ -156,6 +179,7 @@ class ServingAPI:
         self.t0 = time.perf_counter()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._provider = None  # the metrics scrape-time backend renderer
 
     @property
     def port(self) -> int:
@@ -175,9 +199,18 @@ class ServingAPI:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="ff-serve-http", daemon=True)
         self._thread.start()
+        # light up the live metrics plane (a no-op unless FF_METRICS_PORT is
+        # set) and publish this backend's scrape-time state to every
+        # /metrics endpoint, the standalone exporter included
+        _metrics.maybe_start()
+        self._provider = lambda: _metrics.render_backend(self.engine)
+        _metrics.register_provider(self._provider)
         return self
 
     def stop(self) -> None:
+        if self._provider is not None:
+            _metrics.unregister_provider(self._provider)
+            self._provider = None
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()

@@ -47,8 +47,19 @@ shapes the card's GEMMs may round differently, so a near-tie may break
 the other way (chip_smoke.py reports each such request with its
 probability gap).
 
-Not ported yet: the telemetry, request-tracing and compile-plane hooks
-(ROADMAP A12) and ``FF_CHAOS`` serve faults (ROADMAP A10) raise when asked
+Telemetry (the model's log, or ``telemetry=``): the JAX package's
+records, ``serve_queue_wait`` / ``serve_prefill`` / ``serve_decode``
+spans, a ``serve_request_done`` event carrying TTFT/TPOT,
+``serve_tokens`` / ``serve_requests`` counters, prefix hit and miss
+counters, and per-token-boundary occupancy and KV-block gauges.  Each
+request carries a trace context minted at admission
+(observability/reqtrace.py); a sampled one (``FF_TRACE_SAMPLE``) also
+gets ``serve_decode_chunk`` spans every ``FF_TRACE_CHUNK`` tokens and its
+KV block events.  ``FF_MEMPLANE`` puts every decode graph's capture in
+the capture ledger (sites ``serve_prefill``, ``serve_step:w<W>`` and
+``serve_paged_step:w<W>``).
+
+Not ported yet: ``FF_CHAOS`` serve faults (ROADMAP A10) raise when asked
 for; the replica pool that the ``queue``/``name``/``zone``/
 ``decode_fatal`` plumbing serves is ROADMAP A11.
 """
@@ -65,6 +76,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..observability import memplane, reqtrace
 from ..runtime.decode_graph import DecodeGraph, cache_leaves
 from .config import ServeConfig
 from .kvpool import BlockExhausted, KVBlockPool, blocks_for
@@ -79,9 +91,6 @@ ABANDON_HANDBACK = "engine abandoned"
 
 # environment knobs of serving features not ported yet
 _UNPORTED_ENV = {
-    "FF_TRACE_SAMPLE": "request tracing (ROADMAP A12)",
-    "FF_TRACE_CHUNK": "request tracing (ROADMAP A12)",
-    "FF_MEMPLANE": "the compile plane (ROADMAP A12)",
     "FF_CHAOS": "chaos fault injection (ROADMAP A10)",
 }
 
@@ -89,13 +98,17 @@ _UNPORTED_ENV = {
 class _Slot:
     """Host-side state of one running sequence."""
 
-    __slots__ = ("req", "pos", "t_first", "res")
+    __slots__ = ("req", "pos", "t_first", "res", "tr_t0", "tr_n0")
 
     def __init__(self, req: InferenceRequest, pos: int, t_first: float, res=None):
         self.req = req
         self.pos = pos          # position the NEXT fed token occupies
         self.t_first = t_first
         self.res = res          # kvpool.Reservation (paged mode only)
+        # the open serve_decode_chunk of a sampled trace: its start and
+        # the token count at its start (None when no chunk is open)
+        self.tr_t0: Optional[float] = None
+        self.tr_n0 = 0
 
 
 class InferenceEngine:
@@ -115,9 +128,6 @@ class InferenceEngine:
                  zone: Optional[str] = None, **overrides):
         if not getattr(model, "_compiled", False):
             raise RuntimeError("InferenceEngine needs a compiled model (call compile() first)")
-        if telemetry is not None:
-            raise NotImplementedError("serving telemetry (spans, counters, gauges) is not "
-                                      "ported yet (ROADMAP A12)")
         for var, what in _UNPORTED_ENV.items():
             if os.environ.get(var, "") not in ("", "0"):
                 raise NotImplementedError(f"{var} is set, but {what} is not ported yet")
@@ -132,10 +142,18 @@ class InferenceEngine:
         self.name = name or "replica-0"
         self.uid = f"{self.name}#{next(_engine_uids)}"
         self.zone = zone
+        self._zone_attr = {} if zone is None else {"zone": zone}
         self._avoid_keys = (self.uid,) if zone is None else (self.uid, f"zone:{zone}")
         self._decode_fatal = bool(decode_fatal)
         self.crashed: Optional[str] = None   # set when the loop dies
         self.last_beat = time.perf_counter()  # decode-progress heartbeat
+        # telemetry: the caller's log, else the model's (None: off, and no
+        # site below makes a log call)
+        self._telemetry = telemetry if telemetry is not None else model._telemetry
+        # decode tokens per serve_decode_chunk span on a sampled trace
+        self._trace_chunk = reqtrace.chunk_tokens_from_env() \
+            if self._telemetry is not None else 0
+        self._memplane = memplane.maybe_plane(self._telemetry)
         self._tok_t, self._pos_t = model.resolve_decode_inputs()
         fed = {self._tok_t.guid}
         if self._pos_t is not None:
@@ -268,6 +286,8 @@ class InferenceEngine:
                 self._next_buf.copy_(torch.argmax(probs, dim=-1))
 
             g = self._step_graphs[w] = DecodeGraph(self.device, step)
+            if self._memplane is not None:
+                self._memplane.watch(f"serve_{'paged_' if self._paged else ''}step:w{w}", g)
         return g
 
     def _get_prefill_graph(self) -> DecodeGraph:
@@ -284,6 +304,8 @@ class InferenceEngine:
                 self._counter.add_(1)
 
             self._prefill_graph = DecodeGraph(self.device, step)
+            if self._memplane is not None:
+                self._memplane.watch("serve_prefill", self._prefill_graph)
         return self._prefill_graph
 
     def _prefill(self, tokens: np.ndarray, start: int) -> int:
@@ -413,6 +435,9 @@ class InferenceEngine:
             # shed (503 + Retry-After) when even evicting the whole prefix
             # index could not cover this request's worst case
             self._kvpool.check_room(int(req.prompt.size), n)
+        # the trace context, minted once, here at admission
+        if self._telemetry is not None and req.trace is None:
+            req.trace = reqtrace.begin(self._telemetry)
         self._stats["submitted"] += 1
         self._queue.put(req)
         return req
@@ -454,6 +479,10 @@ class InferenceEngine:
                 self._loop()
         except BaseException as e:
             self.crashed = f"{type(e).__name__}: {e}"  # read by a replica pool
+            if self._telemetry is not None:
+                self._telemetry.event("serve_loop_crashed", replica=self.name,
+                                      error=self.crashed)
+                self._telemetry.flush()
             if self._owns_queue:
                 self._fail_outstanding(f"engine crashed: {self.crashed}")
             elif self._paged:
@@ -469,10 +498,12 @@ class InferenceEngine:
                     self._kvpool.release(slot.res)
                 if slot.req._resolve(ERROR, msg):
                     self._stats["failed"] += 1
+                    self._emit_done(slot.req)
                 self._slots[i] = None
         parked, self._pending_admit = self._pending_admit, None
         if parked is not None and parked._resolve(ERROR, msg):
             self._stats["failed"] += 1
+            self._emit_done(parked)
         self._stats["failed"] += self._queue.drain(ERROR, msg)
 
     def _loop(self) -> None:
@@ -531,6 +562,7 @@ class InferenceEngine:
                 if req.timeout_s is not None and now - req.t_submit > req.timeout_s:
                     if req._resolve(TIMEOUT, f"queue wait exceeded {req.timeout_s:g}s"):
                         self._stats["timeouts"] += 1
+                        self._emit_done(req)
                     continue
             else:
                 if self._retiring or self._abandoned:
@@ -550,6 +582,7 @@ class InferenceEngine:
             except Exception as e:  # noqa: BLE001 — isolate per request
                 req._resolve(ERROR, f"{type(e).__name__}: {e}")
                 self._stats["failed"] += 1
+                self._emit_done(req)
             self._admitting = None
 
     def _admit(self, req: InferenceRequest, slot: int) -> None:
@@ -565,7 +598,9 @@ class InferenceEngine:
             self._admit_paged(req, slot)
             return
         plen = int(req.prompt.size)
-        self._count_prefill(self.config.bucket_for(plen))
+        bucket = self.config.bucket_for(plen)
+        self._count_prefill(bucket)
+        t0 = time.perf_counter()
         for c in cache_leaves(self._scratch):
             c.zero_()
         first_tok = self._prefill(req.prompt, 0)
@@ -573,7 +608,7 @@ class InferenceEngine:
         # of a released sequence or an idle lane's writes survives
         for pool, piece in zip(cache_leaves(self._caches), cache_leaves(self._scratch)):
             pool[slot].copy_(piece[0])
-        self._admitted(req, slot, plen, first_tok, None)
+        self._admitted(req, slot, plen, first_tok, None, t0, bucket)
 
     def _admit_paged(self, req: InferenceRequest, slot: int) -> None:
         """Block-paged admission: reserve blocks (the worst case promised,
@@ -586,8 +621,9 @@ class InferenceEngine:
         res = pool.reserve(req.prompt, req.max_new_tokens)  # BlockExhausted
         try:
             m = res.hit_tokens                 # the suffix starts here
-            self._count_prefill((self._block_bucket(blocks_for(m, bs)),
-                                 cfg.bucket_for(plen - m)))
+            sbucket = cfg.bucket_for(plen - m)
+            self._count_prefill((self._block_bucket(blocks_for(m, bs)), sbucket))
+            t0 = time.perf_counter()
             leaves = list(zip(cache_leaves(self._caches), cache_leaves(self._scratch)))
             dev = self.device
             gather = torch.tensor(res.gather, dtype=torch.long, device=dev)
@@ -613,19 +649,40 @@ class InferenceEngine:
         pool.note_transfer(n)
         pool.end_gather(res)
         pool.register_prefix(req.prompt, res)
-        self._admitted(req, slot, plen, first_tok, res)
+        self._admitted(req, slot, plen, first_tok, res, t0, sbucket)
 
-    def _admitted(self, req, slot, plen, first_tok, res) -> None:
+    def _admitted(self, req, slot, plen, first_tok, res, t0, bucket) -> None:
         t1 = time.perf_counter()
         req.tokens.append(first_tok)
         req.t_first = t1
         self._stats["admitted"] += 1
+        log = self._telemetry
+        if log is not None:
+            tr = reqtrace.tag(req.trace)
+            log.span_at("serve_queue_wait", req.t_submit, req.t_admit - req.t_submit,
+                        request_id=req.request_id, priority=req.priority, **tr)
+            log.span_at("serve_prefill", t0, t1 - t0, request_id=req.request_id,
+                        prompt_len=plen, bucket=bucket, slot=slot, replica=self.name, **tr)
+            if res is not None:
+                if res.hit_tokens > 0:
+                    log.counter("serve_prefix_hits", 1)
+                    log.counter("serve_prefill_tokens_saved", res.hit_tokens)
+                else:
+                    log.counter("serve_prefix_misses", 1)
+                if req.trace is not None and req.trace.sampled:
+                    # the admission's KV story (alloc / prefix share / COW)
+                    for ev_name, ev_attrs in res.trace_events():
+                        log.event(ev_name, request_id=req.request_id, replica=self.name,
+                                  **ev_attrs, **tr)
         if req.max_new_tokens == 1 or first_tok == req.eos_id:
             if res is not None:
                 self._kvpool.release(res)
             self._finish(req, slot=None, t_done=t1)
             return
-        self._slots[slot] = _Slot(req, plen, t1, res=res)
+        s = self._slots[slot] = _Slot(req, plen, t1, res=res)
+        if self._trace_chunk and req.trace is not None and req.trace.sampled:
+            s.tr_t0 = t1                # open the first decode chunk
+            s.tr_n0 = len(req.tokens)
         self._toks[slot] = first_tok
         self._pos[slot] = plen
         self._stats["max_active"] = max(self._stats["max_active"], self.num_active)
@@ -668,11 +725,26 @@ class InferenceEngine:
                         self._kvpool.release(slot.res)
                     slot.req._resolve(ERROR, msg)
                     self._stats["failed"] += 1
+                    self._emit_done(slot.req)
                     self._slots[i] = None
             return
         t_now = time.perf_counter()
+        active = self.num_active
         self._stats["step_iterations"] += 1
-        self._stats["occupancy_sum"] += self.num_active
+        self._stats["occupancy_sum"] += active
+        log = self._telemetry
+        if log is not None:
+            log.gauge("serve_batch_occupancy", active, replica=self.name, **self._zone_attr)
+            if self._paged:
+                st = self._kvpool.stats()
+                log.gauge("serve_kv_blocks_used", st["blocks_used"], replica=self.name)
+                # KV residency in the live device-memory series: block
+                # accounting is the host's truth for bytes the allocator
+                # gauges cannot attribute
+                if self._kvpool.bytes_per_block:
+                    log.gauge("hbm_bytes", float(st["blocks_used"] * self._kvpool.bytes_per_block),
+                              device="pool", kind="kv_blocks", replica=self.name)
+                log.counter("serve_decode_window", 1, window=w * bs)
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
@@ -691,12 +763,27 @@ class InferenceEngine:
             slot.pos += 1
             self._pos[i] = slot.pos
             self._toks[i] = tok
+            if slot.tr_t0 is not None and len(slot.req.tokens) - slot.tr_n0 >= self._trace_chunk:
+                self._emit_chunk(slot, t_now)
             if len(slot.req.tokens) >= slot.req.max_new_tokens or tok == slot.req.eos_id:
                 self._finish(slot.req, slot=i, t_done=t_now)
+
+    def _emit_chunk(self, slot: _Slot, t_now: float) -> None:
+        """Close the open decode chunk of a sampled request: one span per
+        FF_TRACE_CHUNK token boundaries."""
+        req = slot.req
+        n = len(req.tokens)
+        self._telemetry.span_at("serve_decode_chunk", slot.tr_t0, t_now - slot.tr_t0,
+                                request_id=req.request_id, token_from=slot.tr_n0,
+                                token_to=n, replica=self.name, **reqtrace.tag(req.trace))
+        slot.tr_t0 = t_now
+        slot.tr_n0 = n
 
     def _finish(self, req: InferenceRequest, slot: Optional[int], t_done: float) -> None:
         if slot is not None:
             s = self._slots[slot]
+            if s is not None and s.tr_t0 is not None and len(req.tokens) > s.tr_n0:
+                self._emit_chunk(s, t_done)   # flush the partial chunk
             if s is not None and s.res is not None:
                 self._kvpool.release(s.res)  # the unused promise returns too
             self._slots[slot] = None
@@ -706,3 +793,27 @@ class InferenceEngine:
         if req._resolve(DONE):
             self._stats["completed"] += 1
             self._stats["tokens_out"] += len(req.tokens)
+        self._emit_done(req)
+
+    def _emit_done(self, req: InferenceRequest) -> None:
+        log = self._telemetry
+        if log is None:
+            return
+        tr = reqtrace.tag(req.trace)
+        if req.t_first is not None and req.t_done is not None:
+            log.span_at("serve_decode", req.t_first, req.t_done - req.t_first,
+                        request_id=req.request_id, tokens=len(req.tokens), **tr)
+        attrs = dict(request_id=req.request_id, status=req.status,
+                     prompt_len=int(req.prompt.size), new_tokens=len(req.tokens),
+                     replica=self.name, **self._zone_attr, **tr)
+        for k in ("queue_wait_s", "ttft_s", "tpot_s"):
+            v = getattr(req, k)
+            if v is not None:
+                attrs[k] = round(v, 6)
+        log.event("serve_request_done", **attrs)
+        if req.status == DONE:
+            log.counter("serve_requests", 1)
+            log.counter("serve_tokens", len(req.tokens))
+        else:
+            log.counter("serve_failed", 1, status=req.status)
+        log.flush()

@@ -89,8 +89,8 @@ class InferenceRequest:
         # ``admitted_by`` is stamped at admission
         self.avoid: Union[None, str, tuple] = None
         self.admitted_by: Optional[str] = None
-        # request-scoped tracing: always None until the tracing plane is
-        # ported (ROADMAP A12)
+        # request-scoped tracing (observability/reqtrace.TraceContext):
+        # minted once at admission when telemetry is on, None otherwise
         self.trace = None
         self._event = threading.Event()
         self._rlock = threading.RLock()   # guards the resolve CAS

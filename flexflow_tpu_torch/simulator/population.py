@@ -30,12 +30,15 @@ roofline only for op families whose measured corpus beats it out of fold.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import random
 import time
 from typing import Dict, List, Optional
 
 from ..config import ParallelConfig
+from ..observability.events import active_log
+from ..observability.searchtrace import SearchRecorder
 from .cost_model import CostModel, LearnedCostTier
 from .delta import DeltaSimulator
 from .search import (SearchResult, data_parallel_start, in_search_space,
@@ -136,6 +139,14 @@ def population_search(model, budget: int, alpha: float = 0.05,
     best = dict(min(chains, key=lambda c: (c.cur_rt, c.ci)).cur)
     best_rt = min(ch.cur_rt for ch in chains)
 
+    # the flight recorder: None, and no log call at all, unless telemetry is on
+    tel = active_log()
+    rec = SearchRecorder.maybe("population", budget, nd, seed, log=tel)
+    if rec is not None:
+        rec.start(initial_ms=dp_rt * 1e3)
+    span = tel.span("population_search", budget=budget, num_devices=nd, population=P) \
+        if tel is not None else contextlib.nullcontext({})
+
     exchange_stats: Dict[str, Dict[str, int]] = {}
     cross_stats = {"attempts": 0, "adopted": 0, "patches": 0}
     lineage: List[Dict] = []
@@ -149,87 +160,116 @@ def population_search(model, budget: int, alpha: float = 0.05,
             best_rt = rt
             best = dict(state)
 
-    while spent < budget:
-        for ch in chains:
-            if spent >= budget:
-                break
-            op = ch.rng.choice(model.ops)
-            new_pc = op.legalize_pc(random_parallel_config(op, nd, ch.rng, model=model))
-            nxt_rt = ch.delta.propose(op.name, new_pc)
-            spent += 1
-            ch.proposals += 1
-            if nxt_rt < best_rt:
-                nxt_state = dict(ch.cur)
-                nxt_state[op.name] = new_pc
-                note_best(nxt_state, nxt_rt)
-            if nxt_rt < ch.cur_rt or \
-                    ch.rng.random() < math.exp(-ch.alpha * (nxt_rt - ch.cur_rt) * 1e3):
-                ch.cur[op.name] = new_pc
-                ch.cur_rt = nxt_rt
-                ch.best_rt = min(ch.best_rt, nxt_rt)
-                ch.accepted += 1
-                ch.delta.commit()
-            else:
-                ch.delta.rollback()
-        round_idx += 1
-        if verbose and round_idx % 100 == 0:
-            print(f"round({round_idx}) spent({spent}/{budget}) "
-                  f"best({best_rt * 1e3:.3f}ms) "
-                  f"chains({', '.join(f'{c.cur_rt * 1e3:.2f}' for c in chains)})")
-
-        # -- replica exchange (free: both states are memoized) ----------
-        if EXCHANGE_EVERY and round_idx % EXCHANGE_EVERY == 0:
-            for k in range(P - 1):
-                a, b = chains[k], chains[k + 1]
-                # the colder chain has the larger alpha, so a hotter chain
-                # holding a better state always swaps down
-                log_p = (a.alpha - b.alpha) * (a.cur_rt - b.cur_rt) * 1e3
-                ok = log_p >= 0 or master.random() < math.exp(log_p)
-                st = exchange_stats.setdefault(f"{k}<->{k + 1}", {"attempts": 0, "accepts": 0})
-                st["attempts"] += 1
-                if ok:
-                    st["accepts"] += 1
-                    a.cur, b.cur = b.cur, a.cur
-                    a.cur_rt = a.delta.reset(a.cur)
-                    b.cur_rt = b.delta.reset(b.cur)
-                    a.best_rt = min(a.best_rt, a.cur_rt)
-                    b.best_rt = min(b.best_rt, b.cur_rt)
-                    a.exchanges += 1
-                    b.exchanges += 1
-
-        # -- genetic crossover (a child costs exactly K patches) -------
-        if CROSSOVER_EVERY and P >= 3 and \
-                round_idx % CROSSOVER_EVERY == 0 and spent < budget:
-            ranked = sorted(chains, key=lambda c: (c.cur_rt, c.ci))
-            pa, pb, worst = ranked[0], ranked[1], ranked[-1]
-            diff = [name for name in pa.cur if pa.cur[name] != pb.cur[name]]
-            splice = [name for name in diff if master.random() < 0.5]
-            if splice and spent + len(splice) <= budget:
-                cross_stats["attempts"] += 1
-                saved_cur, saved_rt = worst.cur, worst.cur_rt
-                child = dict(pa.cur)
-                rt = worst.delta.reset(pa.cur)  # memoized: free
-                for name in splice:
-                    rt = worst.delta.propose(name, pb.cur[name])
-                    worst.delta.commit()
-                    spent += 1
-                    child[name] = pb.cur[name]
-                    note_best(child, rt)
-                cross_stats["patches"] += len(splice)
-                if rt < saved_rt:
-                    cross_stats["adopted"] += 1
-                    worst.cur, worst.cur_rt = child, rt
-                    worst.best_rt = min(worst.best_rt, rt)
-                    worst.adopted += 1
-                    lineage.append({"iter": spent, "parents": [pa.ci, pb.ci],
-                                    "chain": worst.ci, "patches": len(splice),
-                                    "child_ms": round(rt * 1e3, 3)})
+    with span as span_attrs:
+        while spent < budget:
+            for ch in chains:
+                if spent >= budget:
+                    break
+                op = ch.rng.choice(model.ops)
+                old_pc = ch.cur[op.name]
+                new_pc = op.legalize_pc(random_parallel_config(op, nd, ch.rng, model=model))
+                nxt_rt = ch.delta.propose(op.name, new_pc)
+                spent += 1
+                ch.proposals += 1
+                if nxt_rt < best_rt:
+                    nxt_state = dict(ch.cur)
+                    nxt_state[op.name] = new_pc
+                    note_best(nxt_state, nxt_rt)
+                if nxt_rt < ch.cur_rt:
+                    accepted, reason, prob = True, "downhill", None
                 else:
-                    worst.cur = saved_cur
-                    worst.cur_rt = worst.delta.reset(saved_cur)
+                    prob = math.exp(-ch.alpha * (nxt_rt - ch.cur_rt) * 1e3)
+                    accepted, reason = ch.rng.random() < prob, "metropolis"
+                if rec is not None:
+                    rec.candidate(spent - 1, op.name, old_pc, new_pc, cur_ms=ch.cur_rt * 1e3,
+                                  new_ms=nxt_rt * 1e3, best_ms=best_rt * 1e3,
+                                  accepted=accepted, reason=reason, prob=prob, chain=ch.ci)
+                if accepted:
+                    ch.cur[op.name] = new_pc
+                    ch.cur_rt = nxt_rt
+                    ch.best_rt = min(ch.best_rt, nxt_rt)
+                    ch.accepted += 1
+                    ch.delta.commit()
+                else:
+                    ch.delta.rollback()
+            round_idx += 1
+            if verbose and round_idx % 100 == 0:
+                print(f"round({round_idx}) spent({spent}/{budget}) "
+                      f"best({best_rt * 1e3:.3f}ms) "
+                      f"chains({', '.join(f'{c.cur_rt * 1e3:.2f}' for c in chains)})")
+            if tel is not None and round_idx % 100 == 0:
+                tel.event("search_progress", engine="population", iter=spent,
+                          best_ms=round(best_rt * 1e3, 3))
 
-    dt = time.perf_counter() - t0
-    proposals_per_s = spent / dt if dt > 0 else 0.0
+            # -- replica exchange (free: both states are memoized) ----------
+            if EXCHANGE_EVERY and round_idx % EXCHANGE_EVERY == 0:
+                for k in range(P - 1):
+                    a, b = chains[k], chains[k + 1]
+                    # the colder chain has the larger alpha, so a hotter chain
+                    # holding a better state always swaps down
+                    log_p = (a.alpha - b.alpha) * (a.cur_rt - b.cur_rt) * 1e3
+                    prob = 1.0 if log_p >= 0 else math.exp(log_p)
+                    ok = log_p >= 0 or master.random() < prob
+                    st = exchange_stats.setdefault(f"{k}<->{k + 1}", {"attempts": 0, "accepts": 0})
+                    st["attempts"] += 1
+                    if rec is not None:
+                        rec.exchange(spent, (a.ci, b.ci), a.cur_rt * 1e3, b.cur_rt * 1e3,
+                                     accepted=ok, prob=prob)
+                    if ok:
+                        st["accepts"] += 1
+                        a.cur, b.cur = b.cur, a.cur
+                        a.cur_rt = a.delta.reset(a.cur)
+                        b.cur_rt = b.delta.reset(b.cur)
+                        a.best_rt = min(a.best_rt, a.cur_rt)
+                        b.best_rt = min(b.best_rt, b.cur_rt)
+                        a.exchanges += 1
+                        b.exchanges += 1
+
+            # -- genetic crossover (a child costs exactly K patches) -------
+            if CROSSOVER_EVERY and P >= 3 and \
+                    round_idx % CROSSOVER_EVERY == 0 and spent < budget:
+                ranked = sorted(chains, key=lambda c: (c.cur_rt, c.ci))
+                pa, pb, worst = ranked[0], ranked[1], ranked[-1]
+                if rec is not None:
+                    rec.elite(spent, [(c.ci, c.cur_rt * 1e3) for c in ranked])
+                diff = [name for name in pa.cur if pa.cur[name] != pb.cur[name]]
+                splice = [name for name in diff if master.random() < 0.5]
+                if splice and spent + len(splice) <= budget:
+                    cross_stats["attempts"] += 1
+                    saved_cur, saved_rt = worst.cur, worst.cur_rt
+                    child = dict(pa.cur)
+                    rt = worst.delta.reset(pa.cur)  # memoized: free
+                    for name in splice:
+                        rt = worst.delta.propose(name, pb.cur[name])
+                        worst.delta.commit()
+                        spent += 1
+                        child[name] = pb.cur[name]
+                        note_best(child, rt)
+                    cross_stats["patches"] += len(splice)
+                    adopted = rt < saved_rt
+                    if adopted:
+                        cross_stats["adopted"] += 1
+                        worst.cur, worst.cur_rt = child, rt
+                        worst.best_rt = min(worst.best_rt, rt)
+                        worst.adopted += 1
+                        lineage.append({"iter": spent, "parents": [pa.ci, pb.ci],
+                                        "chain": worst.ci, "patches": len(splice),
+                                        "child_ms": round(rt * 1e3, 3)})
+                    else:
+                        worst.cur = saved_cur
+                        worst.cur_rt = worst.delta.reset(saved_cur)
+                    if rec is not None:
+                        rec.crossover(spent, (pa.ci, pb.ci), worst.ci, len(splice), rt * 1e3,
+                                      adopted=adopted)
+
+        dt = time.perf_counter() - t0
+        proposals_per_s = spent / dt if dt > 0 else 0.0
+        span_attrs["best_ms"] = round(best_rt * 1e3, 3)
+        span_attrs["proposals_per_s"] = round(proposals_per_s, 1)
+    if rec is not None:
+        rec.finish(best, best_ms=best_rt * 1e3, proposals_per_s=proposals_per_s, delta=True)
+    if tel is not None:
+        tel.flush()
     winner = min(chains, key=lambda c: (c.best_rt, c.ci))
     chain_stats = [{
         "chain": ch.ci, "alpha": round(ch.alpha, 6), "seed": ch.seed_kind,

@@ -20,6 +20,7 @@ only the batch.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import random
@@ -29,6 +30,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import ParallelConfig
+from ..observability.events import active_log
+from ..observability.searchtrace import SearchRecorder
 from .cost_model import CostModel
 from .delta import DeltaSimulator
 from .machine import H100MachineModel
@@ -251,36 +254,70 @@ def mcmc_search(model, budget: int, alpha: float = 0.05,
     current_rt = delta.reset(current)
     best, best_rt = dict(current), current_rt
     dp_rt = current_rt
+    # the flight recorder (observability/searchtrace.py): None, and no log
+    # call at all, unless telemetry is on
+    tel = active_log()
+    rec = SearchRecorder.maybe("mcmc", budget, nd, seed, log=tel)
+    if rec is not None:
+        rec.start(initial_ms=dp_rt * 1e3)
+    span = tel.span("mcmc_search", budget=budget, num_devices=nd) \
+        if tel is not None else contextlib.nullcontext({})
     accepts = 0
     t0 = time.perf_counter()
-    for it in range(budget):
-        op = rng.choice(model.ops)
-        # legalized through the op's hook before costing
-        new_pc = op.legalize_pc(random_parallel_config(op, nd, rng, model=model))
-        nxt_rt = delta.propose(op.name, new_pc)
-        if verbose and it % 100 == 0:
-            print(f"iter({it}) cur({current_rt * 1e3:.3f}ms) "
-                  f"next({nxt_rt * 1e3:.3f}ms) best({best_rt * 1e3:.3f}ms)")
-        if nxt_rt < best_rt:
-            best_rt = nxt_rt
-            best = dict(current)
-            best[op.name] = new_pc
-        # downhill always; uphill with the Metropolis probability (the rng
-        # is drawn only on uphill moves)
-        if nxt_rt < current_rt or \
-                rng.random() < math.exp(-alpha * (nxt_rt - current_rt) * 1e3):
-            current[op.name] = new_pc
-            current_rt = nxt_rt
-            delta.commit()
-            accepts += 1
-            if accepts % DELTA_CHECK_EVERY == 0:
-                full_rt = sim.simulate_runtime(model, current)
-                if full_rt != current_rt:
-                    raise RuntimeError(f"delta simulation diverged from the full "
-                                       f"rebuild ({current_rt!r} vs {full_rt!r})")
-        else:
-            delta.rollback()
-    dt = time.perf_counter() - t0
+    with span as span_attrs:
+        for it in range(budget):
+            op = rng.choice(model.ops)
+            old_pc = current[op.name]
+            # legalized through the op's hook before costing
+            new_pc = op.legalize_pc(random_parallel_config(op, nd, rng, model=model))
+            nxt_rt = delta.propose(op.name, new_pc)
+            if it % 100 == 0:
+                if verbose:
+                    print(f"iter({it}) cur({current_rt * 1e3:.3f}ms) "
+                          f"next({nxt_rt * 1e3:.3f}ms) best({best_rt * 1e3:.3f}ms)")
+                if tel is not None:
+                    tel.event("search_progress", engine="mcmc", iter=it,
+                              best_ms=round(best_rt * 1e3, 3))
+            if nxt_rt < best_rt:
+                best_rt = nxt_rt
+                best = dict(current)
+                best[op.name] = new_pc
+            # downhill always; uphill with the Metropolis probability (the
+            # rng is drawn only on uphill moves, so a seeded run proposes
+            # the same with telemetry on or off)
+            if nxt_rt < current_rt:
+                accepted, reason, prob = True, "downhill", None
+            else:
+                prob = math.exp(-alpha * (nxt_rt - current_rt) * 1e3)
+                accepted, reason = rng.random() < prob, "metropolis"
+            if rec is not None:
+                rec.candidate(it, op.name, old_pc, new_pc, cur_ms=current_rt * 1e3,
+                              new_ms=nxt_rt * 1e3, best_ms=best_rt * 1e3,
+                              accepted=accepted, reason=reason, prob=prob)
+            if accepted:
+                current[op.name] = new_pc
+                current_rt = nxt_rt
+                delta.commit()
+                accepts += 1
+                if accepts % DELTA_CHECK_EVERY == 0:
+                    full_rt = sim.simulate_runtime(model, current)
+                    if full_rt != current_rt:
+                        if tel is not None:
+                            tel.event("sim_delta_divergence", engine="mcmc", iter=it,
+                                      delta_s=current_rt, full_s=full_rt)
+                            tel.flush()
+                        raise RuntimeError(f"delta simulation diverged from the full "
+                                           f"rebuild ({current_rt!r} vs {full_rt!r})")
+            else:
+                delta.rollback()
+        dt = time.perf_counter() - t0
+        proposals_per_s = budget / dt if dt > 0 else 0.0
+        span_attrs["best_ms"] = round(best_rt * 1e3, 3)
+        span_attrs["proposals_per_s"] = round(proposals_per_s, 1)
+    if rec is not None:
+        rec.finish(best, best_ms=best_rt * 1e3, proposals_per_s=proposals_per_s, delta=True)
+    if tel is not None:
+        tel.flush()
     if verbose:
         print("=========== Best Discovered Strategy ==========")
         for name, pc in best.items():
@@ -288,4 +325,4 @@ def mcmc_search(model, budget: int, alpha: float = 0.05,
         print(f"simulated runtime: {best_rt * 1e3:.3f} ms/iter")
     return SearchResult(best, engine="mcmc", budget=budget, seed=seed,
                         num_devices=nd, best_s=best_rt, dp_s=dp_rt,
-                        proposals_per_s=budget / dt if dt > 0 else 0.0)
+                        proposals_per_s=proposals_per_s)

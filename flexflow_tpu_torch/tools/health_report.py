@@ -1,0 +1,348 @@
+"""Fold a telemetry JSONL trace into a training-health report.
+
+A copy of the JAX package's ``tools/health_report.py``.
+
+Companion to ``trace_report.py`` (which answers "how fast was it"):
+this CLI answers "was it healthy, and does reality match the
+simulator".  Sections:
+
+  * health findings (``health`` events from observability/health.py:
+    non-finite loss/grad, stragglers with phase attribution, data
+    starvation), aggregated by kind,
+  * step health: steady-state p50/p95 plus the straggler count,
+  * data pipeline: cumulative data_wait vs step time,
+  * simulator agreement: step-level predicted-vs-measured and the
+    per-op table from ``sim_divergence`` events (ratio per op/dir,
+    worst-case band, both sides' provenance — prediction src and
+    measurement src) — rows slot into CALIBRATION.md's multi-point
+    validation table,
+  * op runtime: the in-training measured attribution table from
+    ``FF_OPPROF``'s ``op_runtime`` events (measured vs analytic ms,
+    divergence ratio, cadence coverage),
+  * reconfiguration: online re-parallelization searches and strategy
+    hot-swaps (``reconfig_search`` / ``strategy_swap`` events from
+    runtime/reconfigure.py) with per-swap outcome, simulated gain,
+    measured probation result, and rollbacks,
+  * last heartbeat / bench phase seen in the trace.
+
+STDLIB-ONLY: a trace must be foldable on any laptop.
+
+Usage:
+    python -m flexflow_tpu_torch.tools.health_report ff_trace.jsonl
+    python -m flexflow_tpu_torch.tools.health_report ff_trace.jsonl -o health.md
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Any, Dict, List, Optional
+
+from .trace_report import parse_trace, percentile
+
+
+def _fmt_attrs(attrs: Dict[str, Any], skip=("kind",)) -> str:
+    return " ".join(f"{k}={attrs[k]}" for k in sorted(attrs)
+                    if k not in skip)
+
+
+def _collect(records: List[Dict[str, Any]]):
+    # Gauge records are intentionally unused here (trace_report renders
+    # them, attrs included); spans and events keep their full record —
+    # nothing is stripped on the way in.
+    spans: Dict[str, List[Dict[str, Any]]] = {}
+    events: Dict[str, List[Dict[str, Any]]] = {}
+    meta: Dict[str, Any] = {}
+    for r in records:
+        t = r.get("t")
+        if t == "span":
+            spans.setdefault(r.get("name", "?"), []).append(r)
+        elif t == "event":
+            events.setdefault(r.get("name", "?"), []).append(r)
+        elif t == "meta":
+            meta = r
+    return spans, events, meta
+
+
+def render_report(records: List[Dict[str, Any]]) -> str:
+    spans, events, meta = _collect(records)
+    lines = ["# flexflow_tpu health report", ""]
+    if meta:
+        lines.append(f"run `{meta.get('run_id', '?')}` · pid "
+                     f"{meta.get('pid', '?')} · {len(records)} records")
+        lines.append("")
+
+    # ---- health findings ---------------------------------------------
+    health = events.get("health", [])
+    by_kind: Dict[str, List[Dict[str, Any]]] = {}
+    for e in health:
+        by_kind.setdefault(e.get("attrs", {}).get("kind", "?"), []).append(e)
+    lines.append("## Health findings")
+    lines.append("")
+    if by_kind:
+        lines.append("| kind | count | first ts s | last ts s | last detail |")
+        lines.append("|---|---|---|---|---|")
+        for kind in sorted(by_kind):
+            es = by_kind[kind]
+            lines.append(
+                f"| {kind} | {len(es)} | {float(es[0].get('ts', 0.0)):.2f} | "
+                f"{float(es[-1].get('ts', 0.0)):.2f} | "
+                f"{_fmt_attrs(es[-1].get('attrs', {}))} |")
+    else:
+        lines.append("_no health findings — run looks clean_")
+    lines.append("")
+
+    # ---- step health --------------------------------------------------
+    steps = sorted(spans.get("step", []), key=lambda s: s.get("ts", 0.0))
+    steady = [s for s in steps if not s.get("attrs", {}).get("first")]
+    measured_p50_ms: Optional[float] = None
+    if steady:
+        durs = sorted(float(s.get("dur", 0.0)) for s in steady)
+        measured_p50_ms = percentile(durs, 50) * 1e3
+        lines.append("## Step health")
+        lines.append("")
+        lines.append(f"- steady-state over {len(durs)} steps: "
+                     f"p50 {measured_p50_ms:.1f} ms · "
+                     f"p95 {percentile(durs, 95) * 1e3:.1f} ms")
+        stragglers = by_kind.get("straggler", [])
+        if stragglers:
+            worst = max(float(e.get("attrs", {}).get("ratio", 0.0))
+                        for e in stragglers)
+            lines.append(f"- stragglers flagged: {len(stragglers)} "
+                         f"(worst {worst:.1f}x p50)")
+        else:
+            lines.append("- stragglers flagged: 0")
+        lines.append("")
+
+    # ---- data pipeline ------------------------------------------------
+    waits = spans.get("data_wait", [])
+    if waits and steady:
+        wait_s = sum(float(s.get("dur", 0.0)) for s in waits)
+        step_s = sum(float(s.get("dur", 0.0)) for s in steady)
+        lines.append("## Data pipeline")
+        lines.append("")
+        ratio = wait_s / step_s if step_s > 0 else 0.0
+        lines.append(f"- data_wait total {wait_s:.3f} s over {len(waits)} "
+                     f"batches · wait/step ratio {100 * ratio:.1f}%")
+        lines.append("")
+
+    # ---- simulator agreement ------------------------------------------
+    divs = events.get("sim_divergence", [])
+    preds = events.get("sim_prediction", [])
+    step_divs = [e for e in divs
+                 if e.get("attrs", {}).get("scope") == "step"]
+    # latest row per (op, which) wins — op_profile may rerun
+    op_rows: Dict[tuple, Dict[str, Any]] = {}
+    for e in divs:
+        a = e.get("attrs", {})
+        if a.get("scope") == "op":
+            op_rows[(a.get("op", "?"), a.get("which", "?"))] = a
+    if step_divs or preds or op_rows:
+        lines.append("## Simulator agreement (predicted vs measured)")
+        lines.append("")
+        if step_divs:
+            a = step_divs[-1].get("attrs", {})
+            lines.append(f"- step: predicted "
+                         f"{float(a.get('predicted_ms', 0.0)):.3f} ms · "
+                         f"measured p50 "
+                         f"{float(a.get('measured_ms', 0.0)):.3f} ms · "
+                         f"ratio {float(a.get('ratio', 0.0)):.2f} "
+                         f"(over {a.get('n_steps', '?')} steps)")
+        elif preds and measured_p50_ms:
+            # no health monitor in the run: derive the step-level row
+            # from the compile-time prediction + the step spans
+            p = float(preds[-1].get("attrs", {}).get("predicted_step_ms", 0.0))
+            if p > 0:
+                lines.append(f"- step: predicted {p:.3f} ms · measured p50 "
+                             f"{measured_p50_ms:.3f} ms · ratio "
+                             f"{p / measured_p50_ms:.2f}")
+        elif preds:
+            p = float(preds[-1].get("attrs", {}).get("predicted_step_ms", 0.0))
+            lines.append(f"- step: predicted {p:.3f} ms · no measured steps "
+                         f"in trace")
+        if op_rows:
+            lines.append("")
+            lines.append("| op | dir | predicted ms | measured ms | ratio "
+                         "| pred src | meas src |")
+            lines.append("|---|---|---|---|---|---|---|")
+            worst_key, worst_off = None, 0.0
+            ratios = []
+            for key in sorted(op_rows):
+                a = op_rows[key]
+                r = float(a.get("ratio", 0.0))
+                if r > 0:
+                    ratios.append(r)
+                    off = max(r, 1.0 / r)
+                    if off > worst_off:
+                        worst_key, worst_off = key, off
+                lines.append(
+                    f"| {key[0]} | {key[1]} | "
+                    f"{float(a.get('predicted_ms', 0.0)):.3f} | "
+                    f"{float(a.get('measured_ms', 0.0)):.3f} | "
+                    f"{r:.2f} | {a.get('src', '?')} | "
+                    f"{a.get('measured_src', 'standalone')} |")
+            if ratios:
+                lines.append("")
+                lines.append(f"- per-op ratio band: {min(ratios):.2f}x – "
+                             f"{max(ratios):.2f}x over {len(ratios)} rows")
+                if worst_key is not None:
+                    lines.append(f"- worst-case ratio: {worst_off:.2f}x off "
+                                 f"({worst_key[0]} {worst_key[1]})")
+        lines.append("")
+
+    # ---- in-training measured per-op attribution (FF_OPPROF) ----------
+    op_rt = events.get("op_runtime", [])
+    if op_rt:
+        latest: Dict[tuple, Dict[str, Any]] = {}
+        for e in op_rt:  # last measurement per (op, which) wins
+            a = e.get("attrs", {})
+            latest[(a.get("op", "?"), a.get("which", "?"))] = a
+        lines.append("## Op runtime (in-training attribution)")
+        lines.append("")
+        passes = events.get("op_runtime_pass", [])
+        if passes:
+            pa = [p.get("attrs", {}) for p in passes]
+            covered = sum(int(a.get("ops_measured", 0)) for a in pa)
+            total = max(int(a.get("ops_total", 0)) for a in pa)
+            spent = sum(float(a.get("elapsed_s", 0.0)) for a in pa)
+            lines.append(
+                f"- cadence coverage: {len(pa)} passes, {covered} op "
+                f"measurements over {total} eligible ops, "
+                f"{spent:.2f}s spent")
+            lines.append("")
+        lines.append("| op | which | measured ms | predicted ms | ratio "
+                     "| prediction src |")
+        lines.append("|---|---|---|---|---|---|")
+        for (op, which), a in sorted(latest.items()):
+            lines.append(
+                f"| {op} | {which} | "
+                f"{float(a.get('measured_ms', 0.0)):.3f} | "
+                f"{float(a.get('predicted_ms', 0.0)):.3f} | "
+                f"{float(a.get('ratio', 0.0)):.3f} | "
+                f"{a.get('src', '?')} |")
+        lines.append("")
+
+    # ---- recovery (resilience.py narration) ---------------------------
+    injected = events.get("fault_injected", [])
+    skipped = events.get("step_skipped", [])
+    preempts = events.get("preemption_save", [])
+    retries = events.get("ckpt_retry", [])
+    hangs = events.get("device_hang", [])
+    if injected or skipped or preempts or retries or hangs:
+        lines.append("## Recovery")
+        lines.append("")
+        if injected:
+            faults = ", ".join(
+                f"{e.get('attrs', {}).get('site', '?')}:"
+                f"{e.get('attrs', {}).get('trigger', '?')}="
+                f"{e.get('attrs', {}).get('fault', '?')}" for e in injected)
+            lines.append(f"- chaos-injected faults: {len(injected)} "
+                         f"({faults})")
+        if skipped:
+            total = sum(int(e.get("attrs", {}).get("count", 0))
+                        for e in skipped)
+            worst = max(int(e.get("attrs", {}).get("consecutive", 0))
+                        for e in skipped)
+            lines.append(f"- non-finite steps skipped: {total} "
+                         f"(worst run {worst} consecutive) — params "
+                         "restored in-step, training continued")
+        if retries:
+            lines.append(f"- checkpoint I/O retries: {len(retries)} "
+                         f"(last: {_fmt_attrs(retries[-1].get('attrs', {}))})")
+        if preempts:
+            a = preempts[-1].get("attrs", {})
+            lines.append(f"- preemption saves: {len(preempts)} (last at "
+                         f"step {a.get('step', '?')}, signal "
+                         f"{a.get('signum', '?')}) — resume with the same "
+                         "command")
+        if hangs:
+            a = hangs[-1].get("attrs", {})
+            lines.append(f"- device hangs detected: {len(hangs)} "
+                         f"({a.get('stranded', '?')} watchdog worker(s) "
+                         "stranded)")
+        lines.append("")
+
+    # ---- reconfiguration (reconfigure.py narration) -------------------
+    searches = events.get("reconfig_search", [])
+    swaps = events.get("strategy_swap", [])
+    rerrors = events.get("reconfig_error", [])
+    if searches or swaps or rerrors:
+        lines.append("## Reconfiguration")
+        lines.append("")
+        if searches:
+            a = searches[-1].get("attrs", {})
+            lines.append(f"- re-parallelization searches launched: "
+                         f"{len(searches)} (last: trigger "
+                         f"`{a.get('trigger', '?')}` at step "
+                         f"{a.get('step', '?')}, {a.get('num_devices', '?')} "
+                         f"devices, budget {a.get('budget', '?')})")
+        if swaps:
+            lines.append("")
+            lines.append("| step | trigger | outcome | devices | sim gain "
+                         "| measured p50 pre -> post ms |")
+            lines.append("|---|---|---|---|---|---|")
+            for e in swaps:
+                a = e.get("attrs", {})
+                dev = ""
+                if a.get("old_devices") is not None:
+                    dev = f"{a['old_devices']} -> {a.get('new_devices', '?')}"
+                gain = a.get("gain")
+                gain = f"{100 * float(gain):.1f}%" if gain is not None else ""
+                pre, post = a.get("measured_pre_ms"), a.get("measured_post_ms")
+                meas = (f"{float(pre):.1f} -> {float(post):.1f}"
+                        if pre is not None and post is not None else "")
+                lines.append(f"| {a.get('step', '?')} | "
+                             f"{a.get('trigger', '?')} | "
+                             f"{a.get('outcome', '?')} | {dev} | {gain} | "
+                             f"{meas} |")
+            rolled = [e for e in swaps
+                      if e.get("attrs", {}).get("outcome") == "rolled_back"]
+            if rolled:
+                a = rolled[-1].get("attrs", {})
+                lines.append("")
+                lines.append(f"- rollbacks: {len(rolled)} (last: swap at "
+                             f"step {a.get('swap_step', '?')} regressed "
+                             f"{a.get('regress_factor', '?')}x measured — "
+                             "reverted to the pre-swap strategy)")
+        if rerrors:
+            a = rerrors[-1].get("attrs", {})
+            lines.append(f"- search errors: {len(rerrors)} (last: "
+                         f"{a.get('error', '?')})")
+        lines.append("")
+
+    # ---- heartbeat / phases -------------------------------------------
+    bench = events.get("bench_phase", [])
+    if bench:
+        last = bench[-1]
+        lines.append("## Last phase")
+        lines.append("")
+        lines.append(f"- bench phase `{last.get('attrs', {}).get('phase', '?')}`"
+                     f" at ts {float(last.get('ts', 0.0)):.2f} s")
+        lines.append("")
+
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> str:
+    p = argparse.ArgumentParser(
+        description="Fold a flexflow_tpu telemetry trace into a health + "
+                    "simulator-agreement report.")
+    p.add_argument("trace", help="path to the JSONL trace "
+                                 "(FF_TELEMETRY_FILE / ff_trace.jsonl)")
+    p.add_argument("-o", "--out", default=None,
+                   help="write report to this file instead of stdout")
+    args = p.parse_args(argv)
+
+    records = parse_trace(args.trace)
+    report = render_report(records)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(report)
+        print(f"{len(records)} records -> {args.out}")
+    else:
+        sys.stdout.write(report)
+    return report
+
+
+if __name__ == "__main__":
+    main()

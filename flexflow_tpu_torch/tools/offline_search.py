@@ -117,11 +117,12 @@ def main(argv: Optional[List[str]] = None):
           f"ms/iter; speedup {best.dp_s / best.best_s:.2f}x on {args.devices} H100(s); "
           f"{best.proposals_per_s:.0f} proposals/s ({best.engine}; machine {mm.source})")
     if args.export:
-        save_strategies_to_file(args.export, dict(best), provenance={
-            "tool": "flexflow_tpu_torch offline_search", "model": args.model,
-            "engine": best.engine, "budget": args.budget, "seed": args.seed,
-            "num_devices": args.devices, "best_s": best.best_s, "dp_s": best.dp_s,
-            "machine_model": mm.source})
+        from ..observability.searchtrace import build_provenance, search_stats_extra
+
+        extra = {"model": args.model, "tool": "offline_search", **search_stats_extra(best.stats)}
+        save_strategies_to_file(args.export, dict(best), provenance=build_provenance(
+            model, dict(best), engine=best.engine, budget=args.budget, seed=args.seed,
+            best_s=best.best_s, dp_s=best.dp_s, machine_model=mm, extra=extra))
         print(f"exported strategy -> {args.export} (+ {sidecar_path(args.export)})")
     return best
 

@@ -1,0 +1,361 @@
+"""Fold a telemetry JSONL trace into a markdown run report.
+
+A copy of the JAX package's ``tools/trace_report.py``: it folds a trace
+of either package into the same report.
+
+Reads the records ``observability/events.py`` writes (spans, counters,
+gauges, events) and renders the standard training lens: p50/p95/mean
+step time (steady-state — step 0 is reported separately because it
+contains jit trace + XLA compile), phase breakdown (compile / data-wait /
+metric-drain / checkpoint), throughput and MFU, per-op top-k when the
+trace carries ``op_profile`` events, bench phase heartbeats, and MCMC
+search progress.
+
+STDLIB-ONLY: a trace from a GPU machine must be foldable on any laptop.
+
+Usage:
+    python -m flexflow_tpu_torch.tools.trace_report ff_trace.jsonl
+    python -m flexflow_tpu_torch.tools.trace_report ff_trace.jsonl -o report.md
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Dict, List, Optional
+
+
+def parse_trace(path: str) -> List[Dict[str, Any]]:
+    """Load JSONL records, skipping blank/corrupt lines (a watchdog kill
+    can truncate the final line mid-write)."""
+    records = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                records.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+    return records
+
+
+def percentile(sorted_vals: List[float], q: float) -> float:
+    """Linear-interpolation percentile on an already-sorted list."""
+    if not sorted_vals:
+        return 0.0
+    if len(sorted_vals) == 1:
+        return sorted_vals[0]
+    pos = q / 100.0 * (len(sorted_vals) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(sorted_vals) - 1)
+    frac = pos - lo
+    return sorted_vals[lo] * (1 - frac) + sorted_vals[hi] * frac
+
+
+def _fmt_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.1f} {unit}"
+        n /= 1024.0
+    return f"{n:.1f} TiB"
+
+
+def render_report(records: List[Dict[str, Any]], top_k: int = 8) -> str:
+    spans: Dict[str, List[Dict[str, Any]]] = {}
+    counters: Dict[str, float] = {}
+    gauges: Dict[str, List[float]] = {}
+    events: Dict[str, List[Dict[str, Any]]] = {}
+    meta: Dict[str, Any] = {}
+    for r in records:
+        t = r.get("t")
+        if t == "span":
+            spans.setdefault(r.get("name", "?"), []).append(r)
+        elif t == "counter":
+            # last total wins — records carry the running total exactly
+            # so truncated traces still aggregate correctly
+            counters[r.get("name", "?")] = r.get("total", r.get("v", 0.0))
+        elif t == "gauge":
+            # keep (value, attrs) pairs — gauges carry attrs too
+            # (e.g. replica= on serve_batch_occupancy); dropping them
+            # here would lose the per-replica dimension for renderers
+            gauges.setdefault(r.get("name", "?"), []).append(
+                (float(r.get("v", 0.0)), r.get("attrs") or {}))
+        elif t == "event":
+            events.setdefault(r.get("name", "?"), []).append(r)
+        elif t == "meta":
+            meta = r
+
+    lines = ["# flexflow_tpu trace report", ""]
+    if meta:
+        lines.append(f"run `{meta.get('run_id', '?')}` · pid "
+                     f"{meta.get('pid', '?')} · schema v"
+                     f"{meta.get('version', '?')} · {len(records)} records")
+        lines.append("")
+
+    # ---- steps --------------------------------------------------------
+    steps = sorted(spans.get("step", []), key=lambda s: s.get("ts", 0.0))
+    if steps:
+        lines.append("## Steps")
+        lines.append("")
+        first = [s for s in steps if s.get("attrs", {}).get("first")]
+        steady = [s for s in steps if not s.get("attrs", {}).get("first")]
+        if first:
+            lines.append(f"- first step (incl. compile): "
+                         f"{first[0].get('dur', 0.0) * 1e3:.1f} ms")
+        if steady:
+            durs = sorted(float(s.get("dur", 0.0)) for s in steady)
+            mean = sum(durs) / len(durs)
+            lines.append(
+                f"- steady-state over {len(durs)} steps: "
+                f"mean {mean * 1e3:.1f} ms · "
+                f"p50 {percentile(durs, 50) * 1e3:.1f} ms · "
+                f"p95 {percentile(durs, 95) * 1e3:.1f} ms")
+            sps = [s["attrs"].get("samples_per_sec") for s in steady
+                   if s.get("attrs", {}).get("samples_per_sec") is not None]
+            if sps:
+                lines.append(f"- throughput (last steady step): "
+                             f"{sps[-1]:.1f} samples/s")
+            mfus = [s["attrs"].get("mfu") for s in steady
+                    if s.get("attrs", {}).get("mfu") is not None]
+            if mfus:
+                lines.append(f"- MFU (analytic FLOPs, last steady step): "
+                             f"{100.0 * mfus[-1]:.2f}%")
+        lines.append("")
+
+    # ---- phase breakdown ----------------------------------------------
+    phase_names = ["compile", "data_wait", "metric_drain",
+                   "checkpoint_save", "checkpoint_restore", "fit_epoch",
+                   "mcmc_search", "native_search", "pipeline_search"]
+    phase_rows = []
+    for name in phase_names:
+        ss = spans.get(name)
+        if not ss:
+            continue
+        durs = [float(s.get("dur", 0.0)) for s in ss]
+        phase_rows.append((name, len(ss), sum(durs), max(durs)))
+    if phase_rows:
+        lines.append("## Phases")
+        lines.append("")
+        lines.append("| phase | count | total s | max s |")
+        lines.append("|---|---|---|---|")
+        for name, n, tot, mx in phase_rows:
+            lines.append(f"| {name} | {n} | {tot:.3f} | {mx:.3f} |")
+        lines.append("")
+
+    # ---- counters / gauges --------------------------------------------
+    if counters:
+        lines.append("## Counters")
+        lines.append("")
+        lines.append("| counter | total |")
+        lines.append("|---|---|")
+        for name in sorted(counters):
+            lines.append(f"| {name} | {counters[name]:g} |")
+        lines.append("")
+    interesting_gauges = [
+        ("samples_per_sec", "samples/s", "{:.1f}"),
+        ("samples_per_sec_per_chip", "samples/s/chip", "{:.1f}"),
+        ("mfu", "MFU", "{:.4f}"),
+        ("first_step_wall_s", "first-step wall s", "{:.3f}"),
+        ("est_collective_bytes_per_step", "est. collective/step", None),
+        ("device_bytes_in_use", "HBM in use", None),
+        ("device_peak_bytes_in_use", "HBM peak", None),
+    ]
+    grows = []
+    for key, label, fmt in interesting_gauges:
+        vals = gauges.get(key)
+        if not vals:
+            continue
+        v = vals[-1][0]
+        grows.append((label, fmt.format(v) if fmt else _fmt_bytes(v)))
+    if grows:
+        lines.append("## Gauges (last value)")
+        lines.append("")
+        lines.append("| gauge | value |")
+        lines.append("|---|---|")
+        for label, val in grows:
+            lines.append(f"| {label} | {val} |")
+        lines.append("")
+
+    # ---- per-op top-k -------------------------------------------------
+    op_events = events.get("op_profile", [])
+    if op_events:
+        rows = []
+        for e in op_events:
+            a = e.get("attrs", {})
+            fwd = float(a.get("forward_ms", 0.0))
+            bwd = float(a.get("backward_ms", 0.0))
+            rows.append((a.get("op", "?"), fwd, bwd, fwd + bwd))
+        rows.sort(key=lambda r: -r[3])
+        lines.append(f"## Top ops (standalone profile, top {top_k})")
+        lines.append("")
+        lines.append("| op | fwd ms | bwd ms | total ms |")
+        lines.append("|---|---|---|---|")
+        for op, fwd, bwd, tot in rows[:top_k]:
+            lines.append(f"| {op} | {fwd:.3f} | {bwd:.3f} | {tot:.3f} |")
+        lines.append("")
+
+    # ---- in-training measured per-op attribution (FF_OPPROF) ----------
+    op_rt = events.get("op_runtime", [])
+    if op_rt:
+        latest: Dict[tuple, Dict[str, Any]] = {}
+        for e in op_rt:  # last measurement per (op, which) wins
+            a = e.get("attrs", {})
+            latest[(a.get("op", "?"), a.get("which", "?"))] = a
+        lines.append("## Op runtime (in-training attribution)")
+        lines.append("")
+        passes = events.get("op_runtime_pass", [])
+        if passes:
+            pa = [p.get("attrs", {}) for p in passes]
+            covered = sum(int(a.get("ops_measured", 0)) for a in pa)
+            total = max(int(a.get("ops_total", 0)) for a in pa)
+            spent = sum(float(a.get("elapsed_s", 0.0)) for a in pa)
+            lines.append(
+                f"- cadence coverage: {len(pa)} passes, "
+                f"{covered} op measurements over {total} eligible ops, "
+                f"{spent:.2f}s spent")
+            lines.append("")
+        lines.append("| op | which | measured ms | predicted ms | "
+                     "ratio | prediction src |")
+        lines.append("|---|---|---|---|---|---|")
+        for (op, which), a in sorted(latest.items()):
+            lines.append(
+                f"| {op} | {which} | "
+                f"{float(a.get('measured_ms', 0.0)):.3f} | "
+                f"{float(a.get('predicted_ms', 0.0)):.3f} | "
+                f"{float(a.get('ratio', 0.0)):.3f} | "
+                f"{a.get('src', '?')} |")
+        lines.append("")
+
+    # ---- resilience (chaos + recovery narration) ----------------------
+    resil_names = ("fault_injected", "step_skipped", "preemption_save",
+                   "ckpt_retry", "device_hang")
+    resil = [(n, events[n]) for n in resil_names if events.get(n)]
+    if resil:
+        lines.append("## Resilience")
+        lines.append("")
+        lines.append("| event | count | last |")
+        lines.append("|---|---|---|")
+        for name, evs in resil:
+            a = evs[-1].get("attrs", {})
+            detail = " ".join(f"{k}={a[k]}" for k in sorted(a))
+            lines.append(f"| {name} | {len(evs)} | {detail} |")
+        lines.append("")
+        injected = events.get("fault_injected", [])
+        if injected:
+            lines.append("injected faults, in order:")
+            lines.append("")
+            for e in injected:
+                a = e.get("attrs", {})
+                lines.append(f"- `{a.get('site', '?')}:"
+                             f"{a.get('trigger', '?')}` -> "
+                             f"{a.get('fault', '?')} "
+                             f"(t={float(e.get('ts', 0.0)):.2f}s)")
+            lines.append("")
+
+    # ---- bench phases -------------------------------------------------
+    bench = events.get("bench_phase", [])
+    if bench:
+        lines.append("## Bench phases")
+        lines.append("")
+        lines.append("| phase | ts s |")
+        lines.append("|---|---|")
+        for e in bench:
+            lines.append(f"| {e.get('attrs', {}).get('phase', '?')} | "
+                         f"{float(e.get('ts', 0.0)):.2f} |")
+        lines.append("")
+
+    # ---- measurement (chipwatch probes and windows) -------------------
+    probes = events.get("chip_probe", [])
+    progress = events.get("measurement_progress", [])
+    windows = events.get("chip_window", [])
+    if probes or progress or windows:
+        lines.append("## Measurement")
+        lines.append("")
+        if probes:
+            ok = sum(1 for e in probes
+                     if e.get("attrs", {}).get("ok"))
+            lines.append(f"- chip probes: {len(probes)} "
+                         f"({ok} ok, {len(probes) - ok} failed)")
+            lines.append("")
+            lines.append("| ts s | attempt | ok | latency s | detail |")
+            lines.append("|---|---|---|---|---|")
+            for e in probes[-12:]:
+                a = e.get("attrs", {})
+                lines.append(
+                    "| {:.2f} | {} | {} | {} | {} |".format(
+                        float(e.get("ts", 0.0)), a.get("attempt", "?"),
+                        "yes" if a.get("ok") else "no",
+                        a.get("latency_s", "?"),
+                        a.get("device_kind") or a.get("detail") or ""))
+            lines.append("")
+        if progress:
+            a0 = progress[0].get("attrs", {})
+            a1 = progress[-1].get("attrs", {})
+            start = a0.get("entries", 0) - a0.get("new_entries", 0)
+            lines.append(
+                f"- measured-cache growth: {start} -> "
+                f"{a1.get('entries', '?')} entries "
+                f"(+{a1.get('new_entries', '?')}) over "
+                f"{a1.get('elapsed_s', '?')}s in "
+                f"{len(progress)} increments")
+            lines.append("")
+        for e in windows:
+            a = e.get("attrs", {})
+            verdict = "converted" if a.get("converted") else "NOT converted"
+            detail = f" — {a['detail']}" if a.get("detail") else ""
+            lines.append(
+                f"- window {verdict}: {a.get('entries_before', '?')} -> "
+                f"{a.get('entries_after', '?')} entries in "
+                f"{a.get('duration_s', '?')}s (measure rc "
+                f"{a.get('measure_rc')}, refit rc "
+                f"{a.get('refit_rc')}){detail}")
+        if windows:
+            lines.append("")
+
+    # ---- search progress ----------------------------------------------
+    prog = events.get("search_progress", [])
+    if prog:
+        lines.append("## Search progress")
+        lines.append("")
+        lines.append("| iter | best ms |")
+        lines.append("|---|---|")
+        for e in prog:
+            a = e.get("attrs", {})
+            lines.append(f"| {a.get('iter', '?')} | "
+                         f"{float(a.get('best_ms', 0.0)):.3f} |")
+        lines.append("")
+
+    if len(lines) <= 2 or all(not ln.startswith("## ") for ln in lines):
+        lines.append("_(no span/counter records in trace)_")
+        lines.append("")
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> str:
+    p = argparse.ArgumentParser(
+        description="Fold a flexflow_tpu telemetry JSONL trace into a "
+                    "markdown report.")
+    p.add_argument("trace", help="path to the JSONL trace "
+                                 "(FF_TELEMETRY_FILE / ff_trace.jsonl)")
+    p.add_argument("-o", "--out", default=None,
+                   help="write report to this file instead of stdout")
+    p.add_argument("--top-k", type=int, default=8,
+                   help="rows in the per-op table (default 8)")
+    args = p.parse_args(argv)
+
+    records = parse_trace(args.trace)
+    report = render_report(records, top_k=args.top_k)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(report)
+        print(f"{len(records)} records -> {args.out}")
+    else:
+        sys.stdout.write(report)
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -22,6 +22,9 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the card's scripts that drive the port (the observability layer's
+    # cost on the compiled step)
+    yield os.path.join(ROOT, "tools", "telemetry_cost.py")
 
 
 def _imported_modules(path):
@@ -56,7 +59,14 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.runtime.decode_graph, flexflow_tpu_torch.serving, "
             "flexflow_tpu_torch.serving.config, flexflow_tpu_torch.serving.queue, "
             "flexflow_tpu_torch.serving.kvpool, flexflow_tpu_torch.serving.engine, "
-            "flexflow_tpu_torch.serving.api; "
+            "flexflow_tpu_torch.serving.api, flexflow_tpu_torch.observability, "
+            "flexflow_tpu_torch.observability.stepstats, "
+            "flexflow_tpu_torch.observability.memplane, "
+            "flexflow_tpu_torch.observability.agreement, "
+            "flexflow_tpu_torch.observability.opprof, "
+            "flexflow_tpu_torch.observability.searchtrace, "
+            "flexflow_tpu_torch.runtime.profiling, flexflow_tpu_torch.tools.trace_report, "
+            "flexflow_tpu_torch.tools.health_report; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -85,15 +95,16 @@ def test_device_flag_parses():
 # to data parallelism over it); two workers on a one-device machine raise
 SOAP_KNOBS = [("import_strategy_file", "s.pb"), ("export_strategy_file", "s.pb"),
               ("workers_per_node", 2)]
-# knobs the compiled-step and search slices ported: they compile and train
-# a step
-STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True), ("search_budget", 10)]
+# knobs the compiled-step, search and observability slices ported: they
+# compile and train a step
+STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True), ("search_budget", 10),
+              ("telemetry", True), ("profiling", True)]
 
 
 @pytest.mark.parametrize("field,value", [
     ("search_budget", 10), ("search_pipeline", True), ("grad_accum_steps", 2),
     ("remat", True), ("zero_optimizer", True), ("sparse_host_embeddings", True),
-    ("lowered", True), ("telemetry", True), *SOAP_KNOBS,
+    ("lowered", True), ("telemetry", True), ("profiling", True), *SOAP_KNOBS,
 ])
 def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
     """Knobs of features outside the port so far raise at compile; the
@@ -110,11 +121,20 @@ def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
     x = m.create_tensor((2, 4))
     m.dense(x, 3, name="fc")
     if (field, value) in STEP_KNOBS:
-        m.compile(ft.SGDOptimizer(lr=0.1))
-        m.init_layers(seed=0)
-        m.set_batch({x: np.ones((2, 4), np.float32)}, np.zeros((2, 1), np.int32))
-        m.train_iteration()
-        assert m.get_metrics().train_all == 2
+        from flexflow_tpu_torch.observability import events
+
+        try:
+            m.compile(ft.SGDOptimizer(lr=0.1))
+            m.init_layers(seed=0)
+            m.set_batch({x: np.ones((2, 4), np.float32)}, np.zeros((2, 1), np.int32))
+            m.train_iteration()
+            assert m.get_metrics().train_all == 2
+            # telemetry writes its trace (into the test's directory)
+            assert (m._telemetry is not None) == (field == "telemetry")
+        finally:
+            events.reset_active()
+        if field == "telemetry":
+            assert '"name": "step"' in (tmp_path / "ff_trace.jsonl").read_text()
         return
     if (field, value) not in SOAP_KNOBS:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -153,10 +173,11 @@ def test_no_port_source_names_the_tpu_files_or_the_ledger(name):
             assert name not in f.read(), f"{os.path.relpath(path, ROOT)} names {name}"
 
 
-def test_env_knobs_and_unported_entry_points_raise(monkeypatch):
-    """Decoding and the engine run on one device; decoding on a mesh, the
-    replica pool (ROADMAP A11), the serving telemetry hooks (A12) and the
-    chaos knob (A10) raise, naming their items."""
+def test_env_knobs_and_unported_entry_points_raise(monkeypatch, tmp_path):
+    """Decoding and the engine run on one device, the engine with its
+    telemetry hooks; decoding on a mesh, the replica pool (ROADMAP A11) and
+    the chaos knob (A10) raise, naming their items."""
+    from flexflow_tpu_torch.observability.events import EventLog
     from flexflow_tpu_torch.models.transformer import build_transformer
     from flexflow_tpu_torch.serving.engine import InferenceEngine
 
@@ -167,8 +188,12 @@ def test_env_knobs_and_unported_entry_points_raise(monkeypatch):
     lm.init_layers(seed=0)
     assert lm.generate([[1], [2]], 4).shape == (2, 4)
     InferenceEngine(lm, max_batch=1, max_seq=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        InferenceEngine(lm, max_batch=1, max_seq=8, telemetry=object())
+    log = EventLog(str(tmp_path / "serve.jsonl"))
+    with InferenceEngine(lm, max_batch=1, max_seq=8, telemetry=log) as eng:
+        req = eng.submit([1, 2], 3)
+        assert req.result(60).shape == (3,) and req.trace is not None
+    log.close()
+    assert '"serve_request_done"' in (tmp_path / "serve.jsonl").read_text()
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         from flexflow_tpu_torch.serving import ReplicaPool  # noqa: F401
     for var, value in (("FF_SERVE_MAX_QUEUE", "64"), ("FF_SERVE_REPLICAS", "4")):

@@ -10,9 +10,9 @@ package's on the same weights (``convert.load_jax_params``).  Dense and
 paged engines give the same tokens, a prefix hit the cold prefill's.
 
 Every wait on a request has its own timeout, and no test sleeps for a
-fixed time.  What the port does not have yet raises, naming its ROADMAP
-item: the replica pool (A11), telemetry and the metrics endpoints (A12),
-chaos faults (A10).  The decode graphs run here with fake CUDA graphs
+fixed time.  Telemetry, request tracing, the capture ledger and the
+metrics endpoints serve; what the port does not have yet raises, naming
+its ROADMAP item: the replica pool (A11), chaos faults (A10).  The decode graphs run here with fake CUDA graphs
 whose replay runs the captured step again.
 """
 
@@ -304,17 +304,54 @@ def test_serve_chaos_error_isolated(model, monkeypatch):
 
 
 @pytest.mark.parametrize("how", ["telemetry", "FF_TRACE_SAMPLE", "FF_MEMPLANE"])
-def test_serve_report_empty_trace(model, monkeypatch, how):
-    """The serving report reads the event log, which is not ported: asking
-    the engine for telemetry, request tracing or the compile plane raises
-    naming ROADMAP A12."""
-    kw = {}
-    if how == "telemetry":
-        kw["telemetry"] = object()
-    else:
+def test_serve_report_empty_trace(model, monkeypatch, tmp_path, how):
+    """The engine's telemetry, request tracing and capture ledger: an
+    engine that served nothing leaves an empty trace, which the port's
+    trace_report folds; each request it serves then ends in one
+    ``serve_request_done`` carrying its trace id.  A sampled trace
+    (FF_TRACE_SAMPLE=1) adds decode-chunk spans under the request's root;
+    FF_MEMPLANE puts every decode graph's capture (fake graphs here) in
+    the ledger, with no retrace after warmup()."""
+    from flexflow_tpu_torch.observability.events import EventLog
+    from flexflow_tpu_torch.tools import trace_report
+
+    path = tmp_path / "serve.jsonl"
+    log = EventLog(str(path))
+    if how != "telemetry":
         monkeypatch.setenv(how, "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        InferenceEngine(model, max_batch=1, max_seq=MAX_SEQ, **kw)
+    if how == "FF_MEMPLANE":
+        monkeypatch.setattr(decode_graph.DecodeGraph, "_use_graph",
+                            lambda self: graphs_enabled())
+        monkeypatch.setattr(StepGraph, "_eager_on_side_stream", lambda self, step: step())
+
+        class Graph:
+            def __init__(self, step):
+                self.replay = step
+
+        def capture(self, step):
+            self.graph = Graph(step)
+            self.captures += 1
+        monkeypatch.setattr(decode_graph.DecodeGraph, "_capture", capture)
+    eng = InferenceEngine(model, max_batch=2, max_seq=MAX_SEQ, max_new_tokens=12,
+                          telemetry=log)
+    assert "(no span/counter records in trace)" in trace_report.render_report([])
+    captured = eng.warmup() if how == "FF_MEMPLANE" else 0
+    prompts = _prompts(3, seed=23)
+    with eng:
+        outs = _results([eng.submit(p, 12) for p in prompts])
+    log.close()
+    for p, got in zip(prompts, outs):
+        np.testing.assert_array_equal(got, _want(model, p, 12))
+    recs = trace_report.parse_trace(str(path))
+    done = [r for r in recs if r.get("name") == "serve_request_done"]
+    assert len(done) == 3 and len({r["attrs"]["trace_id"] for r in done}) == 3
+    chunks = [r for r in recs if r.get("name") == "serve_decode_chunk"]
+    assert bool(chunks) == (how == "FF_TRACE_SAMPLE")
+    if chunks:
+        assert all("parent_span_id" in r["attrs"] for r in chunks + done)
+    compiles = [r for r in recs if r.get("name") == "compile_done"]
+    assert len(compiles) == captured
+    assert not any(r["attrs"]["retrace"] for r in compiles)
 
 
 @pytest.mark.parametrize("name", ["ReplicaPool", "Autoscaler", "ScaleConfig"])
@@ -357,12 +394,18 @@ def test_http_roundtrip_ephemeral_port(model):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _post(f"{api.url}/generate", payload)
             assert ei.value.code == 400
-        for path, code in (("/nope", 404), ("/metrics", 501), ("/debug/vars", 501)):
-            with pytest.raises(urllib.error.HTTPError) as ei:
-                urllib.request.urlopen(f"{api.url}{path}", timeout=30)
-            assert ei.value.code == code
-            if code == 501:
-                assert "ROADMAP A12" in json.loads(ei.value.read())["error"]
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(f"{api.url}/nope", timeout=30)
+        assert ei.value.code == 404
+        # the metrics plane: the backend's live state without FF_METRICS_PORT
+        with urllib.request.urlopen(f"{api.url}/metrics", timeout=30) as r:
+            assert r.status == 200
+            text = r.read().decode()
+        assert "ff_serve_queue_depth" in text and "ff_serve_active" in text
+        with urllib.request.urlopen(f"{api.url}/debug/vars", timeout=30) as r:
+            assert r.status == 200
+            dv = json.loads(r.read())
+        assert dv["disabled"] is True and dv["backend"]["completed"] >= 1
 
 
 # ---------------------------------------------------------------------------
