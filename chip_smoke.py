@@ -109,8 +109,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      FF_OPPROF=10 and FF_METRICS_PORT (a temporary trace and opprof corpus):
      (a) losses and every weight bitwise equal, ms/step by CUDA events on
      and off (not gated); (b) the median step span and samples/s within
-     10% of that ms/step, MFU in (0, 1), hbm_bytes in (0, 80e9]; (c) one
-     capture at train_step in the ledger, no retrace; (d) opprof measured
+     10% of that ms/step, MFU in (0, 1) (every dense row counted),
+     hbm_bytes in (0, 80e9]; (c) one capture at train_step in the ledger,
+     its own graph pool's bytes above 0, no retrace; (d) opprof measured
      every attention op, K3-K5 each launched 7 times more per op than
      untraced; (e) GET /metrics 200 with ff_ lines; (f) trace_report folds
      one step span per step; (g) full-width AlexNet under
@@ -118,7 +119,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      one step_skipped event, every weight bitwise unchanged; (h) phase
      10's engine, 16 requests untraced then traced (FF_TRACE_SAMPLE=1,
      FF_MEMPLANE=1): equal tokens, a trace id and one serve_request_done
-     per request, no capture after warmup(), the API's /metrics 200.
+     per request, no capture after warmup() and each capture's graph pool
+     above 0 bytes, the API's /metrics 200;
+ 12. the replica pool ([pool] lines), phase 10's model and paged engine
+     (max_batch 16, max_seq 512, block 16), bf16: (a) ReplicaPool(lm,
+     replicas=1, then 3), warmed up, over phase 10's 72-request burst:
+     generated tokens/s, TTFT and TPOT p50/p99, graphs captured per
+     replica (none after the warm-up), each replica's KV pool and graph
+     pool bytes, memory; (b) three replicas, serve:36=replica_kill mid-
+     burst: every request resolved exactly once, one replica down, its
+     restart capturing its graphs while the survivors decode, the dead
+     incarnation's graphs and caches dropped, KV refcounts 0 on every
+     incarnation; (c) serve:8=replica_hang:3 with a 1 s replica timeout:
+     marked down, its requests failed over, its stale attempts losing the
+     CAS when it wakes; (d) hedging at 20 ms: every request hedged, one
+     winner, the losers' slots freed; (e) ServingAPI before a one-replica
+     pool with max_queue 2: 40 concurrent POSTs, the overflow 503 with
+     Retry-After, /healthz per replica, /metrics ff_replica_up, 503 once
+     drained; (f) testing/fleet.py's zone_outage (zones zone-a,zone-b,
+     4 replicas) over phase 10's 72 requests arriving in 3 s: the
+     autoscaler restores the ready count in the surviving zone (time to
+     recover, offered and attained requests/s at a 10 s end-to-end SLO);
+     (g) memory_allocated, after gc.collect() and empty_cache(), back
+     within one replica's footprint of its level before the pools.
+     Every request of (a)-(f) is held against generate and the f32 oracle
+     under BF16_GAP_TOL; the pool launches no kernel.
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
 (phase 6 uses every visible card); it imports nothing of jax or of the
@@ -2230,9 +2255,10 @@ def engine_vs_generate(lm, f32, reqs, outs, smi):
     differing token, which must be within BF16_GAP_TOL."""
     model, tok, pos = f32
     diffs = []
+    wants = {}
     t0 = time.perf_counter()
     for i, ((p, n), got) in enumerate(zip(reqs, outs)):
-        want = lm.generate(p[None], n)[0]
+        want = wants[(p.tobytes(), int(n))] = lm.generate(p[None], n)[0]
         if not np.array_equal(got, want):
             k = int(np.argmax(got != want))  # no eos: both are n long
             diffs.append((i, k, int(got[k]), int(want[k])))
@@ -2252,6 +2278,7 @@ def engine_vs_generate(lm, f32, reqs, outs, smi):
     log(f"[serve] (d) engine vs generate (bf16, B = 1 signatures, {gen_s:.1f} s): "
         f"{len(reqs) - len(diffs)} of {len(reqs)} requests equal; {len(diffs)} differ at a "
         f"near-tie, worst f32 gap {worst:.3e} (tolerance {BF16_GAP_TOL:g}); card {smi}")
+    return wants
 
 
 def http_check(ft, lm, reqs):
@@ -2288,8 +2315,9 @@ def http_check(ft, lm, reqs):
 
 def serving_phase(ft, kernels, smi):
     """Phase 10: decoding and serving at full width.  Returns the kernels'
-    wrapper launches: none on the decode paths (checked), K3 in the f32
-    oracle's forward."""
+    wrapper launches (none on the decode paths, checked; K3 in the f32
+    oracle's forward) and generate's tokens for each request of the burst
+    (phase 12 holds the pool against them)."""
     from flexflow_tpu_torch.models import nmt
     from flexflow_tpu_torch.models.transformer import build_transformer
 
@@ -2398,13 +2426,13 @@ def serving_phase(ft, kernels, smi):
                 [np.concatenate([p, o]) for (p, _), o in zip(reqs, outs["on"])],
                 [p.size for p, _ in reqs], smi)
     lap("the bf16 oracle")
-    engine_vs_generate(lm, (model, tok, pos), reqs, outs["on"], smi)
+    wants = engine_vs_generate(lm, (model, tok, pos), reqs, outs["on"], smi)
     lap("engine vs generate")
     del lm, model
     free_models()
     log(f"[serve] phase 10 took {time.perf_counter() - t_phase:.1f} s; wrapper launches on "
         f"the decode paths {decode_launches}, in the oracle's forward {oracle_launches}")
-    return oracle_launches
+    return oracle_launches, wants
 
 
 # ------------------------------------------------------------------ phase 11
@@ -2493,6 +2521,7 @@ def obs_trace_gates(model, trace, ms, launches_off, launches_on, smi):
     check(abs(sps - want_sps) <= OBS_SPAN_TOL * want_sps,
           f"(b) samples_per_sec {sps:.2f} vs {want_sps:.2f}")
     check(all(0.0 < x < 1.0 for x in mfu), f"(b) MFU {min(mfu)}..{max(mfu)}")
+    fwd_flops = model._stepstats._statics()[0]
     hbm = [r for r in recs if r.get("name") == "hbm_bytes"
            and r["attrs"]["kind"] in ("in_use", "peak")]
     check(hbm and all(0 < r["v"] <= 80e9 for r in hbm),
@@ -2501,18 +2530,20 @@ def obs_trace_gates(model, trace, ms, launches_off, launches_on, smi):
         f"{ms:.4f} ms/step by the phase's CUDA events over steps {OBS_WINDOW[0]}-"
         f"{OBS_WINDOW[1] - 1}: {abs(span_ms - ms) / ms:.2%} apart (tolerance "
         f"{OBS_SPAN_TOL:.0%}); samples_per_sec {sps:.2f} vs {want_sps:.2f}; MFU "
-        f"{float(np.median(mfu)):.4f} of 989e12 bf16 dense; hbm_bytes in use "
+        f"{float(np.median(mfu)):.4f} of 989e12 bf16 dense (analytic forward "
+        f"{fwd_flops / 1e9:.2f} GFLOP a sample, every dense row counted, x3 a training "
+        f"step); hbm_bytes in use "
         f"{max(r['v'] for r in hbm if r['attrs']['kind'] == 'in_use') / 2**30:.2f} GiB, "
         f"peak {max(r['v'] for r in hbm if r['attrs']['kind'] == 'peak') / 2**30:.2f} GiB; "
         f"card {smi}")
     # (c) one capture at train_step, no retrace
     done = [r["attrs"] for r in recs if r.get("name") == "compile_done"]
     check([a["site"] for a in done] == ["train_step"] and not done[0]["retrace"]
-          and (model._memplane.compiles, model._memplane.retraces) == (1, 0),
-          f"(c) captures {done}")
+          and (model._memplane.compiles, model._memplane.retraces) == (1, 0)
+          and done[0].get("graph_pool_bytes", 0) > 0, f"(c) captures {done}")
     log(f"[obs] (c) capture ledger: 1 capture at train_step ({done[0]['wall_s'] * 1e3:.1f} "
-        f"ms host, graph pool {done[0]['graph_pool_bytes'] / 2**20:.1f} MiB), 0 "
-        f"compile_retraces over {OBS_STEPS} steps")
+        f"ms host, its graph pool {done[0]['graph_pool_bytes'] / 2**20:.1f} MiB from the "
+        f"allocator's segments of that pool), 0 compile_retraces over {OBS_STEPS} steps")
     # (d) opprof measured every attention op, through K3-K5
     rt = [r["attrs"] for r in recs if r.get("name") == "op_runtime"]
     attn = sorted({a["op"] for a in rt if a["op"].startswith("attn")})
@@ -2628,6 +2659,12 @@ def obs_serving(ft, build_transformer, tmp, smi):
         check(eng._memplane.retraces == 0 and eng._memplane.compiles == warm,
               f"(h) ledger {eng._memplane.compiles} captures, {eng._memplane.retraces} "
               f"retraces; {warm} in the warm-up")
+        pools = [r["attrs"].get("graph_pool_bytes", 0) for r in recs
+                 if r.get("name") == "compile_done"]
+        check(len(pools) == warm and all(b > 0 for b in pools),
+              f"(h) graph_pool_bytes of the engine's captures {pools}")
+        log(f"[obs] (h) the engine's {warm} captures in the ledger, each with its own "
+            f"graph pool: {', '.join(f'{b / 2**20:.1f}' for b in pools)} MiB")
         chunks = sum(r.get("name") == "serve_decode_chunk" for r in recs)
         log(f"[obs] (h) every request traced and sampled: {len(done)} serve_request_done, "
             f"{chunks} serve_decode_chunk spans; ledger {warm} captures in warmup(), 0 "
@@ -2680,6 +2717,474 @@ def observability_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch
     launches = read_launches(kernels)
     log(f"[obs] phase 11 took {time.perf_counter() - t0:.1f} s; wrapper launches {launches}")
     return launches
+
+
+# ------------------------------------------------------------------ phase 12
+
+POOL_ENGINE = dict(ENGINE, paged="on")
+POOL_KILL_AT = 36            # (b): the burst's admission whose replica dies
+POOL_HANG = (8, 3.0)         # (c): the admission whose replica wedges, seconds
+POOL_HANG_REQUESTS = 24
+POOL_HEDGE = dict(requests=4, prompt=32, new=64, hedge_ms=20.0)
+POOL_SHED = dict(max_queue=2, posts=40)
+# (f)'s end-to-end SLO: what one unfailed engine gives the burst's longest
+# request (phase 10: TTFT p50 up to 3.6 s in the burst, TPOT p99 41 ms, 128
+# new tokens: 8.9 s)
+POOL_FLEET_SLO_MS = 10000.0
+POOL_WAIT_S = 60.0           # bound on every wait for the pool to settle
+# launches of the f32 oracle's full forwards (K3) in phase 12: the pool's
+# own paths launch none
+ORACLE_LAUNCHES = dict(NO_LAUNCH)
+
+
+class Want:
+    """generate(prompt[None], n)[0] of the bf16 model per request, memoized
+    (phase 10's results seed it); each call's decode graph is dropped after
+    it, so no generate graph holds card memory across the pools."""
+
+    def __init__(self, lm, known=None):
+        self.lm = lm
+        self.memo = dict(known or {})
+
+    def __call__(self, p, n):
+        key = (p.tobytes(), int(n))
+        if key not in self.memo:
+            self.memo[key] = self.lm.generate(p[None], n)[0]
+            self.lm._gen_cache.clear()
+        return self.memo[key]
+
+
+def token_gaps(want, f32, reqs, outs):
+    """Phase 10's gap rule per request: (f32 gap at the first token that
+    differs from generate, 0 when equal; worst f32 gap over every generated
+    token against the full forward over the same tokens)."""
+    model, tok, pos = f32
+    before = read_launches(KERNELS)
+    first = [0.0] * len(reqs)
+    diffs = []
+    for i, ((p, n), got) in enumerate(zip(reqs, outs)):
+        w = want(p, n)
+        if not np.array_equal(got, w):
+            k = int(np.argmax(got != w))  # no eos: both are n long
+            diffs.append((i, k, int(got[k]), int(w[k])))
+    for j in range(0, len(diffs), LM["batch"]):
+        chunk = diffs[j:j + LM["batch"]]
+        seqs = [np.concatenate([reqs[i][0], outs[i][:k]]) for i, k, _, _ in chunk]
+        probs = f32_probs(model, tok, pos, seqs)
+        for row, (i, k, a, b) in enumerate(chunk):
+            first[i] = gap(probs[row, len(seqs[row]) - 1], a, b)
+    every = [0.0] * len(reqs)
+    for j in range(0, len(reqs), LM["batch"]):
+        seqs = [np.concatenate([p, o]) for (p, _), o in zip(reqs[j:j + LM["batch"]],
+                                                          outs[j:j + LM["batch"]])]
+        probs = f32_probs(model, tok, pos, seqs)
+        for row, s in enumerate(seqs):
+            st = reqs[j + row][0].size
+            pr = probs[row, st - 1:len(s) - 1]
+            w = torch.as_tensor(s[st:], dtype=torch.long, device=pr.device)
+            top = pr.max(-1).values
+            every[j + row] = float(((top - pr.gather(1, w[:, None])[:, 0]) / top).max())
+    for k, v in read_launches(KERNELS).items():
+        ORACLE_LAUNCHES[k] += v - before[k]
+    return first, every, len(diffs)
+
+
+def pool_tokens(label, want, f32, reqs, outs, smi):
+    """Every request of a pool run under phase 10's gap rule (checked)."""
+    first, every, ndiff = token_gaps(want, f32, reqs, outs)
+    worst = max(max(first), max(every))
+    check(worst <= BF16_GAP_TOL, f"{label}: gap {worst:.3e} > {BF16_GAP_TOL} (first "
+                                 f"differences {max(first):.3e}, every token {max(every):.3e})")
+    log(f"[pool] {label} tokens: {len(reqs) - ndiff} of {len(reqs)} requests equal "
+        f"generate, {ndiff} differ first at a near-tie (worst f32 gap {max(first):.3e}); "
+        f"every generated token within {max(every):.3e} of the f32 forward's top "
+        f"probability (tolerance {BF16_GAP_TOL:g}); card {smi}")
+
+
+def pool_config(**kw):
+    from flexflow_tpu_torch.serving import ServeConfig
+
+    base = dict(POOL_ENGINE, replica_timeout_s=30.0, restart_backoff_s=0.05,
+                restart_cap_s=0.2)
+    base.update(kw)
+    return ServeConfig(**base)
+
+
+def pool_burst(pool, reqs, timeout=600):
+    """Every request submitted at once; (client handles, tokens, wall s),
+    each client's done callbacks checked to fire exactly once."""
+    import collections
+
+    fires = collections.Counter()
+    t0 = time.perf_counter()
+    hs = [pool.submit(p, n, timeout_s=0) for p, n in reqs]
+    for h in hs:
+        h.add_done_callback(lambda r: fires.update([r.request_id]))
+    outs = [h.result(timeout) for h in hs]
+    wall = time.perf_counter() - t0
+    check(len(fires) == len(reqs) and set(fires.values()) == {1},
+          f"exactly once: {len(fires)} clients resolved of {len(reqs)}, fires {set(fires.values())}")
+    return hs, outs, wall
+
+
+def settle(cond, what):
+    deadline = time.perf_counter() + POOL_WAIT_S
+    while not cond():
+        check(time.perf_counter() < deadline, f"{what} within {POOL_WAIT_S:g} s")
+        time.sleep(0.01)
+
+
+KERNELS = {}
+
+
+def settled_allocated():
+    """memory_allocated once the dropped pools' objects are collected and
+    the allocator's cache is released."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def replica_bytes(pool):
+    """The largest live replica's card memory: its KV pool and graph pools."""
+    return max(b["kv"] + (b["graph_pools"] or 0) for b in pool.device_bytes().values())
+
+
+def kv_clean(engines, what):
+    for e in engines:
+        kv = e._kvpool
+        check(kv.slot_refs() == 0 and kv.stats()["blocks_promised"] == 0,
+              f"{what}: {e.uid} slot refs {kv.slot_refs()}, {kv.stats()}")
+
+
+def pool_events(path, *names):
+    from flexflow_tpu_torch.tools import trace_report
+
+    return [r for r in trace_report.parse_trace(path) if r.get("name") in names]
+
+
+def pool_throughput(lm, reqs, want, f32, smi):
+    """(a): ReplicaPool(lm, replicas=N), warmed up, over phase 10's burst;
+    returns the largest replica footprint seen."""
+    from flexflow_tpu_torch.serving import ReplicaPool
+
+    footprint = 0
+    for n in (1, 3):
+        torch.cuda.reset_peak_memory_stats()
+        pool = ReplicaPool(lm, config=pool_config(replicas=n), warmup=True)
+        t0 = time.perf_counter()
+        pool.start()
+        warm_s = time.perf_counter() - t0
+        warm = {k: v["engine"]["graphs_captured"] for k, v in pool.stats()["replicas"].items()}
+        hs, outs, wall = pool_burst(pool, reqs)
+        st = pool.stats()
+        after = {k: v["engine"]["graphs_captured"] for k, v in st["replicas"].items()}
+        dev = pool.device_bytes()
+        footprint = max(footprint, replica_bytes(pool))
+        alloc, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        kv_clean([r.engine for r in pool._replicas], f"(a) N={n}")
+        pool.stop()
+        check(st["completed"] == len(reqs) and st["failovers"] == 0
+              and st["replica_downs"] == 0, f"(a) N={n}: {st}")
+        check(after == warm and len(set(warm.values())) == 1,
+              f"(a) N={n}: graphs {warm} after warm-up, {after} after the burst")
+        tokens = sum(len(o) for o in outs)
+        ttft = [h.ttft_s for h in hs]
+        tpot = [h.tpot_s for h in hs if h.tpot_s is not None]
+        log(f"[pool] (a) {n} replica(s) of one model sharing the card: {len(reqs)} requests, "
+            f"{tokens} tokens in {wall:.3f} s = {tokens / wall:,.1f} generated tokens/s; TTFT "
+            f"p50 {pct(ttft, 50):.1f} ms p99 {pct(ttft, 99):.1f} ms; TPOT p50 "
+            f"{pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} ms; card {smi}")
+        log(f"[pool]   warm-up {warm_s:.2f} s, graphs captured per replica {warm}, "
+            f"{sum(after.values()) - sum(warm.values())} after it; per replica "
+            + "; ".join(f"{k}: KV pool {b['kv'] / 2**20:.1f} MiB, graph pools "
+                        f"{(b['graph_pools'] or 0) / 2**20:.1f} MiB" for k, b in dev.items())
+            + f"; memory_allocated {alloc / 2**30:.3f} GiB, max_memory_allocated "
+              f"{peak / 2**30:.3f} GiB, memory_reserved {reserved / 2**30:.3f} GiB")
+        pool_tokens(f"(a) N={n}", want, f32, reqs, outs, smi)
+        del pool
+    return footprint
+
+
+def pool_failover(lm, reqs, want, f32, tmp, smi, mem):
+    """(b): three replicas, the POOL_KILL_AT-th admission kills its replica."""
+    from flexflow_tpu_torch.observability.events import EventLog
+    from flexflow_tpu_torch.serving import ReplicaPool
+    from flexflow_tpu_torch.testing.chaos import ChaosMonkey
+
+    path = os.path.join(tmp, "failover.jsonl")
+    tel = EventLog(path)
+    lm._chaos = ChaosMonkey(f"serve:{POOL_KILL_AT}=replica_kill")
+    try:
+        pool = ReplicaPool(lm, config=pool_config(replicas=3), telemetry=tel, warmup=True)
+        pool.start()
+        engines = [r.engine for r in pool._replicas]
+        hs, outs, wall = pool_burst(pool, reqs)
+        settle(lambda: pool.stats()["replica_restarts"] >= 1, "(b) the restart")
+        st = pool.stats()
+        reborn = [r for r in pool._replicas if r.restarts]
+        engines += [r.engine for r in pool._replicas]
+        mem.append(("(b) after the restart", torch.cuda.memory_allocated()))
+        pool.stop()
+    finally:
+        lm._chaos = None
+    tel.close()
+    check(st["completed"] == len(reqs) and st["replica_downs"] == 1
+          and st["replica_restarts"] >= 1 and st["failovers"] >= 1, f"(b) {st}")
+    downs = pool_events(path, "replica_down", "replica_restart_failed", "serve_loop_crashed")
+    check(all("ChaosReplicaKill" in (r["attrs"].get("reason") or r["attrs"].get("error", ""))
+              for r in downs), f"(b) a replica failed in a way not injected: {downs}")
+    dead = [e for e in engines if e.crashed is not None]
+    check(len(dead) == 1 and not dead[0].alive() and dead[0]._caches is None
+          and not dead[0]._step_graphs, f"(b) the killed incarnation: {[e.uid for e in dead]}")
+    new = reborn[0].engine
+    w0, w1 = new.warmup_window
+    t0 = tel._t0
+    survivors = {r.name for r in pool._replicas} - {reborn[0].name}
+    during = [r for r in pool_events(path, "serve_batch_occupancy")
+              if r["attrs"]["replica"] in survivors and w0 <= t0 + r["ts"] <= w1]
+    captured = new.graphs_captured()
+    check(captured > 0 and during, f"(b) the restart captured {captured} graphs in "
+                                   f"[{w0:.3f}, {w1:.3f}], survivors stepped {len(during)} "
+                                   "times meanwhile")
+    kv_clean({id(e): e for e in engines}.values(), "(b)")
+    log(f"[pool] (b) failover: serve:{POOL_KILL_AT}=replica_kill in a burst of {len(reqs)} on "
+        f"3 replicas ({wall:.2f} s): completed {st['completed']}, each client resolved once, "
+        f"replica_downs {st['replica_downs']}, failovers {st['failovers']}, restarts "
+        f"{st['replica_restarts']}; {new.uid} captured {captured} graphs in {w1 - w0:.3f} s "
+        f"while the survivors took {len(during)} decode steps; the killed {dead[0].uid} "
+        f"dropped its graphs and caches; KV slot refs and promised blocks 0 on all "
+        f"{len({id(e) for e in engines})} incarnations; card {smi}")
+    pool_tokens("(b) failover", want, f32, reqs, outs, smi)
+    del pool, engines, dead, new, reborn
+
+
+def pool_hang(lm, reqs, want, f32, tmp, smi, mem):
+    """(c): the POOL_HANG[0]-th admission wedges its replica's loop for
+    POOL_HANG[1] s, past a 1 s replica timeout."""
+    from flexflow_tpu_torch.observability.events import EventLog
+    from flexflow_tpu_torch.serving import ReplicaPool
+    from flexflow_tpu_torch.testing.chaos import ChaosMonkey
+
+    k, secs = POOL_HANG
+    path = os.path.join(tmp, "hang.jsonl")
+    tel = EventLog(path)
+    lm._chaos = ChaosMonkey(f"serve:{k}=replica_hang:{secs:g}")
+    try:
+        pool = ReplicaPool(lm, config=pool_config(replicas=3, replica_timeout_s=1.0),
+                           telemetry=tel, warmup=True)
+        pool.start()
+        engines = [r.engine for r in pool._replicas]
+        hs, outs, wall = pool_burst(pool, reqs)
+        settle(lambda: pool.stats()["replica_restarts"] >= 1, "(c) the restart")
+        hung = next(e for e in engines if e._abandoned)
+        settle(lambda: not hung.alive(), "(c) the wedged loop's exit")
+        st = pool.stats()
+        engines += [r.engine for r in pool._replicas]
+        moved = sum(r.failovers for r in pool._replicas)
+        mem.append(("(c) after the restart", torch.cuda.memory_allocated()))
+        pool.stop()
+    finally:
+        lm._chaos = None
+    tel.close()
+    downs = pool_events(path, "replica_down", "replica_restart_failed", "serve_loop_crashed")
+    check(st["completed"] == len(reqs) and st["replica_downs"] == 1 and len(downs) == 1
+          and "no decode progress" in downs[0]["attrs"]["reason"], f"(c) {st}; {downs}")
+    # after the mark-down no client took its tokens from the wedged
+    # incarnation: its stale attempts lost the CAS when it woke
+    t_down = tel._t0 + downs[0]["ts"]
+    late = [h.request_id for h in hs if h.admitted_by == hung.uid and h.t_done > t_down]
+    check(hung.crashed is None and hung._caches is None and not hung.active_requests()
+          and not late, f"(c) the wedged incarnation after it woke: {hung.stats()}; "
+                        f"clients it resolved after its mark-down {late}")
+    kv_clean({id(e): e for e in engines}.values(), "(c)")
+    log(f"[pool] (c) serve:{k}=replica_hang:{secs:g} with replica_timeout_s 1: "
+        f"{downs[0]['attrs']['reason']}; {moved} attempt(s) failed over, {len(reqs)} of "
+        f"{len(reqs)} requests completed once in {wall:.2f} s; the wedged {hung.uid} woke, "
+        f"its stale attempts lost the CAS (no client resolved by it after the mark-down), "
+        f"and it dropped its graphs and caches; restarts {st['replica_restarts']}; card "
+        f"{smi}")
+    pool_tokens("(c) hang", want, f32, reqs, outs, smi)
+    del pool, engines, hung
+
+
+def pool_hedge(lm, want, f32, smi):
+    """(d): hedge_ms low enough to fire on every request."""
+    from flexflow_tpu_torch.serving import ReplicaPool
+
+    H = POOL_HEDGE
+    rng = np.random.default_rng(12)
+    reqs = [(rng.integers(0, LM["vocab_size"], size=H["prompt"], dtype=np.int32), H["new"])
+            for _ in range(H["requests"])]
+    pool = ReplicaPool(lm, config=pool_config(replicas=3, hedge_ms=H["hedge_ms"]), warmup=True)
+    with pool:
+        hs, outs, wall = pool_burst(pool, reqs)
+        st = pool.stats()
+        settle(lambda: not pool._attempts and all(
+            v["engine"]["active"] == 0 and v["engine"]["kv"]["blocks_promised"] == 0
+            for v in pool.stats()["replicas"].values()), "(d) the losers' slots freed")
+        kv_clean([r.engine for r in pool._replicas], "(d)")
+    check(st["hedged"] > 0 and st["completed"] == len(reqs) and st["failed"] == 0,
+          f"(d) {st}")
+    log(f"[pool] (d) hedging at {H['hedge_ms']:g} ms on 3 replicas: {st['hedged']} of "
+        f"{len(reqs)} requests hedged, {st['completed']} completed once in {wall:.3f} s (the "
+        f"first finisher's tokens), every losing attempt's slot and KV blocks freed at its "
+        f"next token boundary; card {smi}")
+    pool_tokens("(d) hedging", want, f32, reqs, outs, smi)
+
+
+def pool_shed(lm, reqs, want, f32, smi):
+    """(e): ServingAPI before a one-replica pool with a small max_queue."""
+    import urllib.error
+    import urllib.request
+
+    from flexflow_tpu_torch.serving import ReplicaPool
+    from flexflow_tpu_torch.serving.api import ServingAPI
+
+    S = POOL_SHED
+    picks = reqs[:S["posts"]]
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=60) as r:
+                return r.status, r.read().decode(), r.headers
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode(), e.headers
+
+    def post(url, p, n):
+        body = json.dumps({"prompt": [int(t) for t in p], "max_new_tokens": n}).encode()
+        req = urllib.request.Request(f"{url}/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read()), r.headers
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), e.headers
+
+    pool = ReplicaPool(lm, config=pool_config(replicas=1, max_queue=S["max_queue"]),
+                       warmup=True)
+    with pool, ServingAPI(pool, port=0) as api:
+        code, body, _ = get(f"{api.url}/healthz")
+        hz = json.loads(body)
+        check(code == 200 and hz["status"] == "ok" and [r["state"] for r in hz["replicas"]]
+              == ["ready"] and hz["replicas"][0]["incarnation"], f"(e) /healthz {code} {hz}")
+        with ThreadPoolExecutor(len(picks)) as ex:
+            got = list(ex.map(lambda r: post(api.url, *r), picks))
+        code, metrics_text, _ = get(f"{api.url}/metrics")
+        check(code == 200 and "ff_replica_up" in metrics_text, f"(e) /metrics {code}")
+        st = pool.stats()
+        pool.stop(drain=True)
+        late, _, late_h = post(api.url, *picks[0])
+        hz_code, hz_body, _ = get(f"{api.url}/healthz")
+        rz_code, _, _ = get(f"{api.url}/readyz")
+    shed = [(c, b, h) for c, b, h in got if c == 503]
+    ok = [(i, b) for i, (c, b, _) in enumerate(got) if c == 200]
+    check(shed and all(h.get("Retry-After") and int(h["Retry-After"]) >= 1
+                       and b["error"].startswith("overloaded") for _, b, h in shed)
+          and len(ok) + len(shed) == len(picks) and st["shed"] == len(shed),
+          f"(e) {len(ok)} 200, {len(shed)} 503 of {len(picks)}; pool {st}")
+    check(late == 503 and late_h.get("Retry-After") and hz_code == 503 and rz_code == 503,
+          f"(e) the drained pool: POST {late}, /healthz {hz_code} {hz_body}, /readyz {rz_code}")
+    ups = [ln for ln in metrics_text.splitlines() if ln.startswith("ff_replica_up")]
+    log(f"[pool] (e) ServingAPI on a one-replica pool, max_queue {S['max_queue']}: "
+        f"{len(picks)} concurrent POST /generate -> {len(ok)} 200, {len(shed)} 503 with "
+        f"Retry-After {sorted({int(h['Retry-After']) for _, _, h in shed})} s; /healthz 200 "
+        f"with per-replica detail {hz['replicas'][0]}; /metrics {ups}; drained: POST 503, "
+        f"/healthz 503 ({json.loads(hz_body)['status']}), /readyz 503; card {smi}")
+    pool_tokens("(e) shedding", want, f32, [picks[i] for i, _ in ok],
+                [np.asarray(b["tokens"], np.int32) for _, b in ok], smi)
+
+
+def pool_fleet(lm, reqs, want, f32, smi):
+    """(f): fleet's zone_outage scenario at full width over phase 10's
+    requests, zones zone-a,zone-b."""
+    from flexflow_tpu_torch.testing import fleet
+
+    def matches(prompts, news, outs):
+        first, every, _ = token_gaps(want, f32, list(zip(prompts, news)), outs)
+        return [max(a, b) <= BF16_GAP_TOL for a, b in zip(first, every)]
+
+    res = fleet.run_scenario("zone_outage", seed=0, slo_ms=POOL_FLEET_SLO_MS, model=lm,
+                             serve=POOL_ENGINE, matches=matches, traffic=reqs,
+                             pool_warmup=True)
+    sc = fleet.SCENARIOS["zone_outage"]
+    check(res["incident"] is not None and res["time_to_recover_s"] is not None
+          and res["pool"]["ready_replicas"] >= sc.scale["min_replicas"]
+          and res["pool"]["replicas_added"] >= 1 and res["n_lost"] == 0
+          and res["n_incorrect"] == 0 and res["n_failed"] == 0
+          and res["n_done"] == len(reqs), f"(f) {res}")
+    tokens = sum(n for _, n in reqs)
+    log(f"[pool] (f) fleet zone_outage, phase 10's {len(reqs)} requests ({tokens} new tokens) "
+        f"arriving over {sc.duration_s:g} s, zones {','.join(sc.zones)}, "
+        f"{sc.replicas} replicas (autoscaler min {sc.scale['min_replicas']} max "
+        f"{sc.scale['max_replicas']}): zone down at {res['incident']['t_down']} s, ready "
+        f"{res['incident']['ready_before']} -> {res['incident']['ready_min']} -> "
+        f"{res['pool']['ready_replicas']}, time to recover {res['time_to_recover_s']} s "
+        f"({res['pool']['replicas_added']} added, scale-ups {res['scale_events']['ups']}); "
+        f"all done in {res['duration_s']} s = {tokens / res['duration_s']:,.1f} generated "
+        f"tokens/s; offered {res['offered_rps']} requests/s, attained {res['attained_rps']} "
+        f"({res['n_good']} of {res['requests']} within the {res['slo_ms']:g} ms end-to-end "
+        f"SLO; all {res['n_done']} within the gap rule); failovers "
+        f"{res['pool']['failovers']}; card {smi}")
+
+
+def pool_phase(ft, kernels, smi, known=None):
+    """Phase 12: the replica pool and the autoscaler on the card.  Returns
+    the kernels' wrapper launches (none: the pool decodes only)."""
+    from flexflow_tpu_torch.models.transformer import build_transformer
+
+    t_phase = t_lap = time.perf_counter()
+
+    def lap(what):
+        nonlocal t_lap
+        now = time.perf_counter()
+        log(f"[pool] {what} took {now - t_lap:.1f} s")
+        t_lap = now
+
+    KERNELS.update(kernels)
+    free_models()
+    lm, _, _ = decode_lm(ft, build_transformer, "bfloat16")
+    f32 = decode_lm(ft, build_transformer, "float32")
+    reqs = traffic()
+    want = Want(lm, known)
+    for p, n in reqs:   # before the baseline: generate's graphs come and go
+        want(p, n)
+    lap("generate for every request")
+    reset_launches(kernels)
+    mem = [("before the pools", settled_allocated())]
+    footprint = pool_throughput(lm, reqs, want, f32, smi)
+    lap("(a)")
+    with tempfile.TemporaryDirectory() as tmp:
+        pool_failover(lm, reqs, want, f32, tmp, smi, mem)
+        lap("(b)")
+        pool_hang(lm, reqs[:POOL_HANG_REQUESTS], want, f32, tmp, smi, mem)
+        lap("(c)")
+    pool_hedge(lm, want, f32, smi)
+    lap("(d)")
+    pool_shed(lm, reqs, want, f32, smi)
+    lap("(e)")
+    pool_fleet(lm, reqs, want, f32, smi)
+    lap("(f)")
+    lm._gen_cache.clear()
+    mem.append(("after close", settled_allocated()))
+    grew = mem[-1][1] - mem[0][1]
+    check(grew <= footprint, f"(g) memory_allocated grew {grew / 2**20:.1f} MiB over the "
+                             f"pools, more than one replica's {footprint / 2**20:.1f} MiB")
+    launches = read_launches(kernels)
+    pool_own = {k: launches[k] - ORACLE_LAUNCHES[k] for k in launches}
+    check(pool_own == NO_LAUNCH, f"the pool paths launched {pool_own}")
+    log(f"[pool] (g) memory_allocated: " + "; ".join(f"{w} {b / 2**30:.4f} GiB"
+                                                     for w, b in mem)
+        + f"; after close {grew / 2**20:+.1f} MiB against one replica's footprint "
+          f"{footprint / 2**20:.1f} MiB (KV pool and graph pools); each reading after "
+          f"gc.collect() and empty_cache()")
+    del lm, f32
+    free_models()
+    log(f"[pool] phase 12 took {time.perf_counter() - t_phase:.1f} s; wrapper launches on "
+        f"the pool paths {pool_own}, in the f32 oracle's forwards {ORACLE_LAUNCHES}")
+    return dict(ORACLE_LAUNCHES)
 
 
 def main(argv=None):
@@ -2814,16 +3319,19 @@ def main(argv=None):
         zoo_launches = models_phase(ft, fo, fa, kernels, smi, out_dir)
 
     # phase 10 -----------------------------------------------------------
-    serve_launches = serving_phase(ft, kernels, smi)
+    serve_launches, wants = serving_phase(ft, kernels, smi)
 
     # phase 11 -----------------------------------------------------------
     obs_launches = observability_phase(ft, build_alexnet, build_transformer,
                                        synthetic_lm_batch, kernels, smi)
 
+    # phase 12 -----------------------------------------------------------
+    pool_launches = pool_phase(ft, kernels, smi, known=wants)
+
     # result -------------------------------------------------------------
     main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
                      + search_launches[n] + zoo_launches[n] + serve_launches[n]
-                     + obs_launches[n] for n in kernels}
+                     + obs_launches[n] + pool_launches[n] for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -2842,7 +3350,7 @@ def main(argv=None):
     log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
         f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
         f"search {search_launches}, models {zoo_launches}, serving {serve_launches}, "
-        f"observability {obs_launches}")
+        f"observability {obs_launches}, pool {pool_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

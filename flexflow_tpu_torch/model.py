@@ -92,9 +92,11 @@ METRIC_KEYS = ("train_all", "train_correct", "cce_loss", "sparse_cce_loss",
 # Environment knobs that switch on JAX-package features this slice does
 # not port, with the ROADMAP item that brings each.
 _UNPORTED_ENV = {
-    "FF_CHAOS": "chaos fault injection (ROADMAP A10)",
     "FF_LOWERED": "whole-graph lowering (ROADMAP A13)",
 }
+# FF_CHAOS is ported for the serve site only (testing/chaos.py); a spec that
+# names another site raises at compile with this label
+_UNPORTED_CHAOS = "chaos fault injection (ROADMAP A10)"
 
 # Entry points of the JAX package's FFModel that the port does not have
 # yet, with the ROADMAP item that brings each.
@@ -151,6 +153,22 @@ def _refuse_unported_knobs(cfg: FFConfig) -> None:
             raise NotImplementedError(f"{var} is set, but {what} is not ported yet")
 
 
+def _resolve_chaos():
+    """``FF_CHAOS``'s monkey (None when unset).  Only the serving engine's
+    admission site is wired; a spec naming any other site raises."""
+    from .testing import chaos
+
+    mk = chaos.from_env()
+    if mk is None:
+        return None
+    other = sorted(({site for site, _ in mk._exact} | {e[0] for e in mk._prob}) - {"serve"})
+    if other:
+        raise NotImplementedError(
+            f"FF_CHAOS={mk.spec!r} names the {', '.join(other)} site(s), but "
+            f"{_UNPORTED_CHAOS} is ported for the serve site only")
+    return mk
+
+
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None):
         self.config = config or FFConfig()
@@ -178,6 +196,7 @@ class FFModel:
         # None unless FF_TELEMETRY / FFConfig.telemetry is on, and every
         # site tests only its handle
         self._telemetry = None
+        self._chaos = None      # FF_CHAOS (the serve site; testing/chaos.py)
         self._stepstats = None
         self._health = None     # FF_HEALTH
         self._opprof = None     # FF_OPPROF
@@ -359,6 +378,8 @@ class FFModel:
         from .observability import health as ff_health
 
         _refuse_unported_knobs(self.config)
+        # chaos is independent of telemetry (recovery must work untraced)
+        self._chaos = _resolve_chaos()
         # the heartbeat works untraced (a no-op unless FF_HEARTBEAT_PATH)
         ff_health.write_heartbeat("compile")
         tel = self._telemetry = ff_events.for_config(self.config)

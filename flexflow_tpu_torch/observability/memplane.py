@@ -18,8 +18,8 @@ Two jobs, both riding an enabled telemetry log:
   ``beam_search`` signature, each serving window and the prefill step.
   Every capture emits ``compile_done`` (site, fingerprint of the graph's
   signature, the capture's host wall, and ``graph_pool_bytes``: the
-  growth of the caching allocator's reserved bytes over the capture,
-  the graph's private memory pool), counts in ``compiles``, and a second
+  bytes the caching allocator holds in the graph's own memory pool,
+  ``StepGraph.pool_bytes``), counts in ``compiles``, and a second
   capture at a site that already captured (a new signature, or the same
   one captured again after a drop) counts in ``compile_retraces``, which
   ``/metrics`` renders as ``ff_compile_retraces_total``.  XLA's

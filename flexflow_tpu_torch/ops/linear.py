@@ -52,7 +52,13 @@ class Linear(Op):
         return [apply_activation(y, self.activation)]
 
     def flops_per_sample(self):
-        return 2.0 * self.inputs[0].dims[-1] * self.output.dims[-1]
+        """2·in·out for each row a sample holds: every dim between the batch
+        and the features counts (a (B, S, in) input is S rows a sample)."""
+        dims = self.output.dims
+        rows = 1
+        for d in dims[1:-1]:
+            rows *= d
+        return 2.0 * self.inputs[0].dims[-1] * dims[-1] * rows
 
     def input_ranges(self, j, pc, part_idx):
         """Every out-channel part reads the whole input feature dim (the

@@ -30,7 +30,9 @@ captured.
 the first step of a signature runs eagerly on a side stream, the next is
 captured and replayed, then replays; a failed capture raises.  Captures
 are thread-local, so the serving engine can capture in its worker thread
-while other threads use the card.  On the CPU and under
+(or a replica pool restart in its monitor thread) while other threads use
+the card; each in a graph memory pool of its own, one at a time in the
+process (``capture_lock``).  On the CPU and under
 ``disable_graphs()`` the same step runs eagerly over the same buffers.
 """
 
@@ -52,6 +54,8 @@ def cache_leaves(caches):
 class DecodeGraph(StepGraph):
     """One decode step of one signature, advanced ``n`` steps at a time."""
 
+    capture_error_mode = "thread_local"
+
     def __init__(self, device: torch.device, step: Callable[[], None]):
         super().__init__(device)
         self.step = step
@@ -69,14 +73,6 @@ class DecodeGraph(StepGraph):
                 self.run("step", self.step)
             else:
                 self.step()
-
-    def _capture(self, step) -> None:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), \
-                torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            step()
-        self.graph = graph
-        self.captures += 1
 
 
 class _Run:

@@ -33,10 +33,24 @@ addresses, ``grad_accum_steps``, whether the flash kernels run their plain
 versions) and when the model is compiled or its layers initialized again.
 A failed capture raises; nothing falls back to the eager step.
 
-A graph's ``on_capture(key, wall_s, pool_bytes)`` hook, when set, hears
-of each capture: its signature, host wall and the growth of the caching
-allocator's reserved bytes over it (the graph's private pool).  The
-capture ledger (observability/memplane.py, ``FF_MEMPLANE``) sets it.
+Each capture gets the private memory pool ``torch.cuda.graph`` makes
+for it, so the segments the caching allocator holds for the graph can be
+told from every other graph's (a replica pool's engines share one card):
+``pool_bytes()`` sums the ``total_size`` of the
+``torch.cuda.memory_snapshot()`` segments whose ``segment_pool_id`` is
+``graph.pool()``.  A graph's ``on_capture(key, wall_s, pool_bytes)``
+hook, when set, hears of each capture: its signature, host wall and that
+pool's size just after it.  The capture ledger
+(observability/memplane.py, ``FF_MEMPLANE``) sets it.
+
+cuBLAS keeps a workspace for every (handle, stream) pair that ran a GEMM,
+until told to drop them all.  A capture clears them before it starts, so
+the workspace its GEMMs use is allocated inside its own pool and lives as
+long as the graph, and again after it ends, so no workspace outlives the
+graph's pool or piles up from eager steps on short-lived streams (as
+``torch._inductor``'s CUDA graph trees do).  A cleared workspace goes
+back to the allocator on the stream it was made on, so work queued there
+before is not disturbed.
 
 ``disable_graphs()`` runs steps eagerly, the counterpart of
 ``jax.disable_jit()``.  The eager step is also the path on the CPU and,
@@ -46,12 +60,17 @@ in this version, on a mesh (SOAP, ROADMAP A6).
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Callable, Hashable, Optional
 
 import torch
 
 _disabled = 0
+# one capture at a time in the process: torch.cuda.graph captures on a stream
+# its class shares, and synchronizes the card first (replays, and every other
+# thread's work, go on meanwhile)
+capture_lock = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -76,6 +95,8 @@ class StepGraph:
     ``run(key, step)`` takes a step: ``step`` is the model's step function
     (its device work only), ``key`` whatever the captured work depends on."""
 
+    capture_error_mode = "global"
+
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.key: Optional[Hashable] = None
@@ -83,12 +104,14 @@ class StepGraph:
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0  # host seconds spent capturing
+        self.pool = None      # the captured graph's memory pool (a handle)
         self.on_capture: Optional[Callable[[Hashable, float, Optional[int]], None]] = None
 
     def drop(self) -> None:
         """Forget the captured graph (and its memory pool)."""
         self.key = None
         self.graph = None
+        self.pool = None
 
     def run(self, key: Hashable, step: Callable[[], None]) -> str:
         """One step; returns what it was: "eager" (a new signature's first
@@ -107,15 +130,25 @@ class StepGraph:
         return kind
 
     def _watched_capture(self, step) -> None:
-        cuda = self.device.type == "cuda"
-        r0 = torch.cuda.memory_reserved(self.device) if cuda and self.on_capture else 0
         t0 = time.perf_counter()
         self._capture(step)
         wall = time.perf_counter() - t0
         self.capture_s += wall
         if self.on_capture is not None:
-            pool = torch.cuda.memory_reserved(self.device) - r0 if cuda else None
-            self.on_capture(self.key, wall, pool)
+            self.on_capture(self.key, wall, self.pool_bytes())
+
+    def pool_bytes(self, segments=None) -> Optional[int]:
+        """Bytes the caching allocator holds in this graph's pool (None off
+        the card or before a capture).  ``segments``: a
+        ``torch.cuda.memory_snapshot()`` already taken."""
+        if self.pool is None or self.device.type != "cuda":
+            return None
+        pid = tuple(self.pool)
+        if segments is None:
+            segments = torch.cuda.memory_snapshot()
+        return sum(seg["total_size"] for seg in segments
+                   if seg.get("device", self.device.index) == self.device.index
+                   and tuple(seg["segment_pool_id"]) == pid)
 
     def _eager_on_side_stream(self, step) -> None:
         """The signature's first step: eager, a real step, on a side stream
@@ -129,7 +162,13 @@ class StepGraph:
 
     def _capture(self, step) -> None:
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), torch.cuda.graph(graph):
-            step()
+        with capture_lock, torch.cuda.device(self.device):
+            torch._C._cuda_clearCublasWorkspaces()
+            try:
+                with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):
+                    step()
+            finally:
+                torch._C._cuda_clearCublasWorkspaces()
         self.graph = graph
+        self.pool = graph.pool()
         self.captures += 1

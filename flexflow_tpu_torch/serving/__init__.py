@@ -8,35 +8,39 @@
 * ``engine``  — ``InferenceEngine``: the continuous-batching decode loop
                 over a dense or paged KV pool, its steps captured CUDA
                 graphs (imports torch)
-* ``api``     — ``ServingAPI``: stdlib ThreadingHTTPServer front end,
-                with ``/metrics`` and ``/debug/vars`` from the metrics plane
+* ``pool``    — ``ReplicaPool``: N health-checked engine replicas behind
+                one admission queue — failover, load shedding, hedging,
+                zones, elastic membership, graceful drain; several
+                replicas may share one card (imports torch via engine)
+* ``autoscaler`` — ``Autoscaler``/``ScaleConfig``: metrics-driven add and
+                drain of pool replicas within FF_SCALE_MIN/MAX (stdlib)
+* ``api``     — ``ServingAPI``: stdlib ThreadingHTTPServer front end
+                (backend: an engine or a pool), with ``/metrics`` and
+                ``/debug/vars`` from the metrics plane
 
-The replica pool (``ReplicaPool``) and the autoscaler (``Autoscaler``,
-``ScaleConfig``) are not ported yet (ROADMAP A11) and raise when asked
-for.  ``InferenceEngine`` and ``ServingAPI`` are imported lazily, so the
-config layer reads without torch.
+``InferenceEngine``, ``ReplicaPool`` and ``ServingAPI`` are imported
+lazily, so the config layer and the autoscaler read without torch.
 """
 
+from .autoscaler import Autoscaler, ScaleConfig
 from .config import ServeConfig
 from .kvpool import BlockExhausted, KVBlockPool
 from .queue import (InferenceRequest, RequestQueue, ServeError,
                     ServeOverload, ServeTimeout)
 
-__all__ = ["BlockExhausted", "InferenceEngine", "InferenceRequest", "KVBlockPool",
-           "RequestQueue", "ServeConfig", "ServeError", "ServeOverload", "ServeTimeout",
-           "ServingAPI"]
-
-_UNPORTED = {"ReplicaPool": "the replica pool", "Autoscaler": "the autoscaler",
-             "ScaleConfig": "the autoscaler"}
+__all__ = ["Autoscaler", "BlockExhausted", "InferenceEngine", "InferenceRequest",
+           "KVBlockPool", "ReplicaPool", "RequestQueue", "ScaleConfig", "ServeConfig",
+           "ServeError", "ServeOverload", "ServeTimeout", "ServingAPI"]
 
 
 def __getattr__(name):
     if name == "InferenceEngine":
         from .engine import InferenceEngine
         return InferenceEngine
+    if name == "ReplicaPool":
+        from .pool import ReplicaPool
+        return ReplicaPool
     if name == "ServingAPI":
         from .api import ServingAPI
         return ServingAPI
-    if name in _UNPORTED:
-        raise NotImplementedError(f"{name}: {_UNPORTED[name]} is not ported yet (ROADMAP A11)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,10 +6,9 @@ on the request future while the single engine loop batches the actual
 decoding — the classic many-waiters/one-worker shape, with zero
 dependencies beyond the standard library.
 
-The backend is an ``InferenceEngine`` (or anything with its
-``submit``/``stats``/``config`` surface).  The replica pool, whose
-per-replica health these endpoints report in the JAX package, is not
-ported yet (ROADMAP A11).
+The backend can be a single ``InferenceEngine`` or a ``ReplicaPool``
+(same ``submit``/``stats`` surface); with a pool the health endpoints
+expose per-replica state and shedding maps to 503 + ``Retry-After``.
 
 Endpoints::
 
@@ -21,16 +20,20 @@ Endpoints::
                         — the join key into the event log)
               ->   400 malformed body / validation error
               ->   503 queue-wait timeout      (Retry-After: 1)
-              ->   503 KV blocks exhausted     (Retry-After: estimate)
-              ->   503 engine stopped / not accepting
+              ->   503 admission shed or KV blocks exhausted
+                                               (Retry-After: estimate)
+              ->   503 pool draining / engine stopped / not accepting
               ->   500 engine-side failure
-  GET  /healthz -> liveness: 200 with the engine's stats
+  GET  /healthz -> liveness: 200 while serving or draining (per-replica
+                   detail with a pool backend, the engine's stats with
+                   an engine), 503 once no replica can serve
   GET  /readyz  -> readiness: 200 iff new submits would be accepted —
                    the load-balancer signal; 503 while draining or down
   GET  /metrics -> Prometheus text: the live registry's series (when
                    FF_METRICS_PORT lights up the metrics plane) plus
-                   scrape-time backend state (queue depth, active slots,
-                   KV blocks; observability/metrics.py)
+                   scrape-time backend state (per-replica health and
+                   incarnation with a pool; queue depth, active slots, KV
+                   blocks with an engine; observability/metrics.py)
   GET  /debug/vars -> the same aggregates as expvar-style JSON, with the
                    backend's stats
 
@@ -87,12 +90,20 @@ class _Handler(BaseHTTPRequestHandler):
         backend = self.api.engine
         uptime = round(time.perf_counter() - self.api.t0, 3)
         if path == "/healthz":
-            payload = backend.stats()
-            payload["status"] = "ok"
+            if hasattr(backend, "healthz"):        # ReplicaPool
+                payload = backend.healthz()
+                code = 200 if payload["status"] in ("ok", "draining") else 503
+            else:                                  # bare InferenceEngine
+                payload = backend.stats()
+                payload["status"] = "ok"
+                code = 200
             payload["uptime_s"] = uptime
-            self._reply(200, payload)
+            self._reply(code, payload)
         elif path == "/readyz":
-            ready = bool(getattr(backend, "_accepting", False))
+            if hasattr(backend, "ready"):          # ReplicaPool
+                ready = bool(backend.ready())
+            else:
+                ready = bool(getattr(backend, "_accepting", False))
             self._reply(200 if ready else 503,
                         {"ready": ready, "uptime_s": uptime})
         elif path == "/metrics":
@@ -125,8 +136,8 @@ class _Handler(BaseHTTPRequestHandler):
             req = self.api.engine.submit(
                 prompt, body.get("max_new_tokens"), **kw)
         except ServeOverload as e:
-            # the KV pool shed this request: tell the client when to come
-            # back instead of letting latency collapse
+            # admission control (or the KV pool) shed this request: tell the
+            # client when to come back instead of letting latency collapse
             self._reply(503, {"error": str(e)},
                         Retry_After=max(1, round(e.retry_after_s)))
             return
@@ -159,7 +170,8 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class ServingAPI:
-    """Owns the HTTP server; pair with a started ``InferenceEngine``.
+    """Owns the HTTP server; pair with a started ``InferenceEngine`` or
+    ``ReplicaPool`` (both expose ``submit``/``stats``/``config``).
 
     ``port=0`` binds an ephemeral port (tests); read ``api.port`` after
     ``start()``.  ``result_timeout_s`` bounds how long a handler thread

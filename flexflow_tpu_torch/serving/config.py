@@ -41,11 +41,8 @@ Paged-KV knobs (serving/kvpool.py):
                                            max_batch * max_seq / kv_block,
                                            the dense worst case)
 
-Replica-pool knobs.  Only the replica pool reads them, and it is not
-ported yet (ROADMAP A11): each is parsed and validated as in the JAX
-package, and then raises NotImplementedError when set away from its
-default, so a deployment that asks for shedding or replicas never runs
-silently without them.
+Replica-pool knobs (serving/pool.py reads them; all inert for a bare
+engine):
 
   FF_SERVE_REPLICAS        replicas           engine replicas behind the one
                                               admission queue (1: no pool)
@@ -73,7 +70,7 @@ silently without them.
                                               prefer a DIFFERENT zone (empty:
                                               zone-unaware, today's behavior)
 
-The autoscaler's knobs (FF_SCALE_*) come with the autoscaler (ROADMAP A11).
+Autoscaler knobs (FF_SCALE_*) live in serving/autoscaler.py.
 """
 
 from __future__ import annotations
@@ -121,11 +118,12 @@ class ServeConfig:
     poll_interval_s: float = 0.02      # idle-loop wait granularity
     host: str = "127.0.0.1"
     port: int = 8000
+    # replica pool (inert for a bare InferenceEngine)
     # paged KV cache (serving/kvpool.py)
     paged: str = "auto"                # auto | on | off
     kv_block: int = 16                 # positions per block
     kv_blocks: int = 0                 # usable budget; 0 -> dense worst case
-    # replica pool (not ported: raises away from these defaults)
+    # replica pool (inert for a bare InferenceEngine)
     replicas: int = 1
     max_queue: int = 0                 # 0: unbounded (no shedding)
     shed_wait_s: float = 0.0           # 0: count-based shedding only
@@ -183,12 +181,6 @@ class ServeConfig:
         if len(set(self.zones)) != len(self.zones):
             raise ValueError(
                 f"FF_SERVE_ZONES names must be unique: {self.zones}")
-        for name, var in _POOL_KNOBS.items():
-            if getattr(self, name) != _POOL_DEFAULTS[name]:
-                raise NotImplementedError(
-                    f"{var} / ServeConfig.{name}={getattr(self, name)!r}: only the "
-                    "replica pool reads it, and the pool is not ported yet "
-                    "(ROADMAP A11)")
 
     @classmethod
     def from_env(cls, **overrides) -> "ServeConfig":
@@ -290,6 +282,17 @@ class ServeConfig:
                 f"{self.max_seq} (FF_SERVE_MAX_SEQ)")
 
     def describe(self) -> str:
+        pool = ""
+        if self.replicas > 1 or self.max_queue or self.hedge_ms:
+            pool = (f" replicas={self.replicas} "
+                    f"max_queue={self.max_queue or 'inf'} "
+                    f"shed_wait={self.shed_wait_s:g}s "
+                    f"replica_timeout={self.replica_timeout_s:g}s "
+                    f"hedge={self.hedge_ms:g}ms "
+                    f"restart_backoff={self.restart_backoff_s:g}s"
+                    f"/{self.restart_cap_s:g}s")
+        if self.zones:
+            pool += f" zones={list(self.zones)}"
         kv = ""
         if self.paged != "off":
             kv = (f" paged={self.paged} kv_block={self.kv_block} "
@@ -298,20 +301,4 @@ class ServeConfig:
                 f"buckets={list(self.resolved_buckets())} "
                 f"max_new_tokens={self.max_new_tokens} "
                 f"queue_timeout={self.queue_timeout_s:g}s "
-                f"http={self.host}:{self.port}{kv}")
-
-
-# the replica pool's fields and their env vars: any of them away from its
-# default raises in ServeConfig.__post_init__ until the pool is ported
-_POOL_KNOBS = {
-    "replicas": "FF_SERVE_REPLICAS",
-    "max_queue": "FF_SERVE_MAX_QUEUE",
-    "shed_wait_s": "FF_SERVE_SHED_WAIT_S",
-    "replica_timeout_s": "FF_SERVE_REPLICA_TIMEOUT",
-    "hedge_ms": "FF_SERVE_HEDGE_MS",
-    "restart_backoff_s": "FF_SERVE_RESTART_BACKOFF_S",
-    "restart_cap_s": "FF_SERVE_RESTART_CAP_S",
-    "zones": "FF_SERVE_ZONES",
-}
-_POOL_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ServeConfig)
-                  if f.name in _POOL_KNOBS}
+                f"http={self.host}:{self.port}{kv}{pool}")

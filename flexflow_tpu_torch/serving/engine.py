@@ -59,16 +59,21 @@ KV block events.  ``FF_MEMPLANE`` puts every decode graph's capture in
 the capture ledger (sites ``serve_prefill``, ``serve_step:w<W>`` and
 ``serve_paged_step:w<W>``).
 
-Not ported yet: ``FF_CHAOS`` serve faults (ROADMAP A10) raise when asked
-for; the replica pool that the ``queue``/``name``/``zone``/
-``decode_fatal`` plumbing serves is ROADMAP A11.
+Chaos (``FF_CHAOS``, testing/chaos.py): the ``serve`` site fires at each
+admission, before the prefill, as in the JAX package; ``serve:K=error``
+fails that request only, ``replica_kill`` ends the loop.  The replica pool
+(serving/pool.py) runs several engines over one shared ``queue``, each
+with a ``name``, a per-incarnation ``uid``, a ``zone`` and
+``decode_fatal``; each has its own stream, decode graphs (each in a graph
+memory pool of its own) and KV pool.  An engine that a pool abandoned or
+whose loop died waits on its own stream, then drops its graphs and caches
+(``_release_device_state``), so a dead incarnation leaks no card memory.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
-import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -78,6 +83,7 @@ import torch
 
 from ..observability import memplane, reqtrace
 from ..runtime.decode_graph import DecodeGraph, cache_leaves
+from ..testing.chaos import ChaosReplicaKill
 from .config import ServeConfig
 from .kvpool import BlockExhausted, KVBlockPool, blocks_for
 from .queue import (CANCELLED, DONE, ERROR, RUNNING, TIMEOUT,
@@ -88,11 +94,6 @@ _engine_uids = itertools.count(1)
 # cancel reason an ABANDONED engine stamps on slots it still held at exit
 # (a replica pool re-dispatches such requests)
 ABANDON_HANDBACK = "engine abandoned"
-
-# environment knobs of serving features not ported yet
-_UNPORTED_ENV = {
-    "FF_CHAOS": "chaos fault injection (ROADMAP A10)",
-}
 
 
 class _Slot:
@@ -128,9 +129,6 @@ class InferenceEngine:
                  zone: Optional[str] = None, **overrides):
         if not getattr(model, "_compiled", False):
             raise RuntimeError("InferenceEngine needs a compiled model (call compile() first)")
-        for var, what in _UNPORTED_ENV.items():
-            if os.environ.get(var, "") not in ("", "0"):
-                raise NotImplementedError(f"{var} is set, but {what} is not ported yet")
         model._decode_params()  # initialized, and not on a mesh
         self.model = model
         self.config = config if config is not None else ServeConfig.from_env(**overrides)
@@ -154,6 +152,7 @@ class InferenceEngine:
         self._trace_chunk = reqtrace.chunk_tokens_from_env() \
             if self._telemetry is not None else 0
         self._memplane = memplane.maybe_plane(self._telemetry)
+        self._chaos = getattr(model, "_chaos", None)
         self._tok_t, self._pos_t = model.resolve_decode_inputs()
         fed = {self._tok_t.guid}
         if self._pos_t is not None:
@@ -193,11 +192,14 @@ class InferenceEngine:
         # device state, made on first use (_device_state)
         self.device = model.device
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        self._caches = None
+        self._caches = self._scratch = None
         self._params = None
         self._step_graphs: Dict[int, DecodeGraph] = {}
         self._prefill_graph: Optional[DecodeGraph] = None
         self._prefill_keys: set = set()
+        # (start, end) on the host clock of the last warmup(), for a pool to
+        # tell what ran on the card meanwhile
+        self.warmup_window: Optional[tuple] = None
 
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
@@ -323,9 +325,24 @@ class InferenceEngine:
             self._prefill_keys.add(key)
             self._stats["prefill_compiles"] += 1
 
+    def _graphs(self) -> List[DecodeGraph]:
+        return [g for g in list(self._step_graphs.values()) + [self._prefill_graph]
+                if g is not None]
+
     def graphs_captured(self) -> int:
-        graphs = list(self._step_graphs.values()) + [self._prefill_graph]
-        return sum(g.captures for g in graphs if g is not None)
+        return sum(g.captures for g in self._graphs())
+
+    def device_bytes(self) -> Dict[str, Optional[int]]:
+        """Card memory this engine holds: its KV pool (the paged blocks or
+        the dense slots) with the prefill scratch, and its decode graphs'
+        memory pools (``StepGraph.pool_bytes``; None off the card)."""
+        kv = sum(c.numel() * c.element_size()
+                 for tree in (self._caches, self._scratch) if tree is not None
+                 for c in cache_leaves(tree))
+        if self.device.type != "cuda":
+            return dict(kv=kv, graph_pools=None)
+        segments = torch.cuda.memory_snapshot()
+        return dict(kv=kv, graph_pools=sum(g.pool_bytes(segments) or 0 for g in self._graphs()))
 
     def warmup(self) -> int:
         """Capture every decode graph this engine can use (the prefill step
@@ -334,6 +351,7 @@ class InferenceEngine:
         idle pool.  Returns the graphs captured."""
         if self._thread is not None:
             raise RuntimeError("warmup() must run before start()")
+        t0 = time.perf_counter()
         with self._device_ctx():
             self._device_state()
             self._counter.zero_()
@@ -346,6 +364,7 @@ class InferenceEngine:
                 w = self._block_bucket(w + 1)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
+        self.warmup_window = (t0, time.perf_counter())
         return self.graphs_captured()
 
     # ------------------------------------------------------------------
@@ -356,6 +375,7 @@ class InferenceEngine:
             raise RuntimeError("engine already started")
         self._stop_evt.clear()
         self._accepting = True
+        self.last_beat = time.perf_counter()  # warmup() may have taken a while
         self._thread = threading.Thread(target=self._run, name=f"ff-serve-{self.name}",
                                         daemon=True)
         self._thread.start()
@@ -477,6 +497,8 @@ class InferenceEngine:
         try:
             with self._device_ctx():
                 self._loop()
+            if self._abandoned:
+                self._release_device_state()
         except BaseException as e:
             self.crashed = f"{type(e).__name__}: {e}"  # read by a replica pool
             if self._telemetry is not None:
@@ -489,7 +511,21 @@ class InferenceEngine:
                 for slot in self._slots:
                     if slot is not None and slot.res is not None:
                         self._kvpool.release(slot.res)
+            self._release_device_state()
             raise
+
+    def _release_device_state(self) -> None:
+        """A dead incarnation's last act: wait for what it queued on its own
+        stream (never the whole card: the other replicas keep serving), then
+        drop its decode graphs (their memory pools), caches and buffers."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._step_graphs = {}
+        self._prefill_graph = None
+        self._caches = self._scratch = self._params = None
+        self._tables = {}
+        self._toks_buf = self._pos_buf = self._next_buf = self._feed = None
+        self._start = self._counter = self._prefill_out = None
 
     def _fail_outstanding(self, msg: str) -> None:
         for i, slot in enumerate(self._slots):
@@ -573,6 +609,11 @@ class InferenceEngine:
             self._admitting = req
             try:
                 self._admit(req, free)
+            except ChaosReplicaKill:
+                # replica-scoped fault: not isolated, the loop thread dies;
+                # ``_admitting`` stays set so the pool fails this request
+                # over with the in-flight ones
+                raise
             except BlockExhausted:
                 # every block is pinned by running sequences right now: park
                 # the head and retry once a boundary frees some
@@ -584,6 +625,9 @@ class InferenceEngine:
                 self._stats["failed"] += 1
                 self._emit_done(req)
             self._admitting = None
+            # an admission is progress: at full width a boundary that admits
+            # a whole batch of B = 1 prefills outlasts a tight replica timeout
+            self.last_beat = time.perf_counter()
 
     def _admit(self, req: InferenceRequest, slot: int) -> None:
         """Prefill ``req`` into ``slot``; on return the slot is live and the
@@ -591,6 +635,11 @@ class InferenceEngine:
         self._admit_seq += 1
         req.admit_seq = self._admit_seq
         req.admitted_by = self.uid
+        if self._chaos is not None:
+            # serve site: trigger = the 1-based admission count (shared by a
+            # pool's replicas); a raised fault fails THIS request only
+            # (caught in _admit_ready), replica_kill ends the loop
+            self._chaos.fire("serve", model=self.model)
         req.t_admit = time.perf_counter()
         req.status = RUNNING
         self._device_state()

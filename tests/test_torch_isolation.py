@@ -66,7 +66,11 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.observability.opprof, "
             "flexflow_tpu_torch.observability.searchtrace, "
             "flexflow_tpu_torch.runtime.profiling, flexflow_tpu_torch.tools.trace_report, "
-            "flexflow_tpu_torch.tools.health_report; "
+            "flexflow_tpu_torch.tools.health_report, flexflow_tpu_torch.serving.pool, "
+            "flexflow_tpu_torch.serving.autoscaler, flexflow_tpu_torch.testing, "
+            "flexflow_tpu_torch.testing.chaos, flexflow_tpu_torch.testing.fleet, "
+            "flexflow_tpu_torch.tools.serve_report, flexflow_tpu_torch.tools.loadgen, "
+            "flexflow_tpu_torch.tools.fleet_bench; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -175,8 +179,9 @@ def test_no_port_source_names_the_tpu_files_or_the_ledger(name):
 
 def test_env_knobs_and_unported_entry_points_raise(monkeypatch, tmp_path):
     """Decoding and the engine run on one device, the engine with its
-    telemetry hooks; decoding on a mesh, the replica pool (ROADMAP A11) and
-    the chaos knob (A10) raise, naming their items."""
+    telemetry hooks, and a ``serve:``-only FF_CHAOS spec is accepted at
+    compile; decoding on a mesh (ROADMAP A11) and chaos at any other site
+    (A10) raise, naming their items."""
     from flexflow_tpu_torch.observability.events import EventLog
     from flexflow_tpu_torch.models.transformer import build_transformer
     from flexflow_tpu_torch.serving.engine import InferenceEngine
@@ -194,22 +199,19 @@ def test_env_knobs_and_unported_entry_points_raise(monkeypatch, tmp_path):
         assert req.result(60).shape == (3,) and req.trace is not None
     log.close()
     assert '"serve_request_done"' in (tmp_path / "serve.jsonl").read_text()
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        from flexflow_tpu_torch.serving import ReplicaPool  # noqa: F401
-    for var, value in (("FF_SERVE_MAX_QUEUE", "64"), ("FF_SERVE_REPLICAS", "4")):
-        monkeypatch.setenv(var, value)  # a pool knob is refused, not ignored
-        with pytest.raises(NotImplementedError, match=f"{var}.*ROADMAP A11"):
-            InferenceEngine(lm, max_batch=1, max_seq=8)
-        monkeypatch.delenv(var)
     monkeypatch.setattr(ft.FFModel, "_sharded", property(lambda self: True))
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         lm.generate([[1], [2]], 4)
     monkeypatch.undo()
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     m.dense(m.create_tensor((2, 4)), 3)
-    monkeypatch.setenv("FF_CHAOS", "step:1=nan_loss")
-    with pytest.raises(NotImplementedError, match="FF_CHAOS"):
-        m.compile(ft.SGDOptimizer(lr=0.1))
+    monkeypatch.setenv("FF_CHAOS", "serve:3=replica_kill;serve:p0.1=error")
+    m.compile(ft.SGDOptimizer(lr=0.1))
+    assert m._chaos is not None and m._chaos.spec == "serve:3=replica_kill;serve:p0.1=error"
+    for spec in ("step:1=nan_loss", "serve:2=error;sync:1=hang"):
+        monkeypatch.setenv("FF_CHAOS", spec)
+        with pytest.raises(NotImplementedError, match="FF_CHAOS.*ROADMAP A10"):
+            m.compile(ft.SGDOptimizer(lr=0.1))
 
 
 def test_unported_attention_and_transformer_options_raise():

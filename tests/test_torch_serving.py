@@ -11,9 +11,10 @@ paged engines give the same tokens, a prefix hit the cold prefill's.
 
 Every wait on a request has its own timeout, and no test sleeps for a
 fixed time.  Telemetry, request tracing, the capture ledger and the
-metrics endpoints serve; what the port does not have yet raises, naming
-its ROADMAP item: the replica pool (A11), chaos faults (A10).  The decode graphs run here with fake CUDA graphs
-whose replay runs the captured step again.
+metrics endpoints serve, and every replica-pool knob reaches the pool
+(tests/test_torch_serving_pool.py has the pool's own tests).  The decode
+graphs run here with fake CUDA graphs whose replay runs the captured step
+again.
 """
 
 import json
@@ -126,19 +127,25 @@ POOL_KNOBS = [("FF_SERVE_REPLICAS", "replicas", "4", 4),
 
 @pytest.mark.parametrize("var,field,raw,value", POOL_KNOBS,
                          ids=[k[0] for k in POOL_KNOBS])
-def test_pool_knobs_raise_until_the_pool_is_ported(monkeypatch, var, field, raw, value):
-    """Only the replica pool reads these knobs (ROADMAP A11): set away from
-    its default, each is refused from the env and as a field, never
-    silently ignored; at its default it is accepted, and a malformed value
-    is still a ValueError naming the variable."""
+def test_pool_knobs_reach_the_pool(monkeypatch, var, field, raw, value):
+    """Each replica-pool knob is accepted from the env and as a field,
+    parsed as the JAX package parses it, and arrives in the pool's
+    ``config``; a malformed value is still a ValueError naming the
+    variable."""
+    from flexflow_tpu.serving.config import ServeConfig as JaxServeConfig
+    from flexflow_tpu_torch.serving.pool import ReplicaPool
+
     monkeypatch.setenv(var, raw)
-    with pytest.raises(NotImplementedError, match=f"{var}.*ROADMAP A11"):
-        ServeConfig.from_env()
+    cfg = ServeConfig.from_env()
+    assert getattr(cfg, field) == value
+    assert getattr(cfg, field) == getattr(JaxServeConfig.from_env(), field)
     monkeypatch.delenv(var)
-    with pytest.raises(NotImplementedError, match=f"ServeConfig.{field}.*ROADMAP A11"):
-        ServeConfig(**{field: value})
-    default = getattr(ServeConfig(), field)
-    assert getattr(ServeConfig(**{field: default}), field) == default
+    assert getattr(ServeConfig(**{field: value}), field) == value
+    # never started: the pool only reads its config here
+    monkeypatch.setenv(var, raw)
+    assert getattr(ReplicaPool(object(), max_seq=MAX_SEQ).config, field) == value
+    monkeypatch.delenv(var)
+    assert getattr(ReplicaPool(object(), ServeConfig(**{field: value})).config, field) == value
     if field != "zones":
         monkeypatch.setenv(var, "x")
         with pytest.raises(ValueError, match=var):
@@ -292,15 +299,30 @@ def test_stop_cancels_outstanding(model):
 
 
 # ---------------------------------------------------------------------------
-# what the port does not have yet raises, naming its ROADMAP item
+# chaos at the serve site
 # ---------------------------------------------------------------------------
 
 def test_serve_chaos_error_isolated(model, monkeypatch):
-    """The JAX package fails the FF_CHAOS ``serve`` site's request alone;
-    the port has no chaos injection yet and refuses it."""
-    monkeypatch.setenv("FF_CHAOS", "serve:2=error")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        InferenceEngine(model, max_batch=1, max_seq=MAX_SEQ)
+    """``serve:2=error``: the second admitted request fails alone; the loop
+    and both neighbours are untouched (the FF_CHAOS serve site, as in the
+    JAX package's tests/test_serving.py)."""
+    from flexflow_tpu_torch.testing.chaos import ChaosMonkey
+
+    monkeypatch.setattr(model, "_chaos", ChaosMonkey("serve:2=error"))
+    eng = InferenceEngine(model, max_batch=1, max_seq=MAX_SEQ, max_new_tokens=8)
+    prompts = [np.array([3, 1, 4]), np.array([1, 5, 9, 2]), np.array([6, 5])]
+    hs = [eng.submit(p, 4) for p in prompts]
+    with eng:
+        out0 = hs[0].result(WAIT)
+        with pytest.raises(ServeError, match="ChaosError"):
+            hs[1].result(WAIT)
+        out2 = hs[2].result(WAIT)
+    assert hs[1].status == "error"
+    assert ("serve", 2, "error") in model._chaos.fired
+    np.testing.assert_array_equal(out0, _want(model, prompts[0], 4))
+    np.testing.assert_array_equal(out2, _want(model, prompts[2], 4))
+    st = eng.stats()
+    assert st["completed"] == 2 and st["failed"] == 1
 
 
 @pytest.mark.parametrize("how", ["telemetry", "FF_TRACE_SAMPLE", "FF_MEMPLANE"])
@@ -355,12 +377,17 @@ def test_serve_report_empty_trace(model, monkeypatch, tmp_path, how):
 
 
 @pytest.mark.parametrize("name", ["ReplicaPool", "Autoscaler", "ScaleConfig"])
-def test_refcounts_zero_after_chaos_replica_kill(name):
-    """The replica pool (and its autoscaler) are not ported yet."""
+def test_pool_and_autoscaler_import(name):
+    """The replica pool and the autoscaler import from the serving package
+    (the pool lazily, with the engine), and are the modules' own classes."""
+    import importlib
+
     import flexflow_tpu_torch.serving as serving
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        getattr(serving, name)
+    module = {"ReplicaPool": "pool"}.get(name, "autoscaler")
+    cls = getattr(serving, name)
+    assert cls is getattr(importlib.import_module(f"flexflow_tpu_torch.serving.{module}"), name)
+    assert name in serving.__all__
 
 
 # ---------------------------------------------------------------------------

@@ -342,9 +342,15 @@ class _FakeCuda:
         self.events = []
         fake = self
 
+        handles = iter(range(1, 1 << 30))
+
         class Graph:
             def __init__(self):
                 self.fn = None
+                self.pool_id = (0, next(handles))  # a private pool per graph
+
+            def pool(self):
+                return self.pool_id
 
             def replay(self):
                 fake.events.append("replay")
@@ -363,8 +369,9 @@ class _FakeCuda:
             yield
 
         @contextlib.contextmanager
-        def graph(g):
+        def graph(g, capture_error_mode="global"):
             fake.events.append("capture")
+            fake.modes.append(capture_error_mode)
             fake.capturing = g
             yield
             fake.capturing = None
@@ -373,9 +380,12 @@ class _FakeCuda:
         monkeypatch.setattr(torch.cuda, "Stream", Stream)
         monkeypatch.setattr(torch.cuda, "stream", stream)
         monkeypatch.setattr(torch.cuda, "graph", graph)
+        monkeypatch.setattr(torch._C, "_cuda_clearCublasWorkspaces",
+                            lambda: fake.events.append("clear cublas"), raising=False)
         monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
         monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
         self.capturing = None
+        self.modes = []  # each capture's capture_error_mode
 
     def step(self, calls):
         def run():
@@ -397,18 +407,32 @@ def test_step_graph_runs_eager_then_captures_then_replays(monkeypatch):
     assert fake.events == ["wait", "side stream", "wait"]
     g.run("a", step)  # captured (recorded, not run), then replayed at once
     assert (g.captures, g.replays) == (1, 1)
-    assert fake.events[3:] == ["capture", "replay"]
+    # cuBLAS's workspaces are dropped before and after: the capture's own
+    # is made in the graph's pool, and none outlives it
+    assert fake.events[3:] == ["clear cublas", "capture", "clear cublas", "replay"]
     g.run("a", step)
     assert (g.captures, g.replays, len(calls)) == (1, 2, 4)
-    g.run("b", step)  # another signature drops the graph
+    first = g.pool
+    assert first == g.graph.pool() and fake.modes == ["global"]  # the graph's own pool
+    g.run("b", step)  # another signature drops the graph, and its pool
     assert g.graph is None and g.key == "b" and (g.captures, g.replays) == (1, 2)
+    assert g.pool is None and g.pool_bytes() is None
+    g.run("b", step)  # a recapture has a pool of its own
+    assert g.pool == g.graph.pool() != first
 
     def broken():
         raise RuntimeError("operation not permitted when stream is capturing")
     g.run("c", lambda: None)
+    fake.events.clear()
     with pytest.raises(RuntimeError, match="capturing"):
         g.run("c", broken)  # a failed capture raises; nothing runs eagerly instead
-    assert g.graph is None
+    assert g.graph is None and fake.events == ["clear cublas", "capture", "clear cublas"]
+    # a decode graph captures thread-locally: a replica captures while others replay
+    from flexflow_tpu_torch.runtime.decode_graph import DecodeGraph
+    d = DecodeGraph(torch.device("cpu"), step)
+    d.run("step", step)
+    d.run("step", step)
+    assert d.captures == 1 and fake.modes[-1] == "thread_local"
 
 
 def test_a_model_on_the_compiled_step_trains_as_the_eager_one(monkeypatch):
