@@ -64,7 +64,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      so that its steps are the compiled ones), 3 compiled steps, the
      exported strategy loaded back; (d) the offline search of both cells for an
      8-GPU node, every config composable over the port's 8-device mesh and
-     no attention sequence split.  ``--calibration-out DIR`` keeps the
+     accepted by its op's check_config (an attention sequence split runs as
+     a ring).  ``--calibration-out DIR`` keeps the
      measured cache and the fit (measured_h100.json, machine_h100.json);
   9. the rest of the zoo at full width through the compiled step
      ([models] lines): ResNet-50 (batch 64, 229x229), Inception-v3 (batch
@@ -143,7 +144,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      (g) memory_allocated, after gc.collect() and empty_cache(), back
      within one replica's footprint of its level before the pools.
      Every request of (a)-(f) is held against generate and the f32 oracle
-     under BF16_GAP_TOL; the pool launches no kernel.
+     under BF16_GAP_TOL; the pool launches no kernel;
+ 13. sequence parallelism, dropout and BatchNorm ([seq] lines): (a) ring
+     (2 and 4 shards) and Ulysses (4) attention at the transformer's shape
+     (16, 8, 512, 64), bf16 and f32, causal and not, the shards in
+     lockstep in one process on the package's per-step function and
+     merge (only the K/V exchange is this script's): O, dq, dk, dv against
+     the unsplit K3-K5 path and, in f32, against mha_reference autograd;
+     K3-K5 launches per direction (a causal 4-shard ring 10 each, 16
+     otherwise); forward + backward ms beside the unsplit call and SDPA;
+     (b) with more than one card, the full-width transformer with every
+     attention op's sequence split over the cards as a ring and as
+     Ulysses, f32 weights after 2 steps against the single-device path and
+     bf16 ms/step beside data parallelism (one card: a line says it was
+     not run); (c) the full-width transformer with attention dropout 0.1
+     through the compiled step: a new mask on every replay (lr 0, one
+     batch, 4 distinct losses equal to the eager path's), compiled and
+     eager f32 states bitwise equal after 3 steps, remat against plain,
+     launches per step unchanged (4 each of K3-K5, 1 of K1), ms/step
+     beside dropout 0; (d) conv 7x7/2 -> BatchNorm(ReLU) at ResNet-50's
+     stem (batch 64, 229x229x3, 64 channels): running stats bitwise equal
+     compiled vs eager after 3 f32 steps, a NaN batch under the guard
+     leaves weights and stats bitwise, save then load carries the stats;
+     the MSELoss op against float64; examples/pca.py's graph of constants
+     trains 20 compiled steps and its loss falls.
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
 (phase 6 uses every visible card); it imports nothing of jax or of the
@@ -888,14 +912,16 @@ def read_launches(kernels):
 
 
 def lm_model(ft, build_transformer, synthetic_lm_batch, make_opt, batch, seq_length,
-             num_layers, embed_dim, num_heads, vocab_size, machine=None, **cfg):
+             num_layers, embed_dim, num_heads, vocab_size, machine=None, dropout=0.0,
+             **cfg):
     """The decoder transformer through the user-facing entry points, with a
     synthetic batch (numpy seed 0) staged."""
     cfg = {"compute_dtype": "bfloat16", "fused_optimizer": True, **cfg}
     model = ft.FFModel(ft.FFConfig(batch_size=batch, **cfg))
     tok, pos, _ = build_transformer(model, batch, seq_length=seq_length,
                                     num_layers=num_layers, embed_dim=embed_dim,
-                                    num_heads=num_heads, vocab_size=vocab_size)
+                                    num_heads=num_heads, vocab_size=vocab_size,
+                                    dropout=dropout)
     model.compile(make_opt(model), ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
                   [ft.MetricsType.ACCURACY], machine=machine)
     model.init_layers(seed=0)
@@ -1188,12 +1214,7 @@ def soap_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels
     from flexflow_tpu_torch.parallel.strategy import load_strategies_from_file
 
     world, port = torch.cuda.device_count(), free_port()
-    helpers = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__)], stdout=subprocess.DEVNULL,
-        env=dict(os.environ, **{SOAP_HELPER: "1", "RANK": str(r), "LOCAL_RANK": str(r),
-                                "WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
-                                "MASTER_PORT": str(port)}))
-        for r in range(1, world)]
+    helpers = spawn_helpers("soap", world, port)
     try:
         dev = dist.initialize("cuda", init_method=f"tcp://localhost:{port}",
                               world_size=world, rank=0, local_rank=0, timeout=SOAP_TIMEOUT)
@@ -1218,9 +1239,24 @@ def soap_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels
     return launches
 
 
+def spawn_helpers(kind, world, port):
+    """This script started again as ranks 1 .. world - 1 of a ``kind``
+    ("soap": phase 6, "seq": phase 13 (b)) process group at
+    localhost:``port``, one per card (the environment carries the rank)."""
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__)], stdout=subprocess.DEVNULL,
+        env=dict(os.environ, **{SOAP_HELPER: kind, "RANK": str(r), "LOCAL_RANK": str(r),
+                                "WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
+                                "MASTER_PORT": str(port)}))
+        for r in range(1, world)]
+
+
 def soap_helper():
-    """A helper rank of phase 6 (rank, world size and rendezvous from the
-    environment the lead rank set): the same SOAP runs, printing nothing."""
+    """A helper rank of phase 6 or of phase 13 (b) (its kind, rank, world
+    size and rendezvous from the environment the lead rank set): the same
+    runs as the lead rank's, printing nothing."""
+    if os.environ[SOAP_HELPER] == "seq":
+        return seq_helper()
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
@@ -1700,8 +1736,8 @@ def search_entry_point(ft, build_alexnet, kernels, out_dir):
 def offline_node_search(ft, measured_path, fit_path):
     """8d: the offline search for an 8-GPU node on this run's calibration;
     every config of the best strategy composes over the port's 8-device mesh,
-    no attention splits its sequence and no conv or pool its height or
-    width."""
+    passes its op's ``check_config`` (what compile asks of it), and no conv
+    or pool splits its height or width."""
     from flexflow_tpu_torch.parallel.mesh import axes_for_degrees, mesh_shape
     from flexflow_tpu_torch.simulator.machine import H100MachineModel
     from flexflow_tpu_torch.tools import offline_search
@@ -1717,8 +1753,7 @@ def offline_node_search(ft, measured_path, fit_path):
             for op in model.ops:
                 dims = best[op.name].dims
                 axes_for_degrees(names, sizes, dims)  # raises if it cannot
-                if op._type == "MultiHeadAttention":
-                    check(dims[1] == 1, f"{op.name} splits its sequence: {dims}")
+                op.check_config(best[op.name])  # raises if training would refuse it
                 if op._type in ("Conv2D", "Pool2D"):
                     check(dims[1:3] == (1, 1), f"{op.name} splits its height or width: {dims}")
             split = {op.name: best[op.name].dims for op in model.ops
@@ -3187,6 +3222,559 @@ def pool_phase(ft, kernels, smi, known=None):
     return dict(ORACLE_LAUNCHES)
 
 
+# ------------------------------------------------------------------ phase 13
+
+# (a): the transformer's attention, (B, H, S, D) = (16, 8, 512, 64)
+SEQ_SHAPE = (LM["batch"], LM["num_heads"], LM["seq_length"], LM["embed_dim"] // LM["num_heads"])
+# (mode, shards) of (a), each in bf16 and f32, causal and not
+SEQ_SPLITS = (("ring", 2), ("ring", 4), ("ulysses", 4))
+# f32 ring or Ulysses against mha_reference autograd (f32, TF32 off): the
+# kernels' f32 sums and the merges' exp/log round differently from one
+# softmax over the whole row, about 1e-6 relative; phase 3's f32 tolerance
+SEQ_REF_TOL = FLASH_TOL[torch.float32]
+
+
+def seq_tol(mode, n, dtype):
+    """(a)'s tolerance against the unsplit K3-K5 path.  f32 and Ulysses
+    (whole rows, each head's attention the unsplit call's): phase 3's.  A
+    bf16 ring rounds each block's O, dq, dk and dv to bf16 (the kernels'
+    output dtype) before it merges or sums them, where the unsplit path
+    rounds once: n block results and n - 1 bf16 sums, up to n bf16 steps
+    (2**-7 each at |x| near 1, where these values lie with unit-variance
+    inputs), so rtol and atol n * 2**-7."""
+    if dtype == torch.float32 or mode == "ulysses":
+        return FLASH_TOL[dtype]
+    return dict(rtol=n * 2 ** -7, atol=n * 2 ** -7)
+# (c): dropout rate of the full-width transformer
+SEQ_DROPOUT = 0.1
+# (d): ResNet-50's stem (conv 7x7 stride 2 to 64 channels at batch 64,
+# 229x229x3), then BatchNorm with ReLU
+STEM = dict(batch=64, side=229, channels=64)
+PCA_STEPS = 20
+
+
+def lockstep_ring(seq, q, k, v, n, causal, scale):
+    """Ring attention of ``n`` shards in one process, in lockstep: at each
+    step every shard runs the package's per-step function on the K/V block
+    it holds and merges with the package's ``_merge_partials``; then each
+    receives the previous shard's block.  That exchange, a list rotation
+    here (NCCL peer to peer across cards), is the only part that is not
+    the package's."""
+    qs = [t.contiguous() for t in q.chunk(n, dim=2)]
+    held = [(kb.contiguous(), vb.contiguous()) for kb, vb in zip(k.chunk(n, dim=2),
+                                                                 v.chunk(n, dim=2))]
+    acc = [None] * n
+    for step in range(n):
+        for idx in range(n):
+            o_s, lse_s = seq.ring_block_attention(qs[idx], *held[idx], idx, step, n,
+                                                  causal=causal, scale=scale)
+            acc[idx] = ((o_s.float(), lse_s) if acc[idx] is None
+                        else seq._merge_partials(*acc[idx], o_s, lse_s))
+        held = held[-1:] + held[:-1]
+    return torch.cat([o.to(q.dtype) for o, _ in acc], dim=2)
+
+
+def lockstep_ulysses(fa, q, k, v, n, causal, scale):
+    """Ulysses over ``n`` shards in one process: after the all-to-all (a
+    slice here) shard j holds head block j of the whole sequence and runs
+    the package's flash attention on it; the inverse all-to-all is the
+    concatenation of the heads."""
+    hn = q.shape[1] // n
+    return torch.cat([fa.flash_attention(*(t[:, j * hn:(j + 1) * hn].contiguous()
+                                           for t in (q, k, v)), causal=causal, scale=scale)
+                      for j in range(n)], dim=1)
+
+
+def seq_runs(seq, fa):
+    """Each (mode, shards) of (a) as a function of (q, k, v)."""
+    scale = 1.0 / math.sqrt(SEQ_SHAPE[-1])
+    runs = {}
+    for mode, n in SEQ_SPLITS:
+        for causal in (True, False):
+            if mode == "ring":
+                fn = (lambda q, k, v, n=n, c=causal: lockstep_ring(seq, q, k, v, n, c, scale))
+            else:
+                fn = (lambda q, k, v, n=n, c=causal: lockstep_ulysses(fa, q, k, v, n, c, scale))
+            runs[(mode, n, causal)] = fn
+    return runs
+
+
+def expected_seq_launches(mode, n, causal):
+    """K3 launches (and K4, K5 each) of one forward (backward): the ring's
+    blocks that are not masked, one per Ulysses shard."""
+    if mode == "ulysses":
+        return n
+    return n * (n + 1) // 2 if causal else n * n
+
+
+def fwd_bwd(fn, q, k, v, do):
+    """O and (dq, dk, dv) of ``fn`` through autograd."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o = fn(*leaves)
+    return o.detach(), torch.autograd.grad(o, leaves, do)
+
+
+def seq_checks(seq, fa, kernels, smi):
+    """(a): each split against the unsplit K3-K5 path (phase 3's tolerance
+    for its dtype) and, in f32, against mha_reference autograd; K3-K5
+    launches per direction.  Returns the launches and the worst errors."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    scale = 1.0 / math.sqrt(SEQ_SHAPE[-1])
+    launches = dict.fromkeys(kernels, 0)
+    worst = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
+    runs = seq_runs(seq, fa)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = attn_inputs(SEQ_SHAPE, dtype, gen)
+        for causal in (True, False):
+            unsplit = fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c, causal=causal,
+                                                                 scale=scale), q, k, v, do)
+            ref = None
+            if dtype == torch.float32:
+                ref = fwd_bwd(lambda a, b, c: fa.mha_reference(a, b, c, causal=causal,
+                                                               scale=scale), q, k, v, do)
+            for (mode, n, c), fn in runs.items():
+                if c != causal:
+                    continue
+                label = f"{mode} n={n} {str(dtype)[6:]} causal={int(causal)}"
+                reset_launches(kernels)
+                leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+                o = fn(*leaves)
+                fwd = read_launches(kernels)
+                grads = torch.autograd.grad(o, leaves, do)
+                torch.cuda.synchronize()
+                got = read_launches(kernels)
+                bwd = {name: got[name] - fwd[name] for name in got}
+                want = expected_seq_launches(mode, n, causal)
+                check(fwd["flash_fwd"] == want and bwd["flash_bwd_dkdv"] == want
+                      and bwd["flash_bwd_dq"] == want and bwd["flash_fwd"] == 0,
+                      f"{label}: launches forward {fwd}, backward {bwd}, expected {want} each")
+                launches = {name: launches[name] + got[name] for name in got}
+                tol = seq_tol(mode, n, dtype)
+                errs = [worst_err(o, unsplit[0], tol, f"O {label} vs unsplit")]
+                errs += [worst_err(g, w, tol, f"d{x} {label} vs unsplit")
+                         for x, g, w in zip("qkv", grads, unsplit[1])]
+                line = (f"[seq] (a) {label}: K3 {fwd['flash_fwd']}, K4 {bwd['flash_bwd_dkdv']}, "
+                        f"K5 {bwd['flash_bwd_dq']} launches; vs the unsplit K3-K5 path max|d| "
+                        f"O {errs[0]:.3e} dq {errs[1]:.3e} dk {errs[2]:.3e} dv {errs[3]:.3e}")
+                if ref is not None:
+                    rerrs = [worst_err(o, ref[0], SEQ_REF_TOL, f"O {label} vs mha_reference")]
+                    rerrs += [worst_err(g, w, SEQ_REF_TOL, f"d{x} {label} vs mha_reference")
+                              for x, g, w in zip("qkv", grads, ref[1])]
+                    line += (f"; vs mha_reference autograd max|d| O {rerrs[0]:.3e} dq "
+                             f"{rerrs[1]:.3e} dk {rerrs[2]:.3e} dv {rerrs[3]:.3e}")
+                    errs = [max(a, b) for a, b in zip(errs, rerrs)]
+                log(line)
+                worst["flash_fwd"] = max(worst["flash_fwd"], errs[0])
+                worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], *errs[2:])
+                worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[1])
+                del o, grads, leaves
+            del unsplit, ref
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    log(f"[seq] (a) tolerances: against the unsplit path phase 3's (bf16 rtol 2**-7 atol 1e-3, "
+        f"f32 rtol atol 1e-4), a bf16 ring of n shards rtol atol n * 2**-7 (n bf16 roundings "
+        f"more); f32 against mha_reference autograd rtol atol 1e-4 (TF32 off); "
+        f"the shards run in lockstep in one process on the package's ring_block_attention, "
+        f"_merge_partials and flash_attention, and only the exchange of K/V between shards "
+        f"is this script's; card {smi}")
+    return launches, worst
+
+
+def seq_times(seq, fa, smi):
+    """(a)'s timing, bf16 causal: each split's forward plus backward beside
+    the unsplit K3-K5 call and SDPA's (a library yardstick).  Not gated."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, do = attn_inputs(SEQ_SHAPE, torch.bfloat16, gen)
+    scale = 1.0 / math.sqrt(SEQ_SHAPE[-1])
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def timed(fn):
+        return cuda_time_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, do), 10)
+
+    times = {"unsplit K3-K5": timed(lambda a, b, c: fa.flash_attention(
+                 a, b, c, causal=True, scale=scale)),
+             "SDPA": timed(lambda a, b, c: F.scaled_dot_product_attention(
+                 a, b, c, is_causal=True, scale=scale))}
+    runs = seq_runs(seq, fa)
+    for (mode, n, causal), fn in runs.items():
+        if causal:
+            times[f"{mode} n={n}"] = timed(fn)
+    log(f"[seq] (a) forward + backward ms, bf16 causal {SEQ_SHAPE}, the shards in lockstep "
+        f"on one card (not gated): " + ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
+        + f"; card {smi}")
+    # where the 4-shard ring's time goes: device time by kernel family
+    ring = runs[("ring", 4, True)]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            torch.autograd.grad(ring(*leaves), leaves, do)
+        torch.cuda.synchronize()
+    groups, count = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            groups[kernel_group(e.key)] = groups.get(kernel_group(e.key), 0.0) + \
+                e.self_device_time_total / 3e3
+            count += e.count
+    log(f"[seq] (a) ring n=4 forward + backward, profiled: {sum(groups.values()):.4f} device "
+        f"ms in {count // 3} kernels a call: " + ", ".join(
+            f"{g} {ms:.4f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+    return times
+
+
+def seq_lm(ft, build_transformer, synthetic_lm_batch, dtype="bfloat16", lr=0.001, **cfg):
+    """The full-width transformer (bf16 unless said) with SGD at ``lr``."""
+    return lm_model(ft, build_transformer, synthetic_lm_batch,
+                    lambda m: ft.SGDOptimizer(m, lr=lr), compute_dtype=dtype, **{**LM, **cfg})
+
+
+def dropout_checks(ft, build_transformer, synthetic_lm_batch, kernels, smi):
+    """(c): attention dropout in the full-width transformer's compiled step.
+    Returns the launches of its bf16 runs."""
+    def make(**cfg):
+        return seq_lm(ft, build_transformer, synthetic_lm_batch, dropout=SEQ_DROPOUT, **cfg)
+
+    # lr 0: the weights stay, so the loss of a replay of the one staged
+    # batch moves only with the mask it draws
+    def losses(graph):
+        model = make(dtype="float32", lr=0.0)
+        with contextlib.nullcontext() if graph else ft.disable_graphs():
+            _, out = steps_ms(model, steps=4, timed_from=1)
+        if graph:
+            check_graph_run(model, 4, "dropout lr 0")
+        return out
+
+    compiled, eager = losses(True), losses(False)
+    check(len(set(compiled)) == 4, f"dropout: 4 steps on one batch gave losses {compiled}")
+    check(compiled == eager, f"dropout: compiled losses {compiled} != eager {eager}")
+    log(f"[seq] (c) dropout {SEQ_DROPOUT}, f32, lr 0, one batch: losses of the eager step, the "
+        f"capture and 2 replays {['%.7f' % x for x in compiled]} (a new mask each), equal to "
+        "the eager path's bit for bit (the generator registered with the capture)")
+
+    def state(graph, remat=False, steps=3):
+        model = make(dtype="float32", remat=remat)
+        with contextlib.nullcontext() if graph else ft.disable_graphs():
+            for _ in range(steps):
+                model.train_iteration()
+        model.sync()
+        if graph:
+            check_graph_run(model, steps, "dropout f32")
+        return state_of(model)
+
+    graph_state = state(True)
+    worst, bitwise = compare_states(graph_state, state(False), GRAPH_TOL, "dropout graph/eager")
+    check(bitwise, f"dropout: compiled and eager f32 states differ (max |d| {worst:.3e})")
+    rworst, rbitwise = compare_states(graph_state, state(True, remat=True), REMAT_TOL,
+                                      "dropout remat/plain")
+    log(f"[seq] (c) dropout f32, 3 steps: compiled vs eager bitwise equal over "
+        f"{len(graph_state)} leaves; remat vs plain max |d| {rworst:.3e} "
+        f"({'bitwise equal' if rbitwise else 'not bitwise'}; limit rtol 1e-6, atol 1e-7)")
+    del graph_state
+    free_models()
+    launches = dict.fromkeys(kernels, 0)
+    times = {"dropout 0": [], f"dropout {SEQ_DROPOUT}": []}
+    for rate in (0.0, SEQ_DROPOUT, SEQ_DROPOUT, 0.0):
+        model = seq_lm(ft, build_transformer, synthetic_lm_batch, dropout=rate)
+        reset_launches(kernels)
+        ms, _ = steps_ms(model)
+        check_graph_run(model, 7, f"dropout {rate}")
+        if rate:
+            launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+        times[f"dropout {rate:g}"].append(ms)
+        del model
+        free_models()
+    model = make()
+    reset_launches(kernels)
+    profile_steps(model, f"transformer dropout {SEQ_DROPOUT}", times[f"dropout {SEQ_DROPOUT}"][0],
+                  per_step=LM_SGD_STEP)
+    launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+    del model
+    free_models()
+    tokens = LM["batch"] * LM["seq_length"]
+    log(f"[seq] (c) transformer bf16 compiled step, ms/step in turns: " + "; ".join(
+        f"{label} {' / '.join(f'{m:.3f}' for m in ms)} ms "
+        f"({' / '.join(f'{tokens * 1e3 / m:.0f}' for m in ms)} tokens/s)"
+        for label, ms in times.items()) + f"; launches per step with dropout {LM_SGD_STEP} "
+        f"(the profiler's); card {smi}")
+    return launches
+
+
+def stem_model(ft, dtype="float32", **cfg):
+    """ResNet-50's stem and BatchNorm, then a pool and a classifier, with
+    its synthetic batch staged."""
+    b = STEM["batch"]
+    model = ft.FFModel(ft.FFConfig(batch_size=b, compute_dtype=dtype, fused_optimizer=True,
+                                   **cfg))
+    inp = model.create_tensor((b, 3, STEM["side"], STEM["side"]))
+    t = model.conv2d(inp, STEM["channels"], 7, 7, 2, 2, 3, 3, use_bias=False, name="conv1")
+    t = model.batch_norm(t, relu=True, name="bn1")
+    t = model.pool2d(t, 3, 3, 2, 2, 1, 1, name="pool1")
+    t = model.dense(model.flat(t, name="flat"), 10, name="fc")
+    model.softmax(t, name="sm")
+    model.compile(ft.SGDOptimizer(model, lr=0.01, momentum=0.9),
+                  ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [ft.MetricsType.ACCURACY])
+    model.init_layers(seed=0)
+    ft.DataLoader.synthetic(model, inp, num_samples=b).next_batch(model)
+    return model
+
+
+def stats_of(model):
+    return {(o, n): t.clone() for o, st in model._stats.items() for n, t in st.items()}
+
+
+def pca_graph(model, b, npcs=5, widths=(10, 10, 10, 10, 10, 1)):
+    """examples/pca.py's graph (the reference's tests/PCA/pca.cc): inputs
+    normalized by element-binary ops, five towers of dense layers whose
+    tanh is built from graph ops on ``create_constant`` tensors, concat."""
+    vec, vmax, vmin = (model.create_tensor((b, npcs), name=n, nchw=False)
+                       for n in ("pcvec", "pcmax", "pcmin"))
+    sb = {i: model.create_tensor((b, widths[i]), name=f"sb{i}", nchw=False)
+          for i in range(1, 6)}
+    x = model.divide(model.subtract(vec, vmin), model.subtract(vmax, vmin))
+    outs = []
+    for pc in range(1, npcs + 1):
+        s = x
+        for i in range(1, 6):
+            s = model.add(model.dense(s, widths[i], name=f"pc{pc}_dense{i}"), sb[i])
+            one, two, m2 = (model.create_constant((b, widths[i]), c) for c in (1.0, 2.0, -2.0))
+            s = model.add(one, model.exp(model.multiply(m2, s)))
+            s = model.subtract(model.divide(two, s), one)
+        outs.append(s)
+    model.concat(outs, axis=1, name="outlayer")
+    return {"pcvec": vec, "pcmax": vmax, "pcmin": vmin, **{f"sb{i}": sb[i] for i in sb}}
+
+
+def batch_norm_checks(ft, kernels, smi):
+    """(d): BatchNorm at ResNet-50's stem through the compiled step, the
+    guard and a checkpoint; the MSELoss op; the PCA graph of constants.
+    Returns the launches of its training runs."""
+    import numpy as np
+
+    from flexflow_tpu_torch.ops.base import FwdCtx
+
+    launches = dict.fromkeys(kernels, 0)
+
+    def run(graph, steps=3):
+        model = stem_model(ft)
+        reset_launches(kernels)
+        with contextlib.nullcontext() if graph else ft.disable_graphs():
+            for _ in range(steps):
+                model.train_iteration()
+        model.sync()
+        if graph:
+            check_graph_run(model, steps, "BatchNorm stem")
+        return model, read_launches(kernels)
+
+    (g, gl), (e, el) = run(True), run(False)
+    for got in (gl, el):
+        launches = {n: launches[n] + c for n, c in got.items()}
+    check(gl["fused_sgd_update"] == 2 and el["fused_sgd_update"] == 3,
+          f"BatchNorm stem: SGD launches compiled {gl}, eager {el}")
+    _, sbit = compare_states(stats_of(g), stats_of(e), dict(rtol=0, atol=0), "stats")
+    worst, wbit = compare_states(state_of(g), state_of(e), GRAPH_TOL, "stem graph/eager")
+    moved = (g._stats["bn1"]["var"] - 1).abs().max().item()
+    check(moved > 0, "BatchNorm stem: the running variance did not move")
+    log(f"[seq] (d) BatchNorm stem f32 (batch {STEM['batch']}, {STEM['side']}x{STEM['side']}x3, "
+        f"conv 7x7/2 to {STEM['channels']}), 3 steps compiled vs eager: running mean and var "
+        f"bitwise equal (max |var - 1| {moved:.3e}); weights max |d| {worst:.3e} "
+        f"({'bitwise equal' if wbit else 'not bitwise'})")
+    del g, e
+    free_models()
+    os.environ["FF_SKIP_NONFINITE"] = "3"
+    try:
+        model = stem_model(ft)
+    finally:
+        os.environ.pop("FF_SKIP_NONFINITE")
+    inp = model.input_tensors[0]
+    x = np.random.default_rng(2).standard_normal((STEM["batch"],) + inp.dims[1:],
+                                                 dtype=np.float32)
+    y = model._batch["label"].cpu().numpy()
+    reset_launches(kernels)
+    for _ in range(2):
+        model.train_iteration()
+    stats, weights = stats_of(model), state_of(model)
+    bad = x.copy()
+    bad[1, 5, 9, 2] = np.nan
+    model.set_batch({inp: bad}, y)
+    model.train_iteration()
+    model.sync()
+    launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+    check_graph_run(model, 3, "BatchNorm guard")
+    compare_states(stats, stats_of(model), dict(rtol=0, atol=0), "guard stats")
+    compare_states(weights, state_of(model), dict(rtol=0, atol=0), "guard weights")
+    skipped = dict(zip(model._metric_keys(), model._metric_acc.tolist()))["skipped_steps"]
+    check(skipped == 1, f"BatchNorm guard: skipped_steps {skipped}")
+    log(f"[seq] (d) a NaN batch replayed under FF_SKIP_NONFINITE left the running stats and "
+        f"{len(weights)} weight and slot leaves bitwise unchanged (skipped_steps 1)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stem")
+        model.save(path)
+        fresh = stem_model(ft)
+        fresh.load(path)
+    compare_states(stats_of(model), stats_of(fresh), dict(rtol=0, atol=0), "loaded stats")
+    del model, fresh
+    free_models()
+    log("[seq] (d) save then load into a fresh model: running stats bitwise equal")
+    mse = ft.FFModel(ft.FFConfig(batch_size=STEM["batch"], compute_dtype="float32"))
+    a, b_ = (mse.create_tensor((STEM["batch"], 1000), nchw=False) for _ in range(2))
+    mse.mse_loss(a, b_)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    xa, xb = (torch.randn(STEM["batch"], 1000, device="cuda", generator=gen) for _ in range(2))
+    got = mse.ops[0].forward({}, [xa, xb], FwdCtx())[0]
+    want = ((xa.double() - xb.double()) ** 2).sum() / STEM["batch"]
+    check(got.shape == (1,) and abs(got.item() - want.item()) <= 1e-5 * want.item(),
+          f"MSELoss op {got.tolist()} vs {want.item()}")
+    b = 64
+    pca = ft.FFModel(ft.FFConfig(batch_size=b, compute_dtype="float32"))
+    ins = pca_graph(pca, b)
+    pca.compile(ft.SGDOptimizer(pca, lr=0.05), "mean_squared_error", ["mean_squared_error"])
+    pca.init_layers(seed=0)
+    rng = np.random.default_rng(0)
+    xv = rng.standard_normal((b, 5), dtype=np.float32)
+    feed = {ins["pcvec"]: xv, ins["pcmax"]: np.full((b, 5), 3.0, np.float32),
+            ins["pcmin"]: np.full((b, 5), -3.0, np.float32)}
+    feed.update({ins[f"sb{i}"]: np.zeros((b, 10 if i < 5 else 1), np.float32)
+                 for i in range(1, 6)})
+    pca.set_batch(feed, np.tanh(xv))
+    reset_launches(kernels)
+    _, losses = steps_ms(pca, steps=PCA_STEPS, timed_from=1)
+    launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+    check_graph_run(pca, PCA_STEPS, "PCA")
+    check(losses[-1] < losses[0], f"PCA loss does not fall: {losses}")
+    log(f"[seq] (d) MSELoss op on the card: {got.item():.6f} vs float64 {want.item():.6f}; the "
+        f"PCA graph ({len(pca._constants)} constants made on the card, none in set_batch) "
+        f"trained {PCA_STEPS} compiled f32 steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+        f"card {smi}")
+    return launches
+
+
+def seq_multi_runs(ft, build_transformer, synthetic_lm_batch, kernels, dev, lead):
+    """(b) on this rank: the full-width transformer with every attention
+    op's sequence split over the world, as a ring and as Ulysses, f32
+    weights after 2 steps against the single-device path (lead rank), then
+    bf16 ms/step of each beside data parallelism.  The mesh runs eagerly.
+    Returns this rank's launches."""
+    world = torch.distributed.get_world_size()
+    split = {f"attn_{i}": ft.ParallelConfig(dims=(1, world, 1))
+             for i in range(LM["num_layers"])}
+
+    def make(mode, machine=None, **cfg):
+        model = seq_lm(ft, build_transformer, synthetic_lm_batch, machine=machine,
+                       strategies=dict(split) if mode != "dp" else {}, **cfg)
+        for op in model.ops:
+            if op._type == "MultiHeadAttention":
+                op.seq_parallel_mode = mode if mode != "dp" else "ring"
+        return model
+
+    def weights(model):
+        for _ in range(2):
+            model.train_iteration()
+        model.sync()
+        return {(op.name, w.name): torch.from_numpy(model.get_parameter(op.name, w.name))
+                for op in model.ops for w in op.weights}
+
+    launches = dict.fromkeys(kernels, 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    single = weights(make("dp", ft.Machine(devices=[dev]), dtype="float32")) if lead else None
+    for mode in ("ring", "ulysses"):
+        reset_launches(kernels)
+        got = weights(make(mode, dtype="float32"))
+        launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+        if lead:
+            worst = 0.0
+            for key in single:
+                torch.testing.assert_close(got[key], single[key], **LM_PARITY_TOL,
+                                           msg=lambda m: f"(b) {mode} {key}: {m}")
+                worst = max(worst, (got[key] - single[key]).abs().max().item())
+            log(f"[seq] (b) f32 transformer, attention sequence split {world} ways as {mode}, 2 "
+                f"steps vs the single-device path: max |dw| {worst:.3e} (rtol 1e-4, atol 1e-5)")
+        free_models()
+    times = {}
+    for mode in ("dp", "ring", "ulysses", "ulysses", "ring", "dp"):
+        model = make(mode)
+        reset_launches(kernels)
+        ms, _ = steps_ms(model)
+        launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+        times.setdefault(mode, []).append(ms)
+        del model
+        free_models()
+    if lead:
+        tokens = LM["batch"] * LM["seq_length"]
+        log(f"[seq] (b) bf16 transformer on {world} cards (eager mesh step), ms/step in turns: "
+            + "; ".join(f"{'data parallel' if m == 'dp' else m + ' sequence split'} "
+                        f"{' / '.join(f'{x:.2f}' for x in ms)} ms "
+                        f"({' / '.join(f'{tokens * 1e3 / x:.0f}' for x in ms)} tokens/s)"
+                        for m, ms in times.items()))
+    return launches
+
+
+def seq_multi_phase(ft, build_transformer, synthetic_lm_batch, kernels, smi):
+    """(b): with one visible card it says so and runs nothing; with more, an
+    NCCL group of one rank per card (this script started again as the
+    helper ranks) runs ``seq_multi_runs``."""
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        log(f"[seq] (b) needs more than one card ({world} visible): the sequence split across "
+            "cards was not run")
+        return dict.fromkeys(kernels, 0)
+    port = free_port()
+    helpers = spawn_helpers("seq", world, port)
+    try:
+        dev = dist.initialize("cuda", init_method=f"tcp://localhost:{port}",
+                              world_size=world, rank=0, local_rank=0, timeout=SOAP_TIMEOUT)
+        launches = seq_multi_runs(ft, build_transformer, synthetic_lm_batch, kernels, dev,
+                                  lead=True)
+        dist.shutdown()
+        for r, p in enumerate(helpers, 1):
+            check(p.wait(timeout=300) == 0, f"(b) helper rank {r} exited {p.returncode}")
+    finally:
+        for p in helpers:
+            if p.poll() is None:
+                p.kill()
+    log(f"[seq] (b) launches on the lead rank: {launches}; card {smi}")
+    return launches
+
+
+def seq_helper():
+    """A helper rank of phase 13 (b)."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import fused_optimizer as fo
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    dev = dist.initialize("cuda", timeout=SOAP_TIMEOUT)
+    seq_multi_runs(ft, build_transformer, synthetic_lm_batch, kernel_wrappers(fo, fa), dev,
+                   lead=False)
+    dist.shutdown()
+    return 0
+
+
+def sequence_phase(ft, fa, kernels, smi):
+    """Phase 13: (a) ring and Ulysses on one card, (b) across cards when
+    there are several, (c) dropout and (d) BatchNorm, the MSELoss op and
+    constants.  Returns the launches of its paths and (a)'s worst errors
+    and times."""
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
+    from flexflow_tpu_torch.parallel import sequence as seq
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches, worst = seq_checks(seq, fa, kernels, smi)
+    times = seq_times(seq, fa, smi)
+    free_models()
+    for part in (seq_multi_phase(ft, build_transformer, synthetic_lm_batch, kernels, smi),
+                 dropout_checks(ft, build_transformer, synthetic_lm_batch, kernels, smi),
+                 batch_norm_checks(ft, kernels, smi)):
+        launches = {n: launches[n] + c for n, c in part.items()}
+    free_models()
+    log(f"[seq] phase 13 took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches, worst, times
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     # --calibration-out DIR keeps phase 8's measured cache and fit (else a
@@ -3328,10 +3916,13 @@ def main(argv=None):
     # phase 12 -----------------------------------------------------------
     pool_launches = pool_phase(ft, kernels, smi, known=wants)
 
+    # phase 13 -----------------------------------------------------------
+    seq_launches, _, _ = sequence_phase(ft, fa, kernels, smi)
+
     # result -------------------------------------------------------------
     main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
                      + search_launches[n] + zoo_launches[n] + serve_launches[n]
-                     + obs_launches[n] + pool_launches[n] for n in kernels}
+                     + obs_launches[n] + pool_launches[n] + seq_launches[n] for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -3350,7 +3941,7 @@ def main(argv=None):
     log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
         f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
         f"search {search_launches}, models {zoo_launches}, serving {serve_launches}, "
-        f"observability {obs_launches}, pool {pool_launches}")
+        f"observability {obs_launches}, pool {pool_launches}, sequence {seq_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

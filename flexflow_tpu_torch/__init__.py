@@ -5,7 +5,9 @@ public surface: graph build -> ``compile`` -> ``init_layers`` ->
 ``train_iteration``.  It imports torch and numpy, never jax and nothing
 of ``flexflow_tpu``.  Models run on CUDA unless ``FFConfig.device`` asks
 for the CPU; over several processes (``parallel.distributed``, one per
-device) they train under per-op SOAP configs on a ``DeviceMesh``.  The optimizer updates and attention (forward and backward) on
+device) they train under per-op SOAP configs on a ``DeviceMesh``, an
+attention op's sequence split running as ring or Ulysses attention
+(``parallel/sequence.py``).  The optimizer updates and attention (forward and backward) on
 the training path are hand-written CUDA kernels for Hopper
 (``kernels/``); conv, pool, dense and embedding layers are library calls,
 as the JAX package leaves them to XLA.  On one CUDA device each training

@@ -15,14 +15,20 @@ Tree = Mapping[str, Mapping[str, np.ndarray]]
 
 
 def load_jax_params(model, params: Tree,
-                    opt_state: Optional[Mapping[str, Tree]] = None) -> None:
+                    opt_state: Optional[Mapping[str, Tree]] = None,
+                    stats: Optional[Tree] = None) -> None:
     """Load ``{op_name: {weight_name: array}}`` (what the JAX package's
     ``FFModel.get_parameter`` returns, leaf by leaf) into an initialized
-    port model, and optionally optimizer state ``{slot: tree}`` ("v" for
-    SGD momentum, "m"/"v" for Adam)."""
+    port model, and optionally running statistics ``{op_name: {name:
+    array}}`` (BatchNorm's "mean" and "var", ``jax_stats_to_numpy``) and
+    optimizer state ``{slot: tree}`` ("v" for SGD momentum, "m"/"v" for
+    Adam)."""
     for opn, ws in params.items():
         for wn, value in ws.items():
             model.set_parameter(opn, wn, value)
+    for opn, st in (stats or {}).items():
+        for name, value in st.items():
+            model._assign(model._stats[opn][name], value)
     if opt_state is None:
         return
     for slot, tree in opt_state.items():
@@ -39,3 +45,10 @@ def jax_params_to_numpy(jax_model) -> Dict[str, Dict[str, np.ndarray]]:
     return {op.name: {w.name: np.asarray(jax_model.get_parameter(op.name, w.name))
                       for w in op.weights}
             for op in jax_model.ops if op.weights}
+
+
+def jax_stats_to_numpy(jax_model) -> Dict[str, Dict[str, np.ndarray]]:
+    """The running statistics of an initialized JAX-package model (its
+    ``_stats`` tree, BatchNorm's "mean" and "var") as numpy."""
+    return {opn: {name: np.asarray(v) for name, v in st.items()}
+            for opn, st in (jax_model._stats or {}).items()}

@@ -14,7 +14,12 @@ The step also carries the reference step function's options:
 ``grad_accum_steps`` (K contiguous micro-batches, gradients averaged, one
 optimizer update), ``remat`` (each weighted op's training forward
 recomputed in the backward) and the non-finite step guard
-(``FF_SKIP_NONFINITE``, runtime/resilience.py).  On a CUDA device without
+(``FF_SKIP_NONFINITE``, runtime/resilience.py).  Running statistics
+(BatchNorm's moments, ``_stats``) sit beside the parameters, made at
+``init_layers`` and written in place by each step that the guard does not
+skip; dropout masks come from the model's device generator (``_rng``,
+seeded from ``FFConfig.seed``), drawn once per step.  Constants
+(``create_constant``) are made on the device in each run of the graph.  On a CUDA device without
 a process group ``update()`` replays the step as one captured CUDA graph
 (runtime/step_graph.py), the counterpart of the JAX package's jitted step;
 ``disable_graphs()`` runs it eagerly, as the CPU and a mesh do.
@@ -75,7 +80,8 @@ from .ops.conv2d import ActiMode, Conv2D, Pool2D, PoolType
 from .ops.embedding import AggrMode, Embedding
 from .ops.linear import Linear
 from .ops.lstm import LSTM
-from .ops.misc import Concat, ElementBinary, ElementUnary, Flat, Softmax
+from .ops.misc import (BatchNorm, Concat, Dropout, ElementBinary, ElementUnary, Flat,
+                       MSELoss, Softmax)
 from .ops.moe import ExpertMLP
 from .parallel.distributed import host_local_batch, local_batch
 from .parallel.mesh import Machine
@@ -101,10 +107,6 @@ _UNPORTED_CHAOS = "chaos fault injection (ROADMAP A10)"
 # Entry points of the JAX package's FFModel that the port does not have
 # yet, with the ROADMAP item that brings each.
 _UNPORTED_METHODS = {
-    "create_constant": "constant graph inputs, ROADMAP A2",
-    "batch_norm": "BatchNorm and running statistics, ROADMAP A2",
-    "dropout": "the Dropout op, ROADMAP A2",
-    "mse_loss": "the MSELoss op, ROADMAP A2",
     "pipeline_mlp": "pipeline parallelism, ROADMAP A9",
     "set_pipeline": "pipeline parallelism, ROADMAP A9",
     "conv2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
@@ -176,6 +178,7 @@ class FFModel:
         self._guid = itertools.count(100)  # reference op_global_guid starts at 100
         self.ops: List[Op] = []
         self.input_tensors: List[Tensor] = []
+        self._constants: Dict[int, Tuple[Tensor, float]] = {}  # guid -> (tensor, fill)
         self.label_tensor: Optional[Tensor] = None
         self.machine: Optional[Machine] = None
         self.optimizer = None
@@ -185,6 +188,10 @@ class FFModel:
         self.last_loss: Optional[float] = None
         self._metric_acc: Optional[torch.Tensor] = None
         self._params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        # running statistics {op: {name: tensor}} (BatchNorm's moments),
+        # written in place by each training step
+        self._stats: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self._rng: Optional[torch.Generator] = None  # the training step's draws
         self._opt_state = None
         self._step_count = 0
         self._batch: Optional[Dict[str, torch.Tensor]] = None
@@ -224,6 +231,22 @@ class FFModel:
             dims = (n, h, w, c)
         t = Tensor(dims=dims, dtype=dtype, owner_op=None, name=name)
         self.input_tensors.append(t)
+        return t
+
+    def create_constant(self, dims: Sequence[int], value: float, name: str = "",
+                        dtype: str = DataType.FLOAT, nchw: bool = True) -> Tensor:
+        """A graph tensor filled with ``value`` (reference:
+        FFModel::create_constant, tests/PCA/pca.cc:75-78): made on the
+        model's device in each run of the graph, in the compute dtype (int32
+        for an int dtype); it never appears in ``set_batch``.  4-D dims are
+        in NCHW order unless ``nchw=False``, as ``create_tensor``'s."""
+        dims = tuple(int(d) for d in dims)
+        if len(dims) == 4 and nchw:
+            n, c, h, w = dims
+            dims = (n, h, w, c)
+        t = Tensor(dims=dims, dtype=dtype, owner_op=None,
+                   name=name or f"const_{len(self._constants)}")
+        self._constants[t.guid] = (t, float(value))
         return t
 
     def _append(self, op: Op) -> Tensor:
@@ -307,6 +330,21 @@ class FFModel:
 
     def softmax(self, input_tensor: Tensor, name: Optional[str] = None) -> Tensor:
         return self._append(Softmax(self, input_tensor, name))
+
+    def batch_norm(self, input_tensor: Tensor, relu: bool = True,
+                   name: Optional[str] = None) -> Tensor:
+        """Batch normalization over the last (channel) dim, running moments
+        kept as statistics beside the parameters; ReLU after by default."""
+        return self._append(BatchNorm(self, input_tensor, relu, name))
+
+    def dropout(self, input_tensor: Tensor, rate: float, seed: int = 0,
+                name: Optional[str] = None) -> Tensor:
+        return self._append(Dropout(self, input_tensor, rate, seed, name))
+
+    def mse_loss(self, logits: Tensor, labels: Tensor, reduction: str = "average",
+                 name: Optional[str] = None) -> Tensor:
+        """The legacy mean-squared-error op: a (1,) tensor."""
+        return self._append(MSELoss(self, logits, labels, reduction, name))
 
     def expert_mlp(self, input_tensor: Tensor, num_experts: int, hidden_size: int,
                    capacity_factor: float = 1.25, activation: str = "relu",
@@ -568,6 +606,10 @@ class FFModel:
                     v = v.to(self.device)
                 params.setdefault(op.name, {})[w.name] = v.requires_grad_(True)
         self._params = params
+        self._stats = {op.name: st for op in self.ops if (st := op.init_stats(self.device))}
+        # the JAX package's step key is jax.random.key(seed + 7919)
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(seed + 7919)
         self._opt_state = (self.optimizer.init_state(params)
                            if self.optimizer is not None else None)
         self._step_count = 0
@@ -642,8 +684,22 @@ class FFModel:
             return arr
         return torch.from_numpy(np.ascontiguousarray(arr))
 
-    def _run_graph(self, params, batch, training: bool) -> Dict[int, torch.Tensor]:
-        env: Dict[int, torch.Tensor] = {}
+    def _constant_env(self) -> Dict[int, torch.Tensor]:
+        """The graph's constants, made on the device (on a mesh, replicated)."""
+        env = {}
+        for t, val in self._constants.values():
+            dt = torch.int32 if "int" in t.dtype else self.compute_dtype
+            c = torch.full(t.dims, val, dtype=dt, device=self.device)
+            env[t.guid] = (self.machine.from_local(c, self.machine.replicated())
+                           if self._sharded else c)
+        return env
+
+    def _run_graph(self, params, batch, training: bool,
+                   ctx: Optional[FwdCtx] = None) -> Dict[int, torch.Tensor]:
+        """Every op's outputs for ``batch``.  ``ctx`` defaults to one that
+        reads the model's running statistics and draws nothing; a training
+        step passes its generator and collects ``stats_out``."""
+        env: Dict[int, torch.Tensor] = self._constant_env()
         cdtype = self.compute_dtype
         for t in self.input_tensors:
             x = batch[f"in_{t.guid}"]
@@ -653,7 +709,8 @@ class FFModel:
                 x = (self.machine.from_local(x.to_local().to(cdtype), x.placements)
                      if self._sharded else x.to(cdtype))
             env[t.guid] = x
-        ctx = FwdCtx(training=training)
+        if ctx is None:
+            ctx = FwdCtx(training=training, stats_in=self._stats)
         for op in self.ops:
             xs = [env[t.guid] for t in op.inputs]
             pvals = params.get(op.param_key, {})
@@ -666,8 +723,10 @@ class FFModel:
             if training and self.config.remat and op.weights and not op.has_running_stats:
                 # rematerialization (model.py:1866-1875 of the JAX package):
                 # the op's inner activations are dropped and recomputed in
-                # the backward.  No op of the port draws random numbers in
-                # training, so there is no RNG state to replay.
+                # the backward.  A dropout mask is drawn once per step and
+                # kept in ctx (FwdCtx.keep_mask), so the recompute reads the
+                # forward's mask and draws nothing: no generator state is
+                # replayed, and the default generators are never touched.
                 ys = checkpoint(fwd, *xs, use_reentrant=False, preserve_rng_state=False)
             else:
                 ys = fwd(*xs)
@@ -794,8 +853,13 @@ class FFModel:
         leaves = [self._params[opn][wn] for opn, wn in names]
         k = self._accum_steps()
         grads = mvec = None
+        stats = self._stats
         for mb in self._micro_batches(k):
-            env = self._run_graph(self._params, mb, training=True)
+            # the running statistics thread through the micro-batches, as the
+            # JAX package's scan carries them
+            ctx = FwdCtx(training=True, rng=self._rng, stats_in=stats, stats_out={})
+            env = self._run_graph(self._params, mb, True, ctx)
+            stats = {**stats, **ctx.stats_out}
             logits, probs, labels = self._loss_inputs(env, mb)
             # this part's share of the (micro-)batch's mean loss
             loss = self.loss(logits, labels, parts=self._batch_parts())
@@ -826,6 +890,12 @@ class FFModel:
                 self._metric_acc.copy_(self._guard_finalize(mvec, bad, scalars))
             else:
                 self._metric_acc += mvec
+            # the statistics are written in place; a step the guard skips
+            # leaves them bitwise as they were, as its weights
+            for opn, st in self._stats.items():
+                for name, cur in st.items():
+                    new = stats[opn][name]
+                    cur.copy_(new if self._guard is None else torch.where(bad, cur, new))
             tree: Dict[str, Dict[str, torch.Tensor]] = {}
             for (opn, wn), g in zip(names, grads):
                 tree.setdefault(opn, {})[wn] = g
@@ -911,6 +981,11 @@ class FFModel:
             self._step_graph.drop()
         self._gen_cache = {}
 
+    def _generators(self) -> List[torch.Generator]:
+        """The generators a captured step draws from (registered with the
+        capture, so that each replay draws anew)."""
+        return [self._rng] if any(op.draws_random for op in self.ops) else []
+
     def _graph_key(self) -> tuple:
         """What a captured step depends on beyond the addresses that stay
         fixed: the staged batch's shapes, dtypes and addresses, the
@@ -944,6 +1019,7 @@ class FFModel:
                 self._step_graph = StepGraph(self.device)
                 if self._memplane is not None:
                     self._memplane.watch("train_step", self._step_graph)
+            self._step_graph.generators = self._generators()
             kind = self._step_graph.run(self._graph_key(), self._train_step)
         else:
             self._train_step()
@@ -988,6 +1064,8 @@ class FFModel:
     def _run_graph_decode(self, params, caches, batch, pos, ctx, pre_env=None, skip=(),
                           block_tables=None):
         env: Dict[int, torch.Tensor] = dict(pre_env) if pre_env else {}
+        for g, c in self._constant_env().items():
+            env.setdefault(g, c)
         cdtype = self.compute_dtype
         for t in self.input_tensors:
             if t.guid in env:
@@ -1075,9 +1153,8 @@ class FFModel:
         """One single-token decode step: token ids ``cur`` (B,) at position
         ``pos`` (an int, a 0-dim tensor, or a (B,) tensor of per-row
         positions, the serving engine's continuous batch).  Returns (probs
-        (B, V) float32, caches); the caches are written in place.  The JAX
-        package's ``stats`` argument (non-trainable state) has no
-        counterpart: the port keeps none."""
+        (B, V) float32, caches); the caches are written in place.  Ops read
+        the model's running statistics (the JAX package's ``stats``)."""
         dev = self.device
         pos = torch.as_tensor(pos, dtype=torch.long, device=dev)
         B = cur.shape[0]
@@ -1085,7 +1162,8 @@ class FFModel:
         if pos_t is not None:
             batch[f"in_{pos_t.guid}"] = (pos.expand(B) if pos.dim() == 0 else pos)[:, None]
         with torch.no_grad():
-            env, caches = self._run_graph_decode(params, caches, batch, pos, FwdCtx(),
+            env, caches = self._run_graph_decode(params, caches, batch, pos,
+                                                 FwdCtx(stats_in=self._stats),
                                                  pre_env=pre_env, skip=skip,
                                                  block_tables=block_tables)
         return env[self.final_tensor().guid][:, -1, :].float(), caches
@@ -1106,7 +1184,7 @@ class FFModel:
     def _static_decode_ops(self, extra_guids):
         """Ops reachable from the fixed extra inputs alone (a seq2seq
         encoder): run once a call before the decode steps, not per token."""
-        avail = set(extra_guids)
+        avail = set(extra_guids) | set(self._constants)
         static_ops = []
         if extra_guids:
             for op in self.ops:
@@ -1118,14 +1196,14 @@ class FFModel:
     def _prefill_static(self, params, extra, extra_guids, static_ops, repeat: int = 1):
         """The static ops' outputs (and the extra inputs, repeated once per
         beam), computed once a call."""
-        env = {}
+        env = self._constant_env()
         for g in extra_guids:
             x = extra[f"in_{g}"]
             env[g] = x.repeat_interleave(repeat, dim=0) if repeat > 1 else x
         with torch.no_grad():
             for op in static_ops:
                 ys = op.forward(params.get(op.param_key, {}),
-                                [env[t.guid] for t in op.inputs], FwdCtx())
+                                [env[t.guid] for t in op.inputs], FwdCtx(stats_in=self._stats))
                 for t, y in zip(op.outputs, ys):
                     env[t.guid] = y
         return env

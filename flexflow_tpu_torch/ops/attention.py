@@ -7,11 +7,15 @@ accumulation inside cuBLAS under bf16), splits heads to (B, H, S, D) and
 runs ``kernels/flash_attention.py``: on CUDA tensors the hand-written
 forward and backward kernels, on CPU tensors their plain versions.
 
-On a mesh, attention under ``(dp, 1, tp)`` computes on this device's batch
-rows and heads: q/k/v come from the column shards of ``wq``/``wk``/``wv``,
-the flash kernels run on the local (b, h, S, D) tensors, and ``wo`` takes
-the gathered heads column-parallel.  Sequence parallelism (ring,
-Ulysses; ROADMAP A7) and attention dropout are not ported yet and raise.
+On a mesh, attention under ``(dp, sp, tp)`` computes on this device's
+batch rows and heads: q/k/v come from the column shards of
+``wq``/``wk``/``wv``, the flash kernels run on the local (b, h, s, D)
+tensors, and ``wo`` takes the gathered heads column-parallel.  A sequence
+split (sp > 1) of self-attention runs ring or Ulysses attention over the
+ranks that split the sequence (``parallel/sequence.py``, the op's
+``seq_parallel_mode``); cross-attention (Sq != Sk) splits only q's rows
+and reads the whole K/V on every part, as the JAX package's does.
+Attention dropout masks the heads' output before ``wo`` (``FwdCtx.rng``).
 
 Decoding (``decode``, ``decode_paged``) is the JAX package's: plain f32
 products over a static kv cache (dense ``(B, H, S, D)`` or a block pool
@@ -27,9 +31,11 @@ from typing import List, Optional
 
 import torch
 
-from .base import FwdCtx, Op
+from .base import FwdCtx, Op, dropout
 from ..initializers import ConstantInitializer, DefaultWeightInitializer, ZeroInitializer
 from ..kernels.flash_attention import flash_attention
+from ..parallel.mesh import fold
+from ..parallel.sequence import ring_rank_attention, sequence_parallel_attention
 
 
 class LayerNorm(Op):
@@ -74,7 +80,9 @@ class MultiHeadAttention(Op):
 
     query/key/value: (B, Sq, E) / (B, Sk, E) / (B, Sk, E); output
     (B, Sq, E).  ``causal`` adds the autoregressive mask and needs
-    Sq == Sk (ROADMAP C2)."""
+    Sq == Sk (ROADMAP C2).  ``dropout`` masks the heads' output in
+    training; ``seq_parallel_mode`` ("ring" or "ulysses") is how a
+    sequence split runs."""
 
     _type = "MultiHeadAttention"
     mixes_features = True
@@ -84,8 +92,9 @@ class MultiHeadAttention(Op):
                  dropout: float = 0.0, use_bias: bool = False,
                  kernel_initializer=None, seq_parallel_mode: str = "ring",
                  name: Optional[str] = None):
-        if dropout > 0.0:
-            raise NotImplementedError("attention dropout is not ported yet (ROADMAP A2)")
+        if seq_parallel_mode not in ("ring", "ulysses"):
+            raise ValueError(f"seq_parallel_mode must be 'ring' or 'ulysses', got "
+                             f"{seq_parallel_mode!r}")
         if embed_dim % num_heads != 0:
             raise ValueError("embed_dim must divide by num_heads")
         if causal and query.dims[1] != key.dims[1]:
@@ -96,7 +105,9 @@ class MultiHeadAttention(Op):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.causal = causal
+        self.dropout = float(dropout)
         self.use_bias = use_bias
+        self.seq_parallel_mode = seq_parallel_mode
         b, sq, _ = query.dims
         self._add_output((b, sq, embed_dim), query.dtype)
         init = kernel_initializer or DefaultWeightInitializer()
@@ -121,15 +132,32 @@ class MultiHeadAttention(Op):
             return self.num_heads
         return super()._config_dim_bound(i)
 
-    def _refuse_sequence_split(self) -> None:
-        pc = getattr(self, "pc", None)
-        if pc is not None and len(pc.dims) > 1 and pc.dims[1] > 1:
-            raise NotImplementedError("sequence-parallel attention (ring, Ulysses) is not "
-                                      "ported yet (ROADMAP A7)")
+    @property
+    def draws_random(self) -> bool:
+        return self.dropout > 0.0
 
-    def _attend(self, params, q_in, k_in, v_in):
-        """The q/k/v projections and flash attention: (B, S, h*D) for the
-        h heads whose columns ``params`` holds."""
+    def _degrees(self, pc=None):
+        """The config's (batch, sequence, heads) degrees."""
+        pc = pc if pc is not None else getattr(self, "pc", None)
+        dims = list(pc.dims) if pc is not None else []
+        return (dims + [1, 1, 1])[:3]
+
+    def check_config(self, pc) -> None:
+        """Ulysses re-shards the sequence over the heads each part holds:
+        a sequence split of a Ulysses op needs them divisible by it."""
+        _, sp, tp = self._degrees(pc)
+        if (sp > 1 and self.seq_parallel_mode == "ulysses"
+                and self.inputs[0].dims[1] == self.inputs[1].dims[1]
+                and (self.num_heads // tp) % sp):
+            raise ValueError(
+                f"{self.name}: Ulysses attention under sequence degree {sp} and head degree "
+                f"{tp} needs the {self.num_heads} / {tp} heads of a part divisible by {sp}")
+
+    def _attend(self, params, q_in, k_in, v_in, attention=None):
+        """The q/k/v projections and attention: (B, S, h*D) for the h heads
+        whose columns ``params`` holds.  ``attention(qh, kh, vh)`` computes
+        the heads' output from (B, h, S, D) tensors; by default the flash
+        kernels over what this device holds."""
         D = self.head_dim
 
         def split(t):  # (B, S, h*D) -> (B, h, S, D), contiguous for the kernels
@@ -138,17 +166,32 @@ class MultiHeadAttention(Op):
         qh = split(self._proj(params, q_in, "wq", "bq"))
         kh = split(self._proj(params, k_in, "wk", "bk"))
         vh = split(self._proj(params, v_in, "wv", "bv"))
-        oh = flash_attention(qh, kh, vh, causal=self.causal, scale=1.0 / math.sqrt(D))
+        if attention is None:
+            oh = flash_attention(qh, kh, vh, causal=self.causal, scale=1.0 / math.sqrt(D))
+        else:
+            oh = attention(qh, kh, vh)
         return oh.transpose(1, 2).reshape(oh.shape[0], oh.shape[2], -1)
 
+    def _out(self, params, heads, ctx: FwdCtx):
+        """Dropout over the heads' output (training only), then ``wo``."""
+        return self._proj(params, dropout(heads, self.dropout, ctx, self), "wo", "bo")
+
     def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
-        self._refuse_sequence_split()
-        return [self._proj(params, self._attend(params, *xs), "wo", "bo")]
+        return [self._out(params, self._attend(params, *xs), ctx)]
 
     def forward_sharded(self, machine, params, xs, ctx: FwdCtx):
-        self._refuse_sequence_split()
         out_pl = self.compute_placements(machine)
         in_pl = self.input_placements(out_pl, 0)
+        kv_pl, attention = in_pl, None
+        degrees = self._degrees()
+        if degrees[1] > 1 and machine.num_devices > 1:
+            if self.inputs[0].dims[1] == self.inputs[1].dims[1]:
+                def attention(qh, kh, vh):
+                    return sequence_parallel_attention(
+                        qh, kh, vh, machine, degrees, causal=self.causal,
+                        scale=1.0 / math.sqrt(self.head_dim), mode=self.seq_parallel_mode)
+            else:  # cross-attention: each part's q rows against the whole K/V
+                kv_pl = fold(in_pl, (1,))
 
         def local_weights(names):
             ws = [w for w in self.weights if w.name in names]
@@ -157,11 +200,11 @@ class MultiHeadAttention(Op):
 
         names, wargs = local_weights(("wq", "wk", "wv", "bq", "bk", "bv"))
         heads = machine.local_call(
-            lambda q, k, v, *ws: self._attend(dict(zip(names, ws)), q, k, v),
-            [(x, in_pl) for x in xs] + wargs, out_pl)
+            lambda q, k, v, *ws: self._attend(dict(zip(names, ws)), q, k, v, attention),
+            [(xs[0], in_pl), (xs[1], kv_pl), (xs[2], kv_pl)] + wargs, out_pl)
         names_o, wargs_o = local_weights(("wo", "bo"))
         return [machine.local_call(
-            lambda o, *ws: self._proj(dict(zip(names_o, ws)), o, "wo", "bo"),
+            lambda o, *ws: self._out(dict(zip(names_o, ws)), o, ctx),
             [(heads, in_pl)] + wargs_o, out_pl)]
 
     def flops_per_sample(self):
@@ -184,16 +227,25 @@ class MultiHeadAttention(Op):
                 for shape, t in zip(super().part_input_shapes(pc), self.inputs)]
 
     def part_forward(self, pc):
-        """One part of a head split: the q/k/v projections and attention of
-        its heads, then the output projection of its columns over the
-        gathered heads of every part (a copy stands in for the gather)."""
-        k = pc.dims[2] if len(pc.dims) > 2 else 1
-        if k == 1:
+        """One part: the q/k/v projections and attention of its heads, then
+        the output projection of its columns over the gathered heads of
+        every part (under a head split a copy stands in for the gather).
+        Under a sequence split of self-attention, its q block attends the
+        K/V blocks as the ring's last rank does, block by block with the
+        merges (``ring_rank_attention``), which does the most work of a
+        causal ring; a Ulysses part does as much work as a ring part."""
+        _, sp, k = self._degrees(pc)
+        if k == 1 and sp == 1:
             return super().part_forward(pc)
+        attention = None
+        if sp > 1 and self.inputs[0].dims[1] == self.inputs[1].dims[1]:
+            def attention(qh, kh, vh):
+                return ring_rank_attention(qh, kh, vh, sp - 1, sp, causal=self.causal,
+                                           scale=1.0 / math.sqrt(self.head_dim))
 
         def fwd(params, xs, ctx):
-            heads = self._attend(params, *xs)
-            return self._proj(params, heads.repeat(1, 1, k), "wo", "bo")
+            heads = self._attend(params, *xs, attention)
+            return self._out(params, heads.repeat(1, 1, k) if k > 1 else heads, ctx)
         return fwd
 
     # -- kv-cached decoding (the JAX package's ops/attention.py:161-275) -----

@@ -39,9 +39,45 @@ from ..tensor import Parameter, Tensor
 
 @dataclasses.dataclass
 class FwdCtx:
-    """Per-call context threaded through op forwards."""
+    """Per-call context threaded through op forwards: whether the call
+    trains, the generator that random draws come from (the model's device
+    generator in a training step), and the running statistics read
+    (``stats_in``) and, in training, the updated ones (``stats_out``), each
+    ``{op name: {name: tensor}}`` (the JAX package's ops/base.py:30-41)."""
 
     training: bool = False
+    rng: Optional[torch.Generator] = None
+    stats_in: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+    stats_out: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+    # op guid -> its keep mask, drawn once per call (``keep_mask``)
+    masks: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    def keep_mask(self, op: "Op", shape, keep: float, device) -> torch.Tensor:
+        """``op``'s dropout keep mask for this call (True with probability
+        ``keep``), drawn from ``rng`` at the first ask and the same tensor
+        at every later one: a rematerialized op's recompute in the backward
+        reads the mask its forward drew, so no generator state is replayed.
+        Ops draw in graph order, one draw each, so a step's masks follow
+        from the generator's state before it."""
+        mask = self.masks.get(op.guid)
+        if mask is None:
+            if self.rng is None:
+                raise RuntimeError(f"op {op.name} draws a dropout mask, but the call has "
+                                   "no generator (FwdCtx.rng)")
+            mask = torch.rand(shape, generator=self.rng, device=device) < keep
+            self.masks[op.guid] = mask
+        return mask
+
+
+def dropout(x: torch.Tensor, rate: float, ctx: FwdCtx, op: "Op") -> torch.Tensor:
+    """``x`` with each element kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``, else zero (``jnp.where(mask, x / keep,
+    0)`` of the JAX package); the identity outside training or at rate 0."""
+    if rate <= 0.0 or not ctx.training:
+        return x
+    keep = 1.0 - rate
+    mask = ctx.keep_mask(op, x.shape, keep, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Op:
@@ -54,8 +90,8 @@ class Op:
     # the weights map the input's last dim to the output's (dense, conv,
     # embedding, attention): the input's last dim is never split
     mixes_features: bool = False
-    # running statistics updated in training (the JAX package's init_stats;
-    # no op of the port has them yet): such an op is never rematerialized
+    # running statistics updated in training (``init_stats``): such an op
+    # is never rematerialized
     has_running_stats: bool = False
 
     def __init__(self, model, inputs: Sequence[Tensor], name: Optional[str] = None):
@@ -111,6 +147,16 @@ class Op:
     def forward(self, params: Dict[str, torch.Tensor], xs: List[torch.Tensor],
                 ctx: FwdCtx) -> List[torch.Tensor]:
         raise NotImplementedError
+
+    @property
+    def draws_random(self) -> bool:
+        """Whether the training forward draws from ``FwdCtx.rng``."""
+        return False
+
+    def init_stats(self, device) -> Dict[str, torch.Tensor]:
+        """The op's running statistics, float32 on ``device`` (empty for an
+        op that keeps none)."""
+        return {}
 
     # -- autoregressive decoding (FFModel.generate, serving/engine.py) ------
     def init_cache(self, batch_size: int, max_len: int, dtype):
@@ -182,6 +228,11 @@ class Op:
                      if isinstance(p, Shard) and p.dim in w.partition_dims else Replicate()
                      for p in out_pl)
 
+    def local_forward(self, machine, out_pl):
+        """What ``forward_sharded`` runs on the local shards: ``forward``,
+        unless the op needs the mesh (a statistic over a split dim)."""
+        return self.forward
+
     def forward_sharded(self, machine, params, xs, ctx: FwdCtx) -> List:
         """``forward`` on the local shards of DTensor inputs and weights;
         each output is a DTensor placed by ``compute_placements``."""
@@ -191,9 +242,10 @@ class Op:
         args = [(x, self.input_placements(out_pls[0], i)) for i, x in enumerate(xs)]
         args += [(params[w.name], self.weight_placements(w, out_pls[0])) for w in weights]
         n = len(xs)
+        fwd = self.local_forward(machine, out_pls[0])
 
         def local(*ls):
-            return self.forward(dict(zip(names, ls[n:])), list(ls[:n]), ctx)
+            return fwd(dict(zip(names, ls[n:])), list(ls[:n]), ctx)
 
         return machine.local_call(local, args, out_pls)
 

@@ -1,7 +1,10 @@
-"""Flat, Softmax, Concat, ElementUnary and ElementBinary (PyTorch port of
-part of ``flexflow_tpu/ops/misc.py``).
+"""Flat, Softmax, Concat, Dropout, ElementUnary, ElementBinary, BatchNorm
+and MSELoss (PyTorch port of ``flexflow_tpu/ops/misc.py``).
 
-Dropout, BatchNorm and MSELoss are not ported yet (ROADMAP A2).
+Dropout draws its keep mask from the step's generator (``FwdCtx.rng``,
+the model's device generator), once per step; BatchNorm keeps running
+moments as statistics beside the parameters (``init_stats``), updated
+through ``FwdCtx.stats_out`` in training.
 """
 
 from __future__ import annotations
@@ -10,8 +13,11 @@ from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 
-from .base import FwdCtx, Op
+from ..initializers import ConstantInitializer, ZeroInitializer
+from ..parallel.collectives import all_reduce_sum
+from .base import FwdCtx, Op, dropout
 
 
 class Flat(Op):
@@ -91,6 +97,31 @@ class Concat(Op):
         return rng
 
 
+class Dropout(Op):
+    """Each element kept with probability ``1 - rate`` and scaled by its
+    inverse in training, the identity otherwise (the reference's
+    cudnnDropout).  The mask comes from the model's generator, seeded by
+    ``FFConfig.seed``; ``seed`` is kept for the JAX package's signature,
+    where it is folded into the op's key, and does not change the port's
+    draws."""
+
+    _type = "Dropout"
+
+    def __init__(self, model, input_tensor, rate: float, seed: int = 0,
+                 name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        self.rate = float(rate)
+        self.seed = seed
+        self._add_output(input_tensor.dims, input_tensor.dtype)
+
+    @property
+    def draws_random(self) -> bool:
+        return self.rate > 0.0
+
+    def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
+        return [dropout(xs[0], self.rate, ctx, self)]
+
+
 _UNARY = {
     "exp": torch.exp,
     "relu": F.relu,
@@ -141,3 +172,96 @@ class ElementBinary(Op):
 
     def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
         return [_BINARY[self.op_name](xs[0], xs[1])]
+
+
+class BatchNorm(Op):
+    """Per-channel normalization over every other dim (the reference's
+    cudnnBatchNorm in spatial mode), learned scale and shift, an optional
+    fused ReLU.  Training normalizes by the batch's mean and (biased)
+    variance and moves the running moments toward them with momentum 0.1;
+    evaluation normalizes by the running moments.  On a mesh the moments
+    are those of the whole batch, as GSPMD gives the JAX package: the sums
+    are all-reduced over the ranks that split the other dims.  Channels are
+    computed whole (a channel split is applied to the output), so each
+    rank holds every channel's statistics."""
+
+    _type = "BatchNorm"
+    MOMENTUM = 0.1
+    EPS = 1e-5
+    has_running_stats = True
+
+    def __init__(self, model, input_tensor, relu: bool = True, name: Optional[str] = None):
+        super().__init__(model, [input_tensor], name)
+        self.relu = relu
+        c = input_tensor.dims[-1]
+        self._add_output(input_tensor.dims, input_tensor.dtype)
+        cdim = len(input_tensor.dims) - 1
+        self._add_weight("scale", (c,), ConstantInitializer(1.0), partition_dims=(cdim,))
+        self._add_weight("bias", (c,), ZeroInitializer(), partition_dims=(cdim,))
+
+    @property
+    def unsplit_dims(self):
+        return (self.output.num_dims - 1,)
+
+    def init_stats(self, device):
+        c = self.inputs[0].dims[-1]
+        return {"mean": torch.zeros(c, device=device), "var": torch.ones(c, device=device)}
+
+    def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
+        return [self._normalize(params, xs[0], ctx, None)]
+
+    def local_forward(self, machine, out_pl):
+        names = [n for n, p in zip(machine.axis_names, out_pl) if isinstance(p, Shard)]
+        if not names:
+            return self.forward
+        group = machine.group(names)
+        return lambda params, xs, ctx: [self._normalize(params, xs[0], ctx, group)]
+
+    def _moments(self, xf, group):
+        """Batch mean and biased variance per channel (over ``group``'s
+        ranks too when given: the sums are all-reduced)."""
+        axes = tuple(range(xf.dim() - 1))
+        if group is None:
+            mean = xf.mean(axes)
+            return mean, (xf - mean).square().mean(axes)
+        count = xf.numel() // xf.shape[-1] * torch.distributed.get_world_size(group)
+        mean = all_reduce_sum(xf.sum(axes), group) / count
+        return mean, all_reduce_sum((xf - mean).square().sum(axes), group) / count
+
+    def _normalize(self, params, x, ctx: FwdCtx, group):
+        xf = x.float()
+        if ctx.training:
+            mean, var = self._moments(xf, group)
+            if ctx.stats_out is not None:
+                old, m = ctx.stats_in[self.name], BatchNorm.MOMENTUM
+                ctx.stats_out[self.name] = {
+                    "mean": (1 - m) * old["mean"] + m * mean.detach(),
+                    "var": (1 - m) * old["var"] + m * var.detach()}
+        else:
+            st = ctx.stats_in[self.name]
+            mean, var = st["mean"], st["var"]
+        y = (xf - mean) * torch.rsqrt(var + BatchNorm.EPS) * params["scale"] + params["bias"]
+        y = y.to(x.dtype)
+        return F.relu(y) if self.relu else y
+
+
+class MSELoss(Op):
+    """The legacy mean-squared-error op (the reference's mse_loss.cu, before
+    its ``Loss`` classes): the sum of squared differences of its two
+    inputs, over the batch size when ``reduction`` is "average", as a (1,)
+    float32 tensor."""
+
+    _type = "MSELoss"
+
+    def __init__(self, model, logit, label, reduction: str = "average",
+                 name: Optional[str] = None):
+        super().__init__(model, [logit, label], name)
+        self.reduction = reduction
+        self._add_output((1,), "float32")
+
+    def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
+        diff = xs[0].float() - xs[1].float()
+        sq = (diff * diff).sum()
+        if self.reduction == "average":
+            sq = sq / xs[0].shape[0]
+        return [sq.reshape(1)]

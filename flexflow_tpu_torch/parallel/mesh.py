@@ -23,6 +23,7 @@ model then runs on plain tensors.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -132,6 +133,7 @@ class Machine:
     def __init__(self, devices: Optional[Sequence[torch.device]] = None,
                  num_devices: Optional[int] = None, mesh=None):
         self.mesh = mesh
+        self._groups: dict = {}  # mesh dim names -> process group (``group``)
         if mesh is not None:
             self.axis_sizes: Tuple[int, ...] = tuple(mesh.shape)
             self.axis_names: Tuple[str, ...] = tuple(
@@ -181,6 +183,27 @@ class Machine:
     # -- spec lowering -----------------------------------------------------
     def axes_for_degrees(self, degrees: Sequence[int]) -> List[Tuple[str, ...]]:
         return axes_for_degrees(self.axis_names, self.axis_sizes, degrees)
+
+    def group(self, names: Sequence[str]):
+        """The process group of this device and the devices that differ
+        from it only along the mesh dims ``names``, its ranks in row-major
+        order over those dims (the order of a tensor dim split over them,
+        and of a JAX axis tuple): several dims act as one flattened ring.
+        Made once per set of dims (a collective over every rank, so every
+        rank asks for the same sets in the same order) and kept."""
+        names = tuple(names)
+        if names not in self._groups:
+            if len(names) == 1:
+                self._groups[names] = self.mesh.get_group(names[0])
+            else:
+                import torch.distributed as dist
+
+                ids = [self.axis_names.index(n) for n in names]
+                rest = [i for i in range(len(self.axis_sizes)) if i not in ids]
+                ranks = self.mesh.mesh.permute(*rest, *ids).reshape(
+                    -1, math.prod(self.axis_sizes[i] for i in ids))
+                self._groups[names], _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+        return self._groups[names]
 
     def spec_for_config(self, pc: ParallelConfig, rank: Optional[int] = None) -> tuple:
         """``pc`` lowered to DTensor placements, one per mesh dim (the JAX

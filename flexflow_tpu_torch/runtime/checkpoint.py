@@ -6,6 +6,8 @@ the JAX package's layout leaf for leaf, so either package reads the
 other's files:
 
     params/<op>/<weight>            float32, the weight's full shape
+    stats/<op>/<name>               running statistics ("mean", "var" of a
+                                    BatchNorm), float32
     opt_state/<slot>/<op>/<weight>  "v" (SGD momentum), "m" and "v" (Adam)
     step                            int64, the steps taken
 
@@ -56,6 +58,9 @@ def state_arrays(model) -> Dict[str, np.ndarray]:
     for opn, ws in model._params.items():
         for wn, w in ws.items():
             flat[f"params/{opn}/{wn}"] = _full(w)
+    for opn, st in (model._stats or {}).items():
+        for name, t in st.items():
+            flat[f"stats/{opn}/{name}"] = _full(t)
     for slot, tree in (model._opt_state or {}).items():
         for opn, ws in tree.items():
             for wn, t in ws.items():
@@ -115,7 +120,7 @@ def _read_npz(path: str) -> Dict[str, np.ndarray]:
 
 def load_arrays(model, flat: Dict[str, np.ndarray]) -> None:
     """Write a flattened state into the model, every leaf in place.  Every
-    parameter must be present; a file with no optimizer state at all (a
+    parameter and running statistic must be present; a file with no optimizer state at all (a
     weights-only ``.npz``, the JAX package's interchange form) zeroes the
     model's, as a fresh start would have it; ``step`` defaults to 0."""
     for opn, ws in model._params.items():
@@ -124,6 +129,12 @@ def load_arrays(model, flat: Dict[str, np.ndarray]) -> None:
             if key not in flat:
                 raise KeyError(f"checkpoint has no {key!r}")
             model._assign(w, flat[key])
+    for opn, st in (model._stats or {}).items():
+        for name, t in st.items():
+            key = f"stats/{opn}/{name}"
+            if key not in flat:
+                raise KeyError(f"checkpoint has no {key!r}")
+            model._assign(t, flat[key])
     has_state = any(k.startswith("opt_state/") for k in flat)
     for slot, tree in (model._opt_state or {}).items():
         for opn, ws in tree.items():

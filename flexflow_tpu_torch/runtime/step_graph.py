@@ -20,8 +20,16 @@ What capture requires of the step, and how the model keeps it:
   comes from the graph's private memory pool, at the same addresses on
   every replay; that is what keeps the fused SGD launch's leaf table, a
   kernel argument captured once, right.
+- Random draws (dropout masks) come from the model's device generator,
+  registered with the capture (``CUDAGraph.register_generator_state``):
+  a replay reads the generator's seed and offset from the card and
+  advances the offset by what the captured draws take, so every replay
+  draws anew, and N steps draw what N eager steps draw.  Running
+  statistics (BatchNorm's) are static buffers, written in place.
 - Nothing in the step reads the device from the host, synchronizes or
-  allocates outside torch's allocator.  The kernels' libraries are loaded
+  allocates outside torch's allocator, and no graph is destroyed while
+  one is captured: the cycle collector, which frees dropped models and
+  their graphs, is paused for the capture.  The kernels' libraries are loaded
   by the first, eager step, so no ``nvcc`` build runs under capture.
 - A capture records and does not execute, so the first step of a new
   signature runs eagerly, as a real step, on a side stream (it also warms
@@ -60,9 +68,10 @@ in this version, on a mesh (SOAP, ROADMAP A6).
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
-from typing import Callable, Hashable, Optional
+from typing import Callable, Hashable, List, Optional
 
 import torch
 
@@ -89,6 +98,21 @@ def graphs_enabled() -> bool:
     return _disabled == 0
 
 
+@contextlib.contextmanager
+def _collection_paused():
+    """No cyclic garbage collection while a stream captures: a dropped
+    model (an op refers to its model, so only the cycle collector frees
+    one) may own a graph, and destroying a graph during a capture
+    invalidates the capture.  Dead graphs are freed after it."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class StepGraph:
     """One captured step of a model on one CUDA device, for one signature.
 
@@ -106,6 +130,8 @@ class StepGraph:
         self.capture_s = 0.0  # host seconds spent capturing
         self.pool = None      # the captured graph's memory pool (a handle)
         self.on_capture: Optional[Callable[[Hashable, float, Optional[int]], None]] = None
+        # device generators the step draws from, registered at each capture
+        self.generators: List[torch.Generator] = []
 
     def drop(self) -> None:
         """Forget the captured graph (and its memory pool)."""
@@ -162,7 +188,9 @@ class StepGraph:
 
     def _capture(self, step) -> None:
         graph = torch.cuda.CUDAGraph()
-        with capture_lock, torch.cuda.device(self.device):
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        with capture_lock, torch.cuda.device(self.device), _collection_paused():
             torch._C._cuda_clearCublasWorkspaces()
             try:
                 with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):

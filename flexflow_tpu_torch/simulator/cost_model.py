@@ -456,7 +456,7 @@ class CostModel:
             shape = tuple(hi - lo + 1 for lo, hi in op.weight_tile(pc, wi, 0))
             params[w.name] = (0.02 * torch.randn(shape, generator=gen, device=dev)) \
                 .requires_grad_(True)
-        ctx = FwdCtx(training=True)
+        ctx = FwdCtx(training=True, rng=gen)  # an attention dropout mask draws from gen
         fwd = op.part_forward(pc)
         leaves = [x for x in xs if x.requires_grad] + list(params.values())
         cuda = dev.type == "cuda"

@@ -14,8 +14,7 @@ package's, so that a seeded search over the same machine model and cost
 table returns the same strategy and the same floats.  What is proposed
 differs where the port cannot yet compute a split at the cost the
 simulator gives it (below): convolutions and pools split only the batch,
-attention never splits its sequence, and the LSTM and the experts split
-only the batch.
+and the LSTM and the experts split only the batch.
 """
 
 from __future__ import annotations
@@ -75,11 +74,8 @@ _SPLITTABLE = {
     "MSELoss": (0,),
     "PipelineMLP": (0, 1),     # dim 1 = pipeline (operator-dim) degree
     "ExpertMLP": (0,),
-    # batch and heads.  The sequence (dim 1) is left out until ring and
-    # Ulysses attention are ported (ROADMAP A7): the port's attention
-    # raises on a sequence split, and the search must never propose a plan
-    # that training rejects.
-    "MultiHeadAttention": (0, 2),
+    # batch, sequence (ring or Ulysses attention over the parts) and heads
+    "MultiHeadAttention": (0, 1, 2),
     "LayerNorm": (0, 1),       # batch, seq
 }
 

@@ -220,8 +220,10 @@ def test_unported_attention_and_transformer_options_raise():
 
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     x = m.create_tensor((2, 8, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        m.multihead_attention(x, num_heads=4, dropout=0.1)
+    # attention dropout is ported: the op draws its mask from the step's
+    # generator (tests/test_torch_stateful_ops.py trains with it)
+    m.multihead_attention(x, num_heads=4, dropout=0.1)
+    assert m.ops[-1].draws_random and m.ops[-1].dropout == 0.1
     # the MoE blocks build now; a strategy that splits the experts raises
     moe = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     build_transformer(moe, 2, seq_length=8, num_layers=2, embed_dim=32, num_heads=4,

@@ -259,14 +259,29 @@ def test_soap_path_on_one_rank_equals_the_plain_path(one_rank, opt):
 
 
 def test_sequence_split_attention_raises(one_rank):
+    """Sequence-parallel attention is ported (tests/test_torch_sequence.py
+    runs it on 4 ranks).  On a mesh of one rank its group is that rank:
+    the ring and Ulysses are the flash attention of the whole sequence, and
+    what still raises is a sequence degree the mesh cannot hold."""
+    from flexflow_tpu_torch.kernels.flash_attention import flash_attention
+    from flexflow_tpu_torch.parallel.sequence import sequence_parallel_attention
+
+    machine = ft.Machine.from_process_group(one_rank)
+    q, k, v = (torch.randn(2, 4, 8, 8, generator=torch.Generator().manual_seed(i))
+               for i in range(3))
+    for mode in ("ring", "ulysses"):
+        torch.testing.assert_close(
+            sequence_parallel_attention(q, k, v, machine, (1, 1, 1), causal=True, mode=mode),
+            flash_attention(q, k, v, causal=True), rtol=0, atol=0)
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     x = m.create_tensor((2, 8, 32), nchw=False)
     m.multihead_attention(x, num_heads=4, causal=True, name="attn")
     m.compile(ft.SGDOptimizer(lr=0.1), "mean_squared_error", [])
     m.init_layers(seed=0)
-    m.ops[0].pc = ft.ParallelConfig(dims=(1, 2, 1))
     m.set_batch({x: np.zeros((2, 8, 32), np.float32)}, np.zeros((2, 8, 32), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    m.train_iteration()
+    m.ops[0].pc = ft.ParallelConfig(dims=(1, 2, 1))
+    with pytest.raises(ValueError, match="not expressible"):
         m.train_iteration()
 
 

@@ -18,6 +18,7 @@ again.
 """
 
 import json
+import threading
 import urllib.error
 import urllib.request
 
@@ -558,13 +559,28 @@ def test_block_exhaustion_503_retry_after_no_leak(model):
     # concurrent admission sheds at submit, not mid-decode
     eng = InferenceEngine(model, max_batch=2, max_seq=MAX_SEQ, max_new_tokens=8, kv_blocks=2)
     p_big = np.arange(20, dtype=np.int32) % V       # ceil(28/16) = 2
+    # the engine's first decode iteration waits until the POST has been
+    # answered: the first request is admitted (holds its blocks) before the
+    # POST, and still holds them while it is answered
+    admitted, may_decode = threading.Event(), threading.Event()
+    decode = eng._decode_iteration
+
+    def gated():
+        admitted.set()
+        may_decode.wait(WAIT)
+        decode()
+    eng._decode_iteration = gated
     with eng, ServingAPI(eng, port=0) as api:
         h = eng.submit(p_big, 8)
+        assert admitted.wait(WAIT) and eng._kvpool.slot_refs() == 2
         body = json.dumps({"prompt": [int(t) for t in p_big], "max_new_tokens": 8}).encode()
         req = urllib.request.Request(f"{api.url}/generate", data=body,
                                      headers={"Content-Type": "application/json"})
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(req, timeout=30)
+        try:
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(req, timeout=30)
+        finally:
+            may_decode.set()
         err = ei.value
         assert err.code == 503 and int(err.headers["Retry-After"]) >= 1
         detail = json.loads(err.read()).get("error", "")

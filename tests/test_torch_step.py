@@ -13,6 +13,7 @@ skipped step is held bitwise.
 """
 
 import contextlib
+import gc
 
 import numpy as np
 import pytest
@@ -372,6 +373,7 @@ class _FakeCuda:
         def graph(g, capture_error_mode="global"):
             fake.events.append("capture")
             fake.modes.append(capture_error_mode)
+            fake.collecting.append(gc.isenabled())
             fake.capturing = g
             yield
             fake.capturing = None
@@ -386,6 +388,7 @@ class _FakeCuda:
         monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
         self.capturing = None
         self.modes = []  # each capture's capture_error_mode
+        self.collecting = []  # whether the cycle collector ran during each capture
 
     def step(self, calls):
         def run():
@@ -414,6 +417,9 @@ def test_step_graph_runs_eager_then_captures_then_replays(monkeypatch):
     assert (g.captures, g.replays, len(calls)) == (1, 2, 4)
     first = g.pool
     assert first == g.graph.pool() and fake.modes == ["global"]  # the graph's own pool
+    # no collection during a capture (it could destroy a dropped model's
+    # graph); the collector runs again after it
+    assert fake.collecting == [False] and gc.isenabled()
     g.run("b", step)  # another signature drops the graph, and its pool
     assert g.graph is None and g.key == "b" and (g.captures, g.replays) == (1, 2)
     assert g.pool is None and g.pool_bytes() is None

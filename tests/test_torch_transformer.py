@@ -141,8 +141,8 @@ def test_transformer_parameter_count_at_full_width():
 
 def test_unported_transformer_options_raise():
     """The MoE blocks build (ops/moe.py) and decode (dropless routing);
-    their expert split and attention dropout still raise, naming their
-    items."""
+    their expert split still raises, naming its item.  Attention dropout is
+    ported: the transformer trains with it."""
     m = ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu"))
     build_transformer(m, BATCH, moe_every=2, **SHAPE)
     assert [op.name for op in m.ops if op._type == "ExpertMLP"] == ["moe_1"]
@@ -160,6 +160,12 @@ def test_unported_transformer_options_raise():
     ys, cache = moe.decode(params, [x], None, torch.tensor(3), None)
     assert cache is None
     torch.testing.assert_close(ys[0], moe.forward(params, [x], None)[0], rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        build_transformer(ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu")), BATCH,
-                          dropout=0.1, **SHAPE)
+    dm = ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu"))
+    tok, pos, _ = build_transformer(dm, BATCH, dropout=0.1, **SHAPE)
+    dm.compile(_optimizer(ft, dm), "sparse_categorical_crossentropy", METRICS)
+    dm.init_layers(seed=0)
+    toks, posa, labels = synthetic_lm_batch(BATCH, SEQ, VOCAB, seed=0)
+    dm.set_batch({tok: toks, pos: posa}, labels)
+    dm.train_iteration()
+    assert np.isfinite(dm.get_metrics().sparse_cce_loss)
+    assert all(op.draws_random for op in dm.ops if op._type == "MultiHeadAttention")
