@@ -167,11 +167,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      compiled vs eager after 3 f32 steps, a NaN batch under the guard
      leaves weights and stats bitwise, save then load carries the stats;
      the MSELoss op against float64; examples/pca.py's graph of constants
-     trains 20 compiled steps and its loss falls.
+     trains 20 compiled steps and its loss falls;
+ 14. the elastic runtime ([elastic] lines): (a) testing/chaos_smoke.py's
+     recovery drill on full-width AlexNet (batch 256, bf16, Adam, fused,
+     fed by a prefetching DataLoader over 3 seeded batches), 3 epochs of
+     3 steps under FF_SKIP_NONFINITE=5: a NaN step in the baseline and the
+     victim, the victim preempted by SIGTERM at step 5 with a failing
+     checkpoint write, its resume in a fresh model bitwise equal to the
+     baseline, no partial file, the trace narrating every recovery, K2's
+     launches per run those of an eager step and a capture; checkpoint
+     bytes and save seconds; (b) the full-width transformer with dropout
+     0.1 preempted at step 5 and resumed bitwise (C8); (c) recompile with
+     the same map on the compiled step (f32, 2 layers) bitwise a no-op,
+     memory_reserved after 3 more swaps within one graph pool; (d) a
+     divergence swap at step 6 rolled back by a planted regression
+     (FF_RECONFIGURE, resharding:7=divergence:0.15), its two .pb records
+     diffed; (e) StepWatchdog(2) over sync:1=hang:5 raising in 2-3 s, then
+     AlexNet fed by the DataLoader with and without prefetch: the same
+     weights after 6 shuffled steps with a reset mid-epoch, ms/step and the
+     data_wait span in turns; (f) with several cards, chaos_smoke's reshard
+     on up to four (one process a card, NCCL): half the ranks lost after
+     step 4 and regained after step 7, swaps at 6 and 9 on every rank,
+     every rank's weights equal to the same job's on one card with no swap
+     (rtol 1e-5, atol 1e-6), two runs bitwise equal (one card: a line says
+     it was not run).
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
-(phase 6 uses every visible card); it imports nothing of jax or of the
-JAX package.
+(phases 6 and 14 (f) use every visible card); it imports nothing of jax
+or of the JAX package.
 """
 
 from __future__ import annotations
@@ -179,6 +202,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import gc
+import glob
 import json
 import math
 import os
@@ -828,6 +852,13 @@ def adam_optimizer(ft):
     return lambda m: ft.AdamOptimizer(m, alpha=ADAM_ALPHA)
 
 
+def stage_synthetic(ft, model, inp, n):
+    """Stage the synthetic loader's ``n`` rows as the model's batch, once
+    (the loader's numbers, no prefetch worker left behind)."""
+    dl = ft.DataLoader.synthetic(model, inp, num_samples=n)
+    model.set_batch(dl.inputs, dl.labels)
+
+
 def main_model(ft, build_alexnet, make_opt, batch=BATCH, machine=None, **cfg):
     """AlexNet 3x229x229 through the user-facing entry points, with its
     synthetic batch staged (bf16 and the fused optimizer unless ``cfg``
@@ -838,7 +869,7 @@ def main_model(ft, build_alexnet, make_opt, batch=BATCH, machine=None, **cfg):
     model.compile(make_opt(model), ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
                   [ft.MetricsType.ACCURACY], machine=machine)
     model.init_layers(seed=0)
-    ft.DataLoader.synthetic(model, inp, num_samples=batch).next_batch(model)
+    stage_synthetic(ft, model, inp, batch)
     return model
 
 
@@ -1845,7 +1876,7 @@ def zoo_model(ft, name, kw=None, **cfg):
     model.compile(opt, z["loss"], metrics)
     model.init_layers(seed=0)
     if name in ("resnet50", "inception_v3"):
-        ft.DataLoader.synthetic(model, built[0], num_samples=batch).next_batch(model)
+        stage_synthetic(ft, model, built[0], batch)
     elif name == "dlrm":
         rows = [op.num_entries for op in model.ops if op._type == "Embedding"]
         sparse, dense, labels = mod.synthetic_batch(batch, rows, 1, built[1].dims[1], seed=11)
@@ -2496,7 +2527,7 @@ def environ(env):
     finally:
         for k, v in saved.items():
             if v is None:
-                os.environ.pop(k)
+                os.environ.pop(k, None)
             else:
                 os.environ[k] = v
         events.reset_active()
@@ -3515,7 +3546,7 @@ def stem_model(ft, dtype="float32", **cfg):
     model.compile(ft.SGDOptimizer(model, lr=0.01, momentum=0.9),
                   ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [ft.MetricsType.ACCURACY])
     model.init_layers(seed=0)
-    ft.DataLoader.synthetic(model, inp, num_samples=b).next_batch(model)
+    stage_synthetic(ft, model, inp, b)
     return model
 
 
@@ -3775,6 +3806,402 @@ def sequence_phase(ft, fa, kernels, smi):
     return launches, worst, times
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the elastic runtime
+# ---------------------------------------------------------------------------
+
+ELASTIC_BATCHES = 3          # one epoch: 3 batches of the seeded dataset
+ELASTIC_EPOCHS = 3           # (a), (b): 9 steps
+RECOMPILE_LM = dict(LM, num_layers=2)   # (c), (d): reduced depth
+RECOMPILE_SWAPS = 3          # (c): swaps after the first, memory held
+RECONFIG_ENV = {"FF_RECONFIGURE": "1", "FF_RECONFIG_GAIN": "-10",
+                "FF_RECONFIG_LAG_STEPS": "2", "FF_RECONFIG_PROBATION": "3",
+                "FF_RECONFIG_BUDGET": "40", "FF_CHAOS": "resharding:7=divergence:0.15"}
+WATCHDOG = (2.0, 5.0)        # (e): the deadline and the planted hang, seconds
+RESHARD_TIMEOUT_S = 240      # (f): the two runs on every card (about 8 s a rank to start)
+PREFETCH_STEPS = (3, 12)     # (e): steps a turn takes, and the untimed first ones
+# the keys each drill sets, restored after it
+ELASTIC_ENV = dict.fromkeys(("FF_CHAOS", "FF_TELEMETRY", "FF_TELEMETRY_FILE",
+                             "FF_SKIP_NONFINITE", "FF_CKPT_BACKOFF_S", "FF_RECONFIGURE",
+                             "FF_RECONFIG_BUDGET", "FF_RECONFIG_LAG_STEPS"), "")
+
+
+def alexnet_data(n=ELASTIC_BATCHES * BATCH):
+    """A seeded dataset of ``n`` NHWC images and labels (float32 in host
+    memory: 161.1 MB a batch)."""
+    rng = np.random.default_rng(4)
+    return (rng.standard_normal((n, 229, 229, 3), dtype=np.float32),
+            rng.integers(0, 10, size=(n, 1), dtype=np.int32))
+
+
+def elastic_alexnet(ft, build_alexnet, data, make_opt, prefetch=True, shuffle=False, **cfg):
+    """A maker of full-width AlexNet (bf16, fused) and its DataLoader over
+    ``data``, through the user-facing entry points."""
+    def build():
+        model = ft.FFModel(ft.FFConfig(batch_size=BATCH, compute_dtype="bfloat16",
+                                       fused_optimizer=True, **cfg))
+        inp, _ = build_alexnet(model, BATCH)
+        model.compile(make_opt(model), ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                      [ft.MetricsType.ACCURACY])
+        model.init_layers(seed=0)
+        return model, ft.DataLoader(model, {inp: data[0]}, data[1], shuffle=shuffle, seed=3,
+                                    prefetch=prefetch)
+    return build
+
+
+def elastic_lm(ft, build_transformer, synthetic_lm_batch, dropout=0.0, dtype="bfloat16",
+               shape=None):
+    """A maker of the transformer (full width unless ``shape``; SGD lr
+    0.001, fused) and its DataLoader over 3 seeded batches."""
+    shape = shape or LM
+
+    def build():
+        model = ft.FFModel(ft.FFConfig(batch_size=shape["batch"], compute_dtype=dtype,
+                                       fused_optimizer=True))
+        tok, pos, _ = build_transformer(
+            model, shape["batch"], seq_length=shape["seq_length"],
+            num_layers=shape["num_layers"], embed_dim=shape["embed_dim"],
+            num_heads=shape["num_heads"], vocab_size=shape["vocab_size"], dropout=dropout)
+        model.compile(ft.SGDOptimizer(model, lr=0.001),
+                      ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [ft.MetricsType.ACCURACY])
+        model.init_layers(seed=0)
+        toks, posa, labels = synthetic_lm_batch(ELASTIC_BATCHES * shape["batch"],
+                                                shape["seq_length"], shape["vocab_size"], seed=5)
+        return model, ft.DataLoader(model, {tok: toks, pos: posa}, labels)
+    return build
+
+
+class LaunchesPerRun:
+    """Wraps a model maker: the kernels' launches of each model it made, read
+    from one build to the next (one model, one process of a drill)."""
+
+    def __init__(self, build, kernels):
+        self.build, self.kernels, self.marks = build, kernels, []
+
+    def __call__(self):
+        self.marks.append(read_launches(self.kernels))
+        return self.build()
+
+    def runs(self):
+        marks = self.marks + [read_launches(self.kernels)]
+        return [{n: b[n] - a[n] for n in a} for a, b in zip(marks, marks[1:])]
+
+
+def all_params(model):
+    return {k: v.detach().clone() for k, v in
+            ((f"{o}/{n}", t) for o, ws in model._params.items() for n, t in ws.items())}
+
+
+def elastic_recovery(ft, build_alexnet, kernels, data, tmp, smi):
+    """(a): chaos_smoke's recovery drill on full-width AlexNet with Adam."""
+    from flexflow_tpu_torch.testing import chaos_smoke
+
+    build = LaunchesPerRun(elastic_alexnet(ft, build_alexnet, data, adam_optimizer(ft)), kernels)
+    with environ(ELASTIC_ENV):
+        out = chaos_smoke.recovery(os.path.join(tmp, "a"), build, epochs=ELASTIC_EPOCHS,
+                                   max_to_keep=1)
+    runs = build.runs()
+    want = {**NO_LAUNCH, "fused_adam_update": 2 * 16}  # eager step and capture, 16 leaves
+    check(all(r == want for r in runs), f"(a) launches per run {runs}, expected {want} each")
+    check(out["preempted_at"] == 5, f"(a) preempted at step {out['preempted_at']}, not 5")
+    for name in ("base", "victim", "resumed"):
+        check(out[name]._step_graph.captures == 1, f"(a) {name}: "
+              f"{out[name]._step_graph.captures} captures")
+    log(f"[elastic] (a) recovery, AlexNet 3x229x229 batch {BATCH} bf16 Adam fused, prefetching "
+        f"DataLoader, {ELASTIC_EPOCHS} epochs x {ELASTIC_BATCHES} steps, FF_SKIP_NONFINITE=5: "
+        f"baseline ({chaos_smoke.NAN_SPEC}) {out['base_s']:.2f} s; victim "
+        f"({chaos_smoke.VICTIM_SPEC}) preempted at step {out['preempted_at']} after "
+        f"{out['victim_s']:.2f} s; resume {out['resume_s']:.2f} s; every parameter bitwise "
+        f"equal to the baseline; one skipped step in each run; no *.tmp-*; the trace has "
+        f"fault_injected, step_skipped, preemption_save, ckpt_retry; launches per run {runs[0]} "
+        f"(each of 3 runs); checkpoint {out['ckpt_bytes']} bytes, the victim's saves "
+        f"{['%.3f' % s for s in out['save_s']]} s; card {smi}")
+    return {n: sum(r[n] for r in runs) for n in kernels}
+
+
+def elastic_dropout(ft, build_transformer, synthetic_lm_batch, kernels, tmp, smi):
+    """(b): the full-width transformer with dropout 0.1 preempted at step
+    5 and resumed in a fresh model: bitwise equal to an uninterrupted run."""
+    from flexflow_tpu_torch.runtime.elastic import elastic_train
+    from flexflow_tpu_torch.runtime.resilience import Preempted
+
+    build = LaunchesPerRun(elastic_lm(ft, build_transformer, synthetic_lm_batch,
+                                      dropout=SEQ_DROPOUT), kernels)
+    steps = ELASTIC_EPOCHS * ELASTIC_BATCHES
+    walls = {}
+    with environ(ELASTIC_ENV):
+        base, dl = build()
+        t0 = time.perf_counter()
+        elastic_train(base, dl, epochs=ELASTIC_EPOCHS, checkpoint_dir=os.path.join(tmp, "b0"),
+                      max_to_keep=1)
+        walls["uninterrupted"] = (time.perf_counter() - t0, steps)
+        dl.close()
+        os.environ["FF_CHAOS"] = "step:4=sigterm"
+        victim, dl = build()
+        t0 = time.perf_counter()
+        try:
+            elastic_train(victim, dl, epochs=ELASTIC_EPOCHS,
+                          checkpoint_dir=os.path.join(tmp, "b1"), max_to_keep=1)
+            check(False, "(b) the victim was not preempted")
+        except Preempted as e:
+            check(e.step == 5, f"(b) preempted at step {e.step}, not 5")
+        walls["preempted"] = (time.perf_counter() - t0, 5)
+        dl.close()
+        os.environ["FF_CHAOS"] = ""
+        resumed, dl = build()
+        t0 = time.perf_counter()
+        elastic_train(resumed, dl, epochs=ELASTIC_EPOCHS,
+                      checkpoint_dir=os.path.join(tmp, "b1"), max_to_keep=1)
+        walls["resumed"] = (time.perf_counter() - t0, steps - 5)
+        dl.close()
+    check(resumed._step_count == steps, f"(b) resumed run ended at {resumed._step_count}")
+    want, got = all_params(base), all_params(resumed)
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    check(not differ, f"(b) the resumed dropout run differs from the uninterrupted one: {differ}")
+    runs = build.runs()
+    layers = LM["num_layers"]
+    per_run = {**NO_LAUNCH, "fused_sgd_update": 2, "flash_fwd": 2 * layers,
+               "flash_bwd_dkdv": 2 * layers, "flash_bwd_dq": 2 * layers}
+    check(all(r == per_run for r in runs), f"(b) launches per run {runs}, expected {per_run}")
+    log(f"[elastic] (b) dropout resume, transformer B{LM['batch']} S{LM['seq_length']} "
+        f"{layers}x{LM['embed_dim']} {LM['num_heads']} heads vocab {LM['vocab_size']} bf16 SGD "
+        f"lr 0.001, dropout {SEQ_DROPOUT}: preempted at step 5, resumed in a fresh model to "
+        f"step {steps}: {len(want)} parameters bitwise equal to the uninterrupted run; "
+        "ms/step over each run, its saves and its first (eager) and second (capture) "
+        "steps included: " + "; ".join(f"{k} {w * 1e3 / n:.1f} ({n} steps)"
+                                       for k, (w, n) in walls.items())
+        + f"; launches per run {runs[0]}; card {smi}")
+    return {n: sum(r[n] for r in runs) for n in kernels}
+
+
+def recompile_checks(ft, build_transformer, synthetic_lm_batch, kernels, smi):
+    """(c): recompile with the same map on the compiled step is bitwise a
+    no-op, and repeated swaps hold memory_reserved within one graph pool."""
+    shape = RECOMPILE_LM
+    build = elastic_lm(ft, build_transformer, synthetic_lm_batch, dtype="float32", shape=shape)
+
+    def steps(model, dl, n):
+        for _ in range(n):
+            dl.next_batch(model)
+            model.train_iteration()
+        model.sync()
+
+    straight, sdl = build()
+    steps(straight, sdl, 6)
+    want = all_params(straight)
+    sdl.close()
+    del straight, sdl
+    free_models()
+    model, dl = build()
+    steps(model, dl, 3)
+    model.recompile(strategies=model._all_strategies())
+    steps(model, dl, 3)
+    got = all_params(model)
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    check(not differ, f"(c) recompile then 3 steps differs from 6 steps: {differ}")
+    # the eager step and a capture before the recompile and again after it
+    g = model._step_graph
+    check((g.captures, g.replays) == (2, 4), f"(c) {(g.captures, g.replays)} (captures, "
+          "replays): the recompiled model's step was not captured anew")
+    free_models()
+    first = torch.cuda.memory_reserved()
+    pool = model._step_graph.pool_bytes()
+    levels = []
+    for _ in range(RECOMPILE_SWAPS):
+        model.recompile(strategies=model._all_strategies())
+        steps(model, dl, 3)
+        free_models()
+        levels.append(torch.cuda.memory_reserved())
+    dl.close()
+    check(levels[-1] <= first + pool, f"(c) memory_reserved {levels} after {RECOMPILE_SWAPS} "
+          f"swaps, first swap {first}, graph pool {pool}")
+    log(f"[elastic] (c) recompile(strategies=<the same map>) on the compiled step, transformer "
+        f"f32 {shape['num_layers']}x{shape['embed_dim']}: 3 steps + recompile + 3 steps bitwise "
+        f"equal to 6 steps ({len(want)} parameters); memory_reserved after the first swap "
+        f"{first} B, after {RECOMPILE_SWAPS} more {levels} B (limit: + one graph pool, "
+        f"{pool} B); card {smi}")
+
+
+def divergence_swap(ft, build_transformer, synthetic_lm_batch, tmp, smi):
+    """(d): a planted regression after a divergence swap on one card rolls
+    the strategy back; the swap records render as a diff."""
+    from flexflow_tpu_torch.runtime.elastic import elastic_train
+    from flexflow_tpu_torch.tools.search_report import render_diff
+
+    build = elastic_lm(ft, build_transformer, synthetic_lm_batch, shape=RECOMPILE_LM)
+    ck = os.path.join(tmp, "d")
+    with environ({**ELASTIC_ENV, **RECONFIG_ENV}):
+        model, dl = build()
+
+        def kick(epoch, _metrics):
+            if epoch == 0:
+                model._reconfig.request("divergence", ratio=2.0)
+
+        t0 = time.perf_counter()
+        elastic_train(model, dl, epochs=5, checkpoint_dir=ck, on_epoch=kick)
+        wall = time.perf_counter() - t0
+        dl.close()
+    swaps = model._reconfig.swaps
+    check(swaps[0] == (6, "divergence", "applied") and [o for _, _, o in swaps] ==
+          ["applied", "rolled_back"], f"(d) swaps {swaps}")
+    check(model._step_count == 15 and all(bool(torch.isfinite(p).all())
+                                          for p in all_params(model).values()),
+          "(d) training did not finish finite")
+    pbs = sorted(glob.glob(os.path.join(ck, "reconfig", "*.pb")))
+    check(len(pbs) == 2, f"(d) swap records {pbs}")
+    diff = render_diff(*pbs[::-1])
+    check("reconfig-mcmc" in diff, "(d) the diff lost the new side's engine")
+    log(f"[elastic] (d) divergence swap on one card, transformer bf16 "
+        f"{RECOMPILE_LM['num_layers']} layers, {', '.join(f'{k}={v}' for k, v in RECONFIG_ENV.items())}: "
+        f"swaps {swaps}, 15 steps finite in {wall:.2f} s, 2 swap records, search_report --diff "
+        f"{len(diff.splitlines())} lines; card {smi}")
+
+
+def watchdog_check(ft, smi):
+    """(e): a hang planted in sync surfaces as DeviceHangError within the
+    deadline, and the next model trains."""
+    from flexflow_tpu_torch.runtime.elastic import DeviceHangError, StepWatchdog
+    from flexflow_tpu_torch.testing.chaos_smoke import build_mlp
+
+    deadline, hang = WATCHDOG
+    with environ({**ELASTIC_ENV, "FF_CHAOS": f"sync:1=hang:{hang:g}"}):
+        model, _ = build_mlp("cuda")
+    t0 = time.perf_counter()
+    try:
+        StepWatchdog(deadline).run(model.sync)
+        check(False, "(e) the planted hang was not detected")
+    except DeviceHangError:
+        waited = time.perf_counter() - t0
+    check(deadline <= waited < deadline + 1.0, f"(e) DeviceHangError after {waited:.2f} s")
+    nxt, dl = build_mlp("cuda")
+    for _ in range(3):
+        dl.next_batch(nxt)
+        nxt.train_iteration()
+    nxt.get_metrics()
+    check(nxt.last_loss is not None and math.isfinite(nxt.last_loss),
+          f"(e) the next model's loss {nxt.last_loss}")
+    dl.close()
+    log(f"[elastic] (e) StepWatchdog({deadline:g}) over sync:1=hang:{hang:g}: DeviceHangError "
+        f"after {waited:.2f} s; the next model trained 3 steps (loss {nxt.last_loss:.4f}); "
+        f"card {smi}")
+
+
+def prefetch_checks(ft, build_alexnet, kernels, data, tmp, smi):
+    """(e): AlexNet fed by the DataLoader with and without prefetch: the same
+    batches (params bitwise after 6 shuffled steps with a reset in the
+    middle of an epoch), then ms/step and the data_wait span in turns."""
+    states = []
+    for prefetch in (False, True):
+        model, dl = elastic_alexnet(ft, build_alexnet, data, sgd_optimizer(ft),
+                                    prefetch=prefetch, shuffle=True)()
+        for step in range(6):
+            if step in (0, 2):  # the second reset cuts the epoch after 2 batches
+                dl.reset()
+            dl.next_batch(model)
+            model.train_iteration()
+        model.sync()
+        states.append(state_of(model))
+        dl.close()
+        del model, dl
+        free_models()
+    _, bitwise = compare_states(states[0], states[1], GRAPH_TOL, "prefetch on/off")
+    check(bitwise, "(e) prefetch changed what was trained on")
+    del states
+    trace = os.path.join(tmp, "prefetch.jsonl")
+    warm, n = PREFETCH_STEPS
+    with environ({**ELASTIC_ENV, "FF_TELEMETRY": "1", "FF_TELEMETRY_FILE": trace}):
+        model, _ = elastic_alexnet(ft, build_alexnet, data, sgd_optimizer(ft))()
+        inp = model.input_tensors[0]
+        loaders = {p: ft.DataLoader(model, {inp: data[0]}, data[1], prefetch=p)
+                   for p in (False, True)}
+        turns = []
+        for p in (False, True, True, False):
+            dl = loaders[p]
+            dl.reset()
+            for step in range(n):
+                if step == warm:
+                    model.sync()
+                    t0 = time.perf_counter()
+                dl.next_batch(model)  # unshuffled: it wraps to the first batch
+                model.train_iteration()
+            model.sync()
+            turns.append((p, (time.perf_counter() - t0) / (n - warm) * 1e3))
+            dl.drain()
+        for dl in loaders.values():
+            dl.close()
+        model._telemetry.flush()
+    check(model._step_graph.captures == 1, "(e) the loaders changed the step's signature")
+    spans = [json.loads(line) for line in open(trace) if '"data_wait"' in line]
+    spans = [s for s in spans if s.get("t") == "span" and s.get("name") == "data_wait"]
+    check(len(spans) == 4 * n, f"(e) {len(spans)} data_wait spans, expected {4 * n}")
+    report = []
+    for i, (p, ms) in enumerate(turns):
+        mine = spans[i * n + warm:(i + 1) * n]
+        waits = sorted(s["dur"] * 1e3 for s in mine)
+        hits = sum(bool(s["attrs"].get("prefetched")) for s in mine)
+        report.append(f"prefetch={p}: {ms:.2f} ms/step, {BATCH * 1e3 / ms:.1f} samples/s, "
+                      f"data_wait median {waits[len(waits) // 2]:.2f} ms, prefetched "
+                      f"{hits}/{len(mine)}")
+    del model, loaders
+    free_models()
+    log(f"[elastic] (e) prefetch: AlexNet batch {BATCH} bf16 SGD fused fed by the DataLoader, "
+        f"6 shuffled steps with a reset mid-epoch bitwise equal with and without prefetch; in "
+        f"turns, {n - warm} timed steps each (telemetry on): " + "; ".join(report)
+        + f"; card {smi}")
+
+
+def elastic_multi(smi):
+    """(f): device loss and gain across the cards (chaos_smoke's reshard
+    scenario on one process per card, NCCL), when there are several."""
+    from flexflow_tpu_torch.testing import chaos_smoke
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log("[elastic] (f) device loss and gain across cards: not run (one card visible; "
+            "chaos_smoke --scenario reshard needs 2 or more)")
+        return
+    world = min(4, count)
+    with tempfile.TemporaryDirectory() as wd, environ(ELASTIC_ENV):
+        job = chaos_smoke.reshard_job(wd, "cuda", world, timeout=RESHARD_TIMEOUT_S)
+        lines = chaos_smoke.check_reshard(job)
+    ev = job["ranks"][0]["run1"]["events"]
+    log(f"[elastic] (f) device loss and gain on {world} cards (NCCL, the MLP of chaos_smoke, "
+        f"{chaos_smoke.reshard_spec(world)}, lag 2): swaps "
+        f"{[(e['step'], e['trigger'], e['outcome'], e['new_devices']) for e in ev]} on every "
+        f"rank, {chaos_smoke.RESHARD_EPOCHS * 3} steps finite on {world} ranks, every "
+        f"rank's weights equal to the unswapped one-card run ({chaos_smoke.RESHARD_TOL}), "
+        f"two runs bitwise equal, swap diff {lines} lines, {job['wall_s']:.1f} s; card {smi}")
+
+
+def elastic_phase(ft, build_alexnet, kernels, smi):
+    """Phase 14: the elastic runtime.  Returns the launches of (a)-(e)."""
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
+
+    t0 = time.perf_counter()
+    free_models()
+    data = alexnet_data()
+    launches = dict.fromkeys(kernels, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(kernels)
+        for part in (elastic_recovery(ft, build_alexnet, kernels, data, tmp, smi),
+                     elastic_dropout(ft, build_transformer, synthetic_lm_batch, kernels, tmp,
+                                     smi)):
+            launches = {n: launches[n] + c for n, c in part.items()}
+        free_models()
+        reset_launches(kernels)
+        recompile_checks(ft, build_transformer, synthetic_lm_batch, kernels, smi)
+        divergence_swap(ft, build_transformer, synthetic_lm_batch, tmp, smi)
+        watchdog_check(ft, smi)
+        prefetch_checks(ft, build_alexnet, kernels, data, tmp, smi)
+        launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+    del data
+    free_models()
+    elastic_multi(smi)
+    check(all(launches[n] > 0 for n in kernels), f"phase 14 launched no kernel of {launches}")
+    log(f"[elastic] phase 14 took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     # --calibration-out DIR keeps phase 8's measured cache and fit (else a
@@ -3919,10 +4346,14 @@ def main(argv=None):
     # phase 13 -----------------------------------------------------------
     seq_launches, _, _ = sequence_phase(ft, fa, kernels, smi)
 
+    # phase 14 -----------------------------------------------------------
+    elastic_launches = elastic_phase(ft, build_alexnet, kernels, smi)
+
     # result -------------------------------------------------------------
     main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
                      + search_launches[n] + zoo_launches[n] + serve_launches[n]
-                     + obs_launches[n] + pool_launches[n] + seq_launches[n] for n in kernels}
+                     + obs_launches[n] + pool_launches[n] + seq_launches[n]
+                     + elastic_launches[n] for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -3941,7 +4372,8 @@ def main(argv=None):
     log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
         f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
         f"search {search_launches}, models {zoo_launches}, serving {serve_launches}, "
-        f"observability {obs_launches}, pool {pool_launches}, sequence {seq_launches}")
+        f"observability {obs_launches}, pool {pool_launches}, sequence {seq_launches}, "
+        f"elastic {elastic_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,7 +15,10 @@ step is a replay of one captured CUDA graph (``runtime/step_graph.py``);
 ``disable_graphs()`` runs it eagerly.  ``FFModel.generate``/``beam_search``
 decode with kv caches, each signature one captured graph
 (``runtime/decode_graph.py``), and ``serving/`` holds the continuous-
-batching ``InferenceEngine`` and its HTTP front.
+batching ``InferenceEngine`` and its HTTP front.  ``elastic_train``
+(``runtime/elastic.py``) resumes a run at its step after a preemption or a
+failure, and with ``FF_RECONFIGURE`` re-parallelizes it while it trains
+(``runtime/reconfigure.py``, ``FFModel.recompile``).
 """
 
 from .config import DeviceType, FFConfig, ParallelConfig
@@ -31,6 +34,9 @@ from .optimizers import AdamOptimizer, Optimizer, SGDOptimizer
 from .parallel.mesh import Machine
 from .parallel.strategy import load_strategies_from_file, save_strategies_to_file
 from .runtime.dataloader import DataLoader
+from .runtime.elastic import DeviceHangError, StepWatchdog, elastic_train
+from .runtime.reconfigure import (ReconfigPolicy, ReconfigurationController,
+                                  maybe_controller, refit_machine_model)
 from .runtime.step_graph import disable_graphs
 from .tensor import DataType, Parameter, Tensor
 
@@ -38,9 +44,11 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ActiMode", "AdamOptimizer", "AggrMode", "ConstantInitializer", "DataLoader",
-    "DataType", "DeviceType", "FFConfig", "FFModel", "GlorotUniform", "Loss",
-    "LossType", "Machine", "MetricsType", "NormInitializer", "Op",
-    "Optimizer", "Parameter", "ParallelConfig", "PerfMetrics", "PoolType",
-    "SGDOptimizer", "Tensor", "UniformInitializer", "ZeroInitializer",
-    "disable_graphs", "load_strategies_from_file", "save_strategies_to_file",
+    "DataType", "DeviceHangError", "DeviceType", "FFConfig", "FFModel",
+    "GlorotUniform", "Loss", "LossType", "Machine", "MetricsType", "NormInitializer",
+    "Op", "Optimizer", "Parameter", "ParallelConfig", "PerfMetrics", "PoolType",
+    "ReconfigPolicy", "ReconfigurationController", "SGDOptimizer", "StepWatchdog",
+    "Tensor", "UniformInitializer", "ZeroInitializer", "disable_graphs",
+    "elastic_train", "load_strategies_from_file", "maybe_controller",
+    "refit_machine_model", "save_strategies_to_file",
 ]

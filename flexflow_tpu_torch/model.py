@@ -17,8 +17,10 @@ recomputed in the backward) and the non-finite step guard
 (``FF_SKIP_NONFINITE``, runtime/resilience.py).  Running statistics
 (BatchNorm's moments, ``_stats``) sit beside the parameters, made at
 ``init_layers`` and written in place by each step that the guard does not
-skip; dropout masks come from the model's device generator (``_rng``,
-seeded from ``FFConfig.seed``), drawn once per step.  Constants
+skip; dropout masks come from the model's device generator (``_rng``),
+reseeded before each step from (``FFConfig.seed``, the global step), so a
+run resumed from a checkpoint at step k draws step k+1's masks as an
+uninterrupted run does (the JAX package's ``fold_in(key, step)``).  Constants
 (``create_constant``) are made on the device in each run of the graph.  On a CUDA device without
 a process group ``update()`` replays the step as one captured CUDA graph
 (runtime/step_graph.py), the counterpart of the JAX package's jitted step;
@@ -45,6 +47,12 @@ resolved at ``compile`` into handles that are None when it is off, so an
 untraced step makes no event-log call and captures the same graph; on,
 ``StepStats`` times each update (device time from CUDA events on the
 card) and the health monitor, capture ledger and op profiler hang off it.
+
+``recompile`` swaps the strategy map and the machine of a model in
+training and carries its state across (runtime/reconfigure.py drives it);
+on a mesh that a lost rank left, that rank is benched (``_benched``): it
+keeps the training loop's step count and batch cursor and computes
+nothing, until a later ``recompile`` takes it back.
 
 Decoding (``generate``, ``beam_search``, ``decode_step``; model.py:2271-2745
 of the JAX package) walks the ops' ``decode`` one token at a time over
@@ -100,10 +108,6 @@ METRIC_KEYS = ("train_all", "train_correct", "cce_loss", "sparse_cce_loss",
 _UNPORTED_ENV = {
     "FF_LOWERED": "whole-graph lowering (ROADMAP A13)",
 }
-# FF_CHAOS is ported for the serve site only (testing/chaos.py); a spec that
-# names another site raises at compile with this label
-_UNPORTED_CHAOS = "chaos fault injection (ROADMAP A10)"
-
 # Entry points of the JAX package's FFModel that the port does not have
 # yet, with the ROADMAP item that brings each.
 _UNPORTED_METHODS = {
@@ -113,7 +117,6 @@ _UNPORTED_METHODS = {
     "pool2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "dense_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "flat_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
-    "recompile": "online re-parallelization, ROADMAP A10",
 }
 
 
@@ -155,20 +158,11 @@ def _refuse_unported_knobs(cfg: FFConfig) -> None:
             raise NotImplementedError(f"{var} is set, but {what} is not ported yet")
 
 
-def _resolve_chaos():
-    """``FF_CHAOS``'s monkey (None when unset).  Only the serving engine's
-    admission site is wired; a spec naming any other site raises."""
-    from .testing import chaos
-
-    mk = chaos.from_env()
-    if mk is None:
-        return None
-    other = sorted(({site for site, _ in mk._exact} | {e[0] for e in mk._prob}) - {"serve"})
-    if other:
-        raise NotImplementedError(
-            f"FF_CHAOS={mk.spec!r} names the {', '.join(other)} site(s), but "
-            f"{_UNPORTED_CHAOS} is ported for the serve site only")
-    return mk
+def step_seed(seed: int, step: int) -> int:
+    """The step generator's seed for global step ``step`` of a model seeded
+    ``seed``: a function of the two alone, so a resumed run draws what an
+    uninterrupted one does."""
+    return (((seed + 7919) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
 
 
 class FFModel:
@@ -181,6 +175,9 @@ class FFModel:
         self._constants: Dict[int, Tuple[Tensor, float]] = {}  # guid -> (tensor, fill)
         self.label_tensor: Optional[Tensor] = None
         self.machine: Optional[Machine] = None
+        # bumped by every compile and recompile: a batch gathered under
+        # another machine or strategy map is stale (runtime/dataloader.py)
+        self._compile_version = 0
         self.optimizer = None
         self.loss: Optional[Loss] = None
         self.metrics: Optional[Metrics] = None
@@ -192,6 +189,7 @@ class FFModel:
         # written in place by each training step
         self._stats: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self._rng: Optional[torch.Generator] = None  # the training step's draws
+        self._rng_seed = 0      # reseeds _rng per step (step_seed)
         self._opt_state = None
         self._step_count = 0
         self._batch: Optional[Dict[str, torch.Tensor]] = None
@@ -203,12 +201,14 @@ class FFModel:
         # None unless FF_TELEMETRY / FFConfig.telemetry is on, and every
         # site tests only its handle
         self._telemetry = None
-        self._chaos = None      # FF_CHAOS (the serve site; testing/chaos.py)
+        self._chaos = None      # FF_CHAOS (testing/chaos.py)
         self._stepstats = None
         self._health = None     # FF_HEALTH
         self._opprof = None     # FF_OPPROF
         self._memplane = None   # FF_MEMPLANE
         self._predicted_step_s: Optional[float] = None
+        # the strategy file a reconfiguration last applied (resume_meta.json)
+        self._active_strategy_file: Optional[str] = None
 
     # ------------------------------------------------------------------
     # graph construction
@@ -414,10 +414,11 @@ class FFModel:
         the JAX package)."""
         from .observability import events as ff_events
         from .observability import health as ff_health
+        from .testing import chaos
 
         _refuse_unported_knobs(self.config)
         # chaos is independent of telemetry (recovery must work untraced)
-        self._chaos = _resolve_chaos()
+        self._chaos = chaos.from_env()
         # the heartbeat works untraced (a no-op unless FF_HEARTBEAT_PATH)
         ff_health.write_heartbeat("compile")
         tel = self._telemetry = ff_events.for_config(self.config)
@@ -446,6 +447,7 @@ class FFModel:
 
     def _compile_impl(self, optimizer, loss_type, metrics, machine) -> None:
         cfg = self.config
+        self._compile_version += 1
         if machine is None:
             machine = (Machine.from_process_group(self.device) if dist.is_initialized()
                        else Machine(devices=[self.device]))
@@ -488,12 +490,11 @@ class FFModel:
         self._metric_acc = None  # its length follows the guard
         self._drop_step_graph()
         if cfg.export_strategy_file:
-            if not dist.is_initialized() or dist.get_rank() == 0:
+            if self.machine.leads:
                 save_strategies_to_file(cfg.export_strategy_file,
                                         {op.name: op.pc for op in self.ops},
                                         provenance=self._provenance(search))
-            if dist.is_initialized():
-                dist.barrier()
+            self.machine.barrier()
         logits = self._loss_input_tensor()
         if self.loss.loss_type == LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
             ldims = logits.dims[:-1] if logits.num_dims > 2 else (logits.dims[0], 1)
@@ -566,6 +567,13 @@ class FFModel:
         """Whether the model runs on a mesh (DTensors)."""
         return self.machine is not None and self.machine.mesh is not None
 
+    @property
+    def _benched(self) -> bool:
+        """Whether this rank was left out of the machine's mesh (a lost
+        device, runtime/reconfigure.py): it holds no state and its steps
+        only count."""
+        return self.machine is not None and self.machine.benched
+
     def _input_batch_degree(self, t: Tensor) -> int:
         """The batch split of a graph input: its first consumer's."""
         for op in self.ops:
@@ -592,13 +600,30 @@ class FFModel:
             raise RuntimeError("call compile() first")
         seed = self.config.seed if seed is None else seed
         gen = torch.Generator()
+
+        def initial(op, w):
+            # one stream per (op, weight): same graph -> same init
+            salt = zlib.crc32(f"{op.name}/{w.name}".encode())
+            gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | salt)
+            return w.initializer(gen, w.dims, torch.float32)
+
+        self._make_state(initial)
+        # the JAX package's step key is jax.random.key(seed + 7919), folded
+        # with the step (step_seed)
+        self._rng = torch.Generator(device=self.device)
+        self._rng_seed = seed
+        self._rng.manual_seed(step_seed(seed, 0))
+        self._step_count = 0
+        self._drop_step_graph()
+
+    def _make_state(self, value) -> None:
+        """Parameters holding ``value(op, weight)`` (a whole float32 tensor,
+        the same on every rank: on a mesh each keeps its part), fresh
+        running statistics and zeroed optimizer state."""
         params: Dict[str, Dict[str, torch.Tensor]] = {}
         for op in self.ops:
             for w in op.weights:
-                # one stream per (op, weight): same graph -> same init
-                salt = zlib.crc32(f"{op.name}/{w.name}".encode())
-                gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | salt)
-                v = w.initializer(gen, w.dims, torch.float32)
+                v = value(op, w)
                 if self._sharded:  # every rank made the same v: each keeps its part
                     v = self.machine.distribute(v, op.weight_placements(
                         w, self.machine.spec_for_config(op.pc, op.output.num_dims)))
@@ -607,13 +632,8 @@ class FFModel:
                 params.setdefault(op.name, {})[w.name] = v.requires_grad_(True)
         self._params = params
         self._stats = {op.name: st for op in self.ops if (st := op.init_stats(self.device))}
-        # the JAX package's step key is jax.random.key(seed + 7919)
-        self._rng = torch.Generator(device=self.device)
-        self._rng.manual_seed(seed + 7919)
         self._opt_state = (self.optimizer.init_state(params)
                            if self.optimizer is not None else None)
-        self._step_count = 0
-        self._drop_step_graph()
 
     def get_parameter(self, op_name: str, weight_name: str = "kernel") -> np.ndarray:
         """A weight as a fresh numpy array (reference: Parameter::get_weights).
@@ -650,7 +670,9 @@ class FFModel:
         each array is either the global batch, of which this rank copies
         only its rows, or already this rank's rows of it
         (``parallel.distributed.local_batch``), split as its consumer's
-        batch degree."""
+        batch degree.  A benched rank stages nothing."""
+        if self._benched:
+            return
         if not self._sharded:
             new = {f"in_{t.guid}": a for t, a in inputs.items()}
             new["label"] = labels
@@ -986,6 +1008,15 @@ class FFModel:
         capture, so that each replay draws anew)."""
         return [self._rng] if any(op.draws_random for op in self.ops) else []
 
+    def _reseed(self, generators) -> None:
+        """Seed the step's generator from (seed, global step), outside any
+        capture.  A replay reads the generator's seed and offset when it
+        starts (``register_generator_state``), so the eager step, the
+        capture and every replay of step k draw the same masks, and a model
+        restored at step k draws what an uninterrupted one would."""
+        for gen in generators:
+            gen.manual_seed(step_seed(self._rng_seed, self._step_count))
+
     def _graph_key(self) -> tuple:
         """What a captured step depends on beyond the addresses that stay
         fixed: the staged batch's shapes, dtypes and addresses, the
@@ -1004,6 +1035,10 @@ class FFModel:
         a CUDA device without a mesh it is a replay of the captured step
         (runtime/step_graph.py) unless ``disable_graphs()`` is active.
         With telemetry on, ``StepStats`` times it."""
+        # the chaos step site fires on the global step index, so an exact
+        # trigger does not fire again after a restore past it
+        if self._chaos is not None:
+            self._chaos.fire("step", index=self._step_count, model=self)
         if self._stepstats is not None:
             self._stepstats.timed_update(self._update_impl)
         else:
@@ -1011,15 +1046,20 @@ class FFModel:
 
     def _update_impl(self) -> Optional[str]:
         """The step; returns what it was on the compiled path
-        (``StepGraph.run``), None off it."""
+        (``StepGraph.run``), None off it.  A benched rank only counts it."""
+        if self._benched:
+            self._step_count += 1
+            return None
         self._prepare_step()
+        gens = self._generators()
+        self._reseed(gens)
         kind = None
         if self._use_graph():
             if self._step_graph is None:
                 self._step_graph = StepGraph(self.device)
                 if self._memplane is not None:
                     self._memplane.watch("train_step", self._step_graph)
-            self._step_graph.generators = self._generators()
+            self._step_graph.generators = gens
             kind = self._step_graph.run(self._graph_key(), self._train_step)
         else:
             self._train_step()
@@ -1366,7 +1406,10 @@ class FFModel:
 
     def sync(self) -> None:
         """Block until all queued device work is done (and, with telemetry
-        on, fold the steps still unread into the log)."""
+        on, fold the steps still unread into the log).  The chaos sync site
+        fires first."""
+        if self._chaos is not None:
+            self._chaos.fire("sync", model=self)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         if self._stepstats is not None:
@@ -1399,6 +1442,77 @@ class FFModel:
         nd = self.machine.num_devices if self.machine is not None else 1
         return {op.name: getattr(op, "pc", None) or ParallelConfig.data_parallel(
             op.output.num_dims, nd) for op in self.ops}
+
+    _all_strategies = get_strategies  # the JAX package's name for the live map
+
+    def recompile(self, strategies: Optional[Dict[str, ParallelConfig]] = None,
+                  machine: Optional[Machine] = None) -> None:
+        """Re-parallelize a compiled model in training, in place
+        (model.py:1027-1120 of the JAX package): swap the strategy map
+        and/or the machine, resolve each op's config again, and carry the
+        training state across through its host form (``state_arrays``).
+
+        The state is gathered on the old machine (a collective over its
+        ranks), made anew under the new placements, and the captured step
+        is dropped, so the next step runs eagerly and then captures.  The
+        step count, the guard's run, the metric window and the optimizer's
+        schedule carry over; its scalar vector stays where it is (this
+        process's device does not change), holding the same step size.  A rank that the new machine leaves out is
+        benched (``_benched``); when the new machine takes in ranks the old
+        one lacked, the old machine's lead rank broadcasts the state to
+        every rank of the process group (all of them call ``recompile``).
+        No search, no import or export: the caller chose the strategies,
+        and ``config.strategies`` keeps them."""
+        if not self._compiled:
+            raise RuntimeError("recompile() requires a compiled model")
+        from .runtime.checkpoint import load_arrays, state_arrays
+
+        old = self.machine
+        new = machine if machine is not None else old
+        state = None
+        if self._params is not None and not self._benched:
+            if self._sharded:
+                self._drain_metrics()  # the window folds in on the old mesh
+            state = state_arrays(self)
+        if dist.is_initialized() and set(new.ranks) - set(old.ranks):
+            box = [state]
+            dist.broadcast_object_list(box, src=old.ranks[0])
+            state = box[0]
+        acc, guard = self._metric_acc, self._guard
+        cfg = self.config
+        saved = (cfg.search_budget, cfg.import_strategy_file, cfg.export_strategy_file)
+        cfg.search_budget, cfg.import_strategy_file, cfg.export_strategy_file = 0, None, None
+        if strategies is not None:
+            cfg.strategies.update(strategies)
+        tel = self._telemetry
+        span = (tel.span("recompile", num_ops=len(self.ops)) if tel is not None
+                else contextlib.nullcontext({}))
+        try:
+            with span as at:
+                self._compile_impl(self.optimizer, self.loss.loss_type,
+                                   list(self.metrics.metrics), new)
+                at["num_devices"] = self.machine.num_devices
+        finally:
+            cfg.search_budget, cfg.import_strategy_file, cfg.export_strategy_file = saved
+        if guard is not None and self._guard is not None:
+            self._guard = guard
+        self._batch = None  # the next set_batch stages under the new placements
+        if self._benched or state is None:
+            self._params = self._stats = self._opt_state = None
+            self._metric_acc = None
+        else:
+            self._make_state(lambda op, w: torch.zeros(w.dims))
+            load_arrays(self, state)
+            # a single device keeps its window; a mesh drained it above
+            self._metric_acc = (acc if not self._sharded and acc is not None
+                                and acc.shape[0] == len(self._metric_keys()) else None)
+        if tel is not None:
+            from .observability import agreement, memplane
+
+            # the predictions follow the new strategy
+            agreement.emit_compile_prediction(self, tel)
+            memplane.emit_memory_prediction(self, tel)
+            tel.flush()
 
     def print_layers(self) -> None:
         """Per-op metadata: type, output dims, config, weights (reference:

@@ -19,6 +19,15 @@ DTensor carries placements and inserts the collectives between ops.
 
 A ``Machine`` of one device without a process group has no mesh; the
 model then runs on plain tensors.
+
+A machine may cover only some ranks of the process group
+(``Machine.for_ranks``: the survivors of a lost device,
+runtime/reconfigure.py).  Every rank builds it (making its groups is a
+collective over the process group); a rank outside it is ``benched``: it
+holds no coordinate and takes part in none of its collectives.  What the
+machine's ranks share goes through ``process_group`` (``barrier``), never
+through the whole process group, and its first rank ``leads`` (writes
+files for all).
 """
 
 from __future__ import annotations
@@ -122,6 +131,10 @@ def shard_slices(shape: Sequence[int], placements: Sequence, sizes: Sequence[int
 
 # ---------------------------------------------------------------- the machine
 
+# (device type, ranks) -> the Machine over those ranks (Machine.for_ranks)
+_SUBSET_MACHINES: dict = {}
+
+
 class Machine:
     """One device, or one device per process over a ``DeviceMesh``.
 
@@ -131,9 +144,12 @@ class Machine:
     builds the prime-factored mesh over every rank."""
 
     def __init__(self, devices: Optional[Sequence[torch.device]] = None,
-                 num_devices: Optional[int] = None, mesh=None):
+                 num_devices: Optional[int] = None, mesh=None, process_group=None):
         self.mesh = mesh
         self._groups: dict = {}  # mesh dim names -> process group (``group``)
+        # the group of this machine's ranks (None: every rank of the process
+        # group, or no process group)
+        self.process_group = process_group
         if mesh is not None:
             self.axis_sizes: Tuple[int, ...] = tuple(mesh.shape)
             self.axis_names: Tuple[str, ...] = tuple(
@@ -143,7 +159,9 @@ class Machine:
             else:
                 dev = torch.device(mesh.device_type)
             self.devices = [dev]
-            self._coordinate = tuple(mesh.get_coordinate())
+            self.ranks: Tuple[int, ...] = tuple(mesh.mesh.flatten().tolist())
+            coord = mesh.get_coordinate()
+            self._coordinate = tuple(coord) if coord is not None else None
             if num_devices is not None and num_devices != mesh.size():
                 raise ValueError(f"num_devices {num_devices} differs from the mesh's "
                                  f"{mesh.size()} devices")
@@ -159,6 +177,7 @@ class Machine:
         self.devices = devices
         self.axis_sizes, self.axis_names = (1,), ("m0",)
         self._coordinate = (0,)
+        self.ranks = (0,)
 
     @classmethod
     def from_process_group(cls, device: torch.device) -> "Machine":
@@ -170,6 +189,49 @@ class Machine:
         sizes, names = mesh_shape(dist.get_world_size())
         return cls(mesh=init_device_mesh(torch.device(device).type, sizes,
                                          mesh_dim_names=names))
+
+    @classmethod
+    def for_ranks(cls, device: torch.device, ranks: Sequence[int]) -> "Machine":
+        """The prime-factored mesh over ``ranks`` of the process group (all
+        of them: the same as ``from_process_group``).  Every rank of the
+        process group calls it, those left out too (they come out
+        ``benched``).  A machine over some of the ranks is made once per
+        process and set of ranks, then reused: each one splits new
+        communicators from the process group's, so a job that loses and
+        regains the same ranks again and again holds one set."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        ranks = tuple(sorted(int(r) for r in ranks))
+        if len(ranks) == dist.get_world_size():
+            return cls.from_process_group(device)
+        key = (torch.device(device).type, ranks)
+        if key not in _SUBSET_MACHINES:
+            sizes, names = mesh_shape(len(ranks))
+            mesh = DeviceMesh(key[0], torch.tensor(ranks).reshape(sizes), mesh_dim_names=names)
+            _SUBSET_MACHINES[key] = cls(mesh=mesh, process_group=dist.new_group(list(ranks)))
+        return _SUBSET_MACHINES[key]
+
+    @property
+    def benched(self) -> bool:
+        """Whether this rank is outside the machine's mesh."""
+        return self.mesh is not None and self._coordinate is None
+
+    @property
+    def leads(self) -> bool:
+        """Whether this rank writes what the machine's ranks share (its
+        first rank; the only one without a process group)."""
+        import torch.distributed as dist
+
+        return not dist.is_initialized() or dist.get_rank() == self.ranks[0]
+
+    def barrier(self) -> None:
+        """Wait for every rank of the machine (a no-op without a process
+        group, and on a benched rank)."""
+        import torch.distributed as dist
+
+        if dist.is_initialized() and not self.benched:
+            dist.barrier(group=self.process_group)
 
     @property
     def device(self) -> torch.device:
@@ -279,4 +341,6 @@ class Machine:
     def __repr__(self):
         if self.mesh is None:
             return f"Machine({self.device})"
+        if self.benched:
+            return f"Machine(benched, {len(self.ranks)} other ranks, {self.device})"
         return f"Machine({dict(zip(self.axis_names, self.axis_sizes))}, {self.device})"

@@ -22,7 +22,11 @@ Writes are atomic (a sibling temporary file, then ``os.replace``) and,
 like reads, retried on ``OSError`` (``resilience.with_ckpt_retries``).
 ``load`` writes every leaf in place into the model's tensors, so a
 captured step (runtime/step_graph.py) stays valid; on a mesh each rank
-keeps its part of each leaf, and only rank 0 writes the file.
+keeps its part of each leaf, and only the machine's lead rank writes the
+file.  The machine's ranks wait for each other on its own group
+(``Machine.barrier``), so ranks that a lost device left benched take no
+part; a write that failed on the lead rank for good fails on every rank
+of the machine, which would otherwise wait for it.
 """
 
 from __future__ import annotations
@@ -104,12 +108,28 @@ def save_checkpoint(model, path: str) -> str:
 
 def _save_checkpoint(model, path: str) -> str:
     final = _npz_path(path)
+    if model._benched:  # the machine's ranks hold the state and write it
+        return final
     flat = state_arrays(model)
-    if not dist.is_initialized() or dist.get_rank() == 0:
-        with_ckpt_retries(lambda: _write_npz(flat, final), model=model, site="ckpt_save",
-                          path=final)
-    if dist.is_initialized():
-        dist.barrier()
+    machine = model.machine
+    failure = None
+    if machine.leads:
+        try:
+            with_ckpt_retries(lambda: _write_npz(flat, final), model=model,
+                              site="ckpt_save", path=final)
+        except OSError as e:
+            failure = e
+    if dist.is_initialized() and machine.mesh is not None:
+        # the lead's outcome reaches every rank of the machine (and waits
+        # for all of them, as a barrier would)
+        flag = torch.tensor([float(failure is not None)], device=model.device)
+        dist.all_reduce(flag, group=machine.process_group)
+        if flag.item() and failure is None:
+            raise OSError(f"checkpoint write of {final} failed on the lead rank")
+    else:
+        machine.barrier()
+    if failure is not None:
+        raise failure
     return final
 
 
@@ -189,6 +209,7 @@ class CheckpointManager:
         self.max_to_keep = int(max_to_keep or 0)  # 0 or None: keep every file
         self.save_interval_steps = max(1, int(save_interval_steps))
         os.makedirs(self.directory, exist_ok=True)
+        self._saved = self.latest_step()
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.npz")
@@ -205,8 +226,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def saved_step(self) -> Optional[int]:
+        """The newest step on disk when the manager was made, or saved
+        through it since.  Unlike ``latest_step`` it does not read the
+        directory, so every rank of a job sees the same value even while
+        the lead rank writes (``save`` decides on it, and a rank that
+        skipped a save the others make would leave them waiting)."""
+        return self._saved
+
     def should_save(self, step: int) -> bool:
-        latest = self.latest_step()
+        latest = self._saved
         return (latest is None or step > latest) and step % self.save_interval_steps == 0
 
     def save(self, model, step: Optional[int] = None, force: bool = False) -> bool:
@@ -216,11 +245,11 @@ class CheckpointManager:
         if not force and not self.should_save(step):
             return False
         save_checkpoint(model, self._path(step))
-        if self.max_to_keep and (not dist.is_initialized() or dist.get_rank() == 0):
+        self._saved = step if self._saved is None else max(self._saved, step)
+        if self.max_to_keep and model.machine.leads:
             for old in self.all_steps()[:-self.max_to_keep]:
                 os.remove(self._path(old))
-        if dist.is_initialized():
-            dist.barrier()
+        model.machine.barrier()
         return True
 
     def restore_latest(self, model) -> Optional[int]:

@@ -6,8 +6,9 @@ The host logic is the JAX package's, copied: the same environment knobs
 same exceptions, the same resume marker and the same narration: with
 telemetry on, the guard emits a ``step_skipped`` event at each drain that
 counts skipped steps, and each retried checkpoint attempt a ``ckpt_retry``
-event.  The JAX package's retries also pass a chaos choke point; chaos
-injection is not ported (ROADMAP A10).
+event.  Every checkpoint attempt passes the chaos choke point of its site
+(``ckpt_save``, ``ckpt_restore``; testing/chaos.py), so
+``ckpt_save:1=io_error`` fails the first attempt and the retry succeeds.
 
 The guard's device half lives in the step (``FFModel._guard_finalize``):
 the loss's and the global gradient norm's finiteness go into the metric
@@ -52,6 +53,14 @@ class NonFiniteEscalationError(RuntimeError):
 class ResumeMismatchError(RuntimeError):
     """The dataset geometry changed between the checkpointed run and the
     resume (steps per epoch differ), so the resume would land elsewhere."""
+
+
+class StrategyMismatchError(RuntimeError):
+    """The checkpoint was taken under another parallelization strategy than
+    the model compiled (``strategy_hash`` in ``resume_meta.json`` against
+    the live map): a reconfiguration during the run, or a changed import or
+    search.  The restore itself does not depend on the layout; this names
+    the change instead of resuming under another plan unannounced."""
 
 
 class Preempted(SystemExit):
@@ -168,10 +177,12 @@ def with_ckpt_retries(fn: Callable[[], Any], *, model=None, site: str = "ckpt_sa
                       base_delay: Optional[float] = None,
                       sleep: Callable[[float], None] = time.sleep) -> Any:
     """Run checkpoint I/O with bounded exponential backoff on ``OSError``
-    (a full disk, a flaky network mount).  Any other error propagates at
-    once: retrying a logic error only hides it.  Every retried attempt
-    emits a ``ckpt_retry`` event to ``model``'s telemetry log, if it has
-    one, naming ``site`` and ``path``."""
+    (a full disk, a flaky network mount, the injected ``io_error``).  Any
+    other error propagates at once: retrying a logic error only hides it.
+    Each attempt passes ``model``'s chaos choke point for ``site`` first.
+    Every retried attempt emits a ``ckpt_retry`` event to ``model``'s
+    telemetry log, if it has one, naming ``site`` and ``path``."""
+    chaos = getattr(model, "_chaos", None) if model is not None else None
     log = getattr(model, "_telemetry", None) if model is not None else None
     n = ckpt_retries() if retries is None else max(0, int(retries))
     base = ckpt_backoff_s() if base_delay is None else float(base_delay)
@@ -179,6 +190,8 @@ def with_ckpt_retries(fn: Callable[[], Any], *, model=None, site: str = "ckpt_sa
     while True:
         attempt += 1
         try:
+            if chaos is not None:
+                chaos.fire(site, model=model)
             return fn()
         except OSError as e:
             if attempt > n:

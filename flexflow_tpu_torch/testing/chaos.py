@@ -1,12 +1,19 @@
 """Deterministic, seeded fault injection (``FF_CHAOS``): a copy of the JAX
 package's ``testing/chaos.py`` (the port imports nothing of that package).
 
-The whole grammar parses, and ``ChaosMonkey`` executes every fault, but in
-the port only the ``serve`` site is wired: the serving engine fires it at
-admission (serving/engine.py) and the replica pool polls ``zones_down``
-(serving/pool.py).  ``FFModel.compile`` resolves the monkey and refuses a
-spec that names any other site (the step, data, checkpoint, sync and
-resharding choke points are ROADMAP A10).
+Every site is wired as in the JAX package: ``FFModel.update`` fires
+``step`` with the global step before the step runs, ``FFModel.sync`` fires
+``sync``, ``DataLoader.next_batch`` fires ``data``, each checkpoint attempt
+fires ``ckpt_save`` or ``ckpt_restore`` (runtime/resilience.py), the
+reconfiguration controller fires ``resharding`` at each step boundary
+(runtime/reconfigure.py), and the serving engine fires ``serve`` at
+admission (serving/engine.py), the replica pool polling ``zones_down``
+(serving/pool.py).  ``FFModel.compile`` resolves the monkey.
+
+``nan_loss`` multiplies the staged batch's float leaves in place, so a
+model whose inputs are all integers (the transformer's token ids) is not
+poisoned by it: its step stays finite.  A rank benched by a lost device
+(runtime/reconfigure.py) stages no batch, and the fault leaves it alone.
 
 The reference FlexFlow is strictly fail-stop: any device error aborts
 the process (FatalError, cuda_helper.h:6-36) and there is no way to
@@ -335,11 +342,13 @@ class ChaosMonkey:
         """Multiply every float leaf of the staged batch by NaN, in place
         (a captured step reads the same buffers), so this step's loss AND
         grads go non-finite.  Int leaves (labels, indices) stay."""
+        if getattr(model, "_benched", False):
+            return
         batch = getattr(model, "_batch", None)
         if not batch:
             raise ChaosError(
                 f"chaos nan_loss at {where}: no staged batch to poison "
-                "(the step site is not wired in the port yet, ROADMAP A10)")
+                "(inject at a step that follows next_batch)")
         for v in batch.values():
             if getattr(v, "is_floating_point", lambda: False)():
                 v.mul_(float("nan"))

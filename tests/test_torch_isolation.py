@@ -179,9 +179,9 @@ def test_no_port_source_names_the_tpu_files_or_the_ledger(name):
 
 def test_env_knobs_and_unported_entry_points_raise(monkeypatch, tmp_path):
     """Decoding and the engine run on one device, the engine with its
-    telemetry hooks, and a ``serve:``-only FF_CHAOS spec is accepted at
-    compile; decoding on a mesh (ROADMAP A11) and chaos at any other site
-    (A10) raise, naming their items."""
+    telemetry hooks, and an FF_CHAOS spec at any of the seven sites is
+    accepted at compile (a misspelled site is a ValueError); decoding on a
+    mesh (ROADMAP A11) raises, naming its item."""
     from flexflow_tpu_torch.observability.events import EventLog
     from flexflow_tpu_torch.models.transformer import build_transformer
     from flexflow_tpu_torch.serving.engine import InferenceEngine
@@ -208,10 +208,15 @@ def test_env_knobs_and_unported_entry_points_raise(monkeypatch, tmp_path):
     monkeypatch.setenv("FF_CHAOS", "serve:3=replica_kill;serve:p0.1=error")
     m.compile(ft.SGDOptimizer(lr=0.1))
     assert m._chaos is not None and m._chaos.spec == "serve:3=replica_kill;serve:p0.1=error"
-    for spec in ("step:1=nan_loss", "serve:2=error;sync:1=hang"):
+    for spec in ("step:1=nan_loss", "serve:2=error;sync:1=hang",
+                 "data:1=error;ckpt_save:1=io_error;ckpt_restore:2=io_error;"
+                 "resharding:4=device_loss:2"):
         monkeypatch.setenv("FF_CHAOS", spec)
-        with pytest.raises(NotImplementedError, match="FF_CHAOS.*ROADMAP A10"):
-            m.compile(ft.SGDOptimizer(lr=0.1))
+        m.compile(ft.SGDOptimizer(lr=0.1))
+        assert m._chaos.spec == spec
+    monkeypatch.setenv("FF_CHAOS", "stpe:1=nan_loss")
+    with pytest.raises(ValueError, match="unknown site 'stpe'"):
+        m.compile(ft.SGDOptimizer(lr=0.1))
 
 
 def test_unported_attention_and_transformer_options_raise():
@@ -295,15 +300,22 @@ def test_print_layers_and_get_strategies_match_the_reference_on_alexnet(capsys):
 
 @pytest.mark.parametrize("prefetch", [False, True])
 def test_dataloader_takes_the_prefetch_argument(prefetch):
-    """The reference's ``prefetch`` argument never raises TypeError: False
-    loads as usual, True raises NotImplementedError naming its item."""
+    """The reference's ``prefetch`` argument is taken either way, and the
+    batch staged with it is the batch staged without it."""
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     x = m.create_tensor((2, 4))
     m.dense(x, 3)
     m.compile(ft.SGDOptimizer(lr=0.1))
-    data = (np.zeros((4, 4), np.float32), np.zeros((4, 1), np.int32))
-    if not prefetch:
-        ft.DataLoader(m, {x: data[0]}, data[1], prefetch=prefetch).next_batch(m)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        ft.DataLoader(m, {x: data[0]}, data[1], prefetch=prefetch)
+    data = (np.arange(16, dtype=np.float32).reshape(4, 4),
+            np.arange(4, dtype=np.int32).reshape(4, 1))
+    staged = []
+    for flag in (False, prefetch):
+        dl = ft.DataLoader(m, {x: data[0]}, data[1], prefetch=flag)
+        dl.next_batch(m)
+        dl.next_batch(m)
+        dl.close()
+        staged.append({k: v.clone() for k, v in m._batch.items()})
+    assert staged[0].keys() == staged[1].keys()
+    for k, v in staged[0].items():
+        assert torch.equal(v, staged[1][k])
+    assert staged[1]["label"].flatten().tolist() == [2, 3]
