@@ -190,10 +190,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      step 4 and regained after step 7, swaps at 6 and 9 on every rank,
      every rank's weights equal to the same job's on one card with no swap
      (rtol 1e-5, atol 1e-6), two runs bitwise equal (one card: a line says
-     it was not run).
+     it was not run);
+ 15. pipelines and host-resident tables ([pipe] lines): (a) the
+     full-width transformer's 4 blocks as 4 GPipe stages of 4 microbatches
+     in lockstep on one card (parallel/pipeline.py's schedule; only the
+     hop is a hand-off in one process), with and without remat, bf16 and
+     f32: O, dx and every block weight's gradient against the unpipelined
+     blocks (f32 O and dx rtol atol 1e-4, weight gradients 1e-4 of their
+     largest magnitude; bf16 8 bf16 steps relative to each tensor's
+     largest magnitude), K3-K5 launches per direction (16 each,
+     16 more K3 in the backward with remat), fwd+bwd ms in turns; (b)
+     pipeline_mlp, 8 stages of 4096 x 4096 at batch 256, degree 1, through
+     the compiled step: bf16 ms/step, the profiler's launches (one K1 a
+     step), f32 compiled == eager bitwise; (c) the hetero DLRM (batch 256,
+     8 tables of 1,000,000 x 64 in pinned host memory, row-sparse; the
+     MLPs on the card) through the compiled step, configured by (d) the
+     ``tools/dlrm_strategy.py --hetero`` file: f32 weights after 3 steps
+     against phase 9's on-card DLRM, untouched rows bitwise, peak
+     memory_allocated below the tables' bytes, bytes a step each way,
+     graphs captured (one per bucket), a guarded NaN step leaving the
+     host rows bitwise, save and load; bf16 ms/step in turns with the
+     on-card model and with a synchronous scatter-back; forced-lazy Adam
+     (K2) and momentum in auto mode (the tables stream); (e) with several
+     cards, the full-width transformer under set_pipeline(num_stages=4,
+     num_microbatches=4) and the hetero DLRM with its MLPs pipelined, one
+     NCCL rank a card: f32 weights after 2 steps against one card
+     unpipelined, bf16 ms/step beside data parallelism (one card: a line
+     says it was not run).
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
-(phases 6 and 14 (f) use every visible card); it imports nothing of jax
+(phases 6, 14 (f) and 15 (e) use every visible card); it imports nothing of jax
 or of the JAX package.
 """
 
@@ -1288,6 +1314,8 @@ def soap_helper():
     runs as the lead rank's, printing nothing."""
     if os.environ[SOAP_HELPER] == "seq":
         return seq_helper()
+    if os.environ[SOAP_HELPER] == "pipe":
+        return pipe_helper()
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
@@ -4202,6 +4230,585 @@ def elastic_phase(ft, build_alexnet, kernels, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: pipelines and host-resident tables
+# ---------------------------------------------------------------------------
+
+PIPE_M = 4                  # (a): microbatches of the lockstep GPipe
+# (a): bf16 against the unpipelined blocks: each of the S stages' outputs
+# and each of the M microbatch partial weight gradients is rounded to bf16
+# where the unpipelined call rounds once, so S + M bf16 steps (2**-7 each)
+# relative to each tensor's largest magnitude; f32: phase 3's flash
+# tolerance (summation order)
+PIPE_BF16_STEPS = LM["num_layers"] + PIPE_M
+PIPE_F32_TOL = FLASH_TOL[torch.float32]
+PIPE_MLP = dict(batch=256, width=4096, stages=8, classes=16)   # (b)
+HETERO_STEPS = 3            # (c): f32 steps held against the on-card DLRM
+HETERO_BATCHES = 8          # (c): distinct seeded batches a timed run cycles through
+PIPE_MULTI_STEPS = 2        # (e): f32 steps held against one card
+DLRM_TABLE_BYTES = 8 * 1_000_000 * 64 * 4
+
+
+def transformer_blocks(ft, build_transformer, synthetic_lm_batch, dtype):
+    """The full-width transformer (phase 4's, ``dtype``) and its blocks as
+    stage functions ``fn(params, [x], micro_idx)`` over the model's own ops
+    and weights: block i is ln1_i .. res_mlp_i, (B, S, E) -> (B, S, E)."""
+    from flexflow_tpu_torch.ops.base import FwdCtx
+
+    model = lm_model(ft, build_transformer, synthetic_lm_batch,
+                     lambda m: ft.SGDOptimizer(m, lr=0.001), compute_dtype=dtype, **LM)
+    names = [op.name for op in model.ops]
+    fns = []
+    for i in range(LM["num_layers"]):
+        ops = model.ops[names.index(f"ln1_{i}"):names.index(f"res_mlp_{i}") + 1]
+
+        def fn(p, hs, micro_idx, ops=ops):
+            env = {ops[0].inputs[0].guid: hs[0]}
+            for op in ops:
+                ys = op.forward({w.name: p[f"{op.name}/{w.name}"] for w in op.weights},
+                                [env[t.guid] for t in op.inputs], FwdCtx(training=True))
+                for t, y in zip(op.outputs, ys):
+                    env[t.guid] = y
+            return [env[ops[-1].output.guid]]
+        fns.append(fn)
+    params = {f"{opn}/{wn}": w for opn, ws in model._params.items() for wn, w in ws.items()
+              if any(opn.endswith(f"_{i}") for i in range(LM["num_layers"]))}
+    return model, fns, params
+
+
+def pipe_runs(pipeline, fns, params, dtype):
+    """(pipelined, remat) -> fn(x): the blocks through the lockstep GPipe
+    schedule, and the unpipelined blocks under (False, False)."""
+    from flexflow_tpu_torch.parallel.pipeline import Spec
+
+    specs = [[Spec((LM["seq_length"], LM["embed_dim"]), dtype)]] * len(fns)
+
+    def unpipelined(x):
+        for fn in fns:
+            x = fn(params, [x], 0)[0]
+        return x
+
+    def pipelined(x, remat):
+        return pipeline.gpipe(fns, params, [x], PIPE_M, specs, remat=remat)[0]
+
+    return {(False, False): unpipelined, (True, False): lambda x: pipelined(x, False),
+            (True, True): lambda x: pipelined(x, True)}
+
+
+def rel_err(got, want):
+    """max |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(
+        1e-30)).item()
+
+
+def lockstep_gpipe_checks(ft, pipeline, build_transformer, synthetic_lm_batch, kernels, smi):
+    """(a): the transformer's 4 blocks as 4 stages, M microbatches, in
+    lockstep on one card, with and without remat, bf16 and f32: O, dx and
+    every block weight's gradient against the unpipelined blocks; K3-K5
+    launches per direction; fwd+bwd ms beside the unpipelined call."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    S, M = LM["num_layers"], PIPE_M
+    launches = dict.fromkeys(kernels, 0)
+    times = {}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        model, fns, params = transformer_blocks(ft, build_transformer, synthetic_lm_batch,
+                                                dtype_name)
+        runs = pipe_runs(pipeline, fns, params, dtype)
+        shape = (LM["batch"], LM["seq_length"], LM["embed_dim"])
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        leaves = list(params.values())
+
+        def fwd_bwd(fn):
+            xl = x.detach().clone().requires_grad_(True)
+            reset_launches(kernels)
+            y = fn(xl)
+            fwd = read_launches(kernels)
+            grads = torch.autograd.grad(y, [xl] + leaves, dy)
+            torch.cuda.synchronize()
+            got = read_launches(kernels)
+            return y.detach(), grads, fwd, {n: got[n] - fwd[n] for n in got}, got
+
+        want_y, want_g, fwd, bwd, _ = fwd_bwd(runs[(False, False)])
+        check(fwd["flash_fwd"] == S and bwd["flash_bwd_dkdv"] == S and bwd["flash_bwd_dq"] == S,
+              f"(a) unpipelined launches forward {fwd}, backward {bwd}")
+        for remat in (False, True):
+            label = f"{dtype_name} remat={int(remat)}"
+            y, g, fwd, bwd, got = fwd_bwd(runs[(True, remat)])
+            # bubbles skipped: S x M forward launches, S x M of each backward
+            # kernel, and with remat the forward again inside the backward
+            want = S * M
+            check(fwd["flash_fwd"] == want and bwd["flash_bwd_dkdv"] == want
+                  and bwd["flash_bwd_dq"] == want
+                  and bwd["flash_fwd"] == (want if remat else 0),
+                  f"(a) {label}: launches forward {fwd}, backward {bwd}, expected {want} "
+                  f"each ({want if remat else 0} K3 in the backward)")
+            launches = {n: launches[n] + got[n] for n in got}
+            errs = [rel_err(y, want_y)] + [rel_err(a, b) for a, b in zip(g, want_g)]
+            if dtype == torch.float32:
+                # O and dx elementwise; a weight's gradient sums B x S rows,
+                # M microbatch partial sums here, so its summation order
+                # differs: held relative to the tensor's largest magnitude
+                torch.testing.assert_close(y, want_y, **PIPE_F32_TOL)
+                torch.testing.assert_close(g[0], want_g[0], **PIPE_F32_TOL)
+                check(max(errs[2:]) <= PIPE_F32_TOL["rtol"],
+                      f"(a) {label}: weight gradient error {max(errs[2:]):.3e} relative to "
+                      "the largest magnitude")
+            else:
+                check(max(errs) <= PIPE_BF16_STEPS * 2 ** -7,
+                      f"(a) {label}: worst relative error {max(errs):.3e} over "
+                      f"{PIPE_BF16_STEPS} bf16 steps")
+            log(f"[pipe] (a) {label}: {S} stages x {M} microbatches in lockstep, K3 {fwd['flash_fwd']}"
+                f" forward, K3 {bwd['flash_fwd']} K4 {bwd['flash_bwd_dkdv']} K5 "
+                f"{bwd['flash_bwd_dq']} backward; vs the unpipelined blocks max|d|/max|ref| O "
+                f"{errs[0]:.3e}, dx {errs[1]:.3e}, weight grads {max(errs[2:]):.3e} "
+                f"({len(errs) - 2} leaves)")
+        if dtype == torch.bfloat16:
+            xl = x.detach().clone().requires_grad_(True)
+            for key in ((False, False), (True, False), (True, True), (True, True),
+                        (True, False), (False, False)):
+                fn = runs[key]
+                times.setdefault(key, []).append(cuda_time_ms(
+                    lambda: torch.autograd.grad(fn(xl), [xl] + leaves, dy), 5))
+        del model, fns, params, runs, x, dy, leaves
+        free_models()
+    log(f"[pipe] (a) tolerances: f32 O and dx rtol atol 1e-4 (phase 3's), weight gradients "
+        f"1e-4 of their largest magnitude (summed over {PIPE_M} microbatch partials); bf16 "
+        f"{PIPE_BF16_STEPS} bf16 "
+        f"steps ({LM['num_layers']} stage outputs and {PIPE_M} microbatch partial sums each "
+        f"rounded once more) relative to each tensor's largest magnitude")
+    log(f"[pipe] (a) bf16 forward + backward ms of the 4 blocks (B{LM['batch']} S"
+        f"{LM['seq_length']} E{LM['embed_dim']}), in turns: " + "; ".join(
+            f"{'unpipelined' if not k[0] else ('GPipe remat' if k[1] else 'GPipe')} "
+            f"{' / '.join(f'{t:.3f}' for t in v)}" for k, v in times.items())
+        + f"; card {smi}")
+    return launches
+
+
+def pipeline_mlp_model(ft, dtype):
+    """(b): 8 stages of 4096 x 4096 at batch 256 (``pipeline_mlp`` at
+    degree 1, one card), a 16-way head, SGD, fused, its batch staged."""
+    p = PIPE_MLP
+    model = ft.FFModel(ft.FFConfig(batch_size=p["batch"], compute_dtype=dtype,
+                                   fused_optimizer=True))
+    inp = model.create_tensor((p["batch"], p["width"]), nchw=False)
+    t = model.pipeline_mlp(inp, num_stages=p["stages"], num_microbatches=4, name="pipe")
+    model.softmax(model.dense(t, p["classes"], name="head"), name="sm")
+    model.compile(ft.SGDOptimizer(model, lr=0.001), "sparse_categorical_crossentropy",
+                  ["accuracy"])
+    model.init_layers(seed=0)
+    rng = np.random.default_rng(15)
+    model.set_batch({inp: rng.standard_normal((p["batch"], p["width"]), dtype=np.float32)},
+                    rng.integers(0, p["classes"], (p["batch"], 1)).astype(np.int32))
+    return model
+
+
+def pipeline_mlp_checks(ft, kernels, smi):
+    """(b): pipeline_mlp through the compiled step: bf16 ms/step and the
+    profiler's launches (one K1 a step), f32 compiled == eager bitwise."""
+    free_models()
+    reset_launches(kernels)
+    model = pipeline_mlp_model(ft, "bfloat16")
+    ms, losses = steps_ms(model)
+    check_graph_run(model, 7, "(b) pipeline_mlp")
+    launches = read_launches(kernels)
+    check(launches == {**NO_LAUNCH, "fused_sgd_update": 2},
+          f"(b) wrapper launches {launches} (eager step and capture), expected 2 K1")
+    device_ms, busy = profile_steps(model, "(b) pipeline_mlp 8 x 4096^2 bf16, compiled step", ms,
+                                    per_step={**NO_LAUNCH, "fused_sgd_update": 1})
+    del model
+    states = []
+    for graphed in (True, False):
+        free_models()
+        model = pipeline_mlp_model(ft, "float32")
+        with contextlib.nullcontext() if graphed else ft.disable_graphs():
+            for _ in range(3):
+                model.train_iteration()
+        model.sync()
+        states.append(state_of(model))
+        del model
+    worst, bitwise = compare_states(states[0], states[1], GRAPH_TOL, "(b) compiled vs eager")
+    check(bitwise, f"(b) f32 compiled and eager states differ (max |d| {worst:.3e})")
+    del states
+    free_models()
+    p = PIPE_MLP
+    flops = 6 * p["batch"] * p["width"] ** 2 * p["stages"]
+    log(f"[pipe] (b) pipeline_mlp {p['stages']} stages x {p['width']}^2 batch {p['batch']} "
+        f"bf16, degree 1 (sequential stages) through the compiled step: {ms:.3f} ms/step, "
+        f"device {device_ms:.3f} ms ({busy:.1f}% busy), {flops / device_ms / 1e9:.1f} TFLOP/s "
+        f"of the stages' GEMMs on the device; losses {['%.4f' % x for x in losses]}; f32 "
+        f"compiled == eager bitwise after 3 steps; card {smi}")
+    return launches
+
+
+def hetero_strategy(directory):
+    """(d): the hetero DLRM strategy file of tools/dlrm_strategy.py (8
+    tables on the host, the reference's dlrm_strategy_hetero.cc)."""
+    import io
+
+    from flexflow_tpu_torch.tools import dlrm_strategy
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return dlrm_strategy.main(["--hetero", "--emb", "8", "-o",
+                                   os.path.join(directory, "dlrm_hetero.pb")])
+
+
+def dlrm_model(ft, dtype, strategy=None, opt=("sgd", 0.01, 0.0), sparse=None):
+    """Phase 9's DLRM (batch 256, 8 tables of 1M x 64, bf16 unless said,
+    fused), its tables on the card or, with the hetero ``strategy``, on the
+    host; returns (model, inputs)."""
+    from flexflow_tpu_torch.models.dlrm import build_dlrm
+
+    cfg = dict(compute_dtype=dtype, fused_optimizer=True, sparse_host_embeddings=sparse)
+    if strategy:
+        cfg.update(import_strategy_file=strategy, import_strategy_reference_order=True)
+    batch = ZOO["dlrm"]["batch"]
+    model = ft.FFModel(ft.FFConfig(batch_size=batch, **cfg))
+    sparse_in, dense_in, _ = build_dlrm(model, batch)
+    kind, lr, momentum = opt
+    optimizer = (ft.SGDOptimizer(model, lr=lr, momentum=momentum) if kind == "sgd"
+                 else ft.AdamOptimizer(model, alpha=lr))
+    model.compile(optimizer, "mean_squared_error", ["mean_squared_error"])
+    model.init_layers(seed=0)
+    return model, sparse_in + [dense_in]
+
+
+def dlrm_batch(model, ins, seed):
+    from flexflow_tpu_torch.models.dlrm import synthetic_batch
+
+    rows = [op.num_entries for op in model.ops if op._type == "Embedding"]
+    sparse, dense, labels = synthetic_batch(ZOO["dlrm"]["batch"], rows, 1, ins[-1].dims[1],
+                                            seed=seed)
+    model.set_batch(dict(zip(ins, sparse + [dense])), labels)
+    return sparse
+
+
+def dlrm_weights(model):
+    return {(op.name, w.name): torch.from_numpy(model.get_parameter(op.name, w.name))
+            for op in model.ops for w in op.weights}
+
+
+def dlrm_ms(model, ins, steps=HETERO_BATCHES, timed_from=2):
+    """Host ms per step over seeded batches staged each step (the swap-in's
+    unique, gather and remap on every step), ending in a sync."""
+    t0 = None
+    for step in range(steps):
+        if step == timed_from:
+            model.sync()
+            t0 = time.perf_counter()
+        dlrm_batch(model, ins, 100 + step)
+        model.train_iteration()
+    model.sync()
+    return (time.perf_counter() - t0) / (steps - timed_from) * 1e3
+
+
+def hetero_checks(ft, kernels, smi, tmp):
+    """(c) and (d): the hetero DLRM (8 tables of 1M x 64 in pinned host
+    memory, row-sparse, the MLPs on the card) through the compiled step,
+    configured by the hetero strategy file."""
+    strategy = hetero_strategy(tmp)
+    launches = dict.fromkeys(kernels, 0)
+    # f32 on the card: phase 9's model, 3 steps
+    free_models()
+    on_card, ins = dlrm_model(ft, "float32")
+    for step in range(HETERO_STEPS):
+        dlrm_batch(on_card, ins, step)
+        on_card.train_iteration()
+    on_card.sync()
+    want = dlrm_weights(on_card)
+    del on_card
+    free_models()
+    # f32 on the host, under the guard (a NaN step below)
+    reset_launches(kernels)
+    with environ({"FF_SKIP_NONFINITE": "5"}):
+        model, ins = dlrm_model(ft, "float32", strategy)
+    host = model._host
+    check(sorted(host.sparse) == [f"embedding{i}" for i in range(8)] and not host.offload,
+          f"(d) the hetero file placed {sorted(host.sparse)} row-sparse, {list(host.offload)} "
+          "streamed")
+    tables0 = {k: v.clone() for k, v in dlrm_weights(model).items() if "embedding" in k[0]}
+    touched = [set() for _ in range(8)]
+    peak_alloc = 0
+    for step in range(HETERO_STEPS):
+        for i, ids in enumerate(dlrm_batch(model, ins, step)):
+            touched[i].update(np.unique(ids).tolist())
+        model.train_iteration()
+        peak_alloc = max(peak_alloc, torch.cuda.memory_allocated())
+    model.sync()
+    launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+    check(launches["fused_sgd_update"] == 2, f"(c) K1 wrapper launches {launches}")
+    got = dlrm_weights(model)
+    bitwise, worst = True, 0.0
+    for key, w in want.items():
+        torch.testing.assert_close(got[key], w, **PARITY_TOL,
+                                   msg=lambda m: f"(c) host vs card {key}: {m}")
+        bitwise = bitwise and torch.equal(got[key], w)
+        worst = max(worst, (got[key] - w).abs().max().item())
+    for i in range(8):
+        key = (f"embedding{i}", "weight")
+        keep = torch.ones(got[key].shape[0], dtype=torch.bool)
+        keep[list(touched[i])] = False
+        check(torch.equal(got[key][keep], tables0[key][keep]),
+              f"(c) untouched rows of {key[0]} moved")
+    check(peak_alloc < DLRM_TABLE_BYTES, f"(c) memory_allocated {peak_alloc} >= the tables' "
+                                         f"{DLRM_TABLE_BYTES} bytes")
+    bytes_in, bytes_out = host.bytes_in, host.bytes_out
+    buckets = {k: info["u_hwm"] for k, info in host.sparse.items()}
+    captures = model._step_graph.captures
+    log(f"[pipe] (c) hetero DLRM f32 (8 tables of 1M x 64 in pinned host memory, "
+        f"{DLRM_TABLE_BYTES / 1e9:.2f} GB, row-sparse; the MLPs on the card), {HETERO_STEPS} "
+        f"compiled steps against phase 9's on-card DLRM: {'bitwise equal' if bitwise else 'max |dw| %.3e (PARITY_TOL)' % worst}; "
+        f"untouched rows bitwise unchanged; memory_allocated peak {peak_alloc / 2**20:.1f} MiB "
+        f"(< {DLRM_TABLE_BYTES / 2**20:.0f} MiB of tables); per step {bytes_in} bytes in, "
+        f"{bytes_out} bytes out (buckets {sorted(set(buckets.values()))}); graphs captured "
+        f"{captures}")
+    check(captures == len(set(buckets.values())), f"(c) {captures} captures for buckets {buckets}")
+    # the guard: a NaN dense input, skipped; every host row bitwise as before
+    before = {k: v for k, v in got.items() if "embedding" in k[0]}
+    dlrm_batch(model, ins, 50)
+    bad = model._batch[f"in_{ins[-1].guid}"]
+    bad[3, 0] = float("nan")
+    model.train_iteration()
+    model.get_metrics()
+    after = dlrm_weights(model)
+    check(model._guard.total_skipped == 1 and all(torch.equal(after[k], v)
+                                                 for k, v in before.items()),
+          f"(c) a guarded NaN step: skipped {model._guard.total_skipped}, host rows moved")
+    # save, one more step, load: back to the saved state bitwise
+    path = os.path.join(tmp, "hetero.npz")
+    t0 = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t0
+    dlrm_batch(model, ins, 51)
+    model.train_iteration()
+    t0 = time.perf_counter()
+    model.load(path)
+    load_s = time.perf_counter() - t0
+    loaded = dlrm_weights(model)
+    check(all(torch.equal(loaded[k], v) for k, v in after.items()),
+          "(c) the loaded state differs from the saved one")
+    log(f"[pipe] (c) a NaN batch under FF_SKIP_NONFINITE: skipped, host rows bitwise unchanged; "
+        f"save {os.path.getsize(path) / 1e9:.2f} GB .npz in {save_s:.1f} s, load {load_s:.1f} s, "
+        f"bitwise")
+    os.remove(path)
+    del model, got, want, tables0, before, after, loaded
+    free_models()
+    # bf16 ms/step: on the host (the scatter-back async, synchronous, async
+    # again on one model), then on the card
+    times = {}
+    free_models()
+    model, ins = dlrm_model(ft, "bfloat16", strategy)
+    for label in ("host rows", "host rows, FF_HE_SYNC_SCATTER", "host rows"):
+        with environ({"FF_HE_SYNC_SCATTER": "1"} if "SYNC" in label else {}):
+            times.setdefault(label, []).append(dlrm_ms(model, ins))
+    bytes_in, bytes_out = model._host.bytes_in, model._host.bytes_out
+    del model
+    free_models()
+    model, ins = dlrm_model(ft, "bfloat16")
+    times["on the card"] = [dlrm_ms(model, ins)]
+    del model
+    log(f"[pipe] (c) hetero DLRM bf16 batch 256, compiled step over {HETERO_BATCHES} seeded "
+        f"batches, ms/step in turns: " + "; ".join(
+            f"{k} {' / '.join(f'{t:.3f}' for t in v)}" for k, v in times.items())
+        + f" (phase 9 times the same on-card step); {bytes_in} bytes in and {bytes_out} out "
+          f"a step; card {smi}")
+    # forced-lazy Adam on the rows (K2), then momentum in auto mode (offload)
+    for label, opt, sparse in (("forced-lazy Adam", ("adam", ADAM_ALPHA, 0.0), True),
+                               ("SGD momentum 0.9, auto", ("sgd", 0.01, 0.9), None)):
+        free_models()
+        reset_launches(kernels)
+        model, ins = dlrm_model(ft, "bfloat16", strategy, opt=opt, sparse=sparse)
+        ms = dlrm_ms(model, ins, steps=4)
+        got = read_launches(kernels)
+        launches = {n: launches[n] + c for n, c in got.items()}
+        host = model._host
+        if sparse:
+            check(len(host.sparse) == 8 and got["fused_adam_update"] == 2 * 22,
+                  f"(c) {label}: {len(host.sparse)} row-sparse tables, launches {got}")
+        else:
+            check(not host.sparse and len(host.offload) == 8,
+                  f"(c) {label}: {len(host.offload)} streamed tables")
+        log(f"[pipe] (c) {label}: {ms:.3f} ms/step; {host.bytes_in / 1e9:.4f} GB in, "
+            f"{host.bytes_out / 1e9:.4f} GB out a step ({'row-sparse' if sparse else 'offload'}); "
+            f"launches {got}")
+        del model
+    free_models()
+    return launches
+
+
+def pipe_multi_runs(ft, build_transformer, synthetic_lm_batch, kernels, dev, lead, tmp):
+    """(e) on this rank: the full-width transformer under
+    set_pipeline(num_stages=4, num_microbatches=4) and the hetero DLRM with
+    its MLPs pipelined, f32 weights after 2 steps against the single-device
+    unpipelined path (lead rank), then bf16 ms/step beside data
+    parallelism (eager mesh steps).  Returns this rank's launches."""
+    world = torch.distributed.get_world_size()
+    launches = dict.fromkeys(kernels, 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the host's cores shared among the ranks, as torchrun's one thread a
+    # rank would (the host tables' CPU work runs on every rank at once)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    try:
+        return _pipe_multi_runs(ft, build_transformer, synthetic_lm_batch, kernels, dev, lead,
+                                tmp, world, launches)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _pipe_multi_runs(ft, build_transformer, synthetic_lm_batch, kernels, dev, lead, tmp, world,
+                     launches):
+    def lm(pipelined, machine=None, dtype="float32"):
+        model = ft.FFModel(ft.FFConfig(batch_size=LM["batch"], compute_dtype=dtype,
+                                       fused_optimizer=True))
+        tok, pos, _ = build_transformer(model, LM["batch"], **{
+            k: v for k, v in LM.items() if k != "batch"})
+        if pipelined:
+            model.set_pipeline(num_stages=world, num_microbatches=PIPE_M)
+        model.compile(ft.SGDOptimizer(model, lr=0.001), "sparse_categorical_crossentropy",
+                      ["accuracy"], machine=machine)
+        model.init_layers(seed=0)
+        toks, posa, labels = synthetic_lm_batch(LM["batch"], LM["seq_length"],
+                                                LM["vocab_size"], seed=0)
+        model.set_batch({tok: toks, pos: posa}, labels)
+        return model
+
+    def dlrm(pipelined, machine=None, dtype="float32"):
+        from flexflow_tpu_torch.models.dlrm import build_dlrm
+
+        batch = ZOO["dlrm"]["batch"]
+        model = ft.FFModel(ft.FFConfig(batch_size=batch, compute_dtype=dtype,
+                                       fused_optimizer=True,
+                                       import_strategy_file=hetero_strategy(tmp),
+                                       import_strategy_reference_order=True))
+        sparse_in, dense_in, _ = build_dlrm(model, batch)
+        if pipelined:
+            model.set_pipeline(num_stages=world, num_microbatches=PIPE_M)
+        model.compile(ft.SGDOptimizer(model, lr=0.01), "mean_squared_error",
+                      ["mean_squared_error"], machine=machine)
+        model.init_layers(seed=0)
+        ins = sparse_in + [dense_in]
+        dlrm_batch(model, ins, 0)
+        return model
+
+    def weights(model):
+        for _ in range(PIPE_MULTI_STEPS):
+            model.train_iteration()
+        model.sync()
+        return {(op.name, w.name): torch.from_numpy(model.get_parameter(op.name, w.name))
+                for op in model.ops for w in op.weights}
+
+    for name, make in (("transformer", lm), ("hetero DLRM", dlrm)):
+        single = weights(make(False, ft.Machine(devices=[dev]))) if lead else None
+        free_models()
+        reset_launches(kernels)
+        model = make(True)
+        plan = model._pipeline_plan
+        check(plan is not None and plan["degree"] == world,
+              f"(e) {name}: no ring of {world} ({plan and plan['degree']})")
+        got = weights(model)
+        launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+        if lead:
+            worst = 0.0
+            for key in single:
+                torch.testing.assert_close(got[key], single[key], **LM_PARITY_TOL,
+                                           msg=lambda m: f"(e) {name} {key}: {m}")
+                worst = max(worst, (got[key] - single[key]).abs().max().item())
+            log(f"[pipe] (e) f32 {name} pipelined over {world} cards "
+                f"({[[o.name for o in g][:1] + ['..'] for g in plan['stages']]}, head "
+                f"{[o.name for o in plan['head']]}), {PIPE_MULTI_STEPS} steps vs one card "
+                f"unpipelined: max |dw| {worst:.3e} (rtol 1e-4, atol 1e-5)")
+        del model, got, single
+        free_models()
+    times = {}
+    for name, make in (("transformer", lm), ("hetero DLRM", dlrm)):
+        for pipelined in (False, True, True, False):
+            model = make(pipelined, dtype="bfloat16")
+            ms, _ = steps_ms(model)
+            times.setdefault((name, pipelined), []).append(ms)
+            del model
+            free_models()
+    if lead:
+        log(f"[pipe] (e) bf16 on {world} cards (eager mesh steps), ms/step in turns: " + "; ".join(
+            f"{name} {'GPipe' if p else 'data parallel'} {' / '.join(f'{x:.2f}' for x in ms)}"
+            for (name, p), ms in times.items()))
+    return launches
+
+
+def pipe_multi_phase(ft, build_transformer, synthetic_lm_batch, kernels, smi):
+    """(e): with one visible card it says so and runs nothing; with more, an
+    NCCL group of one rank per card (up to 4; this script started again as
+    the helper ranks) runs ``pipe_multi_runs``."""
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        log(f"[pipe] (e) needs more than one card ({torch.cuda.device_count()} visible): the "
+            "pipeline across cards was not run")
+        return dict.fromkeys(kernels, 0)
+    port = free_port()
+    helpers = spawn_helpers("pipe", world, port)
+    try:
+        dev = dist.initialize("cuda", init_method=f"tcp://localhost:{port}",
+                              world_size=world, rank=0, local_rank=0, timeout=SOAP_TIMEOUT)
+        with tempfile.TemporaryDirectory() as tmp:
+            launches = pipe_multi_runs(ft, build_transformer, synthetic_lm_batch, kernels, dev,
+                                       lead=True, tmp=tmp)
+        dist.shutdown()
+        for r, p in enumerate(helpers, 1):
+            check(p.wait(timeout=300) == 0, f"(e) helper rank {r} exited {p.returncode}")
+    finally:
+        for p in helpers:
+            if p.poll() is None:
+                p.kill()
+    log(f"[pipe] (e) launches on the lead rank: {launches}; card {smi}")
+    return launches
+
+
+def pipe_helper():
+    """A helper rank of phase 15 (e)."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import fused_optimizer as fo
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    dev = dist.initialize("cuda", timeout=SOAP_TIMEOUT)
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe_multi_runs(ft, build_transformer, synthetic_lm_batch, kernel_wrappers(fo, fa), dev,
+                        lead=False, tmp=tmp)
+    dist.shutdown()
+    return 0
+
+
+def pipeline_phase(ft, kernels, smi):
+    """Phase 15: (a) the lockstep GPipe of the transformer's blocks, (b)
+    pipeline_mlp through the compiled step, (c)-(d) the hetero DLRM on
+    host-resident row-sparse tables, (e) across cards when there are
+    several.  Returns the launches of its paths."""
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
+    from flexflow_tpu_torch.parallel import pipeline
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches, took = dict.fromkeys(kernels, 0), []
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (lambda: lockstep_gpipe_checks(ft, pipeline, build_transformer,
+                                                   synthetic_lm_batch, kernels, smi),
+                     lambda: pipeline_mlp_checks(ft, kernels, smi),
+                     lambda: hetero_checks(ft, kernels, smi, tmp),
+                     lambda: pipe_multi_phase(ft, build_transformer, synthetic_lm_batch,
+                                              kernels, smi)):
+            t1 = time.perf_counter()
+            launches = {n: launches[n] + c for n, c in part().items()}
+            took.append(time.perf_counter() - t1)
+    free_models()
+    check(all(launches[n] > 0 for n in kernels), f"phase 15 launched no kernel of {launches}")
+    log(f"[pipe] phase 15 took {time.perf_counter() - t0:.1f} s ((a) {took[0]:.1f}, (b) "
+        f"{took[1]:.1f}, (c)-(d) {took[2]:.1f}, (e) {took[3]:.1f}); launches {launches}")
+    return launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     # --calibration-out DIR keeps phase 8's measured cache and fit (else a
@@ -4349,11 +4956,14 @@ def main(argv=None):
     # phase 14 -----------------------------------------------------------
     elastic_launches = elastic_phase(ft, build_alexnet, kernels, smi)
 
+    # phase 15 -----------------------------------------------------------
+    pipe_launches = pipeline_phase(ft, kernels, smi)
+
     # result -------------------------------------------------------------
     main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
                      + search_launches[n] + zoo_launches[n] + serve_launches[n]
                      + obs_launches[n] + pool_launches[n] + seq_launches[n]
-                     + elastic_launches[n] for n in kernels}
+                     + elastic_launches[n] + pipe_launches[n] for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -4373,7 +4983,7 @@ def main(argv=None):
         f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
         f"search {search_launches}, models {zoo_launches}, serving {serve_launches}, "
         f"observability {obs_launches}, pool {pool_launches}, sequence {seq_launches}, "
-        f"elastic {elastic_launches}")
+        f"elastic {elastic_launches}, pipelines and host tables {pipe_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

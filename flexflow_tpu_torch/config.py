@@ -51,10 +51,19 @@ class ParallelConfig:
         if any(d < 1 for d in self.dims):
             raise ValueError(f"partition degrees must be >= 1, got {self.dims}")
 
+    @classmethod
+    def host_rowsparse(cls, ndims: int = 2) -> "ParallelConfig":
+        """Host placement for an embedding table (the hetero DLRM
+        strategies' CPU + zero-copy memory, dlrm_strategy_hetero.cc:28-35):
+        the runtime's row-sparse host-resident path.  ``ndims`` is the
+        rank of the embedding's output (a rank-mismatched entry is ignored
+        by ``find_parallel_config``)."""
+        return cls(DeviceType.CPU, (1,) * max(2, int(ndims)), (0,), ("host", "host", "host"))
+
     @property
     def host_placed(self) -> bool:
         """A CPU device type or a "host" memory type: weights that live on
-        the host (not ported, ROADMAP A9)."""
+        the host (runtime/host_tables.py)."""
         return self.device_type == DeviceType.CPU or "host" in self.memory_types
 
     @property

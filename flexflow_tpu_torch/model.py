@@ -48,6 +48,16 @@ untraced step makes no event-log call and captures the same graph; on,
 ``StepStats`` times each update (device time from CUDA events on the
 card) and the health monitor, capture ledger and op profiler hang off it.
 
+Pipelines (``pipeline_mlp``, ``set_pipeline``; model.py:339-787 of the
+JAX package): on a mesh the pipelined segment runs as a GPipe schedule
+over the pipe mesh dims (parallel/pipeline.py), one rank a ring slot, the
+stage weights packed one slot a row into a ``_pipe`` buffer split over
+those dims; on one device the ops run as built.  Host-placed weights
+(a CPU-typed or host-memory config) live in host memory
+(runtime/host_tables.py): row-sparse tables gather the batch's rows each
+step, other weights stream; such tables run ahead of a pipeline as its
+heterogeneous head.
+
 ``recompile`` swaps the strategy map and the machine of a model in
 training and carries its state across (runtime/reconfigure.py drives it);
 on a mesh that a lost rank left, that rank is benched (``_benched``): it
@@ -91,10 +101,12 @@ from .ops.lstm import LSTM
 from .ops.misc import (BatchNorm, Concat, Dropout, ElementBinary, ElementUnary, Flat,
                        MSELoss, Softmax)
 from .ops.moe import ExpertMLP
+from .ops.pipeline import PipelineMLP
 from .parallel.distributed import host_local_batch, local_batch
 from .parallel.mesh import Machine
 from .parallel.strategy import load_strategies_from_file, save_strategies_to_file
 from .runtime import resilience
+from .runtime.host_tables import HostTables
 from .runtime.step_graph import StepGraph, graphs_enabled
 from .tensor import DataType, Tensor
 
@@ -111,8 +123,6 @@ _UNPORTED_ENV = {
 # Entry points of the JAX package's FFModel that the port does not have
 # yet, with the ROADMAP item that brings each.
 _UNPORTED_METHODS = {
-    "pipeline_mlp": "pipeline parallelism, ROADMAP A9",
-    "set_pipeline": "pipeline parallelism, ROADMAP A9",
     "conv2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "pool2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
     "dense_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
@@ -144,10 +154,7 @@ def resolve_device(name: str) -> torch.device:
 
 def _refuse_unported_knobs(cfg: FFConfig) -> None:
     checks = [
-        (cfg.search_pipeline, "search_pipeline: pipeline search (ROADMAP A9)"),
         (cfg.zero_optimizer, "zero_optimizer: ZeRO-1 state sharding (ROADMAP A6)"),
-        (cfg.sparse_host_embeddings is not None,
-         "sparse_host_embeddings: host embedding tables (ROADMAP A9)"),
         (bool(cfg.lowered), "lowered: whole-graph lowering (ROADMAP A13)"),
     ]
     for on, what in checks:
@@ -209,6 +216,12 @@ class FFModel:
         self._predicted_step_s: Optional[float] = None
         # the strategy file a reconfiguration last applied (resume_meta.json)
         self._active_strategy_file: Optional[str] = None
+        # set_pipeline's request, and its plan once compile commits to a ring
+        self._pipeline_req: Optional[Dict[str, Any]] = None
+        self._pipeline_plan: Optional[Dict[str, Any]] = None
+        self._pipe_host_drop_warned = False
+        # host-resident weights: row-sparse tables and offload
+        self._host = HostTables(self)
 
     # ------------------------------------------------------------------
     # graph construction
@@ -354,6 +367,318 @@ class FFModel:
         return self._append(ExpertMLP(self, input_tensor, num_experts, hidden_size,
                                       capacity_factor, activation, name))
 
+    def pipeline_mlp(self, input_tensor: Tensor, num_stages: int, num_microbatches: int = 4,
+                     activation: str = "relu", name: Optional[str] = None) -> Tensor:
+        """A stack of identical dense stages pipelined over config dim 1
+        (GPipe microbatches, ops/pipeline.py)."""
+        return self._append(PipelineMLP(self, input_tensor, num_stages, num_microbatches,
+                                        activation, name))
+
+    # ------------------------------------------------------------------
+    # general pipeline parallelism (operator placement; model.py:369-787
+    # of the JAX package)
+    # ------------------------------------------------------------------
+    def set_pipeline(self, num_stages: Optional[int] = None,
+                     stages: Optional[Sequence[Sequence[str]]] = None,
+                     num_microbatches: int = 4, degree: Optional[int] = None,
+                     dp_degree: int = 1, remat: Optional[bool] = None) -> None:
+        """Assign the op graph to pipeline stages: ``stages`` (contiguous
+        op-name lists) or ``num_stages`` balanced by FLOPs.  ``degree`` is
+        the ring size (``num_stages`` by default; it must divide it, and
+        consecutive stages share a slot), ``dp_degree`` the batch split
+        composed with it, ``remat`` recomputes each slot in the backward
+        (``config.remat`` by default).  Call before ``compile()``; on a
+        mesh the ring runs over ``machine.axes_for_degrees([dp, degree])``
+        (parallel/pipeline.py), on one device the ops run as built."""
+        if stages is None:
+            if num_stages is None or int(num_stages) < 1:
+                raise ValueError(f"set_pipeline needs num_stages >= 1 or stages, got {num_stages}")
+            self._pipeline_req = {"num_stages": int(num_stages), "names": None}
+        else:
+            self._pipeline_req = {"num_stages": len(stages), "names": [list(g) for g in stages]}
+        self._pipeline_req.update(num_microbatches=int(num_microbatches), degree=degree,
+                                  dp_degree=int(dp_degree), remat=remat)
+
+    def _plan_pipeline(self) -> None:
+        """Resolve ``set_pipeline`` into a validated stage plan
+        (model.py:405-531 of the JAX package).  The segment is the graph
+        minus a trailing Softmax and the host-placed row-sparse embeddings,
+        which run ahead of the ring as a heterogeneous head; each hop carries
+        the tensors later stages still need (``plan_boundaries``).  A ring
+        that the machine cannot express keeps every op's own config."""
+        from .parallel.pipeline_plan import balanced_stages, plan_boundaries
+
+        self._pipeline_plan = None
+        req = self._pipeline_req
+        if req is None:
+            return
+        seg = list(self.ops)
+        tail: List[Op] = []
+        while seg and isinstance(seg[-1], Softmax):
+            tail.insert(0, seg.pop())
+        head = [op for op in seg if isinstance(op, Embedding) and op.pc.host_placed
+                and self._sparse_embed_ok(op)]
+        head_ids = {id(op) for op in head}
+        seg = [op for op in seg if id(op) not in head_ids]
+        if not seg:
+            raise ValueError("pipeline: no ops to pipeline")
+        if req["names"] is not None:
+            by_name = {op.name: op for op in seg}
+            head_names = {op.name for op in head}
+            stages = [g for g in ([by_name[n] for n in group if n not in head_names]
+                                  for group in req["names"]) if g]
+            if [op for g in stages for op in g] != seg:
+                raise ValueError(
+                    "pipeline stages must be a contiguous in-order partition of the op graph "
+                    "(minus a trailing Softmax and host-placed row-sparse embeddings)")
+        else:
+            stages = balanced_stages(seg, req["num_stages"])
+        S = len(stages)
+        seg_ins, boundaries = plan_boundaries(
+            stages, tail, set(self._constants.keys()),
+            list(self.input_tensors) + [op.output for op in head])
+        degree = math.gcd(req["degree"] if req["degree"] else S, S)
+        while degree > 1:
+            try:
+                self.machine.axes_for_degrees([req["dp_degree"], degree])
+                break
+            except ValueError:
+                degree = max(d for d in range(1, degree) if S % d == 0 and degree % d == 0)
+        if degree <= 1 or self.machine.num_devices <= 1:
+            if self.machine.num_devices > 1:
+                print(f"flexflow_tpu_torch: pipeline degree for {S} stages not expressible "
+                      f"over mesh {dict(zip(self.machine.axis_names, self.machine.axis_sizes))}"
+                      "; running without pipelining")
+            return
+        for op in seg:
+            if op.pc.host_placed and not self._pipe_host_drop_warned:
+                self._pipe_host_drop_warned = True
+                print(f"flexflow_tpu_torch: host placement for {op.name} is DROPPED inside "
+                      "the pipeline segment (stage weights live on their ring slot); only "
+                      "row-sparse-eligible embeddings run host-side ahead of the ring")
+        plan = {"stages": stages, "head": head, "degree": int(degree),
+                "dp_degree": int(req["dp_degree"]),
+                "num_microbatches": int(req["num_microbatches"]),
+                "remat": bool(self.config.remat if req.get("remat") is None else req["remat"]),
+                "seg_ins": seg_ins, "boundaries": boundaries,
+                "seg_in_guids": {t.guid for t in seg_ins},
+                "seg_out": stages[-1][-1].output,
+                "i0": self.ops.index(stages[0][0]), "i1": self.ops.index(stages[-1][-1]) + 1}
+        for g in stages:
+            for op in g:
+                if op.has_running_stats:
+                    raise ValueError(f"pipeline: op {op.name} carries running stats (e.g. "
+                                     "BatchNorm), which a pipeline does not support")
+                op.pc = ParallelConfig(dims=(1,) * op.output.num_dims)
+        plan["pack"] = self._plan_pipeline_pack(stages, int(degree))
+        self._pipeline_plan = plan
+
+    def _plan_pipeline_pack(self, stages, ring: int) -> Optional[Dict[str, Any]]:
+        """Where the stage weights live (model.py:533-583 of the JAX
+        package): each ring slot's weights in one row of a (ring, W)
+        float32 buffer split over the pipe mesh dims, so a rank holds only
+        its own slot's weights.  Weights shared across slots or with ops
+        outside the segment stay replicated (left out).  Returns
+        ``{"entries": {param_key: {weight: (slot, offset, shape, n)}},
+        "ring", "width"}``, or None when nothing packs."""
+        k = len(stages) // ring
+        seg_ops = [op for g in stages for op in g]
+        key_slot: Dict[str, int] = {}
+        conflict = set()
+        for si, g in enumerate(stages):
+            for op in g:
+                owner = op.share_from or op
+                if not owner.weights:
+                    continue
+                if op.param_key in key_slot and key_slot[op.param_key] != si // k:
+                    conflict.add(op.param_key)
+                key_slot.setdefault(op.param_key, si // k)
+        seg_ids = {id(op) for op in seg_ops}
+        conflict |= {op.param_key for op in self.ops
+                     if id(op) not in seg_ids and op.param_key in key_slot}
+        slot_off = [0] * ring
+        entries: Dict[str, Dict[str, tuple]] = {}
+        for op in seg_ops:
+            owner = op.share_from or op
+            pk = op.param_key
+            if not owner.weights or pk in conflict or pk in entries or pk not in key_slot:
+                continue
+            if any(w.dtype != "float32" for w in owner.weights):
+                continue
+            r = key_slot[pk]
+            emap = {}
+            for w in owner.weights:
+                n = int(np.prod(w.dims))
+                emap[w.name] = (r, slot_off[r], tuple(w.dims), n)
+                slot_off[r] += n
+            entries[pk] = emap
+        width = max(slot_off) if entries else 0
+        return {"entries": entries, "ring": ring, "width": width} if width else None
+
+    def _pipe_pack(self) -> Optional[Dict[str, Any]]:
+        plan = self._pipeline_plan
+        return plan.get("pack") if plan else None
+
+    def _pack_entry(self, op_name: str, weight_name: str):
+        pack = self._pipe_pack()
+        if pack and op_name in pack["entries"]:
+            return pack["entries"][op_name].get(weight_name)
+        return None
+
+    def _pipe_axes(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+        """(the batch mesh dims, the pipe mesh dims) of the plan."""
+        plan = self._pipeline_plan
+        batch_axes, pipe_axes = self.machine.axes_for_degrees([plan["dp_degree"],
+                                                               plan["degree"]])
+        return batch_axes, pipe_axes
+
+    def _pipe_buffer_placements(self) -> tuple:
+        _, pipe_axes = self._pipe_axes()
+        return tuple(Shard(0) if n in pipe_axes and size > 1 else Replicate()
+                     for n, size in zip(self.machine.axis_names, self.machine.axis_sizes))
+
+    def _pipe_slot(self) -> int:
+        """This rank's ring slot."""
+        return dist.get_rank(self.machine.group(self._pipe_axes()[1]))
+
+    def _pipe_specs(self, tensors) -> list:
+        from .parallel.pipeline import Spec
+
+        return [Spec(tuple(t.dims[1:]), torch.int64 if "int" in t.dtype else self.compute_dtype)
+                for t in tensors]
+
+    def _run_pipeline_segment(self, params, env, ctx: FwdCtx) -> torch.Tensor:
+        """The pipelined segment on this rank's ring slot (model.py:701-787
+        of the JAX package): the segment's inputs as this rank's rows of
+        the batch split ``dp_degree`` ways, the GPipe schedule over the
+        pipe group (parallel/pipeline.py), and the last slot's output placed
+        as the batch split again.  Stage weights are this rank's row of the
+        pipe buffer; a replicated weight is every rank's local copy, its
+        gradient summed over the ranks that used it."""
+        from .parallel.pipeline import gpipe, microbatches
+
+        plan = self._pipeline_plan
+        m = self.machine
+        names = m.axis_names
+        batch_axes, pipe_axes = self._pipe_axes()
+        ring, stages = plan["degree"], plan["stages"]
+        k = len(stages) // ring
+        bpl = m.batch_sharding(plan["dp_degree"])
+        xs = []
+        for t in plan["seg_ins"]:
+            x = m.redistribute(env[t.guid], bpl)
+            xs.append(x.to_local(grad_placements=tuple(
+                Partial() if n in pipe_axes else p for n, p in zip(names, bpl)))
+                if x.is_floating_point() else x.to_local())
+        pack = plan["pack"]
+        feed: Dict[str, torch.Tensor] = {}
+        if pack:
+            buf = params["_pipe"]["buffer"]
+            feed["_pipe"] = buf.to_local(grad_placements=tuple(
+                Partial() if n in batch_axes else p for n, p in zip(names, buf.placements)))[0]
+        shared = sorted({op.param_key for g in stages for op in g
+                         if op.param_weights and not (pack and op.param_key in pack["entries"])})
+        for pk in shared:
+            for wn, w in params[pk].items():
+                w = m.redistribute(w, m.replicated())
+                feed[f"{pk}/{wn}"] = w.to_local(grad_placements=tuple(
+                    Partial() if n in batch_axes or n in pipe_axes else Replicate()
+                    for n in names))
+        in_bundles = [list(plan["seg_ins"])] + [list(h) for h in plan["boundaries"]]
+        out_bundles = [list(h) for h in plan["boundaries"]] + [[plan["seg_out"]]]
+        consts = list(self._constants.values())
+        cdtype = self.compute_dtype
+
+        def resolve(p, op):
+            pk = op.param_key
+            if pack and pk in pack["entries"]:
+                return {wn: p["_pipe"][off:off + n].reshape(shape)
+                        for wn, (_, off, shape, n) in pack["entries"][pk].items()}
+            return {w.name: p[f"{pk}/{w.name}"] for w in op.param_weights}
+
+        def slot_fn(r):
+            ops = [op for g in stages[r * k:(r + 1) * k] for op in g]
+            ins, outs = in_bundles[r * k], out_bundles[(r + 1) * k - 1]
+
+            def fn(p, hs, micro_idx, fctx):
+                senv = {t.guid: (h if "int" in t.dtype else h.to(cdtype))
+                        for t, h in zip(ins, hs)}
+                for t, val in consts:
+                    senv[t.guid] = torch.full(t.dims, val, device=self.device,
+                                              dtype=torch.int32 if "int" in t.dtype else cdtype)
+                for op in ops:
+                    ys = op.forward(resolve(p, op), [senv[t.guid] for t in op.inputs], fctx)
+                    for t, y in zip(op.outputs, ys):
+                        senv[t.guid] = y
+                return [senv[t.guid] for t in outs]
+            return fn
+
+        def ctx_factory(s, micro_idx):
+            return FwdCtx(training=ctx.training, rng=ctx.rng, stats_in=ctx.stats_in)
+
+        specs = [self._pipe_specs(out_bundles[(r + 1) * k - 1]) for r in range(ring)]
+        mb = microbatches(xs[0].shape[0], plan["num_microbatches"])
+        y, = gpipe([slot_fn(r) for r in range(ring)], feed, xs, mb, specs,
+                   group=m.group(pipe_axes), remat=plan["remat"] and ctx.training,
+                   ctx_factory=ctx_factory)
+        return m.from_local(y.to(cdtype), bpl)
+
+    # ------------------------------------------------------------------
+    # host-resident tables: eligibility (model.py:1186-1264 of the JAX
+    # package); the runtime is runtime/host_tables.py
+    # ------------------------------------------------------------------
+    def _sparse_embed_structural_ok(self, op) -> bool:
+        """An Embedding with its own table, fed straight from a graph input
+        whose every consumer is such an embedding (the swap-in remaps that
+        input to the compact row space)."""
+        if not (isinstance(op, Embedding) and op.share_from is None
+                and any(op.inputs[0] is t for t in self.input_tensors)):
+            return False
+        idx_t = op.inputs[0]
+        return all(isinstance(o, Embedding) and o.share_from is None
+                   for o in self.ops if any(t is idx_t for t in o.inputs))
+
+    def _sparse_embed_candidate_ok(self, op) -> bool:
+        """Search-time eligibility: the structure, and the optimizer when
+        one is known (an offline search assumes plain SGD)."""
+        from .optimizers import AdamOptimizer, SGDOptimizer
+
+        if not self._sparse_embed_structural_ok(op):
+            return False
+        if self.optimizer is None:
+            return True
+        if not isinstance(self.optimizer, (SGDOptimizer, AdamOptimizer)):
+            return False
+        flag = self.config.sparse_host_embeddings
+        if flag is not None:
+            return bool(flag)
+        opt = self.optimizer
+        return isinstance(opt, SGDOptimizer) and opt.momentum == 0.0 and opt.weight_decay == 0.0
+
+    def _sparse_embed_ok(self, op) -> bool:
+        """The row-sparse path applies to a host-placed Embedding with its
+        own table fed from a graph input that only host-placed own-table
+        embeddings consume, under SGD or Adam.  Left to itself
+        (``sparse_host_embeddings`` None) it also needs an update that
+        leaves untouched rows alone (plain SGD), so sparse training equals
+        dense bit for bit; True forces the lazy per-row update of momentum
+        and Adam, False streams the table (offload)."""
+        from .optimizers import AdamOptimizer, SGDOptimizer
+
+        if not (self._sparse_embed_structural_ok(op)
+                and isinstance(self.optimizer, (SGDOptimizer, AdamOptimizer))):
+            return False
+        idx_t = op.inputs[0]
+        for o in self.ops:
+            if any(t is idx_t for t in o.inputs) and not (
+                    isinstance(o, Embedding) and o.share_from is None and o.pc.host_placed):
+                return False
+        flag = self.config.sparse_host_embeddings
+        if flag is not None:
+            return bool(flag)
+        opt = self.optimizer
+        return isinstance(opt, SGDOptimizer) and opt.momentum == 0.0 and opt.weight_decay == 0.0
+
     def _unary(self, op_name, x, name=None):
         return self._append(ElementUnary(self, x, op_name, name))
 
@@ -470,17 +795,18 @@ class FFModel:
                 "device(s): start one process per device (parallel/distributed.py) "
                 "or leave workers_per_node at 0")
         search = self._search() if cfg.search_budget > 0 else None
+        if search is not None and cfg.search_pipeline and self._pipeline_req is None:
+            self._search_pipeline(search)
         for op in self.ops:
             pc = cfg.find_parallel_config(op.output.num_dims, op.name, nd)
             if pc.num_parts() > nd:
                 pc = ParallelConfig.data_parallel(op.output.num_dims, nd)
             op.pc = op.legalize_pc(pc)
             op.check_config(op.pc)
-            if op.pc.host_placed:
-                raise NotImplementedError(
-                    f"not ported yet: host placement of {op.name} (its config's device "
-                    "or memory type is the host; ROADMAP A9)")
             self.machine.spec_for_config(op.pc)  # raises if the mesh cannot split it
+        # operator placement: the pipelined ops' configs become no-split
+        self._plan_pipeline()
+        self._host.register()
         if optimizer is not None:
             optimizer.fused = bool(cfg.fused_optimizer)
         if int(cfg.grad_accum_steps) < 1:
@@ -539,6 +865,24 @@ class FFModel:
         cfg.strategies.update(best)
         return best, mm
 
+    def _search_pipeline(self, search) -> None:
+        """The stage-assignment search (``--search-pipeline``,
+        model.py:935-975 of the JAX package): when a GPipe plan simulates
+        faster than the dimension strategy just found, apply it."""
+        from .simulator.pipeline_search import search_pipeline
+
+        best, mm = search
+        plan = search_pipeline(self, machine_model=mm)
+        if plan is not None and plan["simulated_s"] < best.best_s:
+            print(f"flexflow_tpu_torch: search selected a pipeline plan "
+                  f"({plan['num_stages']} stages x dp{plan['dp_degree']}, "
+                  f"M={plan['num_microbatches']}{', remat' if plan.get('remat') else ''}): "
+                  f"{plan['simulated_s'] * 1e3:.3f} ms vs {best.best_s * 1e3:.3f} ms for the "
+                  "dim strategy")
+            self.set_pipeline(num_stages=plan["num_stages"], dp_degree=plan["dp_degree"],
+                              num_microbatches=plan["num_microbatches"],
+                              remat=plan.get("remat"))
+
     def _provenance(self, search: Optional[tuple]) -> Dict[str, Any]:
         """The exported strategy's ``.meta.json`` sidecar
         (``searchtrace.build_provenance``): the search that found it (or
@@ -575,7 +919,11 @@ class FFModel:
         return self.machine is not None and self.machine.benched
 
     def _input_batch_degree(self, t: Tensor) -> int:
-        """The batch split of a graph input: its first consumer's."""
+        """The batch split of a graph input: its first consumer's (a
+        pipelined segment's input: the plan's ``dp_degree``)."""
+        plan = self._pipeline_plan
+        if plan is not None and t.guid in plan["seg_in_guids"]:
+            return plan["dp_degree"]
         for op in self.ops:
             if t in op.inputs:
                 return op.pc.dims[0]
@@ -621,32 +969,89 @@ class FFModel:
         the same on every rank: on a mesh each keeps its part), fresh
         running statistics and zeroed optimizer state."""
         params: Dict[str, Dict[str, torch.Tensor]] = {}
+        pack = self._pipe_pack()
+        buf = torch.zeros(pack["ring"], pack["width"]) if pack else None
         for op in self.ops:
+            if self._host.is_sparse(op.name, op.weights[0].name if op.weights else ""):
+                continue  # a host table: made below, gathered each step
             for w in op.weights:
                 v = value(op, w)
+                e = self._pack_entry(op.name, w.name)
+                if e is not None:  # a stage weight: its slot's row of the pipe buffer
+                    buf[e[0], e[1]:e[1] + e[3]] = v.reshape(-1)
+                    continue
                 if self._sharded:  # every rank made the same v: each keeps its part
                     v = self.machine.distribute(v, op.weight_placements(
                         w, self.machine.spec_for_config(op.pc, op.output.num_dims)))
                 else:
                     v = v.to(self.device)
                 params.setdefault(op.name, {})[w.name] = v.requires_grad_(True)
+        if pack:
+            params["_pipe"] = {"buffer": self.machine.distribute(
+                buf, self._pipe_buffer_placements()).requires_grad_(True)}
         self._params = params
         self._stats = {op.name: st for op in self.ops if (st := op.init_stats(self.device))}
         self._opt_state = (self.optimizer.init_state(params)
                            if self.optimizer is not None else None)
+        self._host.make_tables(value)
 
     def get_parameter(self, op_name: str, weight_name: str = "kernel") -> np.ndarray:
         """A weight as a fresh numpy array (reference: Parameter::get_weights).
-        On a mesh the parts are gathered: a collective, every rank calls it."""
-        w = self._params[op_name][weight_name].detach()
-        if isinstance(w, DTensor):
-            w = w.full_tensor()
-        return w.cpu().numpy().copy()
+        On a mesh the parts are gathered: a collective, every rank calls it
+        (a host table's row ranges and a stage weight's ring slot too)."""
+        return self._read_leaf(None, op_name, weight_name)
 
     def set_parameter(self, op_name: str, weight_name: str, value: np.ndarray) -> None:
         """Overwrite a weight with the whole ``value``; on a mesh every rank
         passes the same value and keeps its part."""
-        self._assign(self._params[op_name][weight_name], value)
+        self._write_leaf(None, op_name, weight_name, value)
+
+    def _weight_names(self) -> List[Tuple[str, str]]:
+        """(op, weight) of every weight, in graph order."""
+        return [(op.name, w.name) for op in self.ops for w in op.weights]
+
+    def _read_shape(self, opn: str, wn: str) -> Tuple[int, ...]:
+        op = next(o for o in self.ops if o.name == opn)
+        return tuple(next(w for w in op.weights if w.name == wn).dims)
+
+    def _read_leaf(self, slot: Optional[str], opn: str, wn: str) -> Optional[np.ndarray]:
+        """A weight (``slot`` None) or its optimizer state ``slot`` as a
+        whole numpy array, wherever it lives: a host table, the pipe
+        buffer, a (DTensor) leaf.  None when the optimizer keeps no such
+        slot.  A collective on a mesh."""
+        self._host.join()
+        if self._host.is_sparse(opn, wn):
+            return self._host.read(opn, wn, slot)
+        tree = self._params if slot is None else (self._opt_state or {}).get(slot)
+        if tree is None:
+            return None
+        e = self._pack_entry(opn, wn)
+        if e is not None:
+            row = tree["_pipe"]["buffer"].detach().full_tensor()[e[0]]
+            return row[e[1]:e[1] + e[3]].reshape(e[2]).cpu().numpy().copy()
+        w = tree[opn][wn].detach()
+        if isinstance(w, DTensor):
+            w = w.full_tensor()
+        return w.cpu().numpy().copy()
+
+    def _write_leaf(self, slot: Optional[str], opn: str, wn: str, value) -> None:
+        """Overwrite a weight or its state ``slot`` with the whole
+        ``value``, in place (each rank keeps its part)."""
+        self._host.join()
+        if self._host.is_sparse(opn, wn):
+            self._host.write(opn, wn, value, slot)
+            return
+        tree = self._params if slot is None else self._opt_state[slot]
+        e = self._pack_entry(opn, wn)
+        if e is not None:
+            if self._pipe_slot() == e[0]:
+                with torch.no_grad():
+                    tree["_pipe"]["buffer"].to_local()[0, e[1]:e[1] + e[3]].copy_(
+                        torch.as_tensor(np.asarray(value, np.float32)).reshape(-1))
+            return
+        self._assign(tree[opn][wn], value)
+        if (opn, wn) in self._host.offload:
+            self._host.refresh_offload()
 
     def _assign(self, cur: torch.Tensor, value) -> None:
         """Copy a whole float32 value into a parameter or optimizer-state
@@ -673,6 +1078,12 @@ class FFModel:
         batch degree.  A benched rank stages nothing."""
         if self._benched:
             return
+        he_keys = self._host.input_keys()
+        for t, a in inputs.items():
+            if f"in_{t.guid}" in he_keys:  # the swap-in uniques these on the host
+                if self._sharded and a.shape[0] == t.dims[0]:
+                    a = local_batch(self.machine, a, self._input_batch_degree(t))
+                self._host.stage_indices(f"in_{t.guid}", a)
         if not self._sharded:
             new = {f"in_{t.guid}": a for t, a in inputs.items()}
             new["label"] = labels
@@ -733,30 +1144,49 @@ class FFModel:
             env[t.guid] = x
         if ctx is None:
             ctx = FwdCtx(training=training, stats_in=self._stats)
-        for op in self.ops:
-            xs = [env[t.guid] for t in op.inputs]
-            pvals = params.get(op.param_key, {})
-            if self._sharded:
-                def fwd(*xs_, op=op, pvals=pvals):
-                    return op.forward_sharded(self.machine, pvals, list(xs_), ctx)
-            else:
-                def fwd(*xs_, op=op, pvals=pvals):
-                    return op.forward(pvals, list(xs_), ctx)
-            if training and self.config.remat and op.weights and not op.has_running_stats:
-                # rematerialization (model.py:1866-1875 of the JAX package):
-                # the op's inner activations are dropped and recomputed in
-                # the backward.  A dropout mask is drawn once per step and
-                # kept in ctx (FwdCtx.keep_mask), so the recompute reads the
-                # forward's mask and draws nothing: no generator state is
-                # replayed, and the default generators are never touched.
-                ys = checkpoint(fwd, *xs, use_reentrant=False, preserve_rng_state=False)
-            else:
-                ys = fwd(*xs)
-            if self._sharded:
-                ys = [self.machine.constraint(y, op.constraint_pc()) for y in ys]
-            for t, y in zip(op.outputs, ys):
-                env[t.guid] = y
+        plan = self._pipeline_plan if self._sharded else None
+        head = {id(op) for op in plan["head"]} if plan is not None else set()
+        i = 0
+        while i < len(self.ops):
+            if plan is not None and i == plan["i0"]:
+                # the heterogeneous head (host tables) first, then the
+                # segment as one GPipe schedule over the pipe group
+                for hop in plan["head"]:
+                    if hop.output.guid not in env:
+                        self._run_op(hop, env, params, training, ctx)
+                env[plan["seg_out"].guid] = self._run_pipeline_segment(params, env, ctx)
+                i = plan["i1"]
+                continue
+            op = self.ops[i]
+            i += 1
+            if id(op) in head and op.output.guid in env:
+                continue  # ran ahead of the segment
+            self._run_op(op, env, params, training, ctx)
         return env
+
+    def _run_op(self, op: Op, env, params, training: bool, ctx: FwdCtx) -> None:
+        xs = [env[t.guid] for t in op.inputs]
+        pvals = params.get(op.param_key, {})
+        if self._sharded:
+            def fwd(*xs_):
+                return op.forward_sharded(self.machine, pvals, list(xs_), ctx)
+        else:
+            def fwd(*xs_):
+                return op.forward(pvals, list(xs_), ctx)
+        if training and self.config.remat and op.weights and not op.has_running_stats:
+            # rematerialization (model.py:1866-1875 of the JAX package):
+            # the op's inner activations are dropped and recomputed in
+            # the backward.  A dropout mask is drawn once per step and
+            # kept in ctx (FwdCtx.keep_mask), so the recompute reads the
+            # forward's mask and draws nothing: no generator state is
+            # replayed, and the default generators are never touched.
+            ys = checkpoint(fwd, *xs, use_reentrant=False, preserve_rng_state=False)
+        else:
+            ys = fwd(*xs)
+        if self._sharded:
+            ys = [self.machine.constraint(y, op.constraint_pc()) for y in ys]
+        for t, y in zip(op.outputs, ys):
+            env[t.guid] = y
 
     def _loss_inputs(self, env, batch):
         """(logits, probabilities, labels) as tensors this device holds: on
@@ -1023,7 +1453,7 @@ class FFModel:
         accumulation count, and whether attention runs the plain versions."""
         batch = tuple((k, tuple(v.shape), v.dtype, v.data_ptr())
                       for k, v in sorted(self._batch.items()))
-        return batch, self._accum_steps(), flash_attention._plain
+        return batch, self._accum_steps(), flash_attention._plain, self._host.key()
 
     def _use_graph(self) -> bool:
         """Whether the step runs as a CUDA graph: on one CUDA device, unless
@@ -1053,6 +1483,9 @@ class FFModel:
         self._prepare_step()
         gens = self._generators()
         self._reseed(gens)
+        host = self._host.active
+        if host:  # the step's table rows in, the offloaded weights streamed in
+            self._host.swap_in(self._batch, training=True)
         kind = None
         if self._use_graph():
             if self._step_graph is None:
@@ -1063,6 +1496,8 @@ class FFModel:
             kind = self._step_graph.run(self._graph_key(), self._train_step)
         else:
             self._train_step()
+        if host:  # and home again, behind an event
+            self._host.scatter_back()
         self._step_count += 1
         return kind
 
@@ -1075,7 +1510,10 @@ class FFModel:
 
     @torch.no_grad()
     def _eval(self):
-        return self._run_graph(self._params, self._batch, training=False)
+        params, batch = self._params, self._batch
+        if self._host.active:  # the batch's table rows (the tables stay as they are)
+            params, batch = self._host.swap_in(batch, training=False)
+        return self._run_graph(params, batch, training=False)
 
     def eval_batch(self) -> Dict[str, float]:
         """Loss and metric sums of the staged batch, fetched in one copy
@@ -1134,16 +1572,19 @@ class FFModel:
         return env, new_caches
 
     def _decode_params(self):
-        """The parameter tree decoding reads: the model's own tensors (the
-        port has no pipelined stages or host-resident tables to unpack), so
-        a captured decode step sees in-place updates.  Decoding on a mesh is
-        not ported yet."""
+        """The parameter tree decoding reads: the model's own tensors, so a
+        captured decode step sees in-place updates, with each host table
+        copied to the device once per table version (the ids a decode step
+        reads are data-dependent, so no row gather can run ahead of them;
+        model.py:2311-2350 of the JAX package).  A pipelined model decodes
+        its ops in order; its stage weights are split over a ring only on a
+        mesh, and decoding on a mesh is not ported yet."""
         if not self._compiled or self._params is None:
             raise RuntimeError("decoding needs compile() and init_layers() first")
         if self._sharded:
             raise NotImplementedError("decoding on a mesh (a process group) is not ported "
                                       "yet (ROADMAP A11)")
-        return self._params
+        return self._host.decode_tables(self._params)
 
     def resolve_decode_inputs(self, tokens_input: Optional[Tensor] = None,
                               positions_input: Optional[Tensor] = None):
@@ -1410,6 +1851,7 @@ class FFModel:
         fires first."""
         if self._chaos is not None:
             self._chaos.fire("sync", model=self)
+        self._host.join()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         if self._stepstats is not None:

@@ -7,10 +7,13 @@ concat feature interaction, MSE loss.  Defaults mirror run_random.sh:3-8:
 8 tables of 1M rows, sparse dim 64, bot 64-512-512-64,
 top 576-1024-1024-1024-1.
 
-The tables live on the device, the JAX package's default, and their
-gradients are dense.  The reference's host-resident tables (a CPU-typed
-strategy for a table, or ``FFConfig.sparse_host_embeddings``) are not
-ported yet: both raise at ``compile`` naming ROADMAP A9.
+The tables live on the device by default, the JAX package's default, and
+their gradients are dense.  A CPU-typed strategy for a table (the
+reference's hetero DLRM, ``tools/dlrm_strategy.py --hetero``) keeps it in
+pinned host memory: under plain SGD, or with
+``FFConfig.sparse_host_embeddings`` set, each step gathers only the
+batch's rows (runtime/host_tables.py); otherwise the table streams to the
+card and back every step.
 """
 
 from __future__ import annotations

@@ -183,6 +183,21 @@ class SearchRecorder:
                        chains=[int(c) for c, _ in ranking],
                        cur_ms=[_r3(m) for _, m in ranking])
 
+    def plan(self, desc: str, cost_ms: float, accepted: bool, **attrs: Any) -> None:
+        """One pipeline-grid plan (simulator/pipeline_search.py), recorded
+        as a candidate on the synthetic op ``<pipeline>`` (``desc`` e.g.
+        "S4xdp2,M8,remat"); ``accepted`` marks a new grid best."""
+        self._proposals += 1
+        if accepted:
+            self._accepted += 1
+            if self._best_ms is None or cost_ms < self._best_ms:
+                self._best_ms = cost_ms
+                self._last_improve = self._proposals - 1
+        self.log.event("search_candidate", engine=self.engine, iter=self._proposals - 1,
+                       op="<pipeline>", new=desc, new_ms=_r3(cost_ms),
+                       best_ms=_r3(self._best_ms), accepted=bool(accepted), reason="grid",
+                       **attrs)
+
     def finish(self, best: Optional[Dict[str, Any]] = None,
                best_ms: Optional[float] = None,
                initial_ms: Optional[float] = None,

@@ -57,18 +57,20 @@ def _full(t: torch.Tensor) -> np.ndarray:
 
 def state_arrays(model) -> Dict[str, np.ndarray]:
     """The model's training state as the flattened ``.npz`` entries (on a
-    mesh every rank gathers every leaf: a collective)."""
+    mesh every rank gathers every leaf: a collective).  Each weight is its
+    whole array wherever it lives (a host table, a pipelined stage's row
+    of the pipe buffer, the JAX package's ``_unpack_tree``), so files move
+    between pipelined and plain models and between process counts."""
     flat = {}
-    for opn, ws in model._params.items():
-        for wn, w in ws.items():
-            flat[f"params/{opn}/{wn}"] = _full(w)
+    names = model._weight_names()
+    for opn, wn in names:
+        flat[f"params/{opn}/{wn}"] = model._read_leaf(None, opn, wn)
     for opn, st in (model._stats or {}).items():
         for name, t in st.items():
             flat[f"stats/{opn}/{name}"] = _full(t)
-    for slot, tree in (model._opt_state or {}).items():
-        for opn, ws in tree.items():
-            for wn, t in ws.items():
-                flat[f"opt_state/{slot}/{opn}/{wn}"] = _full(t)
+    for slot in (model._opt_state or {}):
+        for opn, wn in names:
+            flat[f"opt_state/{slot}/{opn}/{wn}"] = model._read_leaf(slot, opn, wn)
     flat["step"] = np.full((), model._step_count, np.int64)
     return flat
 
@@ -143,12 +145,12 @@ def load_arrays(model, flat: Dict[str, np.ndarray]) -> None:
     parameter and running statistic must be present; a file with no optimizer state at all (a
     weights-only ``.npz``, the JAX package's interchange form) zeroes the
     model's, as a fresh start would have it; ``step`` defaults to 0."""
-    for opn, ws in model._params.items():
-        for wn, w in ws.items():
-            key = f"params/{opn}/{wn}"
-            if key not in flat:
-                raise KeyError(f"checkpoint has no {key!r}")
-            model._assign(w, flat[key])
+    names = model._weight_names()
+    for opn, wn in names:
+        key = f"params/{opn}/{wn}"
+        if key not in flat:
+            raise KeyError(f"checkpoint has no {key!r}")
+        model._write_leaf(None, opn, wn, flat[key])
     for opn, st in (model._stats or {}).items():
         for name, t in st.items():
             key = f"stats/{opn}/{name}"
@@ -156,17 +158,14 @@ def load_arrays(model, flat: Dict[str, np.ndarray]) -> None:
                 raise KeyError(f"checkpoint has no {key!r}")
             model._assign(t, flat[key])
     has_state = any(k.startswith("opt_state/") for k in flat)
-    for slot, tree in (model._opt_state or {}).items():
-        for opn, ws in tree.items():
-            for wn, t in ws.items():
-                key = f"opt_state/{slot}/{opn}/{wn}"
-                if has_state and key not in flat:
-                    raise KeyError(f"checkpoint has no {key!r}")
-                with torch.no_grad():
-                    if has_state:
-                        model._assign(t, flat[key])
-                    else:
-                        (t.to_local() if isinstance(t, DTensor) else t).zero_()
+    for slot in (model._opt_state or {}):
+        for opn, wn in names:
+            key = f"opt_state/{slot}/{opn}/{wn}"
+            if has_state and key not in flat:
+                raise KeyError(f"checkpoint has no {key!r}")
+            value = flat[key] if has_state else np.zeros(
+                model._read_shape(opn, wn), np.float32)
+            model._write_leaf(slot, opn, wn, value)
     model._step_count = int(flat.get("step", 0))
 
 

@@ -526,8 +526,24 @@ class CostModel:
         part_bytes = self._dtype_bytes * float(np.prod(sub))
         return self.machine.dcn_spill_time(pc.dims, part_bytes)
 
+    def _host_embedding_time(self, op, which: str) -> float:
+        """A row-sparse host-resident table (runtime/host_tables.py): the
+        host gathers the batch's unique rows (at most ``u_max``, the
+        batch's index count) and ships them over PCIe; the backward brings
+        the updated rows back.  Scales with the batch, never the table
+        (the JAX package's ``_host_embedding_time``)."""
+        m = self.machine
+        rows = min(int(np.prod(op.inputs[0].dims)), int(op.num_entries))
+        vol = 4.0 * rows * op.out_dim
+        t = (vol / m.host_memory_bandwidth + vol / m.pcie_bandwidth
+             + m.kernel_launch_overhead + m.host_xfer_latency)
+        return float(2.0 * t if which == "backward" else t)
+
     def _op_time_slow(self, op, pc, which: str):
         """Returns (time, stats counter a repeat call would bump)."""
+        if pc is not None and pc.host_placed and op._type == "Embedding":
+            self.stats["analytic"] += 1
+            return self._host_embedding_time(op, which), "analytic"
         key = self._key(op, pc, which)
         if key in self._measured:
             self.stats["measured_hits"] += 1

@@ -44,6 +44,12 @@ class H100MachineModel:
     matmul_efficiency: float = 0.6      # achievable share of peak for convs/matmuls
     backward_multiplier: float = 2.0    # bwd ~ dgrad + wgrad vs one fwd
     hbm_capacity: float = 80e9          # bytes per GPU
+    # the host side of host-resident tables (the pipeline search's
+    # heterogeneous head): PCIe Gen5 x16 per direction (spec) and the
+    # host's DDR gather rate (an unfitted guess, the JAX package's)
+    pcie_bandwidth: float = 64e9
+    host_memory_bandwidth: float = 100e9
+    host_xfer_latency: float = 0.0
     # Per-op-family overrides fitted by tools/calibrate.py (families absent
     # here use the global constants above).
     op_efficiency: Dict[str, float] = dataclasses.field(default_factory=dict)

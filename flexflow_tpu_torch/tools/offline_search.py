@@ -99,6 +99,10 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--engine", choices=["mcmc", "population", "native"], default="mcmc")
     p.add_argument("--export", default=None, help="strategy .pb output path")
     p.add_argument("--device", default="cuda", help="where the graph is built (cuda or cpu)")
+    p.add_argument("--consider-pipeline", action="store_true",
+                   help="also search pipeline stage assignments "
+                        "(simulator/pipeline_search.py) and report when a dp x pp plan beats "
+                        "the best dim strategy")
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
 
@@ -116,6 +120,21 @@ def main(argv: Optional[List[str]] = None):
     print(f"data-parallel: {best.dp_s * 1e3:.3f} ms/iter; searched: {best.best_s * 1e3:.3f} "
           f"ms/iter; speedup {best.dp_s / best.best_s:.2f}x on {args.devices} H100(s); "
           f"{best.proposals_per_s:.0f} proposals/s ({best.engine}; machine {mm.source})")
+    if args.consider_pipeline:
+        from ..simulator.pipeline_search import search_pipeline
+
+        plan = search_pipeline(model, machine_model=mm)
+        if plan is not None:
+            mark = "<-- beats the dim search" if plan["simulated_s"] < best.best_s else ""
+            rm = plan.get("remat", False)
+            print(f"pipeline plan: {plan['num_stages']} stages x dp{plan['dp_degree']}, "
+                  f"M={plan['num_microbatches']}{', remat' if rm else ''}: "
+                  f"{plan['simulated_s'] * 1e3:.3f} ms/iter {mark}\n"
+                  f"  (apply via FFModel.set_pipeline(num_stages={plan['num_stages']}, "
+                  f"dp_degree={plan['dp_degree']}, "
+                  f"num_microbatches={plan['num_microbatches']}, remat={rm}))")
+        else:
+            print("pipeline plan: none executable on this machine")
     if args.export:
         from ..observability.searchtrace import build_provenance, search_stats_extra
 

@@ -23,8 +23,9 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     # the card's scripts that drive the port (the observability layer's
-    # cost on the compiled step)
+    # cost on the compiled step, the hetero DLRM's step on a mesh)
     yield os.path.join(ROOT, "tools", "telemetry_cost.py")
+    yield os.path.join(ROOT, "tools", "hetero_dlrm_profile.py")
 
 
 def _imported_modules(path):
@@ -70,7 +71,11 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.serving.autoscaler, flexflow_tpu_torch.testing, "
             "flexflow_tpu_torch.testing.chaos, flexflow_tpu_torch.testing.fleet, "
             "flexflow_tpu_torch.tools.serve_report, flexflow_tpu_torch.tools.loadgen, "
-            "flexflow_tpu_torch.tools.fleet_bench; "
+            "flexflow_tpu_torch.tools.fleet_bench, flexflow_tpu_torch.parallel.pipeline, "
+            "flexflow_tpu_torch.parallel.pipeline_plan, flexflow_tpu_torch.ops.pipeline, "
+            "flexflow_tpu_torch.runtime.host_tables, "
+            "flexflow_tpu_torch.simulator.pipeline_search, "
+            "flexflow_tpu_torch.tools.dlrm_strategy; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -99,10 +104,13 @@ def test_device_flag_parses():
 # to data parallelism over it); two workers on a one-device machine raise
 SOAP_KNOBS = [("import_strategy_file", "s.pb"), ("export_strategy_file", "s.pb"),
               ("workers_per_node", 2)]
-# knobs the compiled-step, search and observability slices ported: they
-# compile and train a step
+# knobs the compiled-step, search, observability, pipeline and host-table
+# slices ported: they compile and train a step (on one device the pipeline
+# search finds no ring, and a model with no host-placed table has no row to
+# gather)
 STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True), ("search_budget", 10),
-              ("telemetry", True), ("profiling", True)]
+              ("telemetry", True), ("profiling", True), ("search_pipeline", True),
+              ("sparse_host_embeddings", True)]
 
 
 @pytest.mark.parametrize("field,value", [
@@ -113,8 +121,9 @@ STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True), ("search_budget", 10),
 def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
     """Knobs of features outside the port so far raise at compile; the
     strategy files the SOAP slice brought in compile, and a worker count
-    the machine does not have raises; gradient accumulation, remat and the
-    strategy search compile and take a step."""
+    the machine does not have raises; gradient accumulation, remat, the
+    strategy search, the pipeline search and the host tables' knob compile
+    and take a step."""
     from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file,
                                                       save_strategies_to_file)
 
@@ -159,10 +168,28 @@ def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
     ("search_pipeline", True, "ROADMAP A9"),
 ])
 def test_unported_search_options_raise(field, value, match):
-    """The native annealer and the pipeline search raise at compile, naming
-    the ROADMAP item that brings each, even beside a search budget."""
+    """The native annealer raises at compile, naming the ROADMAP item that
+    brings it, even beside a search budget.  The pipeline search (ROADMAP
+    A9, ported) runs beside the dimension search: on one device it finds
+    no ring, so the model keeps the searched strategy and trains."""
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu", search_budget=10, **{field: value}))
-    m.dense(m.create_tensor((2, 4)), 3, name="fc")
+    x = m.create_tensor((2, 4))
+    m.dense(x, 3, name="fc")
+    if field == "search_pipeline":
+        from flexflow_tpu_torch.simulator import pipeline_search
+
+        calls = []
+        real = pipeline_search.search_pipeline
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pipeline_search, "search_pipeline",
+                       lambda model, **kw: calls.append(kw) or real(model, **kw))
+            m.compile(ft.SGDOptimizer(lr=0.1))
+        assert len(calls) == 1 and m._pipeline_req is None and m._pipeline_plan is None
+        m.init_layers(seed=0)
+        m.set_batch({x: np.ones((2, 4), np.float32)}, np.zeros((2, 1), np.int32))
+        m.train_iteration()
+        assert m.get_metrics().train_all == 2
+        return
     with pytest.raises(NotImplementedError, match=match):
         m.compile(ft.SGDOptimizer(lr=0.1))
 

@@ -286,12 +286,27 @@ def test_sequence_split_attention_raises(one_rank):
 
 
 def test_host_placed_strategy_raises(one_rank):
-    cfg = ft.FFConfig(batch_size=2, device="cpu")
-    cfg.strategies["fc"] = ft.ParallelConfig(ft.DeviceType.CPU, (1, 1))
-    m = ft.FFModel(cfg)
-    m.dense(m.create_tensor((2, 4), nchw=False), 3, name="fc")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    """A host-placed op no longer raises (ROADMAP A9 is ported): on the mesh
+    its weights stream from their host copy each step
+    (runtime/host_tables.py) and train as on the device."""
+    x = np.ones((2, 4), np.float32)
+    y = np.zeros((2, 1), np.int32)
+    got = []
+    for host in (True, False):
+        cfg = ft.FFConfig(batch_size=2, device="cpu")
+        if host:
+            cfg.strategies["fc"] = ft.ParallelConfig(ft.DeviceType.CPU, (1, 1))
+        m = ft.FFModel(cfg)
+        inp = m.create_tensor((2, 4), nchw=False)
+        m.dense(inp, 3, name="fc")
         m.compile(ft.SGDOptimizer(lr=0.1))
+        assert m._sharded and (("fc", "kernel") in m._host.offload) == host
+        m.init_layers(seed=0)
+        for _ in range(2):
+            m.set_batch({inp: x}, y)
+            m.train_iteration()
+        got.append(m.get_parameter("fc", "kernel"))
+    np.testing.assert_array_equal(got[0], got[1])
 
 
 def test_kernel_wrappers_refuse_a_dtensor(one_rank):
