@@ -216,11 +216,41 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      num_microbatches=4) and the hetero DLRM with its MLPs pipelined, one
      NCCL rank a card: f32 weights after 2 steps against one card
      unpipelined, bf16 ms/step beside data parallelism (one card: a line
-     says it was not run).
+     says it was not run);
+ 16. the JAX package's whole SOAP space ([soap2] lines): (a) each new
+     split as its parts in lockstep on one card, in f32 against the
+     unsplit op (the output and every input and weight gradient within
+     1e-4 of the unsplit op's largest magnitude), then bf16 fwd+bwd ms
+     in turns beside it: conv and pool tiles (AlexNet's conv1 and pool1,
+     an avg pool at pool1's window, ResNet-50's stem conv and max pool,
+     at batch 64; each op split on height, width and both by the degrees
+     its output allows: conv1 4, pool1 3, the stem 5, ResNet's pool 2),
+     every conv tile's input its ``input_ranges`` rectangle; NMT's LSTM
+     (batch 64, seq 20, hidden 2048, with hx/cx) split 2 and 4 on the
+     hidden dim; the MoE transformer's ExpertMLP (8 experts, 16 x 512
+     tokens) at capacity factor 0.5 under ep 2, ep 4 and dp 2 x ep 2,
+     the dropped tokens the unsplit op's; (b) ZeRO-1 on AlexNet's 16
+     leaves over 4 ranks in lockstep: K1 (SGD momentum 0.9, one launch a
+     rank) and K2 (Adam, one a slice) on each rank's 1/4 row slice of the
+     10 leaves whose leading dim divides, bitwise equal to the whole-leaf
+     launch, each rank's slice update timed beside it; (c) full-width
+     AlexNet and NMT through compile(search_budget=...) on one card and 3
+     compiled steps, then offline searches of AlexNet, NMT, the MoE
+     transformer and DLRM for 8 and for 2 x 8 GPUs, every config accepted
+     by its op and composable over the port's (hybrid) mesh, the configs
+     that split a conv or pool spatially, an LSTM's hidden dim or the
+     experts, or place a table on the host counted; (d) with several
+     cards (one NCCL rank a card, up to 4): NMT with its LSTMs split on
+     the hidden dim, the MoE transformer's experts over the cards,
+     AlexNet under strategies/alexnet_16.pb legalized onto them (conv1
+     split on height and width), AlexNet Adam with zero_optimizer (its
+     state bytes per rank) and a hybrid 2 x 2 mesh (num_nodes=2): f32
+     weights after 2 steps against one card, bf16 ms/step beside data
+     parallelism (one card: a line says it was not run).
 The last lines are the card's name and power limit, one JSON object with
 a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
-(phases 6, 14 (f) and 15 (e) use every visible card); it imports nothing of jax
-or of the JAX package.
+(phases 6, 14 (f), 15 (e) and 16 (d) use every visible card); it imports
+nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -1316,6 +1346,8 @@ def soap_helper():
         return seq_helper()
     if os.environ[SOAP_HELPER] == "pipe":
         return pipe_helper()
+    if os.environ[SOAP_HELPER] == "soap2":
+        return soap2_helper()
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
@@ -1771,7 +1803,7 @@ def search_entry_point(ft, build_alexnet, kernels, out_dir):
         model = main_model(ft, build_alexnet, sgd_optimizer(ft), search_budget=SEARCH_BUDGET,
                            search_engine=engine, export_strategy_file=pb)
         seconds = time.perf_counter() - t0
-        ms, losses = steps_ms(model, steps=3, timed_from=1)
+        ms, losses = steps_ms(model, steps=3, timed_from=2)  # the step after the capture
         got = read_launches(kernels)
         check_graph_run(model, 3, f"AlexNet searched by {engine}")
         # the eager first step and the capture call the wrapper; the replay does not
@@ -1784,8 +1816,8 @@ def search_entry_point(ft, build_alexnet, kernels, out_dir):
         log(f"[search] compile(search_budget={SEARCH_BUDGET}, search_engine={engine!r}) on "
             f"{model.machine.num_devices} GPU(s): DP {meta['dp_ms']:.3f} ms, best "
             f"{meta['best_ms']:.3f} ms simulated; compile {seconds:.2f} s; 3 compiled "
-            f"steps, losses {['%.4f' % x for x in losses]}, {ms:.3f} ms/step over the capture "
-            f"and a replay; "
+            f"steps, losses {['%.4f' % x for x in losses]}, {ms:.3f} ms/step, the step after "
+            f"the capture; "
             f"configs {sorted({op.pc.dims for op in model.ops})}; launches {got}; "
             f"{meta['machine_model']}")
         del model
@@ -1794,9 +1826,9 @@ def search_entry_point(ft, build_alexnet, kernels, out_dir):
 
 def offline_node_search(ft, measured_path, fit_path):
     """8d: the offline search for an 8-GPU node on this run's calibration;
-    every config of the best strategy composes over the port's 8-device mesh,
-    passes its op's ``check_config`` (what compile asks of it), and no conv
-    or pool splits its height or width."""
+    every config of the best strategy composes over the port's 8-device mesh
+    and passes its op's ``check_config`` (what compile asks of it); a conv
+    or pool may split its height or width (phase 16 holds such tiles)."""
     from flexflow_tpu_torch.parallel.mesh import axes_for_degrees, mesh_shape
     from flexflow_tpu_torch.simulator.machine import H100MachineModel
     from flexflow_tpu_torch.tools import offline_search
@@ -1813,8 +1845,6 @@ def offline_node_search(ft, measured_path, fit_path):
                 dims = best[op.name].dims
                 axes_for_degrees(names, sizes, dims)  # raises if it cannot
                 op.check_config(best[op.name])  # raises if training would refuse it
-                if op._type in ("Conv2D", "Pool2D"):
-                    check(dims[1:3] == (1, 1), f"{op.name} splits its height or width: {dims}")
             split = {op.name: best[op.name].dims for op in model.ops
                      if best[op.name].dims != (NODE_GPUS,) + (1,) * (op.output.num_dims - 1)}
             log(f"[search] offline {engine} search, {name}, {NODE_GPUS} H100s, budget "
@@ -1882,10 +1912,11 @@ ZOO_PARITY_KW = {"transformer_moe": dict(num_layers=2)}
 ZOO_SEARCH_BUDGET = 300
 
 
-def zoo_model(ft, name, kw=None, **cfg):
+def zoo_model(ft, name, kw=None, machine=None, **cfg):
     """A model of the zoo through the user-facing entry points (bf16 and
-    the fused optimizer unless ``cfg`` says otherwise), its synthetic batch
-    (made from a seed, the JAX package's recipes) staged."""
+    the fused optimizer unless ``cfg`` says otherwise; the default machine
+    unless ``machine`` is given), its synthetic batch (made from a seed, the
+    JAX package's recipes) staged."""
     import importlib
 
     import numpy as np
@@ -1901,7 +1932,7 @@ def zoo_model(ft, name, kw=None, **cfg):
            else ft.AdamOptimizer(model, alpha=lr))
     metrics = (["accuracy"] if z["loss"] == "sparse_categorical_crossentropy"
                else ["mean_squared_error"])
-    model.compile(opt, z["loss"], metrics)
+    model.compile(opt, z["loss"], metrics, machine=machine)
     model.init_layers(seed=0)
     if name in ("resnet50", "inception_v3"):
         stage_synthetic(ft, model, built[0], batch)
@@ -4809,6 +4840,497 @@ def pipeline_phase(ft, kernels, smi):
     return launches
 
 
+# ------------------------------------------------------------------ phase 16
+
+# (a): the splits of the JAX package's SOAP space, each op at the width its
+# model gives it, as (label, input NHWC dims, op arguments, the splits its
+# output dims allow: legalize_pc keeps only degrees that divide them)
+SOAP2_WINDOWS = (
+    ("AlexNet conv1 11x11/4", (64, 229, 229, 3), ("conv", 64, 11, 4, 2),
+     ((4, 1), (1, 4), (2, 2))),
+    ("AlexNet pool1 max 3x3/2", (64, 56, 56, 64), ("max", 3, 2, 0), ((3, 1), (1, 3), (3, 3))),
+    ("avg pool 3x3/2 at pool1", (64, 56, 56, 64), ("avg", 3, 2, 0), ((3, 1), (1, 3), (3, 3))),
+    ("ResNet-50 stem conv 7x7/2", (64, 229, 229, 3), ("conv", 64, 7, 2, 3),
+     ((5, 1), (1, 5), (5, 5))),
+    ("ResNet-50 max pool 3x3/2 pad 1", (64, 115, 115, 64), ("max", 3, 2, 1),
+     ((2, 1), (1, 2), (2, 2))),
+)
+SOAP2_LSTM = dict(batch=64, seq=20, hidden=2048, splits=(2, 4))   # NMT's LSTM
+SOAP2_MOE = dict(batch=LM["batch"], seq=LM["seq_length"], embed=LM["embed_dim"], experts=8,
+                 hidden=4 * LM["embed_dim"], capacity=0.5,        # drops tokens
+                 splits=((1, 2), (1, 4), (2, 2)))                 # (dp, ep)
+# f32, a split against the unsplit op: max |split - unsplit| over the largest
+# |unsplit|, for the output and every input and weight gradient (the parts
+# sum in another order; cuDNN deterministic, TF32 off)
+SOAP2_TOL = 1e-4
+SOAP2_SEARCH_BUDGET = 200          # (c): each offline search
+SOAP2_MODELS = ("alexnet", "nmt", "transformer_moe", "dlrm")
+SOAP2_MULTI_STEPS = 2              # (d): f32 steps held against one card
+
+
+def soap2_runs(label, run, leaves, splits, dtype, smi, iters=3):
+    """``run(split)`` -> the op's outputs from ``leaves`` (split None: the
+    unsplit op).  f32: every output and gradient of each split held
+    against the unsplit op's (SOAP2_TOL of its largest magnitude); bf16:
+    fwd+bwd ms of the unsplit op and of each split, in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def fwd_bwd(split, cots=None):
+        outs = run(split)
+        cots = cots or [torch.randn(o.shape, device="cuda", generator=gen, dtype=o.dtype)
+                        for o in outs]
+        grads = torch.autograd.grad(outs, leaves, cots)
+        return [o.detach() for o in outs] + list(grads), cots
+
+    want, cots = fwd_bwd(None)
+    errs = {}
+    for split in splits:
+        got, _ = fwd_bwd(split, cots)
+        errs[split] = max(rel_err(a, b) for a, b in zip(got, want))
+        if dtype == torch.float32:
+            check(errs[split] <= SOAP2_TOL, f"(a) {label} split {split}: f32 max |d| / max "
+                  f"|unsplit| {errs[split]:.3e} above {SOAP2_TOL:g}")
+    del want
+    if dtype == torch.float32:
+        log(f"[soap2] (a) f32 {label}: max |split - unsplit| / max |unsplit| over the output "
+            f"and every gradient: " + "; ".join(f"{s} {e:.3e}" for s, e in errs.items())
+            + f" (tolerance {SOAP2_TOL:g}; cuDNN deterministic, TF32 off)")
+        return
+    times = {}
+    for split in [None, *splits, *reversed(splits), None]:
+        times.setdefault(split, []).append(
+            cuda_time_ms(lambda s=split: fwd_bwd(s, cots), iters))
+    log(f"[soap2] (a) bf16 {label}, fwd+bwd ms in turns (every part in lockstep on one "
+        f"card): unsplit " + " / ".join(f"{t:.3f}" for t in times[None]) + "; " + "; ".join(
+            f"{s} " + " / ".join(f"{t:.3f}" for t in times[s]) + f" (rel err {errs[s]:.2e})"
+            for s in splits) + f"; card {smi}")
+
+
+def window_checks(ft, smi):
+    """(a) convs and pools: each split's tiles (``forward_tiles``: the input
+    split as DTensor splits it, each tile's rectangle from a halo exchange
+    in lockstep, padding at the image edge only) against the unsplit op;
+    each conv tile's rectangle its ``input_ranges``."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, dims, args, splits in SOAP2_WINDOWS:
+            m = ft.FFModel(ft.FFConfig(batch_size=dims[0], device="cuda"))
+            x = m.create_tensor((dims[0], dims[3], dims[1], dims[2]))
+            if args[0] == "conv":
+                _, cout, k, s, p = args
+                m.conv2d(x, cout, k, k, s, s, p, p, activation="relu")
+            else:
+                pool, k, s, p = args
+                m.pool2d(x, k, k, s, s, p, p, pool_type=pool)
+            op = m.ops[0]
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            fan = math.prod(op.weights[0].dims[:3]) if op.weights else 1
+            params = {w.name: (torch.randn(w.dims, device="cuda", generator=gen)
+                               / math.sqrt(fan)).requires_grad_(True) for w in op.weights}
+            xt = torch.randn(dims, device="cuda", generator=gen).to(dtype).requires_grad_(True)
+            rects = []
+
+            def run(split, op=op, params=params, xt=xt, rects=rects):
+                if split is None:
+                    return op.forward(params, [xt], None)
+                return [op.forward_tiles(params, xt, *split, rects)]
+
+            soap2_runs(label, run, [xt, *params.values()], splits, dtype, smi)
+            if dtype == torch.float32 and op._type == "Conv2D":
+                split = splits[-1]
+                rects.clear()
+                run(split)
+                pc = ft.ParallelConfig(dims=(1, *split, 1))
+                want = [tuple(hi - lo + 1 for lo, hi in op.input_ranges(0, pc, i)[1:3])
+                        for i in range(split[0] * split[1])]
+                check([tuple(r.shape[1:3]) for r in rects] == want,
+                      f"(a) {label}: tile rectangles {[r.shape for r in rects]}, "
+                      f"input_ranges {want}")
+            del m, op, params, xt, rects
+            free_models()
+
+
+def lstm_checks(ft, smi):
+    """(a) NMT's LSTM (batch 64, seq 20, hidden = embed 2048): the hidden
+    split's parts (``forward_parts``: each part's gate-blocked columns, one
+    h gather a step) against the unsplit op, with the encoder's state
+    inputs, as the decoder LSTMs take them."""
+    c = SOAP2_LSTM
+    b, t, h = c["batch"], c["seq"], c["hidden"]
+    for dtype in (torch.float32, torch.bfloat16):
+        m = ft.FFModel(ft.FFConfig(batch_size=b, device="cuda"))
+        x = m.create_tensor((b, t, h), nchw=False)
+        hx, cx = m.create_tensor((b, h), nchw=False), m.create_tensor((b, h), nchw=False)
+        m.lstm(x, h, hx=hx, cx=cx)
+        op = m.ops[0]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = {w.name: (torch.randn(w.dims, device="cuda", generator=gen)
+                           / math.sqrt(h)).requires_grad_(True) for w in op.weights}
+        xs = [torch.randn(s, device="cuda", generator=gen).to(dtype).requires_grad_(True)
+              for s in ((b, t, h), (b, h), (b, h))]
+
+        def run(k, op=op, params=params, xs=xs):
+            return op.forward(params, xs, None) if k is None else op.forward_parts(params, xs, k)
+
+        soap2_runs(f"NMT LSTM b{b} T{t} H{h} with hx/cx, hidden split", run,
+                   [*xs, *params.values()], c["splits"], dtype, smi, iters=2)
+        del m, op, params, xs
+        free_models()
+
+
+def moe_checks(ft, smi):
+    """(a) the MoE transformer's ExpertMLP (8 experts, 16 x 512 tokens of
+    512) at capacity factor 0.5, which drops tokens: expert and batch parts
+    (``forward_parts``) against the unsplit op, the kept tokens equal."""
+    c = SOAP2_MOE
+    for dtype in (torch.float32, torch.bfloat16):
+        m = ft.FFModel(ft.FFConfig(batch_size=c["batch"], device="cuda"))
+        x = m.create_tensor((c["batch"], c["seq"], c["embed"]), nchw=False)
+        m.expert_mlp(x, c["experts"], c["hidden"], capacity_factor=c["capacity"])
+        op = m.ops[0]
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        params = {w.name: (torch.randn(w.dims, device="cuda", generator=gen)
+                           / math.sqrt(w.dims[-2] if len(w.dims) > 1 else 1)
+                           ).requires_grad_(True) for w in op.weights}
+        xt = torch.randn(c["batch"], c["seq"], c["embed"], device="cuda",
+                         generator=gen).to(dtype).requires_grad_(True)
+        keeps = {}
+
+        def run(split, op=op, params=params, xt=xt, keeps=keeps):
+            keep = keeps.setdefault(split, [])
+            keep.clear()
+            if split is None:
+                return [op._forward(params, xt, 1, None, keep_out=keep)]
+            return [op.forward_parts(params, xt, *split, keep)]
+
+        soap2_runs(f"MoE ExpertMLP {c['experts']} experts x {c['hidden']}, "
+                   f"{c['batch']}x{c['seq']} tokens, capacity {c['capacity']}, (dp, ep)",
+                   run, [xt, *params.values()], c["splits"], dtype, smi)
+        want = keeps[None][0]
+        for split in c["splits"]:
+            got = torch.cat(keeps[split], 0)
+            check(torch.equal(got, want), f"(a) MoE {split}: the kept tokens differ")
+        if dtype == torch.float32:
+            kept = int(want.any(-1).sum())
+            log(f"[soap2] (a) MoE: every split keeps the unsplit op's {kept} of "
+                f"{want.shape[0]} tokens ({want.shape[0] - kept} dropped)")
+        del m, op, params, xt, keeps
+        free_models()
+
+
+def zero_slice_checks(fo, kernels, alex_shapes, smi):
+    """(b) ZeRO-1's update of AlexNet's 16 leaves on 4 ranks, in lockstep on
+    the card: each rank's K1 (one launch over its slices and the leaves not
+    split) or K2 (one launch a slice or leaf) on its 1/4 row slice of every
+    leaf whose leading dim divides, with that slice's state, bitwise equal
+    to the whole-leaf launch.  Returns the launches."""
+    ranks = 4
+    split = [s[0] % ranks == 0 for s in alex_shapes]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    launches = dict.fromkeys(kernels, 0)
+    for case in kernel_cases(fo):
+        if case["sgd"] not in ((0.9, False), None):
+            continue
+        whole = [tuple(t.reshape(s) for t in operands(math.prod(s), gen)) for s in alex_shapes]
+        per_rank = [[tuple(t.clone() for t in leaf) for leaf in whole] for _ in range(ranks)]
+        before = case["kernel"].launches
+        case["step"](False, whole)
+        whole_launches = case["kernel"].launches - before
+        before = case["kernel"].launches
+        for r, leaves in enumerate(per_rank):
+            case["step"](False, [
+                tuple(t[r * (t.shape[0] // ranks):(r + 1) * (t.shape[0] // ranks)]
+                      for t in leaf) if sp else leaf for leaf, sp in zip(leaves, split)])
+        torch.cuda.synchronize()
+        slice_launches = case["kernel"].launches - before
+        for i, (leaf, sp) in enumerate(zip(whole, split)):
+            for j, t in enumerate(leaf):
+                rows = t.shape[0] // ranks
+                got = (torch.cat([per_rank[r][i][j][r * rows:(r + 1) * rows]
+                                  for r in range(ranks)]) if sp else per_rank[0][i][j])
+                check(torch.equal(got, t), f"(b) {case['label']} leaf {alex_shapes[i]} operand "
+                      f"{j}: the slices' update differs from the whole leaf's")
+        sgd = case["sgd"] is not None
+        want = ranks if sgd else ranks * len(alex_shapes)
+        check(slice_launches == want, f"(b) {case['label']}: {slice_launches} launches over "
+              f"the slices, expected {want}")
+        kname = case["kernel"].__name__
+        launches[kname] += whole_launches + slice_launches
+        ms_whole = cuda_time_ms(lambda: case["step"](False, whole), 10)
+        rank0 = [tuple(t[:t.shape[0] // ranks] for t in leaf) if sp else leaf
+                 for leaf, sp in zip(per_rank[0], split)]
+        ms_rank = cuda_time_ms(lambda: case["step"](False, rank0), 10)
+        log(f"[soap2] (b) ZeRO-1 {case['label']}, AlexNet's 16 leaves, {sum(split)} split "
+            f"4 ways on their rows: every rank's slice update bitwise equal to the whole-leaf "
+            f"launch; launches whole {whole_launches}, slices {slice_launches} over 4 ranks "
+            f"({'one a rank' if sgd else 'one a slice or leaf'}); kernel ms a step: whole "
+            f"{ms_whole:.4f}, one rank's slices {ms_rank:.4f}; card {smi}")
+        del whole, per_rank, rank0
+        torch.cuda.empty_cache()
+    return launches
+
+
+def composable(model, strategies, nd):
+    """Every op's config accepted by its op and composable over the mesh
+    the port builds for ``nd`` GPUs (nodes of 8 above 8)."""
+    from flexflow_tpu_torch.parallel.mesh import hybrid_mesh_shape, placements_for_degrees
+
+    sizes, names = hybrid_mesh_shape(nd, max(1, nd // NODE_GPUS))
+    for op in model.ops:
+        pc = op.legalize_pc(strategies[op.name])
+        op.check_config(pc)
+        if not pc.host_placed:
+            placements_for_degrees(names, sizes, pc.dims)
+
+
+def split_counts(model, strategies):
+    """Configs that split a conv or pool spatially, the LSTM's hidden dim or
+    the experts, or place a table on the host."""
+    counts = dict(spatial=0, lstm_hidden=0, experts=0, host=0)
+    for op in model.ops:
+        pc = strategies[op.name]
+        if pc.host_placed:
+            counts["host"] += 1
+        elif op._type in ("Conv2D", "Pool2D") and max(pc.dims[1:3]) > 1:
+            counts["spatial"] += 1
+        elif op._type == "LSTM" and len(pc.dims) > 2 and pc.dims[2] > 1:
+            counts["lstm_hidden"] += 1
+        elif op._type == "ExpertMLP" and pc.dims[1] > 1:
+            counts["experts"] += 1
+    return counts
+
+
+def full_space_search(ft, fo, kernels, smi):
+    """(c) full-width AlexNet (SGD) and NMT (Adam) through
+    compile(search_budget=...) on the default one-card machine, 3 compiled
+    steps each; then offline searches of AlexNet, NMT, the MoE transformer
+    and DLRM for an 8-GPU node and for 2 x 8 GPUs, every config accepted
+    by its op and composable over the port's mesh.  Returns the launches
+    of the compiled steps."""
+    from flexflow_tpu_torch.models.alexnet import build_alexnet
+    from flexflow_tpu_torch.tools import offline_search
+
+    reset_launches(kernels)
+    for name in ("alexnet", "nmt"):
+        if name == "alexnet":
+            model = main_model(ft, build_alexnet, sgd_optimizer(ft), search_budget=SEARCH_BUDGET)
+        else:
+            model = zoo_model(ft, "nmt", search_budget=SEARCH_BUDGET)
+        ms, losses = steps_ms(model, steps=3, timed_from=2)  # the step after the capture
+        check_graph_run(model, 3, f"(c) {name}")
+        log(f"[soap2] (c) full-width {name} through compile(search_budget={SEARCH_BUDGET}) on "
+            f"one card: {sum(op.pc.num_parts() > 1 for op in model.ops)} ops split, 3 "
+            f"compiled steps, losses {['%.4f' % x for x in losses]}, {ms:.2f} ms/step")
+        del model
+        free_models()
+    launches = read_launches(kernels)
+    want = {"fused_sgd_update": 2, "fused_adam_update": 2 * ZOO["nmt"]["leaves"]}
+    check(all(launches[n] == c for n, c in want.items()),
+          f"(c) launches {launches}, expected {want} (the eager step and the capture)")
+    for nd in (NODE_GPUS, 2 * NODE_GPUS):
+        for name in SOAP2_MODELS:
+            model = offline_search.build_model(name, offline_search.MODELS[name][2], nd,
+                                               device="cpu", compute_dtype="bfloat16")
+            t0 = time.perf_counter()
+            best = offline_search.run(model, nd, SOAP2_SEARCH_BUDGET, seed=1)
+            composable(model, best, nd)
+            log(f"[soap2] (c) offline search {name} on {nd} H100s "
+                f"({'2 nodes x 8' if nd > NODE_GPUS else 'one node'}), budget "
+                f"{SOAP2_SEARCH_BUDGET}: {best.dp_s * 1e3:.3f} ms data parallel, "
+                f"{best.best_s * 1e3:.3f} searched; configs that split "
+                f"{split_counts(model, best)}; every config accepted and composable; "
+                f"{time.perf_counter() - t0:.1f} s")
+            del model
+    return launches
+
+
+def legalized(path, nd):
+    """A shipped strategy's configs with more parts than ``nd`` cut down by
+    halving their largest degree, so a split dim stays split."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.parallel.strategy import load_strategies_from_file
+
+    out = {}
+    for name, pc in load_strategies_from_file(path).items():
+        dims = list(pc.dims)
+        while math.prod(dims) > nd:
+            i = max(range(len(dims)), key=lambda j: dims[j])
+            dims[i] //= 2
+        out[name] = ft.ParallelConfig(dims=tuple(dims))
+    return out
+
+
+def soap2_multi_runs(ft, kernels, dev, lead):
+    """(d) on this rank: eager mesh steps of NMT with its LSTMs split on the
+    hidden dim, the MoE transformer's experts split over the cards, AlexNet
+    under strategies/alexnet_16.pb legalized onto them (convs and pools
+    split spatially), AlexNet Adam with zero_optimizer (state bytes per
+    rank) and data parallelism on a hybrid 2 x 2 mesh (num_nodes=2): f32
+    weights after 2 steps against one card, then bf16 ms/step beside data
+    parallelism.  Returns this rank's launches."""
+    from flexflow_tpu_torch.models.alexnet import build_alexnet
+
+    world = torch.distributed.get_world_size()
+    launches = dict.fromkeys(kernels, 0)
+    # every rank runs this: f32 parity with cuDNN deterministic and TF32
+    # off (phase 6's settings for it), the timed bf16 runs as phase 4's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    alex16 = legalized(ALEXNET_STRATEGY, world)
+    lstm = {f"{p}_lstm{i}": ft.ParallelConfig(dims=(1, 1, world))
+            for p in ("enc", "dec") for i in range(2)}
+    experts = {f"moe_{i}": ft.ParallelConfig(dims=(1, world, 1))
+               for i in range(1, LM["num_layers"], 2)}
+    cases = [
+        ("NMT LSTM hidden split", lambda m, dt, split: zoo_model(
+            ft, "nmt", machine=m, compute_dtype=dt, strategies=dict(lstm) if split else {}),
+         ADAM_ALPHA),
+        ("MoE transformer experts split", lambda m, dt, split: zoo_model(
+            ft, "transformer_moe", machine=m, compute_dtype=dt,
+            strategies=dict(experts) if split else {}), None),
+        ("AlexNet alexnet_16.pb legalized", lambda m, dt, split: main_model(
+            ft, build_alexnet, sgd_optimizer(ft), machine=m, compute_dtype=dt,
+            strategies=dict(alex16) if split else {}), None),
+        # f32 at batch 8, as phase 6 holds Adam: Adam's uncorrected first
+        # step moves each weight by about 3.2 alpha whatever its gradient's
+        # size, so a summed gradient element near 0 whose sign the
+        # reduction order flips moves its weight 6.4 alpha the other way
+        ("AlexNet Adam zero_optimizer", lambda m, dt, split: main_model(
+            ft, build_alexnet, adam_optimizer(ft), machine=m, compute_dtype=dt,
+            zero_optimizer=split, batch=8 if dt == "float32" else BATCH), ADAM_ALPHA),
+        ("AlexNet hybrid 2 x 2 mesh (num_nodes=2)", lambda m, dt, split: main_model(
+            ft, build_alexnet, sgd_optimizer(ft), machine=m, compute_dtype=dt,
+            num_nodes=2 if split else 1), None),
+    ]
+    if world != 4:
+        cases = cases[:-1]  # the hybrid mesh is 2 nodes of 2
+
+    def weights(model):
+        for _ in range(SOAP2_MULTI_STEPS):
+            model.train_iteration()
+        model.sync()
+        return {(op.name, w.name): torch.from_numpy(model.get_parameter(op.name, w.name))
+                for op in model.ops for w in op.weights}
+
+    for label, make, adam in cases:
+        single = weights(make(ft.Machine(devices=[dev]), "float32", False)) if lead else None
+        free_models()
+        reset_launches(kernels)
+        model = make(None, "float32", True)
+        applied = {"NMT": "lstm_hidden", "MoE": "experts", "AlexNet alexnet_16": "spatial"}
+        for prefix, kind in applied.items():
+            if label.startswith(prefix):
+                n = split_counts(model, {op.name: op.pc for op in model.ops})[kind]
+                check(n > 0, f"(d) {label}: no op split ({kind})")
+        check("zero" not in label or model._zero_pl, f"(d) {label}: no state split")
+        check("hybrid" not in label or model.machine.axis_names[0] == "dcn",
+              f"(d) {label}: mesh {model.machine.axis_names}")
+        state = sum(t.to_local().numel() * 4 for tree in (model._opt_state or {}).values()
+                    for ws in tree.values() for t in ws.values())
+        got = weights(model)
+        launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+        if lead:
+            tol = SOAP_MULTI_ADAM_TOL if adam else LM_PARITY_TOL
+            worst = 0.0
+            for key in single:
+                torch.testing.assert_close(got[key], single[key], **tol,
+                                           msg=lambda m: f"(d) {label} {key}: {m}")
+                worst = max(worst, (got[key] - single[key]).abs().max().item())
+            extra = ""
+            if "zero" in label:
+                whole = 4 * 2 * sum(t.numel() for t in single.values())
+                extra = (f"; optimizer state on this rank {state:,} bytes against "
+                         f"{whole:,} on one card ({len(model._zero_pl)} of 16 leaves split)")
+            log(f"[soap2] (d) f32 {label} on {world} cards, {SOAP2_MULTI_STEPS} steps vs one "
+                f"card: max |dw| {worst:.3e} (rtol {tol['rtol']:g}, atol {tol['atol']:g}); "
+                f"axes {dict(zip(model.machine.axis_names, model.machine.axis_sizes))}{extra}")
+        del model, got, single
+        free_models()
+    times = {}
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    for label, make, _ in cases:
+        for split in (False, True, True, False):
+            model = make(None, "bfloat16", split)
+            ms, _ = steps_ms(model)
+            times.setdefault((label, split), []).append(ms)
+            del model
+            free_models()
+    if lead:
+        log(f"[soap2] (d) bf16 on {world} cards (eager mesh steps), ms/step in turns: "
+            + "; ".join(f"{label} {'split' if s else 'data parallel'} "
+                        + " / ".join(f"{x:.2f}" for x in ms) for (label, s), ms in times.items()))
+    return launches
+
+
+def soap2_multi_phase(ft, kernels, smi):
+    """(d): with one visible card it says so and runs nothing; with more, an
+    NCCL group of one rank per card (up to 4; this script started again as
+    the helper ranks) runs ``soap2_multi_runs``."""
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        log(f"[soap2] (d) needs more than one card ({torch.cuda.device_count()} visible): the "
+            "splits across cards were not run")
+        return dict.fromkeys(kernels, 0)
+    port = free_port()
+    helpers = spawn_helpers("soap2", world, port)
+    try:
+        dev = dist.initialize("cuda", init_method=f"tcp://localhost:{port}",
+                              world_size=world, rank=0, local_rank=0, timeout=SOAP_TIMEOUT)
+        launches = soap2_multi_runs(ft, kernels, dev, lead=True)
+        dist.shutdown()
+        for r, p in enumerate(helpers, 1):
+            check(p.wait(timeout=300) == 0, f"(d) helper rank {r} exited {p.returncode}")
+    finally:
+        for p in helpers:
+            if p.poll() is None:
+                p.kill()
+    log(f"[soap2] (d) launches on the lead rank: {launches}; card {smi}")
+    return launches
+
+
+def soap2_helper():
+    """A helper rank of phase 16 (d)."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import fused_optimizer as fo
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    dev = dist.initialize("cuda", timeout=SOAP_TIMEOUT)
+    soap2_multi_runs(ft, kernel_wrappers(fo, fa), dev, lead=False)
+    dist.shutdown()
+    return 0
+
+
+def soap_space_phase(ft, fo, kernels, smi, alex_shapes):
+    """Phase 16: (a) each new split in lockstep against the unsplit op, (b)
+    ZeRO-1's slice updates, (c) the search in the full space, (d) across
+    cards when there are several.  Returns the launches of its paths."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches, took = dict.fromkeys(kernels, 0), []
+    for part in (lambda: (window_checks(ft, smi), lstm_checks(ft, smi), moe_checks(ft, smi),
+                          dict.fromkeys(kernels, 0))[-1],
+                 lambda: zero_slice_checks(fo, kernels, alex_shapes, smi),
+                 lambda: full_space_search(ft, fo, kernels, smi),
+                 lambda: soap2_multi_phase(ft, kernels, smi)):
+        t1 = time.perf_counter()
+        launches = {n: launches[n] + c for n, c in part().items()}
+        took.append(time.perf_counter() - t1)
+    free_models()
+    check(launches["fused_sgd_update"] > 0 and launches["fused_adam_update"] > 0,
+          f"phase 16 launched no optimizer kernel: {launches}")
+    log(f"[soap2] phase 16 took {time.perf_counter() - t0:.1f} s ((a) {took[0]:.1f}, (b) "
+        f"{took[1]:.1f}, (c) {took[2]:.1f}, (d) {took[3]:.1f}); launches {launches}")
+    return launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     # --calibration-out DIR keeps phase 8's measured cache and fit (else a
@@ -4959,11 +5481,15 @@ def main(argv=None):
     # phase 15 -----------------------------------------------------------
     pipe_launches = pipeline_phase(ft, kernels, smi)
 
+    # phase 16 -----------------------------------------------------------
+    soap2_launches = soap_space_phase(ft, fo, kernels, smi, leaf_sets["AlexNet"])
+
     # result -------------------------------------------------------------
     main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
                      + search_launches[n] + zoo_launches[n] + serve_launches[n]
                      + obs_launches[n] + pool_launches[n] + seq_launches[n]
-                     + elastic_launches[n] + pipe_launches[n] for n in kernels}
+                     + elastic_launches[n] + pipe_launches[n] + soap2_launches[n]
+                     for n in kernels}
     table = []
     for kname, source, replaces in (
             ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
@@ -4983,7 +5509,8 @@ def main(argv=None):
         f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
         f"search {search_launches}, models {zoo_launches}, serving {serve_launches}, "
         f"observability {obs_launches}, pool {pool_launches}, sequence {seq_launches}, "
-        f"elastic {elastic_launches}, pipelines and host tables {pipe_launches}")
+        f"elastic {elastic_launches}, pipelines and host tables {pipe_launches}, "
+        f"SOAP space {soap2_launches}")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -154,7 +154,6 @@ def resolve_device(name: str) -> torch.device:
 
 def _refuse_unported_knobs(cfg: FFConfig) -> None:
     checks = [
-        (cfg.zero_optimizer, "zero_optimizer: ZeRO-1 state sharding (ROADMAP A6)"),
         (bool(cfg.lowered), "lowered: whole-graph lowering (ROADMAP A13)"),
     ]
     for on, what in checks:
@@ -198,6 +197,8 @@ class FFModel:
         self._rng: Optional[torch.Generator] = None  # the training step's draws
         self._rng_seed = 0      # reseeds _rng per step (step_seed)
         self._opt_state = None
+        # ZeRO-1: (op, weight) -> its optimizer state's placements
+        self._zero_pl: Dict[Tuple[str, str], tuple] = {}
         self._step_count = 0
         self._batch: Optional[Dict[str, torch.Tensor]] = None
         self._compiled = False
@@ -773,7 +774,12 @@ class FFModel:
     def _compile_impl(self, optimizer, loss_type, metrics, machine) -> None:
         cfg = self.config
         self._compile_version += 1
-        if machine is None:
+        if machine is None and dist.is_initialized() and cfg.num_nodes > 1:
+            # nodes x devices: the dcn dim leads (model.py:866-872 of the JAX package)
+            from .parallel.distributed import hybrid_machine
+
+            machine = hybrid_machine(cfg.num_nodes, self.device)
+        elif machine is None:
             machine = (Machine.from_process_group(self.device) if dist.is_initialized()
                        else Machine(devices=[self.device]))
         self.machine = machine
@@ -980,6 +986,7 @@ class FFModel:
                 if e is not None:  # a stage weight: its slot's row of the pipe buffer
                     buf[e[0], e[1]:e[1] + e[3]] = v.reshape(-1)
                     continue
+                v = op.stored(w.name, v)
                 if self._sharded:  # every rank made the same v: each keeps its part
                     v = self.machine.distribute(v, op.weight_placements(
                         w, self.machine.spec_for_config(op.pc, op.output.num_dims)))
@@ -993,7 +1000,75 @@ class FFModel:
         self._stats = {op.name: st for op in self.ops if (st := op.init_stats(self.device))}
         self._opt_state = (self.optimizer.init_state(params)
                            if self.optimizer is not None else None)
+        self._zero_shard_state()
         self._host.make_tables(value)
+
+    def _zero_state_placements(self) -> Dict[Tuple[str, str], tuple]:
+        """ZeRO-1's layout (``_zero_state_specs``, model.py:1705-1745 of the
+        JAX package): each weight's optimizer state split on its leading
+        dim over the mesh dims the weight does not occupy, where that dim
+        is unsplit and divides; host-resident and pipe-packed weights
+        excluded.  ``{(op, weight): the state's placements}``."""
+        out = {}
+        for opn, ws in self._params.items():
+            if opn == "_pipe":
+                continue
+            for wn, w in ws.items():
+                if (opn, wn) in self._host.offload or not isinstance(w, DTensor):
+                    continue
+                free = [i for i, p in enumerate(w.placements) if not isinstance(p, Shard)]
+                if not free or any(isinstance(p, Shard) and p.dim == 0 for p in w.placements):
+                    continue
+                if w.shape[0] % math.prod(self.machine.axis_sizes[i] for i in free):
+                    continue
+                out[(opn, wn)] = tuple(Shard(0) if i in free else p
+                                       for i, p in enumerate(w.placements))
+        return out
+
+    def _zero_shard_state(self) -> None:
+        """With ``zero_optimizer`` on a mesh of several devices: lay the
+        optimizer state out as ZeRO-1 (``_zero_state_placements``), tell the
+        optimizer each leaf's row slice and group, and report which weights
+        were sharded (model.py:1662-1690 of the JAX package)."""
+        self._zero_pl = {}
+        if self.optimizer is None:
+            return
+        self.optimizer.zero = {}
+        if not (self.config.zero_optimizer and self._sharded and self.machine.num_devices > 1):
+            return
+        self._zero_pl = self._zero_state_placements()
+        for (opn, wn), pl in self._zero_pl.items():
+            w = self._params[opn][wn]
+            for tree in self._opt_state.values():
+                tree[opn][wn] = self.machine.distribute(torch.zeros(tuple(w.shape)), pl)
+            names, sizes, idx = self.machine.split_of(pl, 0)
+            rows = w.shape[0] // math.prod(sizes)
+            # one group per mesh dim (made with the mesh), innermost first
+            self.optimizer.zero[(opn, wn)] = (
+                [self.machine.mesh.get_group(n) for n in reversed(names)],
+                idx * rows, (idx + 1) * rows)
+        if self.machine.leads:
+            packed = {opn for opn, wn in self._weight_names()
+                      if self._pack_entry(opn, wn) is not None}
+            cats = {"packed(1/ring)": 0, "host": 0}
+            skipped, total = [], 0
+            for op in self.ops:
+                for w in op.weights:
+                    k = (op.name, w.name)
+                    total += 1
+                    if op.name in packed:
+                        cats["packed(1/ring)"] += 1
+                    elif k in self._host.offload or self._host.is_sparse(*k):
+                        cats["host"] += 1
+                    elif k not in self._zero_pl:
+                        skipped.append(k)
+            extras = ", ".join(f"{n} {c}" for c, n in cats.items() if n)
+            print(f"flexflow_tpu_torch: ZeRO-1 optimizer-state sharding: "
+                  f"{len(self._zero_pl)}/{total} weights sharded"
+                  + (f" (+{extras})" if extras else "")
+                  + (f"; replicated (ineligible): "
+                     f"{', '.join('/'.join(k) for k in skipped[:8])}"
+                     + ("..." if len(skipped) > 8 else "") if skipped else ""))
 
     def get_parameter(self, op_name: str, weight_name: str = "kernel") -> np.ndarray:
         """A weight as a fresh numpy array (reference: Parameter::get_weights).
@@ -1010,8 +1085,11 @@ class FFModel:
         """(op, weight) of every weight, in graph order."""
         return [(op.name, w.name) for op in self.ops for w in op.weights]
 
+    def _op_named(self, opn: str) -> Op:
+        return next(o for o in self.ops if o.name == opn)
+
     def _read_shape(self, opn: str, wn: str) -> Tuple[int, ...]:
-        op = next(o for o in self.ops if o.name == opn)
+        op = self._op_named(opn)
         return tuple(next(w for w in op.weights if w.name == wn).dims)
 
     def _read_leaf(self, slot: Optional[str], opn: str, wn: str) -> Optional[np.ndarray]:
@@ -1032,6 +1110,7 @@ class FFModel:
         w = tree[opn][wn].detach()
         if isinstance(w, DTensor):
             w = w.full_tensor()
+        w = self._op_named(opn).stored(wn, w, inverse=True)
         return w.cpu().numpy().copy()
 
     def _write_leaf(self, slot: Optional[str], opn: str, wn: str, value) -> None:
@@ -1049,6 +1128,8 @@ class FFModel:
                     tree["_pipe"]["buffer"].to_local()[0, e[1]:e[1] + e[3]].copy_(
                         torch.as_tensor(np.asarray(value, np.float32)).reshape(-1))
             return
+        value = torch.tensor(np.asarray(value, dtype=np.float32))
+        value = self._op_named(opn).stored(wn, value.reshape(self._read_shape(opn, wn)))
         self._assign(tree[opn][wn], value)
         if (opn, wn) in self._host.offload:
             self._host.refresh_offload()
@@ -1280,17 +1361,28 @@ class FFModel:
             out.append(mb)
         return out
 
-    def _grads(self, loss, leaves) -> List[torch.Tensor]:
+    def _grad_placements(self, names, leaves) -> List[Optional[tuple]]:
+        """Where each leaf's gradient is placed: as its weight, or as its
+        ZeRO-1 state (this rank's row slice); None off a mesh."""
+        if not self._sharded:
+            return [None] * len(leaves)
+        return [self._zero_pl.get(k, w.placements) for k, w in zip(names, leaves)]
+
+    def _grads(self, loss, leaves, placements) -> List[torch.Tensor]:
         """d loss / d leaf for every leaf, as plain tensors this device
-        holds: on a mesh each gradient is first placed as its weight (which
-        sums the parts of a Partial gradient)."""
+        holds: on a mesh each gradient is first placed at ``placements``
+        (which sums the parts of a Partial gradient: an all-reduce, or a
+        reduce-scatter for a ZeRO-1 leaf)."""
         flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         out = []
-        for w, g in zip(leaves, flat):
-            if g is None:
-                g = torch.zeros_like(w.to_local() if isinstance(w, DTensor) else w)
+        for w, g, pl in zip(leaves, flat, placements):
+            if g is None:  # an unused leaf: zeros where its gradient would be
+                if not isinstance(w, DTensor) or pl == tuple(w.placements):
+                    g = torch.zeros_like(w.to_local() if isinstance(w, DTensor) else w)
+                else:
+                    g = self.machine.distribute(torch.zeros(tuple(w.shape)), pl).to_local()
             elif self._sharded:
-                g = self.machine.redistribute(g, w.placements).to_local()
+                g = self.machine.redistribute(g, pl).to_local()
             out.append(g.contiguous())
         return out
 
@@ -1303,6 +1395,7 @@ class FFModel:
         (runtime/step_graph.py) and what the eager path runs."""
         names = [(opn, wn) for opn, ws in self._params.items() for wn in ws]
         leaves = [self._params[opn][wn] for opn, wn in names]
+        grad_pls = self._grad_placements(names, leaves)
         k = self._accum_steps()
         grads = mvec = None
         stats = self._stats
@@ -1315,7 +1408,7 @@ class FFModel:
             logits, probs, labels = self._loss_inputs(env, mb)
             # this part's share of the (micro-)batch's mean loss
             loss = self.loss(logits, labels, parts=self._batch_parts())
-            g = self._grads(loss, leaves)
+            g = self._grads(loss, leaves, grad_pls)
             with torch.no_grad():
                 micro = self._metric_vector(loss.detach(), probs.detach(), labels)
                 if k == 1:
@@ -1336,7 +1429,7 @@ class FFModel:
                     mvec[keys.index(key)] *= 1.0 / k
             scalars = self.optimizer.scalars(self.device)
             if self._health is not None or self._guard is not None:
-                health, bad = self._health_entries(mvec, grads, leaves)
+                health, bad = self._health_entries(mvec, grads, grad_pls)
                 mvec = mvec + health
             if self._guard is not None:
                 self._metric_acc.copy_(self._guard_finalize(mvec, bad, scalars))
@@ -1353,7 +1446,7 @@ class FFModel:
                 tree.setdefault(opn, {})[wn] = g
             self.optimizer.apply(self._params, tree, self._opt_state, {"scalars": scalars})
 
-    def _health_entries(self, mvec, grads, leaves) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _health_entries(self, mvec, grads, placements) -> Tuple[torch.Tensor, torch.Tensor]:
         """The health entries of a step (``health_metrics``,
         model.py:1941-1955 of the JAX package), with no host read: whether
         the loss and the global gradient norm are finite, and the norm.
@@ -1368,9 +1461,9 @@ class FFModel:
         sq = torch.stack(torch._foreach_norm([g.float() for g in grads])).square()
         if self._sharded:  # a shard held by this many ranks alike counts once
             sq = torch.stack([
-                s / math.prod(n for p, n in zip(w.placements, self.machine.axis_sizes)
-                              if not isinstance(p, Shard)) if isinstance(w, DTensor) else s
-                for w, s in zip(leaves, sq)])
+                s / math.prod(n for p, n in zip(pl, self.machine.axis_sizes)
+                              if not isinstance(p, Shard)) if pl is not None else s
+                for pl, s in zip(placements, sq)])
         gsq = sq.sum()
         bad_loss, gsq = self._sum_over_ranks(
             torch.stack([(~torch.isfinite(loss)).float(), gsq]))

@@ -7,8 +7,13 @@ autograd; no op writes one by hand.
 On a mesh (``parallel/mesh.py``) ``forward_sharded`` runs the same
 ``forward`` on local shards, under the op's config with the output dims
 it cannot compute split (``unsplit_dims``) computed whole; each weight is
-split as the output dim its ``partition_dims`` names.  ``legalize_pc``
-clamps a config to one the op can execute.
+split as the output dim its ``partition_dims`` names.  An op whose parts
+need the mesh returns its own per-part function from ``local_forward``
+(a convolution's halo exchange, the LSTM's h gather, BatchNorm's moments),
+and an op may store a weight in another layout than the logical one
+(``stored``: the LSTM's gate-blocked columns), which the model's state
+paths convert at their edges.  ``legalize_pc`` clamps a config to one the
+op can execute.
 
 The simulator (``simulator/``) reads an op through its tiling hooks, as
 the JAX package's does: ``output_tile``, ``input_ranges`` and
@@ -199,6 +204,13 @@ class Op:
             return pc
         npc = ParallelConfig(pc.device_type, tuple(dims), memory_types=pc.memory_types)
         return npc.with_device_ids(tuple(range(npc.num_parts())))
+
+    def stored(self, w_name: str, value: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+        """Weight ``w_name`` (or its optimizer state) in the layout the op
+        stores it in under its config, from the logical layout; with
+        ``inverse``, back.  The identity, but for the LSTM's gated weights
+        under a hidden split."""
+        return value
 
     def check_config(self, pc: ParallelConfig) -> None:
         """Raise when the port cannot run this op under ``pc`` (a split

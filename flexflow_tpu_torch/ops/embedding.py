@@ -6,8 +6,9 @@ library call here too.  Input is (B, num_indices) int; aggregation SUM or
 AVG over the ``num_indices`` dim, or NONE to keep it (a token sequence).
 The output is cast to the model's compute dtype.  With ``share_with`` the
 op reads another embedding's table (NMT's decoder reads the encoder's).
-Host-resident tables are not ported yet (ROADMAP A9).  On a mesh the
-gather runs on local ids and the local columns of the table.
+A host-placed table lives in host memory (``runtime/host_tables.py``).
+On a mesh the gather runs on local ids and the local columns of the
+table.
 """
 
 from __future__ import annotations

@@ -13,10 +13,20 @@ Inputs:  x (B, T, E) [+ optional h0 (B, H), c0 (B, H)]
 Outputs: y (B, T, H), h_T (B, H), c_T (B, H)
 
 ``share_with`` reads another LSTM's weights.  On a mesh the op computes a
-batch split on local shards; the JAX package's hidden split (config dim
-2, an all-gather of ``h`` each step) is not ported (ROADMAP A9).
-``decode`` advances a cached f32 (h, c) one token at a time, as the JAX
-package's (ops/lstm.py:126-160 there).
+batch split and a hidden split (config dim 2) on local shards.  A part of
+a hidden split of degree k computes its H/k slice of every gate from its
+columns of ``w_ih``, ``w_hh`` and ``bias``, and each of the T steps
+all-gathers the full h (B, H) that ``w_hh``'s contraction reads
+(``all_gather_dim``; the backward reduce-scatters its gradient).  The
+logical gate dim is [i | f | g | o], 4H wide; a contiguous split of it
+would give part 0 of 2 the whole i and f gates, so under a hidden split
+the weights are stored gate-blocked (``stored``): part p's columns are
+[i_p | f_p | g_p | o_p].  ``get_parameter``, ``set_parameter``,
+checkpoints, ``convert`` and the strategy codec see the logical layout.
+h_T and c_T are computed split on their hidden dim and then placed as the
+op's config places a rank-2 output.  ``forward_parts`` runs the same parts
+in lockstep in one process.  ``decode`` advances a cached f32 (h, c) one
+token at a time, as the JAX package's (ops/lstm.py:126-160 there).
 """
 
 from __future__ import annotations
@@ -24,9 +34,13 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from .base import FwdCtx, Op
 from ..initializers import DefaultWeightInitializer, ZeroInitializer
+from ..parallel.collectives import all_gather_dim
+
+GATED = ("w_ih", "w_hh", "bias")  # the weights whose last dim is the 4H gates
 
 
 class LSTM(Op):
@@ -95,11 +109,105 @@ class LSTM(Op):
         c_new = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
         return torch.sigmoid(o) * torch.tanh(c_new), c_new
 
-    def check_config(self, pc) -> None:
-        if len(pc.dims) > 2 and pc.dims[2] > 1:
-            raise NotImplementedError(
-                f"{self.name}: the LSTM's hidden split (config dim 2, an all-gather of h "
-                "each step) is not ported yet (ROADMAP A9)")
+    # -- the hidden split ---------------------------------------------------
+    @staticmethod
+    def _hidden_degree(pc) -> int:
+        return pc.dims[2] if pc is not None and len(pc.dims) > 2 else 1
+
+    def stored(self, w_name: str, value: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+        """A gated weight in the op's stored layout, or with ``inverse``
+        back in the logical one.  Gate-blocked for the op's hidden degree
+        k: stored column ``p * 4H/k + g * H/k + j`` is logical column
+        ``g * H + p * H/k + j`` (gate g of part p's hidden unit j), a
+        transpose of the (gate, part) dims."""
+        k = self._hidden_degree(getattr(self, "pc", None))
+        if k == 1 or w_name not in GATED:
+            return value
+        lead, hp = value.shape[:-1], self.hidden_size // k
+        blocks = (k, 4) if inverse else (4, k)
+        return value.reshape(*lead, *blocks, hp).transpose(-3, -2).reshape(*lead, 4 * k * hp)
+
+    def compute_placements(self, machine, output_idx: int = 0) -> tuple:
+        """y under the op's config; h_T and c_T split as y is on the batch
+        and the hidden dim (each part computed its slice)."""
+        pl = machine.spec_for_config(self.pc, 3)
+        if output_idx == 0:
+            return pl
+        return tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2 else p for p in pl)
+
+    def weight_placements(self, w, out_pl) -> tuple:
+        """A sharer of another hidden degree than its owner reads the
+        owner's gated weights whole and takes its own parts' columns."""
+        if (self.share_from is not None and w.name in GATED
+                and self._hidden_degree(self.share_from.pc) != self._hidden_degree(self.pc)):
+            return tuple(Replicate() for _ in out_pl)
+        return super().weight_placements(w, out_pl)
+
+    def local_forward(self, machine, out_pl):
+        k = self._hidden_degree(self.pc)
+        owner_k = self._hidden_degree(self.share_from.pc) if self.share_from else k
+        if k == 1 and owner_k == 1:
+            return self.forward
+        names, _, part = machine.split_of(out_pl, 2)
+        group = machine.group(names) if k > 1 else None
+
+        def fwd(params, xs, ctx):
+            if owner_k != k:  # the owner's whole gated weights, to this op's parts
+                params = dict(params)
+                for n in GATED:
+                    logical = self.share_from.stored(n, params[n], inverse=True)
+                    params[n] = self._part_columns(logical, k, part)
+            if k == 1:
+                return self.forward(params, xs, ctx)
+            return self._forward_parts([params], xs, [part], k,
+                                       lambda hs: all_gather_dim(hs[0], 1, group))
+
+        return fwd
+
+    def _part_columns(self, logical: torch.Tensor, k: int, part: int) -> torch.Tensor:
+        """Part ``part`` of ``k``'s gate-blocked columns of a logical gated
+        weight: its H/k slice of each gate."""
+        lead, hp = logical.shape[:-1], self.hidden_size // k
+        return logical.reshape(*lead, 4, k, hp)[..., part, :].reshape(*lead, 4 * hp)
+
+    def forward_parts(self, params, xs: List[torch.Tensor], k: int, ctx: FwdCtx = None):
+        """The op as ``k`` hidden parts in lockstep in one process, from the
+        logical weights: each part's gate columns, one h gather a step (a
+        concatenation), the parts' outputs put together on the hidden dim."""
+        parts = [{n: (self._part_columns(v, k, p) if n in GATED else v)
+                  for n, v in params.items()} for p in range(k)]
+        return self._forward_parts(parts, xs, list(range(k)), k,
+                                   lambda hs: all_gather_dim(hs, 1, None))
+
+    def _forward_parts(self, parts, xs, idx, k: int, gather):
+        """The recurrence of the hidden parts ``idx`` (weights ``parts``, in
+        the gate-blocked layout) of a ``k``-way split; ``gather(h_parts)``
+        gives the full h (B, H) from the parts' new h.  Returns [y, h_T,
+        c_T], each the parts' slices put together on the hidden dim."""
+        x = xs[0]
+        b, t, _ = x.shape
+        hp = self.hidden_size // k
+        dt = x.dtype
+        if self.has_state_inputs:
+            h_prev = xs[1].float()
+            cs = [xs[2].float()[:, p * hp:(p + 1) * hp] for p in idx]
+        else:
+            h_prev = torch.zeros(b, self.hidden_size, device=x.device)
+            cs = [torch.zeros(b, hp, device=x.device) for _ in idx]
+        xzs = [(torch.matmul(x.reshape(b * t, -1), w["w_ih"].to(dt)).float()
+                .reshape(b, t, 4 * hp) + w["bias"].float()) for w in parts]
+        whh = [w["w_hh"].to(dt) for w in parts]
+        ys = [[] for _ in idx]
+        for s in range(t):
+            hs = []
+            for j in range(len(idx)):
+                z = xzs[j][:, s] + torch.matmul(h_prev.to(dt), whh[j]).float()
+                h_new, cs[j] = self._gates(z, cs[j], hp)
+                ys[j].append(h_new)
+                hs.append(h_new.to(dt))
+            h_prev = gather(hs)
+        y = torch.cat([torch.stack(v, dim=1) for v in ys], 2).to(dt)
+        return [y, torch.cat([v[-1] for v in ys], 1).to(dt), torch.cat(cs, 1).to(dt)]
 
     def init_cache(self, batch_size: int, max_len: int, dtype):
         h = self.hidden_size

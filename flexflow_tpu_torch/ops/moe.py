@@ -10,12 +10,22 @@ results match it.  Every shape is static and nothing reads the device
 from the host (no ``.item()``, no boolean indexing), so the op runs inside
 a captured CUDA graph.
 
-On a mesh the op computes a batch split on local shards.  The capacity and
-each token's place in its expert's queue are the global batch's: every
+On a mesh the op computes a batch split and an expert split (config dim
+1, the expert parallel degree ep) on local shards.  The capacity and each
+token's place in its expert's queue are the global batch's: every batch
 part adds the token counts of the parts before it (one all-gather of E
-counts), so a strategy changes placement, not results.  The JAX package's
-expert split (config dim 1, an ``all_to_all`` of the tokens) is not ported
-(ROADMAP A9).  ``decode`` routes dropless, as the JAX package's.
+counts), so a strategy changes placement, not results.  Under an expert
+split the tokens stay replicated in the ep group and every part routes
+them all, so the routing and the dropped tokens are the unsplit op's; a
+part holds and computes only its E/ep experts (``w_in``, ``b_in``,
+``w_out``, ``b_out`` split on the expert dim, the router replicated), and
+its output is its experts' summand of the combine, a ``Partial`` on the
+ep mesh dims that the output's placement sums (one all-reduce of the
+(tokens, D) output; its backward hands every part the whole gradient).
+Against an ``all_to_all`` of the dispatched tokens, this moves the output
+once instead of the (E, C, D) slots twice, and needs no second routing
+exchange; ``forward_parts`` runs the same parts in lockstep in one
+process.  ``decode`` routes dropless, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import math
 from typing import Callable, List, Optional
 
 import torch
+from torch.distributed.tensor import Partial
 
 from .base import FwdCtx, Op
 from .conv2d import apply_activation
@@ -67,12 +78,6 @@ class ExpertMLP(Op):
             return self.num_experts
         return super()._config_dim_bound(i)
 
-    def check_config(self, pc: ParallelConfig) -> None:
-        if len(pc.dims) > 1 and pc.dims[1] > 1:
-            raise NotImplementedError(
-                f"{self.name}: expert parallelism (config dim 1, the tokens' all_to_all) "
-                "is not ported yet (ROADMAP A9)")
-
     def constraint_pc(self) -> ParallelConfig:
         """The output is split on the batch only."""
         return ParallelConfig(dims=(self.pc.dims[0],) + (1,) * (self.output.num_dims - 1))
@@ -101,10 +106,14 @@ class ExpertMLP(Op):
         return [self._forward(params, xs[0], 1, None)]
 
     def _forward(self, params, x: torch.Tensor, parts: int,
-                 offsets: Optional[Callable[[torch.Tensor], torch.Tensor]]) -> torch.Tensor:
+                 offsets: Optional[Callable[[torch.Tensor], torch.Tensor]],
+                 experts: Optional[slice] = None, keep_out: Optional[list] = None
+                 ) -> torch.Tensor:
         """The layer on ``x``, which is one of ``parts`` equal batch parts;
         ``offsets(counts)`` gives, per expert, the tokens the parts before
-        this one route there."""
+        this one route there.  With ``experts``, the weights are those
+        experts' alone and the result is their summand of the output.
+        ``keep_out`` receives the keep mask (S, E)."""
         shape = x.shape
         d = shape[-1]
         dt = x.dtype
@@ -113,6 +122,10 @@ class ExpertMLP(Op):
         cap = self.capacity(s * parts)
         slots = cap if parts == 1 else min(cap, s)  # a part keeps at most s
         _, gate, keep, slot = self.route(xf, params["router"], slots, cap, offsets)
+        if keep_out is not None:
+            keep_out.append(keep)
+        if experts is not None:
+            keep = keep[:, experts]
         disp = keep.float()[:, :, None] * slot[:, None, :]  # (S, E, C)
         expert_in = torch.einsum("sec,sd->ecd", disp, xf.float())
         hmid = torch.einsum("ecd,edh->ech", expert_in.to(dt), params["w_in"].to(dt))
@@ -125,13 +138,22 @@ class ExpertMLP(Op):
         return y.reshape(shape)
 
     def forward_sharded(self, machine, params, xs, ctx: FwdCtx) -> List:
-        out_pl = self.compute_placements(machine)
+        full_pl = machine.spec_for_config(self.pc, self.output.num_dims)
+        ep_names, ep_sizes, ep_idx = machine.split_of(full_pl, 1)
+        ep = math.prod(ep_sizes)
+        batch_only = self.compute_placements(machine)
+        # the tokens replicated over the ep dims, each part's output there
+        # a summand of the combine
+        out_pl = tuple(Partial() if n in ep_names else p
+                       for n, p in zip(machine.axis_names, batch_only))
         parts = self.pc.dims[0]
         names = [w.name for w in self.weights]
-        args = [(xs[0], self.input_placements(out_pl, 0))]
-        args += [(params[w.name], self.weight_placements(w, out_pl)) for w in self.weights]
+        args = [(xs[0], self.input_placements(batch_only, 0))]
+        args += [(params[w.name], self.weight_placements(w, full_pl)) for w in self.weights]
         batch_pl = machine.batch_sharding(parts)
         me = machine.batch_index(parts)
+        per = self.num_experts // ep
+        experts = slice(ep_idx * per, (ep_idx + 1) * per) if ep > 1 else None
 
         def offsets(counts):
             every = machine.from_local(counts[None], batch_pl).full_tensor()  # (parts, E)
@@ -139,9 +161,36 @@ class ExpertMLP(Op):
 
         def local(x, *ws):
             return self._forward(dict(zip(names, ws)), x, parts,
-                                 offsets if parts > 1 else None)
+                                 offsets if parts > 1 else None, experts)
 
         return [machine.local_call(local, args, out_pl)]
+
+    def forward_parts(self, params, x: torch.Tensor, dp: int, ep: int,
+                      keep_out: Optional[list] = None) -> torch.Tensor:
+        """The layer as ``dp`` batch parts x ``ep`` expert parts in lockstep
+        in one process: each batch part routes its tokens at the global
+        batch's capacity and queue places, each expert part computes its
+        experts' summand, the summands are added and the batch parts put
+        together.  ``keep_out`` receives each batch part's keep mask."""
+        xs = list(torch.chunk(x, dp, 0))
+        counts = []
+        for xp in xs:  # each part's routed-token counts, for the queue offsets
+            idx, _, _, _ = self.route(xp.reshape(-1, x.shape[-1]), params["router"], 1, 1)
+            counts.append(torch.bincount(idx, minlength=self.num_experts).float())
+        per = self.num_experts // ep
+        ys = []
+        for i, xp in enumerate(xs):
+            def offsets(c, i=i):
+                return sum(counts[:i], torch.zeros_like(c))
+            y = 0
+            for q in range(ep):
+                sl = slice(q * per, (q + 1) * per)
+                local = {n: (v if n == "router" else v[sl]) for n, v in params.items()}
+                y = y + self._forward(local, xp, dp, offsets if dp > 1 else None,
+                                      sl if ep > 1 else None,
+                                      keep_out if q == 0 else None)
+            ys.append(y)
+        return torch.cat(ys, 0)
 
     def decode(self, params, xs, cache, pos, ctx: FwdCtx):
         """Dropless routing for decoding (the JAX package's ops/moe.py:140-165):

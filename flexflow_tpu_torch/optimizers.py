@@ -27,6 +27,16 @@ weight's placements) and every update runs on the local shards, the
 counterpart of the JAX package's ``_shardwise``: the SGD launch's table
 holds the local shards' addresses and sizes, and Adam launches once per
 local shard.
+
+ZeRO-1 (``FFConfig.zero_optimizer``; ``FFModel`` fills ``zero``): a leaf
+whose state is split on its leading dim over the mesh dims its weight
+does not occupy gets its gradient as this rank's row slice (a
+reduce-scatter), the kernel updates that slice of the weight's local
+shard with that slice of the state (a view at a row offset: the SGD
+slices still ride the step's one launch), and then the weight's rows are
+all-gathered over those mesh dims (``gather_rows_``).  The JAX package
+sends such leaves through its plain update, as Pallas cannot take the
+state's other split; here the kernels update them.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from torch.distributed.tensor import DTensor
 from .kernels.fused_optimizer import (fused_adam_update, fused_adam_update_ref,
                                       fused_sgd_update_multi, fused_sgd_update_multi_ref,
                                       scalar_vector)
+from .parallel.collectives import gather_rows_
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 OptState = Dict[str, Params]
@@ -58,6 +69,23 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 class Optimizer:
     """Base optimizer: state is a dict of params-shaped trees."""
+
+    # ZeRO-1 leaves: (op, weight) -> (the process groups of the mesh dims
+    # its rows are split over, innermost first; first row, end row of this
+    # rank's slice of the weight's local shard)
+    zero: Dict[Tuple[str, str], Tuple[Any, int, int]] = {}
+
+    def _weight(self, params: Params, opn: str, wn: str) -> torch.Tensor:
+        """What the update writes: the weight's local shard, or this rank's
+        row slice of it for a ZeRO-1 leaf."""
+        w = _local(params[opn][wn])
+        z = self.zero.get((opn, wn))
+        return w if z is None else w[z[1]:z[2]]
+
+    def _gather_rows(self, params: Params) -> None:
+        """After the update: each ZeRO-1 weight whole again on every rank."""
+        for (opn, wn), (groups, lo, hi) in self.zero.items():
+            gather_rows_(_local(params[opn][wn]), lo, hi, groups)
 
     def init_state(self, params: Params) -> OptState:
         raise NotImplementedError
@@ -127,10 +155,12 @@ class SGDOptimizer(Optimizer):
         update = fused_sgd_update_multi if self.fused else fused_sgd_update_multi_ref
         names = [(opn, wn) for opn, ws in params.items() for wn in ws]
         bufs = state.get("v")
-        update([_local(params[o][n]) for o, n in names], [_local(grads[o][n]) for o, n in names],
+        update([self._weight(params, o, n) for o, n in names],
+               [_local(grads[o][n]) for o, n in names],
                None if bufs is None else [_local(bufs[o][n]) for o, n in names],
                hparams.get("scalars", hparams.get("lr")), self.weight_decay, self.momentum,
                self.nesterov)
+        self._gather_rows(params)
         return params, state
 
 
@@ -176,8 +206,10 @@ class AdamOptimizer(Optimizer):
     def apply(self, params, grads, state, hparams):
         update = fused_adam_update if self.fused else fused_adam_update_ref
         for opn, ws in params.items():
-            for wn, w in ws.items():
-                update(_local(w), _local(grads[opn][wn]), _local(state["m"][opn][wn]),
-                       _local(state["v"][opn][wn]), hparams.get("scalars", hparams.get("alpha_t")),
+            for wn in ws:
+                update(self._weight(params, opn, wn), _local(grads[opn][wn]),
+                       _local(state["m"][opn][wn]), _local(state["v"][opn][wn]),
+                       hparams.get("scalars", hparams.get("alpha_t")),
                        self.weight_decay, self.beta1, self.beta2, self.epsilon)
+        self._gather_rows(params)
         return params, state

@@ -9,9 +9,10 @@ bound to ``cuda:LOCAL_RANK``; a caller may pass them instead, including
 a ``file://`` or ``tcp://localhost:<port>`` ``init_method``.
 
 Each rank feeds its own slice of the global batch (``host_local_batch``,
-the counterpart of ``jax.make_array_from_process_local_data``).  The
-hybrid nodes x devices mesh of the JAX package (``hybrid_machine``) is not
-ported yet.
+the counterpart of ``jax.make_array_from_process_local_data``).  Over
+several nodes ``hybrid_machine`` builds the nodes x devices mesh, its
+leading ``dcn`` dim cut at node boundaries (``FFModel.compile`` picks it
+when ``FFConfig.num_nodes > 1``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import Machine
+from .mesh import Machine, hybrid_mesh_shape
 
 
 def initialize(device: str = "cuda", init_method: Optional[str] = None,
@@ -79,6 +80,33 @@ def process_index() -> int:
 
 def is_coordinator() -> bool:
     return process_index() == 0
+
+
+def hybrid_machine(dcn_degree: int, device: torch.device) -> Machine:
+    """The machine over every rank of the process group, on this rank's
+    ``device``, with a leading mesh dim ``dcn`` of ``dcn_degree`` nodes,
+    each node's devices prime-factored into ``m0, m1, ...`` as ``Machine``
+    does (the JAX package's ``hybrid_machine``).  The ranks of a node are
+    contiguous: under torchrun rank = node rank x ``LOCAL_WORLD_SIZE`` +
+    ``LOCAL_RANK`` (checked against ``LOCAL_WORLD_SIZE`` where torchrun
+    sets it), and a caller that passes ranks numbers them so.  One node
+    gives the plain prime-factored machine.  Every rank calls it (it makes
+    the mesh's groups)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = dist.get_world_size()
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    device = torch.device(device)
+    if dcn_degree <= 1:
+        return Machine.from_process_group(device)
+    if world % dcn_degree:
+        raise ValueError(f"{world} ranks do not split into {dcn_degree} nodes")
+    if local and int(local) != world // dcn_degree:
+        raise ValueError(f"{dcn_degree} nodes of {world // dcn_degree} ranks, but torchrun "
+                         f"runs {local} a node: the dcn dim would not cut at node boundaries")
+    sizes, names = hybrid_mesh_shape(world, dcn_degree)
+    mesh = DeviceMesh(device.type, torch.arange(world).reshape(sizes), mesh_dim_names=names)
+    return Machine(mesh=mesh)
 
 
 def local_batch(machine: Machine, arr, degree: int):

@@ -5,12 +5,24 @@ One process drives one device.  Over N processes (``parallel/
 distributed.py``) the ``Machine`` holds a torch ``DeviceMesh`` whose dims
 are the prime factors of N, larger first, named ``m0, m1, ...``: 8
 processes give a (2, 2, 2) mesh.  A per-dim partition degree lowers to a
-group of mesh dims whose sizes multiply to it (``axes_for_degrees``,
-greedy, as in the JAX package), and a tensor dim split over mesh dims
-``g`` gets ``Shard(dim)`` on each dim of ``g`` and ``Replicate()`` on the
-rest: a Conv2D config (4, 1, 2, 1) on 8 processes is ``(Shard(0),
-Shard(0), Shard(2))``, the JAX package's ``PartitionSpec(('m0', 'm1'),
-None, 'm2')``.
+group of mesh dims whose sizes multiply to it (``assign_axes``, greedy
+over the mesh dims in order, as in the JAX package), and a tensor dim
+split over mesh dims ``g`` gets ``Shard(dim)`` on each dim of ``g`` and
+``Replicate()`` on the rest: a Conv2D config (4, 1, 2, 1) on 8 processes
+is ``(Shard(0), Shard(0), Shard(2))``, the JAX package's
+``PartitionSpec(('m0', 'm1'), None, 'm2')``.
+
+Over several nodes (``parallel/distributed.hybrid_machine``) the mesh
+has a leading dim ``dcn`` of one entry per node, then each node's devices
+prime-factored as above: 2 nodes of 8 give (2, 2, 2, 2) named ``dcn, m0,
+m1, m2``.  There the lowering is role-aware, as the JAX package's
+``parallel/lowering.assign_axes`` under its default rules: the sample
+dim (config dim 0) takes ``dcn`` first, every other dim takes GPU dims
+and spills onto ``dcn`` only when its degree cannot be composed
+otherwise.  So the gradient all-reduce crosses nodes, and a weight or
+activation split does only where it spills (what the simulator prices,
+``simulator/machine.H100MachineModel.dcn_spill``).  On a mesh without
+``dcn`` this is the plain greedy order.
 
 Ops compute on local shards (``Machine.local_call``, the counterpart of
 ``shard_map``), and each op's output is redistributed to its config
@@ -64,31 +76,66 @@ def mesh_shape(world: int) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
     return sizes, tuple(f"m{i}" for i in range(len(sizes)))
 
 
-def axes_for_degrees(names: Sequence[str], sizes: Sequence[int],
-                     degrees: Sequence[int]) -> List[Tuple[str, ...]]:
-    """Disjoint groups of mesh dims whose sizes multiply to each degree,
-    greedy over the dims in order; raises when a degree cannot be composed
-    from the dims left (degree 3 on a (2, 2, 2) mesh)."""
-    remaining = list(zip(names, sizes))
-    result: List[Tuple[str, ...]] = []
-    for deg in degrees:
+def hybrid_mesh_shape(world: int, nodes: int) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """Mesh dim sizes and names for ``world`` devices over ``nodes`` nodes:
+    a leading ``dcn`` dim of ``nodes`` that cuts at node boundaries, then
+    each node's devices prime-factored, larger first, ``m0, m1, ...``
+    (one node, or a count that does not divide: ``mesh_shape(world)``)."""
+    if nodes <= 1 or world % nodes:
+        return mesh_shape(world)
+    per = world // nodes
+    sizes = tuple(prime_factors(per)) if per > 1 else (1,)
+    return (nodes,) + sizes, ("dcn",) + tuple(f"m{i}" for i in range(len(sizes)))
+
+
+def assign_axes(names: Sequence[str], sizes: Sequence[int], degrees: Sequence[int]
+                ) -> Tuple[List[Tuple[str, ...]], Tuple[Tuple[int, int], ...]]:
+    """The lowering: disjoint groups of mesh dims whose sizes multiply to
+    each degree, in mesh-dim order (DTensor's order of a dim split over
+    several).  Dims are served in order, each greedy over the mesh dims
+    left: the sample dim (0) over all of them, every other dim over the
+    GPU dims first and then ``dcn`` where its degree cannot be composed
+    otherwise (the JAX package's ``parallel/lowering.assign_axes`` under
+    its default rules; without ``dcn``, plain greedy).  Returns ``(groups,
+    spill)``, ``spill`` listing ``(dim, dcn share)`` for every non-sample
+    dim that took ``dcn``; raises when a degree cannot be composed from the
+    dims left (degree 3 on a (2, 2, 2) mesh)."""
+    remaining: List[Tuple[Optional[str], int]] = list(zip(names, sizes))
+    groups: List[Tuple[str, ...]] = []
+    spill: List[Tuple[int, int]] = []
+    for i, deg in enumerate(degrees):
+        need = int(deg)
         group: List[str] = []
-        need = deg
-        for i, (name, size) in enumerate(remaining):
-            if name is None:
-                continue
-            if need % size == 0:
-                group.append(name)
-                need //= size
-                remaining[i] = (None, 0)
+        share = 1
+        # the sample dim: every mesh dim in order; any other: GPU dims, then dcn
+        passes = ((lambda n: True),) if i == 0 else ((lambda n: n != "dcn"),
+                                                     (lambda n: n == "dcn"))
+        for takes in passes:
+            for j, (name, size) in enumerate(remaining):
                 if need == 1:
                     break
+                if name is None or not takes(name):
+                    continue
+                if need % size == 0:
+                    group.append(name)
+                    need //= size
+                    remaining[j] = (None, 0)
+                    if name == "dcn" and i > 0:
+                        share *= size
         if need != 1:
             raise ValueError(
                 f"partition degree {deg} not expressible over mesh axes "
                 f"{dict(zip(names, sizes))} (degrees={list(degrees)})")
-        result.append(tuple(group))
-    return result
+        if share > 1:
+            spill.append((i, share))
+        groups.append(tuple(n for n in names if n in group))
+    return groups, tuple(spill)
+
+
+def axes_for_degrees(names: Sequence[str], sizes: Sequence[int],
+                     degrees: Sequence[int]) -> List[Tuple[str, ...]]:
+    """The groups of ``assign_axes``: the mesh dims of each degree."""
+    return assign_axes(names, sizes, degrees)[0]
 
 
 def placements_for_degrees(names: Sequence[str], sizes: Sequence[int],
@@ -127,6 +174,24 @@ def shard_slices(shape: Sequence[int], placements: Sequence, sizes: Sequence[int
             n[p.dim] //= size
             lo[p.dim] += c * n[p.dim]
     return tuple(slice(a, a + b) for a, b in zip(lo, n))
+
+
+def chunk_bounds(size: int, degrees: Sequence[int]) -> List[Tuple[int, int]]:
+    """The inclusive (lo, hi) rows of a dim of ``size`` that each part
+    holds when the dim is split over mesh dims of sizes ``degrees``, in
+    mesh-dim order, parts numbered row-major: DTensor's ``Shard`` rule
+    (``torch.chunk`` at each mesh dim: parts of ``ceil(n / k)``, the last
+    ones shorter or empty), so uneven splits are placed as DTensor places
+    them."""
+    parts = [(0, size - 1)]
+    for k in degrees:
+        nxt = []
+        for lo, hi in parts:
+            n = hi - lo + 1
+            c = -(-n // k) if n > 0 else 0
+            nxt += [(lo + min(i * c, n), lo + min((i + 1) * c, n) - 1) for i in range(k)]
+        parts = nxt
+    return parts
 
 
 # ---------------------------------------------------------------- the machine
@@ -279,6 +344,20 @@ class Machine:
         """Placements of a host-fed batch: dim 0 split ``degree`` ways."""
         return self.spec_for_config(ParallelConfig(dims=(max(1, degree),)))
 
+    def split_of(self, placements: Sequence, dim: int):
+        """(mesh dim names, their sizes, this device's part index) of
+        tensor dim ``dim`` under ``placements``: the mesh dims that split
+        it in mesh-dim order, and the part, row-major over them, that this
+        device holds."""
+        names, sizes, idx = [], [], 0
+        for p, name, size, c in zip(placements, self.axis_names, self.axis_sizes,
+                                    self._coordinate):
+            if isinstance(p, Shard) and p.dim == dim:
+                names.append(name)
+                sizes.append(size)
+                idx = idx * size + c
+        return tuple(names), tuple(sizes), idx
+
     def batch_index(self, degree: int) -> int:
         """This device's part of a batch split ``degree`` ways."""
         idx = 0
@@ -317,14 +396,15 @@ class Machine:
         placements to compute it under), its result placed
         ``out_placements``; a list of placements, one per output, when
         ``fn`` returns a list.  Every mesh dim is either replicated for all
-        (the same work on each device) or split in an output; an argument
-        replicated on a dim where an output is split contributes to every
-        part, so its gradient there is ``Partial`` (summed when it reaches
-        its own placements).  Gradients flow through ``to_local`` and
-        ``from_local``."""
+        (the same work on each device) or split in an output, as a
+        ``Shard`` or as a ``Partial`` (each device's output a summand, as
+        the expert parallel combine's); an argument replicated on a dim
+        where an output is split contributes to every part, so its gradient
+        there is ``Partial`` (summed when it reaches its own placements).
+        Gradients flow through ``to_local`` and ``from_local``."""
         multi = isinstance(out_placements, list)
         out_pls = [tuple(p) for p in out_placements] if multi else [tuple(out_placements)]
-        split = [any(isinstance(pl[d], Shard) for pl in out_pls)
+        split = [any(isinstance(pl[d], (Shard, Partial)) for pl in out_pls)
                  for d in range(len(self.axis_sizes))]
         locals_ = []
         for x, pl in args:

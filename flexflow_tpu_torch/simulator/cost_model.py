@@ -521,7 +521,9 @@ class CostModel:
         """Inter-node resharding of this op's part (the machine model's
         ``dcn_spill_time``; 0 on one node), outside the shape-keyed caches
         and inside the (op, pc) memo, so that the full and the delta
-        simulator price it alike."""
+        simulator price it alike.  A host-placed op pays none."""
+        if pc is None or pc.host_placed:
+            return 0.0
         sub = self._sub_output_shape(op, pc)
         part_bytes = self._dtype_bytes * float(np.prod(sub))
         return self.machine.dcn_spill_time(pc.dims, part_bytes)
@@ -542,8 +544,7 @@ class CostModel:
     def _op_time_slow(self, op, pc, which: str):
         """Returns (time, stats counter a repeat call would bump)."""
         if pc is not None and pc.host_placed and op._type == "Embedding":
-            self.stats["analytic"] += 1
-            return self._host_embedding_time(op, which), "analytic"
+            return self._host_embedding_time(op, which), None
         key = self._key(op, pc, which)
         if key in self._measured:
             self.stats["measured_hits"] += 1

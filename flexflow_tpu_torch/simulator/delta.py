@@ -36,9 +36,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import ParallelConfig
-from .simulator import Simulator, _intersect, devices_of, weight_groups
+from .simulator import Simulator, _intersect, devices_of, host_sparse, weight_groups
 
-# Device keys: chip d -> d; link(a,b) with a<b -> -(a*nd + b + 1).
+# Device keys: chip d -> d; the host -> _HOST_BASE; link(a,b) with a<b ->
+# -(a*nd + b + 1).
+_HOST_BASE = 1 << 30
 
 _EMPTY_F = np.empty(0, np.float64)
 _EMPTY_I = np.empty(0, np.int64)
@@ -70,7 +72,7 @@ class _EdgeFrag:
     """The comm tasks and dependency wiring of one dataflow edge under
     one (producer config, consumer config) pair.  Each of ``cc`` comm
     pairs owns TWO tasks (fwd then bwd transfer, back to back — the
-    order add_xfer appends them); direct (same-chip) pairs contribute two
+    order add_xfer appends them); direct (same-chip or host) pairs contribute two
     dependency edges and no tasks.  The wiring
     is pre-flattened into (global tag, offset) int32 arrays — the tag
     names the base-vector slot (producer node block, consumer node
@@ -330,8 +332,9 @@ class DeltaSimulator:
         rt[0::2] = ft
         rt[1::2] = bt
         dev = np.empty(2 * P, np.int64)
-        dev[0::2] = devs
-        dev[1::2] = devs
+        keys = np.full(P, _HOST_BASE, np.int64) if host_sparse(op, pc) else devs
+        dev[0::2] = keys
+        dev[1::2] = keys
         f = _NodeFrag(P, rt, dev, devs.astype(np.int32), li, self._bartag)
         self._node_memo[key] = f
         return f
@@ -369,6 +372,7 @@ class DeltaSimulator:
             return f
         li, _j, pi = self._edges[k]
         op, pre = self.ops[li], self.ops[pi]
+        hosted = host_sparse(pre, src_pc) or host_sparse(op, dst_pc)
         sdevs = self._devs_of(src_pc)
         ddevs = self._devs_of(dst_pc)
         nd = self.nd
@@ -384,7 +388,7 @@ class DeltaSimulator:
         for s, d, vol in self._vols(k, src_pc, dst_pc):
             a = sdevs[s]
             b = ddevs[d]
-            if a == b:
+            if hosted or a == b:
                 ds_.append(s)
                 dd_.append(d)
                 continue
@@ -462,7 +466,7 @@ class DeltaSimulator:
 
     def _upd(self, li: int, pc: ParallelConfig) -> _UpdFrag:
         op = self.ops[li]
-        if not op.weights:
+        if not op.weights or host_sparse(op, pc):
             return _EMPTY_UPD
         key = (li, id(pc))
         f = self._upd_memo.get(key)

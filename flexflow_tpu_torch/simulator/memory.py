@@ -9,14 +9,17 @@ map, term by term:
                       part (replicated batch degrees hold full copies),
   * ``grads``       - f32 gradients, same tiling,
   * ``optimizer``   - f32 slot buffers (momentum, Adam m and v), named by
-                      the optimizer's class, divided by the batch-replica
-                      degree under ZeRO-1,
+                      the optimizer's class; under ZeRO-1 divided as the
+                      runtime shards them (``zero_share``),
   * ``activations`` - stored forward outputs (``output_tile`` per part in
                       the activation dtype), the residuals backward reads,
   * ``staging``     - transient collective buffers: one grad-sized ring
                       buffer per batch-replicated weight and the
                       all-gather/reduce-scatter share of non-batch output
-                      splits.
+                      splits; an offloaded weight and its gradient, which
+                      the step streams through the device.
+
+A host-resident row-sparse table holds no device memory.
 
 Against the machine model's ``hbm_capacity`` (80 GB on an H100) it gives
 the headroom.  It is an estimate, not an allocator: the caching allocator
@@ -27,12 +30,13 @@ early take from it; ``chip_smoke.py`` prints it beside
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 
 from ..config import ParallelConfig
-from .simulator import devices_of, resolve_pc
+from .simulator import devices_of, host_sparse, resolve_pc
 
 # Shared safety factor: plans predicted to use more than this share of
 # HBM leave no room for fragmentation and library workspaces.
@@ -66,6 +70,23 @@ def weight_state_terms(w_elems: float, opt_slots: int = 1) -> Dict[str, float]:
     return {"params": _F32 * w_elems,
             "grads": _F32 * w_elems,
             "optimizer": _F32 * opt_slots * w_elems}
+
+
+def zero_share(w, pc: ParallelConfig, nd: int) -> int:
+    """The number of row slices ZeRO-1 cuts a weight's optimizer state
+    into on ``nd`` devices, as ``FFModel._zero_state_placements`` lays it
+    out: its leading dim over every device the weight's split leaves free
+    (``nd`` over the weight's split degree), where that dim is unsplit and
+    divides; else 1 (and a pipe-packed weight's state is never cut).  The
+    JAX package's memory model divides by the batch degree instead, the
+    same only for a weight split on nothing but the batch under a config
+    that fills the machine."""
+    degs = [pc.dims[pd] if pd is not None and pd < len(pc.dims) else 1
+            for pd in w.partition_dims]
+    free = nd // math.prod(degs)
+    if nd <= 1 or free <= 1 or degs[0] > 1 or w.dims[0] % free:
+        return 1
+    return free
 
 
 def dominant_term(terms: Dict[str, float]) -> str:
@@ -108,6 +129,11 @@ def memory_per_device(model, strategies: Optional[Dict[str, ParallelConfig]]
     for op in model.ops:
         pc = resolve_pc(op, strategies, nd)
         op_dev = [0.0] * nd
+        if host_sparse(op, pc):
+            # a host-resident row-sparse table holds no device memory
+            by_op[op.name] = {"bytes": 0, "parts": pc.num_parts(),
+                              "dims": "x".join(map(str, pc.dims)), "host": True}
+            continue
         devs = devices_of(pc, nd)
         parts = pc.num_parts()
         # allgather/reduce-scatter fraction at non-batch output splits
@@ -123,13 +149,24 @@ def memory_per_device(model, strategies: Optional[Dict[str, ParallelConfig]]
         if op.weights:
             d0 = pc.dims[0] if pc.dims else 1
             for wi in range(len(op.weights)):
+                w = op.param_weights[wi]
+                packed = getattr(model, "_pipeline_plan", None) and \
+                    model._pack_entry(op.name, w.name) is not None
+                share = zero_share(w, pc, nd) if zero and not packed else 1
                 for j in range(parts):
                     d = devs[j]
                     w_elems = vol(op.weight_tile(pc, wi, j))
                     ws = weight_state_terms(w_elems, opt_slots)
+                    if pc.host_placed:
+                        # offloaded: held on the host, the step streams the
+                        # weight and its gradient through the device
+                        b = ws["params"] + ws["grads"]
+                        per[d]["staging"] += b
+                        op_dev[d] += b
+                        continue
                     per[d]["params"] += ws["params"]
                     per[d]["grads"] += ws["grads"]
-                    opt_b = ws["optimizer"] / (d0 if zero and d0 > 1 else 1)
+                    opt_b = ws["optimizer"] / share
                     per[d]["optimizer"] += opt_b
                     op_dev[d] += ws["params"] + ws["grads"] + opt_b
                     if d0 > 1:

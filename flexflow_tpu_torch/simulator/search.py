@@ -9,12 +9,10 @@ current))``; keep the best ever seen.  Proposals are random factorizations
 of a divisor of the device count over the op's partitionable dims, and each
 is re-costed incrementally by ``DeltaSimulator``.
 
-The RNG stream, the proposal order and the accept rule are the JAX
+The RNG stream, the proposal order, the accept rule and the space of
+proposals (``_SPLITTABLE``, host placement of eligible tables) are the JAX
 package's, so that a seeded search over the same machine model and cost
-table returns the same strategy and the same floats.  What is proposed
-differs where the port cannot yet compute a split at the cost the
-simulator gives it (below): convolutions and pools split only the batch,
-and the LSTM and the experts split only the batch.
+table returns the same strategy and the same floats.
 """
 
 from __future__ import annotations
@@ -46,17 +44,15 @@ def _divisors(n: int) -> Tuple[int, ...]:
 
 
 # Per-op-type partitionable dims (natural order, batch first, NHWC), as the
-# reference ops restrict their Legion task grids.  "last" is the output
-# channel dim, whatever the rank.  The simulator prices a part at its
-# sub-shape, so a dim is listed only where each part of the port's
-# execution computes just its tile.
+# reference ops restrict their Legion task grids; the JAX package's table.
+# "last" is the output channel dim, whatever the rank.  The simulator prices
+# a part at its sub-shape, and each part of the port's execution computes
+# just its tile: a conv or pool tile reads its input rectangle through a
+# halo exchange, an LSTM part its H/k slice of the gates, an ExpertMLP
+# part its experts.
 _SPLITTABLE = {
-    # batch only.  The port computes a height or width split of a conv or
-    # pool whole on every part and slices the output (``unsplit_dims``),
-    # while the simulator would price each part at 1/k of the op: H and W
-    # wait for compute-split convs and pools (ROADMAP A6).
-    "Conv2D": (0,),
-    "Pool2D": (0,),
+    "Conv2D": (0, 1, 2),       # n, h, w (conv_2d.cu asserts c unsplit)
+    "Pool2D": (0, 1, 2),
     "Dense": (0, "last"),      # n, c_out (linear.cu tensor parallelism)
     "Embedding": (0, "last"),  # n, out_dim
     "Concat": (0,),
@@ -66,14 +62,10 @@ _SPLITTABLE = {
     "Dropout": (0,),
     "ElementUnary": (0,),
     "ElementBinary": (0,),
-    # batch only.  The JAX package also splits the LSTM's hidden dim (2;
-    # an all-gather of h each step) and ExpertMLP's experts (1; the tokens'
-    # all_to_all); the port raises on both until it computes them
-    # (ROADMAP A9), so the search never proposes them.
-    "LSTM": (0,),
+    "LSTM": (0, 2),            # batch, hidden (T stays sequential)
     "MSELoss": (0,),
     "PipelineMLP": (0, 1),     # dim 1 = pipeline (operator-dim) degree
-    "ExpertMLP": (0,),
+    "ExpertMLP": (0, 1),       # dim 1 = expert parallel degree
     # batch, sequence (ring or Ulysses attention over the parts) and heads
     "MultiHeadAttention": (0, 1, 2),
     "LayerNorm": (0, 1),       # batch, seq
@@ -105,11 +97,14 @@ def in_search_space(op, pc: ParallelConfig) -> bool:
 def random_parallel_config(op, num_devices: int, rng: random.Random,
                            model=None) -> ParallelConfig:
     """A random legal SOAP config for ``op`` over ``num_devices`` GPUs.
-    With ``model``, the JAX package draws once to decide a host placement
-    of an eligible embedding; the port has no host placement yet (ROADMAP
-    A9) but makes the same draw, so that seeded searches stay in step."""
-    if model is not None:
-        rng.random()
+    With ``model``, an embedding the model can hold as a row-sparse host
+    table (``_sparse_embed_candidate_ok``) goes to the host one draw in
+    ten (``ParallelConfig.host_rowsparse``), as in the JAX package, so the
+    searched space covers the hetero DLRM placement and seeded searches
+    stay in step with the reference's."""
+    if model is not None and rng.random() < 0.1 \
+            and getattr(model, "_sparse_embed_candidate_ok", lambda _: False)(op):
+        return ParallelConfig.host_rowsparse(op.output.num_dims)
     rank = op.output.num_dims
     splittable = splittable_dims(op)
     num_parts = rng.choice(_divisors(num_devices))

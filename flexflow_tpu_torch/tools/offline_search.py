@@ -1,10 +1,11 @@
-"""Offline strategy search for an H100 node: no card needed.
+"""Offline strategy search for H100 nodes: no card needed.
 
 Counterpart of the JAX package's ``tools/offline_search.py`` (reference:
 scripts/simulator.cc, a cost model that needs no GPU).  Builds a model of
-the port's zoo, searches it over an H100 node of ``--devices`` GPUs with
-the simulator (the card's measurements from ``measured_h100.json`` where it
-has them, the fitted or spec roofline elsewhere), prints the data-parallel
+the port's zoo, searches it over ``--devices`` H100s (one node of up to 8,
+or whole nodes of 8 joined by InfiniBand) with the simulator (the card's
+measurements from ``measured_h100.json`` where it has them, the fitted or
+spec roofline elsewhere), prints the data-parallel
 and the best simulated ms/step and the proposals per second, and exports
 the best strategy as a ``.pb`` (with its ``.meta.json`` sidecar) that
 ``--import-strategy`` / ``FFConfig.import_strategy_file`` load.  Every
@@ -14,6 +15,7 @@ model of the zoo builds (``MODELS``), at the full width of its cell.
         --budget 2000 --export /tmp/alexnet_8.pb --device cpu
     python -m flexflow_tpu_torch.tools.offline_search transformer --devices 8 \\
         --engine population --device cpu
+    python -m flexflow_tpu_torch.tools.offline_search nmt --devices 16 --device cpu
 
 ``--device`` only names where the graph is built (no tensor is made);
 it defaults to "cuda" like every entry point of the port.
@@ -86,8 +88,8 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("model", choices=sorted(MODELS))
     p.add_argument("--batch-size", type=int, default=None,
                    help="global batch (default: the model's cell, MODELS)")
-    p.add_argument("--devices", type=int, default=8, choices=range(1, 9), metavar="1-8",
-                   help="GPUs of the H100 node")
+    p.add_argument("--devices", type=int, default=8,
+                   help="H100s: up to 8 on one node, or whole nodes of 8")
     p.add_argument("--nvlink-bw", type=float, default=None,
                    help="NVLink bytes/s per direction (default: the spec's 450e9)")
     p.add_argument("--peak-flops", type=float, default=None)
@@ -105,6 +107,8 @@ def main(argv: Optional[List[str]] = None):
                         "the best dim strategy")
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
+    if args.devices < 1 or (args.devices > 8 and args.devices % 8):
+        p.error(f"--devices {args.devices}: up to 8 on one node, or whole nodes of 8")
 
     from ..parallel.strategy import save_strategies_to_file, sidecar_path
     from ..simulator.machine import H100MachineModel

@@ -54,6 +54,9 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.runtime.step_graph, flexflow_tpu_torch.simulator.population, "
             "flexflow_tpu_torch.simulator.memory, flexflow_tpu_torch.tools.calibrate, "
             "flexflow_tpu_torch.tools.offline_search, flexflow_tpu_torch.ops.lstm, "
+            "flexflow_tpu_torch.ops.conv2d, flexflow_tpu_torch.parallel.collectives, "
+            "flexflow_tpu_torch.parallel.mesh, flexflow_tpu_torch.simulator.machine, "
+            "flexflow_tpu_torch.simulator.delta, flexflow_tpu_torch.optimizers, "
             "flexflow_tpu_torch.ops.moe, flexflow_tpu_torch.models.resnet, "
             "flexflow_tpu_torch.models.inception, flexflow_tpu_torch.models.dlrm, "
             "flexflow_tpu_torch.models.candle_uno, flexflow_tpu_torch.models.nmt, "
@@ -104,13 +107,13 @@ def test_device_flag_parses():
 # to data parallelism over it); two workers on a one-device machine raise
 SOAP_KNOBS = [("import_strategy_file", "s.pb"), ("export_strategy_file", "s.pb"),
               ("workers_per_node", 2)]
-# knobs the compiled-step, search, observability, pipeline and host-table
-# slices ported: they compile and train a step (on one device the pipeline
-# search finds no ring, and a model with no host-placed table has no row to
-# gather)
+# knobs the compiled-step, search, observability, pipeline, host-table and
+# SOAP-space slices ported: they compile and train a step (on one device the
+# pipeline search finds no ring, a model with no host-placed table has no
+# row to gather, and ZeRO-1 has no second device to split the state over)
 STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True), ("search_budget", 10),
               ("telemetry", True), ("profiling", True), ("search_pipeline", True),
-              ("sparse_host_embeddings", True)]
+              ("sparse_host_embeddings", True), ("zero_optimizer", True)]
 
 
 @pytest.mark.parametrize("field,value", [
@@ -122,7 +125,7 @@ def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
     """Knobs of features outside the port so far raise at compile; the
     strategy files the SOAP slice brought in compile, and a worker count
     the machine does not have raises; gradient accumulation, remat, the
-    strategy search, the pipeline search and the host tables' knob compile
+    strategy search, the pipeline search, the host tables' knob and ZeRO-1 compile
     and take a step."""
     from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file,
                                                       save_strategies_to_file)
@@ -256,12 +259,19 @@ def test_unported_attention_and_transformer_options_raise():
     # generator (tests/test_torch_stateful_ops.py trains with it)
     m.multihead_attention(x, num_heads=4, dropout=0.1)
     assert m.ops[-1].draws_random and m.ops[-1].dropout == 0.1
-    # the MoE blocks build now; a strategy that splits the experts raises
+    # the MoE blocks build, and a strategy that splits the experts is one
+    # the op runs: two expert parts in lockstep give the unsplit output
     moe = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     build_transformer(moe, 2, seq_length=8, num_layers=2, embed_dim=32, num_heads=4,
                       vocab_size=16, moe_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        next(op for op in moe.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(1, 2, 1)))
+    mop = next(op for op in moe.ops if op.name == "moe_1")
+    mop.check_config(ft.ParallelConfig(dims=(1, 2, 1)))
+    assert mop.legalize_pc(ft.ParallelConfig(dims=(1, 2, 1))).dims == (1, 2, 1)
+    gen = torch.Generator().manual_seed(1)
+    mparams = {w.name: torch.randn(w.dims, generator=gen) for w in mop.weights}
+    mx = torch.randn(2, 8, 32, generator=gen)
+    torch.testing.assert_close(mop.forward_parts(mparams, mx, 1, 2),
+                               mop.forward(mparams, [mx], FwdCtx())[0])
     # kv-cached decoding is ported: one token at position 0 attends only to
     # itself, as the causal forward's first position does
     m.multihead_attention(x, num_heads=4, causal=True)

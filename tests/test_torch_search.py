@@ -7,15 +7,14 @@ same strategy and the same floats:
 
 * the port's ``mcmc_search`` reproduces the reference's single-chain
   goldens of tests/test_population_search.py bit for bit (AlexNet at 16
-  devices, the transformer at 64) when it proposes what the reference
-  proposes: the AlexNet golden splits pool3 on height and width, so that
-  test gives the port's search the reference's spatial splits back
-  (``spatial_splits``); the transformer's golden is the port's own;
-* in the port's own search space, seeded searches (MCMC at other seeds and
-  device counts, the AlexNet golden's seed among them, and
-  ``population_search``) equal the reference run under the same
-  restrictions, applied to the reference's ``_SPLITTABLE`` and warm starts
-  by monkeypatch: convs and pools split only the batch (ROADMAP A6);
+  devices, which splits pool3 on height and width, the transformer at 64):
+  the port proposes what the reference proposes;
+* seeded searches (MCMC at other seeds and device counts over the zoo,
+  DLRM's host placements among the proposals, and ``population_search``
+  with its warm start from strategies/alexnet_16.pb) equal the JAX
+  package's unrestricted search: the same search space (``_SPLITTABLE``:
+  convs and pools on height and width, the LSTM's hidden dim, the experts)
+  and the same host placement of eligible tables;
 * ``compile(search_budget=...)`` searches on the CPU with each engine,
   trains a step and exports a strategy that loads back equal; "native"
   raises naming ROADMAP A8b;
@@ -26,6 +25,7 @@ same strategy and the same floats:
 
 import json
 import os
+import random
 import subprocess
 import sys
 
@@ -47,10 +47,11 @@ from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file, rea
 from flexflow_tpu_torch.simulator.machine import H100MachineModel
 from flexflow_tpu_torch.simulator.population import population_search
 from flexflow_tpu_torch.simulator.search import (enumerate_candidates, in_search_space,
-                                                 mcmc_search, splittable_dims)
+                                                 mcmc_search, random_parallel_config,
+                                                 splittable_dims)
 from flexflow_tpu_torch.tools import calibrate, offline_search
 
-from test_torch_simulator import ZOO, build_pair, cost_pair, spatial_splits  # noqa: F401
+from test_torch_simulator import ZOO, build_pair, cost_pair
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,33 +64,6 @@ GOLDENS = [
     ("transformer", 64, 200, 0, 0.013445108752907626, 0.014559030250737392,
      "sha256:5569e1894349173d188a2095401cf2d7f0bae14ec12c1957cb96db93193965de"),
 ]
-
-
-@pytest.fixture
-def restricted_reference(monkeypatch):
-    """The reference's search in the port's search space: convs and pools
-    split only the batch, the LSTM and the experts only the batch, no
-    table goes to the host, and a shipped strategy that splits otherwise
-    seeds no chain."""
-    for op_type, dims in (("Conv2D", (0,)), ("Pool2D", (0,)), ("LSTM", (0,)),
-                          ("ExpertMLP", (0,))):
-        monkeypatch.setitem(jax_search._SPLITTABLE, op_type, dims)
-    # the port places no embedding table on the host (ROADMAP A9)
-    monkeypatch.setattr(ff.FFModel, "_sparse_embed_candidate_ok", lambda self, op: False)
-    jax_search._splittable_dims_cached.cache_clear()
-    load = jax_strategy.load_warm_starts
-
-    def searchable(op, pc):
-        dims = jax_search.splittable_dims(op)
-        return all(deg == 1 or d in dims for d, deg in enumerate(pc.dims))
-
-    def warm_starts(model, nd, *a, **kw):
-        return [(label, s) for label, s in load(model, nd, *a, **kw)
-                if all(searchable(op, s[op.name]) for op in model.ops)]
-
-    monkeypatch.setattr(jax_strategy, "load_warm_starts", warm_starts)
-    yield
-    jax_search._splittable_dims_cached.cache_clear()
 
 
 def _search_pair(engine, name, nd, budget, seed, tmp_path, **kw):
@@ -116,7 +90,7 @@ def _dims(result):
 @pytest.mark.parametrize("name,nd,budget,seed,best_s,dp_s,fp", GOLDENS,
                          ids=[g[0] for g in GOLDENS])
 def test_mcmc_reproduces_the_reference_golden(name, nd, budget, seed, best_s, dp_s, fp,
-                                              tmp_path, spatial_splits):
+                                              tmp_path):
     _, pm = build_pair(name, 64, nd)
     _, _, pmm, pc = cost_pair(nd, tmp_path)
     r = mcmc_search(pm, budget=budget, seed=seed, machine_model=pmm, cost_model=pc,
@@ -134,24 +108,24 @@ def test_mcmc_reproduces_the_reference_golden(name, nd, budget, seed, best_s, dp
                                                  ("nmt", 8, 150, 1), ("dlrm", 8, 150, 2),
                                                  ("transformer_moe", 8, 150, 3),
                                                  ("candle_uno", 4, 150, 4)])
-def test_mcmc_equals_the_restricted_reference(name, nd, budget, seed, tmp_path,
-                                              restricted_reference):
+def test_mcmc_equals_the_restricted_reference(name, nd, budget, seed, tmp_path):
+    """The port's search against the JAX package's unrestricted one (the
+    name is older than the equal search spaces)."""
     want, got = _search_pair("mcmc", name, nd, budget, seed, tmp_path)
     assert (got.best_s, got.dp_s) == (want.best_s, want.dp_s)
     assert _dims(got) == _dims(want)
     _, pm = build_pair(name, 64, nd)
     assert all(in_search_space(op, got[op.name]) for op in pm.ops)
-    if (name, nd) == ("alexnet", 16):  # the golden's seed, in the port's space
-        assert got.best_s == 0.0034333216169187834 and got.dp_s == 0.01863936267427486
-        assert strategies_fingerprint(dict(got)) == \
-            "sha256:5574aee9461a6fc125911f62a5dc5b2039b7fffef5579b403bcc46f57956fd2c"
+    if (name, nd) == ("alexnet", 16):  # the golden's seed: the golden itself
+        assert (got.best_s, got.dp_s) == GOLDENS[0][4:6]
+        assert strategies_fingerprint(dict(got)) == GOLDENS[0][6]
 
 
 @pytest.mark.parametrize("name,nd,budget,seed", [("transformer", 64, 200, 0),
                                                  ("alexnet", 16, 300, 3),
                                                  ("alexnet", 4, 200, 1)])
-def test_population_equals_the_restricted_reference(name, nd, budget, seed, tmp_path,
-                                                    restricted_reference):
+def test_population_equals_the_restricted_reference(name, nd, budget, seed, tmp_path):
+    """The tempered population against the JAX package's unrestricted one."""
     want, got = _search_pair("population", name, nd, budget, seed, tmp_path)
     assert (got.best_s, got.dp_s) == (want.best_s, want.dp_s)
     assert _dims(got) == _dims(want)
@@ -163,18 +137,19 @@ def test_population_equals_the_restricted_reference(name, nd, budget, seed, tmp_
         # attention sequence splits in the space (0.012368573036562407 without)
         assert got.best_s == 0.010052137823982232
     if (name, nd) == ("alexnet", 16):
-        # strategies/alexnet_16.pb splits conv1 on height and width: no warm start
-        assert [c["seed"] for c in got.chains[:2]] == ["dp", "random"]
+        # strategies/alexnet_16.pb splits conv1 on height and width: a warm start
+        assert [c["seed"] for c in got.chains[:2]] == ["dp", "sidecar:alexnet_16.pb"]
 
 
 def test_population_warm_starts_only_from_strategies_it_could_propose(tmp_path, monkeypatch):
     """A shipped strategy for this model and device count seeds a chain
-    when it splits only dims the search proposes; one that splits a conv's
-    height does not."""
+    when it splits only dims the search proposes (a conv's height now
+    among them); one that splits a conv's output channels does not."""
     _, pm = build_pair("alexnet", 64, 8)
     legal = {op.name: ft.ParallelConfig.data_parallel(op.output.num_dims, 8) for op in pm.ops}
     legal["fc1"] = ft.ParallelConfig(dims=(1, 8))
-    spatial = dict(legal, conv1=ft.ParallelConfig(dims=(2, 4, 1, 1)))
+    legal["conv1"] = ft.ParallelConfig(dims=(2, 4, 1, 1))
+    spatial = dict(legal, conv1=ft.ParallelConfig(dims=(1, 1, 1, 8)))
     assert in_search_space(pm.ops[0], legal["conv1"])
     assert not in_search_space(pm.ops[0], spatial["conv1"])
     sdir = tmp_path / "strategies"
@@ -213,6 +188,12 @@ def test_no_candidate_splits_an_attention_sequence():
 
 @pytest.mark.parametrize("kind", ["conv", "pool"])
 def test_no_candidate_splits_a_conv_or_pool_spatially(kind):
+    """The name is older than the split: convs and pools are now split on
+    height and width as the JAX package's search splits them, and every
+    spatial candidate computes, tile by tile (``forward_tiles``), the
+    unsplit op's output and gradients."""
+    import torch
+
     m = ft.FFModel(ft.FFConfig(batch_size=8, workers_per_node=8, device="cpu"))
     t = m.create_tensor((8, 4, 16, 16))
     if kind == "conv":
@@ -220,9 +201,24 @@ def test_no_candidate_splits_a_conv_or_pool_spatially(kind):
     else:
         m.pool2d(t, 2, 2, 2, 2, 0, 0)
     op = m.ops[0]
-    assert splittable_dims(op) == (0,)
-    assert {pc.dims for pc in enumerate_candidates(op, 8)} == \
-        {(1, 1, 1, 1), (2, 1, 1, 1), (4, 1, 1, 1), (8, 1, 1, 1)}
+    assert splittable_dims(op) == (0, 1, 2)
+    cands = {pc.dims for pc in enumerate_candidates(op, 8)}
+    spatial = sorted(d for d in cands if d[1] > 1 or d[2] > 1)
+    assert {(1, 2, 1, 1), (1, 1, 8, 1), (2, 2, 2, 1), (1, 4, 2, 1)} <= set(spatial)
+    gen = torch.Generator().manual_seed(0)
+    params = {w.name: torch.randn(w.dims, generator=gen, dtype=torch.float64,
+                                  requires_grad=True) for w in op.weights}
+    x = torch.randn(8, 16, 16, 4, generator=gen, dtype=torch.float64, requires_grad=True)
+    y = op.forward(params, [x], None)[0]
+    g = torch.randn(y.shape, generator=gen, dtype=torch.float64)
+    want = torch.autograd.grad(y, [x, *params.values()], g)
+    for dims in spatial:
+        op.check_config(ft.ParallelConfig(dims=dims))
+        got_y = op.forward_tiles(params, x, dims[1], dims[2])
+        torch.testing.assert_close(got_y, y, rtol=1e-12, atol=1e-12)
+        got = torch.autograd.grad(got_y, [x, *params.values()], g)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
 
 def _small_cnn(cfg):
@@ -304,14 +300,21 @@ def test_compile_searches_each_zoo_model_and_trains(name, capsys):
 @pytest.mark.parametrize("name", sorted(ZOO))
 def test_offline_search_of_each_zoo_model_stays_in_the_ports_space(name, tmp_path):
     """An 8-GPU search of each new model proposes only configs the port
-    trains: no LSTM hidden split, no expert split, no conv or pool split
-    on height or width."""
+    trains, over the JAX package's whole space (the LSTM's hidden split,
+    the experts, convs and pools on height and width, tables on the host),
+    and the search meets such configs."""
     _, pm = build_pair(name, 64, 8)
     _, _, pmm, pc = cost_pair(8, tmp_path)
     best = mcmc_search(pm, budget=150, seed=2, machine_model=pmm, cost_model=pc, verbose=False)
     for op in pm.ops:
         assert in_search_space(op, best[op.name])
         op.check_config(best[op.name])
+    wide = {"resnet": "Conv2D", "inception": "Conv2D", "nmt": "LSTM",
+            "transformer_moe": "ExpertMLP"}.get(name)
+    if wide is not None:  # a proposal outside the batch split, for the op family
+        rng = random.Random(0)
+        op = next(o for o in pm.ops if o._type == wide and o.output.dims[1] % 2 == 0)
+        assert any(max(random_parallel_config(op, 8, rng).dims[1:]) > 1 for _ in range(50))
 
 
 @pytest.mark.parametrize("engine,exc,match", [("native", NotImplementedError, "ROADMAP A8b"),
@@ -447,6 +450,28 @@ def test_offline_search_for_an_h100_node(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
         offline_search.run(offline_search.build_model("alexnet", 64, 8, device="cpu"), 8, 10,
                            engine="native")
+
+
+def test_offline_search_for_two_h100_nodes(tmp_path, capsys):
+    """``--devices 16``: two nodes of 8 joined by InfiniBand; every config
+    of the search composes over the hybrid mesh (a dcn dim of 2, then each
+    node's 8 GPUs) and is one its op trains; a count that does not fill
+    whole nodes is refused."""
+    from flexflow_tpu_torch.parallel.mesh import hybrid_mesh_shape, placements_for_degrees
+
+    best = offline_search.main(["nmt", "--devices", "16", "--budget", "150", "--device", "cpu",
+                                "--quiet"])
+    assert "on 16 H100(s)" in capsys.readouterr().out
+    assert best.num_devices == 16 and best.best_s <= best.dp_s
+    sizes, names = hybrid_mesh_shape(16, 2)
+    model = offline_search.build_model("nmt", 64, 16, device="cpu")
+    for op in model.ops:
+        pc = op.legalize_pc(best[op.name])
+        op.check_config(pc)
+        if not pc.host_placed:
+            placements_for_degrees(names, sizes, pc.dims)
+    with pytest.raises(SystemExit):
+        offline_search.main(["nmt", "--devices", "12", "--device", "cpu", "--quiet"])
 
 
 def test_calibration_jobs_and_fit(tmp_path):

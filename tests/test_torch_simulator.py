@@ -13,17 +13,22 @@ port's code carries no TPU model; this harness does.
   devices; for the rest of the zoo at its small test sizes (ResNet-50,
   Inception-v3, DLRM, CANDLE-Uno, NMT with its shared embedding, the MoE
   transformer), data parallelism and 5 random strategies of the port's
-  search at 8 devices, and the memory model alike.  The random strategies split convs and pools on height and width
-  too, as the reference's search does (``spatial_splits``): the port's
-  search leaves those splits out until it computes them split, but the
-  simulator prices any plan, an imported one included;
+  search at 8 devices, and the memory model alike.  The random strategies
+  are the search's own proposals, in the JAX package's space: convs and
+  pools split on height and width, the LSTM on its hidden dim, the
+  experts, and DLRM's tables placed on the host;
+* a DLRM strategy with every table on the host (row-sparse, one serial
+  host timeline) simulates, re-costs in the delta simulator and takes
+  memory as the reference's does;
 * the delta simulator equals the full rebuild exactly over random
-  propose/commit/rollback walks, both weight-sync modes;
+  propose/commit/rollback walks, both weight-sync modes, DLRM's host
+  placements among them;
 * ``memory_per_device`` equals the reference's;
 * a measurement on the CPU is tagged "cpu" and never read as a "cuda"
   entry, and a cost model refuses to measure for another platform;
-* the H100 node model: NVSwitch transfers, the NVLink ring, one node only,
-  the calibration file and its label.
+* the H100 machine model: NVSwitch transfers, the NVLink ring, nodes of 8
+  joined by InfiniBand, ``dcn_spill_time`` at 16 GPUs against the JAX
+  package's formula, the calibration file and its label.
 """
 
 import json
@@ -81,17 +86,6 @@ ZOO = {
 }
 
 
-@pytest.fixture
-def spatial_splits(monkeypatch):
-    """The port's proposals with the reference's height and width splits of
-    convs and pools."""
-    for op_type in ("Conv2D", "Pool2D"):
-        monkeypatch.setitem(search._SPLITTABLE, op_type, (0, 1, 2))
-    search._splittable_dims_cached.cache_clear()
-    yield
-    search._splittable_dims_cached.cache_clear()
-
-
 class RefMachine:
     """The JAX package's calibrated TPU model under the port's names."""
 
@@ -106,6 +100,9 @@ class RefMachine:
         self.op_efficiency = r.op_efficiency
         self.op_backward_multiplier = r.op_backward_multiplier
         self.hbm_capacity = r.hbm_capacity
+        self.pcie_bandwidth = r.pcie_bandwidth
+        self.host_memory_bandwidth = r.host_memory_bandwidth
+        self.host_xfer_latency = r.host_xfer_latency
         self.transfer_time = r.transfer_time
         self.allreduce_time = r.allreduce_time
         self.dcn_spill_time = r.dcn_spill_time
@@ -141,7 +138,9 @@ def cost_pair(nd, tmp_path):
 
 
 def as_jax(strategies):
-    return {k: ff.ParallelConfig(dims=v.dims, device_ids=v.device_ids)
+    """The same configs in the JAX package's type, host placements kept."""
+    return {k: ff.ParallelConfig(device_type=ff.DeviceType(v.device_type.value), dims=v.dims,
+                                 device_ids=v.device_ids, memory_types=v.memory_types)
             for k, v in strategies.items()}
 
 
@@ -158,7 +157,7 @@ def dp(model, nd):
 @pytest.mark.parametrize("name,nd", [("alexnet", 4), ("alexnet", 16), ("alexnet", 64),
                                      ("transformer", 4), ("transformer", 16),
                                      ("transformer", 64)])
-def test_simulate_runtime_equals_the_reference_exactly(name, nd, tmp_path, spatial_splits):
+def test_simulate_runtime_equals_the_reference_exactly(name, nd, tmp_path):
     jm, pm = build_pair(name, 64, nd, **SMALL_LM)
     mm, jc, pmm, pc = cost_pair(nd, tmp_path)
     jsim, psim = JaxSimulator(mm, jc), Simulator(pmm, pc)
@@ -223,10 +222,57 @@ def test_a_shared_weight_is_synchronized_once(tmp_path, monkeypatch):
     assert base > 0
 
 
+def _host_dlrm(pm, nd):
+    """DLRM's data parallelism with every table on the host (row-sparse)."""
+    plan = dp(pm, nd)
+    for op in pm.ops:
+        if op._type == "Embedding":
+            assert pm._sparse_embed_candidate_ok(op)
+            plan[op.name] = ft.ParallelConfig.host_rowsparse(op.output.num_dims)
+    return plan
+
+
+def test_a_host_placed_dlrm_strategy_equals_the_reference(tmp_path):
+    """DLRM with its tables on the host: the tables run on one serial host
+    timeline with no all-reduce and hold no device memory, in the full and
+    the delta simulator alike, as the JAX package prices them; and the
+    search proposes such placements."""
+    nd = 8
+    jm, pm = build_pair("dlrm", 64, nd)
+    mm, jc, pmm, pc = cost_pair(nd, tmp_path)
+    plan = _host_dlrm(pm, nd)
+    for overlap in (False, True):
+        psim = Simulator(pmm, pc, overlap_backward_update=overlap)
+        got = psim.simulate_runtime(pm, plan)
+        assert got == JaxSimulator(mm, jc, overlap_backward_update=overlap).simulate_runtime(
+            jm, as_jax(plan))
+        assert got != psim.simulate_runtime(pm, dp(pm, nd))
+        delta = DeltaSimulator(psim, pm)
+        assert delta.reset(dp(pm, nd)) == psim.simulate_runtime(pm, dp(pm, nd))
+        for op in pm.ops:
+            if op._type == "Embedding":
+                delta.propose(op.name, plan[op.name])
+                delta.commit()
+        assert delta.reset(plan) == got
+    for opt in (None, ft.SGDOptimizer(lr=0.1)):
+        mem = memory.memory_per_device(pm, plan, machine_model=pmm, optimizer=opt)
+        want = jax_memory.memory_per_device(jm, as_jax(plan), machine_model=pmm.ref,
+                                            optimizer=None if opt is None
+                                            else ff.SGDOptimizer(lr=0.1))
+        assert mem == want
+        tables = [op.name for op in pm.ops if op._type == "Embedding"]
+        assert all(mem["by_op"][t]["bytes"] == 0 and mem["by_op"][t]["host"] for t in tables)
+    rng = random.Random(0)
+    emb = next(op for op in pm.ops if op._type == "Embedding")
+    assert any(random_parallel_config(emb, nd, rng, model=pm).host_placed for _ in range(100))
+
+
 @pytest.mark.parametrize("name,nd,overlap", [("alexnet", 16, False), ("alexnet", 16, True),
                                              ("transformer", 8, False),
-                                             ("transformer", 64, True)])
-def test_delta_equals_the_full_rebuild_exactly(name, nd, overlap, tmp_path, spatial_splits):
+                                             ("transformer", 64, True),
+                                             ("dlrm", 8, False), ("nmt", 8, True),
+                                             ("transformer_moe", 8, False)])
+def test_delta_equals_the_full_rebuild_exactly(name, nd, overlap, tmp_path):
     _, pm = build_pair(name, 64, nd, **SMALL_LM)
     _, _, pmm, pc = cost_pair(nd, tmp_path)
     sim = Simulator(pmm, pc, overlap_backward_update=overlap)
@@ -249,7 +295,7 @@ def test_delta_equals_the_full_rebuild_exactly(name, nd, overlap, tmp_path, spat
 
 
 @pytest.mark.parametrize("name,nd", [("alexnet", 8), ("transformer", 16)])
-def test_memory_per_device_equals_the_reference(name, nd, tmp_path, spatial_splits):
+def test_memory_per_device_equals_the_reference(name, nd, tmp_path):
     jm, pm = build_pair(name, 64, nd, **SMALL_LM)
     pmm = RefMachine(nd)
     rng = random.Random(5)
@@ -381,9 +427,32 @@ def test_h100_node_model():
     assert mm.transfer_time(3, 3, 1e9) == 0.0
     assert mm.allreduce_time([0, 1, 2, 3], 450e6) == pytest.approx(2 * 3 / 4 * 1e-3)
     assert mm.allreduce_time([5], 1e9) == 0.0
-    assert mm.dcn_spill_time((8, 1), 1e9) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        H100MachineModel(num_devices=16)
+    assert mm.dcn_spill_time((8, 1), 1e9) == 0.0 and mm.num_nodes == 1
+    # two nodes: InfiniBand between them, NVLink within
+    two = H100MachineModel(num_devices=16)
+    assert (two.num_nodes, two.ib_bandwidth) == (2, 50e9)
+    assert two.transfer_time(0, 7, 450e6) == 1e-3
+    assert two.transfer_time(7, 8, 50e6) == 1e-3
+    assert two.allreduce_time(range(8), 450e6) == pytest.approx(2 * 7 / 8 * 1e-3)
+    assert two.allreduce_time([0, 8], 50e6) == pytest.approx(1e-3)
+    with pytest.raises(ValueError, match="whole nodes"):
+        H100MachineModel(num_devices=12)
+
+
+@pytest.mark.parametrize("degrees", [(16, 1), (1, 16), (2, 8), (8, 2), (4, 4), (1, 2, 8),
+                                     (2, 1, 4, 2), (1, 1, 1, 16), (16, 1, 1, 1), (3, 1)])
+def test_dcn_spill_at_sixteen_gpus_equals_the_reference(degrees):
+    """Two nodes of 8: a non-sample degree that the GPUs of one node cannot
+    hold spills onto the dcn dim and pays the JAX package's reshard, at
+    the InfiniBand rate (the reference's DCN rate set to it)."""
+    port = H100MachineModel(num_devices=16)
+    ref = TPUMachineModel(num_devices=16, chips_per_host=8, dcn_bandwidth=port.ib_bandwidth)
+    assert port.dcn_spill(degrees) == ref.dcn_spill(degrees)
+    for part_bytes in (1e6, 3.5e8):
+        assert port.dcn_spill_time(degrees, part_bytes) == ref.dcn_spill_time(degrees,
+                                                                               part_bytes)
+    assert (port.dcn_spill_time(degrees, 1e6) > 0) == (degrees[1:] and max(degrees[1:]) > 8
+                                                       or math.prod(degrees[1:]) > 8)
 
 
 def test_calibrated_reads_the_fit_and_names_the_card(tmp_path):

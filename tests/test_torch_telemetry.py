@@ -41,7 +41,7 @@ from flexflow_tpu_torch.simulator.machine import H100MachineModel
 from flexflow_tpu_torch.simulator.memory import memory_per_device
 from flexflow_tpu_torch.tools import trace_report
 
-from test_torch_search import _search_pair, restricted_reference  # noqa: F401
+from test_torch_search import _search_pair
 from test_torch_step import _FakeCuda
 
 B, S, V = 4, 8, 64
@@ -407,7 +407,7 @@ def test_memory_prediction_is_the_memory_model(monkeypatch, tmp_path):
 @pytest.mark.parametrize("engine,name,nd,budget,seed", [("mcmc", "alexnet", 4, 200, 1),
                                                          ("population", "alexnet", 4, 200, 1)])
 def test_search_candidates_equal_the_jax_recorder(engine, name, nd, budget, seed, tmp_path,
-                                                  monkeypatch, restricted_reference):  # noqa: F811
+                                                  monkeypatch):
     """A seeded search that test_torch_search.py holds equal to the JAX
     package's records the same proposals: every ``search_candidate`` (and
     the population engine's exchanges, elites and crossovers) equal."""

@@ -141,15 +141,15 @@ def test_transformer_parameter_count_at_full_width():
 
 def test_unported_transformer_options_raise():
     """The MoE blocks build (ops/moe.py) and decode (dropless routing);
-    their expert split still raises, naming its item.  Attention dropout is
-    ported: the transformer trains with it."""
+    their expert split is ported too (tests/test_torch_soap_space.py trains
+    it on gloo ranks): the op accepts it.  Attention dropout is ported: the
+    transformer trains with it."""
     m = ft.FFModel(ft.FFConfig(batch_size=BATCH, device="cpu"))
     build_transformer(m, BATCH, moe_every=2, **SHAPE)
     assert [op.name for op in m.ops if op._type == "ExpertMLP"] == ["moe_1"]
     # compile runs this check on every op's resolved config (a mesh of two
     # or more devices; tests/test_torch_soap.py drives it on gloo ranks)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        next(op for op in m.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(1, 2, 1)))
+    next(op for op in m.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(1, 2, 1)))
     next(op for op in m.ops if op.name == "moe_1").check_config(ft.ParallelConfig(dims=(2, 1, 1)))
     # one token decoded is the token's forward (a capacity of 1 keeps it)
     m.compile(_optimizer(ft, m), "sparse_categorical_crossentropy", METRICS)
