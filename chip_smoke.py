@@ -246,17 +246,42 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      split on height and width), AlexNet Adam with zero_optimizer (its
      state bytes per rank) and a hybrid 2 x 2 mesh (num_nodes=2): f32
      weights after 2 steps against one card, bf16 ms/step beside data
-     parallelism (one card: a line says it was not run).
-The last lines are the card's name and power limit, one JSON object with
-a row per kernel, and {"ok": true, "device": {...}}.  Needs one card
-(phases 6, 14 (f), 15 (e) and 16 (d) use every visible card); it imports
-nothing of jax or of the JAX package.
+     parallelism (one card: a line says it was not run);
+ 17. decoding on a mesh ([mesh-decode] lines): (a) a one-rank NCCL mesh in
+     a process of its own: the full-width transformer (4x512, 8 heads,
+     vocab 32000) in f32, decode_step probabilities step by step (rtol
+     1e-5, atol 1e-6), greedy generate (B16, P 32, N 32) and beam_search
+     (K4, B4, P 16, N 16) against the same model on one card (tokens
+     equal, scores rtol 1e-5), then the paged engine over 40 of phase 10's
+     requests (its first 32 and the 8 that share its prefix, in its
+     order), each request equal to one card's, tokens/s, TTFT and TPOT
+     p50/p99 and the batch's occupancy beside one card's; in bf16 generate against one card's (a difference within
+     F32_GAP_TOL under the f32 forward), ms, device ms and launches a
+     decode step, eager on the mesh beside the captured one-card step;
+     (b) with several cards, one NCCL rank a card (up to 4): the
+     transformer with its heads and dense columns split over them,
+     generate and the engine (dense, paged; the same 40 requests) in f32
+     equal to one card's, NMT (batch 64, seq 20, hidden 2048) with its LSTMs split on the
+     hidden dim (greedy_translate) and the MoE transformer with its
+     experts over the cards (generate), each equal to one card's (one
+     card: a line says it was not run).  No kernel of K1-K5 runs on these
+     paths (checked).
+
+``--phases 3,17`` runs only the phases listed (1 and 2 always run; the
+kernels line needs phase 3); a phase's several-card part runs whenever
+several cards are visible, so ``python3 chip_smoke.py --phases 17`` on a
+host with four cards runs phase 17 (b).  The last lines are the card's name and
+power limit, one JSON object with a row per kernel, and {"ok": true,
+"device": {...}}.  Needs one card (phases 6, 14 (f), 15 (e), 16 (d) and
+17 (b) use every visible card); it imports nothing of jax or of the JAX
+package.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import faulthandler
 import gc
 import glob
 import json
@@ -1348,6 +1373,8 @@ def soap_helper():
         return pipe_helper()
     if os.environ[SOAP_HELPER] == "soap2":
         return soap2_helper()
+    if os.environ[SOAP_HELPER] in (MESH_HELPER, MESH_ONE):
+        return mesh_decode_helper()
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
@@ -2176,14 +2203,17 @@ F32_GAP_TOL = 1e-4
 BF16_GAP_TOL = 2.0 ** -5
 
 
-def decode_lm(ft, build_transformer, dtype, **kw):
+def decode_lm(ft, build_transformer, dtype, machine=None, strategies=None, **kw):
     """The bench transformer (LM) for decoding: random weights from seed
-    0, so the bf16 and the f32 model hold the same weights."""
+    0, so the bf16 and the f32 model hold the same weights (on the default
+    machine, or ``machine``; under ``strategies`` on a mesh)."""
     shape = {k: v for k, v in LM.items() if k != "batch"}
     shape.update(kw)
-    model = ft.FFModel(ft.FFConfig(batch_size=LM["batch"], compute_dtype=dtype))
+    model = ft.FFModel(ft.FFConfig(batch_size=LM["batch"], compute_dtype=dtype,
+                                   strategies=dict(strategies or {})))
     tok, pos, _ = build_transformer(model, LM["batch"], **shape)
-    model.compile(ft.SGDOptimizer(lr=0.001), "sparse_categorical_crossentropy", ["accuracy"])
+    model.compile(ft.SGDOptimizer(lr=0.001), "sparse_categorical_crossentropy", ["accuracy"],
+                  machine=machine)
     model.init_layers(seed=0)
     return model, tok, pos
 
@@ -5331,7 +5361,358 @@ def soap_space_phase(ft, fo, kernels, smi, alex_shapes):
     return launches
 
 
+# ------------------------------------------------------------------ phase 17
+
+MESH_GEN = dict(P=32, N=32)          # generate on the mesh: LM["batch"] rows
+MESH_BEAM = dict(B=4, K=4, P=16, N=16)
+MESH_PROBS_STEPS = 4                 # decode_step probabilities held step by step
+MESH_TOL = dict(rtol=1e-5, atol=1e-6)
+# the engine on the mesh: TRAFFIC's first 32 requests (twice ENGINE's
+# max_batch, so the batch fills and its slots are reused) and the 8 that
+# share its prefix, in TRAFFIC's order (eager mesh steps: the whole
+# burst's 10,500 B = 1 prefill steps would take minutes a mode)
+MESH_TRAFFIC = (32, 8)
+MESH_NMT_LEN = 20                    # greedy_translate tokens (NMT_GEN's)
+MESH_SERVE_TIMEOUT_S = 120.0         # the followers' replica timeout
+MESH_HELPER = "decode"              # (b)'s helper ranks
+MESH_ONE = "decode1"                # (a)'s one rank
+
+
+def mesh_traffic():
+    reqs = traffic()
+    n, shared = MESH_TRAFFIC
+    return reqs[:n] + reqs[TRAFFIC["requests"]:TRAFFIC["requests"] + shared]
+
+
+def head_split(ft, world):
+    """Attention split by heads and every dense layer (the vocabulary-wide
+    head included) by column over ``world`` cards."""
+    split = {}
+    for i in range(LM["num_layers"]):
+        for name in (f"attn_{i}", f"mlp_up_{i}", f"mlp_down_{i}"):
+            split[name] = ft.ParallelConfig(dims=(1, 1, world))
+    split["lm_head"] = ft.ParallelConfig(dims=(1, 1, world))
+    return split
+
+
+def engine_run(lm, paged, reqs, lead):
+    """One engine over ``reqs`` submitted at once (on a mesh every rank
+    builds, warms up, starts and stops it; the leader submits).  Returns
+    (tokens per request, tokens/s, TTFT and TPOT lists) on the leader."""
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    eng = InferenceEngine(lm, paged=paged, replica_timeout_s=MESH_SERVE_TIMEOUT_S, **ENGINE)
+    check(eng._paged == (paged == "on"), f"engine paged={paged}: {eng._paged}")
+    eng.warmup()
+    hs = [eng.submit(p, n, timeout_s=0) for p, n in reqs] if lead else []
+    t0 = time.perf_counter()
+    with eng:
+        outs = [h.result(1200) for h in hs]
+    wall = time.perf_counter() - t0
+    if not lead:
+        return None
+    st = eng.stats()
+    check(st["completed"] == len(reqs), f"engine paged={paged}: {st}")
+    return (outs, st["tokens_out"] / wall, [h.ttft_s for h in hs],
+            [h.tpot_s for h in hs if h.tpot_s is not None], st)
+
+
+def serve_line(label, r):
+    _, rate, ttft, tpot, st = r
+    return (f"{label} {rate:,.1f} generated tokens/s, TTFT p50 {pct(ttft, 50):.1f} ms p99 "
+            f"{pct(ttft, 99):.1f} ms, TPOT p50 {pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} "
+            f"ms, occupancy mean {st['mean_occupancy']:.2f} max {st['max_active']} of "
+            f"{ENGINE['max_batch']} over {st['step_iterations']} token boundaries, world size "
+            f"{st['world_size']}, prefix hits {st.get('kv', {}).get('prefix_hits', 0)}")
+
+
+def same_tokens(label, got, want):
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if not np.array_equal(a, b)]
+    check(len(got) == len(want) and not bad, f"{label}: requests {bad} differ")
+
+
+def mesh_decode_one(ft, kernels, smi, dev):
+    """(a) on a one-rank NCCL mesh: the full-width LM's generate,
+    beam_search and paged engine in f32 against the same model's
+    one-card decode, decode_step probabilities step by step; bf16 generate
+    against one card's; ms and device ms a decode step, eager on the mesh
+    beside the captured one-card step.  Returns the kernels' launches on
+    these decode paths (an f32 oracle forward that a bf16 difference needs
+    is not one of them)."""
+    from flexflow_tpu_torch.models.transformer import build_transformer
+
+    rng = np.random.default_rng(17)
+    B, V = LM["batch"], LM["vocab_size"]
+    P, N = MESH_GEN["P"], MESH_GEN["N"]
+    steps = P + N - 1
+    prompt = rng.integers(0, V, size=(B, P), dtype=np.int32)
+    single = ft.Machine(devices=[dev])
+    one, tok, pos = decode_lm(ft, build_transformer, "float32", machine=single)
+    mesh, mtok, mpos = decode_lm(ft, build_transformer, "float32")
+    check(mesh._sharded and mesh.machine.num_devices == 1, f"(a) mesh {mesh.machine}")
+    caches = (one.init_decode_caches(B, P), mesh.init_decode_caches(B, P))
+    worst = 0.0
+    for t in range(MESH_PROBS_STEPS):
+        cur = torch.as_tensor(prompt[:, t], device=dev)
+        p1, _ = one.decode_step(one._decode_params(), caches[0], cur, t, tok, pos)
+        p2, _ = mesh.decode_step(mesh._decode_params(), caches[1], cur, t, mtok, mpos)
+        torch.testing.assert_close(p2, p1, **MESH_TOL, msg=lambda m: f"(a) step {t}: {m}")
+        worst = max(worst, (p2 - p1).abs().max().item())
+    del caches
+    one.generate(prompt, N)  # the first calls: the capture, the mesh's first steps
+    mesh.generate(prompt, N)
+    want, one_ms = timed_ms(lambda: one.generate(prompt, N))
+    got, mesh_ms = timed_ms(lambda: mesh.generate(prompt, N))
+    check(np.array_equal(got, want), "(a) f32 mesh generate differs from one card's")
+    bp = prompt[:MESH_BEAM["B"], :MESH_BEAM["P"]]
+    (s1, sc1), (s2, sc2) = (m.beam_search(bp, MESH_BEAM["N"], beam_size=MESH_BEAM["K"])
+                            for m in (one, mesh))
+    check(np.array_equal(s1, s2), "(a) f32 mesh beam_search sequences differ")
+    np.testing.assert_allclose(sc2, sc1, rtol=MESH_TOL["rtol"])
+    log(f"[mesh-decode] (a) f32 one-rank NCCL mesh vs one card: decode_step probabilities "
+        f"{MESH_PROBS_STEPS} steps max |dp| {worst:.3e} (rtol {MESH_TOL['rtol']:g}, atol "
+        f"{MESH_TOL['atol']:g}); greedy generate B{B} P{P} N{N} equal; beam_search K"
+        f"{MESH_BEAM['K']} B{MESH_BEAM['B']} P{MESH_BEAM['P']} N{MESH_BEAM['N']} equal, "
+        f"scores within rtol {MESH_TOL['rtol']:g}; card {smi}")
+    log(f"[mesh-decode] (a) f32 generate {steps} steps: mesh eager {mesh_ms:.1f} ms "
+        f"({mesh_ms / steps:.3f} ms a step), one card captured {one_ms:.1f} ms "
+        f"({one_ms / steps:.3f} ms a step); card {smi}")
+    # the paged engine alone here (the default for this LM): the dense one
+    # runs across cards in (b), and both over MESH_TRAFFIC would outrun
+    # the phase's time
+    reqs = mesh_traffic()
+    r1 = engine_run(one, "on", reqs, True)
+    r2 = engine_run(mesh, "on", reqs, True)
+    same_tokens("(a) f32 engine paged=on, mesh vs one card", r2[0], r1[0])
+    log(f"[mesh-decode] (a) f32 engine paged over {len(reqs)} requests, every request equal "
+        "to one card's; " + serve_line("mesh", r2) + "; " + serve_line("one card", r1)
+        + f"; card {smi}")
+    del one, mesh
+    free_models()
+    # bf16: the tokens against one card's, a difference held by the f32 gap
+    one, tok, pos = decode_lm(ft, build_transformer, "bfloat16", machine=single)
+    mesh, _, _ = decode_lm(ft, build_transformer, "bfloat16")
+    one.generate(prompt, N)
+    mesh.generate(prompt, N)
+    want, one_ms = timed_ms(lambda: one.generate(prompt, N))
+    got, mesh_ms = timed_ms(lambda: mesh.generate(prompt, N))
+    rows = [b for b in range(B) if not np.array_equal(got[b], want[b])]
+    launches = read_launches(kernels)
+    worst = 0.0
+    if rows:
+        f32 = decode_lm(ft, build_transformer, "float32", machine=single)
+        for b in rows:
+            k = int(np.argmax(got[b] != want[b]))
+            probs = f32_probs(*f32, [np.concatenate([prompt[b], got[b][:k]])])
+            worst = max(worst, gap(probs[0, P + k - 1], int(got[b][k]), int(want[b][k])))
+        del f32
+    check(worst <= F32_GAP_TOL, f"(a) bf16 mesh generate: f32 gap {worst:.3e}")
+    log(f"[mesh-decode] (a) bf16 generate B{B} P{P} N{N}: {B - len(rows)} of {B} rows equal "
+        f"to one card's, the rest within f32 gap {worst:.3e} (tolerance {F32_GAP_TOL:g}); "
+        f"mesh eager {mesh_ms / steps:.3f} ms a step, one card captured "
+        f"{one_ms / steps:.3f} ms a step; card {smi}")
+    m_dev, m_launch = profile_decode(mesh, "(a) bf16 mesh generate (eager)",
+                                     lambda: mesh.generate(prompt, N), steps)
+    o_dev, o_launch = profile_decode(one, "(a) bf16 one-card generate (captured)",
+                                     lambda: one.generate(prompt, N), steps)
+    log(f"[mesh-decode] (a) bf16 a decode step: mesh {mesh_ms / steps:.3f} ms ({m_dev:.4f} "
+        f"device ms, {m_launch:.1f} launches), one card {one_ms / steps:.3f} ms "
+        f"({o_dev:.4f} device ms, {o_launch:.1f} launches); card {smi}")
+    del one, mesh
+    free_models()
+    return launches
+
+
+def mesh_decode_inputs():
+    """(b)'s prompt and requests, made alike on every rank from seeds."""
+    rng = np.random.default_rng(17)
+    prompt = rng.integers(0, LM["vocab_size"], size=(LM["batch"], MESH_GEN["P"]),
+                          dtype=np.int32)
+    return prompt, mesh_traffic()
+
+
+def nmt_translate(model):
+    """greedy_translate of MESH_NMT_LEN tokens from a seeded source batch,
+    timed."""
+    from flexflow_tpu_torch.models import nmt
+
+    src, dst = model.input_tensors[:2]
+    toks = np.random.default_rng(5).integers(0, model.ops[0].num_entries,
+                                             size=(ZOO["nmt"]["batch"], src.dims[1]),
+                                             dtype=np.int32)
+    return timed_ms(lambda: nmt.greedy_translate(model, src, dst, toks, MESH_NMT_LEN))
+
+
+def mesh_decode_refs(ft, dev):
+    """(b)'s references on one card, made by the lead before any process
+    group exists: the LM's generate and engine (dense, paged), NMT's
+    greedy_translate and the MoE transformer's generate, in f32."""
+    from flexflow_tpu_torch.models.transformer import build_transformer
+
+    single = ft.Machine(devices=[dev])
+    prompt, reqs = mesh_decode_inputs()
+    one, _, _ = decode_lm(ft, build_transformer, "float32", machine=single)
+    ref = {"generate": one.generate(prompt, MESH_GEN["N"])}
+    ref.update({p: engine_run(one, p, reqs, True) for p in ("off", "on")})
+    del one
+    free_models()
+    ref["nmt"], _ = nmt_translate(zoo_model(ft, "nmt", machine=single, compute_dtype="float32"))
+    free_models()
+    ref["moe"] = zoo_model(ft, "transformer_moe", machine=single,
+                           compute_dtype="float32").generate(prompt, MESH_GEN["N"])
+    free_models()
+    return ref
+
+
+def mesh_decode_multi_runs(ft, ref):
+    """(b) on this rank of min(4, cards): the LM with its heads split and
+    its dense layers split by column, greedy generate and the engine
+    (dense, paged) in f32; NMT with its LSTMs split on the hidden dim
+    (greedy_translate) and the MoE transformer with its experts over the
+    cards (generate); on the lead (``ref``: one card's results) each
+    against one card."""
+    from flexflow_tpu_torch.models.transformer import build_transformer
+
+    world = torch.distributed.get_world_size()
+    lead = ref is not None
+    smi = nvidia_smi_line() if lead else ""
+    prompt, reqs = mesh_decode_inputs()
+    B, P, N = LM["batch"], MESH_GEN["P"], MESH_GEN["N"]
+    lm, _, _ = decode_lm(ft, build_transformer, "float32", strategies=head_split(ft, world))
+    got, ms = timed_ms(lambda: lm.generate(prompt, N))
+    if lead:
+        check(np.array_equal(got, ref["generate"]),
+              f"(b) f32 generate on {world} cards differs from one card's")
+        log(f"[mesh-decode] (b) f32 LM heads and columns split {world} ways: greedy generate "
+            f"B{B} P{P} N{N} equal to one card's, {ms / (P + N - 1):.3f} ms a step; card {smi}")
+    for paged in ("off", "on"):
+        r = engine_run(lm, paged, reqs, lead)
+        if lead:
+            same_tokens(f"(b) engine paged={paged} on {world} cards", r[0], ref[paged][0])
+            log(f"[mesh-decode] (b) f32 engine {'paged' if paged == 'on' else 'dense'} over "
+                f"{len(reqs)} requests on {world} cards, every request equal to one card's; "
+                + serve_line("mesh", r) + "; " + serve_line("one card", ref[paged])
+                + f"; card {smi}")
+    del lm
+    free_models()
+    lstm = {f"{p}_lstm{i}": ft.ParallelConfig(dims=(1, 1, world))
+            for p in ("enc", "dec") for i in range(2)}
+    got, ms = nmt_translate(zoo_model(ft, "nmt", compute_dtype="float32", strategies=lstm))
+    free_models()
+    if lead:
+        check(np.array_equal(got, ref["nmt"]), f"(b) NMT split {world} differs from one card")
+        log(f"[mesh-decode] (b) f32 NMT (batch 64, seq 20, hidden 2048) LSTMs split {world} "
+            f"ways: greedy_translate {MESH_NMT_LEN} tokens equal to one card's, "
+            f"{ms / MESH_NMT_LEN:.3f} ms a token; card {smi}")
+    experts = {f"moe_{i}": ft.ParallelConfig(dims=(1, world, 1))
+               for i in range(1, LM["num_layers"], 2)}
+    moe = zoo_model(ft, "transformer_moe", compute_dtype="float32", strategies=experts)
+    got, ms = timed_ms(lambda: moe.generate(prompt, N))
+    del moe
+    free_models()
+    if lead:
+        check(np.array_equal(got, ref["moe"]), f"(b) MoE ep {world} differs from one card")
+        log(f"[mesh-decode] (b) f32 MoE transformer experts over {world} cards: generate "
+            f"B{B} P{P} N{N} equal to one card's, {ms / (P + N - 1):.3f} ms a step; "
+            f"card {smi}")
+
+
+def mesh_decode_multi(ft, smi):
+    """(b): with one visible card it says so and runs nothing; with more,
+    the lead makes one card's references with no process group alive, then
+    an NCCL group of one rank per card (up to 4; this script started again
+    as the helper ranks) runs ``mesh_decode_multi_runs``."""
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        log(f"[mesh-decode] (b) needs more than one card ({torch.cuda.device_count()} "
+            "visible): decoding across cards was not run")
+        return
+    ref = mesh_decode_refs(ft, torch.device("cuda", 0))  # before any process group
+    port = free_port()
+    helpers = spawn_helpers(MESH_HELPER, world, port)
+    try:
+        dist.initialize("cuda", init_method=f"tcp://localhost:{port}", world_size=world,
+                        rank=0, local_rank=0, timeout=SOAP_TIMEOUT)
+        mesh_decode_multi_runs(ft, ref)
+        dist.shutdown()
+        for r, p in enumerate(helpers, 1):
+            check(p.wait(timeout=300) == 0, f"(b) helper rank {r} exited {p.returncode}")
+    finally:
+        for p in helpers:
+            if p.poll() is None:
+                p.kill()
+    log(f"[mesh-decode] (b) ran on {world} cards; card {smi}")
+
+
+def mesh_decode_helper():
+    """A helper rank of phase 17 (b), or (a)'s one rank in a process of
+    its own (kind MESH_ONE: its lines printed, its decode paths' launches
+    checked here)."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import fused_optimizer as fo
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dist.initialize("cuda", timeout=SOAP_TIMEOUT)
+    if os.environ[SOAP_HELPER] == MESH_ONE:
+        kernels = kernel_wrappers(fo, fa)
+        reset_launches(kernels)
+        launches = mesh_decode_one(ft, kernels, nvidia_smi_line(), dev)
+        check(launches == NO_LAUNCH, f"(a) decode paths launched {launches}")
+    else:
+        mesh_decode_multi_runs(ft, None)
+    dist.shutdown()
+    return 0
+
+
+def mesh_decode_phase(ft, kernels, smi):
+    """Phase 17: decoding on a mesh.  (a) a one-rank NCCL mesh against one
+    card, in a process of its own (this script started again as its rank,
+    which checks that its decode paths launch no kernel), so that this
+    process's process groups are (b)'s alone; (b) across the visible cards
+    when there are several.  Returns the kernels' launches here (none: a
+    one-token decode step launches none of K1-K5, checked)."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity: TF32 off
+    free_models()
+    reset_launches(kernels)
+    env = dict(os.environ, **{SOAP_HELPER: MESH_ONE, "RANK": "0", "LOCAL_RANK": "0",
+                              "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+                              "MASTER_PORT": str(free_port())})
+    sys.stdout.flush()
+    one = subprocess.run([sys.executable, os.path.abspath(__file__)], env=env, timeout=900)
+    check(one.returncode == 0, f"(a) the one-rank mesh's process exited {one.returncode}")
+    t1 = time.perf_counter()
+    mesh_decode_multi(ft, smi)
+    launches = read_launches(kernels)
+    check(launches == NO_LAUNCH, f"phase 17 launched {launches}")
+    log(f"[mesh-decode] phase 17 took {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, "
+        f"(b) {time.perf_counter() - t1:.1f}); launches {launches}; card {smi}")
+    return launches
+
+
+PHASES = tuple(range(1, 18))
+
+
+def selected_phases(argv):
+    """``--phases 3,17``: the phases to run (default every one).  Phases 1
+    and 2 (the environment and the kernels' build) always run; phase 16
+    reads phase 3's leaf shapes, which are recomputed when phase 3 is not
+    selected; the kernels line is printed when phase 3 ran."""
+    if "--phases" not in argv:
+        return set(PHASES)
+    picked = {int(x) for x in argv[argv.index("--phases") + 1].split(",") if x}
+    bad = picked - set(PHASES)
+    if bad:
+        raise SystemExit(f"chip_smoke: no phase {sorted(bad)} (phases {PHASES[0]}-{PHASES[-1]})")
+    return picked | {1, 2}
+
+
 def main(argv=None):
+    faulthandler.enable()  # a crash in a native library prints the Python stack
     argv = sys.argv[1:] if argv is None else argv
     # --calibration-out DIR keeps phase 8's measured cache and fit (else a
     # temporary directory holds them)
@@ -5343,6 +5724,7 @@ def main(argv=None):
         return 2
     if os.environ.get(SOAP_HELPER):
         return soap_helper()
+    phases = selected_phases(argv)
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
@@ -5351,13 +5733,14 @@ def main(argv=None):
 
     kernels = kernel_wrappers(fo, fa)
     t_start = time.perf_counter()
+    ran = {}  # phase -> the kernels' launches on its paths
     # phase 1 ------------------------------------------------------------
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     smi = nvidia_smi_line()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {name} capability {cap} count "
-        f"{torch.cuda.device_count()}")
+        f"{torch.cuda.device_count()}; phases {sorted(phases)}")
     log(f"[env] nvidia-smi: {smi}")
     check(cap == (9, 0), f"expected a Hopper card (capability (9, 0)), got {cap}")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products
@@ -5366,157 +5749,176 @@ def main(argv=None):
     build_kernels(fo, fa)
 
     # phase 3 ------------------------------------------------------------
-    leaf_sets = main_path_leaves(ft, build_alexnet, build_transformer)
-    log("[kernels] kernel vs plain PyTorch version, tolerance rtol=atol=1e-6 "
-        "(both run the same rounded f32 operations; built with -fmad=false)")
-    max_err = check_kernels(fo)
-    max_err["fused_sgd_update"] = max(max_err["fused_sgd_update"], check_sgd_multi(fo))
-    copy_gbps = copy_bandwidth_gbps()
-    log(f"[kernels] measured device copy rate {copy_gbps:.1f} GB/s (1 GiB copy_)")
-    rows = time_kernels(fo, leaf_sets, copy_gbps)
-    launch_diagnostics(fo, {name: len(shapes) for name, shapes in leaf_sets.items()},
-                       max(math.prod(s) for s in leaf_sets["AlexNet"]))
-    log("[kernels] flash kernels vs plain PyTorch versions on the same inputs, "
-        "tolerance f32 rtol=atol=1e-4 (summation order), bf16 rtol=2**-7 atol=1e-3 "
-        "(one bf16 rounding of f32 results; lse f32)")
-    max_err.update(check_flash(fa))
-    flash_rows = time_flash(fa)
-    time_flash(fa, head_dim=16)
+    leaf_sets = (main_path_leaves(ft, build_alexnet, build_transformer)
+                 if phases & {3, 16} else None)
+    if 3 in phases:
+        log("[kernels] kernel vs plain PyTorch version, tolerance rtol=atol=1e-6 "
+            "(both run the same rounded f32 operations; built with -fmad=false)")
+        max_err = check_kernels(fo)
+        max_err["fused_sgd_update"] = max(max_err["fused_sgd_update"], check_sgd_multi(fo))
+        copy_gbps = copy_bandwidth_gbps()
+        log(f"[kernels] measured device copy rate {copy_gbps:.1f} GB/s (1 GiB copy_)")
+        rows = time_kernels(fo, leaf_sets, copy_gbps)
+        launch_diagnostics(fo, {name: len(shapes) for name, shapes in leaf_sets.items()},
+                           max(math.prod(s) for s in leaf_sets["AlexNet"]))
+        log("[kernels] flash kernels vs plain PyTorch versions on the same inputs, "
+            "tolerance f32 rtol=atol=1e-4 (summation order), bf16 rtol=2**-7 atol=1e-3 "
+            "(one bf16 rounding of f32 results; lse f32)")
+        max_err.update(check_flash(fa))
+        flash_rows = time_flash(fa)
+        time_flash(fa, head_dim=16)
 
     # phase 4 ------------------------------------------------------------
-    reset_launches(kernels)
-    free_models()
-    torch.cuda.reset_peak_memory_stats()
-    sgd_run = train_main_path(ft, build_alexnet, fo, sgd_optimizer(ft), steps=7, timed_from=2)
-    torch.cuda.empty_cache()
-    adam_run = train_main_path(ft, build_alexnet, fo, adam_optimizer(ft), steps=5, timed_from=2)
-    alex_launches = read_launches(kernels)
-    # the eager first step and the capture call the wrappers; replays do not
-    check(alex_launches == {"fused_sgd_update": 2, "fused_adam_update": 16 * 2,
-                            "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0},
-          f"AlexNet launch counts {alex_launches}")
-    peak = torch.cuda.max_memory_allocated()
-    for label, r in (("SGD momentum 0.9", sgd_run), ("Adam", adam_run)):
-        log(f"[main] AlexNet 3x229x229 batch {BATCH} bf16 fused, {label}: "
-            f"losses {['%.4f' % x for x in r['losses']]}  "
-            f"{r['samples_per_s']:.1f} samples/s  {r['ms_per_step']:.2f} ms/step  "
-            f"{r['metrics']}")
-    MEASURED["alexnet"]["peak_gib"] = peak / 2**30
-    log(f"[main] max_memory_allocated {peak / 2**30:.2f} GiB; launches {alex_launches}; "
-        f"card {smi}")
-    profile_steps(main_model(ft, build_alexnet, sgd_optimizer(ft)), "AlexNet SGD",
-                  sgd_run["ms_per_step"], per_step=ALEX_SGD_STEP)
-    torch.cuda.empty_cache()
+    if 4 in phases:
+        reset_launches(kernels)
+        free_models()
+        torch.cuda.reset_peak_memory_stats()
+        sgd_run = train_main_path(ft, build_alexnet, fo, sgd_optimizer(ft), steps=7,
+                                  timed_from=2)
+        torch.cuda.empty_cache()
+        adam_run = train_main_path(ft, build_alexnet, fo, adam_optimizer(ft), steps=5,
+                                   timed_from=2)
+        alex_launches = read_launches(kernels)
+        # the eager first step and the capture call the wrappers; replays do not
+        check(alex_launches == {"fused_sgd_update": 2, "fused_adam_update": 16 * 2,
+                                "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0},
+              f"AlexNet launch counts {alex_launches}")
+        peak = torch.cuda.max_memory_allocated()
+        for label, r in (("SGD momentum 0.9", sgd_run), ("Adam", adam_run)):
+            log(f"[main] AlexNet 3x229x229 batch {BATCH} bf16 fused, {label}: "
+                f"losses {['%.4f' % x for x in r['losses']]}  "
+                f"{r['samples_per_s']:.1f} samples/s  {r['ms_per_step']:.2f} ms/step  "
+                f"{r['metrics']}")
+        MEASURED["alexnet"]["peak_gib"] = peak / 2**30
+        log(f"[main] max_memory_allocated {peak / 2**30:.2f} GiB; launches {alex_launches}; "
+            f"card {smi}")
+        profile_steps(main_model(ft, build_alexnet, sgd_optimizer(ft)), "AlexNet SGD",
+                      sgd_run["ms_per_step"], per_step=ALEX_SGD_STEP)
+        torch.cuda.empty_cache()
 
-    reset_launches(kernels)
-    free_models()
-    torch.cuda.reset_peak_memory_stats()
-    lm, lm_run = train_transformer(ft, build_transformer, synthetic_lm_batch, kernels)
-    lm_launches = read_launches(kernels)
-    per_layer = 2 * LM["num_layers"]  # the eager first step and the capture
-    # predict_batch's forward adds one flash_fwd launch per layer
-    check(lm_launches == {"fused_sgd_update": 2, "fused_adam_update": 0,
-                          "flash_fwd": per_layer + LM["num_layers"],
-                          "flash_bwd_dkdv": per_layer, "flash_bwd_dq": per_layer},
-          f"transformer launch counts {lm_launches}")
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[main] transformer batch {LM['batch']} S {LM['seq_length']} {LM['num_layers']}x"
-        f"{LM['embed_dim']} {LM['num_heads']} heads vocab {LM['vocab_size']} bf16 fused SGD "
-        f"lr 0.001: losses {['%.5f' % x for x in lm_run['losses']]}  "
-        f"{lm_run['samples_per_s']:.2f} samples/s  {lm_run['tokens_per_s']:.0f} tokens/s  "
-        f"{lm_run['ms_per_step']:.2f} ms/step  {lm_run['metrics']}")
-    MEASURED["transformer"]["peak_gib"] = peak / 2**30
-    log(f"[main] transformer max_memory_allocated {peak / 2**30:.2f} GiB; launches "
-        f"{lm_launches}; card {smi}")
-    profile_steps(lm, "transformer SGD", lm_run["ms_per_step"], per_step=LM_SGD_STEP)
-    del lm
-    torch.cuda.empty_cache()
+        reset_launches(kernels)
+        free_models()
+        torch.cuda.reset_peak_memory_stats()
+        lm, lm_run = train_transformer(ft, build_transformer, synthetic_lm_batch, kernels)
+        lm_launches = read_launches(kernels)
+        per_layer = 2 * LM["num_layers"]  # the eager first step and the capture
+        # predict_batch's forward adds one flash_fwd launch per layer
+        check(lm_launches == {"fused_sgd_update": 2, "fused_adam_update": 0,
+                              "flash_fwd": per_layer + LM["num_layers"],
+                              "flash_bwd_dkdv": per_layer, "flash_bwd_dq": per_layer},
+              f"transformer launch counts {lm_launches}")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[main] transformer batch {LM['batch']} S {LM['seq_length']} {LM['num_layers']}x"
+            f"{LM['embed_dim']} {LM['num_heads']} heads vocab {LM['vocab_size']} bf16 fused "
+            f"SGD lr 0.001: losses {['%.5f' % x for x in lm_run['losses']]}  "
+            f"{lm_run['samples_per_s']:.2f} samples/s  {lm_run['tokens_per_s']:.0f} tokens/s  "
+            f"{lm_run['ms_per_step']:.2f} ms/step  {lm_run['metrics']}")
+        MEASURED["transformer"]["peak_gib"] = peak / 2**30
+        log(f"[main] transformer max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+            f"{lm_launches}; card {smi}")
+        profile_steps(lm, "transformer SGD", lm_run["ms_per_step"], per_step=LM_SGD_STEP)
+        del lm
+        torch.cuda.empty_cache()
+        ran["AlexNet"] = alex_launches
+        ran["transformer"] = lm_launches
 
     # phase 5 ------------------------------------------------------------
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    for label, make_opt in (("SGD", sgd_optimizer(ft)), ("Adam", adam_optimizer(ft))):
-        worst = parity(ft, build_alexnet, make_opt)
-        log(f"[parity] f32 AlexNet batch 8, 2 {label} steps, fused kernels vs plain "
-            f"update: max |dw| {worst:.3e} (tolerance rtol 1e-6, atol 1e-7; cuDNN "
-            "deterministic, TF32 off)")
-    worst = lm_parity(ft, build_transformer, synthetic_lm_batch, fa, kernels)
-    log(f"[parity] f32 transformer batch 2 S 128 2x128 2 heads, 2 SGD steps, flash "
-        f"kernels vs plain versions: max |dw| {worst:.3e} (tolerance rtol 1e-4, atol 1e-5; "
-        "TF32 off)")
+    if 5 in phases:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for label, make_opt in (("SGD", sgd_optimizer(ft)), ("Adam", adam_optimizer(ft))):
+            worst = parity(ft, build_alexnet, make_opt)
+            log(f"[parity] f32 AlexNet batch 8, 2 {label} steps, fused kernels vs plain "
+                f"update: max |dw| {worst:.3e} (tolerance rtol 1e-6, atol 1e-7; cuDNN "
+                "deterministic, TF32 off)")
+        worst = lm_parity(ft, build_transformer, synthetic_lm_batch, fa, kernels)
+        log(f"[parity] f32 transformer batch 2 S 128 2x128 2 heads, 2 SGD steps, flash "
+            f"kernels vs plain versions: max |dw| {worst:.3e} (tolerance rtol 1e-4, atol "
+            "1e-5; TF32 off)")
 
     # phase 6 ------------------------------------------------------------
-    soap_launches = soap_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch,
-                               kernels, smi)
+    if 6 in phases:
+        ran["SOAP"] = soap_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch,
+                                 kernels, smi)
 
     # phase 7 ------------------------------------------------------------
-    compiled_step_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, smi)
+    if 7 in phases:
+        compiled_step_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, smi)
 
     # phase 8 ------------------------------------------------------------
     with contextlib.ExitStack() as stack:
         out_dir = calibration_out or stack.enter_context(tempfile.TemporaryDirectory())
-        search_launches = search_phase(ft, build_alexnet, kernels, smi, out_dir)
+        if 8 in phases:
+            ran["search"] = search_phase(ft, build_alexnet, kernels, smi, out_dir)
 
         # phase 9 ----------------------------------------------------------
-        zoo_launches = models_phase(ft, fo, fa, kernels, smi, out_dir)
+        if 9 in phases:
+            ran["models"] = models_phase(ft, fo, fa, kernels, smi, out_dir)
 
     # phase 10 -----------------------------------------------------------
-    serve_launches, wants = serving_phase(ft, kernels, smi)
+    wants = None
+    if 10 in phases:
+        ran["serving"], wants = serving_phase(ft, kernels, smi)
 
     # phase 11 -----------------------------------------------------------
-    obs_launches = observability_phase(ft, build_alexnet, build_transformer,
-                                       synthetic_lm_batch, kernels, smi)
+    if 11 in phases:
+        ran["observability"] = observability_phase(ft, build_alexnet, build_transformer,
+                                                    synthetic_lm_batch, kernels, smi)
 
     # phase 12 -----------------------------------------------------------
-    pool_launches = pool_phase(ft, kernels, smi, known=wants)
+    if 12 in phases:
+        ran["pool"] = pool_phase(ft, kernels, smi, known=wants)
 
     # phase 13 -----------------------------------------------------------
-    seq_launches, _, _ = sequence_phase(ft, fa, kernels, smi)
+    if 13 in phases:
+        ran["sequence"], _, _ = sequence_phase(ft, fa, kernels, smi)
 
     # phase 14 -----------------------------------------------------------
-    elastic_launches = elastic_phase(ft, build_alexnet, kernels, smi)
+    if 14 in phases:
+        ran["elastic"] = elastic_phase(ft, build_alexnet, kernels, smi)
 
     # phase 15 -----------------------------------------------------------
-    pipe_launches = pipeline_phase(ft, kernels, smi)
+    if 15 in phases:
+        ran["pipelines and host tables"] = pipeline_phase(ft, kernels, smi)
 
     # phase 16 -----------------------------------------------------------
-    soap2_launches = soap_space_phase(ft, fo, kernels, smi, leaf_sets["AlexNet"])
+    if 16 in phases:
+        ran["SOAP space"] = soap_space_phase(ft, fo, kernels, smi, leaf_sets["AlexNet"])
+
+    # phase 17 -----------------------------------------------------------
+    if 17 in phases:
+        ran["mesh decode"] = mesh_decode_phase(ft, kernels, smi)
 
     # result -------------------------------------------------------------
-    main_launches = {n: alex_launches[n] + lm_launches[n] + soap_launches[n]
-                     + search_launches[n] + zoo_launches[n] + serve_launches[n]
-                     + obs_launches[n] + pool_launches[n] + seq_launches[n]
-                     + elastic_launches[n] + pipe_launches[n] + soap2_launches[n]
-                     for n in kernels}
-    table = []
-    for kname, source, replaces in (
-            ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
-            ("fused_adam_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:110"),
-            ("flash_fwd", FLASH_SOURCE, "flexflow_tpu/kernels/flash_attention.py:53"),
-            ("flash_bwd_dkdv", FLASH_SOURCE, "flexflow_tpu/kernels/flash_attention.py:145"),
-            ("flash_bwd_dq", FLASH_SOURCE, "flexflow_tpu/kernels/flash_attention.py:195")):
-        r = flash_rows.get(kname) or dict(
-            rows["fused_sgd_update mu=0.9" if kname == "fused_sgd_update" else kname],
-            bound_by="bytes")
-        table.append({"name": kname, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": main_launches[kname],
-                      "max_abs_err": max_err[kname], "ms": r["ms"],
-                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    main_launches = {n: sum(r[n] for r in ran.values()) for n in kernels}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; launches on the main paths: "
-        f"AlexNet {alex_launches}, transformer {lm_launches}, SOAP {soap_launches}, "
-        f"search {search_launches}, models {zoo_launches}, serving {serve_launches}, "
-        f"observability {obs_launches}, pool {pool_launches}, sequence {seq_launches}, "
-        f"elastic {elastic_launches}, pipelines and host tables {pipe_launches}, "
-        f"SOAP space {soap2_launches}")
+        + ", ".join(f"{label} {r}" for label, r in ran.items()))
     log(smi)
-    log(json.dumps({"kernels": table}))
+    if 3 in phases:
+        table = []
+        for kname, source, replaces in (
+                ("fused_sgd_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:63"),
+                ("fused_adam_update", SOURCE, "flexflow_tpu/kernels/fused_optimizer.py:110"),
+                ("flash_fwd", FLASH_SOURCE, "flexflow_tpu/kernels/flash_attention.py:53"),
+                ("flash_bwd_dkdv", FLASH_SOURCE,
+                 "flexflow_tpu/kernels/flash_attention.py:145"),
+                ("flash_bwd_dq", FLASH_SOURCE, "flexflow_tpu/kernels/flash_attention.py:195")):
+            r = flash_rows.get(kname) or dict(
+                rows["fused_sgd_update mu=0.9" if kname == "fused_sgd_update" else kname],
+                bound_by="bytes")
+            table.append({"name": kname, "route": "cuda", "source": source,
+                          "replaces": replaces, "launches": main_launches[kname],
+                          "max_abs_err": max_err[kname], "ms": r["ms"],
+                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                          "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        log(json.dumps({"kernels": table}))
+    else:
+        log("[done] phase 3 was not selected: no kernels line")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

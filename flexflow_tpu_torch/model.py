@@ -68,8 +68,19 @@ Decoding (``generate``, ``beam_search``, ``decode_step``; model.py:2271-2745
 of the JAX package) walks the ops' ``decode`` one token at a time over
 static caches; on a CUDA device each decode signature is one captured
 CUDA graph replayed per token (runtime/decode_graph.py).  The serving
-engine (serving/engine.py) composes the same entry points.  Decoding on a
-mesh is not ported yet (ROADMAP A11).
+engine (serving/engine.py) composes the same entry points.  On a mesh
+every rank runs the same decode step at the same moment (the JAX
+package's single controller, here a process group in lockstep), eagerly:
+each op's ``decode_sharded`` computes under its training placements with
+the sample and sequence dims folded to ``Replicate`` (B need not divide a
+degree), so heads, columns, the LSTM's hidden parts and experts stay
+split and each cache holds this rank's part; the probabilities are made
+whole before the sampler, which every rank runs alike (the same seeded
+generator), so every rank ends with the same tokens.  Weights no rank
+holds whole for decoding are gathered once per parameter version: a
+pipelined model's stage weights (its ops then run in order, never through
+the GPipe ring) and host tables (``HostTables.decode_tables``), as the
+JAX package's ``_decode_params`` does.
 """
 
 from __future__ import annotations
@@ -205,6 +216,11 @@ class FFModel:
         self._guard: Optional[resilience.NonFiniteGuard] = None
         self._step_graph: Optional[StepGraph] = None
         self._gen_cache: Dict[tuple, Any] = {}  # decode signature -> its run
+        # bumped by whatever writes the parameters (a step, set_parameter,
+        # a load, init_layers): on a mesh the decode tree's gathered weights
+        # are made once per version (_decode_params)
+        self._param_version = 0
+        self._decode_tree: Optional[tuple] = None  # (key, tree) on a mesh
         # telemetry handles (observability/), resolved once at compile():
         # None unless FF_TELEMETRY / FFConfig.telemetry is on, and every
         # site tests only its handle
@@ -1000,6 +1016,7 @@ class FFModel:
         self._stats = {op.name: st for op in self.ops if (st := op.init_stats(self.device))}
         self._opt_state = (self.optimizer.init_state(params)
                            if self.optimizer is not None else None)
+        self._param_version += 1
         self._zero_shard_state()
         self._host.make_tables(value)
 
@@ -1117,6 +1134,7 @@ class FFModel:
         """Overwrite a weight or its state ``slot`` with the whole
         ``value``, in place (each rank keeps its part)."""
         self._host.join()
+        self._param_version += 1
         if self._host.is_sparse(opn, wn):
             self._host.write(opn, wn, value, slot)
             return
@@ -1592,6 +1610,7 @@ class FFModel:
         if host:  # and home again, behind an event
             self._host.scatter_back()
         self._step_count += 1
+        self._param_version += 1
         return kind
 
     def train_iteration(self) -> None:
@@ -1630,7 +1649,8 @@ class FFModel:
     # autoregressive decoding (model.py:2271-2745 of the JAX package): the
     # entry points generate()/beam_search() and the ones the serving engine
     # composes (serving/engine.py).  Each decode signature runs as one
-    # captured CUDA graph replayed per token (runtime/decode_graph.py).
+    # captured CUDA graph replayed per token (runtime/decode_graph.py); on
+    # a mesh every rank runs it eagerly in lockstep.
     # ------------------------------------------------------------------
     def _run_graph_decode(self, params, caches, batch, pos, ctx, pre_env=None, skip=(),
                           block_tables=None):
@@ -1646,19 +1666,24 @@ class FFModel:
                 raise ValueError(f"generate: graph input {t.name or t.guid!r} was not fed "
                                  "— pass it via extra_inputs")
             x = batch[key]
-            env[t.guid] = x.to(cdtype) if x.is_floating_point() else x
+            env[t.guid] = self.machine.replicate(x.to(cdtype) if x.is_floating_point() else x)
         new_caches = {}
+        m = self.machine
         for op in self.ops:
             if op.name in skip:
                 continue
             xs = [env[t.guid] for t in op.inputs]
             pvals = params.get(op.param_key, {})
+            c = caches.get(op.name)
             if block_tables is not None and hasattr(op, "decode_paged"):
                 # the paged serving path: the op's cache rows are pool blocks,
                 # addressed through the slots' block tables
-                ys, c = op.decode_paged(pvals, xs, caches.get(op.name), pos, block_tables, ctx)
+                ys, c = (op.decode_paged_sharded(m, pvals, xs, c, pos, block_tables, ctx)
+                         if self._sharded else
+                         op.decode_paged(pvals, xs, c, pos, block_tables, ctx))
             else:
-                ys, c = op.decode(pvals, xs, caches.get(op.name), pos, ctx)
+                ys, c = (op.decode_sharded(m, pvals, xs, c, pos, ctx) if self._sharded
+                         else op.decode(pvals, xs, c, pos, ctx))
             new_caches[op.name] = c
             for t, y in zip(op.outputs, ys):
                 env[t.guid] = y
@@ -1669,15 +1694,44 @@ class FFModel:
         captured decode step sees in-place updates, with each host table
         copied to the device once per table version (the ids a decode step
         reads are data-dependent, so no row gather can run ahead of them;
-        model.py:2311-2350 of the JAX package).  A pipelined model decodes
-        its ops in order; its stage weights are split over a ring only on a
-        mesh, and decoding on a mesh is not ported yet."""
+        model.py:2311-2350 of the JAX package).  On a mesh, weights that no
+        rank holds whole for an in-order walk are gathered once per
+        parameter version (``_decode_tree_sharded``); every rank calls this
+        at the same points, so the gathers meet."""
         if not self._compiled or self._params is None:
             raise RuntimeError("decoding needs compile() and init_layers() first")
+        if self._benched:
+            raise RuntimeError("decoding on a benched rank: this rank is outside the "
+                               "model's machine")
+        tree = self._params
         if self._sharded:
-            raise NotImplementedError("decoding on a mesh (a process group) is not ported "
-                                      "yet (ROADMAP A11)")
-        return self._host.decode_tables(self._params)
+            key = (id(self._params), self._param_version)
+            if self._decode_tree is None or self._decode_tree[0] != key:
+                self._decode_tree = (key, self._decode_tree_sharded())
+            tree = self._decode_tree[1]
+        return self._host.decode_tables(tree)
+
+    def _decode_tree_sharded(self):
+        """The mesh's decode tree: each weight as training holds it, but a
+        pipelined model's stage weights, unpacked whole from the pipe
+        buffer (one gather), and a ``PipelineMLP``'s stages, gathered whole,
+        so that the decode walks every op in order on every rank (the JAX
+        package's ``_unpack_tree`` and ``_dp_cache``, model.py:2323-2331)."""
+        m = self.machine
+        tree = {k: dict(v) for k, v in self._params.items()}
+        pack = self._pipe_pack()
+        with torch.no_grad():
+            if pack:
+                buf = tree.pop("_pipe")["buffer"].detach().full_tensor()
+                for pk, emap in pack["entries"].items():
+                    for wn, (r, off, shape, n) in emap.items():
+                        tree.setdefault(pk, {})[wn] = m.from_local(
+                            buf[r, off:off + n].reshape(shape), m.replicated())
+            for op in self.ops:
+                if isinstance(op, PipelineMLP) and op._pipe_degree() > 1 and op.name in tree:
+                    tree[op.name] = {wn: m.redistribute(w.detach(), m.replicated())
+                                     for wn, w in tree[op.name].items()}
+        return tree
 
     def resolve_decode_inputs(self, tokens_input: Optional[Tensor] = None,
                               positions_input: Optional[Tensor] = None):
@@ -1740,7 +1794,10 @@ class FFModel:
                                                  FwdCtx(stats_in=self._stats),
                                                  pre_env=pre_env, skip=skip,
                                                  block_tables=block_tables)
-        return env[self.final_tensor().guid][:, -1, :].float(), caches
+            probs = env[self.final_tensor().guid]
+            if isinstance(probs, DTensor):  # whole on every rank (a collective)
+                probs = probs.full_tensor()
+        return probs[:, -1, :].float(), caches
 
     def _check_position_table(self, pos_t, s_max: int) -> None:
         """Reject a request longer than the position table before any lookup
@@ -1773,11 +1830,16 @@ class FFModel:
         env = self._constant_env()
         for g in extra_guids:
             x = extra[f"in_{g}"]
-            env[g] = x.repeat_interleave(repeat, dim=0) if repeat > 1 else x
+            env[g] = self.machine.replicate(x.repeat_interleave(repeat, dim=0)
+                                            if repeat > 1 else x)
         with torch.no_grad():
             for op in static_ops:
-                ys = op.forward(params.get(op.param_key, {}),
-                                [env[t.guid] for t in op.inputs], FwdCtx(stats_in=self._stats))
+                pvals, xs = params.get(op.param_key, {}), [env[t.guid] for t in op.inputs]
+                ctx = FwdCtx(stats_in=self._stats)
+                # on a mesh: the forward with its rows whole (a stateless
+                # decode of the full sequence), replicated over the rows
+                ys = (op.decode_sharded(self.machine, pvals, xs, None, None, ctx)[0]
+                      if self._sharded else op.forward(pvals, xs, ctx))
                 for t, y in zip(op.outputs, ys):
                     env[t.guid] = y
         return env

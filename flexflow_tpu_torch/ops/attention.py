@@ -180,11 +180,23 @@ class MultiHeadAttention(Op):
         return [self._out(params, self._attend(params, *xs), ctx)]
 
     def forward_sharded(self, machine, params, xs, ctx: FwdCtx):
-        out_pl = self.compute_placements(machine)
+        return self._sharded_forward(machine, params, xs, ctx, self.compute_placements(machine),
+                                     self._degrees()[1] > 1 and machine.num_devices > 1)
+
+    def _local_weights(self, params, names, out_pl):
+        """The weights ``names`` the op has: their names and (DTensor,
+        placements) pairs under ``out_pl``."""
+        ws = [w for w in self.weights if w.name in names]
+        return [w.name for w in ws], [(params[w.name], self.weight_placements(w, out_pl))
+                                      for w in ws]
+
+    def _sharded_forward(self, machine, params, xs, ctx: FwdCtx, out_pl, seq_split: bool):
+        """The forward on local shards, its output placed ``out_pl``; with
+        ``seq_split`` a split sequence runs ring or Ulysses attention."""
         in_pl = self.input_placements(out_pl, 0)
         kv_pl, attention = in_pl, None
         degrees = self._degrees()
-        if degrees[1] > 1 and machine.num_devices > 1:
+        if seq_split:
             if self.inputs[0].dims[1] == self.inputs[1].dims[1]:
                 def attention(qh, kh, vh):
                     return sequence_parallel_attention(
@@ -192,20 +204,18 @@ class MultiHeadAttention(Op):
                         scale=1.0 / math.sqrt(self.head_dim), mode=self.seq_parallel_mode)
             else:  # cross-attention: each part's q rows against the whole K/V
                 kv_pl = fold(in_pl, (1,))
-
-        def local_weights(names):
-            ws = [w for w in self.weights if w.name in names]
-            return [w.name for w in ws], [(params[w.name], self.weight_placements(w, out_pl))
-                                          for w in ws]
-
-        names, wargs = local_weights(("wq", "wk", "wv", "bq", "bk", "bv"))
+        names, wargs = self._local_weights(params, ("wq", "wk", "wv", "bq", "bk", "bv"), out_pl)
         heads = machine.local_call(
             lambda q, k, v, *ws: self._attend(dict(zip(names, ws)), q, k, v, attention),
             [(xs[0], in_pl), (xs[1], kv_pl), (xs[2], kv_pl)] + wargs, out_pl)
-        names_o, wargs_o = local_weights(("wo", "bo"))
-        return [machine.local_call(
+        return [self._sharded_out(machine, params, heads, ctx, out_pl)]
+
+    def _sharded_out(self, machine, params, heads, ctx: FwdCtx, out_pl):
+        """``wo`` over the gathered heads, column-parallel."""
+        names_o, wargs_o = self._local_weights(params, ("wo", "bo"), out_pl)
+        return machine.local_call(
             lambda o, *ws: self._out(dict(zip(names_o, ws)), o, ctx),
-            [(heads, in_pl)] + wargs_o, out_pl)]
+            [(heads, self.input_placements(out_pl, 0))] + wargs_o, out_pl)
 
     def flops_per_sample(self):
         _, sq, e = self.output.dims
@@ -249,8 +259,17 @@ class MultiHeadAttention(Op):
         return fwd
 
     # -- kv-cached decoding (the JAX package's ops/attention.py:161-275) -----
+    def _cache_heads(self) -> int:
+        """The heads whose k/v this rank caches: all of them, or on a mesh
+        this rank's part of the head split (``decode_placements``)."""
+        m = self.model
+        if not m._sharded:
+            return self.num_heads
+        _, sizes, _ = m.machine.split_of(self.decode_placements(m.machine), 2)
+        return self.num_heads // math.prod(sizes)
+
     def init_cache(self, batch_size: int, max_len: int, dtype):
-        shp = (batch_size, self.num_heads, max_len, self.head_dim)
+        shp = (batch_size, self._cache_heads(), max_len, self.head_dim)
         dev = self.model.device
         return {"k": torch.zeros(shp, dtype=dtype, device=dev),
                 "v": torch.zeros(shp, dtype=dtype, device=dev)}
@@ -262,8 +281,9 @@ class MultiHeadAttention(Op):
         return self.init_cache(num_blocks, block_size, dtype)
 
     def _decode_heads(self, params, xs, what: str):
-        """This step's q, k, v as (B, H, 1, D); refuses what has no cache
-        semantics (a non-causal single-token self-attention)."""
+        """This step's q, k, v as (B, h, 1, D) for the heads whose columns
+        ``params`` holds; refuses what has no cache semantics (a non-causal
+        single-token self-attention)."""
         q_in, k_in, v_in = xs
         if not self.causal:
             raise ValueError(f"{what}: op {self.name!r} is non-causal single-token "
@@ -271,18 +291,18 @@ class MultiHeadAttention(Op):
         b = q_in.shape[0]
 
         def split(t):
-            return t.reshape(b, 1, self.num_heads, self.head_dim).transpose(1, 2)
+            return t.reshape(b, 1, -1, self.head_dim).transpose(1, 2)
 
         return (split(self._proj(params, q_in, "wq", "bq")),
                 split(self._proj(params, k_in, "wk", "bk")),
                 split(self._proj(params, v_in, "wv", "bv")))
 
-    def _attend_cached(self, params, qh, keys, values, pos_v, dtype):
-        """q over a (B, H, L, D) cache in f32, positions past each row's
-        ``pos`` masked with -1e30 (their softmax weights are exactly 0), then
-        the output projection.  ``keys``/``values`` are made contiguous, so
-        a window of the dense cache and a gathered paged window of the same
-        length run the same products."""
+    def _attend_cached(self, qh, keys, values, pos_v, dtype):
+        """q over a (B, h, L, D) cache in f32, positions past each row's
+        ``pos`` masked with -1e30 (their softmax weights are exactly 0): the
+        heads' output (B, 1, h * D), before ``wo``.  ``keys``/``values`` are
+        made contiguous, so a window of the dense cache and a gathered
+        paged window of the same length run the same products."""
         b, _, L, _ = keys.shape
         scale = 1.0 / math.sqrt(self.head_dim)
         scores = torch.matmul(qh.float(), keys.contiguous().float().transpose(-1, -2)) * scale
@@ -290,8 +310,40 @@ class MultiHeadAttention(Op):
             <= pos_v[:, None, None, None]
         probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
         out = torch.matmul(probs, values.contiguous().float()).to(dtype)
-        out = out.transpose(1, 2).reshape(b, 1, self.embed_dim)
-        return [self._proj(params, out, "wo", "bo")]
+        return out.transpose(1, 2).reshape(b, 1, -1)
+
+    def _cached_heads(self, params, xs, cache, pos, tables):
+        """One token's heads over the cache: this step's k/v written at
+        ``pos`` (a 0-dim tensor, or one position per row) into the dense
+        cache, or with block ``tables`` (B, W) into block ``tables[row, pos
+        // block_size]`` of the pool, whose W blocks are then gathered per
+        row in table (= position) order; later positions masked."""
+        qh, kh, vh = self._decode_heads(params, xs, "generate" if tables is None
+                                        else "decode_paged")
+        q_in = xs[0]
+        b = q_in.shape[0]
+        pos_v = pos.expand(b) if pos.dim() == 0 else pos
+        rows = torch.arange(b, device=q_in.device)
+        if tables is None:
+            # index_put_ at device positions: nothing is read back to the host
+            cache["k"][rows, :, pos_v, :] = kh[:, :, 0, :].to(cache["k"].dtype)
+            cache["v"][rows, :, pos_v, :] = vh[:, :, 0, :].to(cache["v"].dtype)
+            return self._attend_cached(qh, cache["k"], cache["v"], pos_v, q_in.dtype)
+        _, h, bs, d = cache["k"].shape
+        w = tables.shape[1]
+        bidx, roff = tables[rows, pos_v // bs], pos_v % bs
+        cache["k"][bidx, :, roff, :] = kh[:, :, 0, :].to(cache["k"].dtype)
+        cache["v"][bidx, :, roff, :] = vh[:, :, 0, :].to(cache["v"].dtype)
+
+        def window(pool):  # (B, W, h, bs, D) -> (B, h, W * bs, D)
+            return pool[tables].transpose(1, 2).reshape(b, h, w * bs, d)
+
+        return self._attend_cached(qh, window(cache["k"]), window(cache["v"]), pos_v,
+                                   q_in.dtype)
+
+    @staticmethod
+    def _single_token(xs) -> bool:
+        return xs[0].shape[1] == 1 and xs[1].shape[1] == 1
 
     def decode(self, params, xs, cache, pos, ctx: FwdCtx):
         """kv-cached single-token attention: write this step's k/v at
@@ -299,43 +351,45 @@ class MultiHeadAttention(Op):
         the whole static cache with later positions masked.  A full-sequence
         input (an encoder re-run, or cross-attention over full k/v) is
         stateless and runs ``forward``."""
-        q_in, k_in, _ = xs
-        if q_in.shape[1] != 1 or k_in.shape[1] != 1:
+        if not self._single_token(xs):
             return self.forward(params, xs, ctx), cache
-        qh, kh, vh = self._decode_heads(params, xs, "generate")
-        b = q_in.shape[0]
-        pos_v = pos.expand(b) if pos.dim() == 0 else pos
-        rows = torch.arange(b, device=q_in.device)
-        # index_put_ at device positions: nothing is read back to the host
-        cache["k"][rows, :, pos_v, :] = kh[:, :, 0, :].to(cache["k"].dtype)
-        cache["v"][rows, :, pos_v, :] = vh[:, :, 0, :].to(cache["v"].dtype)
-        return self._attend_cached(params, qh, cache["k"], cache["v"], pos_v,
-                                   q_in.dtype), cache
+        heads = self._cached_heads(params, xs, cache, pos, None)
+        return [self._proj(params, heads, "wo", "bo")], cache
 
     def decode_paged(self, params, xs, cache, pos, tables, ctx: FwdCtx):
-        """Single-token attention over a paged cache: write this step's k/v
-        into block ``tables[row, pos // block_size]``, gather the W blocks
-        of each row's table in table (= position) order and attend over
-        W * block_size positions, masked as the dense path.
+        """Single-token attention over a paged cache (``_cached_heads``).
 
         ``tables``: (B, W) int64 block ids; ``pos``: (B,) or 0-dim."""
-        q_in, k_in, _ = xs
-        if q_in.shape[1] != 1 or k_in.shape[1] != 1:
+        if not self._single_token(xs):
             raise ValueError(f"decode_paged: op {self.name!r} got a full-sequence input; "
                              "paged decode is single-token only")
-        qh, kh, vh = self._decode_heads(params, xs, "decode_paged")
-        b = q_in.shape[0]
-        bs = cache["k"].shape[2]
-        w = tables.shape[1]
-        pos_v = pos.expand(b) if pos.dim() == 0 else pos
-        rows = torch.arange(b, device=q_in.device)
-        bidx, roff = tables[rows, pos_v // bs], pos_v % bs
-        cache["k"][bidx, :, roff, :] = kh[:, :, 0, :].to(cache["k"].dtype)
-        cache["v"][bidx, :, roff, :] = vh[:, :, 0, :].to(cache["v"].dtype)
-        h, d = self.num_heads, self.head_dim
+        heads = self._cached_heads(params, xs, cache, pos, tables)
+        return [self._proj(params, heads, "wo", "bo")], cache
 
-        def window(pool):  # (B, W, H, bs, D) -> (B, H, W * bs, D)
-            return pool[tables].transpose(1, 2).reshape(b, h, w * bs, d)
+    def decode_sharded(self, machine, params, xs, cache, pos, ctx: FwdCtx):
+        """``decode`` on a mesh: this rank's heads, their k/v in its cache
+        (B, h, S, D), then ``wo`` over the gathered heads as the training
+        forward runs it.  A sequence split folds away (a one-token step
+        attends the whole cache); a full-sequence input (cross-attention
+        over a static encoder output) runs the forward with its rows whole."""
+        return self._decode_sharded(machine, params, xs, cache, pos, None, ctx)
 
-        return self._attend_cached(params, qh, window(cache["k"]), window(cache["v"]),
-                                   pos_v, q_in.dtype), cache
+    def decode_paged_sharded(self, machine, params, xs, cache, pos, tables, ctx: FwdCtx):
+        """``decode_paged`` on a mesh: the pool (N, h, block, D) holds this
+        rank's heads."""
+        if not self._single_token(xs):
+            raise ValueError(f"decode_paged: op {self.name!r} got a full-sequence input; "
+                             "paged decode is single-token only")
+        return self._decode_sharded(machine, params, xs, cache, pos, tables, ctx)
+
+    def _decode_sharded(self, machine, params, xs, cache, pos, tables, ctx: FwdCtx):
+        out_pl = self.decode_placements(machine)
+        if not self._single_token(xs):
+            return self._sharded_forward(machine, params, xs, ctx, out_pl, False), cache
+        in_pl = self.input_placements(out_pl, 0)
+        names, wargs = self._local_weights(params, ("wq", "wk", "wv", "bq", "bk", "bv"), out_pl)
+        heads = machine.local_call(
+            lambda q, k, v, *ws: self._cached_heads(dict(zip(names, ws)), [q, k, v], cache,
+                                                    pos, tables),
+            [(xs[0], in_pl), (xs[1], in_pl), (xs[2], in_pl)] + wargs, out_pl)
+        return [self._sharded_out(machine, params, heads, ctx, out_pl)], cache

@@ -13,7 +13,10 @@ need the mesh returns its own per-part function from ``local_forward``
 and an op may store a weight in another layout than the logical one
 (``stored``: the LSTM's gate-blocked columns), which the model's state
 paths convert at their edges.  ``legalize_pc`` clamps a config to one the
-op can execute.
+op can execute.  A decode step on a mesh (``decode_sharded``,
+``decode_paged_sharded``) computes under ``decode_placements``: the
+training placements with the sample and sequence dims folded to
+``Replicate``, each weight as the training forward holds it.
 
 The simulator (``simulator/``) reads an op through its tiling hooks, as
 the JAX package's does: ``output_tile``, ``input_ranges`` and
@@ -249,17 +252,53 @@ class Op:
         """``forward`` on the local shards of DTensor inputs and weights;
         each output is a DTensor placed by ``compute_placements``."""
         out_pls = [self.compute_placements(machine, i) for i in range(len(self.outputs))]
+        fwd = self.local_forward(machine, out_pls[0])
+        return self._on_shards(machine, params, xs, out_pls, out_pls[0],
+                               lambda p, ls: fwd(p, ls, ctx))
+
+    def _on_shards(self, machine, params, xs, out_pls, weight_out_pl, fn) -> List:
+        """``fn(params, xs)`` on this rank's shards: input ``i`` placed as
+        ``input_placements(out_pls[0], i)``, each weight as
+        ``weight_placements(w, weight_out_pl)``; the outputs come back as
+        DTensors placed ``out_pls``."""
         weights = self.param_weights
         names = [w.name for w in weights]
         args = [(x, self.input_placements(out_pls[0], i)) for i, x in enumerate(xs)]
-        args += [(params[w.name], self.weight_placements(w, out_pls[0])) for w in weights]
+        args += [(params[w.name], self.weight_placements(w, weight_out_pl)) for w in weights]
         n = len(xs)
-        fwd = self.local_forward(machine, out_pls[0])
 
         def local(*ls):
-            return fwd(dict(zip(names, ls[n:])), list(ls[:n]), ctx)
+            return fn(dict(zip(names, ls[n:])), list(ls[:n]))
 
         return machine.local_call(local, args, out_pls)
+
+    # -- decoding on a mesh (FFModel._run_graph_decode when sharded) --------
+    def decode_placements(self, machine, output_idx: int = 0) -> tuple:
+        """The placements a decode step computes output ``output_idx``
+        under: the training ones (``compute_placements``) with the sample
+        dim and, on a rank-3 or higher output, the sequence dim folded to
+        ``Replicate``.  A step carries one token of B rows, and B need not
+        divide a degree; heads, columns, hidden parts and experts stay
+        split."""
+        nd = self.outputs[output_idx].num_dims
+        return fold(self.compute_placements(machine, output_idx), (0, 1) if nd >= 3 else (0,))
+
+    def _decode_on_shards(self, machine, params, xs, fn) -> List:
+        """``fn(params, xs)`` on this rank's shards for a decode step: the
+        inputs whole over their rows, each weight as the training forward
+        holds it (no rank reads more of a weight than its training shard),
+        the outputs placed by ``decode_placements``."""
+        out_pls = [self.decode_placements(machine, i) for i in range(len(self.outputs))]
+        return self._on_shards(machine, params, xs, out_pls, self.compute_placements(machine),
+                               fn)
+
+    def decode_sharded(self, machine, params, xs, cache, pos, ctx: FwdCtx):
+        """``decode`` on a mesh: DTensor inputs and weights, DTensor outputs
+        under ``decode_placements``, the cache this rank's plain tensors.
+        Default, for a stateless op: its training forward on the local
+        shards (``local_forward``, with the collectives it needs)."""
+        fwd = self.local_forward(machine, self.decode_placements(machine))
+        return self._decode_on_shards(machine, params, xs, lambda p, ls: fwd(p, ls, ctx)), cache
 
     # -- tiling hooks (the simulator's comm model; the reference's
     # get_output_tensor_shape / get_input_tensor_shape, model.cc:333-380) --

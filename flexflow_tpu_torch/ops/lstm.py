@@ -31,6 +31,7 @@ token at a time, as the JAX package's (ops/lstm.py:126-160 there).
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch
@@ -209,8 +210,17 @@ class LSTM(Op):
         y = torch.cat([torch.stack(v, dim=1) for v in ys], 2).to(dt)
         return [y, torch.cat([v[-1] for v in ys], 1).to(dt), torch.cat(cs, 1).to(dt)]
 
+    def _cache_hidden(self) -> int:
+        """The hidden units whose (h, c) this rank caches: all of them, or
+        on a mesh this rank's part of the hidden split."""
+        m = self.model
+        if not m._sharded:
+            return self.hidden_size
+        _, sizes, _ = m.machine.split_of(self.decode_placements(m.machine), 2)
+        return self.hidden_size // math.prod(sizes)
+
     def init_cache(self, batch_size: int, max_len: int, dtype):
-        h = self.hidden_size
+        h = self._cache_hidden()
         dev = self.model.device
         return {"h": torch.zeros(batch_size, h, device=dev),
                 "c": torch.zeros(batch_size, h, device=dev)}
@@ -223,21 +233,63 @@ class LSTM(Op):
         x = xs[0]
         if x.shape[1] != 1:
             return self.forward(params, xs, ctx), cache
+        h_prev = cache["h"]
+        if self.has_state_inputs:
+            h_prev = torch.where(self._at0(pos), xs[1].float(), h_prev)
+        return self._decode_part(params, xs, cache, pos, h_prev, slice(None)), cache
+
+    @staticmethod
+    def _at0(pos):
+        return (pos == 0)[:, None] if pos.dim() else pos == 0
+
+    def _decode_part(self, params, xs, cache, pos, h_prev, cols: slice):
+        """The step of the hidden units ``cols`` (weights in their
+        gate-blocked layout) from the whole h (B, H): their new (h, c) into
+        the cache, returned as [y, h_T, c_T] of those units."""
+        x = xs[0]
         dt = x.dtype
         w_ih = params["w_ih"].to(dt)
-        w_hh = params["w_hh"].to(dt)
         h = w_ih.shape[1] // 4
-        h0, c0 = cache["h"], cache["c"]
+        c0 = cache["c"]
         if self.has_state_inputs:
-            at0 = (pos == 0)[:, None] if pos.dim() else pos == 0
-            h0 = torch.where(at0, xs[1].float(), h0)
-            c0 = torch.where(at0, xs[2].float(), c0)
+            c0 = torch.where(self._at0(pos), xs[2].float()[:, cols], c0)
         z = torch.matmul(x[:, 0, :], w_ih).float() + params["bias"].float()
-        z = z + torch.matmul(h0.to(dt), w_hh).float()
+        z = z + torch.matmul(h_prev.to(dt), params["w_hh"].to(dt)).float()
         h_new, c_new = self._gates(z, c0, h)
         cache["h"].copy_(h_new)
         cache["c"].copy_(c_new)
-        return [h_new[:, None, :].to(dt), h_new.to(dt), c_new.to(dt)], cache
+        return [h_new[:, None, :].to(dt), h_new.to(dt), c_new.to(dt)]
+
+    def decode_sharded(self, machine, params, xs, cache, pos, ctx: FwdCtx):
+        """``decode`` on a mesh: under a hidden split of degree k this rank
+        caches its (B, H/k) part of (h, c), all-gathers h once a token (as
+        the training forward does a step) and computes its units from its
+        gate-blocked columns; a full-sequence input runs the forward with
+        its rows whole."""
+        out_pl = self.decode_placements(machine)
+        if xs[0].shape[1] != 1:
+            fwd = self.local_forward(machine, out_pl)
+            return self._decode_on_shards(machine, params, xs,
+                                          lambda p, ls: fwd(p, ls, ctx)), cache
+        k = self._hidden_degree(self.pc)
+        owner_k = self._hidden_degree(self.share_from.pc) if self.share_from else k
+        names, _, part = machine.split_of(out_pl, 2)
+        group = machine.group(names) if k > 1 else None
+        hp = self.hidden_size // k
+
+        def step(p, ls):
+            if owner_k != k:  # the owner's whole gated weights, to this op's part
+                p = dict(p)
+                for n in GATED:
+                    p[n] = self._part_columns(self.share_from.stored(n, p[n], inverse=True),
+                                              k, part)
+            h_prev = cache["h"] if group is None else all_gather_dim(cache["h"], 1, group)
+            if self.has_state_inputs:
+                h_prev = torch.where(self._at0(pos), ls[1].float(), h_prev)
+            return self._decode_part(p, ls, cache, pos, h_prev,
+                                     slice(part * hp, (part + 1) * hp))
+
+        return self._decode_on_shards(machine, params, xs, step), cache
 
     def flops_per_sample(self):
         _, t, e = self.inputs[0].dims

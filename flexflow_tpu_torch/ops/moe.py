@@ -198,21 +198,49 @@ class ExpertMLP(Op):
         routes only B tokens, and a cut would silently zero some).  Every
         expert is computed for every token and the one-hot gate picks one;
         equal to ``forward`` wherever its capacity drops nothing."""
-        x = xs[0]
+        return [self._decode(params, xs[0], None)], cache
+
+    def _decode(self, params, x: torch.Tensor, experts: Optional[slice]) -> torch.Tensor:
+        """The dropless layer on ``x``; with ``experts``, the weights are
+        those experts' alone and the result is their summand of it."""
         shape = x.shape
         dt = x.dtype
         xf = x.reshape(-1, shape[-1])
-        e = params["w_in"].shape[0]
+        e = params["router"].shape[1]
         gates = torch.softmax(torch.matmul(xf.float(), params["router"].float()), dim=-1)
         gate = gates.amax(dim=-1)
         onehot = (torch.argmax(gates, dim=-1)[:, None]
                   == torch.arange(e, device=x.device)).float()  # (S, E); ties: first
+        if experts is not None:
+            onehot = onehot[:, experts]
         h = torch.einsum("sd,edh->seh", xf, params["w_in"].to(dt))
         h = apply_activation(h + params["b_in"].to(h.dtype)[None, :, :], self.activation)
         y_e = torch.einsum("seh,ehd->sed", h, params["w_out"].to(dt))
         y_e = y_e + params["b_out"].to(y_e.dtype)[None, :, :]
         y = torch.einsum("se,sed->sd", onehot * gate[:, None], y_e.float()).to(dt)
-        return [y.reshape(shape)], cache
+        return y.reshape(shape)
+
+    def decode_sharded(self, machine, params, xs, cache, pos, ctx: FwdCtx):
+        """``decode`` on a mesh: every rank routes the whole step's tokens
+        (the router replicated, so the choice and its tie-break are the
+        unsplit op's), runs its E/ep experts, and the output is their
+        summand, a ``Partial`` on the ep mesh dims summed where it is read
+        (the training forward's combine)."""
+        full_pl = machine.spec_for_config(self.pc, self.output.num_dims)
+        ep_names, ep_sizes, ep_idx = machine.split_of(full_pl, 1)
+        ep = math.prod(ep_sizes)
+        out_pl = tuple(Partial() if n in ep_names else p
+                       for n, p in zip(machine.axis_names, self.decode_placements(machine)))
+        per = self.num_experts // ep
+        experts = slice(ep_idx * per, (ep_idx + 1) * per) if ep > 1 else None
+        names = [w.name for w in self.weights]
+        args = [(xs[0], self.input_placements(self.decode_placements(machine), 0))]
+        args += [(params[w.name], self.weight_placements(w, full_pl)) for w in self.weights]
+
+        def local(x, *ws):
+            return self._decode(dict(zip(names, ws)), x, experts)
+
+        return [machine.local_call(local, args, out_pl)], cache
 
     def flops_per_sample(self):
         dims = self.output.dims

@@ -21,6 +21,11 @@ What GSPMD and ``shard_map`` give the JAX package for free (``ppermute``,
   ``batch_isend_irecv``; its backward sends each received row's gradient
   back to its owner and adds it into the owner's rows.
 
+``broadcast_plan`` is no autograd function: it hands a host-side plan (a
+fixed-layout int64 CPU tensor) from a leader rank to the others over a
+gloo group, waiting a bounded time (the serving engine's lockstep on a
+mesh, serving/engine.py).
+
 The tensors are this rank's plain tensors (a DTensor's local shard), on
 the group's device: gloo groups take CPU tensors, NCCL groups CUDA ones.
 ``all_gather_dim`` and ``halo_exchange`` also take ``group=None`` with a
@@ -31,6 +36,7 @@ exchange is slicing and concatenation, and autograd carries the backward.
 
 from __future__ import annotations
 
+import datetime
 from typing import List, Sequence, Tuple
 
 import torch
@@ -262,3 +268,13 @@ def gather_rows_(w: torch.Tensor, lo: int, hi: int, groups) -> None:
         first = lo // block * block
         _all_gather_single(w[first:first + block], w[lo:hi].clone(), group=group)
         lo, hi = first, first + block
+
+
+def broadcast_plan(plan: torch.Tensor, src: int, group, timeout_s: float) -> None:
+    """``plan`` (an int64 CPU tensor of a layout every rank knows) from
+    global rank ``src`` to every rank of the gloo ``group``, in place: no
+    pickling and no device round trip.  Raises (``RuntimeError``) when it
+    has not completed within ``timeout_s`` seconds: a leader that stopped
+    sending, or a rank that left."""
+    work = dist.broadcast(plan, src, group=group, async_op=True)
+    work.wait(timeout=datetime.timedelta(seconds=timeout_s))

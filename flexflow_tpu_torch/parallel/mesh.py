@@ -39,7 +39,8 @@ collective over the process group); a rank outside it is ``benched``: it
 holds no coordinate and takes part in none of its collectives.  What the
 machine's ranks share goes through ``process_group`` (``barrier``), never
 through the whole process group, and its first rank ``leads`` (writes
-files for all).
+files for all, and plans the serving engine's steps for the others over
+the gloo ``plan_group``).
 """
 
 from __future__ import annotations
@@ -215,6 +216,7 @@ class Machine:
         # the group of this machine's ranks (None: every rank of the process
         # group, or no process group)
         self.process_group = process_group
+        self._plan_group = None  # gloo, over self.ranks (``plan_group``)
         if mesh is not None:
             self.axis_sizes: Tuple[int, ...] = tuple(mesh.shape)
             self.axis_names: Tuple[str, ...] = tuple(
@@ -227,6 +229,14 @@ class Machine:
             self.ranks: Tuple[int, ...] = tuple(mesh.mesh.flatten().tolist())
             coord = mesh.get_coordinate()
             self._coordinate = tuple(coord) if coord is not None else None
+            if process_group is not None:
+                # some of the ranks (``for_ranks``, which every rank of the
+                # process group calls): their plan group is made here, where
+                # the benched ranks pass too, and never later, when only
+                # this machine's ranks build an engine
+                import torch.distributed as dist
+
+                self._plan_group = dist.new_group(list(self.ranks), backend="gloo")
             if num_devices is not None and num_devices != mesh.size():
                 raise ValueError(f"num_devices {num_devices} differs from the mesh's "
                                  f"{mesh.size()} devices")
@@ -297,6 +307,20 @@ class Machine:
 
         if dist.is_initialized() and not self.benched:
             dist.barrier(group=self.process_group)
+
+    def plan_group(self):
+        """A gloo group over this machine's ranks, made once and kept: the
+        channel of host-side plans a leader broadcasts to its followers
+        (``collectives.broadcast_plan``), CPU tensors that need no device
+        round trip whatever the mesh's own backend.  A machine over some of
+        the process group's ranks made it when it was built; one over all
+        of them makes it on first use, a collective that every rank reaches
+        by building its engine."""
+        import torch.distributed as dist
+
+        if self._plan_group is None:
+            self._plan_group = dist.new_group(list(self.ranks), backend="gloo")
+        return self._plan_group
 
     @property
     def device(self) -> torch.device:
@@ -390,6 +414,13 @@ class Machine:
 
     def from_local(self, local: torch.Tensor, placements: Sequence) -> DTensor:
         return DTensor.from_local(local, self.mesh, tuple(placements), run_check=False)
+
+    def replicate(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, which every rank holds alike, as a replicated DTensor on a
+        mesh (``x`` itself off one, and a DTensor as it is)."""
+        if self.mesh is None or isinstance(x, DTensor):
+            return x
+        return self.from_local(x, self.replicated())
 
     def local_call(self, fn, args: Sequence[Tuple[DTensor, Sequence]], out_placements):
         """``fn`` on the local shards of ``args`` (each a DTensor and the

@@ -32,8 +32,13 @@ captured and replayed, then replays; a failed capture raises.  Captures
 are thread-local, so the serving engine can capture in its worker thread
 (or a replica pool restart in its monitor thread) while other threads use
 the card; each in a graph memory pool of its own, one at a time in the
-process (``capture_lock``).  On the CPU and under
-``disable_graphs()`` the same step runs eagerly over the same buffers.
+process (``capture_lock``).  On the CPU, under ``disable_graphs()`` and
+on a mesh the same step runs eagerly over the same buffers: a mesh step is
+DTensor ops and their collectives, run by every rank of the process group
+in lockstep, as the mesh training step runs (``FFModel._use_graph``).
+``GenerateRun`` and ``BeamRun`` are the same on every rank: each draws its
+noise from a generator seeded alike and reads the same whole
+probabilities, so every rank ends with the same tokens.
 """
 
 from __future__ import annotations
@@ -56,11 +61,17 @@ class DecodeGraph(StepGraph):
 
     capture_error_mode = "thread_local"
 
-    def __init__(self, device: torch.device, step: Callable[[], None]):
+    def __init__(self, device: torch.device, step: Callable[[], None],
+                 use_graph: Optional[Callable[[], bool]] = None):
         super().__init__(device)
         self.step = step
+        # whether a step is captured: the model's own rule
+        # (``FFModel._use_graph``: never on a mesh), else on any CUDA device
+        self.use_graph = use_graph
 
     def _use_graph(self) -> bool:
+        if self.use_graph is not None:
+            return self.use_graph()
         return self.device.type == "cuda" and graphs_enabled()
 
     def advance(self, n: int, before: Optional[Callable[[], None]] = None) -> None:
@@ -158,7 +169,7 @@ class GenerateRun(_Run):
             self.temp = torch.zeros((), device=dev)
             self.noise = torch.zeros(B, vocab, device=dev)
             self.gen = torch.Generator(device=dev)
-        self.graphs = [DecodeGraph(dev, self._step)]
+        self.graphs = [DecodeGraph(dev, self._step, model._use_graph)]
 
     def _step(self) -> None:
         with torch.no_grad():
@@ -222,8 +233,8 @@ class BeamRun(_Run):
         self.scores = torch.zeros(B, K, device=dev)
         self.last = torch.zeros(B * K, dtype=torch.long, device=dev)
         self.base = torch.arange(B, device=dev)[:, None] * K
-        self.prompt_graph = DecodeGraph(dev, self._prompt_step)
-        self.expand_graph = DecodeGraph(dev, self._expand_step)
+        self.prompt_graph = DecodeGraph(dev, self._prompt_step, model._use_graph)
+        self.expand_graph = DecodeGraph(dev, self._expand_step, model._use_graph)
         self.graphs = [self.prompt_graph, self.expand_graph]
 
     def _prompt_step(self) -> None:

@@ -426,15 +426,21 @@ class HostTables:
     def decode_tables(self, tree):
         """``tree`` with every host table on the device, copied once per
         table version (generated ids are data-dependent, so no row gather
-        can run ahead of them)."""
+        can run ahead of them).  On several ranks the table is assembled
+        from every rank's row range (``_full``, a collective) and replicated
+        over the mesh: every rank calls this at the same decode points and
+        bumps ``version`` at the same writes, so each gathers at the same
+        moments, once per version (the hazard the JAX package notes at its
+        model.py:2333-2337)."""
         self.join()
         if not self.sparse:
             return tree
         cached = self.dev_cache
         if cached is None or cached[0] is not tree or cached[1] != self.version:
+            m = self.model
             out = {k: dict(v) for k, v in tree.items()}
             for opn, info in self.sparse.items():
-                full = self._full(info, info["table"])
-                out.setdefault(opn, {})[info["weight"]] = full.to(self.model.device, copy=True)
+                full = self._full(info, info["table"]).to(m.device, copy=True)
+                out.setdefault(opn, {})[info["weight"]] = m.machine.replicate(full)
             self.dev_cache = (tree, self.version, out)
         return self.dev_cache[2]

@@ -26,7 +26,8 @@ Endpoints::
               ->   500 engine-side failure
   GET  /healthz -> liveness: 200 while serving or draining (per-replica
                    detail with a pool backend, the engine's stats with
-                   an engine), 503 once no replica can serve
+                   an engine), 503 once no replica can serve (an
+                   engine: once its loop died)
   GET  /readyz  -> readiness: 200 iff new submits would be accepted —
                    the load-balancer signal; 503 while draining or down
   GET  /metrics -> Prometheus text: the live registry's series (when
@@ -95,8 +96,11 @@ class _Handler(BaseHTTPRequestHandler):
                 code = 200 if payload["status"] in ("ok", "draining") else 503
             else:                                  # bare InferenceEngine
                 payload = backend.stats()
-                payload["status"] = "ok"
-                code = 200
+                crashed = getattr(backend, "crashed", None)
+                payload["status"] = "down" if crashed else "ok"
+                if crashed:
+                    payload["error"] = crashed
+                code = 503 if crashed else 200
             payload["uptime_s"] = uptime
             self._reply(code, payload)
         elif path == "/readyz":
@@ -173,6 +177,9 @@ class ServingAPI:
     """Owns the HTTP server; pair with a started ``InferenceEngine`` or
     ``ReplicaPool`` (both expose ``submit``/``stats``/``config``).
 
+    On a mesh it binds on the leader's engine only (a follower's raises);
+    ``/healthz`` carries the engine's stats, its ``world_size`` included.
+
     ``port=0`` binds an ephemeral port (tests); read ``api.port`` after
     ``start()``.  ``result_timeout_s`` bounds how long a handler thread
     waits on the engine before giving the client a 503 — it defaults to
@@ -183,6 +190,10 @@ class ServingAPI:
     def __init__(self, engine, host: Optional[str] = None,
                  port: Optional[int] = None,
                  result_timeout_s: float = 300.0, verbose: bool = False):
+        if not getattr(engine, "is_leader", True):
+            # on a mesh only the leader's engine takes requests
+            raise ValueError(f"ServingAPI over a follower engine: bind it on the mesh's "
+                             f"leader, rank {engine.leader_rank}")
         self.engine = engine
         self.host = engine.config.host if host is None else host
         self._want_port = engine.config.port if port is None else port

@@ -68,6 +68,29 @@ with a ``name``, a per-incarnation ``uid``, a ``zone`` and
 memory pool of its own) and KV pool.  An engine that a pool abandoned or
 whose loop died waits on its own stream, then drops its graphs and caches
 (``_release_device_state``), so a dead incarnation leaks no card memory.
+
+On a mesh (a model sharded over a process group, one rank a card) every
+rank builds an engine on its model, and the engines run in lockstep: the
+mesh's first rank is the LEADER, which owns the queue, admission, the
+slots, the KV block accounting, sampling and chaos; the others are
+FOLLOWERS.  Before each prefill and each token boundary the leader
+broadcasts the iteration's plan (a fixed-layout int64 CPU tensor over a
+gloo side group, ``Machine.plan_group``: the kind, the slot, the prompt
+or suffix tokens and the start position, the prefix chain to gather and
+the blocks to scatter into, or each slot's token and position and the
+block tables), and runs it; a follower's loop receives each plan and runs
+the same device step on its own heads' caches, so the collectives of the
+sharded decode meet.  An idle leader sends a heartbeat plan every quarter
+of ``FF_SERVE_REPLICA_TIMEOUT``.  When the leader stops it sends a stop
+plan, and when its loop dies an abort plan; a follower that gets neither
+a plan nor a heartbeat within the timeout raises, so no follower hangs
+or decodes alone.  A fault after a plan was sent ends the loop on
+whichever rank it struck (``LockstepBroken``), never only a request or
+the batch: a follower's fault leaves the leader's next plan unanswered,
+and the leader ends when that send times out.  A mesh step runs eagerly (no graph is captured);
+``submit`` on a follower raises, and ``start()``, ``warmup()`` and
+``stop()`` are called on every rank.  A shared queue (a replica pool
+over a slice of cards) is not ported yet (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -82,6 +105,7 @@ import numpy as np
 import torch
 
 from ..observability import memplane, reqtrace
+from ..parallel.collectives import broadcast_plan
 from ..runtime.decode_graph import DecodeGraph, cache_leaves
 from ..testing.chaos import ChaosReplicaKill
 from .config import ServeConfig
@@ -94,6 +118,23 @@ _engine_uids = itertools.count(1)
 # cancel reason an ABANDONED engine stamps on slots it still held at exit
 # (a replica pool re-dispatches such requests)
 ABANDON_HANDBACK = "engine abandoned"
+
+# a mesh plan's kinds (plan[0]); plan[1] is the plan's length, plan[2:8]
+# the kind's fields, its arrays follow from _PLAN_HEADER
+_IDLE, _ADMIT, _ADMIT_PAGED, _DECODE, _STOP, _ABORT = range(6)
+_PLAN_HEADER = 8
+
+
+class LockstepBroken(ServeError):
+    """On a mesh, the ranks' engines are out of step: a plan reached no
+    follower within ``FF_SERVE_REPLICA_TIMEOUT``, or a step failed on one
+    rank after its plan was sent.  The loop ends (on the leader with an
+    abort plan) where one engine would fail a request or the batch."""
+
+
+class LeaderLost(LockstepBroken):
+    """A follower's loop lost its leader: an abort plan, or no plan within
+    ``FF_SERVE_REPLICA_TIMEOUT``."""
 
 
 class _Slot:
@@ -129,9 +170,18 @@ class InferenceEngine:
                  zone: Optional[str] = None, **overrides):
         if not getattr(model, "_compiled", False):
             raise RuntimeError("InferenceEngine needs a compiled model (call compile() first)")
-        model._decode_params()  # initialized, and not on a mesh
+        model._decode_params()  # initialized (on a mesh, every rank calls it here)
         self.model = model
         self.config = config if config is not None else ServeConfig.from_env(**overrides)
+        # on a mesh: the leader (the mesh's first rank) plans, the followers
+        # run its plans (module docstring)
+        self._mesh = model._sharded
+        self.world_size = model.machine.num_devices if self._mesh else 1
+        self.leader_rank = model.machine.ranks[0] if self._mesh else 0
+        self.is_leader = not self._mesh or model.machine.leads
+        if self._mesh and queue is not None:
+            raise ValueError("an engine on a mesh owns its queue: a replica pool over a "
+                             "slice of cards is not ported yet (ROADMAP A15)")
         # replica-pool plumbing (inert for a standalone engine): a shared
         # ``queue`` this engine never drains; a stable ``name``; a per-
         # incarnation ``uid`` (a re-dispatch avoids it); a failure-domain
@@ -144,6 +194,7 @@ class InferenceEngine:
         self._avoid_keys = (self.uid,) if zone is None else (self.uid, f"zone:{zone}")
         self._decode_fatal = bool(decode_fatal)
         self.crashed: Optional[str] = None   # set when the loop dies
+        self._crash_error: Optional[BaseException] = None
         self.last_beat = time.perf_counter()  # decode-progress heartbeat
         # telemetry: the caller's log, else the model's (None: off, and no
         # site below makes a log call)
@@ -185,9 +236,18 @@ class InferenceEngine:
         self._max_w = blocks_for(cfg.max_seq, bs)  # window-bucket ceiling
         self._kvpool: Optional[KVBlockPool] = None
         if self._paged:
+            # on a mesh a follower's pool only gives the geometry: the
+            # leader's alone decides blocks, prefix hits and copy-on-write
             one = model.init_paged_decode_caches(1, bs)
             bytes_per_block = sum(c.numel() * c.element_size() for c in cache_leaves(one))
             self._kvpool = KVBlockPool(cfg.kv_blocks_resolved() + 1, bs, bytes_per_block)
+        self._plan_group = self._plan = None
+        self._last_plan = 0.0
+        self._followers_lost = False  # a plan went unanswered
+        if self._mesh:
+            self._plan_group = model.machine.plan_group()
+            room = max(cfg.max_seq + 2 * self._max_w, (2 + self._max_w) * B)
+            self._plan = torch.zeros(_PLAN_HEADER + room, dtype=torch.long)
 
         # device state, made on first use (_device_state)
         self.device = model.device
@@ -287,7 +347,7 @@ class InferenceEngine:
                                          self._pos_buf, tok_t, pos_t, block_tables=tables)
                 self._next_buf.copy_(torch.argmax(probs, dim=-1))
 
-            g = self._step_graphs[w] = DecodeGraph(self.device, step)
+            g = self._step_graphs[w] = DecodeGraph(self.device, step, m._use_graph)
             if self._memplane is not None:
                 self._memplane.watch(f"serve_{'paged_' if self._paged else ''}step:w{w}", g)
         return g
@@ -305,7 +365,7 @@ class InferenceEngine:
                 self._prefill_out.index_copy_(0, self._counter, torch.argmax(probs, dim=-1))
                 self._counter.add_(1)
 
-            self._prefill_graph = DecodeGraph(self.device, step)
+            self._prefill_graph = DecodeGraph(self.device, step, m._use_graph)
             if self._memplane is not None:
                 self._memplane.watch("serve_prefill", self._prefill_graph)
         return self._prefill_graph
@@ -371,11 +431,13 @@ class InferenceEngine:
     # public API
     # ------------------------------------------------------------------
     def start(self) -> "InferenceEngine":
+        """Start the loop thread (on a mesh, every rank: a follower's runs
+        the leader's plans)."""
         if self._thread is not None:
             raise RuntimeError("engine already started")
         self._stop_evt.clear()
-        self._accepting = True
-        self.last_beat = time.perf_counter()  # warmup() may have taken a while
+        self._accepting = self.is_leader
+        self.last_beat = self._last_plan = time.perf_counter()  # warmup() may have taken a while
         self._thread = threading.Thread(target=self._run, name=f"ff-serve-{self.name}",
                                         daemon=True)
         self._thread.start()
@@ -388,7 +450,20 @@ class InferenceEngine:
     def stop(self, drain: bool = True, timeout: float = 60.0) -> None:
         """Stop the loop.  ``drain=True`` finishes queued and running
         requests first; ``drain=False`` cancels everything outstanding at
-        the next token boundary."""
+        the next token boundary.  On a mesh the leader's loop then sends
+        the stop plan; a follower's ``stop`` waits for its loop to end
+        there (no ``timeout``: the loop ends at the leader's
+        stop plan or within the replica timeout of its last plan), and
+        raises ``LeaderLost`` if it ended because the leader was lost."""
+        if not self.is_leader:
+            t = self._thread
+            if t is not None:
+                t.join()
+                self._thread = None
+            if self.crashed is not None:
+                cls = LeaderLost if isinstance(self._crash_error, LeaderLost) else LockstepBroken
+                raise cls(f"a follower of the leader, rank {self.leader_rank}: {self.crashed}")
+            return
         self._accepting = False
         self._drain = drain
         self._stop_evt.set()
@@ -439,7 +514,11 @@ class InferenceEngine:
                eos_id: Optional[int] = None,
                request_id: Optional[str] = None) -> InferenceRequest:
         """Enqueue one prompt; returns the request handle (a future).
-        Validation errors raise here, synchronously."""
+        Validation errors raise here, synchronously.  On a mesh only the
+        leader takes requests."""
+        if not self.is_leader:
+            raise ValueError(f"submit on a follower: this engine runs the plans of its mesh's "
+                             f"leader, rank {self.leader_rank}; submit there")
         cfg = self.config
         n = cfg.max_new_tokens if max_new_tokens is None else int(max_new_tokens)
         req = InferenceRequest(prompt, n, priority=priority, eos_id=eos_id,
@@ -482,6 +561,7 @@ class InferenceEngine:
         s["mean_occupancy"] = (s["occupancy_sum"] / s["step_iterations"]
                                if s["step_iterations"] else 0.0)
         s["paged"] = self._paged
+        s["world_size"] = self.world_size
         s["graphs_captured"] = self.graphs_captured()
         if self._kvpool is not None:
             s["kv"] = self._kvpool.stats()
@@ -496,11 +576,18 @@ class InferenceEngine:
         pool replica leaves them unresolved for the pool's failover."""
         try:
             with self._device_ctx():
+                if not self.is_leader:
+                    self._follow()
+                    return
                 self._loop()
+                self._send(_STOP)
             if self._abandoned:
                 self._release_device_state()
         except BaseException as e:
             self.crashed = f"{type(e).__name__}: {e}"  # read by a replica pool
+            self._crash_error = e
+            if self._mesh and self.is_leader:
+                self._send_abort()
             if self._telemetry is not None:
                 self._telemetry.event("serve_loop_crashed", replica=self.name,
                                       error=self.crashed)
@@ -566,6 +653,7 @@ class InferenceEngine:
                     time.sleep(cfg.poll_interval_s)
                 elif not self._stop_evt.is_set():
                     self._queue.wait_nonempty(cfg.poll_interval_s)
+                self._heartbeat()
                 continue
             self._decode_iteration()
         # shutdown: a standalone engine cancels what is left; a pool replica
@@ -609,10 +697,10 @@ class InferenceEngine:
             self._admitting = req
             try:
                 self._admit(req, free)
-            except ChaosReplicaKill:
-                # replica-scoped fault: not isolated, the loop thread dies;
-                # ``_admitting`` stays set so the pool fails this request
-                # over with the in-flight ones
+            except (ChaosReplicaKill, LockstepBroken):
+                # replica-scoped fault, or the mesh out of step: not
+                # isolated, the loop thread dies; ``_admitting`` stays set
+                # so the pool fails this request over with the in-flight ones
                 raise
             except BlockExhausted:
                 # every block is pinned by running sequences right now: park
@@ -642,7 +730,6 @@ class InferenceEngine:
             self._chaos.fire("serve", model=self.model)
         req.t_admit = time.perf_counter()
         req.status = RUNNING
-        self._device_state()
         if self._paged:
             self._admit_paged(req, slot)
             return
@@ -650,14 +737,23 @@ class InferenceEngine:
         bucket = self.config.bucket_for(plen)
         self._count_prefill(bucket)
         t0 = time.perf_counter()
+        first_tok = self._lockstep(_ADMIT, (slot, plen), (req.prompt,), self._run_admit,
+                                   slot, req.prompt)
+        self._admitted(req, slot, plen, first_tok, None, t0, bucket)
+
+    def _run_admit(self, slot: int, prompt: np.ndarray) -> int:
+        """The dense admission's device work: the prompt through the zeroed
+        scratch, then the scratch into the slot's row; returns the token
+        that follows the prompt."""
+        self._device_state()
         for c in cache_leaves(self._scratch):
             c.zero_()
-        first_tok = self._prefill(req.prompt, 0)
+        first_tok = self._prefill(prompt, 0)
         # the dense insert: the slot's whole row is overwritten, so nothing
         # of a released sequence or an idle lane's writes survives
         for pool, piece in zip(cache_leaves(self._caches), cache_leaves(self._scratch)):
             pool[slot].copy_(piece[0])
-        self._admitted(req, slot, plen, first_tok, None, t0, bucket)
+        return first_tok
 
     def _admit_paged(self, req: InferenceRequest, slot: int) -> None:
         """Block-paged admission: reserve blocks (the worst case promised,
@@ -673,32 +769,44 @@ class InferenceEngine:
             sbucket = cfg.bucket_for(plen - m)
             self._count_prefill((self._block_bucket(blocks_for(m, bs)), sbucket))
             t0 = time.perf_counter()
-            leaves = list(zip(cache_leaves(self._caches), cache_leaves(self._scratch)))
-            dev = self.device
-            gather = torch.tensor(res.gather, dtype=torch.long, device=dev)
-            for blocks, dense in leaves:       # (N, H, bs, D) -> (1, H, max_seq, D)
-                dense.zero_()
-                if len(res.gather):
-                    h, d = blocks.shape[1], blocks.shape[3]
-                    dense[0, :, :len(res.gather) * bs].copy_(
-                        blocks[gather].transpose(0, 1).reshape(h, -1, d))
-            first_tok = self._prefill(req.prompt[m:], m)
-            # the suffix's blocks (the copy-on-write tail included) back into
-            # the blocks this slot owns
-            d0, n = m // bs, len(res.owned)
-            owned = torch.tensor(res.owned, dtype=torch.long, device=dev)
-            for blocks, dense in leaves:
-                h, d = blocks.shape[1], blocks.shape[3]
-                win = dense[0, :, d0 * bs:(d0 + n) * bs].reshape(h, n, bs, d).transpose(0, 1)
-                blocks.index_copy_(0, owned, win)
+            suffix = req.prompt[m:]
+            first_tok = self._lockstep(
+                _ADMIT_PAGED, (slot, m, len(suffix), len(res.gather), len(res.owned)),
+                (suffix, res.gather, res.owned), self._run_admit_paged,
+                suffix, m, res.gather, res.owned)
         except BaseException:
             pool.release(res)                  # no leak on any failure
             raise
         pool.note_gather(len(res.gather))
-        pool.note_transfer(n)
+        pool.note_transfer(len(res.owned))
         pool.end_gather(res)
         pool.register_prefix(req.prompt, res)
         self._admitted(req, slot, plen, first_tok, res, t0, sbucket)
+
+    def _run_admit_paged(self, suffix: np.ndarray, m: int, chain, owned_ids) -> int:
+        """The paged admission's device work: the prefix ``chain``'s blocks
+        gathered into the zeroed scratch, the ``suffix`` prefilled from
+        position ``m``, and its blocks (the copy-on-write tail included)
+        scattered into the ``owned_ids`` blocks; returns the next token."""
+        self._device_state()
+        bs = self.config.kv_block
+        leaves = list(zip(cache_leaves(self._caches), cache_leaves(self._scratch)))
+        dev = self.device
+        gather = torch.tensor(np.asarray(chain, np.int64), device=dev)
+        for blocks, dense in leaves:       # (N, H, bs, D) -> (1, H, max_seq, D)
+            dense.zero_()
+            if len(chain):
+                h, d = blocks.shape[1], blocks.shape[3]
+                dense[0, :, :len(chain) * bs].copy_(
+                    blocks[gather].transpose(0, 1).reshape(h, -1, d))
+        first_tok = self._prefill(suffix, m)
+        d0, n = m // bs, len(owned_ids)
+        owned = torch.tensor(np.asarray(owned_ids, np.int64), device=dev)
+        for blocks, dense in leaves:
+            h, d = blocks.shape[1], blocks.shape[3]
+            win = dense[0, :, d0 * bs:(d0 + n) * bs].reshape(h, n, bs, d).transpose(0, 1)
+            blocks.index_copy_(0, owned, win)
+        return first_tok
 
     def _admitted(self, req, slot, plen, first_tok, res, t0, bucket) -> None:
         t1 = time.perf_counter()
@@ -740,7 +848,6 @@ class InferenceEngine:
         """One token boundary: advance every slot one position, at the
         smallest window that covers the longest active row."""
         try:
-            self._device_state()
             bs = self.config.kv_block
             need_w = 1
             for s in self._slots:
@@ -750,22 +857,21 @@ class InferenceEngine:
                         self._kvpool.extend(s.res, s.pos)
                     need_w = max(need_w, s.pos // bs + 1)
             w = self._block_bucket(need_w)
-            g = self._step_graph(w)
+            tables = None
             if self._paged:
                 tables = np.zeros((len(self._slots), w), np.int64)
                 for i, s in enumerate(self._slots):
                     if s is not None:
                         row = s.res.table()
                         tables[i, :len(row)] = row
-                self._tables[w].copy_(torch.from_numpy(tables))
-            self._toks_buf.copy_(torch.from_numpy(self._toks))
-            self._pos_buf.copy_(torch.from_numpy(self._pos))
-            g.advance(1)
-            nxt = self._next_buf.cpu().numpy()
+            nxt = self._lockstep(_DECODE, (w,), (self._toks, self._pos)
+                                 + ((tables.reshape(-1),) if self._paged else ()),
+                                 self._run_decode, w, self._toks, self._pos, tables)
         except Exception as e:  # noqa: BLE001 — a step fault fails the
             # batch's requests, never the loop (fresh admissions re-prefill);
-            # a pool replica (decode_fatal) lets it propagate instead
-            if self._decode_fatal:
+            # a pool replica (decode_fatal) and a mesh out of step let it
+            # propagate instead
+            if self._decode_fatal or isinstance(e, LockstepBroken):
                 raise
             msg = f"decode step failed: {type(e).__name__}: {e}"
             for i, slot in enumerate(self._slots):
@@ -816,6 +922,122 @@ class InferenceEngine:
                 self._emit_chunk(slot, t_now)
             if len(slot.req.tokens) >= slot.req.max_new_tokens or tok == slot.req.eos_id:
                 self._finish(slot.req, slot=i, t_done=t_now)
+
+    def _run_decode(self, w: int, toks: np.ndarray, pos: np.ndarray,
+                    tables: Optional[np.ndarray]) -> np.ndarray:
+        """A token boundary's device work: one step at window ``w`` over
+        every slot's token and position (and block table); returns each
+        slot's next token."""
+        self._device_state()
+        g = self._step_graph(w)
+        if tables is not None:
+            self._tables[w].copy_(torch.from_numpy(tables))
+        self._toks_buf.copy_(torch.from_numpy(toks))
+        self._pos_buf.copy_(torch.from_numpy(pos))
+        g.advance(1)
+        return self._next_buf.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # lockstep on a mesh: the leader's plans, a follower's loop
+    # ------------------------------------------------------------------
+    def _lockstep(self, kind: int, fields, arrays, run, *args):
+        """``run(*args)``, a step's device work, after broadcasting its plan
+        on a mesh; a failure of either there is ``LockstepBroken`` (the
+        followers were told to run the step, or may be running it)."""
+        if not self._mesh:
+            return run(*args)
+        self._send(kind, fields, arrays)
+        try:
+            return run(*args)
+        except Exception as e:
+            raise LockstepBroken(f"the leader's step failed after its plan was sent: "
+                                 f"{type(e).__name__}: {e}") from e
+
+    def _send(self, kind: int, fields=(), arrays=()) -> None:
+        """Broadcast one plan to the followers (nothing off a mesh); raises
+        ``LockstepBroken`` when a follower has not taken it within the
+        replica timeout (its loop ended, or its rank is gone)."""
+        if not self._mesh:
+            return
+        a = self._plan.numpy()
+        a[:_PLAN_HEADER] = 0
+        a[0], a[1] = kind, a.size
+        a[2:2 + len(fields)] = fields
+        off = _PLAN_HEADER
+        for arr in arrays:
+            n = len(arr)
+            a[off:off + n] = arr
+            off += n
+        try:
+            broadcast_plan(self._plan, self.leader_rank, self._plan_group,
+                           self.config.replica_timeout_s)
+        except RuntimeError as e:
+            self._followers_lost = True
+            raise LockstepBroken(f"a follower did not take the leader's plan within "
+                                 f"{self.config.replica_timeout_s:g} s ({e})") from e
+        self._last_plan = time.perf_counter()
+
+    def _heartbeat(self) -> None:
+        """An idle leader's plan every quarter of the replica timeout, so
+        that a follower tells an idle leader from a lost one."""
+        if self._mesh and (time.perf_counter() - self._last_plan
+                           >= self.config.replica_timeout_s / 4):
+            self._send(_IDLE)
+
+    def _send_abort(self) -> None:
+        """The dying leader's last plan (best effort: a follower that misses
+        it times out instead; none after a plan went unanswered)."""
+        if self._followers_lost:
+            return
+        try:
+            self._send(_ABORT)
+        except Exception:  # noqa: BLE001 — the loop is already dying of its own error
+            pass
+
+    def _follow(self) -> None:
+        """A follower's loop: receive each plan and run its device step,
+        until the stop plan; raises ``LeaderLost`` on an abort plan or when
+        no plan comes within the replica timeout, and ``LockstepBroken``
+        when a step fails here (the leader's next plan then goes
+        unanswered)."""
+        timeout = self.config.replica_timeout_s
+        a = self._plan.numpy()
+        while True:
+            try:
+                broadcast_plan(self._plan, self.leader_rank, self._plan_group, timeout)
+            except RuntimeError as e:
+                raise LeaderLost(f"no plan from the leader, rank {self.leader_rank}, within "
+                                 f"{timeout:g} s ({e})") from e
+            self.last_beat = time.perf_counter()
+            kind = int(a[0])
+            if a[1] != a.size:
+                raise LeaderLost(f"a plan of {a[1]} entries from the leader, rank "
+                                 f"{self.leader_rank}, where this engine expects {a.size}: "
+                                 "the engines were built with different ServeConfigs")
+            if kind == _STOP:
+                return
+            if kind == _ABORT:
+                raise LeaderLost(f"the leader's loop, rank {self.leader_rank}, died")
+            try:
+                self._follow_plan(kind, a)
+            except Exception as e:
+                raise LockstepBroken(f"a follower's step failed: {type(e).__name__}: {e}") from e
+
+    def _follow_plan(self, kind: int, a: np.ndarray) -> None:
+        """Run one received plan's device step (``a``: the plan's entries)."""
+        B, H = self.config.max_batch, _PLAN_HEADER
+        if kind == _ADMIT:
+            slot, n = int(a[2]), int(a[3])
+            self._run_admit(slot, a[H:H + n].copy())
+        elif kind == _ADMIT_PAGED:
+            m, ns, ng, no = (int(v) for v in a[3:7])
+            self._run_admit_paged(a[H:H + ns].copy(), m, a[H + ns:H + ns + ng].copy(),
+                                  a[H + ns + ng:H + ns + ng + no].copy())
+        elif kind == _DECODE:
+            w = int(a[2])
+            tables = a[H + 2 * B:H + 2 * B + B * w].reshape(B, w).copy() \
+                if self._paged else None
+            self._run_decode(w, a[H:H + B].copy(), a[H + B:H + 2 * B].copy(), tables)
 
     def _emit_chunk(self, slot: _Slot, t_now: float) -> None:
         """Close the open decode chunk of a sampled request: one span per

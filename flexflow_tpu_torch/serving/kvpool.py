@@ -28,7 +28,12 @@ the shared block is never written by a sharer.
 
 Everything here is called from the engine's single loop thread (plus
 ``check_room`` from submitter threads, guarded by a lock), and is
-stdlib-only: numpy and torch never enter this module.
+stdlib-only: numpy and torch never enter this module.  On a mesh the
+leader engine's pool alone decides blocks, prefix hits and copy-on-write;
+each follower applies the chain to gather, the blocks to scatter into
+and the block tables that the leader's plans carry to its own pool of
+its heads' blocks (serving/engine.py), so every rank's block ids mean the
+same positions.
 """
 
 from __future__ import annotations

@@ -211,7 +211,7 @@ def test_env_knobs_and_unported_entry_points_raise(monkeypatch, tmp_path):
     """Decoding and the engine run on one device, the engine with its
     telemetry hooks, and an FF_CHAOS spec at any of the seven sites is
     accepted at compile (a misspelled site is a ValueError); decoding on a
-    mesh (ROADMAP A11) raises, naming its item."""
+    mesh (a one-rank gloo group here) gives the one-device tokens."""
     from flexflow_tpu_torch.observability.events import EventLog
     from flexflow_tpu_torch.models.transformer import build_transformer
     from flexflow_tpu_torch.serving.engine import InferenceEngine
@@ -229,10 +229,20 @@ def test_env_knobs_and_unported_entry_points_raise(monkeypatch, tmp_path):
         assert req.result(60).shape == (3,) and req.trace is not None
     log.close()
     assert '"serve_request_done"' in (tmp_path / "serve.jsonl").read_text()
-    monkeypatch.setattr(ft.FFModel, "_sharded", property(lambda self: True))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        lm.generate([[1], [2]], 4)
-    monkeypatch.undo()
+    want = lm.generate([[1], [2]], 4)
+    from flexflow_tpu_torch.parallel import distributed
+    distributed.initialize("cpu", init_method=f"file://{tmp_path / 'pg'}", world_size=1,
+                           rank=0)
+    try:
+        mesh_lm = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
+        build_transformer(mesh_lm, 2, seq_length=8, num_layers=1, embed_dim=16, num_heads=2,
+                          vocab_size=16)
+        mesh_lm.compile(ft.SGDOptimizer(lr=0.1))
+        mesh_lm.init_layers(seed=0)
+        assert mesh_lm._sharded
+        np.testing.assert_array_equal(mesh_lm.generate([[1], [2]], 4), want)
+    finally:
+        distributed.shutdown()
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     m.dense(m.create_tensor((2, 4)), 3)
     monkeypatch.setenv("FF_CHAOS", "serve:3=replica_kill;serve:p0.1=error")

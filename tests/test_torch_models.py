@@ -143,19 +143,31 @@ def test_nmt_trains_like_the_jax_package():
     _train_both(jm, tm, jin, tin, batches)
 
 
-def test_nmt_greedy_translate_names_its_roadmap_item(monkeypatch):
+def test_nmt_greedy_translate_names_its_roadmap_item(tmp_path):
     """greedy_translate decodes on one device (tests/test_torch_decode.py
-    holds its tokens against the JAX package's); on a mesh decoding is not
-    ported yet and raises, naming ROADMAP A11."""
+    holds its tokens against the JAX package's) and on a mesh (a one-rank
+    gloo group here; tests/test_torch_decode_mesh.py splits the LSTMs over
+    two ranks), where it gives the one-device tokens."""
+    from flexflow_tpu_torch.parallel import distributed
+
+    src_tokens = np.random.default_rng(0).integers(0, 64, (2, 6)).astype(np.int32)
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     src, dst, _ = nmt.build_nmt(m, 2, **NMT)
     m.compile(ft.AdamOptimizer(alpha=1e-2))
     m.init_layers(seed=0)
-    out = nmt.greedy_translate(m, src, dst, np.zeros((2, 6), np.int32), 4)
+    out = nmt.greedy_translate(m, src, dst, src_tokens, 4)
     assert out.shape == (2, 4) and ((out >= 0) & (out < 64)).all()
-    monkeypatch.setattr(ft.FFModel, "_sharded", property(lambda self: True))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        nmt.greedy_translate(m, src, dst, np.zeros((2, 6), np.int32), 4)
+    distributed.initialize("cpu", init_method=f"file://{tmp_path / 'pg'}", world_size=1,
+                           rank=0)
+    try:
+        mm = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
+        msrc, mdst, _ = nmt.build_nmt(mm, 2, **NMT)
+        mm.compile(ft.AdamOptimizer(alpha=1e-2))
+        mm.init_layers(seed=0)
+        assert mm._sharded
+        np.testing.assert_array_equal(nmt.greedy_translate(mm, msrc, mdst, src_tokens, 4), out)
+    finally:
+        distributed.shutdown()
 
 
 def test_candle_uno_trains_like_the_jax_package():
