@@ -248,7 +248,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      weights after 2 steps against one card, bf16 ms/step beside data
      parallelism (one card: a line says it was not run);
  17. decoding on a mesh ([mesh-decode] lines): (a) a one-rank NCCL mesh in
-     a process of its own: the full-width transformer (4x512, 8 heads,
+     the lead process: the full-width transformer (4x512, 8 heads,
      vocab 32000) in f32, decode_step probabilities step by step (rtol
      1e-5, atol 1e-6), greedy generate (B16, P 32, N 32) and beam_search
      (K4, B4, P 16, N 16) against the same model on one card (tokens
@@ -264,17 +264,41 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      equal to one card's, NMT (batch 64, seq 20, hidden 2048) with its LSTMs split on the
      hidden dim (greedy_translate) and the MoE transformer with its
      experts over the cards (generate), each equal to one card's (one
-     card: a line says it was not run).  No kernel of K1-K5 runs on these
-     paths (checked).
+     card: a line says it was not run), on a group the lead forms after
+     (a)'s was shut down.  No kernel of K1-K5 runs on these paths
+     (checked);
+ 18. a replica pool over slices of cards ([slices] lines; the slices are
+     this script started again, a process a card, each slice a world of
+     its own formed through the pool's SliceHub, the f32 LM's weights
+     carried in from the lead's): (a) on one card, a local captured
+     engine, a remote one-card replica (captured) and a remote one-rank
+     NCCL mesh replica (eager) over TRAFFIC's first 48 requests
+     (max_batch 8: 2 x max_batch a replica), each request's f32 tokens
+     held against one card's generate (a difference only at an f32
+     near-tie), tokens/s, TTFT and TPOT p50/p99, occupancy and card bytes
+     per process; then exactly once through each drill: a remote
+     leader's replica_kill and its restart in place, a SIGKILLed slice
+     process (the slice lost, a spare added through add_replica), an
+     Autoscaler's scale-up onto a spare and the scale-down returning it,
+     a hedge whose losing attempt, remote, is cancelled on its leader;
+     times to recover; (b) with four cards, two slices of two cards (the
+     LM's heads and dense columns split 2) and two spare slices,
+     max_batch 4 over 16 requests: ROADMAP C11 (a fault planted on a
+     follower before its step's collectives ends every rank of that
+     slice within the replica timeout plus SLICE_MARGIN_S, under process
+     groups whose own timeout is SLICE_PG_TIMEOUT_S) and C10 (that slice
+     re-forms its NCCL world in its living processes and serves again),
+     then (a)'s drills (one card: a line says it was not run).  No kernel
+     of K1-K5 runs on the pool's paths (checked).
 
 ``--phases 3,17`` runs only the phases listed (1 and 2 always run; the
 kernels line needs phase 3); a phase's several-card part runs whenever
 several cards are visible, so ``python3 chip_smoke.py --phases 17`` on a
 host with four cards runs phase 17 (b).  The last lines are the card's name and
 power limit, one JSON object with a row per kernel, and {"ok": true,
-"device": {...}}.  Needs one card (phases 6, 14 (f), 15 (e), 16 (d) and
-17 (b) use every visible card); it imports nothing of jax or of the JAX
-package.
+"device": {...}}.  Needs one card (phases 6, 14 (f), 15 (e), 16 (d),
+17 (b) and 18 (b) use every visible card); it imports nothing of jax or
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -1373,8 +1397,10 @@ def soap_helper():
         return pipe_helper()
     if os.environ[SOAP_HELPER] == "soap2":
         return soap2_helper()
-    if os.environ[SOAP_HELPER] in (MESH_HELPER, MESH_ONE):
+    if os.environ[SOAP_HELPER] == MESH_HELPER:
         return mesh_decode_helper()
+    if os.environ[SOAP_HELPER] == SLICE_HELPER:
+        return slice_helper()
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
@@ -5375,7 +5401,6 @@ MESH_TRAFFIC = (32, 8)
 MESH_NMT_LEN = 20                    # greedy_translate tokens (NMT_GEN's)
 MESH_SERVE_TIMEOUT_S = 120.0         # the followers' replica timeout
 MESH_HELPER = "decode"              # (b)'s helper ranks
-MESH_ONE = "decode1"                # (a)'s one rank
 
 
 def mesh_traffic():
@@ -5647,44 +5672,35 @@ def mesh_decode_multi(ft, smi):
 
 
 def mesh_decode_helper():
-    """A helper rank of phase 17 (b), or (a)'s one rank in a process of
-    its own (kind MESH_ONE: its lines printed, its decode paths' launches
-    checked here)."""
+    """A helper rank of phase 17 (b)."""
     import flexflow_tpu_torch as ft
-    from flexflow_tpu_torch.kernels import flash_attention as fa
-    from flexflow_tpu_torch.kernels import fused_optimizer as fo
     from flexflow_tpu_torch.parallel import distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = dist.initialize("cuda", timeout=SOAP_TIMEOUT)
-    if os.environ[SOAP_HELPER] == MESH_ONE:
-        kernels = kernel_wrappers(fo, fa)
-        reset_launches(kernels)
-        launches = mesh_decode_one(ft, kernels, nvidia_smi_line(), dev)
-        check(launches == NO_LAUNCH, f"(a) decode paths launched {launches}")
-    else:
-        mesh_decode_multi_runs(ft, None)
+    dist.initialize("cuda", timeout=SOAP_TIMEOUT)
+    mesh_decode_multi_runs(ft, None)
     dist.shutdown()
     return 0
 
 
 def mesh_decode_phase(ft, kernels, smi):
     """Phase 17: decoding on a mesh.  (a) a one-rank NCCL mesh against one
-    card, in a process of its own (this script started again as its rank,
-    which checks that its decode paths launch no kernel), so that this
-    process's process groups are (b)'s alone; (b) across the visible cards
-    when there are several.  Returns the kernels' launches here (none: a
+    card, in this process; then (b) across the visible cards when there are
+    several, on a process group this process forms after (a)'s was shut
+    down (ROADMAP C10's path).  Returns the kernels' launches (none: a
     one-token decode step launches none of K1-K5, checked)."""
+    from flexflow_tpu_torch.parallel import distributed as dist
+
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity: TF32 off
     free_models()
     reset_launches(kernels)
-    env = dict(os.environ, **{SOAP_HELPER: MESH_ONE, "RANK": "0", "LOCAL_RANK": "0",
-                              "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
-                              "MASTER_PORT": str(free_port())})
-    sys.stdout.flush()
-    one = subprocess.run([sys.executable, os.path.abspath(__file__)], env=env, timeout=900)
-    check(one.returncode == 0, f"(a) the one-rank mesh's process exited {one.returncode}")
+    dev = dist.initialize("cuda", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                          rank=0, local_rank=0, timeout=SOAP_TIMEOUT)
+    one = mesh_decode_one(ft, kernels, smi, dev)
+    dist.shutdown()
+    check(one == NO_LAUNCH, f"(a) decode paths launched {one}")
+    reset_launches(kernels)  # past (a)'s f32 oracle forward, which is no decode path
     t1 = time.perf_counter()
     mesh_decode_multi(ft, smi)
     launches = read_launches(kernels)
@@ -5694,7 +5710,572 @@ def mesh_decode_phase(ft, kernels, smi):
     return launches
 
 
-PHASES = tuple(range(1, 18))
+# ------------------------------------------------------------------ phase 18
+
+SLICE_HELPER = "slice"               # a rank of a slice (SOAP_HELPER's value)
+SLICE_SPEC = "FF_CHIP_SMOKE_SLICE"   # that rank's slice, as JSON
+# (a): 3 replicas take 2 x max_batch requests each of TRAFFIC, in its order:
+# 48 at max_batch 8 (TRAFFIC holds 72)
+SLICE_ENGINE = dict(POOL_ENGINE, max_batch=8)
+# (b): an eager split-2 mesh prefills at tens of ms a prompt token (PERF.md
+# §6): max_batch 4, 2 x 4 requests a replica
+SLICE_ENGINE_B = dict(POOL_ENGINE, max_batch=4)
+SLICE_TIMEOUT_S = 30.0               # (a)'s replica timeout
+SLICE_TIMEOUT_B_S = 20.0             # (b)'s, which C11's drill is held to
+SLICE_MARGIN_S = 10.0                # C11: each rank ends within the timeout plus this
+SLICE_PG_TIMEOUT_S = 1800.0          # the slices' process groups' own timeout
+SLICE_HEDGE = dict(prompt=32, new=64, hedge_ms=20.0)
+SLICE_START_S = 300.0                # bound on a slice's registration
+
+
+def slice_helper():
+    """One rank of a phase 18 slice (SLICE_SPEC): the f32 LM on its card,
+    one card or its share of a mesh split ``split`` ways by heads and dense
+    columns, the lead's weights carried in (convert.load_jax_params), served
+    through ``serving.remote.serve_slice`` until the hub says exit.  With
+    ``plant``, this rank's first decode step after that file appears fails
+    before its collectives (ROADMAP C11's fault, planted here)."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.convert import load_jax_params
+    from flexflow_tpu_torch.models.transformer import build_transformer
+    from flexflow_tpu_torch.serving import remote
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = json.loads(os.environ[SLICE_SPEC])
+    params = np.load(spec["params"], allow_pickle=True).item()
+    if spec.get("plant"):
+        plant_step_fault(spec["plant"])
+
+    def build(dev):
+        machine = None if spec["mesh"] else ft.Machine(devices=[dev])
+        split = head_split(ft, spec["split"]) if spec["split"] > 1 else None
+        model, _, _ = decode_lm(ft, build_transformer, "float32", machine=machine,
+                                strategies=split)
+        load_jax_params(model, params)
+        return model
+
+    remote.serve_slice(build, name=spec["name"], rank=spec["rank"], ranks=spec["ranks"],
+                       device="cuda", local_rank=spec["card"], mesh=spec["mesh"],
+                       pg_timeout_s=SLICE_PG_TIMEOUT_S)
+    return 0
+
+
+def plant_step_fault(flag):
+    """Make this process's first engine decode step after ``flag`` exists
+    raise before it runs: its peers wait in that step's collectives."""
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    run, fired = InferenceEngine._run_decode, []
+
+    def planted(self, *args):
+        if not fired and os.path.exists(flag):
+            fired.append(1)
+            raise RuntimeError("planted step fault before the step's collectives")
+        return run(self, *args)
+
+    InferenceEngine._run_decode = planted
+
+
+def spawn_slice(hub, name, cards, params, split=1, mesh=None, plant=None):
+    """This script started again as each rank of slice ``name``, rank r on
+    card ``cards[r]``; ``plant`` goes to rank 1 (a follower)."""
+    from flexflow_tpu_torch.serving import remote
+
+    mesh = len(cards) > 1 if mesh is None else mesh
+    procs = []
+    for r, card in enumerate(cards):
+        spec = dict(name=name, rank=r, ranks=len(cards), card=card, split=split, mesh=mesh,
+                    params=params, plant=plant if r == 1 else None)
+        env = dict(os.environ, **{SOAP_HELPER: SLICE_HELPER, SLICE_SPEC: json.dumps(spec),
+                                  remote.HUB_ENV: hub.endpoint})
+        for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "FF_CHAOS"):
+            env.pop(k, None)
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__)], env=env,
+                                      stdout=subprocess.DEVNULL))
+    return procs
+
+
+def wait_slices(hub, names, procs):
+    """The slices ``names`` once registered; fails at once when one of
+    their processes ended first (and after SLICE_START_S)."""
+    deadline = time.perf_counter() + SLICE_START_S
+    while True:
+        try:
+            return hub.wait(names, timeout=1.0)
+        except TimeoutError:
+            dead = [(n, p.returncode) for n in names for p in procs[n] if p.poll() is not None]
+            check(not dead, f"slice processes ended before registering: {dead}")
+            check(time.perf_counter() < deadline, f"slices {names} within {SLICE_START_S:g} s")
+
+
+def save_params(model, path):
+    """Every weight of ``model`` as {op: {weight: array}} (the tree
+    convert.load_jax_params carries into another model)."""
+    np.save(path, {op.name: {w.name: model.get_parameter(op.name, w.name) for w in op.weights}
+                   for op in model.ops if op.weights}, allow_pickle=True)
+
+
+class ReplicaStates:
+    """Each replica's state over time, sampled every 5 ms in a thread of
+    its own (``recovered``: the time to recover of a drill)."""
+
+    def __init__(self, pool):
+        import threading
+
+        self.pool, self.seen, self._stop = pool, [], threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        last = None
+        while not self._stop.wait(0.005):
+            now = tuple((r.name, (r.state, r.slice.name if r.slice is not None else None))
+                        for r in list(self.pool._replicas))
+            if now != last:
+                self.seen.append((time.perf_counter(), dict(now), self.pool.ready_replicas))
+                last = now
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(2)
+
+    def recovered(self, t0, ready):
+        """Seconds from ``t0`` until ``ready`` replicas were ready again
+        after fewer had been (None when that never happened)."""
+        down = False
+        for t, _, n in self.seen:
+            if t < t0:
+                continue
+            down = down or n < ready
+            if down and n >= ready:
+                return t - t0
+        return None
+
+
+def slice_tokens(label, lm, tok, pos, want, reqs, outs, smi):
+    """Each request's f32 tokens against one card's f32 generate: equal, or
+    differing first at a near-tie of the f32 full forward (the engine's
+    batch shapes round the GEMMs otherwise than generate's B = 1; phase
+    17's F32_GAP_TOL).  Returns the full forwards' kernel launches."""
+    before = read_launches(KERNELS)
+    diffs = []
+    for i, ((p, n), got) in enumerate(zip(reqs, outs)):
+        w = want(p, n)
+        if not np.array_equal(got, w):
+            k = int(np.argmax(got[:len(w)] != w[:len(got)])) if len(got) == len(w) else 0
+            diffs.append((i, k, int(got[k]), int(w[k])))
+    worst = 0.0
+    for j in range(0, len(diffs), LM["batch"]):
+        chunk = diffs[j:j + LM["batch"]]
+        seqs = [np.concatenate([reqs[i][0], outs[i][:k]]) for i, k, _, _ in chunk]
+        probs = f32_probs(lm, tok, pos, seqs)
+        for row, (i, k, a, b) in enumerate(chunk):
+            worst = max(worst, gap(probs[row, len(seqs[row]) - 1], a, b))
+    check(worst <= F32_GAP_TOL, f"{label}: f32 gap {worst:.3e} > {F32_GAP_TOL}")
+    log(f"[slices] {label}: {len(reqs) - len(diffs)} of {len(reqs)} requests' f32 tokens "
+        f"equal one card's generate, {len(diffs)} differ first at a near-tie (worst f32 gap "
+        f"{worst:.3e}, tolerance {F32_GAP_TOL:g}); card {smi}")
+    after = read_launches(KERNELS)
+    return {k: after[k] - before[k] for k in after}
+
+
+def slice_line(label, pool, hs, outs, wall, smi):
+    """Tokens/s, TTFT and TPOT p50/p99 of a burst, and each replica's
+    occupancy, requests served and card bytes (a remote one's from its
+    beat: its engine's KV and graph pools, its process's allocator)."""
+    time.sleep(0.3)  # the remote leaders' next beats carry their stats
+    st = pool.stats()
+    tokens = sum(len(o) for o in outs)
+    ttft = [h.ttft_s for h in hs]
+    tpot = [h.tpot_s for h in hs if h.tpot_s is not None]
+    per = []
+    dev = pool.device_bytes()
+    for name, r in st["replicas"].items():
+        e = r["engine"]
+        b = dev.get(name, {})
+        if "remote" not in e:
+            b = dict(b, allocated=torch.cuda.memory_allocated(),
+                     reserved=torch.cuda.memory_reserved())
+        mib = {k: ("n/a" if v is None else f"{v / 2**20:.1f}") for k, v in b.items()}
+        per.append(f"{name} ({e.get('remote', 'local')}, {e.get('world_size', 1)} rank(s)): "
+                   f"{e.get('completed', 0)} served, occupancy mean "
+                   f"{e.get('mean_occupancy', 0):.2f} max {e.get('max_active', 0)}, MiB "
+                   + ", ".join(f"{k} {v}" for k, v in mib.items()))
+    log(f"[slices] {label}: {len(outs)} requests, {tokens} tokens in {wall:.3f} s = "
+        f"{tokens / wall:,.1f} generated tokens/s; TTFT p50 {pct(ttft, 50):.1f} ms p99 "
+        f"{pct(ttft, 99):.1f} ms; TPOT p50 {pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} "
+        f"ms; card {smi}")
+    log("[slices]   " + "; ".join(per))
+
+
+def replica_of(pool, slice_name):
+    return next(r for r in pool._replicas if r.slice is not None
+                and r.slice.name == slice_name)
+
+
+def slice_drill_kill(label, pool, sl, reqs, states, check_tokens):
+    """A replica_kill on ``sl``'s leader at its second admission: its
+    attempts fail over exactly once and it restarts in place."""
+    rep = replica_of(pool, sl.name)
+    before = pool.stats()
+    sl.set_chaos("serve:2=replica_kill")
+    t0 = time.perf_counter()
+    hs, outs, _ = pool_burst(pool, reqs)
+    settle(lambda: rep.restarts > 0 and rep.state == "ready"
+           and pool.ready_replicas == before["ready_replicas"], f"{label}: restart in place")
+    sl.set_chaos(None)
+    st = pool.stats()
+    check(st["replica_downs"] == before["replica_downs"] + 1
+          and st["replica_restarts"] == before["replica_restarts"] + 1
+          and st["failovers"] > before["failovers"], f"{label}: {st}")
+    check_tokens(label, reqs, outs)
+    ttr = states.recovered(t0, before["ready_replicas"])
+    log(f"[slices] {label}: {sl.name}'s leader killed at its 2nd admission; "
+        f"{st['failovers'] - before['failovers']} attempts failed over exactly once, restarted "
+        f"in place (incarnation {rep.engine.uid}, world generation {sl.generation}), time to "
+        f"recover {ttr:.3f} s")
+    return ttr
+
+
+def slice_drill_sigkill(label, pool, hub, sl, proc, reqs, states, check_tokens):
+    """SIGKILL of ``proc`` (a rank of ``sl``) while ``sl`` holds attempts:
+    the slice is lost, its attempts fail over exactly once, it is not
+    restarted, and ``add_replica`` claims a spare slice."""
+    import collections
+
+    rep = replica_of(pool, sl.name)
+    before, restarts = pool.stats(), rep.restarts
+    ready = before["ready_replicas"]
+    fires = collections.Counter()
+    hs = [pool.submit(p, n, timeout_s=0) for p, n in reqs]
+    for h in hs:
+        h.add_done_callback(lambda r: fires.update([r.request_id]))
+    settle(lambda: rep.engine.active_requests(), f"{label}: {sl.name} holds attempts")
+    t0 = time.perf_counter()
+    proc.kill()
+    settle(lambda: rep.state == "lost", f"{label}: {sl.name} marked lost")
+    t_lost = time.perf_counter() - t0
+    added = pool.add_replica()       # returns once the spare serves
+    check(added is not None, f"{label}: no spare slice to add")
+    t_back = time.perf_counter() - t0
+    outs = [h.result(1200) for h in hs]
+    check(len(fires) == len(reqs) and set(fires.values()) == {1}, f"{label}: exactly once")
+    new = next(r for r in pool._replicas if r.name == added)
+    st = pool.stats()
+    check(rep.restarts == restarts and st["failovers"] > before["failovers"]
+          and pool.ready_replicas == ready, f"{label}: {st}")
+    check_tokens(label, reqs, outs)
+    log(f"[slices] {label}: {sl.name}'s process {proc.pid} killed (SIGKILL) holding attempts: "
+        f"lost {t_lost:.3f} s after it ({sl.lost}), {st['failovers'] - before['failovers']} "
+        f"attempts failed over exactly once, no restart in place; spare slice "
+        f"{new.slice.name} added as {added}, {ready} ready again {t_back:.3f} s after the "
+        "kill")
+    return new.slice
+
+
+def slice_drill_scale(label, pool, hub, reqs, states, check_tokens):
+    """An Autoscaler over the pool: the burst's queue adds a spare slice,
+    the quiet after it drains that replica and returns its slice."""
+    from flexflow_tpu_torch.serving import Autoscaler, ScaleConfig
+
+    spares = {s.name for s in hub.spares()}
+    check(bool(spares), f"{label}: no spare slice")
+    names = {r.name for r in pool._replicas}
+    ready = pool.ready_replicas
+    sc = Autoscaler(pool, ScaleConfig(min_replicas=ready, max_replicas=pool.num_replicas + 1,
+                                      interval_s=0.05, up_queue=1.0, up_burn=0.0,
+                                      down_queue=0.5, streak=2, up_cooldown_s=0.1,
+                                      down_cooldown_s=1.0))
+    t0 = time.perf_counter()
+    with sc:
+        hs, outs, wall = pool_burst(pool, reqs)
+        settle(lambda: sc.stats()["scale_ups"] >= 1, f"{label}: scale-up")
+        settle(lambda: sc.stats()["scale_downs"] >= 1, f"{label}: scale-down")
+    st = sc.stats()
+    added = {sl for t, seen, _ in states.seen if t >= t0
+             for name, (_, sl) in seen.items() if name not in names}
+    back = {s.name for s in hub.spares()}
+    check(bool(added) and added <= spares and added <= back,
+          f"{label}: added {added} of the spares {spares}, spares after {back}")
+    check_tokens(label, reqs, outs)
+    log(f"[slices] {label}: scale-up onto spare slice {sorted(added)[0]} and scale-down "
+        f"returning it ({st['scale_ups']} up, {st['scale_downs']} down, "
+        f"{time.perf_counter() - t0:.3f} s); burst {len(reqs)} requests in {wall:.3f} s")
+
+
+def slice_drill_hedge(label, hub, names, cfg, prompt, want, smi):
+    """A pool over slices ``names`` hedging after SLICE_HEDGE ms: one
+    request, hedged once, the winner's tokens; the losing attempt, remote,
+    is cancelled on its leader and its slot freed."""
+    from flexflow_tpu_torch.serving import ReplicaPool
+
+    slices = [hub.claim(n) for n in names]
+    check(all(slices), f"{label}: slices {names} not idle")
+    n = SLICE_HEDGE["new"]
+    with ReplicaPool(slices, config=cfg) as pool:
+        h = pool.submit(prompt, n, timeout_s=0)
+        got = h.result(1200)
+        st = pool.stats()
+        settle(lambda: not pool._attempts, f"{label}: loser untracked")
+        settle(lambda: all(r.engine.num_active == 0 for r in pool._replicas),
+               f"{label}: the loser's slot freed")
+        settle(lambda: sum(v["engine"].get("cancelled", 0)
+                           for v in pool.stats()["replicas"].values()) >= 1,
+               f"{label}: the loser cancelled on its leader")
+    check(st["hedged"] == 1 and st["completed"] == 1 and st["failed"] == 0, f"{label}: {st}")
+    winner = (h.admitted_by or "").split("#")[0]
+    log(f"[slices] {label}: hedged after {SLICE_HEDGE['hedge_ms']:g} ms, won by {winner} "
+        f"({h.admitted_by}); the other attempt, remote, cancelled on its leader and its slot "
+        f"freed; card {smi}")
+    return got
+
+
+def slice_pool_one(ft, smi, tmp):
+    """(a) on one card: a local captured engine, a remote one-card replica
+    (captured) and a remote one-rank NCCL mesh replica (eager), every
+    request's f32 tokens held against one card's generate, then the drills:
+    a remote leader killed and restarted in place, a slice's process killed
+    and a spare added, an autoscaler up onto a spare and down, a hedge whose
+    loser is remote.  Returns the f32 oracle's launches (the pool's paths
+    launch none)."""
+    from flexflow_tpu_torch.models.transformer import build_transformer
+    from flexflow_tpu_torch.serving import ReplicaPool
+    from flexflow_tpu_torch.serving.remote import SliceHub
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    lm, tok, pos = decode_lm(ft, build_transformer, "float32", machine=ft.Machine(devices=[dev]))
+    params = os.path.join(tmp, "lm_f32.npy")
+    save_params(lm, params)
+    hub = SliceHub()
+    procs = {n: spawn_slice(hub, n, [0], params, mesh=m)
+             for n, m in (("card1", False), ("mesh1", True), ("spare-a", False),
+                          ("spare-b", False))}
+    oracle = dict(NO_LAUNCH)
+    try:
+        mb = SLICE_ENGINE["max_batch"]
+        reqs = traffic()[:2 * mb * 3]
+        rng = np.random.default_rng(18)
+        hedge_p = rng.integers(0, LM["vocab_size"], size=SLICE_HEDGE["prompt"], dtype=np.int32)
+        want = Want(lm)
+        t0 = time.perf_counter()
+        for p, n in reqs + [(hedge_p, SLICE_HEDGE["new"])]:
+            want(p, n)
+        t_want = time.perf_counter() - t0
+        card1, mesh1 = wait_slices(hub, ["card1", "mesh1"], procs)
+        wait_slices(hub, ["spare-a", "spare-b"], procs)
+        t_up = time.perf_counter() - t_phase
+        outs_all = []
+
+        def check_tokens(label, rs, outs):
+            outs_all.append((label, rs, outs))
+
+        cfg = pool_config(**{k: v for k, v in SLICE_ENGINE.items() if k != "paged"},
+                          replica_timeout_s=SLICE_TIMEOUT_S)
+        pool = ReplicaPool([lm, card1, mesh1], config=cfg, warmup=True)
+        t0 = time.perf_counter()
+        pool.start()
+        log(f"[slices] (a) slices registered {t_up:.1f} s into the phase (one card's f32 "
+            f"generate of {len(reqs) + 1} requests {t_want:.1f} s meanwhile); pool of a local "
+            f"engine, remote card1 (one card, captured) and mesh1 (one-rank NCCL mesh, eager) "
+            f"started in {time.perf_counter() - t0:.1f} s; spares spare-a, spare-b")
+        states = ReplicaStates(pool)
+        try:
+            hs, outs, wall = pool_burst(pool, reqs)
+            time.sleep(0.3)  # the remote leaders' next beats carry their stats
+            st = pool.stats()
+            check(st["completed"] == len(reqs) and st["failovers"] == 0
+                  and st["replica_downs"] == 0, f"(a) burst: {st}")
+            served = {k: v["engine"]["completed"] for k, v in st["replicas"].items()}
+            check(all(n > 0 for n in served.values()), f"(a) a replica served nothing: {served}")
+            slice_line(f"(a) f32 burst of TRAFFIC's first {len(reqs)} (2 x max_batch {mb} a "
+                       "replica)", pool, hs, outs, wall, smi)
+            check_tokens("(a) f32 burst", reqs, outs)
+            # each drill sends as many requests as the other replicas have
+            # slots and more, so that its target admits some
+            ttr_kill = slice_drill_kill("(a) drill replica_kill", pool, card1, reqs[:24], states,
+                                        check_tokens)
+            added = slice_drill_sigkill("(a) drill SIGKILL", pool, hub, card1,
+                                        procs["card1"][0], reqs[24:48], states, check_tokens)
+            slice_drill_scale("(a) drill autoscaler", pool, hub, reqs, states,
+                              check_tokens)
+        finally:
+            states.stop()
+            pool.stop()
+        hcfg = pool_config(**{k: v for k, v in SLICE_ENGINE.items() if k != "paged"},
+                           replica_timeout_s=SLICE_TIMEOUT_S, hedge_ms=SLICE_HEDGE["hedge_ms"])
+        got = slice_drill_hedge("(a) drill hedge", hub, [added.name, "mesh1"], hcfg, hedge_p,
+                                want, smi)
+        check_tokens("(a) drill hedge", [(hedge_p, SLICE_HEDGE["new"])], [got])
+        launches = read_launches(KERNELS)
+        for label, rs, outs in outs_all:
+            for k, v in slice_tokens(label, lm, tok, pos, want, rs, outs, smi).items():
+                oracle[k] += v
+        log(f"[slices] (a) drills: replica_kill time to recover {ttr_kill:.3f} s; phase 18 "
+            f"(a) took {time.perf_counter() - t_phase:.1f} s; card {smi}")
+        return launches, oracle
+    finally:
+        hub.close()
+        for ps in procs.values():
+            for p in ps:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+        del lm
+        free_models()
+
+
+def slice_pool_multi(ft, smi, tmp):
+    """(b) on four cards: two replicas of two cards each (the LM's heads
+    and dense columns split 2, a process a card) and two spare slices over
+    the same cards, every request's f32 tokens against one card's generate;
+    C11 (a fault planted on a follower before its step's collectives: every
+    rank of that slice ends within the replica timeout plus SLICE_MARGIN_S,
+    under process groups whose own timeout is SLICE_PG_TIMEOUT_S, its
+    attempts fail over exactly once) and C10 (that slice re-forms its
+    communicators in its living processes and serves again), then the
+    drills of (a)."""
+    from flexflow_tpu_torch.models.transformer import build_transformer
+    from flexflow_tpu_torch.serving import ReplicaPool
+    from flexflow_tpu_torch.serving.remote import SliceHub
+
+    if torch.cuda.device_count() < 4:
+        log(f"[slices] (b) needs four cards ({torch.cuda.device_count()} visible): the pool "
+            "over two-card slices was not run")
+        return dict(NO_LAUNCH), dict(NO_LAUNCH)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    lm, tok, pos = decode_lm(ft, build_transformer, "float32", machine=ft.Machine(devices=[dev]))
+    params = os.path.join(tmp, "lm_f32_b.npy")
+    save_params(lm, params)
+    flag = os.path.join(tmp, "plant_c11")
+    hub = SliceHub()
+    procs = {"A": spawn_slice(hub, "A", [0, 1], params, split=2, plant=flag),
+             "B": spawn_slice(hub, "B", [2, 3], params, split=2),
+             "C": spawn_slice(hub, "C", [0, 1], params, split=2),
+             "D": spawn_slice(hub, "D", [2, 3], params, split=2)}
+    oracle = dict(NO_LAUNCH)
+    try:
+        mb = SLICE_ENGINE_B["max_batch"]
+        reqs = traffic()[:2 * mb * 2]
+        rng = np.random.default_rng(18)
+        hedge_p = rng.integers(0, LM["vocab_size"], size=SLICE_HEDGE["prompt"], dtype=np.int32)
+        want = Want(lm)
+        for p, n in reqs + [(hedge_p, SLICE_HEDGE["new"])]:
+            want(p, n)
+        A, B = wait_slices(hub, ["A", "B"], procs)
+        wait_slices(hub, ["C", "D"], procs)
+        outs_all = []
+
+        def check_tokens(label, rs, outs):
+            outs_all.append((label, rs, outs))
+
+        cfg = pool_config(**{k: v for k, v in SLICE_ENGINE_B.items() if k != "paged"},
+                          replica_timeout_s=SLICE_TIMEOUT_B_S)
+        pool = ReplicaPool([A, B], config=cfg)
+        pool.start()
+        states = ReplicaStates(pool)
+        try:
+            hs, outs, wall = pool_burst(pool, reqs, timeout=1200)
+            st = pool.stats()
+            check(st["completed"] == len(reqs) and st["failovers"] == 0, f"(b) burst: {st}")
+            slice_line(f"(b) f32 burst of TRAFFIC's first {len(reqs)} (2 x max_batch {mb} a "
+                       "replica) over two slices of two cards", pool, hs, outs, wall, smi)
+            check_tokens("(b) f32 burst", reqs, outs)
+            # C11 and C10 ----------------------------------------------
+            rep = replica_of(pool, "A")
+            before = pool.stats()
+            hs = [pool.submit(p, n, timeout_s=0) for p, n in reqs[:8]]
+            settle(lambda: rep.engine.num_active > 0, "(b) C11: A decoding")
+            old = rep.engine
+            open(flag, "w").close()
+            t0 = time.perf_counter()
+            outs = [h.result(1200) for h in hs]
+            settle(lambda: len(old.ended_at) == 2, "(b) C11: every rank of A ended")
+            ends = {r: t - t0 for r, (t, _) in old.ended_at.items()}
+            limit = SLICE_TIMEOUT_B_S + SLICE_MARGIN_S
+            check(all(e < limit for e in ends.values()),
+                  f"(b) C11: ranks of A ended {ends} s after the fault, limit {limit:g}")
+            check(all("LockstepBroken" in (c or "") for _, c in old.ended_at.values()),
+                  f"(b) C11: {old.ended_at}")
+            settle(lambda: rep.restarts >= 1 and rep.state == "ready", "(b) C10: A restarted")
+            st = pool.stats()
+            moved = st["failovers"] - before["failovers"]
+            check(st["replica_downs"] == before["replica_downs"] + 1 and moved >= 1,
+                  f"(b) C11: {st}")
+            check_tokens("(b) C11 drill", reqs[:8], outs)
+            ttr = states.recovered(t0, 2)
+            log(f"[slices] (b) C11: a fault planted on A's follower before its step's "
+                f"collectives; A's ranks ended {', '.join(f'rank {r} {e:.3f} s' for r, e in sorted(ends.items()))} "
+                f"after it (replica timeout {SLICE_TIMEOUT_B_S:g} s + margin {SLICE_MARGIN_S:g}"
+                f", process groups' own {SLICE_PG_TIMEOUT_S:g} s), each LockstepBroken; "
+                f"{moved} attempts failed over exactly once")
+            hs2, outs2, _ = pool_burst(pool, reqs[8:16], timeout=1200)
+            settle(lambda: rep.engine.stats().get("completed", 0) > 0,
+                   "(b) C10: the re-formed A served")
+            check_tokens("(b) C10 after the re-form", reqs[8:16], outs2)
+            log(f"[slices] (b) C10: A re-formed its NCCL world in its living processes "
+                f"(generation {A.generation}) and serves again ({rep.engine.uid}, "
+                f"{rep.engine.stats().get('completed', 0)} served), {ttr:.3f} s from the fault "
+                "to two ready replicas")
+            # the drills of (a) --------------------------------------------
+            # (a)'s drills; each sends as many requests as the other
+            # replicas have slots and more, so that the target admits some
+            slice_drill_kill("(b) drill replica_kill", pool, B, reqs[:8], states, check_tokens)
+            slice_drill_sigkill("(b) drill SIGKILL", pool, hub, B, procs["B"][1], reqs[8:16],
+                                states, check_tokens)
+            slice_drill_scale("(b) drill autoscaler", pool, hub, reqs[:12], states,
+                              check_tokens)
+        finally:
+            states.stop()
+            pool.stop()
+        hcfg = pool_config(**{k: v for k, v in SLICE_ENGINE_B.items() if k != "paged"},
+                           replica_timeout_s=SLICE_TIMEOUT_B_S, hedge_ms=SLICE_HEDGE["hedge_ms"])
+        idle = [s.name for s in hub.spares()][:2]
+        got = slice_drill_hedge("(b) drill hedge", hub, idle, hcfg, hedge_p, want, smi)
+        check_tokens("(b) drill hedge", [(hedge_p, SLICE_HEDGE["new"])], [got])
+        launches = read_launches(KERNELS)
+        for label, rs, outs in outs_all:
+            for k, v in slice_tokens(label, lm, tok, pos, want, rs, outs, smi).items():
+                oracle[k] += v
+        log(f"[slices] (b) took {time.perf_counter() - t_phase:.1f} s on four cards; card {smi}")
+        return launches, oracle
+    finally:
+        hub.close()
+        for ps in procs.values():
+            for p in ps:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+        del lm
+        free_models()
+
+
+def slice_pool_phase(ft, kernels, smi):
+    """Phase 18: a replica pool over slices of cards.  (a) on one card; (b)
+    with four.  Returns the kernels' launches: the pool's paths launch none
+    (checked); the f32 oracle's full forwards, where a request differs
+    from generate, launch K3."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity: TF32 off
+    free_models()
+    KERNELS.update(kernels)
+    total = dict(NO_LAUNCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (slice_pool_one, slice_pool_multi):
+            reset_launches(kernels)
+            launches, oracle = part(ft, smi, tmp)
+            check(launches == NO_LAUNCH, f"phase 18 {part.__name__} launched {launches}")
+            for k, v in oracle.items():
+                total[k] += v
+    log(f"[slices] phase 18 took {time.perf_counter() - t0:.1f} s; the pool's paths launched "
+        f"{NO_LAUNCH}, the f32 oracle's forwards {total}; card {smi}")
+    return total
+
+
+PHASES = tuple(range(1, 19))
 
 
 def selected_phases(argv):
@@ -5890,6 +6471,10 @@ def main(argv=None):
     # phase 17 -----------------------------------------------------------
     if 17 in phases:
         ran["mesh decode"] = mesh_decode_phase(ft, kernels, smi)
+
+    # phase 18 -----------------------------------------------------------
+    if 18 in phases:
+        ran["slices"] = slice_pool_phase(ft, kernels, smi)
 
     # result -------------------------------------------------------------
     main_launches = {n: sum(r[n] for r in ran.values()) for n in kernels}

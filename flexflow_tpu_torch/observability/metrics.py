@@ -334,13 +334,20 @@ def render_backend(backend) -> str:
             out.append("# TYPE ff_serve_inflight gauge")
             out.append(f"ff_serve_inflight {hz.get('inflight', 0)}")
             out.append("# TYPE ff_replica_up gauge")
-            ups, incs, rsts = [], [], []
+            ups, incs, rsts, ranks = [], [], [], []
             for r in hz.get("replicas", []):
                 name = str(r.get("name"))
                 pairs = [("replica", name),
                          ("state", str(r.get("state")))]
                 if r.get("zone") is not None:
                     pairs.append(("zone", str(r["zone"])))
+                if r.get("slice") is not None:
+                    # a remote replica (serving/remote.py): its slice,
+                    # and how many ranks (cards) it spans
+                    pairs.append(("slice", str(r["slice"])))
+                    ranks.append("ff_replica_ranks%s %d" % (_label_str(
+                        (("replica", name), ("slice", str(r["slice"])))),
+                        int(r.get("world_size", 1))))
                 lab = _label_str(tuple(sorted(pairs)))
                 ups.append(f"ff_replica_up{lab} "
                            f"{1 if r.get('state') == 'ready' else 0}")
@@ -361,6 +368,9 @@ def render_backend(backend) -> str:
             if rsts:
                 out.append("# TYPE ff_replica_restarts gauge")
                 out.extend(rsts)
+            if ranks:
+                out.append("# TYPE ff_replica_ranks gauge")
+                out.extend(ranks)
             zones = hz.get("zones") or {}
             if zones:
                 out.append("# TYPE ff_zone_ready_replicas gauge")

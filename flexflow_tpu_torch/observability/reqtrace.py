@@ -7,7 +7,13 @@ This module is the joining key: a ``TraceContext`` minted ONCE at
 admission and carried on the ``InferenceRequest`` through every layer,
 so one request's queue wait, prefill, decode chunks, KV block events,
 and failover/hedge attempts all share a ``trace_id`` and
-``tools/timeline_export.py`` can render them as one Perfetto track.
+``tools/timeline_export.py`` can render them as one Perfetto track.  An
+attempt served by a remote replica (a slice of cards,
+serving/remote.py) carries its context across the channel: that
+slice's engine writes the attempt's ``serve_*`` records, under the
+attempt's request id and trace ids, to its own process's event log,
+while the pool's ``serve_request`` and ``serve_attempt`` spans stay in
+the pool's; the logs join on ``trace_id``.
 
 A copy of the JAX package's ``observability/reqtrace.py``.  STDLIB-ONLY
 like ``events.py``/``serving/queue.py``: the queue module (which carries

@@ -6,7 +6,22 @@ One process drives one device.  ``initialize`` brings up the default
 Under ``torchrun`` the rank, the world size and the rendezvous come from
 ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``, and each rank is
 bound to ``cuda:LOCAL_RANK``; a caller may pass them instead, including
-a ``file://`` or ``tcp://localhost:<port>`` ``init_method``.
+a ``file://`` or ``tcp://localhost:<port>`` ``init_method``, or a c10d
+``store`` (a replica pool's slices rendezvous through the pool's store,
+serving/remote.py, each slice and each re-forming under a prefix of its
+own).
+
+A living process may re-form its group: ``shutdown`` destroys every group
+and forgets what the port kept of them (``Machine.for_ranks``'s machines,
+the pipeline's warmed ring groups), and ``initialize`` starts a new one.
+No NCCL group is bound to its device (``init_process_group``'s
+``device_id``): each group makes its own communicator when first used,
+and none is split from another with ``ncclCommSplit``.  Bound, a mesh
+split from a re-formed group died of SIGSEGV in ``split_group`` on NVIDIA
+H100s with torch 2.11 (``tools/regroup_repro.py``); and binding is a
+property of the whole group, which every rank must share (a bound rank
+splits, an unbound one does not), so a process that re-formed its group
+could not simply drop it alone.
 
 Each rank feeds its own slice of the global batch (``host_local_batch``,
 the counterpart of ``jax.make_array_from_process_local_data``).  Over
@@ -27,18 +42,23 @@ import torch.distributed as dist
 
 from .mesh import Machine, hybrid_mesh_shape
 
+# the timeout the process group was started with (``group_timeout``)
+_TIMEOUT: Optional[datetime.timedelta] = None
+
 
 def initialize(device: str = "cuda", init_method: Optional[str] = None,
                world_size: Optional[int] = None, rank: Optional[int] = None,
                local_rank: Optional[int] = None,
-               timeout: Optional[datetime.timedelta] = None) -> torch.device:
+               timeout: Optional[datetime.timedelta] = None,
+               store=None) -> torch.device:
     """Start the default process group and return this rank's device.
 
     Unset arguments come from the environment ``torchrun`` sets (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``; ``init_method`` defaults to ``env://``,
-    which reads ``MASTER_ADDR``/``MASTER_PORT``).  ``timeout`` bounds the
-    rendezvous and each collective (torch's default when None).  A no-op
-    returning the device when the group is already up."""
+    which reads ``MASTER_ADDR``/``MASTER_PORT``); a ``store`` replaces
+    ``init_method``.  ``timeout`` bounds the rendezvous and each collective
+    (torch's default when None).  A no-op returning the device when the
+    group is already up."""
     dev_type = torch.device(device).type
     if dev_type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (expected 'cuda' or 'cpu')")
@@ -56,18 +76,42 @@ def initialize(device: str = "cuda", init_method: Optional[str] = None,
         dev = torch.device("cpu")
     if dist.is_initialized():
         return dev
-    kwargs = {"device_id": dev} if dev_type == "cuda" else {}
+    kwargs = {}
     if timeout is not None:
         kwargs["timeout"] = timeout
+    global _TIMEOUT
+    _TIMEOUT = timeout
+    if store is not None:
+        kwargs["store"] = store
+    else:
+        kwargs["init_method"] = init_method or "env://"
     dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
-                            init_method=init_method or "env://",
                             world_size=world_size, rank=rank, **kwargs)
     return dev
 
 
 def shutdown() -> None:
+    """Destroy the process group and every group made from it, and forget
+    the port's machines and groups over it, so that a later ``initialize``
+    starts from nothing of the old ones."""
+    from . import pipeline
+    from .mesh import forget_machines
+
+    forget_machines()
+    pipeline.forget_groups()
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def group_timeout() -> float:
+    """Seconds each collective of the process group may wait: what
+    ``initialize`` was given, else torch's default for its backend."""
+    if _TIMEOUT is not None:
+        return _TIMEOUT.total_seconds()
+    from torch.distributed.distributed_c10d import _get_default_timeout
+
+    backend = dist.get_backend() if dist.is_initialized() else "gloo"
+    return _get_default_timeout(backend).total_seconds()
 
 
 def process_count() -> int:

@@ -41,6 +41,17 @@ machine's ranks share goes through ``process_group`` (``barrier``), never
 through the whole process group, and its first rank ``leads`` (writes
 files for all, and plans the serving engine's steps for the others over
 the gloo ``plan_group``).
+
+A serving engine bounds the machine's collectives by its replica timeout
+(serving/engine.py): ``abort`` aborts every NCCL communicator the machine
+made, which ends a collective on this rank's streams that a peer will
+never join (NCCL's kernels poll the abort flag; another rank's abort is
+not promised to reach them), and ``set_timeout`` bounds each collective of a gloo
+group, which runs on the host and cannot be aborted from another thread.
+An aborted machine is unusable: its ranks re-form their process group
+(``distributed.shutdown`` then ``initialize``) and build a new one.
+``distributed.shutdown`` also forgets every machine ``for_ranks`` made,
+so that nothing of the old groups stays reachable from the port.
 """
 
 from __future__ import annotations
@@ -197,8 +208,15 @@ def chunk_bounds(size: int, degrees: Sequence[int]) -> List[Tuple[int, int]]:
 
 # ---------------------------------------------------------------- the machine
 
-# (device type, ranks) -> the Machine over those ranks (Machine.for_ranks)
+# (device type, ranks) -> the Machine over those ranks (Machine.for_ranks);
+# emptied by distributed.shutdown (forget_machines)
 _SUBSET_MACHINES: dict = {}
+
+
+def forget_machines() -> None:
+    """Drop every machine ``for_ranks`` kept: their groups belong to a
+    process group that is being destroyed."""
+    _SUBSET_MACHINES.clear()
 
 
 class Machine:
@@ -217,6 +235,7 @@ class Machine:
         # group, or no process group)
         self.process_group = process_group
         self._plan_group = None  # gloo, over self.ranks (``plan_group``)
+        self.aborted = False     # ``abort`` was called: the machine serves no more
         if mesh is not None:
             self.axis_sizes: Tuple[int, ...] = tuple(mesh.shape)
             self.axis_names: Tuple[str, ...] = tuple(
@@ -321,6 +340,55 @@ class Machine:
         if self._plan_group is None:
             self._plan_group = dist.new_group(list(self.ranks), backend="gloo")
         return self._plan_group
+
+    def groups(self) -> list:
+        """Every process group this machine made or adopted: its mesh
+        dims', the flattened dims' (``group``), its ranks' and its plan
+        group, each once."""
+        if self.mesh is None or self.benched:
+            return []
+        found = [self.mesh.get_group(i) for i in range(len(self.axis_sizes))]
+        found += list(self._groups.values()) + [self.process_group, self._plan_group]
+        out = []
+        for g in found:
+            if g is not None and all(g is not o for o in out):
+                out.append(g)
+        return out
+
+    def abort(self) -> None:
+        """Abort every NCCL communicator of this machine: a collective
+        pending on this rank's streams ends, and every later one fails
+        (gloo groups are left alone: their collectives run on the host,
+        bounded by ``set_timeout``).  Idempotent; the machine is marked
+        ``aborted`` and serves no more (its ranks re-form their process
+        group)."""
+        import torch.distributed as dist
+
+        if self.aborted:
+            return
+        self.aborted = True
+        for g in self.groups():
+            try:
+                if dist.get_backend(g) == "nccl":
+                    g.abort()
+            except Exception:  # noqa: BLE001 — a group already torn down
+                pass
+
+    def set_timeout(self, seconds: float) -> None:
+        """Bound each later collective on this machine's gloo groups by
+        ``seconds``: gloo cannot end a pending collective from another
+        thread, so a collective that a peer never joins fails after this
+        time instead of the process group's own timeout.  NCCL groups keep
+        theirs (there, ``abort`` ends a pending collective; a timeout would
+        hand it to the watchdog, which ends the process)."""
+        import datetime
+
+        import torch.distributed as dist
+
+        td = datetime.timedelta(seconds=float(seconds))
+        for g in self.groups():
+            if dist.get_backend(g) == "gloo":
+                g.set_timeout(td)
 
     @property
     def device(self) -> torch.device:

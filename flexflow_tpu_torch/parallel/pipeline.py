@@ -98,8 +98,14 @@ def _is_float(spec: Spec) -> bool:
 
 
 # ring groups that have run a collective in this process (see _Transport),
-# held so that no later group reuses an id
+# held so that no later group reuses an id; emptied by distributed.shutdown
 _WARM_GROUPS: dict = {}
+
+
+def forget_groups() -> None:
+    """Drop the warmed ring groups: their process group is being
+    destroyed."""
+    _WARM_GROUPS.clear()
 
 
 class _Transport:

@@ -76,9 +76,8 @@ from typing import Callable, Hashable, List, Optional
 import torch
 
 _disabled = 0
-# one capture at a time in the process: torch.cuda.graph captures on a stream
-# its class shares, and synchronizes the card first (replays, and every other
-# thread's work, go on meanwhile)
+# one capture at a time in the process: torch.cuda.graph synchronizes the card
+# first (replays, and every other thread's work, go on meanwhile)
 capture_lock = threading.Lock()
 
 
@@ -190,10 +189,17 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
+        # a high-priority stream, a pool nothing else in the process draws
+        # from: torch.cuda.graph's own capture stream comes from the pool of
+        # ordinary streams, round robin, so another thread's stream (a
+        # serving replica's) could be it, and its work would land in this
+        # capture
+        stream = torch.cuda.Stream(self.device, priority=-1)
         with capture_lock, torch.cuda.device(self.device), _collection_paused():
             torch._C._cuda_clearCublasWorkspaces()
             try:
-                with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):
+                with torch.cuda.graph(graph, stream=stream,
+                                      capture_error_mode=self.capture_error_mode):
                     step()
             finally:
                 torch._C._cuda_clearCublasWorkspaces()

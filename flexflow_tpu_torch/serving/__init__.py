@@ -12,6 +12,10 @@
                 one admission queue — failover, load shedding, hedging,
                 zones, elastic membership, graceful drain; several
                 replicas may share one card (imports torch via engine)
+* ``remote``  — replicas over slices of cards, a process a card:
+                ``SliceHub`` (the pool's end), ``serve_slice`` (each rank's
+                loop), ``RemoteEngine`` (the pool's proxy of a remote
+                leader's engine)
 * ``autoscaler`` — ``Autoscaler``/``ScaleConfig``: metrics-driven add and
                 drain of pool replicas within FF_SCALE_MIN/MAX (stdlib)
 * ``api``     — ``ServingAPI``: stdlib ThreadingHTTPServer front end

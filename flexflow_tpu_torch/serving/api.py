@@ -8,7 +8,11 @@ dependencies beyond the standard library.
 
 The backend can be a single ``InferenceEngine`` or a ``ReplicaPool``
 (same ``submit``/``stats`` surface); with a pool the health endpoints
-expose per-replica state and shedding maps to 503 + ``Retry-After``.
+expose per-replica state and shedding maps to 503 + ``Retry-After``.  A
+replica over a slice of cards (serving/remote.py) reports its slice, its
+ranks' pids, its world size and whether it was lost in ``/healthz``, and
+``/metrics`` labels its series with the slice (``ff_replica_ranks``: its
+cards).
 
 Endpoints::
 

@@ -53,7 +53,9 @@ Knobs (loud ValueError on garbage, naming the variable):
 
 STDLIB-ONLY: the knobs parse on hosts with no card, and the policy is
 unit-tested against a stub pool with a fake clock.  On one card the
-replicas it adds share that card (serving/pool.py).
+replicas it adds share that card (serving/pool.py); over slices of cards
+(serving/remote.py) ``add_replica`` claims one of the hub's spare slices
+and ``drain_replica`` returns it, under the same rules.
 """
 
 from __future__ import annotations

@@ -87,10 +87,22 @@ a plan nor a heartbeat within the timeout raises, so no follower hangs
 or decodes alone.  A fault after a plan was sent ends the loop on
 whichever rank it struck (``LockstepBroken``), never only a request or
 the batch: a follower's fault leaves the leader's next plan unanswered,
-and the leader ends when that send times out.  A mesh step runs eagerly (no graph is captured);
-``submit`` on a follower raises, and ``start()``, ``warmup()`` and
-``stop()`` are called on every rank.  A shared queue (a replica pool
-over a slice of cards) is not ported yet (ROADMAP A15).
+and the leader ends when that send times out.  A fault inside a step,
+before its last collective, leaves the other ranks in a collective that
+rank never joins: the rank that failed aborts the machine's communicators
+(``Machine.abort``: what it left on its own streams ends), and each
+rank's step guard aborts them when a step has run longer than
+``FF_SERVE_REPLICA_TIMEOUT`` (NCCL does not promise that one rank's
+abort ends its peers' collectives); on gloo, whose collectives run on the host and
+cannot be aborted from another thread, the machine's groups carry that
+timeout while the loop runs (``Machine.set_timeout``).  Either way
+every rank's step returns or raises within the timeout, and its loop
+ends with ``LockstepBroken``; the slice then re-forms its process group
+before it serves again (serving/remote.py).  A mesh step runs eagerly (no
+graph is captured); ``submit`` on a follower raises, and ``start()``,
+``warmup()`` and ``stop()`` are called on every rank.  A replica pool
+over slices of cards (serving/pool.py, serving/remote.py) gives the
+leader its shared ``queue``.
 """
 
 from __future__ import annotations
@@ -167,7 +179,7 @@ class InferenceEngine:
     def __init__(self, model, config: Optional[ServeConfig] = None,
                  telemetry=None, queue: Optional[RequestQueue] = None,
                  name: Optional[str] = None, decode_fatal: bool = False,
-                 zone: Optional[str] = None, **overrides):
+                 zone: Optional[str] = None, uid: Optional[str] = None, **overrides):
         if not getattr(model, "_compiled", False):
             raise RuntimeError("InferenceEngine needs a compiled model (call compile() first)")
         model._decode_params()  # initialized (on a mesh, every rank calls it here)
@@ -179,16 +191,14 @@ class InferenceEngine:
         self.world_size = model.machine.num_devices if self._mesh else 1
         self.leader_rank = model.machine.ranks[0] if self._mesh else 0
         self.is_leader = not self._mesh or model.machine.leads
-        if self._mesh and queue is not None:
-            raise ValueError("an engine on a mesh owns its queue: a replica pool over a "
-                             "slice of cards is not ported yet (ROADMAP A15)")
         # replica-pool plumbing (inert for a standalone engine): a shared
         # ``queue`` this engine never drains; a stable ``name``; a per-
-        # incarnation ``uid`` (a re-dispatch avoids it); a failure-domain
-        # ``zone``; ``decode_fatal``: a decode-step exception ends the loop
-        # instead of failing the batch in place
+        # incarnation ``uid`` (a re-dispatch avoids it; a remote replica's
+        # is its pool's, serving/remote.py); a failure-domain ``zone``;
+        # ``decode_fatal``: a decode-step exception ends the loop instead of
+        # failing the batch in place
         self.name = name or "replica-0"
-        self.uid = f"{self.name}#{next(_engine_uids)}"
+        self.uid = uid or f"{self.name}#{next(_engine_uids)}"
         self.zone = zone
         self._zone_attr = {} if zone is None else {"zone": zone}
         self._avoid_keys = (self.uid,) if zone is None else (self.uid, f"zone:{zone}")
@@ -244,6 +254,9 @@ class InferenceEngine:
         self._plan_group = self._plan = None
         self._last_plan = 0.0
         self._followers_lost = False  # a plan went unanswered
+        # the step guard (a mesh): when the running step started (None
+        # between steps; _guard_steps aborts an overdue one)
+        self._step_t0: Optional[float] = None
         if self._mesh:
             self._plan_group = model.machine.plan_group()
             room = max(cfg.max_seq + 2 * self._max_w, (2 + self._max_w) * B)
@@ -440,7 +453,13 @@ class InferenceEngine:
         self.last_beat = self._last_plan = time.perf_counter()  # warmup() may have taken a while
         self._thread = threading.Thread(target=self._run, name=f"ff-serve-{self.name}",
                                         daemon=True)
+        if self._mesh:
+            # gloo: every collective of the loop bounded by the replica timeout
+            self.model.machine.set_timeout(self.config.replica_timeout_s)
         self._thread.start()
+        if self._mesh:
+            threading.Thread(target=self._guard_steps, name=f"ff-serve-guard-{self.name}",
+                             daemon=True).start()
         return self
 
     def alive(self) -> bool:
@@ -586,7 +605,8 @@ class InferenceEngine:
         except BaseException as e:
             self.crashed = f"{type(e).__name__}: {e}"  # read by a replica pool
             self._crash_error = e
-            if self._mesh and self.is_leader:
+            if self._mesh and self.is_leader and not self.model.machine.aborted:
+                # (an aborted step: the followers wait in it, or ended)
                 self._send_abort()
             if self._telemetry is not None:
                 self._telemetry.event("serve_loop_crashed", replica=self.name,
@@ -948,10 +968,49 @@ class InferenceEngine:
             return run(*args)
         self._send(kind, fields, arrays)
         try:
-            return run(*args)
+            return self._guarded(run, *args)
         except Exception as e:
             raise LockstepBroken(f"the leader's step failed after its plan was sent: "
                                  f"{type(e).__name__}: {e}") from e
+
+    def _guarded(self, run, *args):
+        """One mesh step under the step guard: a step that fails here
+        aborts the machine's communicators at once (a peer may wait in a
+        collective this rank will not join), and a step whose
+        communicators were aborted meanwhile (overdue, ``_guard_steps``)
+        raises, whatever it returned."""
+        machine = self.model.machine
+        self._step_t0 = time.perf_counter()
+        try:
+            out = run(*args)
+        except BaseException:
+            machine.abort()
+            raise
+        finally:
+            self._step_t0 = None
+        if machine.aborted:
+            raise LockstepBroken("the slice's communicators were aborted during the step "
+                                 f"(a rank's collective outlasted {self.config.replica_timeout_s:g}"
+                                 " s, or the step failed on this rank)")
+        return out
+
+    def _guard_steps(self) -> None:
+        """The step guard's thread (a mesh, every rank): abort the
+        machine's communicators when a step has run longer than the replica
+        timeout, so that a collective a failed peer never joins ends; stop
+        with the loop.  The loop's gloo groups get their timeout back."""
+        timeout = self.config.replica_timeout_s
+        machine = self.model.machine
+        thread = self._thread
+        while thread is not None and thread.is_alive():
+            t0 = self._step_t0
+            if t0 is not None and time.perf_counter() - t0 > timeout:
+                machine.abort()
+            thread.join(min(0.25, timeout / 8))
+        if not machine.aborted:
+            from ..parallel.distributed import group_timeout
+
+            machine.set_timeout(group_timeout())
 
     def _send(self, kind: int, fields=(), arrays=()) -> None:
         """Broadcast one plan to the followers (nothing off a mesh); raises
@@ -1019,7 +1078,7 @@ class InferenceEngine:
             if kind == _ABORT:
                 raise LeaderLost(f"the leader's loop, rank {self.leader_rank}, died")
             try:
-                self._follow_plan(kind, a)
+                self._guarded(self._follow_plan, kind, a)
             except Exception as e:
                 raise LockstepBroken(f"a follower's step failed: {type(e).__name__}: {e}") from e
 

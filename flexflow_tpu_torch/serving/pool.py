@@ -96,6 +96,19 @@ plain pool API): ``add_replica`` spawns a fresh replica;
 finishes its in-flight slots, then the incarnation is REMOVED from the
 replica list so ``healthz``/``ff_replica_up`` never report a dead
 series forever.
+
+Slices of cards (serving/remote.py).  An entry of ``models`` may be a
+``RemoteSlice`` of a ``SliceHub``: a replica whose ranks, leader
+included, are processes of their own (one a card), the JAX package's
+"one model per disjoint device slice".  Its engine here is a
+``RemoteEngine`` proxy, so the health checks, failover, hedging, zones,
+shedding and restarts above run unchanged; the attempts' CAS stays in
+this process.  A slice whose process died is LOST: marked down, its
+attempts failed over, never restarted in place (as a downed zone), and
+never served by a local engine in its place.  With a hub, ``add_replica``
+claims one of its spare slices (None when there is none) and
+``drain_replica`` returns the retired slice to the spares; stopping the
+pool returns every slice.
 """
 
 from __future__ import annotations
@@ -111,12 +124,14 @@ from .config import ServeConfig
 from .engine import ABANDON_HANDBACK, InferenceEngine
 from .queue import (CANCELLED, DONE, InferenceRequest, RequestQueue,
                     ServeError, ServeOverload)
+from .remote import START_TIMEOUT_S, RemoteSlice
 
 import numpy as np
 
-# replica states
-READY, RESTARTING, STOPPED, DRAINING = (
-    "ready", "restarting", "stopped", "draining")
+# replica states (STARTING: a remote incarnation spawned by a restart, not
+# serving yet; LOST: a slice whose process died, never restarted)
+READY, RESTARTING, STOPPED, DRAINING, STARTING, LOST = (
+    "ready", "restarting", "stopped", "draining", "starting", "lost")
 
 
 class _Replica:
@@ -124,11 +139,13 @@ class _Replica:
     and its restart bookkeeping."""
 
     __slots__ = ("name", "model", "engine", "state", "fails", "restarts",
-                 "restart_at", "failovers", "zone")
+                 "restart_at", "failovers", "zone", "slice")
 
-    def __init__(self, name: str, model, zone: Optional[str] = None):
+    def __init__(self, name: str, model, zone: Optional[str] = None,
+                 slice: Optional[RemoteSlice] = None):
         self.name = name
-        self.model = model
+        self.model = model        # None for a remote replica
+        self.slice = slice        # its slice (serving/remote.py), or None
         self.zone = zone
         self.engine: Optional[InferenceEngine] = None
         self.state = STOPPED
@@ -162,9 +179,11 @@ class ReplicaPool:
 
     ``models`` may be a single compiled model (replicated
     ``config.replicas`` times, the replicas sharing its device) or a
-    sequence of models, one per device (``replicas`` is then
-    ``len(models)``).  ``warmup=True`` captures each incarnation's decode
-    graphs before it serves.
+    sequence of models, one per device, or slices of cards
+    (``RemoteSlice``, serving/remote.py), in any mix (``replicas`` is
+    then ``len(models)``).  ``warmup=True`` captures each incarnation's
+    decode graphs before it serves.  With slices, ``add_replica`` claims
+    their hub's spare slices.
     """
 
     def __init__(self, models, config: Optional[ServeConfig] = None,
@@ -178,23 +197,34 @@ class ReplicaPool:
             model_list = [models] * self.config.replicas
         if not model_list:
             raise ValueError("ReplicaPool needs at least one model")
+        local = [m for m in model_list if not isinstance(m, RemoteSlice)]
+        slices = [m for m in model_list if isinstance(m, RemoteSlice)]
+        for m in local:
+            if getattr(m, "_sharded", False):
+                raise ValueError("a model on a mesh serves as a slice of cards: run "
+                                 "serving.remote.serve_slice on its ranks and pass its "
+                                 "RemoteSlice")
+        for sl in slices:
+            sl.take()
+        self._hub = slices[0].hub if slices else None
         self._telemetry = telemetry if telemetry is not None \
-            else getattr(model_list[0], "_telemetry", None)
+            else getattr(local[0] if local else None, "_telemetry", None)
 
         self._queue = RequestQueue()
         zones = self.config.zones
         self._replicas = [
-            _Replica(f"replica-{i}", m,
-                     zone=zones[i % len(zones)] if zones else None)
+            _Replica(f"replica-{i}", None if isinstance(m, RemoteSlice) else m,
+                     zone=zones[i % len(zones)] if zones else None,
+                     slice=m if isinstance(m, RemoteSlice) else None)
             for i, m in enumerate(model_list)]
         # models to hand to replicas added later (round-robin over the
         # DISTINCT models the caller gave us; on CPU they share one
-        # compiled model, on hardware one per device slice)
-        self._model_pool = list(models) if isinstance(models, (list, tuple)) \
-            else [models]
+        # compiled model, on hardware one per device slice); with a hub,
+        # added replicas are its spare slices instead
+        self._model_pool = local if isinstance(models, (list, tuple)) else [models]
         self._replica_seq = itertools.count(len(model_list))
         self._zones_down: set = set()   # chaos-marked failure domains
-        self._chaos = getattr(model_list[0], "_chaos", None)
+        self._chaos = getattr(local[0], "_chaos", None) if local else None
         self._lock = threading.RLock()
         self._clients: Dict[str, _Client] = {}    # client id -> state
         self._attempts: Dict[str, _Client] = {}   # attempt id -> state
@@ -250,6 +280,11 @@ class ReplicaPool:
             t.join(timeout)
             self._monitor_thread = None
         self._queue.stop_sweeper()
+        for rep in list(self._replicas):
+            if rep.slice is not None:
+                if rep.engine is not None:
+                    rep.engine.abandon()   # a no-op once its loop ended
+                rep.slice.release()
 
     def __enter__(self) -> "ReplicaPool":
         return self.start()
@@ -264,7 +299,18 @@ class ReplicaPool:
         refused."""
         self._preemption = handler
 
-    def _spawn_engine(self, rep: _Replica) -> None:
+    def _spawn_engine(self, rep: _Replica, wait: bool = True) -> None:
+        """A new incarnation of ``rep``.  A remote one starts on its slice
+        while this returns; ``wait`` (the caller's thread, never the
+        monitor's) blocks until it serves."""
+        if rep.slice is not None:
+            eng = rep.slice.spawn(rep.name, self.config, self._queue, rep.zone,
+                                  self._warmup)
+            rep.engine = eng
+            if wait:
+                eng.wait_started(START_TIMEOUT_S)
+            rep.state = READY if wait else STARTING   # the monitor promotes it
+            return
         eng = InferenceEngine(
             rep.model, config=self.config, telemetry=self._telemetry,
             queue=self._queue, name=rep.name, decode_fatal=True,
@@ -281,15 +327,23 @@ class ReplicaPool:
     def add_replica(self, zone: Optional[str] = None) -> Optional[str]:
         """Scale up: spawn one fresh replica and return its name.
         ``zone=None`` auto-places in the least-populated zone that is
-        not chaos-marked down (the surviving-zone backfill path).
-        Returns None while the pool is not accepting (drain/stop)."""
+        not chaos-marked down (the surviving-zone backfill path).  With a
+        hub the replica is a spare slice, claimed here.  Returns None
+        while the pool is not accepting (drain/stop), and with a hub when
+        no spare is left."""
         with self._lock:
             if not self._accepting or self._draining:
                 return None
+            sl = None
+            if self._hub is not None:
+                sl = self._hub.claim()
+                if sl is None:
+                    return None
             idx = next(self._replica_seq)
             z = zone if zone is not None else self._pick_zone()
-            model = self._model_pool[idx % len(self._model_pool)]
-            rep = _Replica(f"replica-{idx}", model, zone=z)
+            model = None if sl is not None \
+                else self._model_pool[idx % len(self._model_pool)]
+            rep = _Replica(f"replica-{idx}", model, zone=z, slice=sl)
             self._replicas.append(rep)
         try:
             self._spawn_engine(rep)
@@ -297,6 +351,10 @@ class ReplicaPool:
             with self._lock:
                 if rep in self._replicas:
                     self._replicas.remove(rep)
+            if rep.engine is not None:
+                rep.engine.abandon()
+            if sl is not None:
+                sl.release()
             if self._telemetry is not None:
                 self._telemetry.event(
                     "replica_add_failed", replica=rep.name,
@@ -349,6 +407,8 @@ class ReplicaPool:
                 self._replicas.remove(victim)
             victim.state = STOPPED
             self._stats["replicas_retired"] += 1
+        if victim.slice is not None:
+            victim.slice.release()     # a spare again
         log = self._telemetry
         if log is not None:
             attrs = dict(replica=victim.name, incarnation=eng.uid)
@@ -639,6 +699,13 @@ class ReplicaPool:
                     bad = self._diagnose(rep.engine, now)
                     if bad is not None:
                         self._mark_down(rep, bad, now)
+                elif rep.state == STARTING:
+                    # a remote restart: ready once its leader serves
+                    bad = self._diagnose(rep.engine, now)
+                    if bad is not None:
+                        self._mark_down(rep, f"restart failed: {bad}", now)
+                    elif rep.engine.started:
+                        rep.state = READY
                 elif rep.state == RESTARTING and now >= rep.restart_at \
                         and (rep.zone is None
                              or rep.zone not in self._zones_down):
@@ -654,11 +721,15 @@ class ReplicaPool:
         down zone marks EVERY ready replica in it down at once, and all
         their stranded attempts fail over with the zone in the avoid
         set (exactly-once: the usual attempt CAS)."""
-        mk = self._chaos
         zones = self.config.zones
-        if mk is None or not zones:
+        if not zones:
             return
-        for zi in tuple(getattr(mk, "zones_down", ()) or ()):
+        # the local monkey's record, and each remote leader's (its beat)
+        reported = list(getattr(self._chaos, "zones_down", ()) or ())
+        for r in list(self._replicas):
+            reported += getattr(r.engine, "zones_down", None) or () \
+                if r.slice is not None else ()
+        for zi in tuple(reported):
             z = zones[int(zi) % len(zones)]
             if z in self._zones_down:
                 continue
@@ -714,6 +785,8 @@ class ReplicaPool:
                               self.config.restart_cap_s)
         rep.restart_at = now + delay
         self._stats["replica_downs"] += 1
+        if rep.slice is not None and rep.slice.lost is not None:
+            rep.state = LOST       # never restarted in place
         log = self._telemetry
         if log is not None:
             log.event("replica_down", replica=rep.name,
@@ -725,7 +798,7 @@ class ReplicaPool:
 
     def _restart(self, rep: _Replica) -> None:
         try:
-            self._spawn_engine(rep)
+            self._spawn_engine(rep, wait=False)
         except Exception as e:  # noqa: BLE001 — count it as another fail
             rep.state = RESTARTING
             rep.fails += 1
@@ -873,6 +946,9 @@ class ReplicaPool:
                 failovers=r.failovers)
             if r.zone is not None:
                 d["zone"] = r.zone
+            if r.slice is not None:
+                d.update(slice=r.slice.name, world_size=r.slice.ranks,
+                         pids=r.slice.pids, lost=r.slice.lost)
             reps.append(d)
         any_ready = any(r["state"] == READY for r in reps)
         if self._draining:

@@ -97,7 +97,11 @@ the pool's heartbeat monitor (``FF_SERVE_REPLICA_TIMEOUT``) declares it
 stalled.  Under a pool the admission counter is SHARED across replicas
 (the monkey serializes ``fire`` with a lock), so triggers stay a
 deterministic 1-based admission count regardless of which replica
-admits.
+admits.  A remote replica's leader (a slice of cards, serving/remote.py)
+fires the site on its own model's monkey, in its own process, where it
+admits: its counter is that slice's, as each model's monkey on one card
+counts its own engines' admissions, and ``RemoteSlice.set_chaos`` plants
+a spec there; its ``zones_down`` reaches the pool in the leader's beat.
 
 The ``resharding`` site fires from the reconfiguration controller's
 per-step-boundary hook (``runtime/reconfigure.py``), with the GLOBAL

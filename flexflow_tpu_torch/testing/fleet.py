@@ -38,7 +38,11 @@ prompts, same chaos trigger):
 (``build_serve_model``, on ``cuda`` unless ``device="cpu"``) or serves
 the model it is given (the card's, at full width), injects the scenario's chaos on that model's monkey,
 replays the trace and returns the score dict ``tools/fleet_bench.py``
-writes.
+writes.  Given ``slices`` (serving/remote.py), the pool's replicas are
+those slices of cards instead, one a replica, the autoscaler's adds their
+hub's spares, and each slice's leader gets the chaos spec: its serve site
+counts that slice's admissions, so the trigger is the pool-wide one
+divided among the slices.
 """
 
 from __future__ import annotations
@@ -209,7 +213,8 @@ def run_scenario(name: str, requests: int = 16, seed: int = 0,
                  matches: Optional[Callable] = None,
                  traffic: Optional[Sequence[Tuple[Any, int]]] = None,
                  pool_warmup: bool = False,
-                 device: str = "cuda") -> Dict[str, Any]:
+                 device: str = "cuda",
+                 slices: Optional[Sequence[Any]] = None) -> Dict[str, Any]:
     """Replay one scenario against a live pool+autoscaler and score it.
     Deterministic traffic under a fixed seed; wall-clock latencies vary
     with the host, which is why the SLO is a knob.
@@ -224,7 +229,10 @@ def run_scenario(name: str, requests: int = 16, seed: int = 0,
     vocabulary); ``pool_warmup``: capture every replica's decode graphs
     before it serves (``ReplicaPool(warmup=True)``), else the JAX
     package's unscored warm-up waves run first, one per prompt bucket
-    sized to fill every replica."""
+    sized to fill every replica; ``slices``: serve over these slices of
+    cards (``RemoteSlice``), one a replica, in place of the scenario's
+    replicas of ``model`` (the model, or ``matches``, is then only the
+    reference)."""
     import numpy as np
 
     from ..observability import events
@@ -240,15 +248,18 @@ def run_scenario(name: str, requests: int = 16, seed: int = 0,
     offsets = sc.offsets(n, sc.duration_s, rng)
     mix = sc.mix(n, rng) if traffic is None else [(len(p), nt) for p, nt in traffic]
 
-    if model is None:
+    if slices is not None and model is None and matches is None:
+        raise ValueError("run_scenario over slices needs matches= or a reference model=")
+    if model is None and slices is None:
         model = build_serve_model(device)
+    replicas = sc.replicas if slices is None else len(slices)
     saved_chaos = getattr(model, "_chaos", None)
     log = events.EventLog(telemetry_file) if telemetry_file else None
     try:
         kw = dict(max_batch=2, max_seq=64, max_new_tokens=16)
         kw.update(serve or {})
         cfg = ServeConfig(
-            replicas=sc.replicas, zones=sc.zones,
+            replicas=replicas, zones=sc.zones,
             max_queue=sc.max_queue, queue_timeout_s=60.0,
             replica_timeout_s=120.0,
             restart_backoff_s=0.05, restart_cap_s=0.2, **kw)
@@ -261,10 +272,16 @@ def run_scenario(name: str, requests: int = 16, seed: int = 0,
                      for b in buckets}
         warm_new = {b: max(nt for p, nt in mix if cfg.bucket_for(p) == b)
                     for b in buckets}
-        n_warm = len(buckets) * sc.replicas * cfg.max_batch
+        n_warm = len(buckets) * replicas * cfg.max_batch
         # the chaos trigger counts admissions on this model's monkey, which
-        # every replica's engine shares
-        model._chaos = ChaosMonkey(sc.chaos(n, n_warm)) if sc.chaos is not None else None
+        # every replica's engine shares; over slices, on each slice's
+        # leader, which counts its own share
+        spec = sc.chaos(n, n_warm) if sc.chaos is not None else None
+        if slices is None:
+            model._chaos = ChaosMonkey(spec) if spec is not None else None
+        else:
+            for sl in slices:
+                sl.set_chaos(None if spec is None else _divided(spec, len(slices)))
         prng = np.random.default_rng(seed)
         prompts = [prng.integers(0, 32, size=plen) for plen, _ in mix] \
             if traffic is None else [np.asarray(p) for p, _ in traffic]
@@ -272,7 +289,8 @@ def run_scenario(name: str, requests: int = 16, seed: int = 0,
 
         scale_cfg = ScaleConfig(**(sc.scale or
                                    dict(min_replicas=1, max_replicas=2)))
-        pool = ReplicaPool(model, cfg, telemetry=log, warmup=pool_warmup)
+        pool = ReplicaPool(model if slices is None else list(slices), cfg, telemetry=log,
+                           warmup=pool_warmup)
         scaler = Autoscaler(pool, scale_cfg)
 
         rows: List[Dict[str, Any]] = [dict() for _ in range(n)]
@@ -319,7 +337,7 @@ def run_scenario(name: str, requests: int = 16, seed: int = 0,
             for b in buckets:
                 wave = [pool.submit(np.zeros(warm_plen[b], np.int32),
                                     warm_new[b])
-                        for _ in range(sc.replicas * cfg.max_batch)]
+                        for _ in range(replicas * cfg.max_batch)]
                 for h in wave:
                     try:
                         h.result(timeout=120.0)
@@ -394,6 +412,22 @@ def run_scenario(name: str, requests: int = 16, seed: int = 0,
                       ready_replicas=pool_stats["ready_replicas"]),
         )
     finally:
-        model._chaos = saved_chaos
+        if model is not None:
+            model._chaos = saved_chaos
+        for sl in slices or ():
+            sl.set_chaos(None)
         if log is not None:
             log.close()
+
+
+def _divided(spec: str, parts: int) -> str:
+    """A serve-site spec whose triggers count ``parts`` slices' admissions
+    in all, as each slice's own (its share, at least 1)."""
+    out = []
+    for entry in spec.split(";"):
+        left, right = entry.split("=", 1)
+        site, trigger = left.split(":", 1)
+        if not trigger.startswith("p"):
+            trigger = str(max(1, int(trigger) // parts))
+        out.append(f"{site}:{trigger}={right}")
+    return ";".join(out)

@@ -35,10 +35,13 @@ vocab 50-64, f32).
   was sent, planted on the leader and then on the follower, ends both
   loops (``LockstepBroken``; the leader's ``/healthz`` turns 503); a
   leader that never sends a plan leaves its follower raising after the
-  timeout.
+  timeout; a step fault before the step's collectives, on either side,
+  under a process group whose own timeout is 600 s, ends both loops
+  within the replica timeout (ROADMAP C11).
 * the engine, 3 ranks: a machine over ranks 0 and 1 (``Machine.for_ranks``)
   with rank 2 benched serves the JAX tokens; the benched rank builds no
-  engine.
+  engine; after the group is shut down and formed again, ``for_ranks``
+  gives a new machine, which serves the JAX tokens (ROADMAP C10).
 * the process group formed again, 2 ranks: shut down, a one-rank mesh
   on rank 0 (generate, an engine's plan group), shut down, then the 2
   ranks again; each mesh generates the JAX tokens.
@@ -197,14 +200,18 @@ def serve_all(eng, reqs, new):
 
 
 # make this rank's ``on_call``-th decode step fail after it ran (its
-# collectives met the other ranks'), so that only this rank raises
-def planted_fault(eng, on_call=2):
+# collectives met the other ranks'), so that only this rank raises; with
+# ``before``, fail it before it runs, so that the other ranks wait in a
+# collective this rank never joins (ROADMAP C11)
+def planted_fault(eng, on_call=2, before=False):
     run, calls = eng._run_decode, []
 
     def faulty(*args):
-        out = run(*args)
         calls.append(1)
-        if len(calls) == on_call:
+        if before and len(calls) == on_call:
+            raise RuntimeError("planted step fault before its collectives")
+        out = run(*args)
+        if not before and len(calls) == on_call:
             raise RuntimeError("planted step fault")
         return out
     eng._run_decode = faulty
@@ -363,6 +370,29 @@ if "engine" in job["cases"]:
     else:
         time.sleep(job["engine"]["replica_timeout_s"] + 2)
         out["silent"] = {}
+    # a step fault before the step's collectives, on the leader, then on
+    # the follower, under a process group whose own timeout is 600 s: the
+    # other rank waits in a collective the failed rank never joins, and
+    # ends within the replica timeout (each side on a group formed again)
+    import datetime
+    for side, name in ((0, "leader_fault_inside"), (1, "follower_fault_inside")):
+        dist.shutdown()
+        dist.initialize("cpu", init_method=f"{job['init']}_{name}", world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=600))
+        m = lm(job["lm"], job["heads"], params0["lm"])
+        eng = InferenceEngine(m, paged="off", **job["engine"])
+        if rank == side:
+            planted_fault(eng, before=True)
+        eng.start()
+        t0 = time.perf_counter()
+        if eng.is_leader:
+            hs = [eng.submit(r, job["new"]) for r in reqs[:4]]
+        eng._thread.join(60)
+        res = dict(ended_s=time.perf_counter() - t0, crashed=eng.crashed, alive=eng.alive(),
+                   pg_timeout=dist.group_timeout(), aborted=m.machine.aborted)
+        if eng.is_leader:
+            res["statuses"] = [h.status for h in hs]
+        out[name] = res
 
 if "subset" in job["cases"]:
     # a machine over ranks 0 and 1; every rank builds it (rank 2 benched)
@@ -382,6 +412,19 @@ if "subset" in job["cases"]:
         t = torch.ones(1)
         tdist.all_reduce(t, group=other.process_group)
         out["subset"]["later_sum"] = float(t)
+    # the process group formed again over the same ranks: for_ranks makes a
+    # new machine (shutdown forgot the old one and its groups), which serves
+    # the JAX tokens
+    dist.shutdown()
+    dist.initialize("cpu", init_method=job["init"] + "_again", world_size=3, rank=rank)
+    again = ft.Machine.for_ranks(torch.device("cpu"), [0, 1])
+    out["again"] = dict(new=again is not machine, benched=again.benched)
+    m = lm(job["lm"], job["heads"], params0["lm"], machine=again)
+    if not m._benched:
+        eng = InferenceEngine(m, paged="on", **job["engine"])
+        out["again"].update(tokens=serve_all(eng, [np.asarray(r, np.int32)
+                                                   for r in job["requests"]], job["new"]),
+                            crashed=eng.crashed)
 
 if "regroup" in job["cases"]:
     # the process group re-formed in living processes: the 2 ranks' group
@@ -671,6 +714,30 @@ def test_step_fault_after_the_plan_ends_every_rank(engine, side):
     assert max(lead["ended_s"], follow["ended_s"]) < timeout + 5
 
 
+@pytest.mark.parametrize("side", ["leader", "follower"])
+def test_step_fault_inside_the_collectives_ends_every_rank(engine, side):
+    """ROADMAP C11: a step that fails on one rank before its collectives
+    leaves the other rank in a collective it never joins.  Under a process
+    group whose own timeout is 600 s, the other rank's collective ends
+    within the replica timeout (its gloo groups carry it while the loop
+    runs; on NCCL the step guard aborts the communicators), so every
+    rank's loop ends with ``LockstepBroken`` and no request hangs."""
+    ranks, _ = engine
+    lead, follow = ranks[0][f"{side}_fault_inside"], ranks[1][f"{side}_fault_inside"]
+    timeout = ENGINE["replica_timeout_s"]
+    margin = 5.0
+    for got in (lead, follow):
+        assert got["pg_timeout"] == 600.0
+        assert not got["alive"]
+        assert got["crashed"].startswith("LockstepBroken"), got["crashed"]
+        assert got["ended_s"] < timeout + margin, got
+    failed, waited = (lead, follow) if side == "leader" else (follow, lead)
+    assert "planted step fault before its collectives" in failed["crashed"]
+    assert "planted" not in waited["crashed"]
+    assert failed["aborted"]  # the rank that failed aborted its machine
+    assert all(st == "error" for st in lead["statuses"]), lead["statuses"]
+
+
 @pytest.mark.parametrize("rank", [0, 1, 2])
 def test_engine_on_a_machine_over_some_ranks(subset, rank):
     """A machine over ranks 0 and 1 of 3 (``Machine.for_ranks``, as the
@@ -690,11 +757,26 @@ def test_engine_on_a_machine_over_some_ranks(subset, rank):
         assert got["world"] == 2 and got["crashed"] is None and got["tokens"] is None
 
 
+@pytest.mark.parametrize("rank", [0, 1, 2])
+def test_machine_over_some_ranks_after_the_group_is_formed_again(subset, rank):
+    """ROADMAP C10 and the cache of ``Machine.for_ranks``: after
+    ``distributed.shutdown`` and ``initialize`` over the same ranks, the
+    machine over ranks 0 and 1 is a new one (none of the old groups), and
+    its ranks serve the JAX tokens."""
+    ranks, want = subset
+    got = ranks[rank]["again"]
+    assert got["new"] and got["benched"] == (rank == 2)
+    if rank == 0:
+        assert got["crashed"] is None and len(got["tokens"]) == len(want)
+        for t, w in zip(got["tokens"], want):
+            np.testing.assert_array_equal(t, w)
+
+
 @pytest.mark.parametrize("rank", [0, 1])
 def test_decoding_after_the_process_group_is_formed_again(regroup, rank):
     """A process that shut its group down, ran a one-rank mesh (rank 0)
-    and joined a new group of 2 decodes the JAX tokens in each; on gloo
-    this works (on NCCL it is ROADMAP C10's open fault)."""
+    and joined a new group of 2 decodes the JAX tokens in each (on NCCL
+    the re-formed group is not bound to a device: ROADMAP C10)."""
     ranks, want = regroup
     if rank == 0:
         assert ranks[0]["one"]["world"] == 1

@@ -358,7 +358,7 @@ class _FakeCuda:
                 self.fn()
 
         class Stream:
-            def __init__(self, device=None):
+            def __init__(self, device=None, priority=0):
                 pass
 
             def wait_stream(self, other):
@@ -370,7 +370,7 @@ class _FakeCuda:
             yield
 
         @contextlib.contextmanager
-        def graph(g, capture_error_mode="global"):
+        def graph(g, stream=None, capture_error_mode="global"):
             fake.events.append("capture")
             fake.modes.append(capture_error_mode)
             fake.collecting.append(gc.isenabled())
