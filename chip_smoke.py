@@ -58,12 +58,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      checked by count) and fits the roofline; (b) each cell's
      data-parallel step on one card simulated from that table and from the
      fit alone, beside phase 7's compiled step and phase 6's eager SOAP
-     step, and the predicted memory beside phase 4's peak; (c) full-width
-     AlexNet through compile(search_budget=...) with the mcmc and the
-     population engine on the default machine (one card, no process group,
-     so that its steps are the compiled ones), 3 compiled steps, the
-     exported strategy loaded back; (d) the offline search of both cells for an
-     8-GPU node, every config composable over the port's 8-device mesh and
+     step, and the predicted memory beside phase 4's peak (when phases 4,
+     6 and 7 ran); (c) full-width AlexNet through
+     compile(search_budget=...) with the mcmc, population, native and ""
+     (which must run native) engines on the default machine (one card, no
+     process group, so that its steps are the compiled ones), and the
+     full-width transformer (Adam) under "native" through K2-K5, 3
+     compiled steps each, the exported strategy loaded back; (d) the
+     offline search of both cells for an 8-GPU node by mcmc, population
+     and native, every config composable over the port's 8-device mesh and
      accepted by its op's check_config (an attention sequence split runs as
      a ring).  ``--calibration-out DIR`` keeps the
      measured cache and the fit (measured_h100.json, machine_h100.json);
@@ -291,13 +294,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      then (a)'s drills (one card: a line says it was not run).  No kernel
      of K1-K5 runs on the pool's paths (checked).
 
+ 19. the native engines ([native] lines): (a) the g++ version and the
+     build seconds of native/ffsim.cpp and native/ffsearch.cpp; for each
+     model of the zoo at full width on an 8-GPU node, the C++ event loop
+     against the plain Python loops bitwise on the task graphs of data
+     parallelism and of the native winner, the annealer's dp and best
+     against the Python simulator (rel 1e-9), and proposals/s of native
+     against mcmc at one budget on this host; full-width AlexNet
+     compile(search_budget=..., search_engine="native") on the card: the
+     winner's simulated ms against its measured ms/step; (b) with several
+     cards (one NCCL rank a card, up to 4): the same compile on every rank,
+     one strategy map on every rank (strategies_fingerprint), 3 eager mesh
+     steps, simulated against measured ms/step (one card: a line says it
+     was not run).
+
 ``--phases 3,17`` runs only the phases listed (1 and 2 always run; the
 kernels line needs phase 3); a phase's several-card part runs whenever
 several cards are visible, so ``python3 chip_smoke.py --phases 17`` on a
 host with four cards runs phase 17 (b).  The last lines are the card's name and
 power limit, one JSON object with a row per kernel, and {"ok": true,
 "device": {...}}.  Needs one card (phases 6, 14 (f), 15 (e), 16 (d),
-17 (b) and 18 (b) use every visible card); it imports nothing of jax or
+17 (b), 18 (b) and 19 (b) use every visible card); it imports nothing of jax or
 of the JAX package.
 """
 
@@ -1401,6 +1418,8 @@ def soap_helper():
         return mesh_decode_helper()
     if os.environ[SOAP_HELPER] == SLICE_HELPER:
         return slice_helper()
+    if os.environ[SOAP_HELPER] == NATIVE_HELPER:
+        return native_helper()
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
@@ -1819,6 +1838,11 @@ def simulated_agreement(ft, smi, measured_path, fit_path):
         log(f"[search] {name} DP-1 table, largest ops (forward + backward ms): "
             f"{', '.join(f'{n} {t:.3f}' for t, n in per_op[:6])}")
         got = MEASURED[name]
+        if not {"graph_ms", "graph_device_ms", "soap_ms", "peak_gib"} <= set(got):
+            log(f"[search] {name} DP-1 simulated {sim_ms:.3f} ms/step from the measured table "
+                f"({roof_ms:.3f} from the fitted roofline alone); measured: not in this run "
+                f"(phases 4, 6 and 7 were not all selected); card {smi}")
+            continue
         log(f"[search] {name} DP-1 simulated {sim_ms:.3f} ms/step from the measured table "
             f"({roof_ms:.3f} from the fitted roofline alone); measured: compiled step "
             f"{got['graph_ms']:.3f} ms/step (device {got['graph_device_ms']:.3f}), eager SOAP "
@@ -1841,36 +1865,52 @@ def simulated_agreement(ft, smi, measured_path, fit_path):
 
 def search_entry_point(ft, build_alexnet, kernels, out_dir):
     """8c: full-width AlexNet through compile(search_budget=...) with each
-    engine on the default machine (one card without a process group, whose
-    steps are compiled) and the committed calibration (what a user's
-    compile reads), init_layers and 3 compiled steps; the exported strategy
-    loads back equal."""
+    engine ("" must run the native annealer) on the default machine (one
+    card without a process group, whose steps are compiled) and the
+    committed calibration (what a user's compile reads), init_layers and 3
+    compiled steps, then the full-width transformer (Adam) searched by the
+    native engine, training through K2-K5; each exported strategy loads
+    back equal."""
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
     from flexflow_tpu_torch.parallel.strategy import load_strategies_from_file, read_provenance
 
     launches = dict.fromkeys(kernels, 0)
-    for engine in ("mcmc", "population"):
+    runs = [("AlexNet", engine) for engine in ("mcmc", "population", "native", "")]
+    runs.append(("transformer", "native"))
+    for label, engine in runs:
         free_models()
-        pb = os.path.join(out_dir, f"alexnet_searched_{engine}.pb")
+        pb = os.path.join(out_dir, f"{label}_searched_{engine or 'default'}.pb")
         reset_launches(kernels)
         t0 = time.perf_counter()
-        model = main_model(ft, build_alexnet, sgd_optimizer(ft), search_budget=SEARCH_BUDGET,
-                           search_engine=engine, export_strategy_file=pb)
+        search = dict(search_budget=SEARCH_BUDGET, search_engine=engine,
+                      export_strategy_file=pb)
+        if label == "AlexNet":
+            model = main_model(ft, build_alexnet, sgd_optimizer(ft), **search)
+            per_step = ALEX_SGD_STEP
+        else:
+            model = lm_model(ft, build_transformer, synthetic_lm_batch, adam_optimizer(ft),
+                             **LM, **search)
+            per_step = {"flash_fwd": LM["num_layers"], "flash_bwd_dkdv": LM["num_layers"],
+                        "flash_bwd_dq": LM["num_layers"], "fused_sgd_update": 0,
+                        "fused_adam_update": sum(len(op.weights) for op in model.ops)}
         seconds = time.perf_counter() - t0
         ms, losses = steps_ms(model, steps=3, timed_from=2)  # the step after the capture
         got = read_launches(kernels)
-        check_graph_run(model, 3, f"AlexNet searched by {engine}")
-        # the eager first step and the capture call the wrapper; the replay does not
-        check(got == {**dict.fromkeys(kernels, 0), "fused_sgd_update": 2},
-              f"{engine}: launches {got}")
+        check_graph_run(model, 3, f"{label} searched by {engine!r}")
+        # the eager first step and the capture call the wrappers; the replay does not
+        check(got == {n: 2 * c for n, c in per_step.items()},
+              f"{label} {engine!r}: launches {got}, expected twice {per_step}")
         launches = {n: launches[n] + got[n] for n in kernels}
         check(load_strategies_from_file(pb) == {op.name: op.pc for op in model.ops},
-              f"{engine}: the exported strategy does not load back equal")
+              f"{label} {engine!r}: the exported strategy does not load back equal")
         meta = read_provenance(pb)
-        log(f"[search] compile(search_budget={SEARCH_BUDGET}, search_engine={engine!r}) on "
-            f"{model.machine.num_devices} GPU(s): DP {meta['dp_ms']:.3f} ms, best "
-            f"{meta['best_ms']:.3f} ms simulated; compile {seconds:.2f} s; 3 compiled "
-            f"steps, losses {['%.4f' % x for x in losses]}, {ms:.3f} ms/step, the step after "
-            f"the capture; "
+        check(meta["engine"] == (engine or "native"),
+              f"{label} {engine!r}: the search ran as {meta['engine']!r}")
+        log(f"[search] {label} compile(search_budget={SEARCH_BUDGET}, search_engine={engine!r}) "
+            f"on {model.machine.num_devices} GPU(s): ran {meta['engine']}, DP "
+            f"{meta['dp_ms']:.3f} ms, best {meta['best_ms']:.3f} ms simulated; compile "
+            f"{seconds:.2f} s; 3 compiled steps, losses {['%.4f' % x for x in losses]}, "
+            f"{ms:.3f} ms/step, the step after the capture; "
             f"configs {sorted({op.pc.dims for op in model.ops})}; launches {got}; "
             f"{meta['machine_model']}")
         del model
@@ -1888,7 +1928,7 @@ def offline_node_search(ft, measured_path, fit_path):
 
     sizes, names = mesh_shape(NODE_GPUS)
     for name in ("alexnet", "transformer"):
-        for engine in ("mcmc", "population"):
+        for engine in ("mcmc", "population", "native"):
             model = cell_model(name, ft, NODE_GPUS)
             mm = H100MachineModel.calibrated(path=fit_path, num_devices=NODE_GPUS)
             best = offline_search.run(model, NODE_GPUS, OFFLINE_BUDGET, seed=0, engine=engine,
@@ -2174,7 +2214,7 @@ def zoo_search(ft, measured, smi, out_dir):
         for op in model.ops:
             op.check_config(best[op.name])  # raises on a split training rejects
             axes_for_degrees(axes, sizes, best[op.name].dims)
-        log(f"[search] offline mcmc search, {name}, {NODE_GPUS} H100s, budget "
+        log(f"[search] offline {best.engine} search, {name}, {NODE_GPUS} H100s, budget "
             f"{ZOO_SEARCH_BUDGET}: DP {best.dp_s * 1e3:.3f} ms, best {best.best_s * 1e3:.3f} ms "
             f"simulated ({best.dp_s / best.best_s:.2f}x; {node.source})")
 
@@ -6275,7 +6315,182 @@ def slice_pool_phase(ft, kernels, smi):
     return total
 
 
-PHASES = tuple(range(1, 19))
+# ----------------------------------------------------------------- phase 19
+
+NATIVE_BUDGET = 1000         # (a): proposals of native and of mcmc, one seed
+NATIVE_ZOO = ("alexnet", "transformer", "resnet", "inception", "dlrm", "candle_uno", "nmt",
+              "transformer_moe")
+NATIVE_HELPER = "native"     # (b)'s helper ranks
+NATIVE_REL = 1e-9
+
+
+def native_builds():
+    """The g++ version and each library's build seconds (a fresh build into
+    the same hashed path, renamed over it)."""
+    from flexflow_tpu_torch.utils import native
+
+    version = subprocess.run([native.compiler(), "--version"], capture_output=True,
+                             text=True, check=True).stdout.splitlines()[0]
+    secs = {src: native.build(src, force=True)["seconds"] for src in ("ffsim.cpp", "ffsearch.cpp")}
+    log(f"[native] {version}; build {', '.join(f'{k} {v:.2f} s' for k, v in secs.items())} "
+        f"(g++ {' '.join(native.FLAGS)}); host {os.cpu_count()} cores")
+
+
+def native_zoo_checks(ft, smi):
+    """(a) for each zoo model on an 8-GPU node: loops bitwise, the annealer
+    against the simulator, proposals/s of native and mcmc."""
+    from flexflow_tpu_torch.simulator.delta import DeltaSimulator, _simulate_arrays_ref
+    from flexflow_tpu_torch.simulator.machine import H100MachineModel
+    from flexflow_tpu_torch.simulator.native_search import native_mcmc_search
+    from flexflow_tpu_torch.simulator.search import mcmc_search, search_setup
+    from flexflow_tpu_torch.tools import offline_search
+    from flexflow_tpu_torch.utils.native import simulate_dag
+
+    rates = []
+    for name in NATIVE_ZOO:
+        model = offline_search.build_model(name, offline_search.MODELS[name][2], NODE_GPUS,
+                                           "cuda", "bfloat16")
+        mm = H100MachineModel.calibrated(num_devices=NODE_GPUS)
+        _, _, cost, sim = search_setup(model, mm, None, None)
+        nat = native_mcmc_search(model, NATIVE_BUDGET, machine_model=mm, seed=0,
+                                 verbose=False, cost_model=cost)
+        mc = mcmc_search(model, NATIVE_BUDGET, machine_model=mm, seed=0, verbose=False,
+                         cost_model=cost)
+        dp = {op.name: op.legalize_pc(ft.ParallelConfig.data_parallel(op.output.num_dims,
+                                                                      NODE_GPUS))
+              for op in model.ops}
+        delta = DeltaSimulator(sim, model)
+        for label, plan in (("dp", dp), ("native best", dict(nat))):
+            full = sim.simulate_runtime(model, plan)
+            check(full == sim.simulate_runtime_ref(model, plan),
+                  f"{name} {label}: the C++ loop differs from the Python loop")
+            arrays = delta.task_graph(plan)
+            check(simulate_dag(*arrays) == _simulate_arrays_ref(*arrays) == full,
+                  f"{name} {label}: the delta graph's loops differ")
+            want = nat.dp_s if label == "dp" else nat.best_s
+            check(abs(want - full) <= NATIVE_REL * full,
+                  f"{name} {label}: native {want!r} against the simulator {full!r}")
+        rates.append(nat.proposals_per_s / mc.proposals_per_s)
+        log(f"[native] {name} b{model.config.batch_size} on {NODE_GPUS} H100s: "
+            f"{len(model.ops)} ops, {nat.candidates} candidates, {len(arrays[0])} tasks in the "
+            f"winner's graph; loops bitwise on dp and the winner; native dp "
+            f"{nat.dp_s * 1e3:.4f} ms best {nat.best_s * 1e3:.4f} ms (simulator equal at rel "
+            f"{NATIVE_REL}); mcmc best {mc.best_s * 1e3:.4f} ms; budget {NATIVE_BUDGET}: native "
+            f"{nat.proposals_per_s:.0f} proposals/s ({nat.evaluated} evaluated), mcmc "
+            f"{mc.proposals_per_s:.0f} proposals/s, {nat.proposals_per_s / mc.proposals_per_s:.1f}x "
+            f"on this host")
+    log(f"[native] native/mcmc proposals/s {min(rates):.1f}x-{max(rates):.1f}x over the zoo "
+        f"(host, {os.cpu_count()} cores); card {smi}")
+
+
+def native_on_card(ft, build_alexnet, kernels, smi):
+    """(a) full-width AlexNet searched by the native engine on this card:
+    the winner's simulated ms against its measured ms/step (compiled)."""
+    from flexflow_tpu_torch.parallel.strategy import strategies_fingerprint
+
+    free_models()
+    reset_launches(kernels)
+    model = main_model(ft, build_alexnet, sgd_optimizer(ft), search_budget=SEARCH_BUDGET,
+                       search_engine="native")
+    best = model._search_provenance
+    ms, losses = steps_ms(model, steps=7, timed_from=2)
+    got = read_launches(kernels)
+    check_graph_run(model, 7, "AlexNet searched by native")
+    check(got == {n: 2 * c for n, c in ALEX_SGD_STEP.items()}, f"native AlexNet launches {got}")
+    check(best["engine"] == "native", f"the search ran as {best['engine']!r}")
+    log(f"[native] AlexNet b{BATCH} bf16 SGD compile(search_budget={SEARCH_BUDGET}, "
+        f"search_engine='native') on 1 card: ran {best['engine']}, map "
+        f"{strategies_fingerprint({op.name: op.pc for op in model.ops})[:19]}, simulated "
+        f"{best['best_s'] * 1e3:.3f} ms/step against measured {ms:.3f} ms/step (compiled, 5 "
+        f"steps after 2; simulated/measured {best['best_s'] * 1e3 / ms:.3f}); losses "
+        f"{['%.4f' % x for x in losses]}; launches {got}; card {smi}")
+    del model
+    free_models()
+    return got
+
+
+def native_multi_runs(ft, kernels, dev, lead):
+    """(b) on this rank: AlexNet searched by the native engine over the
+    group's cards, every rank's map compared, 3 eager mesh steps."""
+    from flexflow_tpu_torch.models.alexnet import build_alexnet
+    from flexflow_tpu_torch.parallel.strategy import strategies_fingerprint
+
+    world = torch.distributed.get_world_size()
+    reset_launches(kernels)
+    model = main_model(ft, build_alexnet, sgd_optimizer(ft), search_budget=SEARCH_BUDGET,
+                       search_engine="native")
+    best = model._search_provenance
+    fp = strategies_fingerprint({op.name: op.pc for op in model.ops})
+    fps = [None] * world
+    torch.distributed.all_gather_object(fps, fp)
+    check(len(set(fps)) == 1, f"(b) the ranks' strategy maps differ: {fps}")
+    r = timed_steps(model, kernels, {**NO_LAUNCH, "fused_sgd_update": 1}, steps=3,
+                    timed_from=1)
+    if lead:
+        split = {op.name: op.pc.dims for op in model.ops
+                 if op.pc.dims != (world,) + (1,) * (op.output.num_dims - 1)}
+        log(f"[native] (b) AlexNet b{BATCH} bf16 compile(search_engine='native') over {world} "
+            f"cards: one map on every rank ({fp[:19]}), configs off data parallel {split}; "
+            f"simulated {best['best_s'] * 1e3:.3f} ms/step (dp {best['dp_s'] * 1e3:.3f}) against "
+            f"measured {r['ms_per_step']:.3f} ms/step (eager mesh steps 2-3); losses "
+            f"{['%.4f' % x for x in r['losses']]}")
+    del model
+    return read_launches(kernels)
+
+
+def native_multi_phase(ft, kernels, smi):
+    """(b): with one visible card it says so; with more, an NCCL group of
+    one rank per card (up to 4; this script started again as the helper
+    ranks) runs ``native_multi_runs``."""
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        log(f"[native] (b) needs more than one card ({torch.cuda.device_count()} visible): "
+            "the search over a group of cards was not run")
+        return dict.fromkeys(kernels, 0)
+    port = free_port()
+    helpers = spawn_helpers(NATIVE_HELPER, world, port)
+    try:
+        dev = dist.initialize("cuda", init_method=f"tcp://localhost:{port}",
+                              world_size=world, rank=0, local_rank=0, timeout=SOAP_TIMEOUT)
+        launches = native_multi_runs(ft, kernels, dev, lead=True)
+        dist.shutdown()
+        for r, p in enumerate(helpers, 1):
+            check(p.wait(timeout=300) == 0, f"(b) helper rank {r} exited {p.returncode}")
+    finally:
+        for p in helpers:
+            if p.poll() is None:
+                p.kill()
+    log(f"[native] (b) launches on the lead rank: {launches}; card {smi}")
+    return launches
+
+
+def native_helper():
+    """A helper rank of phase 19 (b)."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import fused_optimizer as fo
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    dev = dist.initialize("cuda", timeout=SOAP_TIMEOUT)
+    native_multi_runs(ft, kernel_wrappers(fo, fa), dev, lead=False)
+    dist.shutdown()
+    return 0
+
+
+def native_phase(ft, build_alexnet, kernels, smi):
+    """Phase 19: the native engines on the host and on the card."""
+    t0 = time.perf_counter()
+    native_builds()
+    native_zoo_checks(ft, smi)
+    launches = native_on_card(ft, build_alexnet, kernels, smi)
+    multi = native_multi_phase(ft, kernels, smi)
+    log(f"[native] phase 19 took {time.perf_counter() - t0:.1f} s")
+    return {n: launches[n] + multi[n] for n in kernels}
+
+
+PHASES = tuple(range(1, 20))
 
 
 def selected_phases(argv):
@@ -6475,6 +6690,10 @@ def main(argv=None):
     # phase 18 -----------------------------------------------------------
     if 18 in phases:
         ran["slices"] = slice_pool_phase(ft, kernels, smi)
+
+    # phase 19 -----------------------------------------------------------
+    if 19 in phases:
+        ran["native"] = native_phase(ft, build_alexnet, kernels, smi)
 
     # result -------------------------------------------------------------
     main_launches = {n: sum(r[n] for r in ran.values()) for n in kernels}

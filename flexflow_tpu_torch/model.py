@@ -817,6 +817,11 @@ class FFModel:
                 "device(s): start one process per device (parallel/distributed.py) "
                 "or leave workers_per_node at 0")
         search = self._search() if cfg.search_budget > 0 else None
+        # the search's account of the plan it found (the JAX package's
+        # name): engine, simulated best and data-parallel seconds
+        self._search_provenance = None if search is None else {
+            "engine": search[0].engine, "budget": search[0].budget, "seed": search[0].seed,
+            "best_s": search[0].best_s, "dp_s": search[0].dp_s, "machine_model": search[1]}
         if search is not None and cfg.search_pipeline and self._pipeline_req is None:
             self._search_pipeline(search)
         for op in self.ops:
@@ -855,35 +860,49 @@ class FFModel:
     def _search(self):
         """The strategy search over this machine's devices on the calibrated
         H100 model (the JAX package's engine choice, model.py:881-918):
-        ``search_engine`` "" or "mcmc" anneals one chain, "population" runs
-        the tempered population.  Its map goes into ``FFConfig.strategies``,
+        ``search_engine`` "" runs the C++ annealer (``native``), "native"
+        the same, "mcmc" one Python annealed chain, "population" the
+        tempered population.  Its map goes into ``FFConfig.strategies``,
         which compile then resolves, legalizes and places as any other.
         Every rank runs the same seeded search and gets the same map.
-        Returns the ``SearchResult`` and the machine model it searched."""
+
+        When the native library cannot be built, "native" raises, and ""
+        runs "mcmc" as the JAX package does, saying so on its line and in
+        the result's ``engine``.  Returns the ``SearchResult`` and the
+        machine model it searched."""
         from .simulator.machine import H100MachineModel
 
         cfg = self.config
+        if cfg.search_engine not in ("", "native", "mcmc", "population"):
+            raise ValueError(f"unknown search_engine {cfg.search_engine!r} "
+                             "(expected '', 'native', 'mcmc' or 'population')")
         mm = H100MachineModel.calibrated(num_devices=self.machine.num_devices)
         kw = dict(budget=cfg.search_budget, alpha=cfg.search_alpha, machine_model=mm,
                   seed=cfg.seed, verbose=False)
-        if cfg.search_engine == "native":
-            raise NotImplementedError(
-                "search_engine 'native' (the C++ annealer over an NVSwitch topology) is "
-                "not ported yet (ROADMAP A8b); use '' / 'mcmc' or 'population'")
+        note = ""
         if cfg.search_engine == "population":
             from .simulator.population import population_search
 
             best = population_search(self, **kw)
-        elif cfg.search_engine in ("", "mcmc"):
+        elif cfg.search_engine == "mcmc":
             from .simulator.search import mcmc_search
 
             best = mcmc_search(self, **kw)
         else:
-            raise ValueError(f"unknown search_engine {cfg.search_engine!r} "
-                             "(expected '', 'mcmc' or 'population')")
+            from .simulator.native_search import native_mcmc_search, unavailable
+
+            why = unavailable(cfg.search_engine)
+            if why is None:
+                best = native_mcmc_search(self, **kw)
+            else:
+                from .simulator.search import mcmc_search
+
+                best = mcmc_search(self, **kw)
+                best.engine = "mcmc (native unavailable)"
+                note = f"; the native library could not be built: {why}"
         print(f"flexflow_tpu_torch: {best.engine} search over {best.num_devices} GPU(s), "
               f"budget {best.budget}: {best.best_s * 1e3:.3f} ms/step simulated against "
-              f"{best.dp_s * 1e3:.3f} ms data parallel ({mm.source})")
+              f"{best.dp_s * 1e3:.3f} ms data parallel ({mm.source}){note}")
         cfg.strategies.update(best)
         return best, mm
 

@@ -25,7 +25,9 @@ The arrays are assembled in the exact task-creation order of
 ``Simulator.simulate_runtime`` (node tasks fwd/bwd per part, comm tasks in
 (layer, input, dst part, src part) order, barriers, update tasks) and the
 event loop breaks ties on (ready time, creation order), so the delta cost
-equals the full rebuild's float exactly.
+equals the full rebuild's float exactly.  The loop is the C++ one
+(``utils/native.simulate_dag``); ``_simulate_arrays_ref`` is its plain
+Python version.
 """
 
 from __future__ import annotations
@@ -36,11 +38,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import ParallelConfig
-from .simulator import Simulator, _intersect, devices_of, host_sparse, weight_groups
+from ..utils.native import simulate_dag
+from .simulator import (HOST_KEY as _HOST_BASE, Simulator, _intersect, devices_of, host_sparse,
+                        weight_groups)
 
-# Device keys: chip d -> d; the host -> _HOST_BASE; link(a,b) with a<b ->
-# -(a*nd + b + 1).
-_HOST_BASE = 1 << 30
+# Device keys (simulator.device_key's): chip d -> d; the host -> _HOST_BASE;
+# link(a,b) with a<b -> -(a*nd + b + 1).
 
 _EMPTY_F = np.empty(0, np.float64)
 _EMPTY_I = np.empty(0, np.int64)
@@ -120,11 +123,12 @@ _EMPTY_UPD = _UpdFrag(0, _EMPTY_F, _EMPTY_I,
                       _EMPTY_I32, _EMPTY_I32, _EMPTY_I32, _EMPTY_I32)
 
 
-def _simulate_arrays(rt: np.ndarray, dev: np.ndarray,
-                     src: np.ndarray, dst: np.ndarray) -> float:
-    """The event loop over flat arrays, with ``Simulator``'s semantics:
-    ready queue ordered by (ready_time, creation order == array index),
-    one timeline per device key."""
+def _simulate_arrays_ref(rt: np.ndarray, dev: np.ndarray,
+                         src: np.ndarray, dst: np.ndarray) -> float:
+    """The event loop over flat arrays in Python, with ``Simulator``'s
+    semantics: ready queue ordered by (ready_time, creation order == array
+    index), one timeline per device key (the plain version of
+    ``native/ffsim.cpp``)."""
     n = len(rt)
     # successors as one flat list with offsets (the order of a task's
     # successors is immaterial: the heap orders by (ready time, index))
@@ -508,13 +512,24 @@ class DeltaSimulator:
         return f
 
     # -- assembly + event loop ---------------------------------------------
+    def task_graph(self, strategies: Optional[Dict[str, ParallelConfig]] = None):
+        """(run times, device keys, edge sources, edge destinations) of the
+        committed plan's task graph (``strategies`` adopted first when
+        given), as the event loop receives them."""
+        if strategies is not None:
+            self.reset(strategies)
+        return self._assemble(self._cnfs, self._cefs, self._cufs)
+
     def _evaluate(self, pcs: List[ParallelConfig],
                   nfs: List[_NodeFrag], efs: List[_EdgeFrag],
                   ufs: List[_UpdFrag]) -> float:
         state = tuple(map(id, pcs))  # interned, so id == value identity
         hit = self._result_memo.get(state)
-        if hit is not None:
-            return hit
+        if hit is None:
+            hit = self._result_memo[state] = simulate_dag(*self._assemble(nfs, efs, ufs))
+        return hit
+
+    def _assemble(self, nfs: List[_NodeFrag], efs: List[_EdgeFrag], ufs: List[_UpdFrag]):
         L = self._L
         # task index layout = simulate_runtime's creation order:
         # [node blocks][comm blocks][barriers][update blocks].  Fill the
@@ -595,7 +610,4 @@ class DeltaSimulator:
         src += np.concatenate(sos)
         dst = gb[np.concatenate(dts)]
         dst += np.concatenate(dos)
-
-        res = _simulate_arrays(rt, dev, src, dst)
-        self._result_memo[state] = res
-        return res
+        return rt, dev, src, dst

@@ -339,20 +339,20 @@ def suggest_parallelization(model, budget: Optional[int] = None,
          "strategies": {...} | "pipeline": {...},
          "alternatives": {"dims_s": t1, "pipeline_s": t2}}
 
-    ``engine`` selects the dim searcher: "" or "mcmc" (one annealed
-    chain), or "population" (simulator/population.py); "native" (the C++
-    annealer) is not ported yet (ROADMAP A8b).
+    ``engine`` selects the dim searcher: "" (the C++ annealer, or "mcmc"
+    when its library cannot be built), "native" (the annealer, or raise),
+    "mcmc" (one Python annealed chain) or "population"
+    (simulator/population.py).
     """
+    from .native_search import native_mcmc_search, unavailable
     from .search import mcmc_search
     from .simulator import Simulator
 
     if budget is None:
         budget = DEFAULT_SEARCH_BUDGET
-    if engine == "native":
-        raise NotImplementedError("search engine 'native' is not ported yet (ROADMAP A8b)")
-    if engine not in ("", "mcmc", "population"):
+    if engine not in ("", "mcmc", "native", "population"):
         raise ValueError(f"unknown search engine {engine!r} "
-                         "(expected '', 'mcmc' or 'population')")
+                         "(expected '', 'mcmc', 'native' or 'population')")
     nd = model.machine.num_devices if model.machine is not None \
         else model.config.num_devices
     mm = machine_model or H100MachineModel.calibrated(num_devices=nd)
@@ -367,6 +367,9 @@ def suggest_parallelization(model, budget: Optional[int] = None,
         best_dims = population_search(model, budget=budget,
                                       machine_model=mm, seed=seed,
                                       verbose=False, cost_model=cost)
+    elif engine in ("", "native") and unavailable(engine) is None:
+        best_dims = native_mcmc_search(model, budget=budget, machine_model=mm, seed=seed,
+                                       verbose=False, cost_model=cost)
     if best_dims is None:
         # share this function's CostModel so the anneal reuses the memo
         # caches the pipeline grid pass is about to warm (and vice versa)

@@ -8,11 +8,12 @@ proposal budget on a population of communicating chains:
   * N ``DeltaSimulator`` chains, each with its own committed state but all
     sharing the memo caches (fragments, volumes, transfer times, interned
     configs, whole-state results), so N chains cost barely more than one;
-  * parallel tempering: chain k anneals at ``alpha * LADDER_RATIO**k``
-    (chain 0 coldest), with seeded replica-exchange swaps between adjacent
-    temperatures every ``EXCHANGE_EVERY`` rounds, accepted at
-    ``min(1, exp((a_k - a_j) * (E_k - E_j)))``; an exchange costs no budget;
-  * genetic crossover every ``CROSSOVER_EVERY`` rounds: the two best chains
+  * parallel tempering: chain k anneals at ``alpha * ladder_ratio**k``
+    (chain 0 coldest) or at an explicit list of multipliers, with seeded
+    replica-exchange swaps between adjacent temperatures every
+    ``exchange_every`` rounds, accepted at ``min(1, exp((a_k - a_j) * (E_k
+    - E_j)))``; an exchange costs no budget;
+  * genetic crossover every ``crossover_every`` rounds: the two best chains
     splice their per-op configs into a child, re-costed one delta patch
     per spliced op (each charged to the budget); the child replaces the
     worst chain only when strictly better;
@@ -23,36 +24,153 @@ proposal budget on a population of communicating chains:
 
 Every draw comes from seeded RNGs in a fixed order, so a seeded run is
 reproducible bit for bit, and equals the JAX package's engine on the same
-machine model, cost table and search space (``search._SPLITTABLE``).
-The learned cost tier is always on for this engine: it replaces the
-roofline only for op families whose measured corpus beats it out of fold.
+machine model, cost table, search space (``search._SPLITTABLE``) and
+knobs.  The knobs come from the environment, validated with the JAX
+package's messages (``PopulationKnobs.from_env``), or from an explicit
+``PopulationKnobs``.  The learned cost tier is on for this engine unless
+``FF_SEARCH_LEARNED=0``: it replaces the roofline only for op families
+whose measured corpus beats it out of fold.  ``FF_SIM_DELTA=0`` costs every
+proposal by a full rebuild (``_FullChainSim``), with the same result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
+import os
 import random
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..config import ParallelConfig
 from ..observability.events import active_log
 from ..observability.searchtrace import SearchRecorder
-from .cost_model import CostModel, LearnedCostTier
+from .cost_model import CostModel
 from .delta import DeltaSimulator
-from .search import (SearchResult, data_parallel_start, in_search_space,
-                     random_parallel_config, search_setup)
+from .search import (SearchResult, attach_learned_tier, data_parallel_start, delta_enabled,
+                     in_search_space, parse_learned_flag, random_parallel_config,
+                     search_setup)
+from .simulator import Simulator
+
+# The engine's defaults (the JAX package's): chains, the temperature ladder
+# (chain k anneals at alpha * ratio**k), and the rounds between replica
+# exchanges and between crossovers.
+DEFAULT_POPULATION = 8
+DEFAULT_LADDER_RATIO = 0.65
+DEFAULT_EXCHANGE_EVERY = 50
+DEFAULT_CROSSOVER_EVERY = 150
 
 
-# The engine's settings (the JAX package's defaults; its FF_SEARCH_*
-# environment overrides are not ported): chains, the temperature ladder
-# (chain k anneals at alpha * LADDER_RATIO**k), and the rounds between
-# replica exchanges and between crossovers.
-POPULATION = 8
-LADDER_RATIO = 0.65
-EXCHANGE_EVERY = 50
-CROSSOVER_EVERY = 150
+def _env_int(env: Dict[str, str], name: str, default: int, minimum: int) -> int:
+    raw = env.get(name, "")
+    if raw == "":
+        return default
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer >= {minimum}, got {raw!r}") from None
+    if v < minimum:
+        raise ValueError(f"{name} must be >= {minimum}, got {v}")
+    return v
+
+
+@dataclasses.dataclass(frozen=True)
+class PopulationKnobs:
+    """The engine's settings, each overridable from the environment:
+
+    ``FF_SEARCH_POPULATION``  chains (an integer >= 2; default 8)
+    ``FF_SEARCH_LADDER``      the temperature ladder over alpha: one ratio
+                              r in (0, 1] (chain k anneals at alpha * r**k)
+                              or a comma list of positive multipliers, one
+                              a chain
+    ``FF_SEARCH_EXCHANGE``    rounds between replica-exchange sweeps (an
+                              integer >= 0; 0 turns them off; default 50)
+    ``FF_SEARCH_CROSSOVER``   rounds between crossovers (an integer >= 0;
+                              0 turns them off; default 150)
+    ``FF_SEARCH_LEARNED``     the learned cost tier: unset, the engine's
+                              default (on here, off for mcmc and native);
+                              0 or 1 forces it
+    """
+
+    population: int = DEFAULT_POPULATION
+    ladder_ratio: float = DEFAULT_LADDER_RATIO
+    ladder: Tuple[float, ...] = ()   # explicit multipliers; (): geometric
+    exchange_every: int = DEFAULT_EXCHANGE_EVERY
+    crossover_every: int = DEFAULT_CROSSOVER_EVERY
+    learned: Optional[bool] = None
+
+    @classmethod
+    def from_env(cls, env: Optional[Dict[str, str]] = None) -> "PopulationKnobs":
+        """The knobs from ``env`` (default ``os.environ``); a malformed one
+        raises ``ValueError`` with the JAX package's message."""
+        env = os.environ if env is None else env
+        population = _env_int(env, "FF_SEARCH_POPULATION", DEFAULT_POPULATION, 2)
+        ratio = DEFAULT_LADDER_RATIO
+        ladder: Tuple[float, ...] = ()
+        raw = env.get("FF_SEARCH_LADDER", "")
+        if raw:
+            try:
+                vals = tuple(float(x) for x in raw.split(","))
+            except ValueError:
+                raise ValueError(
+                    "FF_SEARCH_LADDER must be a ratio in (0, 1] or a "
+                    f"comma list of positive multipliers, got {raw!r}") from None
+            if any(v <= 0 for v in vals):
+                raise ValueError(f"FF_SEARCH_LADDER entries must be > 0, got {raw!r}")
+            if len(vals) == 1:
+                if vals[0] > 1:
+                    raise ValueError(f"FF_SEARCH_LADDER ratio must be in (0, 1], got {vals[0]}")
+                ratio = vals[0]
+            else:
+                if len(vals) != population:
+                    raise ValueError(f"FF_SEARCH_LADDER lists {len(vals)} multipliers "
+                                     f"but FF_SEARCH_POPULATION is {population}")
+                ladder = vals
+        exchange_every = _env_int(env, "FF_SEARCH_EXCHANGE", DEFAULT_EXCHANGE_EVERY, 0)
+        crossover_every = _env_int(env, "FF_SEARCH_CROSSOVER", DEFAULT_CROSSOVER_EVERY, 0)
+        learned = parse_learned_flag(env.get("FF_SEARCH_LEARNED", ""))
+        return cls(population=population, ladder_ratio=ratio, ladder=ladder,
+                   exchange_every=exchange_every, crossover_every=crossover_every,
+                   learned=learned)
+
+    def alphas(self, alpha: float) -> Tuple[float, ...]:
+        if self.ladder:
+            return tuple(alpha * m for m in self.ladder)
+        return tuple(alpha * self.ladder_ratio ** k for k in range(self.population))
+
+
+class _FullChainSim:
+    """``DeltaSimulator``'s protocol over full re-simulation
+    (``FF_SIM_DELTA=0``): the same reset/propose/commit/rollback, every
+    cost a full rebuild."""
+
+    def __init__(self, sim: Simulator, model):
+        self.sim = sim
+        self.model = model
+        self._cur: Dict[str, ParallelConfig] = {}
+        self._pending = None
+
+    def reset(self, strategies: Dict[str, ParallelConfig]) -> float:
+        self._cur = dict(strategies)
+        self._pending = None
+        return self.sim.simulate_runtime(self.model, self._cur)
+
+    def propose(self, op_name: str, pc: ParallelConfig) -> float:
+        old = self._cur[op_name]
+        self._cur[op_name] = pc
+        rt = self.sim.simulate_runtime(self.model, self._cur)
+        self._cur[op_name] = old
+        self._pending = (op_name, pc)
+        return rt
+
+    def commit(self) -> None:
+        if self._pending is not None:
+            self._cur[self._pending[0]] = self._pending[1]
+            self._pending = None
+
+    def rollback(self) -> None:
+        self._pending = None
 
 
 class _Chain:
@@ -80,35 +198,31 @@ def population_search(model, budget: int, alpha: float = 0.05,
                       overlap_backward_update: Optional[bool] = None,
                       verbose: bool = True,
                       cost_model: Optional[CostModel] = None,
-                      num_devices: Optional[int] = None) -> SearchResult:
+                      num_devices: Optional[int] = None,
+                      knobs: Optional[PopulationKnobs] = None) -> SearchResult:
     """Population search over the same total proposal budget a single-chain
     ``mcmc_search(budget)`` spends: every chain proposal and every crossover
     patch is charged to ``budget``.  Returns a ``SearchResult`` with
     ``engine="population"``, per-chain stats in ``.chains`` and run stats
     (ladder, exchange acceptance, crossover lineage, learned-tier
-    provenance) in ``.stats``."""
+    provenance, whether the delta simulator ran) in ``.stats``.  ``knobs``
+    default to ``PopulationKnobs.from_env()``."""
+    knobs = knobs if knobs is not None else PopulationKnobs.from_env()
     nd, mm, cost, sim = search_setup(model, machine_model, overlap_backward_update,
                                      num_devices, cost_model)
-    tier = LearnedCostTier.fit_default(
-        mm, compute_dtype=model.config.compute_dtype,
-        measured_cache_path=cost.measured_cache_path, platform=cost.target_platform)
-    learned_prov = tier.provenance
-    if tier.provenance["used_families"]:
-        try:
-            cost.attach_learned_tier(tier)
-        except AssertionError:
-            # a caller's pre-warmed cost model keeps its costs
-            learned_prov = dict(tier.provenance)
-            learned_prov["attached"] = False
+    learned_prov = attach_learned_tier(model, mm, cost,
+                                       True if knobs.learned is None else knobs.learned)
 
-    P = POPULATION
-    alphas = tuple(alpha * LADDER_RATIO ** k for k in range(P))
+    P = knobs.population
+    alphas = knobs.alphas(alpha)
     master = random.Random((seed + 1) * 0x9E3779B1)
+    delta_on = delta_enabled()
     donor = None
     chains: List[_Chain] = []
     for ci in range(P):
-        cs = DeltaSimulator(sim, model, share_caches_from=donor)
-        donor = donor or cs
+        cs = DeltaSimulator(sim, model, share_caches_from=donor) if delta_on \
+            else _FullChainSim(sim, model)
+        donor = donor or (cs if delta_on else None)
         chains.append(_Chain(ci, alphas[ci], random.Random((seed + 1) * 1_000_003 + ci),
                              cs, "random"))
 
@@ -202,7 +316,7 @@ def population_search(model, budget: int, alpha: float = 0.05,
                           best_ms=round(best_rt * 1e3, 3))
 
             # -- replica exchange (free: both states are memoized) ----------
-            if EXCHANGE_EVERY and round_idx % EXCHANGE_EVERY == 0:
+            if knobs.exchange_every and round_idx % knobs.exchange_every == 0:
                 for k in range(P - 1):
                     a, b = chains[k], chains[k + 1]
                     # the colder chain has the larger alpha, so a hotter chain
@@ -226,8 +340,8 @@ def population_search(model, budget: int, alpha: float = 0.05,
                         b.exchanges += 1
 
             # -- genetic crossover (a child costs exactly K patches) -------
-            if CROSSOVER_EVERY and P >= 3 and \
-                    round_idx % CROSSOVER_EVERY == 0 and spent < budget:
+            if knobs.crossover_every and P >= 3 and \
+                    round_idx % knobs.crossover_every == 0 and spent < budget:
                 ranked = sorted(chains, key=lambda c: (c.cur_rt, c.ci))
                 pa, pb, worst = ranked[0], ranked[1], ranked[-1]
                 if rec is not None:
@@ -267,7 +381,8 @@ def population_search(model, budget: int, alpha: float = 0.05,
         span_attrs["best_ms"] = round(best_rt * 1e3, 3)
         span_attrs["proposals_per_s"] = round(proposals_per_s, 1)
     if rec is not None:
-        rec.finish(best, best_ms=best_rt * 1e3, proposals_per_s=proposals_per_s, delta=True)
+        rec.finish(best, best_ms=best_rt * 1e3, proposals_per_s=proposals_per_s,
+                   delta=delta_on)
     if tel is not None:
         tel.flush()
     winner = min(chains, key=lambda c: (c.best_rt, c.ci))
@@ -280,14 +395,15 @@ def population_search(model, budget: int, alpha: float = 0.05,
     stats = {
         "population": P,
         "ladder": [round(a, 6) for a in alphas],
-        "exchange_every": EXCHANGE_EVERY,
-        "crossover_every": CROSSOVER_EVERY,
+        "exchange_every": knobs.exchange_every,
+        "crossover_every": knobs.crossover_every,
         "spent": spent,
         "winner_chain": winner.ci,
         "exchange": exchange_stats,
         "crossover": cross_stats,
         "lineage": lineage,
         "learned": learned_prov,
+        "delta_sim": delta_on,
     }
     if verbose:
         print("=========== Best Discovered Strategy (population) ======")
@@ -297,4 +413,5 @@ def population_search(model, budget: int, alpha: float = 0.05,
               f"(dp {dp_rt * 1e3:.3f} ms; {P} chains, {spent} proposals)")
     return SearchResult(best, engine="population", budget=budget, seed=seed,
                         num_devices=nd, best_s=best_rt, dp_s=dp_rt,
-                        proposals_per_s=proposals_per_s, chains=chain_stats, stats=stats)
+                        proposals_per_s=proposals_per_s, delta_sim=delta_on,
+                        chains=chain_stats, stats=stats)

@@ -7,7 +7,8 @@ parallelism; each iteration rewrites one random op to a random legal
 config; accept when faster, else with probability ``exp(-alpha * (next -
 current))``; keep the best ever seen.  Proposals are random factorizations
 of a divisor of the device count over the op's partitionable dims, and each
-is re-costed incrementally by ``DeltaSimulator``.
+is re-costed incrementally by ``DeltaSimulator`` (``FF_SIM_DELTA=0``: by a
+full rebuild, with the same result bit for bit).
 
 The RNG stream, the proposal order, the accept rule and the space of
 proposals (``_SPLITTABLE``, host placement of eligible tables) are the JAX
@@ -20,22 +21,72 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import os
 import random
 import time
-from typing import Dict, List, Optional, Tuple
-
-import numpy as np
+from typing import Dict, Optional, Tuple
 
 from ..config import ParallelConfig
 from ..observability.events import active_log
 from ..observability.searchtrace import SearchRecorder
-from .cost_model import CostModel
+from .cost_model import CostModel, LearnedCostTier
 from .delta import DeltaSimulator
 from .machine import H100MachineModel
 from .simulator import Simulator
 
-# A delta cost is checked against a full rebuild every this many accepts.
+# A delta cost is checked against a full rebuild every this many accepts
+# (FF_SIM_DELTA_CHECK overrides it; 0 turns the check off).
 DELTA_CHECK_EVERY = 200
+
+
+def delta_enabled() -> bool:
+    """``FF_SIM_DELTA``: the incremental simulator unless it reads 0,
+    false or off (the JAX package's reading)."""
+    return os.environ.get("FF_SIM_DELTA", "1").lower() not in ("0", "false", "off")
+
+
+def delta_check_every() -> int:
+    """``FF_SIM_DELTA_CHECK``: accepts between the delta simulator's checks
+    against a full rebuild (an integer; empty or 0: no check)."""
+    return int(os.environ.get("FF_SIM_DELTA_CHECK", str(DELTA_CHECK_EVERY)) or 0)
+
+
+def parse_learned_flag(raw: str) -> Optional[bool]:
+    """``FF_SEARCH_LEARNED`` tri-state: unset -> the engine's default, 0/1
+    -> forced.  Anything else raises."""
+    if raw == "":
+        return None
+    low = raw.lower()
+    if low in ("0", "false", "off"):
+        return False
+    if low in ("1", "true", "on"):
+        return True
+    raise ValueError(f"FF_SEARCH_LEARNED must be 0 or 1, got {raw!r}")
+
+
+def learned_flag() -> Optional[bool]:
+    """``FF_SEARCH_LEARNED`` as read from the environment."""
+    return parse_learned_flag(os.environ.get("FF_SEARCH_LEARNED", ""))
+
+
+def attach_learned_tier(model, mm, cost: CostModel, use: bool) -> Optional[Dict]:
+    """Fit the learned cost tier on the measured cache and attach it to
+    ``cost`` when ``use`` and it beats the roofline for some op family out
+    of fold; returns its provenance (None when not used).  A caller's
+    pre-warmed cost model keeps its costs, and the provenance says so."""
+    if not use:
+        return None
+    tier = LearnedCostTier.fit_default(
+        mm, compute_dtype=model.config.compute_dtype,
+        measured_cache_path=cost.measured_cache_path, platform=cost.target_platform)
+    prov = tier.provenance
+    if tier.provenance["used_families"]:
+        try:
+            cost.attach_learned_tier(tier)
+        except AssertionError:
+            prov = dict(tier.provenance)
+            prov["attached"] = False
+    return prov
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,59 +182,19 @@ def random_parallel_config(op, num_devices: int, rng: random.Random,
     return pc.with_device_ids(tuple(range(start, start + n)))
 
 
-def _factorizations(n: int, dims_avail: List[int], out_dims) -> List[Tuple[int, ...]]:
-    """All assignments of factor ``n`` over ``dims_avail`` that divide the
-    tensor dims, as full-rank degree tuples."""
-    rank = len(out_dims)
-    results = []
-
-    def rec(rem: int, idx: int, degrees: List[int]):
-        if rem == 1:
-            results.append(tuple(degrees))
-            return
-        if idx >= len(dims_avail):
-            return
-        d = dims_avail[idx]
-        for f in _divisors(rem):
-            if out_dims[d] % f == 0:
-                degrees[d] = f
-                rec(rem // f, idx + 1, degrees)
-        degrees[d] = 1
-
-    rec(n, 0, [1] * rank)
-    return results
-
-
-def enumerate_candidates(op, nd: int) -> List[ParallelConfig]:
-    """Every config the random proposals can reach, in a fixed order, with
-    block-aligned placements for configs of fewer parts than devices (what
-    ``tools/calibrate.py`` measures)."""
-    splittable = list(splittable_dims(op))
-    seen = set()
-    cands: List[ParallelConfig] = []
-    for n in _divisors(nd):
-        for degrees in _factorizations(n, splittable, op.output.dims):
-            parts = int(np.prod(degrees))
-            for off in range(0, nd - parts + 1, parts):
-                ids = tuple(range(off, off + parts))
-                if (degrees, ids) in seen:
-                    continue
-                seen.add((degrees, ids))
-                cands.append(ParallelConfig(dims=degrees).with_device_ids(ids))
-    return cands
-
-
 class SearchResult(Dict[str, ParallelConfig]):
     """The best strategy map found, with the search's account of itself:
     the simulated cost of the best plan (``best_s``) and of the
     data-parallel start (``dp_s``), engine, budget, seed, devices and
-    proposals per second.  Population runs add per-chain and run stats."""
+    proposals per second, and whether the delta simulator costed it.
+    Population runs add per-chain and run stats."""
 
     def __init__(self, strategies: Dict[str, ParallelConfig],
                  engine: str = "", budget: int = 0, seed: int = 0,
                  num_devices: int = 0, best_s: Optional[float] = None,
                  dp_s: Optional[float] = None,
                  proposals_per_s: Optional[float] = None,
+                 delta_sim: Optional[bool] = None,
                  chains: Optional[list] = None,
                  stats: Optional[Dict] = None):
         super().__init__(strategies)
@@ -194,6 +205,7 @@ class SearchResult(Dict[str, ParallelConfig]):
         self.best_s = best_s
         self.dp_s = dp_s
         self.proposals_per_s = proposals_per_s  # telemetry, never compared
+        self.delta_sim = delta_sim  # whether the delta simulator costed it
         self.chains = chains
         self.stats = stats
 
@@ -234,15 +246,27 @@ def mcmc_search(model, budget: int, alpha: float = 0.05,
     CUDA device (``CostModel._measure_real``) instead of reading the
     roofline.  ``cost_model`` shares a caller's warmed cost model when it
     prices ``machine_model``.  ``num_devices`` overrides the device count
-    of the model's machine.  Every ``DELTA_CHECK_EVERY`` accepts the delta
-    cost is held against a full rebuild, and a difference raises."""
+    of the model's machine.
+
+    Proposals are re-costed by ``DeltaSimulator``; ``FF_SIM_DELTA=0`` costs
+    each by a full rebuild instead, and a seeded search returns the same
+    ``SearchResult`` bit for bit either way.  Every ``FF_SIM_DELTA_CHECK``
+    accepts (``DELTA_CHECK_EVERY`` unset, 0: never) the delta cost of the
+    committed plan is held against a full rebuild.  Where the JAX package
+    then falls back to full rebuilds on a difference, the port raises: the
+    two are equal by construction, so a difference is a fault to see.
+    ``FF_SEARCH_LEARNED=1`` prices with the learned cost tier (off by
+    default here, so that seeded results stay the JAX package's)."""
     nd, mm, cost, sim = search_setup(model, machine_model, overlap_backward_update,
                                      num_devices, cost_model, measure)
+    attach_learned_tier(model, mm, cost, learned_flag() is True)
     rng = random.Random(seed)
-    delta = DeltaSimulator(sim, model)
+    delta = DeltaSimulator(sim, model) if delta_enabled() else None
+    check_every = delta_check_every()
 
     current = data_parallel_start(model, nd)
-    current_rt = delta.reset(current)
+    current_rt = delta.reset(current) if delta is not None \
+        else sim.simulate_runtime(model, current)
     best, best_rt = dict(current), current_rt
     dp_rt = current_rt
     # the flight recorder (observability/searchtrace.py): None, and no log
@@ -261,7 +285,12 @@ def mcmc_search(model, budget: int, alpha: float = 0.05,
             old_pc = current[op.name]
             # legalized through the op's hook before costing
             new_pc = op.legalize_pc(random_parallel_config(op, nd, rng, model=model))
-            nxt_rt = delta.propose(op.name, new_pc)
+            if delta is not None:
+                nxt_rt = delta.propose(op.name, new_pc)
+            else:
+                current[op.name] = new_pc
+                nxt_rt = sim.simulate_runtime(model, current)
+                current[op.name] = old_pc
             if it % 100 == 0:
                 if verbose:
                     print(f"iter({it}) cur({current_rt * 1e3:.3f}ms) "
@@ -288,9 +317,11 @@ def mcmc_search(model, budget: int, alpha: float = 0.05,
             if accepted:
                 current[op.name] = new_pc
                 current_rt = nxt_rt
+                if delta is None:
+                    continue
                 delta.commit()
                 accepts += 1
-                if accepts % DELTA_CHECK_EVERY == 0:
+                if check_every and accepts % check_every == 0:
                     full_rt = sim.simulate_runtime(model, current)
                     if full_rt != current_rt:
                         if tel is not None:
@@ -299,14 +330,15 @@ def mcmc_search(model, budget: int, alpha: float = 0.05,
                             tel.flush()
                         raise RuntimeError(f"delta simulation diverged from the full "
                                            f"rebuild ({current_rt!r} vs {full_rt!r})")
-            else:
+            elif delta is not None:
                 delta.rollback()
         dt = time.perf_counter() - t0
         proposals_per_s = budget / dt if dt > 0 else 0.0
         span_attrs["best_ms"] = round(best_rt * 1e3, 3)
         span_attrs["proposals_per_s"] = round(proposals_per_s, 1)
     if rec is not None:
-        rec.finish(best, best_ms=best_rt * 1e3, proposals_per_s=proposals_per_s, delta=True)
+        rec.finish(best, best_ms=best_rt * 1e3, proposals_per_s=proposals_per_s,
+                   delta=delta is not None)
     if tel is not None:
         tel.flush()
     if verbose:
@@ -316,4 +348,4 @@ def mcmc_search(model, budget: int, alpha: float = 0.05,
         print(f"simulated runtime: {best_rt * 1e3:.3f} ms/iter")
     return SearchResult(best, engine="mcmc", budget=budget, seed=seed,
                         num_devices=nd, best_s=best_rt, dp_s=dp_rt,
-                        proposals_per_s=proposals_per_s)
+                        proposals_per_s=proposals_per_s, delta_sim=delta is not None)

@@ -43,7 +43,7 @@ def candidate_jobs(model, nd: int, cost, full: bool,
     propose over ``nd`` devices; otherwise the data-parallel configs of
     ``dp_parts`` parts (default: ``nd`` and 1)."""
     from ..config import ParallelConfig
-    from ..simulator.search import enumerate_candidates
+    from ..simulator.native_search import enumerate_candidates
 
     jobs, seen = [], set()
 
@@ -88,7 +88,7 @@ def collect_fit_records(models, nds, cost) -> List[Dict]:
     key of the models' candidate configs."""
     import numpy as np
 
-    from ..simulator.search import enumerate_candidates
+    from ..simulator.native_search import enumerate_candidates
 
     recs, seen = [], set()
     for model, nd in zip(models, nds):

@@ -15,6 +15,8 @@ model of the zoo builds (``MODELS``), at the full width of its cell.
         --budget 2000 --export /tmp/alexnet_8.pb --device cpu
     python -m flexflow_tpu_torch.tools.offline_search transformer --devices 8 \\
         --engine population --device cpu
+    python -m flexflow_tpu_torch.tools.offline_search dlrm --devices 8 \\
+        --engine mcmc --device cpu
     python -m flexflow_tpu_torch.tools.offline_search nmt --devices 16 --device cpu
 
 ``--device`` only names where the graph is built (no tensor is made);
@@ -62,11 +64,13 @@ def build_model(name: str, batch_size: int, num_devices: int = 1, device: str = 
     return model
 
 
-def run(model, devices: int, budget: int, seed: int = 0, engine: str = "mcmc",
+def run(model, devices: int, budget: int, seed: int = 0, engine: str = "native",
         alpha: float = 0.05, machine_model=None, verbose: bool = False, cost_model=None):
-    """Search ``model`` over ``devices`` GPUs; returns the ``SearchResult``.
-    ``cost_model`` (over ``machine_model``) replaces the default one, which
-    reads the committed measurements."""
+    """Search ``model`` over ``devices`` GPUs with ``engine`` ("native", the
+    C++ annealer, by default as in the JAX package's tool; "mcmc" or
+    "population"); returns the ``SearchResult``.  ``cost_model`` (over
+    ``machine_model``) replaces the default one, which reads the committed
+    measurements."""
     from ..simulator.machine import H100MachineModel
 
     mm = machine_model or H100MachineModel.calibrated(num_devices=devices)
@@ -76,8 +80,8 @@ def run(model, devices: int, budget: int, seed: int = 0, engine: str = "mcmc",
         from ..simulator.population import population_search
         return population_search(model, **kw)
     if engine == "native":
-        raise NotImplementedError("the native annealer over an NVSwitch topology is not "
-                                  "ported yet (ROADMAP A8b)")
+        from ..simulator.native_search import native_mcmc_search
+        return native_mcmc_search(model, **kw)
     from ..simulator.search import mcmc_search
     return mcmc_search(model, **kw)
 
@@ -98,7 +102,9 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--budget", type=int, default=2000)
     p.add_argument("--alpha", type=float, default=0.05)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--engine", choices=["mcmc", "population", "native"], default="mcmc")
+    p.add_argument("--engine", choices=["native", "mcmc", "population"], default="native",
+                   help="native: the C++ annealer; mcmc: one Python annealed chain; population: "
+                        "the tempered population (FF_SEARCH_* knobs tune it)")
     p.add_argument("--export", default=None, help="strategy .pb output path")
     p.add_argument("--device", default="cuda", help="where the graph is built (cuda or cpu)")
     p.add_argument("--consider-pipeline", action="store_true",

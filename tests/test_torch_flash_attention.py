@@ -31,6 +31,22 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 B, H, D, BLOCK = 2, 2, 64, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _compiled_here():
+    """The JAX kernels this file holds the port to are compiled in this
+    process: JAX's in-memory caches start empty and the persistent compile
+    cache that every test worker shares (tests/conftest.py) is off while
+    the file runs, so no executable another process wrote, or is writing,
+    stands in for the reference."""
+    was = jax.config.jax_enable_compilation_cache
+    jax.clear_caches()
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", was)
+
+
 def _inputs(seq, seed, sk=None, d=D):
     rng = np.random.default_rng(seed)
     sk = seq if sk is None else sk

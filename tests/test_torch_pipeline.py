@@ -363,8 +363,22 @@ def test_suggest_parallelization_picks_the_faster_space(tmp_path):
     assert alt["pipeline_s"] == plan["simulated_s"]
     assert out["kind"] == ("pipeline" if alt["pipeline_s"] < alt["dims_s"] else "dims")
     assert out["simulated_s"] == min(alt["dims_s"], alt["pipeline_s"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        pipeline_search.suggest_parallelization(pm, budget=5, machine_model=pmm, engine="native")
+    # the C++ annealer (engines "native" and "") on the H100 model: its
+    # dimension plan priced as the Python simulator prices it
+    from flexflow_tpu_torch.simulator.cost_model import CostModel
+    from flexflow_tpu_torch.simulator.machine import H100MachineModel
+    from flexflow_tpu_torch.simulator.native_search import native_mcmc_search
+    from flexflow_tpu_torch.simulator.simulator import Simulator
+
+    h100 = H100MachineModel.calibrated(num_devices=8)
+    for engine in ("native", ""):
+        out = pipeline_search.suggest_parallelization(pm, budget=50, machine_model=h100,
+                                                      engine=engine)
+        best = native_mcmc_search(pm, 50, machine_model=h100, verbose=False)
+        sim = Simulator(h100, CostModel(h100, measure=False,
+                                        compute_dtype=pm.config.compute_dtype))
+        assert out["alternatives"]["dims_s"] == best.best_s == \
+            sim.simulate_runtime(pm, dict(best))
 
 
 def test_compile_applies_the_searched_plan(monkeypatch):

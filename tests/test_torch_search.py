@@ -15,9 +15,9 @@ same strategy and the same floats:
   package's unrestricted search: the same search space (``_SPLITTABLE``:
   convs and pools on height and width, the LSTM's hidden dim, the experts)
   and the same host placement of eligible tables;
-* ``compile(search_budget=...)`` searches on the CPU with each engine,
-  trains a step and exports a strategy that loads back equal; "native"
-  raises naming ROADMAP A8b;
+* ``compile(search_budget=...)`` searches on the CPU with each engine
+  ("" and "native": the C++ annealer), trains a step and exports a
+  strategy that loads back equal;
 * a strategy the port's search found for 4 devices trains a small CNN on 4
   gloo ranks to the JAX package's single-device weights;
 * the offline search and the calibration tool's fit run on the CPU.
@@ -46,9 +46,9 @@ from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file, rea
                                                   strategies_fingerprint)
 from flexflow_tpu_torch.simulator.machine import H100MachineModel
 from flexflow_tpu_torch.simulator.population import population_search
-from flexflow_tpu_torch.simulator.search import (enumerate_candidates, in_search_space,
-                                                 mcmc_search, random_parallel_config,
-                                                 splittable_dims)
+from flexflow_tpu_torch.simulator.native_search import enumerate_candidates
+from flexflow_tpu_torch.simulator.search import (in_search_space, mcmc_search,
+                                                 random_parallel_config, splittable_dims)
 from flexflow_tpu_torch.tools import calibrate, offline_search
 
 from test_torch_simulator import ZOO, build_pair, cost_pair
@@ -233,7 +233,7 @@ def _small_cnn(cfg):
     return m, inp
 
 
-@pytest.mark.parametrize("engine", ["", "mcmc", "population"])
+@pytest.mark.parametrize("engine", ["", "native", "mcmc", "population"])
 def test_compile_searches_trains_and_exports(engine, tmp_path, capsys):
     pb = str(tmp_path / "searched.pb")
     cfg = ft.FFConfig(batch_size=16, device="cpu", search_budget=50, search_engine=engine,
@@ -241,14 +241,14 @@ def test_compile_searches_trains_and_exports(engine, tmp_path, capsys):
     m, inp = _small_cnn(cfg)
     m.compile(ft.SGDOptimizer(m, lr=0.1), "sparse_categorical_crossentropy", ["accuracy"])
     out = capsys.readouterr().out
-    assert f"{engine or 'mcmc'} search over 1 GPU(s), budget 50" in out
+    assert f"{engine or 'native'} search over 1 GPU(s), budget 50" in out
     assert "spec (unfitted)" in out or "fitted on" in out
     # the searched map, resolved, legalized and placed as any other
     assert set(cfg.strategies) == {op.name for op in m.ops}
     assert load_strategies_from_file(pb) == {op.name: op.pc for op in m.ops}
     meta = read_provenance(pb)
     assert (meta["engine"], meta["budget"], meta["num_devices"]) == \
-        (engine or "mcmc", 50, 1)
+        (engine or "native", 50, 1)
     m.init_layers(seed=0)
     rng = np.random.default_rng(0)
     m.set_batch({inp: rng.standard_normal((16, 12, 12, 3), dtype=np.float32)},
@@ -286,7 +286,7 @@ def test_compile_searches_each_zoo_model_and_trains(name, capsys):
     loss = ("mean_squared_error" if name in ("dlrm", "candle_uno")
             else "sparse_categorical_crossentropy")
     m.compile(ft.SGDOptimizer(m, lr=0.01), loss, ["accuracy"])
-    assert "mcmc search over 1 GPU(s), budget 30" in capsys.readouterr().out
+    assert "native search over 1 GPU(s), budget 30" in capsys.readouterr().out
     assert set(cfg.strategies) == {op.name for op in m.ops}
     for op in m.ops:
         op.check_config(op.pc)
@@ -317,13 +317,26 @@ def test_offline_search_of_each_zoo_model_stays_in_the_ports_space(name, tmp_pat
         assert any(max(random_parallel_config(op, 8, rng).dims[1:]) > 1 for _ in range(50))
 
 
-@pytest.mark.parametrize("engine,exc,match", [("native", NotImplementedError, "ROADMAP A8b"),
+@pytest.mark.parametrize("engine,exc,match", [("native", None, "native search over 1 GPU(s)"),
                                               ("bogus", ValueError, "unknown search_engine")])
-def test_compile_refuses_unported_and_unknown_engines(engine, exc, match):
-    m, _ = _small_cnn(ft.FFConfig(batch_size=16, device="cpu", search_budget=10,
-                                  search_engine=engine))
-    with pytest.raises(exc, match=match):
-        m.compile(ft.SGDOptimizer(m, lr=0.1))
+def test_compile_refuses_unported_and_unknown_engines(engine, exc, match, capsys):
+    """The name is older than the native annealer: "native" now searches
+    (the C++ annealer over the H100 model) and trains; an unknown engine
+    still raises."""
+    m, inp = _small_cnn(ft.FFConfig(batch_size=16, device="cpu", search_budget=10,
+                                    search_engine=engine))
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            m.compile(ft.SGDOptimizer(m, lr=0.1))
+        return
+    m.compile(ft.SGDOptimizer(m, lr=0.1), "sparse_categorical_crossentropy", ["accuracy"])
+    assert match in capsys.readouterr().out
+    m.init_layers(seed=0)
+    rng = np.random.default_rng(0)
+    m.set_batch({inp: rng.standard_normal((16, 12, 12, 3), dtype=np.float32)},
+                rng.integers(0, 10, (16, 1)).astype(np.int32))
+    m.train_iteration()
+    assert m.get_metrics().train_all == 16 and np.isfinite(m.last_loss)
 
 
 # ---------------------------------------------------------------- 4 gloo ranks
@@ -344,7 +357,8 @@ from flexflow_tpu_torch.convert import load_jax_params
 from flexflow_tpu_torch.parallel import distributed as dist
 dist.initialize("cpu", init_method=job["init"], world_size=4, rank=rank)
 m = ft.FFModel(ft.FFConfig(batch_size=16, device="cpu", search_budget=job["budget"],
-                           seed=job["seed"], fused_optimizer=True))
+                           search_engine=job["engine"], seed=job["seed"],
+                           fused_optimizer=True))
 inp = m.create_tensor((16, 3, 12, 12))
 t = m.conv2d(inp, 8, 3, 3, 1, 1, 1, 1, activation="relu", name="conv1")
 t = m.pool2d(t, 2, 2, 2, 2, 0, 0, name="pool1")
@@ -404,7 +418,7 @@ def test_a_searched_strategy_trains_on_four_gloo_ranks(tmp_path):
     np.save(tmp_path / "params.npy", params0, allow_pickle=True)
     job = dict(root=ROOT, init=f"file://{tmp_path / 'pg'}", params=str(tmp_path / "params.npy"),
                data=str(tmp_path / "data.npz"), out=str(tmp_path / "out_%d.npy"),
-               budget=budget, seed=seed, steps=CNN_STEPS)
+               budget=budget, seed=seed, engine="mcmc", steps=CNN_STEPS)
     with open(tmp_path / "job.json", "w") as f:
         json.dump(job, f)
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -440,16 +454,18 @@ def test_offline_search_for_an_h100_node(tmp_path, capsys):
     assert best.best_s <= best.dp_s
     assert load_strategies_from_file(pb) == dict(best)
     meta = read_provenance(pb)
-    assert (meta["model"], meta["num_devices"], meta["engine"]) == ("alexnet", 8, "mcmc")
+    assert (meta["model"], meta["num_devices"], meta["engine"]) == ("alexnet", 8, "native")
     # every model of the zoo builds, at the full width of its cell
     for name, (_, _, batch, _) in offline_search.MODELS.items():
         m = offline_search.build_model(name, batch, 8, device="cpu")
         assert m.ops and m.config.batch_size == batch
     with pytest.raises(ValueError, match="unknown model"):
         offline_search.build_model("vgg", 64, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        offline_search.run(offline_search.build_model("alexnet", 64, 8, device="cpu"), 8, 10,
-                           engine="native")
+    # --engine native is the default; mcmc on the same graph and budget
+    # searches the same objective
+    model = offline_search.build_model("alexnet", 64, 8, device="cpu", compute_dtype="bfloat16")
+    mc = offline_search.run(model, 8, 150, engine="mcmc")
+    assert mc.engine == "mcmc" and mc.dp_s == best.dp_s and best.best_s <= best.dp_s
 
 
 def test_offline_search_for_two_h100_nodes(tmp_path, capsys):

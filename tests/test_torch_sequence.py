@@ -30,8 +30,8 @@ JAX package on the CPU.
     same function);
   - cross-attention (Sq 16, Sk 8) under a sequence split: one step and a
     forward equal the single device's (each part reads the whole K/V);
-  - ``compile(search_budget=300)`` on that transformer, whose search
-    splits an attention op's sequence: every rank gets the same configs,
+  - ``compile(search_budget=300, search_engine="mcmc")`` on that
+    transformer, whose search splits an attention op's sequence: every rank gets the same configs,
     and one step trains under them.
 """
 
@@ -248,7 +248,7 @@ out["cross"] = dict(pc=m.ops[0].pc.dims, probs=m.predict_batch(),
 # the strategy search through compile on these 4 ranks: whatever configs
 # it proposes (sequence splits among them), the step accepts and trains
 m = ft.FFModel(ft.FFConfig(batch_size=job["batch"], device="cpu", compute_dtype="float32",
-                           search_budget=job["budget"], seed=1))
+                           search_budget=job["budget"], search_engine="mcmc", seed=1))
 tok, pos, _ = build_transformer(m, job["batch"], **lm)
 m.compile(ft.SGDOptimizer(m, lr=0.05), "sparse_categorical_crossentropy", ["accuracy"])
 m.init_layers(seed=9)

@@ -437,7 +437,7 @@ def test_exported_strategy_carries_the_provenance(tmp_path, monkeypatch):
 
     _traced(monkeypatch, tmp_path / "t.jsonl")
     pb = str(tmp_path / "s.pb")
-    m, _ = _mlp(ft, search_budget=30, export_strategy_file=pb)
+    m, _ = _mlp(ft, search_budget=30, search_engine="mcmc", export_strategy_file=pb)
     meta = read_provenance(pb)
     assert (meta["engine"], meta["budget"], meta["num_devices"]) == ("mcmc", 30, 1)
     assert set(meta["ops"]) == {op.name for op in m.ops} and meta["lowered"] is False
