@@ -306,7 +306,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      cards (one NCCL rank a card, up to 4): the same compile on every rank,
      one strategy map on every rank (strategies_fingerprint), 3 eager mesh
      steps, simulated against measured ms/step (one card: a line says it
-     was not run).
+     was not run);
+ 20. the observability tools on the card ([tools] lines): (a) the doctor
+     as a user runs it (exit 0, its accelerator line naming the card
+     nvidia-smi names, ffsim and ffsearch built); (b) chipwatch: the probe
+     ok with the card's name, a probe sleeping past its 2 s deadline
+     killed and reported within 5 s, one measurement window of the port's
+     calibrate (AlexNet batch 256, bf16, the report keys first) into a
+     temporary cache and fit (the cache grows, measurement_progress and
+     chip_window in a trace, trace_report's Measurement section), the
+     committed measured_h100.json and machine_h100.json byte-identical
+     before and after the phase; (c) profile_report of the full-width
+     transformer (batch 16, S 512, bf16) and AlexNet (batch 256): a row
+     per op, forward and backward above 0, K3-K5 launched (warm-up +
+     timed iterations) times per attention op, the standalone sums beside
+     phase 7's compiled ms/step; (d) opbench's suite of 12 ops in bf16 and
+     f32; (e) a trace taken with FF_TELEMETRY, FF_MEMPLANE=1 and
+     FF_TRACE_SAMPLE=1 of 4 compiled transformer steps and 8 requests
+     through a captured engine: memory_report's predicted, captures and
+     live sections (the train_step pool equal to StepGraph.pool_bytes, the
+     live peak to the last hbm_bytes gauge, each ratio printed), and
+     timeline_export's JSON (every B with its E; training, serving and
+     requests tracks); (f) soap_report of AlexNet at its canonical scale
+     (16 GPUs, batch 64, bf16) on the host, the .pb loading, its keys to a
+     temporary file.
 
 ``--phases 3,17`` runs only the phases listed (1 and 2 always run; the
 kernels line needs phase 3); a phase's several-card part runs whenever
@@ -1771,10 +1794,14 @@ def calibrate_on_card(kernels, smi, measured_path, fit_path):
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.allow_tf32 = True
     reset_launches(kernels)
-    r = calibrate.calibrate([("alexnet", BATCH), ("transformer", LM["batch"])],
-                            devices=NODE_GPUS, dp_parts=CAL_PARTS, compute_dtype="bfloat16",
-                            out=measured_path, fit_out=fit_path, device="cuda",
-                            verbose=False)
+    # the cells' job space alone: no report keys first (phase 20's window
+    # measures those)
+    no_keys = os.path.join(os.path.dirname(os.path.abspath(measured_path)), "no_keys.json")
+    with environ({"FF_REPORT_KEYS_PATH": no_keys}):
+        r = calibrate.calibrate([("alexnet", BATCH), ("transformer", LM["batch"])],
+                                devices=NODE_GPUS, dp_parts=CAL_PARTS,
+                                compute_dtype="bfloat16", out=measured_path,
+                                fit_out=fit_path, device="cuda", verbose=False)
     launches = read_launches(kernels)
     with open(measured_path) as f:
         entries = json.load(f)
@@ -2186,9 +2213,12 @@ def zoo_search(ft, measured, smi, out_dir):
         check((batch, kw) == (z["batch"], z["kw"]),
               f"the tools' {name} {batch, kw} is not phase 9's {z['batch'], z['kw']}")
     t0 = time.perf_counter()
-    r = calibrate.calibrate([(names.get(n, n), ZOO[n]["batch"]) for n in ZOO], devices=1,
-                            dp_parts=(1,), compute_dtype="bfloat16", out=measured_path,
-                            fit_out=fit_path, device="cuda", verbose=False)
+    # the zoo's own ops alone: no report keys first (phase 20's window
+    # measures those)
+    with environ({"FF_REPORT_KEYS_PATH": os.path.join(out_dir, "no_keys.json")}):
+        r = calibrate.calibrate([(names.get(n, n), ZOO[n]["batch"]) for n in ZOO], devices=1,
+                                dp_parts=(1,), compute_dtype="bfloat16", out=measured_path,
+                                fit_out=fit_path, device="cuda", verbose=False)
     log(f"[search] zoo calibration: {r['measured']} measured points, every op of the six "
         f"models at one part, forward and backward, in {time.perf_counter() - t0:.1f} s")
     mm = H100MachineModel.calibrated(path=fit_path, num_devices=1)
@@ -6490,7 +6520,332 @@ def native_phase(ft, build_alexnet, kernels, smi):
     return {n: launches[n] + multi[n] for n in kernels}
 
 
-PHASES = tuple(range(1, 20))
+# ------------------------------------------------------------------ phase 20
+
+TOOLS_WINDOW_S = 20      # (b): the calibration window's measuring budget, seconds
+TOOLS_HANG_TIMEOUT_S = 2.0   # (b): the hung fake probe's deadline
+TOOLS_HANG_BOUND_S = 5.0     # (b): ... and the bound on its report
+TOOLS_STEPS = 4          # (e): compiled steps of the traced transformer
+TOOLS_REQUESTS = 8       # (e): the traced engine's burst, phase 10's first requests
+TOOLS_SOAP_BUDGET = 20000    # (f): proposals of the one restart
+TOOLS_PROFILE = (("transformer", LM["batch"]), ("alexnet", BATCH))
+TOOLS_OPBENCH_ROWS = 12
+
+
+def sha256_of(paths):
+    import hashlib
+
+    out = {}
+    for p in paths:
+        with open(p, "rb") as f:
+            out[p] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def tools_doctor(smi):
+    """(a): the doctor as a user runs it, in a process of its own on the
+    card: exit 0, the accelerator line names the card nvidia-smi names, the
+    native libraries built."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "flexflow_tpu_torch.tools.doctor"],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        log(f"[tools] (a) doctor: {line}")
+    lines = {ln[7:].split("  ", 1)[0].strip(): ln for ln in r.stdout.splitlines()
+             if ln.startswith("[")}
+    card = smi.rsplit(",", 1)[0].strip()
+    check(r.returncode == 0, f"(a) doctor exit {r.returncode}: {r.stderr[-2000:]}")
+    accel = lines.get("accelerator", "")
+    check(accel.startswith("[ok") and card in accel, f"(a) accelerator line {accel!r}, "
+                                                     f"card {card!r}")
+    native_line = lines.get("native libs", "")
+    check("ffsim built" in native_line and "ffsearch built" in native_line,
+          f"(a) native libs line {native_line!r}")
+    log(f"[tools] (a) doctor exit 0 in {wall:.1f} s; its accelerator line names {card}")
+
+
+def tools_chipwatch(tmp, smi):
+    """(b): the probe, a hung probe killed, and one measurement window of the
+    port's calibrate into a temporary cache and fit, traced."""
+    from types import SimpleNamespace
+
+    from flexflow_tpu_torch.observability import chipwatch, events
+    from flexflow_tpu_torch.tools import trace_report
+    from flexflow_tpu_torch.tools.calibrate import read_report_keys
+
+    card = smi.rsplit(",", 1)[0].strip()
+    trace = os.path.join(tmp, "window.jsonl")
+    cache = os.path.join(tmp, "measured.json")
+    fit = os.path.join(tmp, "fit.json")
+    # the log of this process only: the window's child gets no FF_TELEMETRY
+    events.reset_active()
+    events.for_config(SimpleNamespace(telemetry=True, telemetry_file=trace))
+    try:
+        res = chipwatch.probe_once()
+        check(res.ok and res.device_kind == card.replace(" ", "_"), f"(b) probe {res}")
+        log(f"[tools] (b) chipwatch.probe_once: ok, {res.device_kind} in {res.latency_s} s")
+        t0 = time.perf_counter()
+        hung = chipwatch.probe_once(timeout=TOOLS_HANG_TIMEOUT_S, probe_cmd=[
+            sys.executable, "-c", "import time; time.sleep(600)"])
+        hung_s = time.perf_counter() - t0
+        check(not hung.ok and hung_s < TOOLS_HANG_BOUND_S, f"(b) hung probe {hung} after "
+                                                           f"{hung_s:.2f} s")
+        log(f"[tools] (b) a probe sleeping past its {TOOLS_HANG_TIMEOUT_S:.0f} s deadline: "
+            f"killed, not ok, reported after {hung_s:.2f} s ({hung.detail})")
+        cmd = chipwatch.default_measure_cmd(cache, TOOLS_WINDOW_S, fit) + [
+            "--models", f"alexnet:{BATCH}", "--compute-dtype", "bfloat16", "--quiet"]
+        win = chipwatch.convert_window(cache_path=cache, measure_cmd=cmd,
+                                       max_seconds=TOOLS_WINDOW_S, poll_every=1.0,
+                                       fit_path=fit, log_path=os.path.join(tmp, "window.log"))
+    finally:
+        events.reset_active()
+    check(win.converted and win.measure_rc == 0 and win.refit_rc == 0 and os.path.exists(fit),
+          f"(b) window {win}")
+    with open(cache) as f:
+        measured = json.load(f)
+    with open(fit) as f:
+        fitted = json.load(f)
+    recs = trace_report.parse_trace(trace)
+    names = [r.get("name") for r in recs]
+    report = trace_report.render_report(recs)
+    check(names.count("chip_probe") == 2 and "measurement_progress" in names
+          and names.count("chip_window") == 1, f"(b) window trace {names}")
+    check("## Measurement" in report and "window converted" in report,
+          "(b) trace_report: " + report[-800:])
+    hinted = {k for e in read_report_keys().values() for k in e.get("keys") or []}
+    log(f"[tools] (b) convert_window: calibrate --models alexnet:{BATCH} --max-seconds "
+        f"{TOOLS_WINDOW_S} into a temporary cache: {win.entries_before} -> "
+        f"{win.entries_after} cuda entries in {win.duration_s} s (measure rc "
+        f"{win.measure_rc}, refit rc {win.refit_rc}), {len(hinted & set(measured))} of them "
+        f"report keys (report_keys.json, measured first); the refit over "
+        f"{fitted.get('fit_points')} points, log-rmse {fitted.get('fit_log_rmse', 0):.3f}; "
+        f"{names.count('measurement_progress')} measurement_progress events; trace_report's "
+        f"Measurement section rendered; card {smi}")
+
+
+def tools_profile(ft, kernels, tmp, smi):
+    """(c): profile_report of the full-width transformer and AlexNet; every
+    op has a row, every op with a backward both times above 0, and the
+    attention ops' flash launches are the ops times the iterations."""
+    from flexflow_tpu_torch.simulator.cost_model import MEASURE_ITERS, MEASURE_WARMUP
+    from flexflow_tpu_torch.tools import profile_report
+    from flexflow_tpu_torch.tools.offline_search import build_model
+
+    launches = dict(NO_LAUNCH)
+    for name, batch in TOOLS_PROFILE:
+        free_models()
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        res = profile_report.main([name, "--batch-size", str(batch), "--compute-dtype",
+                                   "bfloat16", "--out", os.path.join(tmp, f"{name}.md")])
+        wall = time.perf_counter() - t0
+        got = read_launches(kernels)
+        ops = build_model(name, batch, 1, "cpu", "bfloat16").ops
+        check([r["op"] for r in res["rows"]] == [op.name for op in ops],
+              f"(c) {name}: rows {[r['op'] for r in res['rows']]}")
+        bad = [r for r in res["rows"] if r["forward_ms"] <= 0
+               or (r["trains"] and r["backward_ms"] <= 0)]
+        check(not bad, f"(c) {name}: rows without times {bad}")
+        n_attn = sum(op._type == "MultiHeadAttention" for op in ops)
+        per = n_attn * (MEASURE_WARMUP + MEASURE_ITERS)
+        want = {**NO_LAUNCH, "flash_fwd": per, "flash_bwd_dkdv": per, "flash_bwd_dq": per}
+        check(got == want, f"(c) {name}: launches {got}, want {want}")
+        compiled = MEASURED.get(name, {}).get("graph_ms")
+        top = sorted(res["rows"], key=lambda r: -(r["forward_ms"] + r["backward_ms"]))[:3]
+        log(f"[tools] (c) profile_report {name} batch {batch} bf16: {len(res['rows'])} ops, "
+            f"standalone sum {res['total_ms']:.3f} ms"
+            + (f" beside phase 7's compiled {compiled:.3f} ms/step" if compiled
+               else " (phase 7 not run: no compiled ms/step)")
+            + f"; {n_attn} attention ops x ({MEASURE_WARMUP} + {MEASURE_ITERS}) iterations = "
+            f"{per} launches each of K3-K5 (got {got['flash_fwd']}, {got['flash_bwd_dkdv']}, "
+            f"{got['flash_bwd_dq']}); costliest "
+            + ", ".join(f"{r['op']} {r['forward_ms']:.3f}+{r['backward_ms']:.3f}" for r in top)
+            + f" ms; {wall:.1f} s; {res['device']}")
+        launches = {k: launches[k] + got[k] for k in launches}
+    return launches
+
+
+def tools_opbench(smi):
+    """(d): the standard suite in bf16 and f32 on the card."""
+    from flexflow_tpu_torch.tools import opbench
+
+    # f32 means f32 whatever an earlier phase left set (cuDNN's default is TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in ("bfloat16", "float32"):
+        free_models()
+        log(f"[tools] (d) opbench, the JAX package's suite of {len(opbench._SUITE)} ops, "
+            f"{dtype}, median of 10 (device ms, CUDA events behind a held stream; TF32 "
+            "off):")
+        rows = opbench.main(["--compute-dtype", dtype])
+        bad = [r for r in rows if not (math.isfinite(r["fwd_ms"]) and r["fwd_ms"] > 0
+                                       and math.isfinite(r["fwd_bwd_ms"])
+                                       and r["fwd_bwd_ms"] > 0)]
+        check(len(rows) == TOOLS_OPBENCH_ROWS and not bad, f"(d) {dtype}: rows {rows}")
+        log(f"[tools] (d) opbench {dtype}: {len(rows)} rows, every fwd and fwd+bwd ms finite "
+            f"and above 0; card {smi}")
+
+
+def tools_traced(ft, kernels, tmp, smi):
+    """(e): a traced run on the card (a few compiled transformer steps, a
+    burst through a captured engine), folded by memory_report and
+    timeline_export."""
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+    from flexflow_tpu_torch.tools import memory_report, timeline_export
+    from flexflow_tpu_torch.tools.trace_report import parse_trace
+
+    trace = os.path.join(tmp, "traced.jsonl")
+    env = {"FF_TELEMETRY": "1", "FF_TELEMETRY_FILE": trace, "FF_MEMPLANE": "1",
+           "FF_TRACE_SAMPLE": "1"}
+    free_models()
+    reset_launches(kernels)
+    with environ(env):
+        # the serving model first: each compile stamps memory_predicted, and
+        # the report folds the last, the training model's
+        lm, _, _ = decode_lm(ft, build_transformer, "bfloat16")
+        model = lm_model(ft, build_transformer, synthetic_lm_batch,
+                         lambda m: ft.SGDOptimizer(m, lr=0.001), **LM)
+        for _ in range(TOOLS_STEPS):
+            model.train_iteration()
+        model.sync()
+        check_graph_run(model, TOOLS_STEPS, "(e) traced transformer")
+        pool = model._step_graph.pool_bytes()
+        del model
+        free_models()
+        eng = InferenceEngine(lm, **ENGINE)
+        warm = eng.warmup()
+        reqs = traffic()[:TOOLS_REQUESTS]
+        hs = [eng.submit(p, n, timeout_s=0) for p, n in reqs]
+        with eng:
+            for h in hs:
+                h.result(600)
+        st = eng.stats()
+    launches = read_launches(kernels)
+    layers = LM["num_layers"]
+    want = {**NO_LAUNCH, "fused_sgd_update": 2, "flash_fwd": 2 * layers,
+            "flash_bwd_dkdv": 2 * layers, "flash_bwd_dq": 2 * layers}
+    check(launches == want, f"(e) launches {launches}, want {want} (the eager step and the "
+                            "capture call the wrappers; the engine none)")
+    check(st["completed"] == len(reqs) and st["graphs_captured"] == warm,
+          f"(e) engine {st}, {warm} captures in the warm-up")
+    del lm, eng
+    free_models()
+    recs = parse_trace(trace)
+
+    folded = memory_report.fold(recs)
+    report = memory_report.render(folded, trace)
+    for head in ("## Predicted (analytic model)", "## CUDA-graph captures", "## Live HBM"):
+        check(head in report, f"(e) memory_report lacks {head}")
+    check(folded["predicted"] is not None and folded["live"], "(e) memory_report: no "
+                                                              "predicted or live view")
+    train = folded["sites"].get("train_step", {})
+    check(train.get("graph_pool_bytes") == pool,
+          f"(e) train_step pool {train.get('graph_pool_bytes')} against StepGraph.pool_bytes "
+          f"{pool}")
+    peaks = [r for r in recs if r.get("t") == "gauge" and r.get("name") == "hbm_bytes"
+             and (r.get("attrs") or {}).get("kind") == "peak"]
+    live_peak = max((v for (_, kind), v in folded["live"].items() if kind == "peak"),
+                    default=None)
+    check(peaks and live_peak == float(peaks[-1]["v"]),
+          f"(e) live peak {live_peak} against the last hbm_bytes peak gauge "
+          f"{peaks[-1]['v'] if peaks else None}")
+    for line in report.splitlines():
+        if line.startswith(("- ", "| train_step", "| serve", "| 0 |", "| pool")):
+            log(f"[tools] (e) memory_report: {line}")
+    flagged = [ln for ln in report.splitlines() if ln.startswith("- !! ")]
+    log(f"[tools] (e) memory_report over {len(recs)} records: train_step pool "
+        f"{pool / 2**20:.1f} MiB = StepGraph.pool_bytes; {len(folded['sites'])} capture sites "
+        f"({sum(r['captures'] for r in folded['sites'].values())} captures); live peak "
+        f"{live_peak / 2**30:.3f} GiB = the last hbm_bytes peak gauge; {len(flagged)} !! "
+        f"row(s); card {smi}")
+
+    out = os.path.join(tmp, "timeline.json")
+    check(timeline_export.main([trace, "-o", out]) == 0, "(e) timeline_export failed")
+    with open(out) as f:
+        doc = json.load(f)
+    depth = {}
+    for e in doc["traceEvents"]:
+        key = (e.get("pid"), e.get("tid"))
+        if e["ph"] == "B":
+            depth[key] = depth.get(key, 0) + 1
+        elif e["ph"] == "E":
+            depth[key] = depth.get(key, 0) - 1
+            check(depth[key] >= 0, f"(e) an E without its B on {key}")
+    check(all(v == 0 for v in depth.values()), f"(e) unmatched B/E {depth}")
+    procs = {e["args"]["name"] for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    check({"training", "serving", "requests"} <= procs, f"(e) timeline processes {procs}")
+    s = timeline_export.summarize(doc)
+    log(f"[tools] (e) timeline_export: {s['events']} events, {s['spans']} B/E pairs matched, "
+        f"{s['instants']} instants, {s['counters']} counter samples, "
+        f"{s['request_tracks']} request tracks; processes {sorted(procs)}")
+    return launches
+
+
+def tools_soap(tmp, smi):
+    """(f): soap_report of AlexNet at its canonical scale on the host."""
+    from flexflow_tpu_torch.parallel.strategy import load_strategies_from_file
+    from flexflow_tpu_torch.tools import soap_report
+    from flexflow_tpu_torch.tools.report_configs import REPORT_DEVICES, REPORT_GLOBAL_BATCH
+
+    keys = os.path.join(tmp, "report_keys.json")
+    pb = os.path.join(tmp, "alexnet.pb")
+    out = os.path.join(tmp, "REPORT_SOAP_H100.md")
+    args = ["alexnet", "--devices", str(REPORT_DEVICES["alexnet"]), "--batch-size",
+            str(REPORT_GLOBAL_BATCH["alexnet"]), "--budget", str(TOOLS_SOAP_BUDGET),
+            "--restarts", "1", "--export", pb, "--out", out]
+    compiled = MEASURED["alexnet"].get("graph_ms")
+    if compiled:
+        args += ["--measured-single-chip-ms", f"{compiled:.6f}"]
+    t0 = time.perf_counter()
+    with environ({"FF_REPORT_KEYS_PATH": keys}):
+        res = soap_report.main(args)
+    wall = time.perf_counter() - t0
+    strategies = load_strategies_from_file(pb)
+    with open(keys) as f:
+        written = json.load(f)
+    check(res["canonical"] and list(written) == ["alexnet"] and len(strategies) == 13
+          and res["speedup"] >= 1.0, f"(f) {res}, keys {list(written)}, {len(strategies)} ops")
+    with open(out) as f:
+        agree = [ln for ln in f.read().splitlines() if "ratio" in ln]
+    log(f"[tools] (f) soap_report alexnet, {REPORT_DEVICES['alexnet']} GPUs, batch "
+        f"{REPORT_GLOBAL_BATCH['alexnet']} bf16, {res['engine']} budget {TOOLS_SOAP_BUDGET} x 1: "
+        f"dp {res['dp_ms']:.3f} ms, searched {res['soap_ms']:.3f} ms ({res['speedup']:.2f}x), "
+        f"{res['measured']} op times measured, {res['analytic']} by the roofline; the .pb loads "
+        f"({len(strategies)} ops), {len(written['alexnet']['keys'])} report keys to the "
+        f"temporary file; {wall:.1f} s on the host"
+        + (f"; {agree[0]}" if agree else "; phase 7 not run: no agreement line"))
+
+
+def tools_phase(ft, kernels, smi):
+    """Phase 20: the observability tools on the card.  Returns the kernels'
+    launches."""
+    from flexflow_tpu_torch.simulator.cost_model import MEASURED_CACHE
+    from flexflow_tpu_torch.simulator.machine import CALIBRATION_PATH
+
+    t0 = time.perf_counter()
+    committed = sha256_of((MEASURED_CACHE, CALIBRATION_PATH))
+    free_models()
+    with tempfile.TemporaryDirectory() as tmp:
+        tools_doctor(smi)
+        tools_chipwatch(tmp, smi)
+        launches = tools_profile(ft, kernels, tmp, smi)
+        tools_opbench(smi)
+        traced = tools_traced(ft, kernels, tmp, smi)
+        tools_soap(tmp, smi)
+    check(sha256_of((MEASURED_CACHE, CALIBRATION_PATH)) == committed,
+          "(b) the committed measured_h100.json or machine_h100.json changed")
+    log("[tools] (b) measured_h100.json and machine_h100.json byte-identical before and after "
+        "the phase (sha256)")
+    launches = {k: launches[k] + traced[k] for k in launches}
+    log(f"[tools] phase 20 took {time.perf_counter() - t0:.1f} s; wrapper launches {launches}")
+    return launches
+
+
+PHASES = tuple(range(1, 21))
 
 
 def selected_phases(argv):
@@ -6694,6 +7049,10 @@ def main(argv=None):
     # phase 19 -----------------------------------------------------------
     if 19 in phases:
         ran["native"] = native_phase(ft, build_alexnet, kernels, smi)
+
+    # phase 20 -----------------------------------------------------------
+    if 20 in phases:
+        ran["tools"] = tools_phase(ft, kernels, smi)
 
     # result -------------------------------------------------------------
     main_launches = {n: sum(r[n] for r in ran.values()) for n in kernels}

@@ -21,12 +21,15 @@ either package's readers fold either package's traces.
 ``opprof``      ``FF_OPPROF``-cadence per-op device times.
 ``searchtrace`` the strategy search's flight recorder and sidecar
                 provenance.
+``chipwatch``   the card probe in a subprocess with a kill deadline, and
+                measurement windows that run the calibration.
 
-Readers: ``python -m flexflow_tpu_torch.tools.trace_report`` and
-``tools.health_report``.  Not ported yet (ROADMAP A12): ``chipwatch``.
+Readers: ``python -m flexflow_tpu_torch.tools.trace_report``,
+``tools.health_report``, ``tools.memory_report`` and
+``tools.timeline_export``.
 """
 
-from . import events, health, metrics, reqtrace, slo
+from . import chipwatch, events, health, metrics, reqtrace, slo
 from .events import EventLog, active_log, for_config
 from .health import HealthMonitor, read_heartbeat, write_heartbeat
 from .metrics import MetricsRegistry
@@ -36,5 +39,5 @@ from .slo import BurnRateEvaluator, SLOTarget
 
 __all__ = ["BurnRateEvaluator", "EventLog", "HealthMonitor",
            "MetricsRegistry", "SLOTarget", "SearchRecorder",
-           "TraceContext", "active_log", "events", "for_config", "health",
+           "TraceContext", "active_log", "chipwatch", "events", "for_config", "health",
            "metrics", "read_heartbeat", "reqtrace", "slo", "write_heartbeat"]

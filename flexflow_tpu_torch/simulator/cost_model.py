@@ -418,7 +418,7 @@ class CostModel:
         return float(t)
 
     # -- real measurement --------------------------------------------------
-    def _measure_real(self, op, pc) -> Tuple[float, float]:
+    def _measure_real(self, op, pc, iters: int = MEASURE_ITERS) -> Tuple[float, float]:
         """(forward, backward) seconds of one part of ``op`` under ``pc`` on
         this cost model's device: the part's inputs (``part_input_shapes``;
         those an op produces take a gradient, graph inputs do not) and weight
@@ -427,8 +427,8 @@ class CostModel:
         ``torch.Generator`` (indices drawn uniformly over the rows of the
         op's tables), the model's compute dtype.  Forward, then the
         backward through autograd, each between CUDA events behind a held
-        stream (device time), over ``MEASURE_ITERS`` iterations after
-        ``MEASURE_WARMUP``; the medians are kept.  A failed launch or a
+        stream (device time), over ``iters`` (default ``MEASURE_ITERS``)
+        iterations after ``MEASURE_WARMUP``; the medians are kept.  A failed launch or a
         time that is not positive raises: no measurement is replaced by
         the roofline unnoticed."""
         import time as _time
@@ -487,7 +487,7 @@ class CostModel:
             once(0.0)
         # hold the stream for twice the host's time for one iteration
         hold_ms = 2e3 * (_time.perf_counter() - t0) / MEASURE_WARMUP + 0.05
-        samples = [once(hold_ms) for _ in range(MEASURE_ITERS)]
+        samples = [once(hold_ms) for _ in range(iters)]
         f = float(np.median([s[0] for s in samples]))
         b = float(np.median([s[1] for s in samples]))
         if f <= 0 or (leaves and b <= 0):

@@ -20,6 +20,14 @@ cache, each entry tagged with the card's name) and ``machine_h100.json``
 (the fit, with the card's name and power limit), or the ``--out`` and
 ``--fit-out`` paths, and prints both as JSON lines.  Without them the
 simulator runs on the spec constants and says "unfitted".
+
+Job order: the cache keys the SOAP reports price (``report_keys.json``,
+written by ``tools/soap_report.py``; ``FF_REPORT_KEYS_PATH`` overrides
+it) come first, cheapest by the roofline first, so that a short window
+raises the reports' measured provenance; a model whose report scale the
+enumeration does not cover gets targeted jobs for exactly those keys.
+The rest follows in enumeration order.  Without the file the order is
+the enumeration's.
 """
 
 from __future__ import annotations
@@ -31,9 +39,8 @@ import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-# Below these many points or op families a fit extrapolates (it says so).
-THIN_FIT_POINTS = 16
-THIN_FIT_OP_TYPES = 3
+from .report_configs import (REPORT_DEVICES, REPORT_GLOBAL_BATCH, THIN_FIT_OP_TYPES,
+                             THIN_FIT_POINTS, report_keys_path)
 
 
 def candidate_jobs(model, nd: int, cost, full: bool,
@@ -64,6 +71,71 @@ def candidate_jobs(model, nd: int, cost, full: bool,
                 pc = ParallelConfig.data_parallel(op.output.num_dims, parts)
                 add(op, pc.with_device_ids(tuple(range(parts))))
     return jobs
+
+
+def read_report_keys() -> Dict[str, Dict]:
+    """``{model: {"devices", "batch", "keys"}}`` from the report-keys file
+    (``report_keys_path()``); {} when it cannot be read, and then the
+    fallback line is printed."""
+    path = report_keys_path()
+    try:
+        with open(path) as f:
+            raw = json.load(f)
+        return {name: (e if isinstance(e, dict) else
+                       {"devices": REPORT_DEVICES.get(name), "batch": None, "keys": e})
+                for name, e in raw.items()}
+    except Exception as e:  # noqa: BLE001 -- a hint file never stops a calibration
+        print(f"[calibrate] no report-key priority hints ({path}: {e!r}) -- job order "
+              "falls back to the enumeration order", flush=True)
+        return {}
+
+
+def build_job_list(models_batches: Sequence[Tuple[str, int]], models, devices: int, cost,
+                   full: bool, dp_parts: Optional[Sequence[int]], build, fit_only: bool = False):
+    """(jobs, [(model, devices)] the fit also reads).  The enumerated jobs
+    of ``models``, with the keys of the report-keys file first, cheapest by
+    the roofline first.  A report model whose
+    keys the enumeration does not hold is built at its report scale by
+    ``build(name, batch, devices)`` (or taken from ``models`` when it is one
+    of them at that scale) and gets targeted jobs for exactly those keys;
+    the models built for it join the fit's records."""
+    from ..simulator.native_search import enumerate_candidates
+
+    jobs = [] if fit_only else [j for m in models
+                                for j in candidate_jobs(m, devices, cost, full, dp_parts)]
+    hints = read_report_keys()
+    extra, targeted = [], []
+    seen = {j[3] for j in jobs}
+    enumerated = {(name, batch): m for (name, batch), m in zip(models_batches, models)}
+    for name, entry in sorted(hints.items()):
+        nd_r = entry.get("devices") or REPORT_DEVICES.get(name, devices)
+        b_r = entry.get("batch") or REPORT_GLOBAL_BATCH.get(name, 1024)
+        kset = set(entry.get("keys") or [])
+        if nd_r == devices and (name, b_r) in enumerated:
+            mt = enumerated[name, b_r]
+        else:
+            try:
+                mt = build(name, b_r, nd_r)
+            except Exception as e:  # noqa: BLE001 -- a model this version cannot build
+                print(f"[calibrate] report keys of {name!r} skipped: {e}", flush=True)
+                continue
+            extra.append((mt, nd_r))
+        if fit_only:
+            continue
+        for op in mt.ops:
+            for pc in enumerate_candidates(op, nd_r):
+                pc = op.legalize_pc(pc)
+                for which in ("forward", "backward"):
+                    key = cost._key(op, pc, which)
+                    if key in kset and key not in seen and key not in cost._measured:
+                        seen.add(key)
+                        targeted.append((op, pc, which, key))
+    prio = set()
+    for entry in hints.values():
+        prio.update(entry.get("keys") or [])
+    first = [j for j in jobs if j[3] in prio] + targeted
+    first.sort(key=lambda j: cost._analytic(j[0], j[1], j[2]))
+    return first + [j for j in jobs if j[3] not in prio], extra
 
 
 def run_measurements(jobs, cost, max_seconds: float = 3600.0, verbose: bool = True) -> int:
@@ -232,15 +304,18 @@ def calibrate(models_batches: Sequence[Tuple[str, int]], devices: int = 8,
                         device=None if fit_only else device)
     models = [build_model(name, batch, devices, device, compute_dtype)
               for name, batch in models_batches]
-    jobs = [] if fit_only else [j for m in models
-                                for j in candidate_jobs(m, devices, cost, full, dp_parts)]
+    jobs, extra = build_job_list(
+        models_batches, models, devices, cost, full, dp_parts,
+        lambda name, batch, nd: build_model(name, batch, nd, device, compute_dtype), fit_only)
     t0 = time.perf_counter()
     if jobs:
         print(f"[calibrate] {len(jobs)} measurement jobs, {len(cost._measured)} entries "
               f"already in {out}", flush=True)
         run_measurements(jobs, cost, max_seconds, verbose)
     seconds = time.perf_counter() - t0
-    fit = fit_machine(collect_fit_records(models, [devices] * len(models), cost), mm)
+    fit = fit_machine(collect_fit_records(models + [m for m, _ in extra],
+                                          [devices] * len(models) + [nd for _, nd in extra],
+                                          cost), mm)
     if fit:
         if fit_only:  # the cards the cache's entries name
             tags = [v for v in _read_json(out).values()

@@ -80,7 +80,11 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.parallel.pipeline_plan, flexflow_tpu_torch.ops.pipeline, "
             "flexflow_tpu_torch.runtime.host_tables, "
             "flexflow_tpu_torch.simulator.pipeline_search, "
-            "flexflow_tpu_torch.tools.dlrm_strategy; "
+            "flexflow_tpu_torch.tools.dlrm_strategy, "
+            "flexflow_tpu_torch.tools.report_configs, flexflow_tpu_torch.tools.profile_report, "
+            "flexflow_tpu_torch.tools.opbench, flexflow_tpu_torch.tools.memory_report, "
+            "flexflow_tpu_torch.tools.timeline_export, flexflow_tpu_torch.tools.soap_report, "
+            "flexflow_tpu_torch.observability.chipwatch, flexflow_tpu_torch.tools.doctor; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -208,6 +212,32 @@ def test_no_port_source_names_the_tpu_files_or_the_ledger(name):
     for path in _port_sources():
         with open(path) as f:
             assert name not in f.read(), f"{os.path.relpath(path, ROOT)} names {name}"
+
+
+def _default_output_paths():
+    """(tool, default path) of every file a port tool writes when the
+    caller names none."""
+    from flexflow_tpu_torch.observability import chipwatch
+    from flexflow_tpu_torch.tools import perf_ledger, profile_report, report_configs, soap_report
+
+    yield "soap_report --out", soap_report.DEFAULT_OUT
+    yield "profile_report --out", profile_report.DEFAULT_OUT
+    yield "chipwatch --cache", chipwatch.MEASURED_CACHE
+    yield "chipwatch refit", chipwatch.default_fit_path(chipwatch.MEASURED_CACHE)
+    yield "soap_report keys", report_configs.report_keys_path()
+    yield "perf_ledger", perf_ledger.default_path()
+
+
+@pytest.mark.parametrize("tool,path", list(_default_output_paths()), ids=lambda x: str(x))
+def test_no_default_output_path_lands_on_a_pre_port_file(tool, path, monkeypatch):
+    """A tool's default output either lies in the port's package or names
+    no file that the repo holds, and never one the JAX package's tools write
+    (REPORT_SOAP.md, PROFILE_v5e.md) or anything under flexflow_tpu/."""
+    full = os.path.normpath(os.path.join(ROOT, path))
+    assert os.path.basename(full) not in ("REPORT_SOAP.md", "PROFILE_v5e.md"), tool
+    assert not full.startswith(os.path.join(ROOT, "flexflow_tpu") + os.sep), tool
+    if not full.startswith(PORT + os.sep):
+        assert not os.path.exists(full), f"{tool} defaults to {path}, a file of the repo"
 
 
 def test_env_knobs_and_unported_entry_points_raise(monkeypatch, tmp_path):
