@@ -27,8 +27,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      bf16, fused SGD) trained through FFModel's compiled step (one CUDA
      graph: the first step eager, the second captured, then replays), the
      wrappers' launches checked at the eager step and the capture, and a
-     device-time breakdown of each with the launches per step that the
-     profiler's kernel events show (one SGD launch per step);
+     device-time breakdown of each with the launches per step (one SGD
+     launch per step) counted exactly (``ExactLaunches``: the wrappers'
+     eager launches plus each replay times its captured graph's kernel
+     nodes, from CUDA's debug dump; ROADMAP C15), the profiler's count of
+     its kernel events printed beside it;
   5. path parity: f32 AlexNet at batch 8, two steps with the fused kernels
      and two with the plain update; an f32 transformer (batch 2, S 128, 2
      layers), two steps through the flash kernels and two through their
@@ -46,7 +49,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      (the single-device runs on the lead rank's card), both paths eager;
   7. the compiled step: for full-width AlexNet (SGD, Adam) and the
      transformer, the compiled and the eager step in turns (ms/step,
-     device ms/step, busy share, launches per step from the profiler);
+     device ms/step, busy share, launches per step by the exact count);
      remat against plain (weights, max_memory_allocated); f32 state after
      3 steps compiled vs eager (Adam with next_epoch() between replays);
      grad_accum_steps 4 vs 1; a batch with an inf through the guard on a
@@ -329,7 +332,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      timeline_export's JSON (every B with its E; training, serving and
      requests tracks); (f) soap_report of AlexNet at its canonical scale
      (16 GPUs, batch 64, bf16) on the host, the .pb loading, its keys to a
-     temporary file.
+     temporary file;
+ 21. whole-graph lowering ([lower] lines; parallel/lowering.py): (a) on
+     one card full-width AlexNet (batch 256) and the transformer (batch
+     16, S 512), SGD, lowered (one torch.compile region a step, inductor,
+     K3-K5 as custom ops inside it, captured by StepGraph) against the
+     captured per-op step, in f32 from the same weights (the transformer
+     cut to LOWER_F32_LAYERS layers): through inductor, per leaf, the
+     first step's gradient, both gradients at per-op's weights after 3
+     steps, the update and the optimizer slots within LOWER_MOVE_RTOL of
+     per-op's norm, the weights within LOWER_TOL; through aot_eager (no
+     fusion) the gradients and the 3 steps bitwise equal to per-op's;
+     then bf16: the first step's wall (the lowered one compiles), one
+     graph compiled, ms/step in turns, losses within LOWER_LOSS_RTOL of
+     per-op's, device ms by kernel family,
+     launches a step by the exact count (K1 1; K3-K5 4 each on the
+     transformer); (b) a bad FF_LOWERED raises at compile, num_nodes=2
+     lowers by default and FF_LOWERED=0 does not; (c) with several cards
+     (one NCCL rank a card, up to 4) the transformer split by heads and
+     columns and, on four, AlexNet on the hybrid 2 x 2 mesh (num_nodes=2,
+     lowered by auto), each lowered against the eager per-op mesh step:
+     f32 weights after 3 steps and each leaf's update within
+     LOWER_MOVE_RTOL of per-op's norm, eval_batch's counts equal and its loss
+     within LOWER_EVAL_RTOL, greedy generate's tokens equal (the mesh
+     decode step compiled too), graphs per site, bf16 ms/step and host ms
+     a step in turns (one card: a line says it was not run).
 
 ``--phases 3,17`` runs only the phases listed (1 and 2 always run; the
 kernels line needs phase 3); a phase's several-card part runs whenever
@@ -337,7 +364,7 @@ several cards are visible, so ``python3 chip_smoke.py --phases 17`` on a
 host with four cards runs phase 17 (b).  The last lines are the card's name and
 power limit, one JSON object with a row per kernel, and {"ok": true,
 "device": {...}}.  Needs one card (phases 6, 14 (f), 15 (e), 16 (d),
-17 (b), 18 (b) and 19 (b) use every visible card); it imports nothing of jax or
+17 (b), 18 (b), 19 (b) and 21 (c) use every visible card); it imports nothing of jax or
 of the JAX package.
 """
 
@@ -700,28 +727,104 @@ KERNEL_NAMES = (("sgd_kernel", "fused_sgd_update"), ("adam_kernel", "fused_adam_
 
 
 def kernel_of(event_name):
+    """This repo's kernel a kernel's name (a profiler event's, a graph
+    node's) is, or None.  Inductor names a Triton kernel after the ops it
+    fuses, the custom ops K3-K5 among them, and is none of ours."""
+    if event_name.startswith("triton"):
+        return None
     return next((k for sub, k in KERNEL_NAMES if sub in event_name), None)
+
+
+def node_launches(names):
+    """Launches of each of this repo's kernels in a captured graph's kernel
+    nodes (``StepGraph.kernel_names``): what one replay launches."""
+    counts = {}
+    for name in names or ():
+        k = kernel_of(name)
+        if k is not None:
+            counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+@contextlib.contextmanager
+def kernel_nodes_kept(model):
+    """Inside the block captures keep their kernel nodes
+    (``StepGraph.record_kernels``), for ``ExactLaunches``; a model whose
+    step was captured before without them is dropped, so that its next two
+    steps (eager, capture) capture it again with them.  Every other
+    capture of the script keeps nothing, as a user's does."""
+    from flexflow_tpu_torch.runtime.step_graph import StepGraph
+
+    g = model._step_graph
+    if g is not None and g.graph is not None and not g.kernels_kept:
+        g.drop()
+    StepGraph.record_kernels = True
+    try:
+        yield
+    finally:
+        StepGraph.record_kernels = False
+
+
+class ExactLaunches:
+    """This repo's kernels' launches over a window of a model's steps,
+    counted so that no launch can be lost (ROADMAP C15): the wrappers'
+    counters (each eager launch), plus each replay of the model's captured
+    step times the kernel nodes of its graph (taken as given: a replay
+    runs every node; ``kernel_nodes_kept`` keeps them).  A capture inside
+    the window would count its recording as launches, so the window
+    refuses one."""
+
+    def __init__(self, model):
+        from flexflow_tpu_torch.kernels import flash_attention as fa
+        from flexflow_tpu_torch.kernels import fused_optimizer as fo
+
+        self.model, self.kernels = model, kernel_wrappers(fo, fa)
+
+    def _graph(self):
+        g = self.model._step_graph
+        return (g.replays, g.captures) if g is not None else (0, 0)
+
+    def __enter__(self):
+        self.c0, self.g0 = read_launches(self.kernels), self._graph()
+        return self
+
+    def __exit__(self, *exc):
+        c1, (replays, captures) = read_launches(self.kernels), self._graph()
+        self.counts = {k: c1[k] - self.c0[k] for k in self.kernels}
+        if exc[0] is not None:
+            return False
+        check(captures == self.g0[1], f"a capture inside an exact launch window "
+                                      f"({self.g0[1]} -> {captures})")
+        if replays > self.g0[0]:
+            g = self.model._step_graph
+            check(g.kernel_names is not None, "the captured step kept no kernel nodes "
+                                              "(captured outside kernel_nodes_kept)")
+            for k, n in node_launches(g.kernel_names).items():
+                self.counts[k] += n * (replays - self.g0[0])
+        return False
 
 
 def profile_steps(model, label, step_ms, steps=3, per_step=None, kernel_ms=None):
     """Device time by kernel family over a few steady steps of a main path's
     model, and its share of the unprofiled step time ``step_ms``; returns
     (device ms per step, busy share in %).  With ``per_step`` (launches of
-    each of this repo's kernels a step), the launches the profiler saw
-    must equal it: on the graph path the wrappers' counters tick only at
-    the eager first step and at the capture, so the kernels' own events
-    are what count a replay's launches.  ``kernel_ms``, a dict, receives
-    each of this repo's kernels' device ms per step."""
-    for _ in range(2):
-        model.train_iteration()
-    model.sync()
+    each of this repo's kernels a step), the exact count of the profiled
+    steps' launches (``ExactLaunches``: the wrappers' eager launches and
+    each replay's graph nodes) must equal it; the profiler's count of its
+    kernel events is printed beside it (it can drop events, ROADMAP C15).
+    ``kernel_ms``, a dict, receives each of this repo's kernels' device ms
+    per step."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
+    with kernel_nodes_kept(model):
+        for _ in range(2):
             model.train_iteration()
         model.sync()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with torch.profiler.profile(activities=acts) as prof, ExactLaunches(model) as exact:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                model.train_iteration()
+            model.sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only: the aten ops above them carry the same time
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
@@ -736,11 +839,14 @@ def profile_steps(model, label, step_ms, steps=3, per_step=None, kernel_ms=None)
         for key, _, count in rows:
             if kernel_of(key) is not None:
                 seen[kernel_of(key)] += count
-        got = {k: c / steps for k, c in seen.items()}
-        check(got == per_step, f"{label}: launches per step from the profiler {got}, "
-                               f"expected {per_step}")
-        log(f"[profile] {label}: launches per step from the profiler's kernel events "
-            f"{ {k: int(c) for k, c in got.items()} }")
+        got = {k: exact.counts[k] / steps for k in per_step}
+        prof_got = {k: c / steps for k, c in seen.items()}
+        check(got == per_step, f"{label}: launches per step (exact count) {got}, "
+                               f"expected {per_step}; the profiler's {prof_got}")
+        log(f"[profile] {label}: launches per step, exact (wrappers + replays x graph "
+            f"nodes) { {k: int(c) for k, c in got.items()} }; the profiler's kernel events "
+            f"{ {k: round(c, 3) for k, c in prof_got.items()} }"
+            + ("" if prof_got == got else " (the profiler dropped events)"))
     log(f"[profile] {label}, {steps} steps: device kernels {busy / steps / 1e3:.3f} ms/step, "
         f"{100 * busy / steps / 1e3 / step_ms:.1f}% of the unprofiled {step_ms:.3f} ms step "
         f"(wall under the profiler {wall_us / steps / 1e3:.3f} ms/step)")
@@ -1443,6 +1549,8 @@ def soap_helper():
         return slice_helper()
     if os.environ[SOAP_HELPER] == NATIVE_HELPER:
         return native_helper()
+    if os.environ[SOAP_HELPER] == LOWER_HELPER:
+        return lower_helper()
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_optimizer as fo
@@ -1525,7 +1633,7 @@ def graph_vs_eager(ft, label, make_model, per_step, samples, tokens=0):
     """One model's compiled step and eager step in turns (graph, eager,
     eager, graph), 2 warm-up and 5 timed steps each, then one more model of
     each profiled: device ms per step, busy share and launches per step
-    from the profiler's kernel events."""
+    (the exact count, ``profile_steps``)."""
     times = {"graph": [], "eager": []}
     for path in ("graph", "eager", "eager", "graph"):
         model = make_model()
@@ -5325,9 +5433,11 @@ def soap2_multi_runs(ft, kernels, dev, lead):
         ("AlexNet Adam zero_optimizer", lambda m, dt, split: main_model(
             ft, build_alexnet, adam_optimizer(ft), machine=m, compute_dtype=dt,
             zero_optimizer=split, batch=8 if dt == "float32" else BATCH), ADAM_ALPHA),
+        # per-op dispatch, as measured before the lowering (num_nodes=2 lowers
+        # by default; phase 21 (c) holds it lowered)
         ("AlexNet hybrid 2 x 2 mesh (num_nodes=2)", lambda m, dt, split: main_model(
             ft, build_alexnet, sgd_optimizer(ft), machine=m, compute_dtype=dt,
-            num_nodes=2 if split else 1), None),
+            num_nodes=2 if split else 1, lowered=False), None),
     ]
     if world != 4:
         cases = cases[:-1]  # the hybrid mesh is 2 nodes of 2
@@ -6845,7 +6955,406 @@ def tools_phase(ft, kernels, smi):
     return launches
 
 
-PHASES = tuple(range(1, 21))
+# ------------------------------------------------------------------ phase 21
+
+LOWER_STEPS = 3          # (a), (c): f32 steps from the same weights, lowered vs per-op
+# f32 weights of the lowered step (inductor: fused kernels, other summation
+# orders) against per-op dispatch after LOWER_STEPS steps, elementwise:
+# phase 5's kernel/plain tolerance for the transformer.  At lr 1e-3 a step
+# moves a weight by less than atol, so LOWER_MOVE_RTOL holds what moved.
+LOWER_TOL = dict(rtol=1e-4, atol=1e-5)
+# per leaf, ||lowered - per-op|| / ||per-op|| of what the f32 steps move:
+# the gradients (the first step's, and both at the same weights after the
+# steps), the update w3 - w0 and the optimizer slots (momentum: the
+# summed gradients).  A zeroed, halved or misrouted gradient gives 0.5-1.
+# Set at 6-9x the largest of two sound runs' readings on an H100 (grad
+# 5.8e-4, update 1.1e-3, slot 1.7e-3: AlexNet, whose sums over a few
+# ReLU kinks differ under inductor; the transformer 2.3e-6, 3.4e-4, none)
+LOWER_MOVE_RTOL = dict(grad=5e-3, update=1e-2, slot=1e-2)
+# bf16 losses of the timed steps, lowered vs per-op: each step's within
+# LOWER_LOSS_RTOL of per-op's, the drop over the run within LOWER_DROP_RTOL
+LOWER_LOSS_RTOL = 2e-4
+LOWER_DROP_RTOL = 0.25
+# f32 eval loss on the lowered mesh model against per-op's (the counts equal)
+LOWER_EVAL_RTOL = 1e-5
+LOWER_HELPER = "lower"   # (c)'s helper ranks
+# (a)'s f32 parity run of the transformer: its depth cut (each lowered
+# model compiles for 20-35 s on the card; the bf16 runs keep LM's depth)
+LOWER_F32_LAYERS = 2
+LOWER_GEN = dict(P=32, N=16)   # (c): greedy generate on the lowered mesh model
+
+
+def lower_cells(ft, build_alexnet, build_transformer, synthetic_lm_batch):
+    """(a)'s two cells: (label, make(lowered, dtype, machine=None, **cfg), launches
+    a step, samples a step, tokens a step, the f32 parity run's cut: the
+    transformer at LOWER_F32_LAYERS layers)."""
+    def alexnet(lowered, dtype, machine=None, **cfg):
+        return main_model(ft, build_alexnet, sgd_optimizer(ft), machine=machine,
+                          compute_dtype=dtype, lowered=lowered, **cfg)
+
+    def lm(lowered, dtype, machine=None, **cfg):
+        return lm_model(ft, build_transformer, synthetic_lm_batch,
+                        lambda m: ft.SGDOptimizer(m, lr=0.001), machine=machine,
+                        **{**LM, "compute_dtype": dtype, "lowered": lowered, **cfg})
+
+    return [(f"AlexNet b{BATCH}", alexnet, ALEX_SGD_STEP, BATCH, 0, {}),
+            (f"transformer b{LM['batch']} s{LM['seq_length']}", lm, LM_SGD_STEP, LM["batch"],
+             LM["batch"] * LM["seq_length"], {"num_layers": LOWER_F32_LAYERS})]
+
+
+def step_grads(model):
+    """One step's gradients at the model's weights, by the path it trains
+    on (the lowered region or the op walk), nothing written: {(op,
+    weight): f32 gradient}."""
+    names = [(o, n) for o, ws in model._params.items() for n in ws]
+    leaves = [model._params[o][n] for o, n in names]
+    fn, masks = model._train_region, None
+    if model._lowering is not None:
+        fn = model._lowering.region("train_step", model._train_region)
+        masks = model._draw_masks(model._batch, model._stats)
+    loss = fn(model._params, model._batch, model._stats, masks)[0]
+    grads = model._grads(loss, leaves, model._grad_placements(names, leaves))
+    return {k: g.detach().float().clone() for k, g in zip(names, grads)}
+
+
+def rel_diff(a, b):
+    """||a - b|| / ||b|| (0 where both are 0)."""
+    d = (a.double() - b.double()).norm().item()
+    n = b.double().norm().item()
+    return d / n if n else (0.0 if d == 0 else math.inf)
+
+
+def lower_one_card(label, make, per_step, samples, tokens, f32_cfg, smi):
+    """(a) for one cell, in f32 (under ``f32_cfg``) from the same weights,
+    lowered through aot_eager (no fusion) and through inductor against
+    per-op: one step's gradients, then LOWER_STEPS captured steps.
+    aot_eager must equal per-op bitwise (gradients, weights and slots);
+    inductor, per leaf, within LOWER_MOVE_RTOL of per-op's norm: the
+    first gradient, both gradients at per-op's weights after the steps,
+    the updates and the slots; and the weights elementwise.  Then bf16:
+    the first step's wall (the lowered one compiles), ms/step in turns,
+    the losses held against per-op's, device ms by kernel family and
+    launches a step by the exact count."""
+    from flexflow_tpu_torch.parallel.lowering import GraphLowering
+
+    runs = {}
+    for path in ("per-op", "aot_eager", "inductor"):
+        model = make(path != "per-op", "float32", **f32_cfg)
+        check((model._lowering is not None) == (path != "per-op"), f"(a) {label}: {path}")
+        if path == "aot_eager":
+            model._lowering = GraphLowering(model.machine, model.ops, backend="aot_eager")
+        w0 = {k: v for k, v in state_of(model).items() if k[0] == "w"}
+        grads = step_grads(model)
+        for _ in range(LOWER_STEPS):
+            model.train_iteration()
+        model.sync()
+        check_graph_run(model, LOWER_STEPS, f"(a) {label} f32 {path}")
+        state = state_of(model)
+        same = None  # the gradient at per-op's weights after the steps
+        if path == "per-op":
+            same = step_grads(model)
+        elif path == "inductor":
+            with torch.no_grad():
+                for o, ws in model._params.items():
+                    for n, t in ws.items():
+                        t.copy_(runs["per-op"][2][("w", o, n)])
+            same = step_grads(model)
+        runs[path] = (w0, grads, state, same)
+        del model
+        free_models()
+    (w0p, gp, sp, sgp), (w0a, ga, sa, _), (w0i, gi, si, sgi) = (
+        runs["per-op"], runs["aot_eager"], runs["inductor"])
+    check(all(torch.equal(w0p[k], w0i[k]) and torch.equal(w0p[k], w0a[k]) for k in w0p),
+          f"(a) {label}: the f32 runs started from different weights")
+    aot_grads = all(torch.equal(ga[k], gp[k]) for k in gp)
+    aot_steps = all(torch.equal(sa[k], sp[k]) for k in sp)
+    moved = {"grad": {k: rel_diff(gi[k], gp[k]) for k in gp},
+             f"grad at per-op's w{LOWER_STEPS}": {k: rel_diff(sgi[k], sgp[k]) for k in sgp},
+             "update": {k: rel_diff(si[k] - w0i[k], sp[k] - w0p[k]) for k in w0p},
+             "slot": {k: rel_diff(si[k], sp[k]) for k in sp if k[0] != "w"}}
+    worst = {m: max(((v, k) for k, v in d.items()), default=(0.0, None))
+             for m, d in moved.items()}
+    gk = worst["grad"][1]
+    outliers = int(((gi[gk] - gp[gk]).abs() > 1e-3 * gp[gk].abs().max()).sum())
+    weights = {k: v for k, v in si.items() if k[0] == "w"}
+    dw, bitwise = compare_states(weights, sp, LOWER_TOL, f"(a) {label} lowered/per-op")
+    log(f"[lower] (a) {label} f32 {f32_cfg or ''}, per leaf ||lowered - per-op|| / "
+        f"||per-op|| through inductor (grad: the first step's gradient; grad at per-op's "
+        f"w{LOWER_STEPS}: both gradients at the same weights after the steps; update: "
+        f"w{LOWER_STEPS} - w0; slot: the optimizer's): "
+        + "; ".join(f"{m} max {v:.3e} {k} (median {float(np.median(list(moved[m].values()))):.3e}"
+                    f", limit {LOWER_MOVE_RTOL[m.split()[0]]:g})" for m, (v, k) in worst.items()
+                    if moved[m])
+        + f"; the worst gradient leaf {gk} has {outliers} of {gp[gk].numel()} elements off by "
+        f"more than 1e-3 of its largest; lowered through aot_eager (no fusion): the gradient "
+        f"{'bitwise equal' if aot_grads else 'not equal'} over {len(gp)} leaves, "
+        f"{LOWER_STEPS} captured steps' weights and slots "
+        f"{'bitwise equal' if aot_steps else 'not equal'}; through inductor the "
+        f"weights after {LOWER_STEPS} captured steps max |dw| {dw:.3e} "
+        f"({'bitwise' if bitwise else 'not bitwise'}; rtol {LOWER_TOL['rtol']:g}, atol "
+        f"{LOWER_TOL['atol']:g}); card {smi}")
+    check(aot_grads and aot_steps, f"(a) {label} f32: the lowered step through aot_eager "
+                                   "is not bitwise equal to per-op's")
+    for m, d in moved.items():
+        for k, v in d.items():
+            check(v <= LOWER_MOVE_RTOL[m.split()[0]], f"(a) {label} f32 {m} {k}: lowered "
+                                                      f"differs from per-op by {v:.3e} of its norm")
+    del runs, sp, si, sa, gp, gi, ga, sgp, sgi
+    free_models()
+    models, first_s = {}, {}
+    for lowered in (False, True):
+        model = make(lowered, "bfloat16")
+        model.sync()
+        t0 = time.perf_counter()
+        model.train_iteration()
+        model.sync()
+        first_s[lowered] = time.perf_counter() - t0
+        model.reset_metrics()  # the losses below are the timed runs' own
+        models[lowered] = model
+    graphs = dict(models[True]._lowering.graphs)
+    check(graphs == {"train_step": 1}, f"(a) {label}: graphs compiled {graphs}")
+    times, losses = {False: [], True: []}, {}
+    for lowered in (False, True, True, False):
+        ms, out = steps_ms(models[lowered])
+        times[lowered].append(ms)
+        losses.setdefault(lowered, out)
+    for lowered in (False, True):
+        check(models[lowered]._step_graph.captures == 1, f"(a) {label}: one capture")
+    prof = {}
+    kms = {False: {}, True: {}}
+    for lowered in (False, True):
+        path = "lowered" if lowered else "per-op"
+        prof[lowered] = profile_steps(models[lowered], f"(a) {label} bf16 {path}",
+                                      times[lowered][0], per_step=per_step,
+                                      kernel_ms=kms[lowered])
+    del models
+    free_models()
+    rate = tokens if tokens else samples
+    unit = "tokens/s" if tokens else "samples/s"
+    log(f"[lower] (a) {label} bf16 SGD: first step (the lowered one compiles) per-op "
+        f"{first_s[False]:.2f} s, lowered {first_s[True]:.2f} s (compile about "
+        f"{first_s[True] - first_s[False]:.1f} s); graphs {graphs}; ms/step in turns per-op "
+        f"{' / '.join(f'{x:.3f}' for x in times[False])}, lowered "
+        f"{' / '.join(f'{x:.3f}' for x in times[True])} "
+        f"({rate * 1e3 / times[False][0]:.0f} / {rate * 1e3 / times[True][0]:.0f} {unit}); "
+        f"device ms/step per-op {prof[False][0]:.3f} ({prof[False][1]:.1f}% busy), lowered "
+        f"{prof[True][0]:.3f} ({prof[True][1]:.1f}% busy); this repo's kernels' device ms "
+        f"per-op { {k: round(v, 4) for k, v in kms[False].items()} }, lowered "
+        f"{ {k: round(v, 4) for k, v in kms[True].items()} }; launches a step {per_step}; "
+        f"card {smi}")
+    lp, ll = losses[False], losses[True]
+    step_err = max(abs(b - a) / abs(a) for a, b in zip(lp, ll))
+    drops = (lp[0] - lp[-1], ll[0] - ll[-1])
+    log(f"[lower] (a) {label} bf16 losses per-op {['%.5f' % x for x in lp]}, lowered "
+        f"{['%.5f' % x for x in ll]}: a step's largest relative difference {step_err:.3e} "
+        f"(limit {LOWER_LOSS_RTOL:g}); drop over the run per-op {drops[0]:.3e}, lowered "
+        f"{drops[1]:.3e} (limit {LOWER_DROP_RTOL:g} of per-op's)")
+    check(step_err <= LOWER_LOSS_RTOL, f"(a) {label} bf16 losses {ll} vs per-op {lp}")
+    check(drops[0] > 0 and abs(drops[1] - drops[0]) <= LOWER_DROP_RTOL * drops[0],
+          f"(a) {label} bf16 loss drop lowered {drops[1]} vs per-op {drops[0]}")
+    return {"first_s": first_s, "times": times, "prof": prof}
+
+
+def lower_knobs(ft, smi):
+    """(b): a bad FF_LOWERED raises at compile; with num_nodes=2 auto lowers
+    and FF_LOWERED=0 does not (resolved on the card's compiled model)."""
+    import types
+
+    from flexflow_tpu_torch.parallel import lowering as low
+
+    def tiny(**cfg):
+        m = ft.FFModel(ft.FFConfig(batch_size=8, **cfg))
+        x = m.create_tensor((8, 16), nchw=False)
+        m.softmax(m.dense(x, 4, name="fc"))
+        m.compile(ft.SGDOptimizer(lr=0.1), ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                  [ft.MetricsType.ACCURACY])
+        return m
+
+    with environ({"FF_LOWERED": "banana"}):
+        try:
+            tiny()
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+    check(raised is not None and "FF_LOWERED" in raised, f"(b) FF_LOWERED=banana: {raised}")
+    m = tiny()
+    check(m._lowering is None, "(b) one card, auto: lowered")
+    two = types.SimpleNamespace(config=ft.FFConfig(num_nodes=2), machine=m.machine, ops=m.ops)
+    auto = low.maybe_lowering(two)
+    with environ({"FF_LOWERED": "0"}):
+        off = low.maybe_lowering(two)
+    check(auto is not None and auto.backend == "inductor" and off is None,
+          f"(b) num_nodes=2: auto {auto}, FF_LOWERED=0 {off}")
+    with environ({"FF_LOWERED": "1"}):
+        on = tiny()._lowering
+    check(on is not None, "(b) FF_LOWERED=1 did not lower")
+    log(f"[lower] (b) FF_LOWERED=banana raised at compile ({raised[:60]}...); one card auto: "
+        f"per-op; num_nodes=2 auto: {auto!r}; with FF_LOWERED=0: per-op; FF_LOWERED=1: "
+        f"{on!r}; card {smi}")
+
+
+def lower_multi_runs(ft, kernels, dev, lead):
+    """(c) on this rank: the full-width transformer split by heads and
+    columns over the cards, and AlexNet on the hybrid 2 x 2 mesh
+    (num_nodes=2, lowered by auto), each lowered against the eager per-op
+    mesh step: f32 weights after LOWER_STEPS steps, one eval_batch and (the
+    transformer) one greedy generate; then bf16 ms/step and host ms a step,
+    and the graphs each compiled.  Returns this rank's launches."""
+    from flexflow_tpu_torch.models.alexnet import build_alexnet
+    from flexflow_tpu_torch.models.transformer import build_transformer, synthetic_lm_batch
+
+    world = torch.distributed.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    cells = lower_cells(ft, build_alexnet, build_transformer, synthetic_lm_batch)
+    cases = [(f"transformer split {world} by heads and columns",
+              lambda lowered, dt: cells[1][1](lowered, dt, strategies=head_split(ft, world)), True)]
+    if world == 4:
+        cases.append(("AlexNet hybrid 2 x 2 mesh (num_nodes=2)",
+                      lambda lowered, dt: cells[0][1](None if lowered else False, dt,
+                                                      num_nodes=2), False))
+    launches = dict.fromkeys(kernels, 0)
+    toks = synthetic_lm_batch(LM["batch"], LM["seq_length"], LM["vocab_size"], seed=0)[0]
+    prompt = toks[:, :LOWER_GEN["P"]]
+    for label, make, is_lm in cases:
+        res = {}
+        for lowered in (False, True):
+            reset_launches(kernels)
+            model = make(lowered, "float32")
+            check((model._lowering is not None) == lowered,
+                  f"(c) {label}: lowering {model._lowering}")
+            w0 = {(o, n): torch.from_numpy(model.get_parameter(o, n))
+                  for o, n in model._weight_names()}
+            for _ in range(LOWER_STEPS):
+                model.train_iteration()
+            w = {(o, n): torch.from_numpy(model.get_parameter(o, n))
+                 for o, n in model._weight_names()}
+            met = model.eval_batch()
+            gen = model.generate(prompt, LOWER_GEN["N"]) if is_lm else None
+            graphs = dict(model._lowering.graphs) if lowered else {}
+            launches = {n: launches[n] + c for n, c in read_launches(kernels).items()}
+            res[lowered] = (w0, w, met, gen, graphs)
+            del model
+            free_models()
+        (w0a, wa, ma, ga, _), (w0b, wb, mb, gb, graphs) = res[False], res[True]
+        worst = worst_u = 0.0
+        for key in wa:
+            check(torch.equal(w0a[key], w0b[key]), f"(c) {label} {key}: different initial weights")
+            torch.testing.assert_close(wb[key], wa[key], **LOWER_TOL,
+                                       msg=lambda m: f"(c) {label} {key}: {m}")
+            worst = max(worst, (wb[key] - wa[key]).abs().max().item())
+            upd = rel_diff(wb[key] - w0b[key], wa[key] - w0a[key])
+            check(upd <= LOWER_MOVE_RTOL["update"],
+                  f"(c) {label} {key}: the update differs by {upd:.3e} of its norm")
+            worst_u = max(worst_u, upd)
+        counts = {k: v for k, v in ma.items() if k != "loss" and not k.endswith("_loss")}
+        check(counts == {k: mb[k] for k in counts}, f"(c) {label}: eval counts {ma} vs {mb}")
+        check(abs(mb["loss"] - ma["loss"]) <= LOWER_EVAL_RTOL * abs(ma["loss"]),
+              f"(c) {label}: eval loss {mb['loss']} vs {ma['loss']}")
+        if is_lm:
+            check(np.array_equal(ga, gb), f"(c) {label}: generate differs")
+        want = ({"train_step": 1, "eval_step": 1, "decode_step": 1} if is_lm
+                else {"train_step": 1, "eval_step": 1})
+        check(graphs == want, f"(c) {label}: graphs {graphs}, expected {want}")
+        times = {False: [], True: [], "host_False": [], "host_True": []}
+        torch.backends.cudnn.deterministic = False
+        models = {lowered: make(lowered, "bfloat16") for lowered in (False, True)}
+        for lowered in (False, True):
+            models[lowered].train_iteration()  # the lowered one compiles
+            models[lowered].sync()
+        for lowered in (False, True, True, False):
+            m = models[lowered]
+            t0 = time.perf_counter()
+            for _ in range(5):
+                m.train_iteration()
+            host = (time.perf_counter() - t0) / 5 * 1e3
+            m.sync()
+            times[lowered].append((time.perf_counter() - t0) / 5 * 1e3)
+            times[f"host_{lowered}"].append(host)
+        del models
+        free_models()
+        torch.backends.cudnn.deterministic = True
+        if lead:
+            log(f"[lower] (c) {label} on {world} cards, f32 {LOWER_STEPS} steps lowered vs "
+                f"per-op (eager mesh): max |dw| {worst:.3e} (rtol {LOWER_TOL['rtol']:g}, atol "
+                f"{LOWER_TOL['atol']:g}); per leaf ||update lowered - per-op|| / ||per-op|| max "
+                f"{worst_u:.3e} (limit {LOWER_MOVE_RTOL['update']:g}); eval_batch {mb} vs {ma}"
+                + (f"; greedy generate P{LOWER_GEN['P']} N{LOWER_GEN['N']} equal" if is_lm
+                   else "") + f"; graphs {graphs}, 0 breaks (fullgraph)")
+            log(f"[lower] (c) {label} bf16 ms/step in turns per-op "
+                f"{' / '.join(f'{x:.2f}' for x in times[False])}, lowered "
+                f"{' / '.join(f'{x:.2f}' for x in times[True])}; host ms a step (to the "
+                f"last enqueue) per-op {' / '.join(f'{x:.2f}' for x in times['host_False'])}, "
+                f"lowered {' / '.join(f'{x:.2f}' for x in times['host_True'])}")
+    return launches
+
+
+def lower_multi_phase(ft, kernels, smi):
+    """(c): with one visible card it says so and runs nothing; with more, an
+    NCCL group of one rank per card (up to 4; this script started again as
+    the helper ranks) runs ``lower_multi_runs``."""
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        log(f"[lower] (c) needs more than one card ({torch.cuda.device_count()} visible): the "
+            "lowered mesh steps were not run")
+        return dict.fromkeys(kernels, 0)
+    port = free_port()
+    helpers = spawn_helpers(LOWER_HELPER, world, port)
+    try:
+        dev = dist.initialize("cuda", init_method=f"tcp://localhost:{port}",
+                              world_size=world, rank=0, local_rank=0, timeout=SOAP_TIMEOUT)
+        launches = lower_multi_runs(ft, kernels, dev, lead=True)
+        dist.shutdown()
+        for r, p in enumerate(helpers, 1):
+            check(p.wait(timeout=600) == 0, f"(c) helper rank {r} exited {p.returncode}")
+    finally:
+        for p in helpers:
+            if p.poll() is None:
+                p.kill()
+    log(f"[lower] (c) launches on the lead rank: {launches}; card {smi}")
+    return launches
+
+
+def lower_helper():
+    """A helper rank of phase 21 (c)."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import fused_optimizer as fo
+    from flexflow_tpu_torch.parallel import distributed as dist
+
+    dev = dist.initialize("cuda", timeout=SOAP_TIMEOUT)
+    lower_multi_runs(ft, kernel_wrappers(fo, fa), dev, lead=False)
+    dist.shutdown()
+    return 0
+
+
+def lower_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch, kernels, smi):
+    """Phase 21: (a) the lowered step on one card against the captured
+    per-op step, (b) the knobs, (c) on several cards when there are.
+    Returns the launches of its paths."""
+    t0 = time.perf_counter()
+    reset_launches(kernels)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    for label, make, per_step, samples, tokens, f32_cfg in lower_cells(
+            ft, build_alexnet, build_transformer, synthetic_lm_batch):
+        lower_one_card(label, make, per_step, samples, tokens, f32_cfg, smi)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    launches = read_launches(kernels)
+    lower_knobs(ft, smi)
+    multi = lower_multi_phase(ft, kernels, smi)
+    launches = {n: launches[n] + multi[n] for n in launches}
+    log(f"[lower] phase 21 {time.perf_counter() - t0:.1f} s; launches {launches}; card {smi}")
+    return launches
+
+
+PHASES = tuple(range(1, 22))
 
 
 def selected_phases(argv):
@@ -6895,7 +7404,6 @@ def main(argv=None):
     log(f"[env] nvidia-smi: {smi}")
     check(cap == (9, 0), f"expected a Hopper card (capability (9, 0)), got {cap}")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products
-
     # phase 2 ------------------------------------------------------------
     build_kernels(fo, fa)
 
@@ -7053,6 +7561,11 @@ def main(argv=None):
     # phase 20 -----------------------------------------------------------
     if 20 in phases:
         ran["tools"] = tools_phase(ft, kernels, smi)
+
+    # phase 21 -----------------------------------------------------------
+    if 21 in phases:
+        ran["lowering"] = lower_phase(ft, build_alexnet, build_transformer, synthetic_lm_batch,
+                                      kernels, smi)
 
     # result -------------------------------------------------------------
     main_launches = {n: sum(r[n] for r in ran.values()) for n in kernels}

@@ -123,6 +123,8 @@ class FFConfig:
     fused_optimizer: bool = False
     zero_optimizer: bool = False
     sparse_host_embeddings: Optional[bool] = None
+    # Whole-graph lowering (parallel/lowering.py): None is auto (FF_LOWERED,
+    # else on when the run spans nodes or hosts).
     lowered: Optional[bool] = None
     telemetry: bool = False
     telemetry_file: str = ""

@@ -1,5 +1,5 @@
 """Flash attention: hand-written CUDA kernels for Hopper, with their plain
-PyTorch versions and the autograd function around them.
+PyTorch versions, bound as torch custom ops with their autograd rule.
 
 Replaces the Pallas TPU kernels of ``flexflow_tpu/kernels/flash_attention.py``:
 ``flash_fwd`` the forward ``_fwd_kernel``, ``flash_bwd_dkdv`` the
@@ -238,20 +238,67 @@ def flash_bwd_dq(q, k, v, do, lse, delta, g_lse, scale: float, causal: bool):
 flash_bwd_dq.launches = 0
 
 
-# ------------------------------------------------------------------ autograd
+# ------------------------------------------------------------------ custom ops
 
-class _Flash(torch.autograd.Function):
-    """The counterpart of the JAX package's ``_flash`` custom VJP
-    (flash_attention.py:309-320), with the lse cotangent kept."""
+# K3-K5 as torch custom ops (``ff::flash_fwd``, ``ff::flash_bwd_dkdv``,
+# ``ff::flash_bwd_dq``): a compiled region (parallel/lowering.py) keeps each
+# as one opaque node that launches the hand-written kernel (on a CPU tensor,
+# or with ``plain``, the plain version), where a traced ctypes call would
+# break the graph and inductor could not swap them for another attention.
+# Each has a fake implementation (shapes only) for tracing; ``ff::flash_fwd``
+# has an autograd rule (``_Flash``) that keeps the lse cotangent.
+
+@torch.library.custom_op("ff::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                  causal: bool, plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    o, lse = (flash_fwd_ref if plain else flash_fwd)(q, k, v, scale, causal)
+    return o, lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, scale, causal, plain):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op("ff::flash_bwd_dkdv", mutates_args=())
+def _flash_bwd_dkdv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                       lse: torch.Tensor, delta: torch.Tensor, g_lse: Optional[torch.Tensor],
+                       scale: float, causal: bool, plain: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (flash_bwd_dkdv_ref if plain else flash_bwd_dkdv)(q, k, v, do, lse, delta, g_lse,
+                                                              scale, causal)
+
+
+@_flash_bwd_dkdv_op.register_fake
+def _(q, k, v, do, lse, delta, g_lse, scale, causal, plain):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+@torch.library.custom_op("ff::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                     lse: torch.Tensor, delta: torch.Tensor, g_lse: Optional[torch.Tensor],
+                     scale: float, causal: bool, plain: bool) -> torch.Tensor:
+    return (flash_bwd_dq_ref if plain else flash_bwd_dq)(q, k, v, do, lse, delta, g_lse,
+                                                          scale, causal)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, delta, g_lse, scale, causal, plain):
+    return torch.empty_like(q)
+
+
+class _Flash:
+    """The autograd rule of ``ff::flash_fwd``: the counterpart of the JAX
+    package's ``_flash`` custom VJP (flash_attention.py:309-320), with the
+    lse cotangent kept (None when the lse feeds nothing)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, plain):
-        fwd = flash_fwd_ref if plain else flash_fwd
-        o, lse = fwd(q, k, v, scale, causal)
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, causal, plain = inputs
+        o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.causal, ctx.plain = scale, causal, plain
         ctx.set_materialize_grads(False)
-        return o, lse
 
     @staticmethod
     def backward(ctx, do, g_lse):
@@ -262,11 +309,15 @@ class _Flash(torch.autograd.Function):
         if g_lse is not None:
             g_lse = g_lse.float().contiguous()
         delta = (o.float() * do.float()).sum(-1)
-        dkdv, dqf = ((flash_bwd_dkdv_ref, flash_bwd_dq_ref) if ctx.plain
-                     else (flash_bwd_dkdv, flash_bwd_dq))
-        dk, dv = dkdv(q, k, v, do, lse, delta, g_lse, ctx.scale, ctx.causal)
-        dq = dqf(q, k, v, do, lse, delta, g_lse, ctx.scale, ctx.causal)
+        args = (q, k, v, do, lse, delta, g_lse, ctx.scale, ctx.causal, ctx.plain)
+        dk, dv = torch.ops.ff.flash_bwd_dkdv(*args)
+        dq = torch.ops.ff.flash_bwd_dq(*args)
         return dq, dk, dv, None, None, None
+
+
+# looked up at each backward, so that a test may watch _Flash.backward
+_flash_fwd_op.register_autograd(lambda ctx, do, g_lse: _Flash.backward(ctx, do, g_lse),
+                                setup_context=_Flash.setup_context)
 
 
 @contextlib.contextmanager
@@ -286,9 +337,10 @@ def flash_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = N
     """Fused attention softmax(q k^T * scale [+ causal mask]) v over
     (B, H, S, D); with ``return_lse`` also the per-row logsumexp (B, H, Sq),
     whose gradient flows (unlike the JAX package's, ROADMAP C1)."""
+    refuse_dtensor(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    o, lse = _Flash.apply(q, k, v, float(scale), bool(causal), _plain)
+    o, lse = torch.ops.ff.flash_fwd(q, k, v, float(scale), bool(causal), _plain)
     return (o, lse) if return_lse else o
 
 

@@ -42,6 +42,17 @@ same order: those that gather (``get_parameter``, ``get_metrics``,
 Metric sums accumulate in one device vector and are fetched (and, on a
 mesh, summed over the batch's parts) once per drain, never per step.
 
+Whole-graph lowering (``FFConfig.lowered``, ``FF_LOWERED``, or auto when
+the run spans nodes or hosts; parallel/lowering.py, resolved at
+``compile`` into ``_lowering``): each micro-batch's forward, loss and
+metric vector run as one ``torch.compile`` region (``_train_region``),
+its backward compiled with it, and the eval step (``_eval_region``) and a
+mesh's decode step (``_decode_region``) likewise.  Dropout masks are drawn
+before the region (``_draw_masks``); on a mesh whose ops exchange through
+c10d (``Op.exchanges_on_host``) the runs of ops between the exchanges are
+compiled one region each (``_run_segment``).  On one card the captured
+step replays the compiled code.
+
 Telemetry (observability/, ``FF_TELEMETRY`` or ``FFConfig.telemetry``) is
 resolved at ``compile`` into handles that are None when it is off, so an
 untraced step makes no event-log call and captures the same graph; on,
@@ -88,7 +99,6 @@ from __future__ import annotations
 import contextlib
 import itertools
 import math
-import os
 import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -104,7 +114,7 @@ from .losses import Loss, LossType
 from .metrics import Metrics, MetricsType, PerfMetrics
 from .observability.health import HEALTH_METRIC_KEYS
 from .ops.attention import LayerNorm, MultiHeadAttention
-from .ops.base import FwdCtx, Op
+from .ops.base import FwdCtx, Op, draw_masks
 from .ops.conv2d import ActiMode, Conv2D, Pool2D, PoolType
 from .ops.embedding import AggrMode, Embedding
 from .ops.linear import Linear
@@ -126,11 +136,6 @@ from .tensor import DataType, Tensor
 METRIC_KEYS = ("train_all", "train_correct", "cce_loss", "sparse_cce_loss",
                "mse_loss", "rmse_loss", "mae_loss", "loss", "steps")
 
-# Environment knobs that switch on JAX-package features this slice does
-# not port, with the ROADMAP item that brings each.
-_UNPORTED_ENV = {
-    "FF_LOWERED": "whole-graph lowering (ROADMAP A13)",
-}
 # Entry points of the JAX package's FFModel that the port does not have
 # yet, with the ROADMAP item that brings each.
 _UNPORTED_METHODS = {
@@ -161,18 +166,6 @@ def resolve_device(name: str) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r} (expected 'cuda' or 'cpu')")
     return dev
-
-
-def _refuse_unported_knobs(cfg: FFConfig) -> None:
-    checks = [
-        (bool(cfg.lowered), "lowered: whole-graph lowering (ROADMAP A13)"),
-    ]
-    for on, what in checks:
-        if on:
-            raise NotImplementedError(f"not ported yet: {what}")
-    for var, what in _UNPORTED_ENV.items():
-        if os.environ.get(var, "") not in ("", "0"):
-            raise NotImplementedError(f"{var} is set, but {what} is not ported yet")
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -215,6 +208,12 @@ class FFModel:
         self._compiled = False
         self._guard: Optional[resilience.NonFiniteGuard] = None
         self._step_graph: Optional[StepGraph] = None
+        # whole-graph lowering (parallel/lowering.py), resolved at compile:
+        # None runs per-op dispatch
+        self._lowering = None
+        # batch signature -> the dropout masks' (op guid, shape, keep), in
+        # the order the op walk draws them (_draw_masks)
+        self._mask_plans: Dict[tuple, list] = {}
         self._gen_cache: Dict[tuple, Any] = {}  # decode signature -> its run
         # bumped by whatever writes the parameters (a step, set_parameter,
         # a load, init_layers): on a mesh the decode tree's gathered weights
@@ -758,7 +757,6 @@ class FFModel:
         from .observability import health as ff_health
         from .testing import chaos
 
-        _refuse_unported_knobs(self.config)
         # chaos is independent of telemetry (recovery must work untraced)
         self._chaos = chaos.from_env()
         # the heartbeat works untraced (a no-op unless FF_HEARTBEAT_PATH)
@@ -784,6 +782,7 @@ class FFModel:
         self._opprof = opprof.maybe_profiler(self, tel)
         agreement.emit_compile_prediction(self, tel)
         self._memplane = memplane.maybe_plane(tel)
+        self._watch_lowering()
         memplane.emit_memory_prediction(self, tel)
         tel.flush()
 
@@ -834,6 +833,12 @@ class FFModel:
         # operator placement: the pipelined ops' configs become no-split
         self._plan_pipeline()
         self._host.register()
+        from .parallel.lowering import maybe_lowering
+
+        # FFConfig.lowered, else FF_LOWERED (a bad value raises here), else auto
+        self._lowering = maybe_lowering(self)
+        self._mask_plans = {}
+        self._watch_lowering()
         if optimizer is not None:
             optimizer.fused = bool(cfg.fused_optimizer)
         if int(cfg.grad_accum_steps) < 1:
@@ -856,6 +861,12 @@ class FFModel:
             self.label_tensor = Tensor(tuple(self.final_tensor().dims), DataType.FLOAT,
                                        name="label")
         self._compiled = True
+
+    def _watch_lowering(self) -> None:
+        """Have the capture ledger (FF_MEMPLANE) record each graph the
+        lowered regions compile."""
+        if self._lowering is not None and self._memplane is not None:
+            self._lowering.on_compile = self._memplane.on_compile
 
     def _search(self):
         """The strategy search over this machine's devices on the calibrated
@@ -1264,9 +1275,16 @@ class FFModel:
             ctx = FwdCtx(training=training, stats_in=self._stats)
         plan = self._pipeline_plan if self._sharded else None
         head = {id(op) for op in plan["head"]} if plan is not None else set()
+        # a lowered step dynamo cannot trace whole: runs of ops between the
+        # exchanges compiled one region each (_run_segment); never the
+        # probe of the dropout masks (_draw_masks), which runs per op
+        segmented = (self._lowering is not None and not self._traceable()
+                     and ctx.plan is None)
+        pending: List[int] = []
         i = 0
         while i < len(self.ops):
             if plan is not None and i == plan["i0"]:
+                self._run_segment(pending, env, params, training, ctx)
                 # the heterogeneous head (host tables) first, then the
                 # segment as one GPipe schedule over the pipe group
                 for hop in plan["head"]:
@@ -1279,8 +1297,47 @@ class FFModel:
             i += 1
             if id(op) in head and op.output.guid in env:
                 continue  # ran ahead of the segment
+            if segmented and not op.exchanges_on_host():
+                pending.append(i - 1)
+                continue
+            self._run_segment(pending, env, params, training, ctx)
             self._run_op(op, env, params, training, ctx)
+        self._run_segment(pending, env, params, training, ctx)
         return env
+
+    def _run_segment(self, idx: List[int], env, params, training: bool, ctx: FwdCtx) -> None:
+        """Run ops ``idx`` (a run between two exchanges, consumed: the list
+        is emptied) as one compiled region of the lowered step, fullgraph:
+        its inputs are what they read of ``env``, its outputs what later
+        ops and the loss read, written into ``env``."""
+        if not idx:
+            return
+        ops = [self.ops[j] for j in idx]
+        idx.clear()
+        made = {t.guid for op in ops for t in op.outputs}
+        reads = sorted({t.guid for op in ops for t in op.inputs} - made)
+        later = {t.guid for op in self.ops[self.ops.index(ops[-1]) + 1:] for t in op.inputs}
+        # the final output feeds the metrics only, detached: an output whose
+        # gradient never comes would leave AOTAutograd a tangent to guess
+        graded = later | {self._loss_input_tensor().guid}
+        keep = sorted(made & (graded | {self.final_tensor().guid}))
+
+        def segment(params, env_in, stats_in, masks):
+            sctx = FwdCtx(training=training, stats_in=stats_in, stats_out={},
+                          masks=dict(masks))
+            local = dict(env_in)
+            for op in ops:
+                self._run_op(op, local, params, training, sctx)
+            return ({g: local[g] if g in graded else local[g].detach() for g in keep},
+                    sctx.stats_out)
+
+        site = f"{'train' if training else 'eval'}_step:{ops[0].name}"
+        region = self._lowering.region(site, segment)
+        outs, stats_out = region(params, {g: env[g] for g in reads}, ctx.stats_in or {},
+                                 ctx.masks)
+        env.update(outs)
+        if ctx.stats_out is not None:
+            ctx.stats_out.update(stats_out)
 
     def _run_op(self, op: Op, env, params, training: bool, ctx: FwdCtx) -> None:
         xs = [env[t.guid] for t in op.inputs]
@@ -1301,7 +1358,9 @@ class FFModel:
             ys = checkpoint(fwd, *xs, use_reentrant=False, preserve_rng_state=False)
         else:
             ys = fwd(*xs)
-        if self._sharded:
+        if self._lowering is not None and self._sharded:
+            ys = [self._lowering.constraint(y, op) for y in ys]
+        elif self._sharded:
             ys = [self.machine.constraint(y, op.constraint_pc()) for y in ys]
         for t, y in zip(op.outputs, ys):
             env[t.guid] = y
@@ -1439,15 +1498,21 @@ class FFModel:
         for mb in self._micro_batches(k):
             # the running statistics thread through the micro-batches, as the
             # JAX package's scan carries them
-            ctx = FwdCtx(training=True, rng=self._rng, stats_in=stats, stats_out={})
-            env = self._run_graph(self._params, mb, True, ctx)
-            stats = {**stats, **ctx.stats_out}
-            logits, probs, labels = self._loss_inputs(env, mb)
-            # this part's share of the (micro-)batch's mean loss
-            loss = self.loss(logits, labels, parts=self._batch_parts())
+            if self._lowering is not None:
+                # forward, loss and metric vector as one compiled region,
+                # its backward compiled with it (parallel/lowering.py); where
+                # dynamo cannot trace it whole, the op walk compiles its
+                # runs between exchanges (_run_segment)
+                region = (self._lowering.region("train_step", self._train_region)
+                          if self._traceable() else self._train_region)
+                loss, micro, stats_out = region(self._params, mb, stats,
+                                                self._draw_masks(mb, stats))
+            else:
+                loss, micro, stats_out = self._train_region(
+                    self._params, mb, stats, None)
+            stats = {**stats, **stats_out}
             g = self._grads(loss, leaves, grad_pls)
             with torch.no_grad():
-                micro = self._metric_vector(loss.detach(), probs.detach(), labels)
                 if k == 1:
                     grads, mvec = g, micro
                     continue
@@ -1482,6 +1547,50 @@ class FFModel:
             for (opn, wn), g in zip(names, grads):
                 tree.setdefault(opn, {})[wn] = g
             self.optimizer.apply(self._params, tree, self._opt_state, {"scalars": scalars})
+
+    def _train_region(self, params, mb, stats, masks):
+        """One micro-batch's forward, loss (this part's share of the
+        micro-batch's mean loss) and metric vector; returns (loss, metric
+        vector, updated running statistics).  Per-op dispatch draws the
+        dropout masks from the step's generator as the ops ask; a lowered
+        step passes them in, drawn before the region (``_draw_masks``)."""
+        ctx = (FwdCtx(training=True, rng=self._rng, stats_in=stats, stats_out={})
+               if masks is None else
+               FwdCtx(training=True, stats_in=stats, stats_out={}, masks=dict(masks)))
+        env = self._run_graph(params, mb, True, ctx)
+        logits, probs, labels = self._loss_inputs(env, mb)
+        loss = self.loss(logits, labels, parts=self._batch_parts())
+        micro = self._metric_vector(loss.detach(), probs.detach(), labels)
+        return loss, micro, ctx.stats_out
+
+    def _traceable(self) -> bool:
+        """Whether dynamo can trace the whole step as one graph: on a mesh,
+        not when a pipelined segment's GPipe ring or an op's exchange
+        (``Op.exchanges_on_host``: a halo, BatchNorm's moments, the LSTM's
+        h, ring or Ulysses attention) calls c10d from an autograd
+        function.  Then the regions on either side of each such call are
+        compiled (``GraphLowering.graphs`` counts them)."""
+        return not (self._sharded and (self._pipeline_plan is not None
+                                       or any(op.exchanges_on_host() for op in self.ops)))
+
+    def _draw_masks(self, mb, stats) -> Dict[int, torch.Tensor]:
+        """A lowered step's dropout masks, drawn before its region from the
+        step's generator in the order and shapes that per-op dispatch
+        draws them, so the two draw the same masks (and a resumed run what
+        an uninterrupted one draws, C8).  The order and shapes come from a
+        probe of the op walk, once per batch signature (under no_grad; it
+        draws nothing)."""
+        if not any(op.draws_random for op in self.ops):
+            return {}
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(mb.items()))
+        plan = self._mask_plans.get(key)
+        if plan is None:
+            plan = []
+            with torch.no_grad():
+                self._run_graph(self._params, mb, True,
+                                FwdCtx(training=True, stats_in=stats, stats_out={}, plan=plan))
+            self._mask_plans[key] = plan
+        return draw_masks(plan, self._rng, self.device)
 
     def _health_entries(self, mvec, grads, placements) -> Tuple[torch.Tensor, torch.Tensor]:
         """The health entries of a step (``health_metrics``,
@@ -1641,10 +1750,19 @@ class FFModel:
 
     @torch.no_grad()
     def _eval(self):
+        """The staged batch's op outputs by tensor guid (DTensors on a mesh);
+        a lowered model runs the op walk as one compiled region, which
+        returns the loss input and the final output."""
         params, batch = self._params, self._batch
         if self._host.active:  # the batch's table rows (the tables stay as they are)
             params, batch = self._host.swap_in(batch, training=False)
+        if self._lowering is not None and self._traceable():
+            return self._lowering.region("eval_step", self._eval_region)(params, batch)
         return self._run_graph(params, batch, training=False)
+
+    def _eval_region(self, params, batch):
+        env = self._run_graph(params, batch, training=False)
+        return {g: env[g] for g in (self._loss_input_tensor().guid, self.final_tensor().guid)}
 
     def eval_batch(self) -> Dict[str, float]:
         """Loss and metric sums of the staged batch, fetched in one copy
@@ -1809,13 +1927,23 @@ class FFModel:
         if pos_t is not None:
             batch[f"in_{pos_t.guid}"] = (pos.expand(B) if pos.dim() == 0 else pos)[:, None]
         with torch.no_grad():
-            env, caches = self._run_graph_decode(params, caches, batch, pos,
-                                                 FwdCtx(stats_in=self._stats),
-                                                 pre_env=pre_env, skip=skip,
-                                                 block_tables=block_tables)
-            probs = env[self.final_tensor().guid]
-            if isinstance(probs, DTensor):  # whole on every rank (a collective)
-                probs = probs.full_tensor()
+            if self._lowering is not None and self._sharded and self._traceable():
+                # a mesh's decode step as one compiled region (one card's is
+                # a captured CUDA graph, runtime/decode_graph.py); a model
+                # with an exchange (_traceable) decodes per op
+                region = self._lowering.region("decode_step", self._decode_region)
+                return region(params, caches, batch, pos, pre_env, tuple(skip), block_tables)
+            return self._decode_region(params, caches, batch, pos, pre_env, skip,
+                                       block_tables)
+
+    def _decode_region(self, params, caches, batch, pos, pre_env, skip, block_tables):
+        env, caches = self._run_graph_decode(params, caches, batch, pos,
+                                             FwdCtx(stats_in=self._stats),
+                                             pre_env=pre_env, skip=skip,
+                                             block_tables=block_tables)
+        probs = env[self.final_tensor().guid]
+        if isinstance(probs, DTensor):  # whole on every rank (a collective)
+            probs = probs.full_tensor()
         return probs[:, -1, :].float(), caches
 
     def _check_position_table(self, pos_t, s_max: int) -> None:

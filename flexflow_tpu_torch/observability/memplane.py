@@ -22,7 +22,12 @@ Two jobs, both riding an enabled telemetry log:
   ``StepGraph.pool_bytes``), counts in ``compiles``, and a second
   capture at a site that already captured (a new signature, or the same
   one captured again after a drop) counts in ``compile_retraces``, which
-  ``/metrics`` renders as ``ff_compile_retraces_total``.  XLA's
+  ``/metrics`` renders as ``ff_compile_retraces_total``.  A lowered model
+  (parallel/lowering.py) also compiles its regions with ``torch.compile``:
+  each graph compiled at a site (``train_step``, ``eval_step``,
+  ``decode_step``) emits ``compile_done`` with ``stage="compile"`` (a
+  capture's says ``stage="capture"``), counted the same way, a second
+  compile at a site a retrace.  XLA's
   ``memory_analysis``/``cost_analysis`` have no counterpart on the card,
   so their records (``xla_memory``, ``xla_cost``) are absent, and
   ``aot`` is false: no capture is compiled ahead of its first run.
@@ -76,17 +81,25 @@ class MemPlane:
 
     def on_capture(self, site: str, key, wall_s: float,
                    pool_bytes: Optional[int]) -> None:
-        retrace = site in self._sites
-        self._sites.add(site)
+        attrs = {}
+        if pool_bytes is not None:
+            attrs["graph_pool_bytes"] = int(pool_bytes)
+        self._done(site, key, wall_s, "capture", attrs)
+
+    def on_compile(self, site: str, wall_s: float) -> None:
+        """A lowered region's graph compiled at ``site``
+        (``GraphLowering.on_compile``)."""
+        self._done(site, None, wall_s, "compile", {})
+
+    def _done(self, site: str, key, wall_s: float, stage: str, attrs: dict) -> None:
+        retrace = (site, stage) in self._sites
+        self._sites.add((site, stage))
         self.compiles += 1
         if retrace:
             self.retraces += 1
         log = self.log
-        attrs = {}
-        if pool_bytes is not None:
-            attrs["graph_pool_bytes"] = int(pool_bytes)
         log.event("compile_done", site=site, fingerprint=_fingerprint(site, key),
-                  wall_s=round(wall_s, 4), retrace=retrace, aot=False,
+                  wall_s=round(wall_s, 4), retrace=retrace, aot=False, stage=stage,
                   total_compiles=self.compiles, total_retraces=self.retraces, **attrs)
         log.counter("compiles", 1, site=site)
         # 0-increments keep the series alive (and scrapeable) from the

@@ -256,11 +256,15 @@ def per_op_attribution(model, strategies, machine_model=None,
                        compute_dtype: Optional[str] = None
                        ) -> Dict[str, Dict[str, Any]]:
     """Per-op cost attribution for a strategy map: ``{op: {dims, parts,
-    host, fwd_ms, bwd_ms}}`` priced by the non-measuring H100 cost model,
-    the rows a ``.pb.meta.json`` sidecar carries.  The JAX package's
-    ``spec`` (the whole-graph lowering's sharding spec) has no counterpart
-    until the port lowers whole graphs (ROADMAP A13), so it is absent."""
+    host, spec, fwd_ms, bwd_ms}}`` priced by the non-measuring H100 cost
+    model, the rows a ``.pb.meta.json`` sidecar carries.  ``spec`` is the
+    whole-graph lowering's placement of the op's output on the mesh this
+    device count gets (``parallel/lowering.py``'s pure shadow: nodes of
+    the machine model's GPUs, a ``dcn`` dim leading when there are
+    several), so a sidecar a search tool wrote carries it without a model
+    compiled on that mesh."""
     from ..config import ParallelConfig
+    from ..parallel import lowering as _lowering
     from ..simulator.cost_model import CostModel
     from ..simulator.machine import H100MachineModel
 
@@ -269,15 +273,23 @@ def per_op_attribution(model, strategies, machine_model=None,
     mm = machine_model or H100MachineModel.calibrated(num_devices=nd)
     cm = CostModel(mm, measure=False,
                    compute_dtype=compute_dtype or model.config.compute_dtype)
+    names, sizes = _lowering.hybrid_axis_layout(nd, mm.num_nodes)
     rows: Dict[str, Dict[str, Any]] = {}
     for op in model.ops:
         pc = strategies.get(op.name) or getattr(op, "pc", None) \
             or ParallelConfig.data_parallel(op.output.num_dims, nd)
         pc = op.legalize_pc(pc)
+        try:
+            groups, _ = _lowering.assign_axes(names, sizes, pc.dims,
+                                              _lowering.dim_roles(op, len(pc.dims)))
+            spec = _lowering.spec_string(groups)
+        except ValueError:
+            spec = "?"  # a degree the mesh cannot express; advisory only
         rows[op.name] = {
             "dims": "x".join(str(d) for d in pc.dims),
             "parts": pc.num_parts(),
             "host": bool(pc.host_placed),
+            "spec": spec,
             "fwd_ms": round(cm.op_time(op, pc, "forward") * 1e3, 4),
             "bwd_ms": round(cm.op_time(op, pc, "backward") * 1e3, 4),
         }
@@ -321,13 +333,20 @@ def build_provenance(model, strategies, engine: str, budget: int,
         "batch_size": int(model.config.batch_size),
         "compute_dtype": model.config.compute_dtype,
         "machine_model": mm.source,
-        # no whole-graph lowering in the port yet (ROADMAP A13)
-        "lowered": False,
     }
     if best_s is not None:
         meta["best_ms"] = round(float(best_s) * 1e3, 4)
     if dp_s is not None:
         meta["dp_ms"] = round(float(dp_s) * 1e3, 4)
+    # the whole-graph lowering stamp: was this strategy compiled into one
+    # step (parallel/lowering.py), and where did each op's spec land
+    low = getattr(model, "_lowering", None)
+    meta["lowered"] = low is not None
+    if low is not None:
+        try:
+            meta["lowering"] = low.plan()
+        except Exception as e:  # noqa: BLE001 — advisory; never block export
+            meta["lowering_error"] = repr(e)
     log = active_log()
     if log is not None:
         meta["search_run_id"] = log.run_id

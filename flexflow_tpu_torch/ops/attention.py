@@ -179,6 +179,9 @@ class MultiHeadAttention(Op):
     def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
         return [self._out(params, self._attend(params, *xs), ctx)]
 
+    def exchanges_on_host(self) -> bool:
+        return self._degrees()[1] > 1  # ring or Ulysses over a split sequence
+
     def forward_sharded(self, machine, params, xs, ctx: FwdCtx):
         return self._sharded_forward(machine, params, xs, ctx, self.compute_placements(machine),
                                      self._degrees()[1] > 1 and machine.num_devices > 1)

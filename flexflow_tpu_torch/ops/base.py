@@ -57,8 +57,12 @@ class FwdCtx:
     rng: Optional[torch.Generator] = None
     stats_in: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
     stats_out: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
-    # op guid -> its keep mask, drawn once per call (``keep_mask``)
+    # op guid -> its keep mask, drawn once per call (``keep_mask``), or
+    # drawn before the call (a lowered step's, ``draw_masks``)
     masks: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # a list: the call only records each draw's (op guid, shape, keep) in
+    # order and draws nothing (``FFModel._draw_masks``'s probe)
+    plan: Optional[list] = None
 
     def keep_mask(self, op: "Op", shape, keep: float, device) -> torch.Tensor:
         """``op``'s dropout keep mask for this call (True with probability
@@ -69,12 +73,24 @@ class FwdCtx:
         from the generator's state before it."""
         mask = self.masks.get(op.guid)
         if mask is None:
-            if self.rng is None:
+            if self.plan is not None:
+                self.plan.append((op.guid, tuple(shape), float(keep)))
+                mask = torch.ones(shape, dtype=torch.bool, device=device)
+            elif self.rng is None:
                 raise RuntimeError(f"op {op.name} draws a dropout mask, but the call has "
                                    "no generator (FwdCtx.rng)")
-            mask = torch.rand(shape, generator=self.rng, device=device) < keep
+            else:
+                mask = torch.rand(shape, generator=self.rng, device=device) < keep
             self.masks[op.guid] = mask
         return mask
+
+
+def draw_masks(plan, rng: torch.Generator, device) -> Dict[int, torch.Tensor]:
+    """The keep masks of a recorded ``plan`` (``FwdCtx.plan``), drawn from
+    ``rng`` in its order: what the op walk would draw, drawn before a
+    compiled region that cannot draw from a generator itself."""
+    return {guid: torch.rand(shape, generator=rng, device=device) < keep
+            for guid, shape, keep in plan}
 
 
 def dropout(x: torch.Tensor, rate: float, ctx: FwdCtx, op: "Op") -> torch.Tensor:
@@ -155,6 +171,14 @@ class Op:
     def forward(self, params: Dict[str, torch.Tensor], xs: List[torch.Tensor],
                 ctx: FwdCtx) -> List[torch.Tensor]:
         raise NotImplementedError
+
+    def exchanges_on_host(self) -> bool:
+        """Whether this op's forward on a mesh, under its config, exchanges
+        data through ``parallel/collectives.py`` (c10d calls in autograd
+        functions, which dynamo cannot trace) besides DTensor's own
+        collectives: a lowered step then compiles the regions on either
+        side of each exchange (``FFModel._traceable``)."""
+        return False
 
     @property
     def draws_random(self) -> bool:

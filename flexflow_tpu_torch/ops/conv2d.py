@@ -98,6 +98,9 @@ class _Windowed(Op):
         bottom), (left, right)) is only what crosses the image's edge."""
         raise NotImplementedError
 
+    def exchanges_on_host(self) -> bool:
+        return any(d > 1 for d in self.pc.dims[1:3])  # a halo exchange
+
     def local_forward(self, machine, out_pl):
         """Each part's output tile from its input rectangle: one halo
         exchange per split spatial dim, then ``_tile``."""

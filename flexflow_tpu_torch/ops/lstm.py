@@ -144,6 +144,9 @@ class LSTM(Op):
             return tuple(Replicate() for _ in out_pl)
         return super().weight_placements(w, out_pl)
 
+    def exchanges_on_host(self) -> bool:
+        return self._hidden_degree(self.pc) > 1  # h all-gathered each step
+
     def local_forward(self, machine, out_pl):
         k = self._hidden_degree(self.pc)
         owner_k = self._hidden_degree(self.share_from.pc) if self.share_from else k

@@ -210,6 +210,9 @@ class BatchNorm(Op):
     def forward(self, params, xs: List[torch.Tensor], ctx: FwdCtx):
         return [self._normalize(params, xs[0], ctx, None)]
 
+    def exchanges_on_host(self) -> bool:
+        return any(d > 1 for d in self.pc.dims[:-1])  # the moments' all-reduce
+
     def local_forward(self, machine, out_pl):
         names = [n for n, p in zip(machine.axis_names, out_pl) if isinstance(p, Shard)]
         if not names:

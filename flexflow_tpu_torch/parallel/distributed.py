@@ -97,8 +97,10 @@ def shutdown() -> None:
     from . import pipeline
     from .mesh import forget_machines
 
+    global _HOSTS
     forget_machines()
     pipeline.forget_groups()
+    _HOSTS = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -124,6 +126,32 @@ def process_index() -> int:
 
 def is_coordinator() -> bool:
     return process_index() == 0
+
+
+# the process group's host count, once counted (``host_count``)
+_HOSTS: Optional[int] = None
+
+
+def host_count() -> int:
+    """How many hosts the process group's ranks run on: 1 without a group;
+    under ``torchrun`` ``WORLD_SIZE / LOCAL_WORLD_SIZE``; else the distinct
+    host names of the ranks, gathered once per group (a collective, which
+    every rank reaches through ``FFModel.compile`` of a model on the
+    group's mesh, ``lowering.maybe_lowering``)."""
+    global _HOSTS
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return 1
+    if _HOSTS is None:
+        local = os.environ.get("LOCAL_WORLD_SIZE")
+        if local and int(local) > 0 and dist.get_world_size() % int(local) == 0:
+            _HOSTS = dist.get_world_size() // int(local)
+        else:
+            import socket
+
+            names = [None] * dist.get_world_size()
+            dist.all_gather_object(names, socket.gethostname())
+            _HOSTS = len(set(names))
+    return _HOSTS
 
 
 def hybrid_machine(dcn_degree: int, device: torch.device) -> Machine:

@@ -60,6 +60,19 @@ graph's pool or piles up from eager steps on short-lived streams (as
 back to the allocator on the stream it was made on, so work queued there
 before is not disturbed.
 
+A lowered model (parallel/lowering.py) hands ``run`` its compiled step:
+the first, eager step of a signature compiles it (dynamo and inductor,
+whose own CUDA graphs stay off), and the capture records the kernels the
+compiled code launches, so a replay runs no Python at all.
+
+While ``record_kernels`` is set (a class attribute, off by default: a
+launch count sets it around the steps it counts) a capture keeps CUDA's
+graph beside the executable one, and ``kernel_names`` reads that
+capture's kernel nodes' names from CUDA's debug dump of it
+(``dump_kernel_names``) when first asked: what every replay launches
+(a replay runs every node of the graph), counted where a profiler's
+trace may drop events.
+
 ``disable_graphs()`` runs steps eagerly, the counterpart of
 ``jax.disable_jit()``.  The eager step is also the path on the CPU and,
 in this version, on a mesh (SOAP, ROADMAP A6).
@@ -69,6 +82,9 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import os
+import re
+import tempfile
 import threading
 import time
 from typing import Callable, Hashable, List, Optional
@@ -97,6 +113,19 @@ def graphs_enabled() -> bool:
     return _disabled == 0
 
 
+# a kernel node's record in the dump: its label's first field, then
+# "{ID | <id> (topoId: <n>) | <function>\<\<\<<grid>,<block>,<smem>\>\>\>}"
+_KERNEL_NODE = re.compile(r'label="\{KERNEL\s*\|\s*\{ID \|[^|]*\| (.+?)\\<\\<\\<', re.S)
+
+
+def dump_kernel_names(dot: str) -> List[str]:
+    """The kernel nodes of a CUDA graph's debug dump (the DOT text that
+    ``cudaGraphDebugDotPrint`` writes in its verbose form,
+    ``CUDAGraph.debug_dump``), one function name per node (a mangled
+    symbol, a library's or a Triton kernel's name), in the dump's order."""
+    return _KERNEL_NODE.findall(dot)
+
+
 @contextlib.contextmanager
 def _collection_paused():
     """No cyclic garbage collection while a stream captures: a dropped
@@ -119,6 +148,7 @@ class StepGraph:
     (its device work only), ``key`` whatever the captured work depends on."""
 
     capture_error_mode = "global"
+    record_kernels = False  # while set, captures keep their kernel nodes (kernel_names)
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -131,12 +161,31 @@ class StepGraph:
         self.on_capture: Optional[Callable[[Hashable, float, Optional[int]], None]] = None
         # device generators the step draws from, registered at each capture
         self.generators: List[torch.Generator] = []
+        self._kernel_names: Optional[List[str]] = None  # the capture's, once read
+        self.kernels_kept = False  # the captured graph keeps its kernel nodes
 
     def drop(self) -> None:
         """Forget the captured graph (and its memory pool)."""
         self.key = None
         self.graph = None
         self.pool = None
+        self._kernel_names = None
+        self.kernels_kept = False
+
+    @property
+    def kernel_names(self) -> Optional[List[str]]:
+        """The kernel nodes of the captured graph, one function name each
+        (None without a capture made while ``record_kernels`` was set)."""
+        if self._kernel_names is None and self.kernels_kept and self.graph is not None:
+            fd, path = tempfile.mkstemp(suffix=".dot")
+            os.close(fd)
+            try:
+                self.graph.debug_dump(path)
+                with open(path) as f:
+                    self._kernel_names = dump_kernel_names(f.read())
+            finally:
+                os.unlink(path)
+        return self._kernel_names
 
     def run(self, key: Hashable, step: Callable[[], None]) -> str:
         """One step; returns what it was: "eager" (a new signature's first
@@ -186,7 +235,12 @@ class StepGraph:
         current.wait_stream(side)
 
     def _capture(self, step) -> None:
-        graph = torch.cuda.CUDAGraph()
+        # kept beside the executable graph (keep_graph), CUDA's captured graph
+        # can be dumped after the capture (record_kernels)
+        keep = self.record_kernels
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if keep else torch.cuda.CUDAGraph()
+        if keep:
+            graph.enable_debug_mode()
         for gen in self.generators:
             graph.register_generator_state(gen)
         # a high-priority stream, a pool nothing else in the process draws
@@ -206,3 +260,7 @@ class StepGraph:
         self.graph = graph
         self.pool = graph.pool()
         self.captures += 1
+        self._kernel_names = None
+        self.kernels_kept = keep
+        if keep:
+            graph.instantiate()

@@ -28,6 +28,17 @@ raises the reports' measured provenance; a model whose report scale the
 enumeration does not cover gets targeted jobs for exactly those keys.
 The rest follows in enumeration order.  Without the file the order is
 the enumeration's.
+
+Per-job supervision (the JAX package's, calibrate.py:144-260 there): by
+default the measuring runs in a worker subprocess (``--worker``) that
+writes a heartbeat (``--heartbeat``) before each job; this process
+watches it and kills the worker when a job's beat is older than
+``--job-timeout`` or its first beat never comes, writes the stuck key to
+the skip file (``--skip-keys-file``) and starts the worker again, which
+resumes from the durable cache (every measurement is persisted as it
+lands), at most ``--max-restarts`` times.  So a CUDA call that hangs
+costs one job, not the run; the fit then runs here, from the cache.
+``--no-supervise`` measures in this process.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import argparse
 import json
 import math
 import os
+import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -138,21 +150,126 @@ def build_job_list(models_batches: Sequence[Tuple[str, int]], models, devices: i
     return first + [j for j in jobs if j[3] not in prio], extra
 
 
-def run_measurements(jobs, cost, max_seconds: float = 3600.0, verbose: bool = True) -> int:
+def beat(heartbeat_path: Optional[str], key, i: int) -> None:
+    """Write the worker's heartbeat ``{"key", "i", "t"}`` (replaced
+    atomically: the supervisor reads it meanwhile).  ``key`` None is the
+    end of the measuring loop, after which no stale beat kills the worker."""
+    if not heartbeat_path:
+        return
+    try:
+        tmp = heartbeat_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"key": key, "i": i, "t": time.time()}, f)
+        os.replace(tmp, heartbeat_path)
+    except OSError:
+        pass
+
+
+def run_measurements(jobs, cost, max_seconds: float = 3600.0, verbose: bool = True,
+                     heartbeat_path: Optional[str] = None,
+                     skip_keys: Optional[set] = None) -> int:
     """Cost every job with a measuring cost model (each measurement is
-    persisted as it lands; a failed one raises); returns the number of jobs
-    done."""
+    persisted as it lands; a failed one raises), writing a heartbeat before
+    each (``beat``) and skipping the keys a previous attempt hung on;
+    returns the number of jobs done."""
     done = 0
     t_start = time.time()
+    skip_keys = skip_keys or set()
     for i, (op, pc, which, key) in enumerate(jobs):
         if time.time() - t_start > max_seconds:
             print(f"[calibrate] time budget hit after {done}/{len(jobs)} jobs", flush=True)
             break
+        if key in skip_keys:
+            print(f"[{i + 1}/{len(jobs)}] {key} SKIPPED (hung a previous attempt)", flush=True)
+            continue
+        beat(heartbeat_path, key, i)
         t = cost.op_time(op, pc, which)
         done += 1
         if verbose:
             print(f"[{i + 1}/{len(jobs)}] {key} -> {t * 1e6:.1f} us", flush=True)
+    beat(heartbeat_path, None, len(jobs))
     return done
+
+
+def supervise_worker(argv: List[str], job_timeout: float, max_restarts: int = 2,
+                     max_seconds: float = 3600.0, startup_timeout: float = 420.0,
+                     poll: float = 1.0, worker_cmd: Optional[List[str]] = None) -> int:
+    """Run the measuring in ``calibrate --worker`` subprocesses and watch
+    their heartbeat: a job whose beat is older than ``job_timeout``, or a
+    worker with no first beat after ``max(job_timeout, startup_timeout)``
+    (CUDA's initialization hung), is killed, its key appended to the skip
+    file, and the worker started again (it resumes from the durable
+    cache), at most ``max_restarts`` times; ``max_seconds`` bounds the
+    whole supervision.  ``worker_cmd`` replaces the worker's command line
+    (before ``argv``; tests pass a stand-in).  Returns the last worker's
+    exit code, or 1 when a worker was killed for the last time."""
+    import subprocess
+    import tempfile
+
+    fd, hb = tempfile.mkstemp(prefix="ffcal_hb_", suffix=".json")
+    os.close(fd)
+    fd, skipfile = tempfile.mkstemp(prefix="ffcal_skip_", suffix=".txt")
+    os.close(fd)
+    base = worker_cmd or [sys.executable, "-m", "flexflow_tpu_torch.tools.calibrate"]
+    cmd = base + ["--worker", "--heartbeat", hb, "--skip-keys-file", skipfile] + list(argv)
+    startup = max(job_timeout, startup_timeout)
+    t_global = time.time()
+    try:
+        for attempt in range(max_restarts + 1):
+            with open(hb, "w"):  # no stale beat of the last attempt
+                pass
+            t_spawn = time.time()
+            proc = subprocess.Popen(cmd)
+            stuck, finished = None, False
+            while True:
+                try:
+                    rc = proc.wait(timeout=poll)
+                    if rc != 0:
+                        print(f"[calibrate] worker exited rc={rc}", flush=True)
+                    return rc
+                except subprocess.TimeoutExpired:
+                    pass
+                if time.time() - t_global > max_seconds:
+                    print("[calibrate] wall budget spent: killing the worker, keeping the "
+                          "measurements so far", flush=True)
+                    proc.kill()
+                    proc.wait()
+                    return 1
+                try:
+                    with open(hb) as f:
+                        last = json.load(f)
+                except (OSError, ValueError):
+                    last = None
+                if last and last.get("key"):
+                    if time.time() - last["t"] > job_timeout:
+                        stuck = last["key"]
+                        print(f"[calibrate] job hung > {job_timeout:.0f} s ({stuck}): killing "
+                              f"the worker (attempt {attempt + 1}/{max_restarts + 1})",
+                              flush=True)
+                elif last is not None and "key" in last:
+                    finished = True  # the loop ended; its teardown is never killed
+                elif not finished and time.time() - t_spawn > startup:
+                    print(f"[calibrate] the worker wrote no heartbeat in {startup:.0f} s: "
+                          f"killing it (attempt {attempt + 1}/{max_restarts + 1})",
+                          flush=True)
+                    stuck = ""
+                if stuck is not None:
+                    proc.kill()
+                    proc.wait()
+                    break
+            if stuck:
+                with open(skipfile, "a") as f:
+                    f.write(stuck + "\n")
+            if attempt == max_restarts:
+                print("[calibrate] restart budget spent: keeping the measurements persisted "
+                      "so far", flush=True)
+        return 1
+    finally:
+        for path in (hb, hb + ".tmp", skipfile):
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
 
 
 def collect_fit_records(models, nds, cost) -> List[Dict]:
@@ -283,11 +400,16 @@ def calibrate(models_batches: Sequence[Tuple[str, int]], devices: int = 8,
               compute_dtype: str = "bfloat16", out: Optional[str] = None,
               fit_out: Optional[str] = None, fit_only: bool = False,
               max_seconds: float = 3600.0, device: str = "cuda",
-              verbose: bool = True) -> Dict:
-    """Measure (unless ``fit_only``) and fit; writes the measured cache to
-    ``out`` and the fit to ``fit_out`` and returns ``{"jobs", "measured",
-    "seconds", "fit"}``.  The cost model reads ``out`` first, so keys it
-    holds are not measured again."""
+              verbose: bool = True, heartbeat: Optional[str] = None,
+              skip_keys: Optional[set] = None, do_fit: bool = True,
+              platform: Optional[str] = None) -> Dict:
+    """Measure (unless ``fit_only``) and fit (unless not ``do_fit``: a
+    supervised worker leaves the fit to its supervisor); writes the
+    measured cache to ``out`` and the fit to ``fit_out`` and returns
+    ``{"jobs", "measured", "seconds", "fit"}``.  The cost model reads
+    ``out`` first, so keys it holds are not measured again.  A refit
+    (``fit_only``) reads the entries of ``platform`` (default: the card's,
+    "cuda") and labels the fit with the cards they name."""
     from ..simulator import cost_model as cm
     from ..simulator.machine import CALIBRATION_PATH, H100MachineModel
     from .offline_search import build_model
@@ -298,7 +420,7 @@ def calibrate(models_batches: Sequence[Tuple[str, int]], devices: int = 8,
     import torch
 
     # measurements are tagged with the device's platform; a refit reads the card's
-    platform = "cuda" if fit_only else torch.device(device).type
+    platform = platform or ("cuda" if fit_only else torch.device(device).type)
     cost = cm.CostModel(mm, measure=not fit_only, cache_path=out, measured_cache_path=out,
                         compute_dtype=compute_dtype, target_platform=platform,
                         device=None if fit_only else device)
@@ -311,15 +433,18 @@ def calibrate(models_batches: Sequence[Tuple[str, int]], devices: int = 8,
     if jobs:
         print(f"[calibrate] {len(jobs)} measurement jobs, {len(cost._measured)} entries "
               f"already in {out}", flush=True)
-        run_measurements(jobs, cost, max_seconds, verbose)
+        run_measurements(jobs, cost, max_seconds, verbose, heartbeat, skip_keys)
     seconds = time.perf_counter() - t0
+    if not do_fit:
+        return {"jobs": len(jobs), "measured": len(cost._measured), "seconds": seconds,
+                "fit": {}, "out": out, "fit_out": fit_out}
     fit = fit_machine(collect_fit_records(models + [m for m, _ in extra],
                                           [devices] * len(models) + [nd for _, nd in extra],
                                           cost), mm)
     if fit:
         if fit_only:  # the cards the cache's entries name
             tags = [v for v in _read_json(out).values()
-                    if isinstance(v, dict) and v.get("platform") == "cuda"]
+                    if isinstance(v, dict) and v.get("platform") == platform]
             fit.update(device=" / ".join(sorted({v.get("device", "?") for v in tags})),
                        power_limit=" / ".join(sorted({v.get("power_limit", "not recorded")
                                                       for v in tags})))
@@ -350,15 +475,47 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--max-seconds", type=float, default=3600.0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--job-timeout", type=float, default=240.0,
+                   help="the supervisor kills the measuring worker when one job's heartbeat "
+                        "is older than this")
+    p.add_argument("--max-restarts", type=int, default=2)
+    p.add_argument("--no-supervise", action="store_true",
+                   help="measure in this process (a hung CUDA call then holds the run)")
+    p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--heartbeat", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--skip-keys-file", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    fit_only = args.fit_only
+    if not (fit_only or args.worker or args.no_supervise):
+        # every device call in a worker this process can kill; then the fit
+        # here, from the cache the worker wrote
+        fwd = ["--models", args.models, "--devices", str(args.devices), "--dp-parts",
+               args.dp_parts, "--compute-dtype", args.compute_dtype, "--max-seconds",
+               str(args.max_seconds), "--device", args.device]
+        fwd += (["--full"] if args.full else []) + (["--quiet"] if args.quiet else [])
+        fwd += ["--out", args.out] if args.out else []
+        supervise_worker(fwd, args.job_timeout, args.max_restarts,
+                         max_seconds=args.max_seconds + 900.0)
+        # the fit reads the worker's entries; its models are only shapes here
+        fit_only, platform, device = True, args.device.split(":")[0], "cpu"
+    else:
+        platform, device = None, args.device
+    skip = set()
+    if args.skip_keys_file and os.path.exists(args.skip_keys_file):
+        with open(args.skip_keys_file) as f:
+            skip = {ln.strip() for ln in f if ln.strip()}
     import torch
 
     torch.backends.cudnn.benchmark = False
     models = [(m.split(":")[0], int(m.split(":")[1])) for m in args.models.split(",") if m]
     parts = [int(x) for x in args.dp_parts.split(",") if x and int(x) <= args.devices]
     r = calibrate(models, args.devices, args.full, parts, args.compute_dtype, args.out,
-                  args.fit_out, args.fit_only, args.max_seconds, args.device,
-                  verbose=not args.quiet)
+                  args.fit_out, fit_only, args.max_seconds, device,
+                  verbose=not args.quiet, heartbeat=args.heartbeat, skip_keys=skip,
+                  do_fit=not args.worker, platform=platform)
+    if args.worker:
+        print(f"[calibrate] worker done: {r['measured']} entries -> {r['out']}", flush=True)
+        return r
     fit = r["fit"]
     if fit:
         print(f"[calibrate] fitted over {fit['fit_points']} points (log-rmse "

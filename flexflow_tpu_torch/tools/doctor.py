@@ -462,24 +462,72 @@ def _perf(probe: bool):
 
 
 def _lowering_check():
-    # Whole-graph lowering: the port refuses it (model.py's
-    # _refuse_unported_knobs names its ROADMAP item), so this check asks a
-    # tiny model for it and reports the refusal as a warning.  When the
-    # lowering is ported the same probe trains a step and the line is ok.
+    # Whole-graph lowering (parallel/lowering.py): the strict FF_LOWERED
+    # parse, a one-step probe of a tiny seeded model on the CPU lowered
+    # against per-op dispatch (bitwise: aot_eager), a warning when its plan
+    # puts a non-sample dim on a hybrid mesh's ``dcn`` dim, and the shipped
+    # strategies audited against the mesh shadow of their device count.
     import numpy as np
 
     import flexflow_tpu_torch as ft
+    from ..parallel import lowering as low
+    from ..parallel.distributed import host_count
 
-    env = os.environ.get("FF_LOWERED", "")
-    m, inp = _toy_model(8, 8, 16, 4, lowered=True)
-    m.compile(ft.SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy", ["accuracy"])
-    m.init_layers(seed=0)
-    rng = np.random.default_rng(1)
-    m.set_batch({inp: rng.standard_normal((8, 8), dtype=np.float32)},
-                rng.integers(0, 4, size=(8, 1), dtype=np.int32))
-    m.train_iteration()
-    m.sync()
-    return f"FF_LOWERED={env or 'auto'}: lowered probe trained one step"
+    env = low.lowered_from_env()  # ValueError on a bad value: required-loud
+    eff = low.resolve_lowered(None, 1, host_count())
+    bits = [f"FF_LOWERED={'auto' if env is None else env} "
+            f"(effective {'on' if eff else 'off'} on this host)"]
+
+    def probe(flag):
+        m, inp = _toy_model(8, 8, 16, 4, lowered=flag)
+        m.compile(ft.SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy", ["accuracy"])
+        m.init_layers(seed=0)
+        rng = np.random.default_rng(1)
+        m.set_batch({inp: rng.standard_normal((8, 8), dtype=np.float32)},
+                    rng.integers(0, 4, size=(8, 1), dtype=np.int32))
+        m.train_iteration()
+        m.sync()
+        return m
+
+    ml = probe(True)
+    assert ml._lowering is not None, "probe model did not lower"
+    md = probe(False)
+    assert np.array_equal(ml.get_parameter("fc2", "kernel"), md.get_parameter("fc2", "kernel")), \
+        "lowered probe diverged from per-op dispatch"
+    bits.append("probe-lower: 1-step train bitwise == per-op dispatch")
+    spill = ml._lowering.dcn_spill
+    if spill:
+        bits.append(f"WARN: dcn axis carries non-sample dims here: {spill}")
+
+    # shipped strategies against the mesh shadow of their recorded device
+    # count (nodes of 8 GPUs)
+    from ..parallel.strategy import (DEFAULT_STRATEGY_DIR, load_strategies_from_file,
+                                     read_provenance)
+    from ..simulator.machine import H100MachineModel
+
+    warns = []
+    if os.path.isdir(DEFAULT_STRATEGY_DIR):
+        for fn in sorted(os.listdir(DEFAULT_STRATEGY_DIR)):
+            if not fn.endswith(".pb"):
+                continue
+            path = os.path.join(DEFAULT_STRATEGY_DIR, fn)
+            try:
+                nd = int((read_provenance(path) or {}).get("num_devices", 0))
+                strategies = load_strategies_from_file(path)
+                mm = H100MachineModel(num_devices=nd) if nd > 0 else None
+            except Exception:  # noqa: BLE001 — an unreadable file is not this check's
+                continue
+            if mm is None:
+                continue
+            spilled = [op for op, pc in sorted(strategies.items()) if mm.dcn_spill(pc.dims)]
+            if spilled:
+                warns.append(f"{fn}: {', '.join(spilled)}")
+    if warns:
+        bits.append("WARN: non-sample dims would land on the dcn axis (a lowered multi-node "
+                    "run reshards these over InfiniBand every step): " + "; ".join(warns))
+    else:
+        bits.append("shipped strategies: no non-sample dcn placement")
+    return ", ".join(bits)
 
 
 def _cpu_train():

@@ -63,7 +63,8 @@ def fold(records: List[Dict[str, Any]]) -> Dict[str, Any]:
         at = r.get("attrs", {}) or {}
         if t == "event" and name == "memory_predicted":
             predicted = at  # last wins: a recompile stamps it again
-        elif t == "event" and name == "compile_done":
+        elif t == "event" and name == "compile_done" and at.get("stage") != "compile":
+            # a lowered region's torch.compile is no capture: no pool of its own
             row = sites.setdefault(str(at.get("site", "?")), {"captures": 0})
             row["captures"] += 1
             row["wall_s"] = at.get("wall_s")

@@ -84,7 +84,8 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.tools.report_configs, flexflow_tpu_torch.tools.profile_report, "
             "flexflow_tpu_torch.tools.opbench, flexflow_tpu_torch.tools.memory_report, "
             "flexflow_tpu_torch.tools.timeline_export, flexflow_tpu_torch.tools.soap_report, "
-            "flexflow_tpu_torch.observability.chipwatch, flexflow_tpu_torch.tools.doctor; "
+            "flexflow_tpu_torch.observability.chipwatch, flexflow_tpu_torch.tools.doctor, "
+            "flexflow_tpu_torch.parallel.lowering; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -113,13 +114,14 @@ def test_device_flag_parses():
 # to data parallelism over it); two workers on a one-device machine raise
 SOAP_KNOBS = [("import_strategy_file", "s.pb"), ("export_strategy_file", "s.pb"),
               ("workers_per_node", 2)]
-# knobs the compiled-step, search, observability, pipeline, host-table and
-# SOAP-space slices ported: they compile and train a step (on one device the
-# pipeline search finds no ring, a model with no host-placed table has no
-# row to gather, and ZeRO-1 has no second device to split the state over)
+# knobs the compiled-step, search, observability, pipeline, host-table,
+# SOAP-space and lowering slices ported: they compile and train a step (on
+# one device the pipeline search finds no ring, a model with no host-placed
+# table has no row to gather, ZeRO-1 has no second device to split the
+# state over, and the lowered step is one compiled region)
 STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True), ("search_budget", 10),
               ("telemetry", True), ("profiling", True), ("search_pipeline", True),
-              ("sparse_host_embeddings", True), ("zero_optimizer", True)]
+              ("sparse_host_embeddings", True), ("zero_optimizer", True), ("lowered", True)]
 
 
 @pytest.mark.parametrize("field,value", [
@@ -128,11 +130,11 @@ STEP_KNOBS = [("grad_accum_steps", 2), ("remat", True), ("search_budget", 10),
     ("lowered", True), ("telemetry", True), ("profiling", True), *SOAP_KNOBS,
 ])
 def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
-    """Knobs of features outside the port so far raise at compile; the
-    strategy files the SOAP slice brought in compile, and a worker count
-    the machine does not have raises; gradient accumulation, remat, the
-    strategy search, the pipeline search, the host tables' knob and ZeRO-1 compile
-    and take a step."""
+    """The name is older than the port's last refusal (the lowering, ported
+    since): the strategy files the SOAP slice brought in compile, and a
+    worker count the machine does not have raises; gradient accumulation,
+    remat, the strategy search, the pipeline search, the host tables' knob,
+    ZeRO-1 and the whole-graph lowering compile and take a step."""
     from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file,
                                                       save_strategies_to_file)
 
@@ -153,15 +155,13 @@ def test_knobs_outside_the_slice_raise(field, value, tmp_path, monkeypatch):
             assert m.get_metrics().train_all == 2
             # telemetry writes its trace (into the test's directory)
             assert (m._telemetry is not None) == (field == "telemetry")
+            assert (m._lowering is not None) == (field == "lowered")
         finally:
             events.reset_active()
         if field == "telemetry":
             assert '"name": "step"' in (tmp_path / "ff_trace.jsonl").read_text()
         return
-    if (field, value) not in SOAP_KNOBS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m.compile(ft.SGDOptimizer(lr=0.1))
-        return
+    assert (field, value) in SOAP_KNOBS
     if field == "workers_per_node":
         with pytest.raises(ValueError, match="machine has 1 device"):
             m.compile(ft.SGDOptimizer(lr=0.1))

@@ -244,6 +244,8 @@ for name, strategies in (("dp", {}), ("tp", {"fc1": (2, 2)}), ("split", {"fc1": 
         feed(m, s)
         m.train_iteration()
     hyb[name] = dict(axes=(m.machine.axis_names, m.machine.axis_sizes),
+                     lowered=m._lowering is not None,
+                     graphs=dict(m._lowering.graphs) if m._lowering is not None else {},
                      placements={o: {n: str(w.placements) for n, w in ws.items()}
                                  for o, ws in m._params.items()},
                      weights={(o, n): m.get_parameter(o, n) for o, n in m._weight_names()})
@@ -441,13 +443,15 @@ def test_hybrid_mesh_on_four_ranks(space):
     """``num_nodes=2`` on 4 ranks: a (2, 2) mesh ``dcn`` x ``m0``, the batch
     on ``dcn`` first and any other split on ``m0``; trained equal to one
     device, data parallel, with fc1 split (2, 2) and with fc1 split (1, 2);
-    one node collapses to the plain mesh."""
+    one node collapses to the plain mesh.  Two nodes lower the step by
+    default (parallel/lowering.py): one compiled region, trained equal."""
     runs = space["mlp"]["plain"][2]
     for r, out in enumerate(space["ranks"]):
         hyb = out["hybrid"]
         assert hyb["plain"] == (("m0", "m1"), (2, 2))
         for name in ("dp", "tp", "split"):
             assert hyb[name]["axes"] == (("dcn", "m0"), (2, 2))
+            assert hyb[name]["lowered"] and hyb[name]["graphs"] == {"train_step": 1}
             for k, w in hyb[name]["weights"].items():
                 np.testing.assert_allclose(w, runs[2][k], **TOL, err_msg=f"rank {r} {name} {k}")
         # fc1 (2, 2): the batch on dcn, the kernel's columns on m0

@@ -481,3 +481,61 @@ def test_a_model_on_the_compiled_step_trains_as_the_eager_one(monkeypatch):
     assert g.graph is not None
     graph.init_layers(seed=1)
     assert g.graph is None and g.key is None
+
+
+def test_a_lowered_model_on_the_compiled_step_trains_as_per_op(monkeypatch):
+    """A lowered model (FFConfig.lowered) through StepGraph's control flow:
+    the first step runs the compiled region eagerly (and compiles it), the
+    capture records it and each replay runs it again, so 4 steps compile
+    one graph and end at per-op dispatch's weights bit for bit."""
+    from flexflow_tpu_torch.runtime.step_graph import StepGraph
+
+    _FakeCuda(monkeypatch)
+    monkeypatch.setattr(ft.FFModel, "_use_graph",
+                        lambda self: not self._sharded and graphs_enabled())
+
+    def capture(self, step):
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.fn = step
+        self.captures += 1
+    monkeypatch.setattr(StepGraph, "_capture", capture)
+    x, y = _batch()
+    graph, inp = _mlp(ft, 1, "sgd", lowered=True)
+    eager, einp = _mlp(ft, 1, "sgd")
+    graph.set_batch({inp: x}, y)
+    eager.set_batch({einp: x}, y)
+    for _ in range(4):
+        graph.train_iteration()
+        with disable_graphs():
+            eager.train_iteration()
+    g = graph._step_graph
+    assert (g.captures, g.replays) == (1, 3)
+    assert graph._lowering.graphs == {"train_step": 1} and eager._lowering is None
+    gw, ew = _weights(graph), _weights(eager)
+    for key in gw:
+        np.testing.assert_array_equal(gw[key], ew[key], err_msg=str(key))
+
+
+def test_a_graph_dump_counts_each_kernel_node():
+    """ROADMAP C15's exact count: the kernel nodes of a CUDA graph's debug
+    dump (one captured on an H100: a flash forward, a cuBLAS GEMM, two
+    fills, a clamp and one fused SGD launch), read by name; a Triton
+    kernel that inductor named after the custom ops it fuses is none of
+    this repo's kernels."""
+    import os
+
+    import chip_smoke
+    from flexflow_tpu_torch.runtime.step_graph import dump_kernel_names
+
+    path = os.path.join(os.path.dirname(__file__), "golden", "cuda_graph_dump.dot")
+    with open(path) as f:
+        names = dump_kernel_names(f.read())
+    assert len(names) == 6
+    assert names[1].startswith("sm80_xmma_gemm_f32f32")
+    assert chip_smoke.node_launches(names) == {"flash_fwd": 1, "fused_sgd_update": 1}
+    assert chip_smoke.kernel_of(
+        "triton_per_fused__to_copy_clone_flash_bwd_dkdv_flash_bwd_dq_mul_sum_16") is None
+    assert chip_smoke.kernel_of(
+        "void (anonymous namespace)::flash_bwd_dkdv_mma_kernel<64, true, 64>(...)") == \
+        "flash_bwd_dkdv"
+    assert dump_kernel_names("digraph dot {\n}\n") == []

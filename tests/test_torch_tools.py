@@ -270,7 +270,8 @@ def test_doctor_passes_on_the_cpu_with_the_jax_checks(capsys):
     assert "accelerator" in jax_names and len(jax_names) == 16
     assert names == [n for n in jax_names if n != "accelerator"]
     by_name = dict(zip(names, lines))
-    assert by_name["lowering"].startswith("[warn]") and "ROADMAP A13" in by_name["lowering"]
+    assert by_name["lowering"].startswith("[ok") and \
+        "probe-lower: 1-step train bitwise == per-op dispatch" in by_name["lowering"]
     assert by_name["cpu training"].startswith("[ok")
     assert "ffsim built" in by_name["native libs"] and "ffsearch built" in by_name["native libs"]
     assert "chip probe: skipped" in by_name["perf"]
