@@ -18,7 +18,10 @@ decode with kv caches, each signature one captured graph
 batching ``InferenceEngine`` and its HTTP front.  ``elastic_train``
 (``runtime/elastic.py``) resumes a run at its step after a preemption or a
 failure, and with ``FF_RECONFIGURE`` re-parallelizes it while it trains
-(``runtime/reconfigure.py``, ``FFModel.recompile``).
+(``runtime/reconfigure.py``, ``FFModel.recompile``).  The frontends build
+graphs on ``FFModel``: ``keras``, ``torch_frontend.nn``, the legacy v2
+builders (``FFModel.conv2d_v2`` ... ``LayerHandle.init_inout``) and the
+``python -m flexflow_tpu_torch script.py`` runner.
 """
 
 from .config import DeviceType, FFConfig, ParallelConfig

@@ -86,6 +86,16 @@ class ParallelConfig:
         return ParallelConfig(DeviceType.GPU, dims, tuple(range(num_devices)))
 
 
+# The full argv the module runner (__main__.py) stashes before it hands the
+# script a filtered sys.argv; FFConfig.parse_args(None) reads it.
+_RUNNER_ARGV: Optional[List[str]] = None
+
+
+def set_runner_argv(argv: Sequence[str]) -> None:
+    global _RUNNER_ARGV
+    _RUNNER_ARGV = list(argv)
+
+
 @dataclasses.dataclass
 class FFConfig:
     """Run-level configuration (reference: include/config.h:66-103).
@@ -138,8 +148,12 @@ class FFConfig:
         return self.num_nodes * self.workers_per_node
 
     def parse_args(self, argv: Optional[List[str]] = None) -> List[str]:
-        """Parse reference-style CLI flags; returns unrecognized args."""
-        argv = list(sys.argv[1:] if argv is None else argv)
+        """Parse reference-style CLI flags; returns unrecognized args.  With
+        no ``argv``: the list the module runner (``python -m
+        flexflow_tpu_torch script.py ...``) stashed, else ``sys.argv[1:]``."""
+        if argv is None:
+            argv = _RUNNER_ARGV if _RUNNER_ARGV is not None else sys.argv[1:]
+        argv = list(argv)
         rest: List[str] = []
         i = 0
 

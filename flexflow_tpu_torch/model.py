@@ -136,21 +136,17 @@ from .tensor import DataType, Tensor
 METRIC_KEYS = ("train_all", "train_correct", "cce_loss", "sparse_cce_loss",
                "mse_loss", "rmse_loss", "mae_loss", "loss", "steps")
 
-# Entry points of the JAX package's FFModel that the port does not have
-# yet, with the ROADMAP item that brings each.
-_UNPORTED_METHODS = {
-    "conv2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
-    "pool2d_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
-    "dense_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
-    "flat_v2": "the legacy declare-then-wire layer API, ROADMAP A14",
-}
 
+class LayerHandle:
+    """A deferred layer of the legacy v2 builder API (reference:
+    examples/python/native/alexnet_new.py): declare it with a ``*_v2``
+    builder, then ``init_inout`` builds it onto the graph."""
 
-def _unported(name: str, item: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"FFModel.{name} is not ported yet ({item})")
-    method.__name__ = name
-    return method
+    def __init__(self, build):
+        self._build = build
+
+    def init_inout(self, ffmodel: "FFModel", input_tensor: Tensor) -> Tensor:
+        return self._build(ffmodel, input_tensor)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -365,6 +361,46 @@ class FFModel:
         """Batch normalization over the last (channel) dim, running moments
         kept as statistics beside the parameters; ReLU after by default."""
         return self._append(BatchNorm(self, input_tensor, relu, name))
+
+    # -- the legacy v2 declare-then-wire builders (reference: python/
+    # flexflow/core, used by examples/python/native/alexnet_new.py):
+    # conv2d_v2(...) declares a LayerHandle, init_inout() wires it ---------
+    def conv2d_v2(self, name: str, in_channels: int, out_channels: int,
+                  kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
+                  padding_h: int, padding_w: int,
+                  activation: str = ActiMode.NONE,
+                  use_bias: bool = True) -> LayerHandle:
+        def build(ff, t):
+            if t.dims[3] != in_channels:  # NHWC
+                raise ValueError(
+                    f"{name}: declared in_channels={in_channels}, "
+                    f"wired onto a {t.dims[3]}-channel tensor")
+            return ff.conv2d(t, out_channels, kernel_h, kernel_w, stride_h,
+                             stride_w, padding_h, padding_w,
+                             activation=activation, use_bias=use_bias,
+                             name=name)
+        return LayerHandle(build)
+
+    def pool2d_v2(self, name: str, kernel_h: int, kernel_w: int,
+                  stride_h: int, stride_w: int, padding_h: int,
+                  padding_w: int, pool_type: str = PoolType.MAX) -> LayerHandle:
+        return LayerHandle(lambda ff, t: ff.pool2d(
+            t, kernel_h, kernel_w, stride_h, stride_w, padding_h, padding_w,
+            pool_type=pool_type, name=name))
+
+    def dense_v2(self, name: str, in_dim: int, out_dim: int,
+                 activation: str = ActiMode.NONE,
+                 use_bias: bool = True) -> LayerHandle:
+        def build(ff, t):
+            if t.dims[-1] != in_dim:
+                raise ValueError(f"{name}: declared in_dim={in_dim}, wired "
+                                 f"onto a {t.dims[-1]}-wide tensor")
+            return ff.dense(t, out_dim, activation=activation,
+                            use_bias=use_bias, name=name)
+        return LayerHandle(build)
+
+    def flat_v2(self, name: str) -> LayerHandle:
+        return LayerHandle(lambda ff, t: ff.flat(t, name=name))
 
     def dropout(self, input_tensor: Tensor, rate: float, seed: int = 0,
                 name: Optional[str] = None) -> Tensor:
@@ -2269,7 +2305,3 @@ class FFModel:
             for w in op.weights:
                 print(f"   weight {w.name}: {w.dims}")
 
-
-for _name, _item in _UNPORTED_METHODS.items():
-    setattr(FFModel, _name, _unported(_name, _item))
-del _name, _item

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Optional, Tuple
 
 _guid_counter = itertools.count(100)
@@ -44,6 +45,13 @@ class Tensor:
     def num_dims(self) -> int:
         return len(self.dims)
 
+    @property
+    def batch_size(self) -> int:
+        return self.dims[0]
+
+    def volume(self) -> int:
+        return math.prod(self.dims)
+
     def __repr__(self):
         own = type(self.owner_op).__name__ if self.owner_op is not None else "input"
         return f"Tensor(guid={self.guid}, dims={self.dims}, {self.dtype}, from={own})"
@@ -68,6 +76,9 @@ class Parameter:
         self.dims = tuple(int(d) for d in self.dims)
         if self.partition_dims is None:
             self.partition_dims = (None,) * len(self.dims)
+
+    def volume(self) -> int:
+        return math.prod(self.dims)
 
     def __repr__(self):
         return f"Parameter({self.name}, dims={self.dims}, {self.dtype})"

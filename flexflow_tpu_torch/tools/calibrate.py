@@ -15,11 +15,19 @@ is priced by a fitted roofline too.
     python -m flexflow_tpu_torch.tools.calibrate --full --devices 8
     python -m flexflow_tpu_torch.tools.calibrate --fit-only      # any host
 
+Before the op jobs it times a ladder of pinned host<->device copies (1, 8
+and 64 MiB, ``measure_host_transfer``) and fits the host link's rate and
+latency (``fit_host_transfer``), which price host-resident tables.
+
 Writes ``flexflow_tpu_torch/simulator/measured_h100.json`` (the measured
 cache, each entry tagged with the card's name) and ``machine_h100.json``
 (the fit, with the card's name and power limit), or the ``--out`` and
 ``--fit-out`` paths, and prints both as JSON lines.  Without them the
-simulator runs on the spec constants and says "unfitted".
+simulator runs on the spec constants and says "unfitted".  The fit is
+merged over the file's previous one, per key and per op family
+(``merge_fit``), so a partial window erases nothing it did not fit; a fit
+of entries measured off a card (``--device cpu``) is written only where
+``--fit-out`` names a file.
 
 Job order: the cache keys the SOAP reports price (``report_keys.json``,
 written by ``tools/soap_report.py``; ``FF_REPORT_KEYS_PATH`` overrides
@@ -189,6 +197,79 @@ def run_measurements(jobs, cost, max_seconds: float = 3600.0, verbose: bool = Tr
             print(f"[{i + 1}/{len(jobs)}] {key} -> {t * 1e6:.1f} us", flush=True)
     beat(heartbeat_path, None, len(jobs))
     return done
+
+
+# The host<->device ladder: bytes a copy (1, 8 and 64 MiB) and timed round
+# trips of each.
+HOST_XFER_SIZES = (1 << 20, 8 << 20, 64 << 20)
+HOST_XFER_ITERS = 5
+
+
+def measure_host_transfer(cost, verbose: bool = True, heartbeat_path: Optional[str] = None,
+                          skip_keys: Optional[set] = None) -> int:
+    """Time pinned host<->device copies over HOST_XFER_SIZES on the cost
+    model's card (the JAX package's ``measure_host_transfer``): each
+    round trip (a host-to-device then a device-to-host copy between pinned
+    host buffers and the card, bracketed by ``torch.cuda.synchronize``), the
+    median of HOST_XFER_ITERS after one warm-up, halved, is stored as
+    ``host_xfer:<bytes>`` in the measured cache.  These are the rates the
+    host-resident tables' cost path prices (``pcie_bandwidth``,
+    ``host_xfer_latency``; ``fit_host_transfer``).  A device that is not a
+    card has no such link: nothing is measured.  Returns the sizes timed."""
+    import torch
+
+    if cost.device is None or cost.device.type != "cuda":
+        return 0
+    skip_keys = skip_keys or set()
+    done = 0
+    for nbytes in HOST_XFER_SIZES:
+        key = f"host_xfer:{nbytes}"
+        if key in cost._measured or key in skip_keys:
+            continue
+        beat(heartbeat_path, key, -1)
+        host = torch.ones(nbytes // 4, dtype=torch.float32).pin_memory()
+        back = torch.empty_like(host).pin_memory()
+        dev = torch.empty_like(host, device=cost.device)
+        ts = []
+        for _ in range(HOST_XFER_ITERS + 1):
+            torch.cuda.synchronize(cost.device)
+            t0 = time.perf_counter()
+            dev.copy_(host, non_blocking=True)
+            back.copy_(dev, non_blocking=True)
+            torch.cuda.synchronize(cost.device)
+            ts.append(time.perf_counter() - t0)
+        t = sorted(ts[1:])[HOST_XFER_ITERS // 2] / 2.0  # seconds a direction
+        cost._measured[key] = t
+        cost._persist(key, t, cost.measurement_tag())
+        done += 1
+        if verbose:
+            print(f"[calibrate] {key} -> {t * 1e3:.3f} ms a direction "
+                  f"({nbytes / t / 1e9:.2f} GB/s)", flush=True)
+    # the end of the ladder: no stale beat may kill the worker before its
+    # op jobs beat again
+    beat(heartbeat_path, None, -1)
+    return done
+
+
+def fit_host_transfer(cost) -> Dict:
+    """Least squares ``t = latency + bytes / bandwidth`` over the
+    ``host_xfer`` entries of the cost model's cache (the JAX package's
+    ``fit_host_transfer``); returns the machine model's ``pcie_bandwidth``
+    and ``host_xfer_latency``, or {} with fewer than two sizes or a slope
+    that is not positive."""
+    import numpy as np
+
+    pts = sorted((int(k.split(":")[1]), t) for k, t in cost._measured.items()
+                 if k.startswith("host_xfer:"))
+    if len(pts) < 2:
+        return {}
+    x = np.array([p[0] for p in pts], float)
+    y = np.array([p[1] for p in pts], float)
+    a = np.vstack([np.ones_like(x), x]).T
+    (lat, slope), *_ = np.linalg.lstsq(a, y, rcond=None)
+    if slope <= 0:
+        return {}
+    return {"pcie_bandwidth": float(1.0 / slope), "host_xfer_latency": float(max(0.0, lat))}
 
 
 def supervise_worker(argv: List[str], job_timeout: float, max_restarts: int = 2,
@@ -388,11 +469,37 @@ def _read_json(path: str) -> Dict:
 
 
 def _write_json(path: str, data) -> None:
+    """Write ``data`` to ``path`` atomically: a kill mid-write leaves the
+    previous file whole."""
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(data, f, indent=1, sort_keys=True)
         f.write("\n")
+        f.flush()
+        os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+# the fit's per-family entries, merged per family
+FAMILY_KEYS = ("op_efficiency", "op_backward_multiplier")
+
+
+def merge_fit(prev: Dict, new: Dict) -> Dict:
+    """``new`` over ``prev``, per key and, for FAMILY_KEYS, per family (the
+    JAX package's rule): a partial fit, a ladder alone or a window that
+    measured fewer op families, never erases what it did not fit."""
+    merged = {**prev, **new}
+    for k in FAMILY_KEYS:
+        if k in prev or k in new:
+            merged[k] = {**prev.get(k, {}), **new.get(k, {})}
+    return merged
+
+
+def _read_fit(path: str) -> Dict:
+    try:
+        return _read_json(path)
+    except (OSError, ValueError):
+        return {}
 
 
 def calibrate(models_batches: Sequence[Tuple[str, int]], devices: int = 8,
@@ -403,18 +510,23 @@ def calibrate(models_batches: Sequence[Tuple[str, int]], devices: int = 8,
               verbose: bool = True, heartbeat: Optional[str] = None,
               skip_keys: Optional[set] = None, do_fit: bool = True,
               platform: Optional[str] = None) -> Dict:
-    """Measure (unless ``fit_only``) and fit (unless not ``do_fit``: a
-    supervised worker leaves the fit to its supervisor); writes the
-    measured cache to ``out`` and the fit to ``fit_out`` and returns
-    ``{"jobs", "measured", "seconds", "fit"}``.  The cost model reads
-    ``out`` first, so keys it holds are not measured again.  A refit
-    (``fit_only``) reads the entries of ``platform`` (default: the card's,
-    "cuda") and labels the fit with the cards they name."""
+    """Measure (unless ``fit_only``: the host-transfer ladder, then the op
+    jobs) and fit (unless not ``do_fit``: a supervised worker leaves the
+    fit to its supervisor); writes the measured cache to ``out`` and the
+    fit to ``fit_out``, merged over that file's previous fit
+    (``merge_fit``), and returns ``{"jobs", "measured", "seconds", "fit",
+    "written"}``.  The cost model reads ``out`` first, so keys it holds are
+    not measured again.  A refit (``fit_only``) reads the entries of
+    ``platform`` (default: the card's, "cuda") and labels the fit with the
+    cards they name.  A fit of entries taken off a CUDA device is written
+    only to a ``fit_out`` the caller names: the packaged
+    ``machine_h100.json``, which every search reads, holds a card's fit."""
     from ..simulator import cost_model as cm
     from ..simulator.machine import CALIBRATION_PATH, H100MachineModel
     from .offline_search import build_model
 
     out = out or cm.MEASURED_CACHE
+    fit_out_named = fit_out is not None
     fit_out = fit_out or CALIBRATION_PATH
     mm = H100MachineModel(num_devices=devices)
     import torch
@@ -430,30 +542,48 @@ def calibrate(models_batches: Sequence[Tuple[str, int]], devices: int = 8,
         models_batches, models, devices, cost, full, dp_parts,
         lambda name, batch, nd: build_model(name, batch, nd, device, compute_dtype), fit_only)
     t0 = time.perf_counter()
+    if not fit_only:
+        # seconds of work, and the only measurement of the host link: before
+        # the op jobs, so that a window cut short still lands it
+        measure_host_transfer(cost, verbose, heartbeat, skip_keys)
     if jobs:
         print(f"[calibrate] {len(jobs)} measurement jobs, {len(cost._measured)} entries "
               f"already in {out}", flush=True)
         run_measurements(jobs, cost, max_seconds, verbose, heartbeat, skip_keys)
     seconds = time.perf_counter() - t0
+    result = {"jobs": len(jobs), "measured": len(cost._measured), "seconds": seconds,
+              "fit": {}, "written": False, "out": out, "fit_out": fit_out}
     if not do_fit:
-        return {"jobs": len(jobs), "measured": len(cost._measured), "seconds": seconds,
-                "fit": {}, "out": out, "fit_out": fit_out}
+        return result
     fit = fit_machine(collect_fit_records(models + [m for m, _ in extra],
                                           [devices] * len(models) + [nd for _, nd in extra],
                                           cost), mm)
-    if fit:
-        if fit_only:  # the cards the cache's entries name
-            tags = [v for v in _read_json(out).values()
-                    if isinstance(v, dict) and v.get("platform") == platform]
-            fit.update(device=" / ".join(sorted({v.get("device", "?") for v in tags})),
-                       power_limit=" / ".join(sorted({v.get("power_limit", "not recorded")
-                                                      for v in tags})))
-        else:
-            name, limit = cm.card_label()
-            fit.update(device=name, power_limit=limit)
-        _write_json(fit_out, fit)
-    return {"jobs": len(jobs), "measured": len(cost._measured), "seconds": seconds,
-            "fit": fit, "out": out, "fit_out": fit_out}
+    # the host link fits apart from the roofline: a window that measured
+    # the ladder and no op still lands it
+    fit.update(fit_host_transfer(cost))
+    if not fit:
+        if fit_only:
+            print(f"[calibrate] nothing to fit: {out} holds no measured {platform!r} entry "
+                  f"of these models", flush=True)
+        return result
+    if platform != "cuda" and not fit_out_named:
+        print(f"[calibrate] NOT writing the machine fit: its entries were measured on "
+              f"{platform!r}, not a card, and {fit_out} holds a card's fit; name a file "
+              f"with --fit-out to keep it", flush=True)
+        return dict(result, fit=fit)
+    if fit_only:  # the cards the cache's entries name
+        tags = [v for v in _read_json(out).values()
+                if isinstance(v, dict) and v.get("platform") == platform]
+        fit.update(device=" / ".join(sorted({v.get("device", "?") for v in tags})),
+                   power_limit=" / ".join(sorted({v.get("power_limit", "not recorded")
+                                                  for v in tags})))
+    elif platform == "cuda":
+        name, limit = cm.card_label()
+        fit.update(device=name, power_limit=limit)
+    else:
+        fit.update(device=platform, power_limit="not a card")
+    _write_json(fit_out, merge_fit(_read_fit(fit_out), fit))
+    return dict(result, fit=fit, written=True)
 
 
 def main(argv: Optional[List[str]] = None):
@@ -473,7 +603,9 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--fit-only", action="store_true",
                    help="refit from the measured cache without measuring (any host)")
     p.add_argument("--max-seconds", type=float, default=3600.0)
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=None,
+                   help="the device measured on (default cuda); with --fit-only, the one "
+                        "the models' shapes are built on (default cpu)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--job-timeout", type=float, default=240.0,
                    help="the supervisor kills the measuring worker when one job's heartbeat "
@@ -485,21 +617,27 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--heartbeat", default=None, help=argparse.SUPPRESS)
     p.add_argument("--skip-keys-file", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    fit_only = args.fit_only
-    if not (fit_only or args.worker or args.no_supervise):
+    supervised = not (args.fit_only or args.worker or args.no_supervise)
+    measure_on = args.device or "cuda"
+    if supervised:
         # every device call in a worker this process can kill; then the fit
         # here, from the cache the worker wrote
         fwd = ["--models", args.models, "--devices", str(args.devices), "--dp-parts",
                args.dp_parts, "--compute-dtype", args.compute_dtype, "--max-seconds",
-               str(args.max_seconds), "--device", args.device]
+               str(args.max_seconds), "--device", measure_on]
         fwd += (["--full"] if args.full else []) + (["--quiet"] if args.quiet else [])
         fwd += ["--out", args.out] if args.out else []
         supervise_worker(fwd, args.job_timeout, args.max_restarts,
                          max_seconds=args.max_seconds + 900.0)
-        # the fit reads the worker's entries; its models are only shapes here
-        fit_only, platform, device = True, args.device.split(":")[0], "cpu"
+    # a fit reads measured entries of one platform: the worker's after a
+    # supervised run, the card's under --fit-only; its models are only
+    # shapes, so any host refits
+    if supervised:
+        fit_only, platform, device = True, measure_on.split(":")[0], "cpu"
+    elif args.fit_only:
+        fit_only, platform, device = True, "cuda", args.device or "cpu"
     else:
-        platform, device = None, args.device
+        fit_only, platform, device = False, None, measure_on
     skip = set()
     if args.skip_keys_file and os.path.exists(args.skip_keys_file):
         with open(args.skip_keys_file) as f:
@@ -517,12 +655,16 @@ def main(argv: Optional[List[str]] = None):
         print(f"[calibrate] worker done: {r['measured']} entries -> {r['out']}", flush=True)
         return r
     fit = r["fit"]
-    if fit:
+    dest = f"-> {r['fit_out']}" if r["written"] else "(not written)"
+    if "fit_points" in fit:
         print(f"[calibrate] fitted over {fit['fit_points']} points (log-rmse "
               f"{fit['fit_log_rmse']:.3f}): matmul_eff={fit['matmul_efficiency']:.2f} "
               f"hbm={fit['hbm_bandwidth'] / 1e9:.0f}GB/s "
               f"ovh={fit['kernel_launch_overhead'] * 1e6:.0f}us "
-              f"bwd_mult={fit['backward_multiplier']:.2f} -> {r['fit_out']}")
+              f"bwd_mult={fit['backward_multiplier']:.2f} {dest}")
+    if "pcie_bandwidth" in fit:
+        print(f"[calibrate] host link: {fit['pcie_bandwidth'] / 1e9:.2f} GB/s, latency "
+              f"{fit['host_xfer_latency'] * 1e6:.1f} us {dest}")
     print(f"[calibrate] measured cache: {r['measured']} entries -> {r['out']} "
           f"(cudnn.benchmark False)")
     print(json.dumps({"measured_h100": _read_json(r["out"])}, sort_keys=True))

@@ -16,6 +16,9 @@ import os
 import sys
 import time
 
+import numpy as np
+import pytest
+
 from flexflow_tpu_torch.tools import calibrate
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,7 +107,8 @@ def test_main_supervises_by_default_and_forwards_its_arguments(monkeypatch, tmp_
 
     def fit(*args, **kw):
         calls["calibrate"] = (args, kw)
-        return {"fit": {}, "measured": 0, "out": args[5], "fit_out": args[6]}
+        return {"fit": {}, "written": False, "measured": 0, "out": args[5],
+                "fit_out": args[6]}
 
     monkeypatch.setattr(calibrate, "supervise_worker", supervise)
     monkeypatch.setattr(calibrate, "calibrate", fit)
@@ -119,3 +123,161 @@ def test_main_supervises_by_default_and_forwards_its_arguments(monkeypatch, tmp_
     args, kw = calls["calibrate"]
     assert args[7] is True and args[9] == "cpu" and kw["platform"] == "cuda"
     assert kw["do_fit"] is True
+
+
+# ------------------------------------------------ C16: the packaged fit kept
+
+PACKAGED_FIT = os.path.join(ROOT, "flexflow_tpu_torch", "simulator", "machine_h100.json")
+PACKAGED_CACHE = os.path.join(ROOT, "flexflow_tpu_torch", "simulator", "measured_h100.json")
+
+
+def _default_fit(monkeypatch, tmp_path):
+    """A copy of the packaged fit as the default fit path (what
+    H100MachineModel.calibrated() reads), and no nvidia-smi on the PATH
+    (card_label's cache emptied, so that a call would run it)."""
+    from flexflow_tpu_torch.simulator import cost_model, machine
+
+    fit = tmp_path / "machine_h100.json"
+    fit.write_bytes(open(PACKAGED_FIT, "rb").read())
+    monkeypatch.setattr(machine, "CALIBRATION_PATH", str(fit))
+    monkeypatch.setenv("FF_REPORT_KEYS_PATH", str(tmp_path / "no_keys.json"))
+    empty = tmp_path / "bin"
+    empty.mkdir()
+    monkeypatch.setenv("PATH", str(empty))
+    cost_model.card_label.cache_clear()
+    monkeypatch.chdir(ROOT)
+    return fit
+
+
+@pytest.mark.parametrize("supervise", [True, False], ids=["supervised", "no-supervise"])
+def test_a_cpu_calibration_leaves_the_default_fit_file_unchanged(supervise, monkeypatch,
+                                                                 tmp_path, capsys):
+    """ROADMAP C16: a calibration measured on the CPU fits (a thin fit over
+    AlexNet's first ops) but does not write it over the default fit file,
+    whose bytes stay as they were, and finishes without nvidia-smi; with
+    --fit-out it writes the fit there, labelled with the CPU."""
+    fit = _default_fit(monkeypatch, tmp_path)
+    before = fit.read_bytes()
+    args = ["--device", "cpu", "--models", "alexnet:8", "--devices", "1", "--dp-parts", "1",
+            "--max-seconds", "3", "--out", str(tmp_path / "m.json"), "--quiet"]
+    args += [] if supervise else ["--no-supervise"]
+    r = calibrate.main(args)
+    assert r["fit"]["fit_points"] > 0 and not r["written"]
+    assert "NOT writing the machine fit" in capsys.readouterr().out
+    assert fit.read_bytes() == before
+    named = tmp_path / "cpu_fit.json"
+    r = calibrate.main(args + ["--fit-out", str(named)])
+    assert r["written"] and fit.read_bytes() == before
+    written = json.load(open(named))
+    assert written["device"] == "cpu" and written["fit_points"] == r["fit"]["fit_points"]
+
+
+def _cache_of(path, keep):
+    data = json.load(open(PACKAGED_CACHE))
+    with open(path, "w") as f:
+        json.dump({k: v for k, v in data.items() if keep(k)}, f)
+
+
+def test_a_partial_fit_keeps_the_families_and_keys_it_did_not_measure(monkeypatch, tmp_path):
+    """A refit over AlexNet's entries alone, written with --fit-out over a
+    full fit, replaces the keys it fits and keeps every other: the per-family
+    constants of MultiHeadAttention, LayerNorm, Embedding and ElementBinary
+    (which AlexNet has not) and the earlier fit's other keys.  Then a fit of
+    the host-transfer ladder alone keeps the whole roofline."""
+    _default_fit(monkeypatch, tmp_path)
+    prev = json.load(open(PACKAGED_FIT))
+    prev["pcie_bandwidth"], prev["host_xfer_latency"] = 1.0e9, 1.0e-3
+    out, target = tmp_path / "m.json", tmp_path / "fit.json"
+    target.write_text(json.dumps(prev))
+    alexnet_families = ("Conv2D:", "Pool2D:", "Dense:", "Flat:", "Softmax:")
+    _cache_of(out, lambda k: k.startswith(alexnet_families))
+    r = calibrate.main(["--fit-only", "--models", "alexnet:256", "--devices", "8",
+                        "--out", str(out), "--fit-out", str(target), "--quiet"])
+    new, merged = r["fit"], json.load(open(target))
+    assert r["written"] and new["fit_points"] < prev["fit_points"]
+    assert set(new["op_backward_multiplier"]) < set(prev["op_backward_multiplier"])
+    for k in ("op_efficiency", "op_backward_multiplier"):
+        assert merged[k] == {**prev[k], **new[k]}
+        for fam in ("MultiHeadAttention", "LayerNorm", "Embedding", "ElementBinary"):
+            if fam in prev[k]:
+                assert merged[k][fam] == prev[k][fam]
+    for k, v in new.items():
+        if k not in ("op_efficiency", "op_backward_multiplier"):
+            assert merged[k] == v, k
+    assert (merged["pcie_bandwidth"], merged["host_xfer_latency"]) == (1.0e9, 1.0e-3)
+
+    # the ladder alone (card-tagged entries): the roofline stays, the link is refitted
+    tag = {"measured": True, "platform": "cuda", "device": "NVIDIA H100 80GB HBM3",
+           "power_limit": "700.00 W"}
+    with open(out, "w") as f:
+        json.dump({f"host_xfer:{n}": dict(tag, t=2e-5 + n / 50e9)
+                   for n in calibrate.HOST_XFER_SIZES}, f)
+    before = json.load(open(target))
+    r = calibrate.main(["--fit-only", "--models", "alexnet:256", "--devices", "8",
+                        "--out", str(out), "--fit-out", str(target), "--quiet"])
+    after = json.load(open(target))
+    assert set(r["fit"]) == {"pcie_bandwidth", "host_xfer_latency", "device", "power_limit"}
+    assert after["pcie_bandwidth"] == pytest.approx(50e9, rel=1e-9)
+    assert after["host_xfer_latency"] == pytest.approx(2e-5, rel=1e-6)
+    assert {k: v for k, v in after.items() if k not in r["fit"]} == \
+        {k: v for k, v in before.items() if k not in r["fit"]}
+
+
+def test_fit_only_on_the_cpu_refits_the_cards_entries(monkeypatch, tmp_path, capsys):
+    """--fit-only --device cpu builds the models' shapes on the CPU and
+    refits the card's (cuda) entries, labelled with the card they name;
+    over a cache with none of them it says there is nothing to fit and
+    writes nothing."""
+    fit = _default_fit(monkeypatch, tmp_path)
+    before = fit.read_bytes()
+    out, target = tmp_path / "m.json", tmp_path / "fit.json"
+    _cache_of(out, lambda k: k.startswith(("Conv2D:", "Pool2D:", "Dense:", "Flat:",
+                                           "Softmax:")))
+    cards = {v["device"] for v in json.load(open(out)).values()}
+    args = ["--fit-only", "--device", "cpu", "--models", "alexnet:256", "--devices", "8",
+            "--out", str(out), "--fit-out", str(target), "--quiet"]
+    r = calibrate.main(args)
+    assert r["written"] and r["fit"]["fit_points"] > 0
+    assert json.load(open(target))["device"] == " / ".join(sorted(cards))
+    target.unlink()
+    out.write_text(json.dumps({k: dict(v, platform="cpu")
+                               for k, v in json.load(open(out)).items()}))
+    r = calibrate.main(args)
+    assert not r["written"] and r["fit"] == {} and not target.exists()
+    assert "nothing to fit" in capsys.readouterr().out
+    assert fit.read_bytes() == before
+
+
+@pytest.mark.parametrize("case", ["ladder", "noisy", "one size", "negative slope"])
+def test_fit_host_transfer_equals_the_jax_packages(case):
+    """The port's least squares over host_xfer entries is the JAX package's
+    (flexflow_tpu/tools/calibrate.py:122-141) on the same entries; other keys
+    are ignored."""
+    from flexflow_tpu.tools import calibrate as jax_calibrate
+
+    rng = np.random.default_rng(0)
+    sizes = {"one size": [1 << 20]}.get(case, list(calibrate.HOST_XFER_SIZES))
+    t = {n: 1e-5 + n / 25e9 for n in sizes}
+    if case == "noisy":
+        t = {n: v * (1 + 0.05 * rng.standard_normal()) for n, v in t.items()}
+    elif case == "negative slope":
+        t = {n: 1e-2 - n / 1e12 for n in sizes}
+
+    class Cost:
+        _measured = {**{f"host_xfer:{n}": v for n, v in t.items()},
+                     "Conv2D:(1,):():k(1, 1)s(1, 1):bfloat16:forward": 1.0}
+
+    got, want = calibrate.fit_host_transfer(Cost), jax_calibrate.fit_host_transfer(Cost)
+    assert got == want
+    assert bool(got) == (case in ("ladder", "noisy"))
+
+
+def test_the_ladder_measures_nothing_off_a_card(tmp_path):
+    """On the CPU there is no host-to-device link: no entry, no beat left."""
+    class Cost:
+        device = __import__("torch").device("cpu")
+        _measured = {}
+
+    hb = str(tmp_path / "hb.json")
+    assert calibrate.measure_host_transfer(Cost, verbose=False, heartbeat_path=hb) == 0
+    assert Cost._measured == {} and not os.path.exists(hb)

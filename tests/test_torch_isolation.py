@@ -340,18 +340,24 @@ def _reference_public_methods():
 
 
 def test_every_reference_entry_point_exists_or_names_its_roadmap_item():
-    """Each public FFModel method of the JAX package is in the port, or
-    raises NotImplementedError naming the ROADMAP item that brings it
-    (never an AttributeError or a TypeError)."""
-    from flexflow_tpu_torch.model import _UNPORTED_METHODS
+    """Each public FFModel method of the JAX package is in the port (the
+    legacy v2 builders included: the port refuses none of them by name), and
+    an unknown name is an AttributeError, not a silent stand-in."""
+    import flexflow_tpu_torch.model as port_model
 
     m = ft.FFModel(ft.FFConfig(batch_size=2, device="cpu"))
     for name in _reference_public_methods():
         assert callable(getattr(ft.FFModel, name, None)), f"FFModel.{name} is missing"
-        if name in _UNPORTED_METHODS:
-            with pytest.raises(NotImplementedError, match=r"ROADMAP A\d+"):
-                getattr(m, name)(1, 2, 3, x=4)
-    assert not {"save", "load", "print_layers", "get_strategies"} & set(_UNPORTED_METHODS)
+        assert callable(getattr(m, name)), f"FFModel.{name} is not bound"
+    assert not hasattr(port_model, "_UNPORTED_METHODS")
+    for name in ("conv2d_v2", "pool2d_v2", "dense_v2", "flat_v2"):
+        assert isinstance(getattr(m, name)(*_V2_ARGS[name]), port_model.LayerHandle), name
+    with pytest.raises(AttributeError):
+        m.conv3d_v2  # noqa: B018 - no such builder in either package
+
+
+_V2_ARGS = {"conv2d_v2": ("c", 3, 8, 3, 3, 1, 1, 1, 1), "pool2d_v2": ("p", 2, 2, 2, 2, 0, 0),
+            "dense_v2": ("d", 4, 2), "flat_v2": ("f",)}
 
 
 def test_print_layers_and_get_strategies_match_the_reference_on_alexnet(capsys):

@@ -624,6 +624,12 @@ _ENGINE = _PRELUDE + r"""
 from flexflow_tpu_torch.models.transformer import build_transformer
 from flexflow_tpu_torch.serving.engine import InferenceEngine
 reqs = [np.asarray(r, np.int32) for r in job["requests"]]
+# A request waits in the queue while the engine compiles its step's
+# signatures and decodes the requests before it (max_batch 3 of 4), and
+# under a loaded host that outlasts the engine's 30 s default deadline:
+# each wait may take what the rank's whole run may, the launcher's 300 s
+# less the model's build.
+WAIT_S = 240.0
 for lowered in (False, True):
     m = ft.FFModel(ft.FFConfig(batch_size=4, device="cpu", lowered=lowered, strategies={
         k: ft.ParallelConfig(dims=tuple(v)) for k, v in job["strategies"].items()}))
@@ -633,9 +639,9 @@ for lowered in (False, True):
     m.init_layers(seed=12)
     for paged in ("off", "on"):
         eng = InferenceEngine(m, paged=paged, max_batch=3, max_seq=32, kv_block=4,
-                              replica_timeout_s=60.0)
+                              replica_timeout_s=60.0, queue_timeout_s=WAIT_S)
         eng.start()
-        got = ([h.result(120) for h in [eng.submit(r, 5) for r in reqs]]
+        got = ([h.result(WAIT_S) for h in [eng.submit(r, 5) for r in reqs]]
                if eng.is_leader else None)
         eng.stop()
         out[(lowered, paged)] = got
