@@ -375,7 +375,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      same schedule (rtol 1e-4, atol 1e-5), K1 1 a step (exact), the step's
      device lr, evaluate and predict; (c) keras Sequential seq_mnist_mlp
      with keras Adam, K2 6 a step (exact); (d) torch_frontend.nn's CNN, 3
-     compiled steps.
+     compiled steps;
+ 23. the C API ([capi] lines): flexflow_tpu_torch/native/flexflow_c.cpp
+     built with g++ (python3-config --embed) and capi_parity.c linked
+     against it, run in a subprocess on full-width AlexNet (3x229x229,
+     batch 256) from weights and a batch this process writes: (a) f32, 2
+     SGD steps through the C API against the same model's through FFModel
+     here, each leaf's update ||dw_C - dw_py|| / ||dw_py|| within
+     CAPI_UPDATE_RTOL (cuDNN deterministic, TF32 off in both processes);
+     (b) bf16 with --fused-optimizer, ms/step beside FFModel's here; (c)
+     bf16 Adam; K1 1 a step and K2 16 a step by the exact count, read in
+     the C process's interpreter (capi_parity's launches=1).
 
 ``--phases 3,17`` runs only the phases listed (1 and 2 always run; the
 kernels line needs phase 3); a phase's several-card part runs whenever
@@ -7733,7 +7743,220 @@ def frontends_phase(ft, kernels, smi):
     return launches
 
 
-PHASES = tuple(range(1, 23))
+# ------------------------------------------------------------------ phase 23
+
+CAPI_PARITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "flexflow_tpu_torch",
+                           "native", "capi_parity.c")
+CAPI_LR = 0.01           # the C jobs' SGD lr (compile's "sgd": no momentum)
+CAPI_STEPS = 2           # (a): f32 SGD steps, the update held against this process's
+CAPI_TIMED = 10          # (b): bf16 SGD steps timed after CAPI_STEPS
+CAPI_ADAM_STEPS = 3      # (c): bf16 Adam steps (compile's "adam", alpha ADAM_ALPHA)
+CAPI_UPDATE_RTOL = 1e-3  # (a): per leaf ||dw_C - dw_py|| / ||dw_py||
+CAPI_TIMEOUT_S = 300
+# the C process's settings, run in its interpreter before each job (test
+# code): (a) cuDNN deterministic and TF32 off, as this process sets them
+# for (a); (b), (c) torch's defaults, as phase 4 runs
+CAPI_F32 = ("import torch\ntorch.backends.cudnn.deterministic = True\n"
+            "torch.backends.cudnn.benchmark = False\ntorch.backends.cudnn.allow_tf32 = False\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n")
+CAPI_BF16 = ("import torch\ntorch.backends.cudnn.deterministic = False\n"
+             "torch.backends.cudnn.benchmark = False\ntorch.backends.cudnn.allow_tf32 = True\n"
+             "torch.backends.cuda.matmul.allow_tf32 = False\n")
+
+
+def capi_settings(code):
+    """Apply one of the CAPI_* settings in this process."""
+    exec(code, {})
+
+
+def capi_model(ft, build_alexnet, dtype):
+    """Full-width AlexNet as the C jobs build it, through FFModel: the fused
+    optimizer, SGD with lr CAPI_LR and no momentum (compile's "sgd")."""
+    model = ft.FFModel(ft.FFConfig(batch_size=BATCH, compute_dtype=dtype,
+                                   fused_optimizer=True))
+    inp, _ = build_alexnet(model, BATCH)
+    model.compile(ft.SGDOptimizer(lr=CAPI_LR), ft.LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                  [ft.MetricsType.ACCURACY, ft.MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    model.init_layers(seed=0)
+    return model, inp
+
+
+def capi_launches(path, steps, timed, label):
+    """This repo's kernels' launches over a C job's ``steps`` + ``timed``
+    steps, counted exactly from what its process wrote (capi_parity's
+    launches=1: a snapshot before the steps, after each untimed one and
+    after the timed ones): the wrappers' counters (the eager step, the
+    capture's recording) plus the captured graph's kernel nodes times its
+    replays after the capture's own.  Checks that the C process imported
+    flexflow_tpu_torch from this checkout.  Returns (launches, the eager
+    step's launches, the graph's)."""
+    with open(path) as f:
+        rec = json.load(f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.realpath(rec["package"])
+    check(pkg.startswith(os.path.realpath(root) + os.sep),
+          f"(c api) {label}: the C process imported flexflow_tpu_torch from {pkg}, "
+          f"not from this checkout {root}")
+    snaps, graphs = rec["snaps"], [g for g in rec["graphs"] if g["kernel_names"]]
+    total_steps = steps + timed
+    check(len(snaps) == steps + 1 + (timed > 0),
+          f"(c api) {label}: {len(snaps)} counter snapshots")
+    check(rec["devices"] == ["cuda:0"], f"(c api) {label}: the live models' devices "
+                                        f"{rec['devices']}, expected the job's one on the card")
+    check(len(graphs) == 1 and graphs[0]["captures"] == 1
+          and graphs[0]["replays"] == total_steps - 1,
+          f"(c api) {label}: graphs {[(g['captures'], g['replays']) for g in graphs]}, "
+          f"expected one captured once and replayed {total_steps - 1} times")
+    g = graphs[0]
+    nodes = node_launches(g["kernel_names"])
+    names = ("fused_sgd_update", "fused_adam_update")
+    total = {k: snaps[-1][k] - snaps[0][k] + nodes.get(k, 0) * (g["replays"] - g["captures"])
+             for k in names}
+    eager = {k: snaps[1][k] - snaps[0][k] for k in names}
+    return total, eager, {k: nodes.get(k, 0) for k in names}
+
+
+def capi_read(out_dir, names):
+    weights = {k: np.fromfile(os.path.join(out_dir, f"{k[0]}.{k[1]}.bin"), np.float32)
+               for k in names}
+    with open(os.path.join(out_dir, "metrics.txt")) as f:
+        metrics = {k: float(v) for k, v in (line.split() for line in f)}
+    return weights, metrics
+
+
+def capi_phase(ft, build_alexnet, kernels, smi):
+    """Phase 23: the C API on the card ([capi] lines).  The port's library
+    (flexflow_tpu_torch/native/flexflow_c.cpp) built with g++ here, and
+    capi_parity.c linked against it and run in a subprocess, three jobs on
+    full-width AlexNet (3x229x229, batch 256) from the same weights and
+    batch this process writes: (a) f32, CAPI_STEPS SGD steps, each leaf's
+    update against the same model's through FFModel here; (b) bf16 with
+    --fused-optimizer, CAPI_TIMED timed SGD steps beside this process's
+    same model; (c) bf16 Adam.  Launches a step by the exact count: K1 1
+    under SGD, K2 16 under Adam.  Returns the C process's launches."""
+    from flexflow_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    free_models()
+    reset_launches(kernels)
+    info = native.build_capi(force=True)
+    log(f"[capi] libflexflow_c built from flexflow_tpu_torch/native/flexflow_c.cpp in "
+        f"{info['seconds']:.2f} s ({os.path.basename(info['path'])})")
+    launches = dict.fromkeys(kernels, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        prog = native.build_capi_program(CAPI_PARITY, os.path.join(tmp, "capi_parity"),
+                                         library=info["path"])
+        # the weights (init_layers(seed=0) of the f32 model) and a batch from
+        # a seed, written where the C jobs read them
+        capi_settings(CAPI_F32)
+        model, inp = capi_model(ft, build_alexnet, "float32")
+        names = model._weight_names()
+        w0 = {k: model.get_parameter(*k) for k in names}
+        rng = np.random.default_rng(23)
+        x = rng.standard_normal((BATCH, 3, 229, 229), dtype=np.float32)
+        y = rng.integers(0, 10, BATCH).astype(np.int32)
+        in_dir = os.path.join(tmp, "in")
+        os.makedirs(in_dir)
+        x.tofile(os.path.join(in_dir, "x.bin"))
+        y.tofile(os.path.join(in_dir, "y.bin"))
+        for (opn, wn), v in w0.items():
+            v.tofile(os.path.join(in_dir, f"{opn}.{wn}.bin"))
+        for name, code in (("f32.py", CAPI_F32), ("bf16.py", CAPI_BF16)):
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write(code)
+        jobs = {"a": ("sgd", CAPI_STEPS, 0, "--fused-optimizer", "f32.py"),
+                "b": ("sgd", CAPI_STEPS, CAPI_TIMED, "--bf16 --fused-optimizer", "bf16.py"),
+                "c": ("adam", CAPI_ADAM_STEPS, 0, "--bf16 --fused-optimizer", "bf16.py")}
+        argv = [prog["path"]]
+        for key, (opt, steps, timed, args, pre) in jobs.items():
+            out = os.path.join(tmp, f"out_{key}")
+            os.makedirs(out)
+            lr = CAPI_LR if opt == "sgd" else ADAM_ALPHA
+            argv += ["alexnet", out, f"opt={opt}", f"lr={lr}", f"steps={steps}",
+                     f"batch={BATCH}", f"in={in_dir}", f"args={args}", f"timed={timed}",
+                     f"pre={os.path.join(tmp, pre)}", "launches=1", "+"]
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        env.pop("FLEXFLOW_TORCH_DEVICE", None)  # the library's default: the card
+        tc = time.perf_counter()
+        r = subprocess.run(argv[:-1], env=env, cwd=tmp, capture_output=True, text=True,
+                           timeout=CAPI_TIMEOUT_S)
+        c_wall = time.perf_counter() - tc
+        for line in r.stdout.splitlines():
+            if line.startswith("capi_parity:"):
+                log(f"[capi] {line}")
+        check(r.returncode == 0 and "capi_parity: OK" in r.stdout,
+              f"(c api) capi_parity exit {r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        # (a): this process's own steps from the same weights and batch
+        model.set_batch({inp: x.transpose(0, 2, 3, 1)}, y.reshape(BATCH, 1))
+        for _ in range(CAPI_STEPS):
+            model.train_iteration()
+        model.sync()
+        w_py = {k: model.get_parameter(*k) for k in names}
+        met_py = model.get_metrics()
+        w_c, met_c = capi_read(os.path.join(tmp, "out_a"), names)
+        worst = 0.0
+        for k in names:
+            d_py = (w_py[k] - w0[k]).astype(np.float64).ravel()
+            d_c = w_c[k].astype(np.float64) - w0[k].astype(np.float64).ravel()
+            rel = float(np.linalg.norm(d_c - d_py) / np.linalg.norm(d_py))
+            check(np.linalg.norm(d_py) > 0, f"(c api) (a) {k} did not move")
+            check(rel <= CAPI_UPDATE_RTOL, f"(c api) (a) {k}: ||dw_C - dw_py|| / ||dw_py|| "
+                                           f"{rel:.3e} > {CAPI_UPDATE_RTOL:g}")
+            worst = max(worst, rel)
+        check((met_c["train_all"], met_c["train_correct"])
+              == (met_py.train_all, met_py.train_correct),
+              f"(c api) (a) counts {met_c} vs {met_py}")
+        log(f"[capi] (a) f32 AlexNet b{BATCH}, {CAPI_STEPS} SGD steps (lr {CAPI_LR:g}, fused): "
+            f"C API vs FFModel here, worst leaf ||dw_C - dw_py|| / ||dw_py|| {worst:.3e} "
+            f"(gate {CAPI_UPDATE_RTOL:g}, {len(names)} leaves); train_correct "
+            f"{int(met_c['train_correct'])}/{int(met_c['train_all'])} both; loss sum C "
+            f"{met_c['sparse_cce_loss']:.6f} here {met_py.sparse_cce_loss:.6f}")
+        del model
+        free_models()
+        # (b): this process's bf16 step, timed as the C job's
+        capi_settings(CAPI_BF16)
+        model, inp = capi_model(ft, build_alexnet, "bfloat16")
+        model.set_batch({inp: x.transpose(0, 2, 3, 1)}, y.reshape(BATCH, 1))
+        for _ in range(CAPI_STEPS):
+            model.train_iteration()
+        model.sync()
+        ts = time.perf_counter()
+        for _ in range(CAPI_TIMED):
+            model.train_iteration()
+        model.sync()
+        py_ms = (time.perf_counter() - ts) * 1e3 / CAPI_TIMED
+        check_graph_run(model, CAPI_STEPS + CAPI_TIMED, "(c api) (b) FFModel here")
+        del model
+        free_models()
+        _, met_b = capi_read(os.path.join(tmp, "out_b"), names)
+        for key, (opt, steps, timed, args, _) in jobs.items():
+            total, eager, nodes = capi_launches(os.path.join(tmp, f"out_{key}", "launches.json"),
+                                                steps, timed, f"({key})")
+            kern, per = (("fused_sgd_update", 1) if opt == "sgd"
+                         else ("fused_adam_update", len(names)))
+            other = "fused_adam_update" if opt == "sgd" else "fused_sgd_update"
+            check(total[kern] == per * (steps + timed) and eager[kern] == per
+                  and nodes[kern] == per and total[other] == 0,
+                  f"(c api) ({key}) {opt}: launches {total} over {steps + timed} steps, the "
+                  f"eager step's {eager}, a replay's {nodes}; expected {kern} {per} a step")
+            launches[kern] += total[kern]
+            log(f"[capi] ({key}) {opt} {args}: {total[kern]} {kern} launches over "
+                f"{steps + timed} steps by the exact count (the eager step {eager[kern]}, "
+                f"each replay {nodes[kern]}; {per} a step)")
+        phase4 = MEASURED["alexnet"].get("phase4_sgd_ms")
+        log(f"[capi] (b) bf16 AlexNet b{BATCH} SGD (no momentum), --fused-optimizer, "
+            f"{CAPI_TIMED} steps after {CAPI_STEPS}: C API {met_b['ms_per_step']:.3f} ms/step, "
+            f"FFModel here {py_ms:.3f} ms/step (ratio {met_b['ms_per_step'] / py_ms:.3f})"
+            + (f"; phase 4 (momentum 0.9) {phase4:.3f}" if phase4 else "")
+            + f"; the C process {c_wall:.1f} s; card {smi}")
+    log(f"[capi] phase 23 {time.perf_counter() - t0:.1f} s; launches (the C process's, "
+        f"exact) {launches}; card {smi}")
+    return launches
+
+
+PHASES = tuple(range(1, 24))
 
 
 def selected_phases(argv):
@@ -7828,6 +8051,7 @@ def main(argv=None):
                 f"{r['samples_per_s']:.1f} samples/s  {r['ms_per_step']:.2f} ms/step  "
                 f"{r['metrics']}")
         MEASURED["alexnet"]["peak_gib"] = peak / 2**30
+        MEASURED["alexnet"]["phase4_sgd_ms"] = sgd_run["ms_per_step"]  # phase 23 prints it
         log(f"[main] max_memory_allocated {peak / 2**30:.2f} GiB; launches {alex_launches}; "
             f"card {smi}")
         profile_steps(main_model(ft, build_alexnet, sgd_optimizer(ft)), "AlexNet SGD",
@@ -7949,6 +8173,10 @@ def main(argv=None):
     # phase 22 -----------------------------------------------------------
     if 22 in phases:
         ran["frontends"] = frontends_phase(ft, kernels, smi)
+
+    # phase 23 -----------------------------------------------------------
+    if 23 in phases:
+        ran["C API"] = capi_phase(ft, build_alexnet, kernels, smi)
 
     # result -------------------------------------------------------------
     main_launches = {n: sum(r[n] for r in ran.values()) for n in kernels}

@@ -13,7 +13,8 @@ own).
 
 A living process may re-form its group: ``shutdown`` destroys every group
 and forgets what the port kept of them (``Machine.for_ranks``'s machines,
-the pipeline's warmed ring groups), and ``initialize`` starts a new one.
+the pipeline's warmed ring groups) and what DTensor cached over their
+meshes (``forget_dtensor_caches``), and ``initialize`` starts a new one.
 No NCCL group is bound to its device (``init_process_group``'s
 ``device_id``): each group makes its own communicator when first used,
 and none is split from another with ``ncclCommSplit``.  Bound, a mesh
@@ -100,9 +101,32 @@ def shutdown() -> None:
     global _HOSTS
     forget_machines()
     pipeline.forget_groups()
+    forget_dtensor_caches()
     _HOSTS = None
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def forget_dtensor_caches() -> None:
+    """Empty DTensor's caches keyed on a ``DeviceMesh``.  A mesh compares
+    and hashes by its ranks, layout, device type and dim names, not by its
+    process groups, so after the group is formed again these caches hand a
+    new mesh's operation the old mesh: the sharding propagation's output
+    specs (its Python LRU and the C++ dispatch fast path's) carry it into
+    the outputs, whose next collective names a group that c10d has
+    destroyed, or, since c10d numbers groups from one again, a different
+    group of the new world (ROADMAP C18).  The redistribute planners and
+    transform plans are emptied with them.  Each cache is named directly:
+    a torch that renames one fails here, at ``shutdown``, rather than
+    letting the stale mesh come back unseen."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute, _sharding_prop
+
+    DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
+    _sharding_prop.ShardingPropagator._propagate_tensor_meta_cached.cache_clear()
+    torch._C._clear_DTensor_sharding_propagator_cache()
+    _redistribute.clear_redistribute_planner_cache()
+    _redistribute._gen_transform_infos.cache_clear()
 
 
 def group_timeout() -> float:

@@ -13,6 +13,12 @@ once (test workers, the ranks of a job) never load a partial library.  A
 missing compiler or a failed build raises with the compiler's output: no
 caller gets a silent fallback.
 
+``native/flexflow_c.cpp`` is the port's C API (``native/capi.py``):
+``build_capi`` compiles it the same way, against the Python runtime
+(``python3-config --includes`` and ``--ldflags --embed`` of the
+interpreter that builds it), and ``build_capi_program`` links a C program
+against it.
+
 The JAX package's libraries under the repo's ``native/`` are never loaded
 or built from here.
 """
@@ -24,9 +30,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -49,22 +57,28 @@ def compiler() -> str:
     return path
 
 
-def build(source: str, force: bool = False) -> dict:
-    """Compile ``native/<source>`` into a shared library in ``BUILD_DIR``.
-    Returns its path, the build seconds (0.0 when an existing build was
-    reused) and the compiler's output; raises on failure."""
+def build(source: str, force: bool = False, extra: Sequence[str] = (),
+          link: Sequence[str] = (), depends: Sequence[str] = ()) -> dict:
+    """Compile ``native/<source>`` into a shared library in ``BUILD_DIR``,
+    with ``FLAGS`` and ``extra`` before the source and ``link`` after it;
+    its name carries a hash of the source, the files it ``depends`` on
+    and every flag.  Returns its path, the build seconds (0.0 when an
+    existing build was reused) and the compiler's output; raises on
+    failure."""
     src = os.path.join(NATIVE_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(" ".join([*FLAGS, *extra, *link]).encode())
+    for path in (src, *(os.path.join(NATIVE_DIR, d) for d in depends)):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"lib{os.path.splitext(source)[0]}_{digest}.so")
+    out = os.path.join(BUILD_DIR, f"lib{os.path.splitext(source)[0]}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(out) and not force:
         return {"path": out, "seconds": 0.0, "log": ""}
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
     try:
-        r = subprocess.run([compiler(), *FLAGS, "-o", tmp, src], capture_output=True,
-                           text=True, timeout=300)
+        r = subprocess.run([compiler(), *FLAGS, *extra, "-o", tmp, src, *link],
+                           capture_output=True, text=True, timeout=300)
     except subprocess.TimeoutExpired as e:
         raise RuntimeError(f"g++ timed out building {source}") from e
     seconds = time.perf_counter() - t0
@@ -74,6 +88,69 @@ def build(source: str, force: bool = False) -> dict:
         raise RuntimeError(f"g++ failed on {source} (rc {r.returncode}):\n{r.stdout}\n{r.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
     return {"path": out, "seconds": seconds, "log": r.stdout + r.stderr}
+
+
+def python_config(*args: str) -> List[str]:
+    """``python3-config <args>`` of the interpreter running this (the one
+    beside its base installation's executable, else the first on PATH)."""
+    version = sysconfig.get_config_var("VERSION")
+    exe = os.path.join(sysconfig.get_config_var("BINDIR") or "", f"python{version}-config")
+    if not os.path.exists(exe):
+        exe = shutil.which(f"python{version}-config") or shutil.which("python3-config")
+    if exe is None:
+        raise RuntimeError(f"python{version}-config not found: the C API embeds the Python "
+                           "runtime and is built against its headers and library")
+    r = subprocess.run([exe, *args], capture_output=True, text=True, timeout=60)
+    if r.returncode != 0:
+        raise RuntimeError(f"{exe} {' '.join(args)} failed: {r.stderr}")
+    return r.stdout.split()
+
+
+def python_link_flags() -> List[str]:
+    """The Python runtime for a library or program that embeds it, found at
+    run time where it was at build time."""
+    return [*python_config("--ldflags", "--embed"),
+            f"-Wl,-rpath,{sysconfig.get_config_var('LIBDIR')}"]
+
+
+def build_capi(force: bool = False) -> dict:
+    """The C API's library (``native/flexflow_c.cpp``), built if needed.
+    It starts the interpreter that builds it (``sys.executable``) and
+    finds this package's checkout, both fixed at build time."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    extra = [*python_config("--includes"), f'-DFF_PYTHON_EXE="{sys.executable}"',
+             f'-DFF_PACKAGE_ROOT="{root}"']
+    return build("flexflow_c.cpp", force=force, extra=extra, link=python_link_flags(),
+                 depends=("flexflow_c.h",))
+
+
+def capi_link_flags(library: str) -> List[str]:
+    """What a C program links with to use the C API's ``library`` (named by
+    its path: the program loads it from there)."""
+    return [library, *python_link_flags()]
+
+
+def build_capi_program(source: str, out: str, library: str = "",
+                       header_dir: str = "") -> dict:
+    """Compile and link the C program ``source`` into ``out`` against a C
+    API library (the port's, built if ``library`` is empty; the header
+    from ``header_dir``, else the port's).  The Python headers are on the
+    include path, for a test driver that reads the interpreter's state.
+    Returns the output path and the build seconds; raises on failure."""
+    cc = shutil.which("gcc") or shutil.which("cc")
+    if cc is None:
+        raise RuntimeError("no C compiler (gcc or cc) on PATH")
+    library = library or build_capi()["path"]
+    t0 = time.perf_counter()
+    tmp = f"{out}.{os.getpid()}.tmp"
+    r = subprocess.run([cc, "-O2", "-std=c11", f"-I{header_dir or NATIVE_DIR}",
+                        *python_config("--includes"), "-o", tmp, source,
+                        *capi_link_flags(library)],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"{cc} failed on {source} (rc {r.returncode}):\n{r.stderr}")
+    os.replace(tmp, out)
+    return {"path": out, "seconds": time.perf_counter() - t0}
 
 
 def load(source: str) -> ctypes.CDLL:

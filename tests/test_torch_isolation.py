@@ -45,6 +45,29 @@ def test_port_source_imports_neither_jax_nor_the_jax_package(path):
         assert top not in ("jax", "jaxlib", "flexflow_tpu"), f"{path} imports {mod}"
 
 
+def _port_c_sources():
+    """The port's C and C++ sources and headers (the C API and the native
+    search engines)."""
+    for dirpath, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith((".c", ".cpp", ".h")):
+                yield os.path.join(dirpath, f)
+
+
+@pytest.mark.parametrize("path", sorted(_port_c_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_c_source_names_neither_jax_nor_the_jax_package(path):
+    """Nothing the C side embeds or runs can reach the JAX package: no
+    ``flexflow_tpu`` other than as the start of ``flexflow_tpu_torch``, and
+    no module name ``jax`` (prose may speak of the JAX package)."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    assert not re.search(r"flexflow_tpu(?!_torch)", text), f"{path} names flexflow_tpu"
+    assert not re.search(r"\bjax", text), f"{path} names jax"
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.models.alexnet, "
             "flexflow_tpu_torch.models.transformer, "
@@ -85,7 +108,7 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.tools.opbench, flexflow_tpu_torch.tools.memory_report, "
             "flexflow_tpu_torch.tools.timeline_export, flexflow_tpu_torch.tools.soap_report, "
             "flexflow_tpu_torch.observability.chipwatch, flexflow_tpu_torch.tools.doctor, "
-            "flexflow_tpu_torch.parallel.lowering; "
+            "flexflow_tpu_torch.parallel.lowering, flexflow_tpu_torch.native.capi; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -306,7 +306,7 @@ def test_the_native_libraries_are_the_ports_own():
     assert native.NATIVE_DIR == os.path.join(port, "native")
     assert native.BUILD_DIR == os.path.join(port, "_build")
     assert sorted(f for f in os.listdir(native.NATIVE_DIR) if f.endswith(".cpp")) == \
-        ["ffsearch.cpp", "ffsim.cpp"]
+        ["ffsearch.cpp", "ffsim.cpp", "flexflow_c.cpp"]
     sources = [os.path.join(d, f) for d, _, fs in os.walk(port) for f in fs
                if f.endswith((".py", ".cpp"))] + [os.path.join(ROOT, "chip_smoke.py")]
     for path in sources:
